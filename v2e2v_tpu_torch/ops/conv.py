@@ -1,0 +1,131 @@
+"""Conv primitives and recurrent conv cells (port of ``v2e2v_tpu/ops/conv.py``).
+
+Public functions keep the JAX package's NHWC activations; inside, each conv
+runs as ``F.conv2d`` on an NCHW view of the same memory. Weights are in
+PyTorch's OIHW layout, as in a reference state dict; ``params`` is a
+``{"weight", "bias"}`` dict like the JAX package's, or a dict of such dicts
+for a cell. Convs accumulate in float32 and return the input's dtype.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+Params = dict[str, Any]
+
+
+def conv2d(
+    x: torch.Tensor, params: Params, stride: int = 1, padding: int = 0
+) -> torch.Tensor:
+    """Conv2d with reflect padding, as torch ``nn.Conv2d(...,
+    padding_mode='reflect')``: reflect-pad, then a VALID conv (any stride)."""
+    xc = x.permute(0, 3, 1, 2)
+    if padding > 0:
+        xc = F.pad(xc, (padding, padding, padding, padding), mode="reflect")
+    bias = params.get("bias")
+    y = F.conv2d(
+        xc,
+        params["weight"].to(x.dtype),
+        None if bias is None else bias.to(x.dtype),
+        stride=stride,
+    )
+    return y.permute(0, 2, 3, 1)
+
+
+_ACTIVATIONS = {
+    None: lambda x: x,
+    "relu": torch.relu,
+    "sigmoid": torch.sigmoid,
+    "tanh": torch.tanh,
+}
+
+
+def conv_layer(
+    x: torch.Tensor,
+    params: Params,
+    stride: int = 1,
+    padding: int = 0,
+    activation: str | None = None,
+) -> torch.Tensor:
+    """Reference ``ConvLayer``: reflect conv + optional activation."""
+    return _ACTIVATIONS[activation](conv2d(x, params, stride=stride, padding=padding))
+
+
+def bilinear_resize(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
+    """Bilinear upsampling of NHWC input with half-pixel centres
+    (``align_corners=False``), the counterpart of ``jax.image.resize(...,
+    'linear')``. Downsampling is refused: ``jax.image.resize`` antialiases
+    there and ``F.interpolate`` does not."""
+    _, h, w, _ = x.shape
+    if out_h < h or out_w < w:
+        raise ValueError(f"bilinear_resize upsamples only: {(h, w)} -> {(out_h, out_w)}")
+    y = F.interpolate(
+        x.permute(0, 3, 1, 2), size=(out_h, out_w), mode="bilinear", align_corners=False
+    )
+    return y.permute(0, 2, 3, 1)
+
+
+def upsample_conv_layer(
+    x: torch.Tensor,
+    params: Params,
+    kernel_size: int = 3,
+    activation: str | None = None,
+    out_hw: tuple[int, int] | None = None,
+) -> torch.Tensor:
+    """Reference ``UpsampleConvLayer``: bilinear upsample (2x unless
+    ``out_hw``) -> reflection pad (k-1)/2 -> VALID conv."""
+    _, h, w, _ = x.shape
+    out_h, out_w = (2 * h, 2 * w) if out_hw is None else out_hw
+    x = bilinear_resize(x, out_h, out_w)
+    return _ACTIVATIONS[activation](conv2d(x, params, padding=(kernel_size - 1) // 2))
+
+
+def conv_lstm_step(
+    params: Params,
+    x: torch.Tensor,
+    state: tuple[torch.Tensor, torch.Tensor],
+    k: int = 3,
+) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor]]:
+    """ConvLSTM step; ``state = (hidden, cell)``; gate channel order is
+    torch's (in, remember, out, cell)."""
+    hidden, cell = state
+    gates = conv2d(torch.cat([x, hidden], dim=-1), params["Gates"], padding=k // 2)
+    in_g, rem_g, out_g, cell_g = torch.chunk(gates, 4, dim=-1)
+    cell = torch.sigmoid(rem_g) * cell + torch.sigmoid(in_g) * torch.tanh(cell_g)
+    hidden = torch.sigmoid(out_g) * torch.tanh(cell)
+    return hidden, (hidden, cell)
+
+
+def conv_lstc_step(
+    params: Params,
+    x: torch.Tensor,
+    z: torch.Tensor,
+    prev_cell: torch.Tensor,
+    k: int = 3,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """ConvLSTC step for sparse codes: in/forget gates (in that order) from
+    cat(x, z); candidate ``z0 = P0(x)``; out gate from cat(z0, z);
+    ``cell = forget*prev_cell + in*z0``. Returns ``(out_gate*tanh(cell), cell)``."""
+    pad = k // 2
+    gates = conv2d(torch.cat([x, z], dim=-1), params["gates"], padding=pad)
+    in_g, forget_g = torch.chunk(gates, 2, dim=-1)
+    z0 = conv2d(x, params["P0"], padding=pad)
+    out_g = torch.sigmoid(
+        conv2d(torch.cat([z0, z], dim=-1), params["out_gates"], padding=pad)
+    )
+    cell = torch.sigmoid(forget_g) * prev_cell + torch.sigmoid(in_g) * z0
+    return out_g * torch.tanh(cell), cell
+
+
+def torch_conv_to_hwio(weight: np.ndarray) -> np.ndarray:
+    """torch OIHW conv weight -> HWIO."""
+    return np.transpose(weight, (2, 3, 1, 0))
+
+
+def hwio_to_torch_conv(weight: np.ndarray) -> np.ndarray:
+    """HWIO conv weight -> torch OIHW (inverse of ``torch_conv_to_hwio``)."""
+    return np.transpose(weight, (3, 2, 0, 1))

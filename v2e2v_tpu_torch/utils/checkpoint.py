@@ -1,0 +1,57 @@
+"""Weights between the JAX package's parameter tree and the port's state dict.
+
+The port keeps CISTA-LSTC weights as a flat state dict under the reference
+torch module names (OIHW convs, ``Lambda`` as ``[1, 2C, 1, 1]``), so a
+reference ``.pth.tar`` state dict and the port's weights are one format. This
+module keeps the port's own copy of ``export_torch_state_dict`` from
+``v2e2v_tpu/utils/checkpoint.py``, for cista-lstc.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Mapping
+
+import numpy as np
+import torch
+
+from ..ops.conv import hwio_to_torch_conv
+
+
+def export_torch_state_dict(params: Mapping[str, Any], depth: int = 5) -> dict[str, np.ndarray]:
+    """JAX-layout parameter tree (numpy, HWIO) -> reference-named numpy
+    state dict. The weight-tied ISTA block appears under every
+    ``lista_blocks.{i}`` for ``i < depth``, as torch's ``state_dict`` lists it."""
+
+    def conv_out(p, prefix, sd):
+        sd[prefix + ".weight"] = hwio_to_torch_conv(np.asarray(p["weight"]))
+        if "bias" in p:
+            sd[prefix + ".bias"] = np.asarray(p["bias"])
+
+    sd: dict[str, np.ndarray] = {}
+    conv_out(params["We"], "We.conv2d", sd)
+    conv_out(params["Wi"], "Wi.conv2d", sd)
+    conv_out(params["W0"], "W0.conv2d", sd)
+    for i in range(depth):
+        conv_out(params["lista"]["D"], f"lista_blocks.{i}.D.conv2d", sd)
+        conv_out(params["lista"]["P"], f"lista_blocks.{i}.P.conv2d", sd)
+        sd[f"lista_blocks.{i}.Lambda"] = np.asarray(params["lista"]["Lambda"]).reshape(
+            1, -1, 1, 1
+        )
+    conv_out(params["Dg"]["conv"], "Dg.conv.conv2d", sd)
+    conv_out(params["Dg"]["lstm"]["Gates"], "Dg.recurrent_block.Gates", sd)
+    conv_out(params["upsamp_conv"], "upsamp_conv.conv2d", sd)
+    conv_out(params["final_conv"], "final_conv.conv2d", sd)
+    conv_out(params["P0"]["gates"], "P0.gates", sd)
+    conv_out(params["P0"]["out_gates"], "P0.out_gates", sd)
+    conv_out(params["P0"]["P0"], "P0.P0", sd)
+    return sd
+
+
+def params_from_jax(params_np: Mapping[str, Any], depth: int = 5) -> dict[str, torch.Tensor]:
+    """JAX parameter tree (as numpy) -> the port's state dict of float32 CPU
+    tensors. Move it to a device with the model's entry points."""
+    return {
+        k: torch.from_numpy(np.array(v, dtype=np.float32))
+        for k, v in export_torch_state_dict(params_np, depth).items()
+    }
+
