@@ -19,7 +19,29 @@ Phases, one line each (any failure exits non-zero before the last line):
 5. times with CUDA events after warm-up: K1, its plain version, the nearest
    library call (cuDNN convs), its bound; the pool's step time, reconstructions
    per second and peak memory;
-6. a ``{"kernels": [...]}`` JSON line, then the last line
+6. kernel K3 (``emulator_iters``) against its plain version at the V2E2V
+   shape (B = 8, 180x240, 32 iterations, 5 bins): explicit uniforms in the four
+   shot x gate cases and internal Philox uniforms, all exact; internal uniforms
+   repeat with their seed, and with no threshold events the shot-event total
+   is within 5 sigma of Binomial(n, p) for the kernel and for the plain
+   version with torch's uniforms;
+7. the V2E2V slice: ``v2e2v_forward`` pack by pack (6 packs of 10 frames, a
+   new sequence after pack 3, batch 8, CISTA-LSTC 180x240, 64 channels,
+   depth 5, 5 bins, the emulator of ``bench.py:170-176``) on synthetic frames
+   from ``--seed``. Run A through K3 and K1 with explicit draws; run B through
+   the plain versions with the same card generator seed (equal event counts,
+   voxel grids and reconstructions within 1e-4, TF32 off); run C on the
+   default path (``V2E2VConfig.from_flags``, internal randoms), the main path
+   of the slice, with every count set to 0 just before it: finite
+   reconstructions in [0, 1], event counts within 1% of run A's; run D through
+   the plain versions with run C's seed, its Philox made by the plain
+   version (equal event counts, voxel grids and reconstructions within 1e-4).
+   K3's counter must rise by 9 and K1's by 10 per pack;
+8. times with CUDA events after warm-up: K3 in both modes on the main path's
+   inputs, its plain version and its bound; ``emulate_pack`` per pack;
+   ``v2e2v_forward`` per pack (host clock), reconstructions per second, peak
+   memory;
+9. a ``{"kernels": [...]}`` JSON line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX or of the JAX package ``v2e2v_tpu``.
@@ -47,6 +69,14 @@ PEAK_BYTES = 3.35e12
 TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}  # atol and rtol
 K1_SOURCE = "v2e2v_tpu_torch/csrc/ista.cu"
 K1_REPLACES = "v2e2v_tpu/ops/pallas/ista.py:88"
+K3_SOURCE = "v2e2v_tpu_torch/csrc/emulator_iters.cu"
+K3_REPLACES = "v2e2v_tpu/ops/pallas/emulator_iters.py:93"
+N_FRAMES, PACKS, RESET_AT, MAX_ITERS = 10, 6, 3, 32
+V2E2V_TOL = 1e-4  # atol and rtol, float32 with TF32 off
+# the emulator of bench.py:170-176, as the V2E2V CLI's flags give it
+FLAGS = dict(image_dim=[H, W], base_channels=C, depth=DEPTH, num_bins=NB,
+             event_mode="voxel_grid", pl=1.5, ps=0.5, ql=1.0, qs=0.0, C=0.6,
+             threshold_sigma=0.03, cutoff_hz=200.0, refractory_period_s=0.001)
 DNAME = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
 
 
@@ -66,7 +96,11 @@ def within(got: torch.Tensor, want: torch.Tensor, tol: float) -> tuple[float, bo
 
 
 def short_name(mangled: str) -> str:
-    """K1's instances as ista_conv3x3_kernel<dtype, conv>; others as given."""
+    """K1's instances as ista_conv3x3_kernel<dtype, conv>, K3's as
+    emulator_iters_kernel<shot mode>; others as given."""
+    m = re.search(r"emulator_iters_kernelILi([012])E", mangled)
+    if m:
+        return f"emulator_iters_kernel<{('no shot', 'explicit', 'internal')[int(m.group(1))]}>"
     m = re.search(r"ista_conv3x3_kernelI(\w+?)Li([01])E", mangled)
     if not m:
         return mangled[:80]
@@ -80,6 +114,29 @@ def time_ms(fn, warmup: int = 3, iters: int = 10) -> float:
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, warmup: int = 3, iters: int = 20) -> float:
+    """Device time per call of a launch-bound ``fn``: the card first spins
+    (``torch.cuda._sleep``) for three times as long as the host takes to
+    enqueue all calls, so the events time the launches back to back, without
+    the host's gaps."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(3 * 2e9 * iters * host_s) + 10_000_000)  # ~2 GHz clock
     start.record()
     for _ in range(iters):
         fn()
@@ -128,6 +185,165 @@ def synthetic_packets(rng: np.random.Generator, n_packets: int, device):
         p[:n] = rng.integers(0, 2, n)
         packets.append(tuple(torch.from_numpy(a).to(device) for a in (t, x, y, p)) + (n,))
     return packets
+
+
+def hfr_video(seed: int, device) -> list[tuple[torch.Tensor, torch.Tensor]]:
+    """``PACKS`` packs of ``N_FRAMES`` HFR frames ``[B, N, H, W]`` in 0-255 and
+    their ``[B, N]`` times (250 fps), consecutive packs sharing their boundary
+    frame as the V2E2V CLI reads them (``test.py``). Each pixel flickers as
+    ``base * exp(a * sin(2 pi f t + phase))`` with base in [30, 200], a in
+    [0.2, 1], f in [2, 8] Hz, drawn from ``seed``."""
+    rng = np.random.default_rng(seed)
+    shape = (CAPACITY, 1, H, W)
+    base = rng.uniform(30, 200, shape).astype(np.float32)
+    amp = rng.uniform(0.2, 1.0, shape).astype(np.float32)
+    freq = rng.uniform(2.0, 8.0, shape).astype(np.float32)
+    phase = rng.uniform(0, 2 * np.pi, shape).astype(np.float32)
+    t = np.arange(PACKS * (N_FRAMES - 1) + 1, dtype=np.float32) * 0.004
+    arg = 2 * np.pi * freq * t[None, :, None, None] + phase
+    frames = np.clip(base * np.exp(amp * np.sin(arg)), 0, 255).astype(np.float32)
+    packs = []
+    for p in range(PACKS):
+        sl = slice(p * (N_FRAMES - 1), p * (N_FRAMES - 1) + N_FRAMES)
+        ts = np.tile(t[sl], (CAPACITY, 1))
+        packs.append((torch.from_numpy(frames[:, sl].copy()).to(device),
+                      torch.from_numpy(ts).to(device)))
+    return packs
+
+
+def k3_inputs(seed: int, shot: bool, gate_on: bool, internal: bool = False):
+    """One frame pair's K3 inputs at the V2E2V shape: counts in [0, 40) (so all
+    ``MAX_ITERS`` iterations run and some counts are clipped), polarity in
+    {-1, 0, 1}, refractory 0.7 bins, shot probabilities up to 5%."""
+    g = torch.Generator().manual_seed(seed)
+    b, h, w = CAPACITY, H, W
+    counts = torch.randint(0, 40, (b, h, w), generator=g, dtype=torch.int32)
+    num_iters = counts.amax(dim=(1, 2)).clamp(1, MAX_ITERS)
+    x = dict(
+        event_counts=counts, pol=torch.randint(-1, 2, (b, h, w), generator=g).float(),
+        timestamp_mem=-torch.rand(b, h, w, generator=g), tr_frames=torch.full((b, h, w), 0.7),
+        one_minus_on_prob=1.0 - 0.05 * torch.rand(b, h, w, generator=g),
+        off_prob=0.05 * torch.rand(b, h, w, generator=g),
+        rand01=torch.rand(MAX_ITERS, b, h, w, generator=g) if shot and not internal else None,
+        seed=torch.randint(0, 2**62, (b,), generator=g) if internal else None,
+        ts_step=torch.full((b,), 4.0) / num_iters.float(), num_iters=num_iters,
+        gate=torch.full((b,), gate_on), tf_base=1.0,
+    )
+    x = {k: v.cuda() if isinstance(v, torch.Tensor) else v for k, v in x.items()}
+    return x, dict(num_bins=NB, max_iters=MAX_ITERS, shot=shot, internal_rng=internal)
+
+
+def k3_bound_ms(x: dict, kw: dict) -> tuple[float, str]:
+    """Least time for K3's work on these inputs: 6 input planes read and
+    num_bins + 2 output planes written once, plus the rand01 entries of the
+    active iterations in explicit mode; 8 + 2 * num_bins float32 operations
+    per pixel and iteration the data needs (to max(count, num_iters) with
+    shot noise, to count without), on CUDA cores. Philox's integer operations
+    are not counted."""
+    b, h, w = x["event_counts"].shape
+    nit = x["num_iters"].clamp(max=kw["max_iters"]).long()
+    n_bytes = 4 * b * h * w * (6 + kw["num_bins"] + 2)
+    if kw["shot"] and not kw["internal_rng"]:
+        n_bytes += 4 * h * w * int(nit.sum())
+    last = x["event_counts"].long()
+    if kw["shot"]:
+        last = torch.maximum(last, nit[:, None, None])
+    flops = (8 + 2 * kw["num_bins"]) * int(last.clamp(max=kw["max_iters"]).sum())
+    t_ops, t_bytes = flops / PEAK_FLOPS[torch.float32], n_bytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def check_k3(emulator_iters, emulator_iters_plain, seed: int) -> dict:
+    """K3 against its plain version at the V2E2V shape, and its random modes."""
+    errs = {"explicit": 0.0, "internal": 0.0}
+    cases = [(shot, gate) for shot in (True, False) for gate in (True, False)]
+    for i, (shot, gate) in enumerate(cases + [(True, True)]):
+        internal = i == len(cases)
+        x, kw = k3_inputs(seed + i, shot, gate, internal)
+        got = emulator_iters(**x, **kw)
+        want = emulator_iters_plain(**x, **kw)
+        torch.cuda.synchronize()
+        exact = torch.equal(got[2], want[2]) and torch.equal(got[1], want[1])
+        err = float((got[0] - want[0]).abs().max())
+        ok = exact and err <= 1e-5
+        mode = "internal" if internal else "explicit" if shot else "no shot"
+        key = "internal" if internal else "explicit"
+        errs[key] = max(errs[key], err)
+        say(f"[k3] emulator_iters {mode}, gate {'on' if gate else 'off'}, B={CAPACITY} {H}x{W} "
+            f"I={MAX_ITERS} nb={NB}: final and mem equal={exact}, voxel max_abs_err={err:.3e} "
+            f"(tol 1e-5) {'pass' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"K3 disagrees with its plain version ({mode}, gate {gate})")
+
+    # internal uniforms: repeatable, and binomial with no threshold events
+    p = 0.01
+    x, kw = k3_inputs(seed + 10, True, False, internal=True)
+    x |= dict(event_counts=torch.zeros_like(x["event_counts"]),
+              pol=torch.where(x["pol"] >= 0, 1.0, -1.0),
+              one_minus_on_prob=torch.full_like(x["pol"], 1.0 - p),
+              off_prob=torch.full_like(x["pol"], p),
+              num_iters=torch.full_like(x["num_iters"], MAX_ITERS),
+              ts_step=torch.full_like(x["ts_step"], 4.0 / MAX_ITERS))
+    n = CAPACITY * H * W * MAX_ITERS
+    mean, sigma = n * p, (n * p * (1 - p)) ** 0.5
+    first, again = emulator_iters(**x, **kw), emulator_iters(**x, **kw)
+    same = all(torch.equal(a, b) for a, b in zip(first, again))
+    total = int(first[2].sum())
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x_plain = dict(x, seed=None, rand01=torch.rand(MAX_ITERS, CAPACITY, H, W, device="cuda",
+                                                   generator=gen))
+    total_plain = int(emulator_iters_plain(**x_plain, **dict(kw, internal_rng=False))[2].sum())
+    ok = same and abs(total - mean) < 5 * sigma and abs(total_plain - mean) < 5 * sigma
+    say(f"[k3] internal Philox: same seed twice identical={same}; shot events with p={p} on "
+        f"{n} pixel-iterations: kernel {total}, plain with torch uniforms {total_plain}, "
+        f"expected {mean:.0f} +- {sigma:.0f} (5 sigma) {'pass' if ok else 'FAIL'}")
+    if not ok:
+        fail("K3's internal random numbers failed the repeat or binomial check")
+    return errs
+
+
+def run_v2e2v(cfg, weights, video, noise_seed: int, counters, state_before=None,
+              explicit_shot: bool = False):
+    """Pack by pack through ``v2e2v_forward``, a new sequence at ``RESET_AT``,
+    the shot uniforms drawn from the card generator (``explicit_shot``) or made
+    by Philox. Returns the outputs, the launches of each counter per pack, and
+    (in ``state_before``) the state before the last pack."""
+    from v2e2v_tpu_torch.models.emulator import GeneratorNoise
+    from v2e2v_tpu_torch.models.v2e2v import v2e2v_forward
+
+    noise = GeneratorNoise(torch.Generator(device="cuda").manual_seed(noise_seed), explicit_shot)
+    state, outs, launches = None, [], []
+    for p, (frames, ts) in enumerate(video):
+        if p == RESET_AT:
+            state = None  # a new sequence, as test.py starts one
+        if state_before is not None and p == len(video) - 1:
+            state_before["state"] = state
+        before = [c.launches for c in counters]
+        out, state = v2e2v_forward(weights, cfg, frames, ts, state, noise)
+        launches.append([c.launches - b for c, b in zip(counters, before)])
+        outs.append(out)
+    torch.cuda.synchronize()
+    return outs, launches
+
+
+def main_path_k3_inputs(cfg, state, frames, ts, internal: bool):
+    """The K3 inputs of the first frame pair of a pack on the main path: the
+    emulator's own front end, stopped where it calls K3."""
+    from v2e2v_tpu_torch.models import emulator as emu
+
+    got = {}
+
+    def record(*args, **kw):
+        got["args"], got["kw"] = args, kw
+        return emu.k3.emulator_iters(*args, **kw)
+
+    noise = emu.GeneratorNoise(torch.Generator(device="cuda").manual_seed(1))
+    st, pack = emu._prepare_pack(cfg, state, frames, ts, noise)
+    emu._pair_step(cfg, st, pack, st.base_log_frame, st.timestamp_mem, st.t_previous, 0, noise,
+                   record, internal)
+    names = ("event_counts", "pol", "timestamp_mem", "tr_frames", "one_minus_on_prob",
+             "off_prob", "rand01", "seed", "ts_step", "num_iters", "gate", "tf_base")
+    return dict(zip(names, got["args"])), got["kw"]
 
 
 def main() -> None:
@@ -248,6 +464,77 @@ def main() -> None:
         if not ok:
             fail(f"the pool through K1 disagrees with the plain ISTA in {DNAME[dtype]}")
 
+    # 6. K3 against its plain version
+    from v2e2v_tpu_torch.models.emulator import emulate_pack
+    from v2e2v_tpu_torch.models.v2e2v import V2E2VConfig, v2e2v_forward
+    from v2e2v_tpu_torch.ops.cuda.emulator_iters import emulator_iters, emulator_iters_plain
+
+    t_phase = time.perf_counter()
+    k3_errs = check_k3(emulator_iters, emulator_iters_plain, args.seed)
+    say(f"[phase] K3 checks {time.perf_counter() - t_phase:.1f} s")
+
+    # 7. the V2E2V slice: runs A (kernels, explicit draws), B (plain), C (the
+    # default path, internal randoms), D (plain, internal randoms)
+    t_phase = time.perf_counter()
+    counters = (emulator_iters, ista_loop)
+    cfg_c = V2E2VConfig.from_flags(argparse.Namespace(**FLAGS))
+    if (cfg_c.emulator.iters_impl, cfg_c.cista.ista_impl) != ("cuda", "cuda"):
+        fail(f"from_flags does not take the kernels: {cfg_c}")
+    cfg_b = V2E2VConfig(dataclasses.replace(cfg_c.cista, ista_impl="plain"),
+                        dataclasses.replace(cfg_c.emulator, iters_impl="plain"))
+    video = hfr_video(args.seed, "cuda")
+    want_launches = [N_FRAMES - 1, 2 * DEPTH]
+    outs_a, per_pack_a = run_v2e2v(cfg_c, weights, video, args.seed, counters,
+                                   explicit_shot=True)
+    outs_b, per_pack_b = run_v2e2v(cfg_b, weights, video, args.seed, counters,
+                                   explicit_shot=True)
+    last = {}
+    for c in counters:
+        c.launches = 0
+    emulator_iters.launches_by_shot = dict.fromkeys(emulator_iters.launches_by_shot, 0)
+    outs_c, per_pack_c = run_v2e2v(cfg_c, weights, video, args.seed + 1, counters, last)
+    main_k3, main_k1 = dict(emulator_iters.launches_by_shot), ista_loop.launches
+    outs_d, per_pack_d = run_v2e2v(cfg_b, weights, video, args.seed + 1, counters)
+    say(f"[v2e2v] {PACKS} packs of {N_FRAMES} frames, batch {CAPACITY}, {H}x{W}, new sequence "
+        f"at pack {RESET_AT}; K3, K1 launches per pack: run A {per_pack_a}, run B (plain) "
+        f"{per_pack_b}, run C (default path) {per_pack_c} (want {want_launches} each), "
+        f"run D (plain) {per_pack_d}")
+    if any(n != want_launches for n in per_pack_a + per_pack_c) or any(
+            n != [0, 0] for n in per_pack_b + per_pack_d):
+        fail("K3's counter did not rise by N - 1 and K1's by 2 x depth per pack")
+    ev_a = [int(o.num_events) for o in outs_a]
+    ev_b = [int(o.num_events) for o in outs_b]
+    ev_c = [int(o.num_events) for o in outs_c]
+    vox_err, vox_ok = within(torch.stack([o.event_voxel_grids for o in outs_a]),
+                             torch.stack([o.event_voxel_grids for o in outs_b]), V2E2V_TOL)
+    rec_a = torch.stack([o.reconstruction for o in outs_a])
+    rec_err, rec_ok = within(rec_a, torch.stack([o.reconstruction for o in outs_b]), V2E2V_TOL)
+    say(f"[v2e2v] run A vs run B: num_events {ev_a} vs {ev_b} equal={ev_a == ev_b}; voxel "
+        f"max_abs_err={vox_err:.3e}, reconstruction max_abs_err={rec_err:.3e} "
+        f"(tol atol=rtol={V2E2V_TOL}) {'pass' if ev_a == ev_b and vox_ok and rec_ok else 'FAIL'}")
+    if not (ev_a == ev_b and vox_ok and rec_ok):
+        fail("V2E2V through K3 and K1 disagrees with the plain versions")
+    rec_c = torch.stack([o.reconstruction for o in outs_c])
+    finite = bool(torch.isfinite(rec_c).all())
+    in_range = bool(((rec_c >= 0) & (rec_c <= 1)).all())
+    close = all(abs(c - a) <= 0.01 * a for a, c in zip(ev_a, ev_c))
+    say(f"[v2e2v] run C (from_flags, internal randoms): num_events {ev_c}, within 1% of run "
+        f"A's={close}; reconstructions finite={finite} in[0,1]={in_range} "
+        f"{'pass' if close and finite and in_range else 'FAIL'}")
+    if not (close and finite and in_range and min(ev_a) > 0):
+        fail("the default V2E2V path gave bad reconstructions or event counts")
+    ev_d = [int(o.num_events) for o in outs_d]
+    vox_err, vox_ok = within(torch.stack([o.event_voxel_grids for o in outs_c]),
+                             torch.stack([o.event_voxel_grids for o in outs_d]), V2E2V_TOL)
+    rec_err, rec_ok = within(rec_c, torch.stack([o.reconstruction for o in outs_d]), V2E2V_TOL)
+    ok = ev_c == ev_d and vox_ok and rec_ok
+    say(f"[v2e2v] run C vs run D (plain, internal randoms): num_events {ev_c} vs {ev_d} "
+        f"equal={ev_c == ev_d}; voxel max_abs_err={vox_err:.3e}, reconstruction "
+        f"max_abs_err={rec_err:.3e} (tol atol=rtol={V2E2V_TOL}) {'pass' if ok else 'FAIL'}")
+    if not ok:
+        fail("the default V2E2V path disagrees with the plain versions")
+    say(f"[phase] V2E2V runs {time.perf_counter() - t_phase:.1f} s")
+
     # 5. times
     entries = []
     for dtype in (torch.float32, torch.bfloat16):
@@ -298,7 +585,57 @@ def main() -> None:
             f"{front_ms:.4f} ms; max_memory_allocated "
             f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
 
-    # 6. kernels, then the result line
+    # 8. K3 and V2E2V times, on the main path's inputs
+    t_phase = time.perf_counter()
+    frames5, ts5 = video[-1]
+    for internal in (True, False):
+        x, kw = main_path_k3_inputs(cfg_c.emulator, last["state"].emulator, frames5, ts5, internal)
+        ms = device_ms(lambda: emulator_iters(**x, **kw))
+        wrapper_ms = time_ms(lambda: emulator_iters(**x, **kw), warmup=3, iters=20)
+        plain_ms = time_ms(lambda: emulator_iters_plain(**x, **kw), warmup=1, iters=3)
+        bound_ms, bound_by = k3_bound_ms(x, kw)
+        mode = "internal" if internal else "explicit"
+        say(f"[time] K3 {mode} (main-path inputs, num_iters {x['num_iters'].tolist()}): kernel "
+            f"{ms:.4f} ms/call on the device (launches back to back), {wrapper_ms:.4f} ms/call "
+            f"through the wrapper as the host issues them; plain {plain_ms:.4f} ms; bound "
+            f"{bound_ms:.4f} ms ({bound_by}) = {100 * bound_ms / ms:.1f}% of bound; library: "
+            f"none (no PyTorch call computes the loop)")
+        entries.append({
+            "name": f"emulator_iters ({mode} rng)", "route": "cuda", "source": K3_SOURCE,
+            "replaces": K3_REPLACES, "launches": main_k3[mode],
+            "max_abs_err": k3_errs[mode], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            **({} if internal else {"note": "explicit-draw instance, not on the main path: "
+                                    "launched by the exact checks and run A"}),
+        })
+    noise = torch.Generator(device="cuda").manual_seed(args.seed)
+    state4 = last["state"].emulator
+    emu_ms = time_ms(lambda: emulate_pack(cfg_c.emulator, state4, frames5, ts5, noise),
+                     warmup=2, iters=10)
+    torch.cuda.reset_peak_memory_stats()
+    step_times = []
+    for rep in range(3):
+        state = None
+        for p, (frames, ts) in enumerate(video):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out, state = v2e2v_forward(weights, cfg_c, frames, ts, None if p == RESET_AT else state,
+                                       noise)
+            torch.cuda.synchronize()
+            if rep:
+                step_times.append(1e3 * (time.perf_counter() - t0))
+    fwd_ms = float(np.median(step_times))
+    say(f"[time] V2E2V default path, batch {CAPACITY}: emulate_pack {emu_ms:.3f} ms/pack "
+        f"as the host issues it (CUDA events); v2e2v_forward {fwd_ms:.3f} ms/pack (median of {len(step_times)}, host "
+        f"clock, min {min(step_times):.3f}), {CAPACITY * 1e3 / fwd_ms:.1f} reconstructions/s; "
+        f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+    main_launches_line = {"K3 (run C)": main_k3, "K1 (run C)": main_k1}
+    say(f"[v2e2v] main path launches, counts set to 0 before run C: {main_launches_line}")
+    if main_k3["internal"] == 0 or main_k1 == 0:
+        fail("the main path did not launch K3 and K1")
+    say(f"[phase] K3 and V2E2V times {time.perf_counter() - t_phase:.1f} s")
+
+    # 9. kernels, then the result line
     say(json.dumps({"kernels": entries}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": torch.cuda.device_count()}}))

@@ -1,21 +1,29 @@
 #!/usr/bin/env python3
-"""Where a pool step of the PyTorch/CUDA port spends its time on the card.
+"""Where a pool step, or a V2E2V pack, of the PyTorch/CUDA port spends its
+time on the card.
 
     python3 scripts/profile_torch_pool.py [--dtype float32|bfloat16] [--steps 10]
+    python3 scripts/profile_torch_pool.py --v2e2v [--steps 10]
 
 Builds the flagship ``StreamPool`` (CISTA-LSTC 180x240, 64 channels, depth 5,
 5 bins, capacity 8, all slots active, random weights from ``--seed``), warms
-it up, and traces ``--steps`` pool steps with ``torch.profiler``. Prints the
-card's name and power limit, the step time on the host clock, the device's
-busy and idle share over the traced window, and device time by kernel, with
-kernel K1 (``ista_conv3x3_kernel``) apart. Needs a CUDA card; float32 runs
-with TF32 off.
+it up, and traces ``--steps`` pool steps with ``torch.profiler``. With
+``--v2e2v`` it traces ``--steps`` packs of ``v2e2v_forward`` on the default
+V2E2V path instead (``V2E2VConfig.from_flags`` with the emulator of
+``bench.py:170-176``, batch 8, packs of 10 synthetic flickering frames from
+``--seed``, float32), then ``--steps`` calls of its ``emulate_pack`` alone on
+one pack. Prints the card's name and power limit, the step time on the host
+clock, the device's busy and idle share over the traced window, and device
+time by kernel, with kernels K1 (``ista_conv3x3_kernel``) and K3
+(``emulator_iters_kernel``) apart. Needs a CUDA card; float32 runs with TF32
+off.
 """
 
 from __future__ import annotations
 
 import argparse
 import collections
+import math
 import subprocess
 import sys
 import time
@@ -28,7 +36,56 @@ from torch.profiler import ProfilerActivity, profile
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 from v2e2v_tpu_torch.models.cista import CistaConfig, init_cista_lstc  # noqa: E402
+from v2e2v_tpu_torch.models.emulator import emulate_pack  # noqa: E402
+from v2e2v_tpu_torch.models.v2e2v import V2E2VConfig, v2e2v_forward  # noqa: E402
 from v2e2v_tpu_torch.serving import StreamPool  # noqa: E402
+
+
+def pool_steps(cfg, weights, dtype, seed):
+    pool = StreamPool(cfg, weights, capacity=8, dtype=dtype)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    vox = {pool.attach(): torch.randn(180, 240, 5, device="cuda", generator=gen)
+           for _ in range(8)}
+    return lambda: pool.step(vox, fetch=False)
+
+
+def v2e2v_steps(weights, seed, packs, batch=8, n=10):
+    """One pack per call, the state carried on; frames flicker per pixel as
+    ``base * exp(a * sin(2 pi f t + phase))`` at 250 fps and are made on the
+    card before the trace."""
+    flags = argparse.Namespace(
+        image_dim=[180, 240], base_channels=64, depth=5, num_bins=5, event_mode="voxel_grid",
+        pl=1.5, ps=0.5, ql=1.0, qs=0.0, C=0.6, threshold_sigma=0.03, cutoff_hz=200.0,
+        refractory_period_s=0.001)
+    cfg = V2E2VConfig.from_flags(flags)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    shape = (batch, 1, 180, 240)
+    base = 30 + 170 * torch.rand(shape, device="cuda", generator=gen)
+    amp = 0.2 + 0.8 * torch.rand(shape, device="cuda", generator=gen)
+    freq = 2 + 6 * torch.rand(shape, device="cuda", generator=gen)
+    phase = 2 * math.pi * torch.rand(shape, device="cuda", generator=gen)
+    video = []
+    for k in range(packs):
+        t = 0.004 * torch.arange(k * (n - 1), k * (n - 1) + n, device="cuda",
+                                 dtype=torch.float32)
+        arg = 2 * math.pi * freq * t[None, :, None, None] + phase
+        frames = (base * torch.exp(amp * torch.sin(arg))).clamp(0, 255)
+        video.append((frames, t.expand(batch, n).contiguous()))
+    run = {"state": None, "pack": 0}
+
+    def step():
+        frames, t = video[run["pack"]]
+        if run["pack"] == packs - 1:
+            run["before_last"] = run["state"]
+        _, run["state"] = v2e2v_forward(weights, cfg, frames, t, run["state"], gen)
+        run["pack"] += 1
+
+    def emulate():
+        """The emulator alone on the last pack, from the state before it."""
+        frames, t = video[-1]
+        emulate_pack(cfg.emulator, run["before_last"].emulator, frames, t, gen)
+
+    return step, emulate
 
 
 def main() -> None:
@@ -36,6 +93,7 @@ def main() -> None:
     ap.add_argument("--dtype", choices=["float32", "bfloat16"], default="float32")
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--v2e2v", action="store_true", help="trace V2E2V packs, not pool steps")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("needs a CUDA card")
@@ -48,18 +106,25 @@ def main() -> None:
 
     cfg = CistaConfig(image_dim=(180, 240), base_channels=64, depth=5, num_bins=5)
     weights = init_cista_lstc(torch.Generator().manual_seed(args.seed), cfg)
-    pool = StreamPool(cfg, weights, capacity=8, dtype=dtype)
-    gen = torch.Generator(device="cuda").manual_seed(args.seed)
-    vox = {pool.attach(): torch.randn(180, 240, 5, device="cuda", generator=gen)
-           for _ in range(8)}
+    if args.v2e2v:
+        step, emulate = v2e2v_steps(weights, args.seed, args.steps + 3)
+        trace(step, args.steps, "v2e2v float32 batch 8 pack")
+        trace(emulate, args.steps, "emulate_pack alone, batch 8 pack")
+    else:
+        trace(pool_steps(cfg, weights, dtype, args.seed), args.steps,
+              f"{args.dtype} capacity 8 step")
+
+
+def trace(step, steps: int, what: str) -> None:
+    """Warm up, trace ``steps`` calls, print the breakdown."""
     for _ in range(3):
-        pool.step(vox, fetch=False)
+        step()
     torch.cuda.synchronize()
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(args.steps):
-            pool.step(vox, fetch=False)
+        for _ in range(steps):
+            step()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
 
@@ -71,15 +136,14 @@ def main() -> None:
             count[evt.name] += 1
     busy_ms = sum(by_kernel.values())
     k1_ms = sum(v for k, v in by_kernel.items() if "ista_conv3x3_kernel" in k)
-    steps = args.steps
-    print(f"[profile] {args.dtype} capacity 8: step {wall_ms / steps:.3f} ms (host clock, traced), "
+    k3_ms = sum(v for k, v in by_kernel.items() if "emulator_iters_kernel" in k)
+    print(f"[profile] {what}: {wall_ms / steps:.3f} ms (host clock, traced), "
           f"device busy {busy_ms / steps:.3f} ms/step = {100 * busy_ms / wall_ms:.1f}%, idle "
           f"{100 * (1 - busy_ms / wall_ms):.1f}%; K1 {k1_ms / steps:.3f} ms/step "
-          f"({100 * k1_ms / busy_ms:.1f}% of device time); {sum(count.values()) // steps} "
-          f"kernels/step")
+          f"({100 * k1_ms / busy_ms:.1f}% of device time); K3 {k3_ms / steps:.4f} ms/step "
+          f"({100 * k3_ms / busy_ms:.1f}%); {sum(count.values()) // steps} kernels/step")
     for name, ms in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:15]:
         print(f"[profile]   {ms / steps:8.3f} ms/step {count[name] // steps:4d}x  {name[:110]}")
-
 
 if __name__ == "__main__":
     main()

@@ -109,3 +109,153 @@ def test_front_end_on_card_matches_cpu(card):
     got = event_preprocess(events_to_voxel_grid(*(a.to(card) for a in ev), n, **kw))
     # index_add_ on the card sums with atomics in no fixed order
     torch.testing.assert_close(got.cpu(), want, atol=1e-5, rtol=1e-5)
+
+
+def _k3_inputs(b, h, w, mi, shot, gate_on, device, seed=0, consistent=True):
+    """Inputs of one frame pair's iteration loop. ``consistent`` sets
+    ``num_iters`` as the emulator does (the row's largest count, in [1, mi]);
+    otherwise rows get fewer iterations than their counts, as in
+    tests/test_pallas_emulator.py."""
+    g = torch.Generator().manual_seed(seed)
+    counts = torch.randint(0, 7, (b, h, w), generator=g, dtype=torch.int32)
+    pol = torch.randint(-1, 2, (b, h, w), generator=g).to(torch.float32)
+    if consistent:
+        num_iters = counts.amax(dim=(1, 2)).clamp(1, mi)
+    else:
+        num_iters = torch.randint(1, 7, (b,), generator=g, dtype=torch.int32)
+    ts_step = torch.full((b,), 4.0) / num_iters.to(torch.float32)
+    t = dict(
+        event_counts=counts, pol=pol, timestamp_mem=-torch.rand(b, h, w, generator=g),
+        tr_frames=torch.full((b, h, w), 0.7),
+        one_minus_on_prob=1.0 - 0.05 * torch.rand(b, h, w, generator=g),
+        off_prob=0.05 * torch.rand(b, h, w, generator=g),
+        rand01=torch.rand(mi, b, h, w, generator=g) if shot else None,
+        seed=None, ts_step=ts_step, num_iters=num_iters,
+        gate=torch.full((b,), gate_on, dtype=torch.bool), tf_base=1.0,
+    )
+    return {k: v.to(device) if isinstance(v, torch.Tensor) else v for k, v in t.items()}
+
+
+# (B, H, W, max_iters, consistent num_iters): a square and a non-square plane,
+# and the Pallas test's rows with fewer iterations than counts
+K3_SHAPES = [(2, 16, 16, 8, True), (3, 13, 37, 32, True), (2, 16, 24, 8, False)]
+
+
+@pytest.mark.parametrize("shape", K3_SHAPES, ids=str)
+@pytest.mark.parametrize("shot", [True, False], ids=["shot", "noshot"])
+@pytest.mark.parametrize("gate_on", [True, False], ids=["gate", "nogate"])
+def test_emulator_iters_kernel_matches_plain(card, shape, shot, gate_on):
+    from v2e2v_tpu_torch.ops.cuda.emulator_iters import emulator_iters, emulator_iters_plain
+
+    b, h, w, mi, consistent = shape
+    x = _k3_inputs(b, h, w, mi, shot, gate_on, card, consistent=consistent)
+    kw = dict(num_bins=5, max_iters=mi, shot=shot)
+    before = emulator_iters.launches
+    voxel, mem, final = emulator_iters(**x, **kw)
+    torch.cuda.synchronize()
+    assert emulator_iters.launches - before == 1
+    want = emulator_iters_plain(**x, **kw)
+    assert torch.equal(final, want[2]) and torch.equal(mem, want[1])
+    # the same terms in the same order, rounded alike: equal in practice
+    torch.testing.assert_close(voxel, want[0], atol=1e-5, rtol=0)
+
+
+def test_emulator_iters_internal_rng(card):
+    """Internal Philox: the kernel equals its plain version, a seed repeats,
+    and with no threshold events the shot-event total is Binomial(n, p)."""
+    from v2e2v_tpu_torch.ops.cuda.emulator_iters import emulator_iters, emulator_iters_plain
+
+    b, h, w, mi, p = 2, 45, 60, 32, 0.01
+    x = _k3_inputs(b, h, w, mi, True, False, card)
+    x |= dict(event_counts=torch.zeros_like(x["event_counts"]),
+              pol=torch.where(x["pol"] >= 0, 1.0, -1.0),
+              one_minus_on_prob=torch.full_like(x["pol"], 1.0 - p),
+              off_prob=torch.full_like(x["pol"], p), rand01=None,
+              num_iters=torch.full((b,), mi, dtype=torch.int32, device=card),
+              seed=torch.tensor([3, 2**40 + 5], dtype=torch.int64, device=card))
+    kw = dict(num_bins=5, max_iters=mi, shot=True, internal_rng=True)
+    got = emulator_iters(**x, **kw)
+    again = emulator_iters(**x, **kw)
+    want = emulator_iters_plain(**x, **kw)
+    for g, a, w_ in zip(got, again, want):
+        assert torch.equal(g, a) and torch.equal(g, w_)
+    n = b * h * w * mi
+    total = int(got[2].sum())
+    assert abs(total - n * p) < 5 * (n * p * (1 - p)) ** 0.5, (total, n * p)
+
+
+def test_emulator_iters_refuses_what_it_cannot_run(card):
+    from v2e2v_tpu_torch.ops.cuda.emulator_iters import emulator_iters
+
+    x = _k3_inputs(2, 8, 8, 4, True, True, card)
+    with pytest.raises(ValueError, match="num_bins"):
+        emulator_iters(**x, num_bins=17, max_iters=4, shot=True)
+    x["pol"] = x["pol"].transpose(1, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        emulator_iters(**x, num_bins=5, max_iters=4, shot=True)
+
+
+@pytest.mark.parametrize("explicit_shot,refractory", [(True, 0.001), (False, 0.001), (False, 0.0)],
+                         ids=["explicit", "internal", "internal-nogate"])
+def test_v2e2v_with_kernels_matches_plain(card, explicit_shot, refractory):
+    """Two packs through K3 and K1 against the plain versions, with the shot
+    uniforms drawn from one card generator seed (explicit) or made by Philox
+    from its seeds (internal, the default on the card): equal event counts,
+    voxel grids and reconstructions within 1e-4. K3 runs with and without
+    the refractory gate."""
+    from v2e2v_tpu_torch.models.emulator import EmulatorConfig, GeneratorNoise
+    from v2e2v_tpu_torch.models.v2e2v import V2E2VConfig, v2e2v_forward
+    from v2e2v_tpu_torch.ops.cuda.emulator_iters import emulator_iters
+
+    h, w, n, b = 32, 48, 6, 2
+    emu = EmulatorConfig(pos_thres=0.6, neg_thres=0.6, sigma_thres=0.03, pl=1.5, ps=0.5,
+                         cutoff_hz=200.0, ql=1.0, qs=0.0, refractory_period_s=refractory,
+                         leak_rate_hz=0.1, shot_noise_rate_hz=100.0)
+    cfg = V2E2VConfig(CistaConfig(image_dim=(h, w), base_channels=16, depth=2, num_bins=5), emu)
+    plain = V2E2VConfig(dataclasses.replace(cfg.cista, ista_impl="plain"),
+                        dataclasses.replace(emu, iters_impl="plain"))
+    sd = init_cista_lstc(torch.Generator().manual_seed(0), cfg.cista, device=card)
+    g = torch.Generator().manual_seed(1)
+    base = 30 + 190 * torch.rand(b, 1, h, w, generator=g)
+    rate = torch.rand(b, 1, h, w, generator=g) - 0.5
+    i = torch.arange(2 * n, dtype=torch.float32).reshape(1, -1, 1, 1)
+    frames = (base * torch.exp(rate * torch.sin(0.7 * i))).clamp(0, 255).to(card)
+    ts = (0.004 * i.reshape(1, -1)).expand(b, -1).to(card)
+
+    def run(c):
+        noise = GeneratorNoise(torch.Generator(device=card).manual_seed(2), explicit_shot)
+        state, outs = None, []
+        for p in range(2):
+            out, state = v2e2v_forward(sd, c, frames[:, p * n:(p + 1) * n],
+                                       ts[:, p * n:(p + 1) * n], state, noise)
+            outs.append(out)
+        return outs
+
+    mode = "explicit" if explicit_shot else "internal"
+    before = emulator_iters.launches_by_shot[mode]
+    got = run(cfg)
+    assert emulator_iters.launches_by_shot[mode] - before == 2 * (n - 1)
+    want = run(plain)
+    for a, b_ in zip(got, want):
+        assert int(a.num_events) == int(b_.num_events) > 0
+        torch.testing.assert_close(a.event_voxel_grids, b_.event_voxel_grids, atol=1e-4, rtol=1e-4)
+        torch.testing.assert_close(a.reconstruction, b_.reconstruction, atol=1e-4, rtol=1e-4)
+
+
+def test_emulate_pack_never_waits_for_the_card(card):
+    """The pair loop issues its work without synchronising with the host."""
+    from v2e2v_tpu_torch.models.emulator import EmulatorConfig, emulate_pack
+
+    cfg = EmulatorConfig(pos_thres=0.6, neg_thres=0.6, refractory_period_s=0.001,
+                         shot_noise_rate_hz=100.0, cutoff_hz=200.0, qs=0.0)
+    g = torch.Generator(device=card).manual_seed(0)
+    frames = 30 + 190 * torch.rand(2, 6, 16, 24, device=card, generator=g)
+    ts = (0.004 * torch.arange(6, device=card, dtype=torch.float32)).expand(2, 6)
+    _, _, state = emulate_pack(cfg, None, frames, ts, g)  # builds and loads the kernels
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        voxel, n_events, _ = emulate_pack(cfg, state, frames.flip(1), ts + 0.02, g)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert voxel.shape == (2, 16, 24, 5) and int(n_events) > 0

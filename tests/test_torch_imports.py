@@ -33,6 +33,8 @@ def test_port_file_imports_no_jax(path):
 def test_importing_the_port_loads_no_jax():
     code = (
         "import sys, v2e2v_tpu_torch, v2e2v_tpu_torch.ops.voxel, v2e2v_tpu_torch.utils.checkpoint\n"
+        "import v2e2v_tpu_torch.models.emulator, v2e2v_tpu_torch.models.v2e2v\n"
+        "import v2e2v_tpu_torch.ops.cuda.emulator_iters, v2e2v_tpu_torch.ops.numerics\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'v2e2v_tpu')]\n"
         "assert not bad, bad\n"
     )
@@ -51,3 +53,43 @@ def test_entry_points_without_device_raise_when_no_card(monkeypatch):
     sd = init_cista_lstc(torch.Generator().manual_seed(0), cfg, device="cpu")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         StreamPool(cfg, sd)
+
+
+def test_emulator_and_v2e2v_entry_points_raise_when_no_card(monkeypatch):
+    import numpy as np
+
+    from v2e2v_tpu_torch import (
+        CistaConfig,
+        EmulatorConfig,
+        GeneratorNoise,
+        V2E2VConfig,
+        emulate_pack,
+        emulator_init,
+        emulator_init_from_pack,
+        init_cista_lstc,
+        v2e2v_forward,
+        v2e2v_init_state,
+        v2e2v_sequence,
+    )
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    emu = EmulatorConfig()
+    cfg = V2E2VConfig(CistaConfig(image_dim=(8, 8), base_channels=8, depth=1), emu)
+    frames = np.full((1, 3, 8, 8), 100.0, np.float32)
+    t = np.array([[0.0, 0.004, 0.008]], np.float32)
+    g = torch.Generator().manual_seed(0)
+    sd = init_cista_lstc(g, cfg.cista, device="cpu")
+    calls = [
+        lambda: emulator_init(g, emu, frames[:, 0], np.zeros((1, 8, 8), np.float32), 0.0),
+        lambda: emulator_init_from_pack(emu, frames, t, g),
+        lambda: emulate_pack(emu, None, frames, t, g),
+        lambda: v2e2v_init_state(cfg, frames, t, g),
+        lambda: v2e2v_forward(sd, cfg, frames, t, None, g),
+        lambda: v2e2v_sequence(sd, cfg, frames[None], t[None], g),
+        lambda: GeneratorNoise.from_seed(0),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    recs, _ = v2e2v_sequence(sd, cfg, frames[None], t[None], g, device="cpu")
+    assert recs.device.type == "cpu"

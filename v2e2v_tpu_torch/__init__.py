@@ -8,7 +8,9 @@ hand-written CUDA kernels for ``sm_90a`` (``csrc/``), each beside a plain
 PyTorch version that CPU tensors take.
 
 Ported so far: CISTA-LSTC stream serving (events -> voxel grid -> StreamPool)
-with the ISTA loop as CUDA kernel K1.
+with the ISTA loop as CUDA kernel K1; the V2E event emulator and the V2E2V
+composite (HFR frames -> emulated voxel grids -> reconstruction) with the
+emulator's iteration loop as CUDA kernel K3.
 """
 
 from .models.cista import (  # noqa: F401
@@ -18,5 +20,23 @@ from .models.cista import (  # noqa: F401
     cista_sequence,
     cista_zero_state,
     init_cista_lstc,
+)
+from .models.emulator import (  # noqa: F401
+    EmulatorConfig,
+    EmulatorState,
+    EmulatorStats,
+    GeneratorNoise,
+    emulate_pack,
+    emulator_init,
+    emulator_init_from_pack,
+    validate_pack_times,
+)
+from .models.v2e2v import (  # noqa: F401
+    V2E2VConfig,
+    V2E2VOutput,
+    V2E2VState,
+    v2e2v_forward,
+    v2e2v_init_state,
+    v2e2v_sequence,
 )
 from .serving import StreamPool  # noqa: F401

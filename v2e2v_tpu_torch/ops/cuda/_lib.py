@@ -57,6 +57,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.v2e_ista_conv3x3.restype = i
     lib.v2e_ista_conv3x3_smem_bytes.argtypes = [i]
     lib.v2e_ista_conv3x3_smem_bytes.restype = i
+    lib.v2e_emulator_iters.argtypes = [*[p] * 11, ctypes.c_float, *[p] * 3, *[i] * 6, p]
+    lib.v2e_emulator_iters.restype = i
     lib.v2e_error_string.argtypes = [i]
     lib.v2e_error_string.restype = ctypes.c_char_p
 
