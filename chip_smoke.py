@@ -6,8 +6,9 @@
 Phases, one line each (any failure exits non-zero before the last line):
 
 1. device: ``nvidia-smi`` name and power limit, and torch's device name;
-2. build: every CUDA source with one ``nvcc`` call (seconds, and
-   ``-Xptxas -v``'s registers, shared memory and spills per kernel);
+2. build: every CUDA source by its own ``nvcc``, all at once, and one link
+   (seconds, and ``-Xptxas -v``'s registers, shared memory and spills per
+   kernel);
 3. kernel K1 (``ista_loop``) against its plain version at the flagship shape
    (B = 8, 90x120, C = 64, depth 5), in float32 with TF32 off and in bfloat16;
 4. the slice: a ``StreamPool`` of CISTA-LSTC at 180x240, 64 channels, depth 5,
@@ -16,9 +17,22 @@ Phases, one line each (any failure exits non-zero before the last line):
    voxelised and normalised on the card; the launch counter must rise by
    2 x depth per pool step, and the same voxel grids through the plain ISTA
    must give the same reconstructions. Run in float32 (TF32 off) and bfloat16;
+4b. kernel K2 (``cista_core``, the half-res core) against its plain version at
+   the flagship pool's shape (B = 8, 90x120, C = 64, depth 5) on the model's
+   init weights, all five outputs, in float32 with TF32 off (1e-4) and in
+   bfloat16 (3e-2 + 3e-2 |ref|);
+4c. the K2 slice: the same ``StreamPool`` with ``core_impl="cuda"``, serving
+   the same schedule and voxel grids, with every count set to 0 just before
+   it: K2's counter must rise by 7 + 2 x depth per pool step and K1's by 0
+   (K2 runs its ISTA convs itself); its reconstructions must equal the pool's
+   with ``core_impl="plain"`` (within 1e-4 / 3e-2) and lie within 3e-2 of the
+   layers pool of phase 4, finite and in [0, 1];
 5. times with CUDA events after warm-up: K1, its plain version, the nearest
-   library call (cuDNN convs), its bound; the pool's step time, reconstructions
-   per second and peak memory;
+   library call (cuDNN convs), its bound; K2, its plain version, the layers
+   core it replaces (ConvLSTC, K1, Dg conv, ConvLSTM) and the same with the
+   plain ISTA (cuDNN convs only), its bound; the pool's step time with
+   ``core_impl`` "layers" and "cuda" in turns, reconstructions per second and
+   peak memory;
 6. kernel K3 (``emulator_iters``) against its plain version at the V2E2V
    shape (B = 8, 180x240, 32 iterations, 5 bins): explicit uniforms in the four
    shot x gate cases and internal Philox uniforms, all exact; internal uniforms
@@ -69,6 +83,9 @@ PEAK_BYTES = 3.35e12
 TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}  # atol and rtol
 K1_SOURCE = "v2e2v_tpu_torch/csrc/ista.cu"
 K1_REPLACES = "v2e2v_tpu/ops/pallas/ista.py:88"
+K2_SOURCE = "v2e2v_tpu_torch/csrc/core.cu"
+K2_REPLACES = "v2e2v_tpu/ops/pallas/core.py:194"
+K2_VS_LAYERS_TOL = 3e-2  # the layers path casts every conv output to the dtype
 K3_SOURCE = "v2e2v_tpu_torch/csrc/emulator_iters.cu"
 K3_REPLACES = "v2e2v_tpu/ops/pallas/emulator_iters.py:93"
 N_FRAMES, PACKS, RESET_AT, MAX_ITERS = 10, 6, 3, 32
@@ -96,16 +113,21 @@ def within(got: torch.Tensor, want: torch.Tensor, tol: float) -> tuple[float, bo
 
 
 def short_name(mangled: str) -> str:
-    """K1's instances as ista_conv3x3_kernel<dtype, conv>, K3's as
-    emulator_iters_kernel<shot mode>; others as given."""
+    """K1's and K2's conv instances as <kernel><dtype, epilogue>, K2's cell
+    kernels as <kernel><dtype>, K3's as emulator_iters_kernel<shot mode>;
+    others as given."""
     m = re.search(r"emulator_iters_kernelILi([012])E", mangled)
     if m:
         return f"emulator_iters_kernel<{('no shot', 'explicit', 'internal')[int(m.group(1))]}>"
-    m = re.search(r"ista_conv3x3_kernelI(\w+?)Li([01])E", mangled)
-    if not m:
-        return mangled[:80]
-    dtype = "bfloat16" if "bfloat16" in m.group(1) else "float32"
-    return f"ista_conv3x3_kernel<{dtype}, {'D' if m.group(2) == '0' else 'P'} conv>"
+    m = re.search(r"((?:ista|core)_conv3x3_kernel)I(\w+?)Li([0-4])E", mangled)
+    if m:
+        dtype = "bfloat16" if "bfloat16" in m.group(2) else "float32"
+        epi = ("D conv", "P conv", "pre-activation", "relu", "out gate")[int(m.group(3))]
+        return f"{m.group(1)}<{dtype}, {epi}>"
+    m = re.search(r"(core_lst[cm]_cell_kernel)I(\w+?)EEv", mangled)
+    if m:
+        return f"{m.group(1)}<{'bfloat16' if 'bfloat16' in m.group(2) else 'float32'}>"
+    return mangled[:80]
 
 
 def time_ms(fn, warmup: int = 3, iters: int = 10) -> float:
@@ -163,6 +185,34 @@ def ista_bound_ms(args, depth: int) -> tuple[float, str]:
     elem = x1.element_size()
     n_bytes = elem * (x1.numel() + 2 * z.numel() + dw.numel() + db.numel() + pw.numel()
                       + pb.numel() + lam.numel())
+    t_ops, t_bytes = flops / PEAK_FLOPS[x1.dtype], n_bytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def core_inputs(gen: torch.Generator, dtype: torch.dtype, weights: dict):
+    """K2's inputs at the pool's shape: the taps of the model's weights in
+    ``dtype``, x1 ~ N(0, 0.5^2) and the recurrent state (z, cell, dg_h, dg_c)
+    ~ N(0, 0.3^2)."""
+    from v2e2v_tpu_torch.ops.cuda.core import core_taps
+
+    b, h, w, c = CAPACITY, H // 2, W // 2, C
+    x1 = (0.5 * torch.randn(b, h, w, c, generator=gen)).cuda().to(dtype)
+    state = [(0.3 * torch.randn(b, h, w, k, generator=gen)).cuda().to(dtype)
+             for k in (2 * c, 2 * c, c, c)]
+    return (core_taps(weights, dtype), x1, *state)
+
+
+def core_bound_ms(args, depth: int) -> tuple[float, str]:
+    """Least time for K2's work: 2 * 9 * B*H*W * (32 + 4 depth) * C^2 FLOPs
+    (52 C^2 multiply-adds per tap and pixel at depth 5) at the dtype's peak;
+    x1 and the four state tensors read once, the four new state tensors
+    written once (rec_h is dg_h), the taps and biases read once."""
+    taps, x1, z, cell, dg_h, dg_c = args
+    b, h, w, c = x1.shape
+    flops = 2 * 9 * b * h * w * (32 + 4 * depth) * c * c
+    n_bytes = x1.element_size() * (x1.numel() + 2 * (z.numel() + cell.numel() + dg_h.numel()
+                                                     + dg_c.numel()))
+    n_bytes += sum(t.numel() * t.element_size() for t in taps.values())
     t_ops, t_bytes = flops / PEAK_FLOPS[x1.dtype], n_bytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
@@ -354,8 +404,9 @@ def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA card (torch.cuda.is_available() is False)")
 
-    from v2e2v_tpu_torch.models.cista import CistaConfig, init_cista_lstc
+    from v2e2v_tpu_torch.models.cista import CistaConfig, CistaState, half_res_core, init_cista_lstc
     from v2e2v_tpu_torch.ops.cuda import _lib
+    from v2e2v_tpu_torch.ops.cuda.core import cista_core, cista_core_plain, launches_per_call
     from v2e2v_tpu_torch.ops.cuda.ista import ista_loop, ista_loop_plain
     from v2e2v_tpu_torch.ops.voxel import event_preprocess, events_to_voxel_grid
     from v2e2v_tpu_torch.serving import StreamPool
@@ -379,9 +430,10 @@ def main() -> None:
             name = line.split("'")[1]
         elif name and ("registers" in line or "spill" in line):
             say(f"[build]   {short_name(name)}: {line.split('ptxas info    :')[-1].strip()}")
-    smem = {cout: lib.lib.v2e_ista_conv3x3_smem_bytes(cout) for cout in (C, 2 * C)}
-    say(f"[build] K1 dynamic shared memory per block: D conv (cout={C}) {smem[C]} B, "
-        f"P conv (cout={2 * C}) {smem[2 * C]} B")
+    smem = {cout: lib.lib.v2e_conv3x3_smem_bytes(cout) for cout in (C, 2 * C, 4 * C)}
+    say(f"[build] K1/K2 conv dynamic shared memory per block: cout={C} {smem[C]} B, "
+        f"cout={2 * C} {smem[2 * C]} B, cout={4 * C} {smem[4 * C]} B (chunks of at most 128 "
+        f"output channels)")
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -421,9 +473,9 @@ def main() -> None:
                 {**{s: 2 for s in range(5)}, 6: 0}, {**{s: 3 for s in range(5)}, 6: 1},
                 {6: 2}, {6: 3}]
 
-    def serve(pool, voxels=None):
+    def serve(pool, voxels=None, counter=ista_loop):
         """Run the schedule; returns {(stream, req): rec [H, W]}, the voxel
-        grids served and the launches of each pool step."""
+        grids served and the launches of ``counter`` in each pool step."""
         sid = {s: pool.attach() for s in range(6)}
         recs, voxels, launches = {}, dict(voxels or {}), []
         for entry in schedule:
@@ -434,19 +486,20 @@ def main() -> None:
             for s, r in entry.items():
                 if (s, r) not in voxels:
                     voxels[(s, r)] = voxelize(packets[4 * s + r])
-            before = ista_loop.launches
+            before = counter.launches
             out = pool.step({sid[s]: voxels[(s, r)] for s, r in entry.items()}, fetch=False)
-            launches.append(ista_loop.launches - before)
+            launches.append(counter.launches - before)
             for s, r in entry.items():
                 recs[(s, r)] = out[sid[s]].float().clone()
         torch.cuda.synchronize()
         return recs, voxels, launches
 
-    main_launches = {}
+    main_launches, layers_recs, served = {}, {}, {}
     for dtype in (torch.float32, torch.bfloat16):
         ista_loop.launches = 0
         recs, voxels, per_step = serve(StreamPool(cfg, weights, CAPACITY, dtype))
         main_launches[dtype] = ista_loop.launches
+        layers_recs[dtype], served[dtype] = recs, voxels
         stacked = torch.stack(list(recs.values()))
         finite = bool(torch.isfinite(stacked).all())
         in_range = bool(((stacked >= 0) & (stacked <= 1)).all())
@@ -463,6 +516,59 @@ def main() -> None:
             f"max_abs_err={err:.3e} (tol atol=rtol={TOL[dtype]}) {'pass' if ok else 'FAIL'}")
         if not ok:
             fail(f"the pool through K1 disagrees with the plain ISTA in {DNAME[dtype]}")
+
+    # 4b. K2 against its plain version at the flagship shape
+    k2 = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        core_args = core_inputs(torch.Generator().manual_seed(args.seed), dtype, weights)
+        got = cista_core(*core_args, depth=DEPTH)
+        want = cista_core_plain(*core_args, depth=DEPTH)
+        torch.cuda.synchronize()
+        errs = {name: within(g, w_, TOL[dtype])
+                for name, g, w_ in zip(("rec_h", "z", "cell", "dg_h", "dg_c"), got, want)}
+        ok = (all(o for _, o in errs.values()) and got[0] is got[3]
+              and all(bool(torch.isfinite(g.float()).all()) for g in got))
+        err = max(e for e, _ in errs.values())
+        say(f"[k2] cista_core {DNAME[dtype]} B={CAPACITY} {H // 2}x{W // 2} C={C} depth={DEPTH}: "
+            f"max_abs_err {', '.join(f'{n} {e:.3e}' for n, (e, _) in errs.items())} "
+            f"(tol {TOL[dtype]} + {TOL[dtype]} |ref|) {'pass' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"K2 disagrees with its plain version in {DNAME[dtype]}")
+        k2[dtype] = {"inputs": core_args, "max_abs_err": err}
+
+    # 4c. the K2 slice: the pool with core_impl="cuda" on the same voxel grids
+    cfg_k2 = dataclasses.replace(cfg, core_impl="cuda")
+    k2_launches = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        cista_core.launches = ista_loop.launches = 0
+        recs, _, per_step = serve(StreamPool(cfg_k2, weights, CAPACITY, dtype), served[dtype],
+                                  counter=cista_core)
+        k2_launches[dtype], k1_in_k2 = cista_core.launches, ista_loop.launches
+        stacked = torch.stack(list(recs.values()))
+        finite = bool(torch.isfinite(stacked).all())
+        in_range = bool(((stacked >= 0) & (stacked <= 1)).all())
+        say(f"[pool-k2] {DNAME[dtype]}: {len(recs)} reconstructions, core_impl=cuda; "
+            f"finite={finite} in[0,1]={in_range}; K2 launches per step {per_step} (want "
+            f"{launches_per_call(DEPTH)} each), total {k2_launches[dtype]}; K1 launches {k1_in_k2} "
+            f"(want 0: K2 launches its ISTA convs itself)")
+        if not (finite and in_range):
+            fail(f"K2 pool reconstructions in {DNAME[dtype]} are not finite values in [0, 1]")
+        if any(n != launches_per_call(DEPTH) for n in per_step) or k1_in_k2:
+            fail("K2's launch counter did not rise by 7 + 2 x depth per pool step, or K1 ran")
+        ref, _, _ = serve(StreamPool(dataclasses.replace(cfg, core_impl="plain"), weights,
+                                     CAPACITY, dtype), served[dtype])
+        err, ok = within(stacked, torch.stack([ref[k] for k in recs]), TOL[dtype])
+        say(f"[pool-k2] {DNAME[dtype]}: K2 vs its plain version (core_impl=plain) on the same "
+            f"voxel grids: max_abs_err={err:.3e} (tol atol=rtol={TOL[dtype]}) "
+            f"{'pass' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"the pool through K2 disagrees with the plain K2 in {DNAME[dtype]}")
+        err, ok = within(stacked, torch.stack([layers_recs[dtype][k] for k in recs]),
+                         K2_VS_LAYERS_TOL)
+        say(f"[pool-k2] {DNAME[dtype]}: K2 vs the layers pool (K1 and cuDNN, phase 4): "
+            f"max_abs_err={err:.3e} (tol atol=rtol={K2_VS_LAYERS_TOL}) {'pass' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"the pool through K2 disagrees with the layers pool in {DNAME[dtype]}")
 
     # 6. K3 against its plain version
     from v2e2v_tpu_torch.models.emulator import emulate_pack
@@ -564,26 +670,58 @@ def main() -> None:
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
         })
 
-        pool = StreamPool(cfg, weights, CAPACITY, dtype)
-        sids = [pool.attach() for _ in range(CAPACITY)]
-        vox = {sid: voxelize(packets[i]) for i, sid in enumerate(sids)}
-        torch.cuda.reset_peak_memory_stats()
-        step_times = []
-        for i in range(12):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            pool.step(vox, fetch=False)
-            torch.cuda.synchronize()
-            if i >= 2:
-                step_times.append(1e3 * (time.perf_counter() - t0))
+        core_args = k2[dtype]["inputs"]
+        k2_ms = time_ms(lambda: cista_core(*core_args, depth=DEPTH))
+        k2_plain_ms = time_ms(lambda: cista_core_plain(*core_args, depth=DEPTH))
+        _, x1, z, cell, dg_h, dg_c = core_args
+        state = CistaState(cell=cell, z=z, dg=(dg_h, dg_c))
+        params_dt = {k: v.to(dtype) for k, v in weights.items()}
+        layers_ms = time_ms(lambda: half_res_core(params_dt, cfg, x1, state))
+        cudnn_ms = time_ms(lambda: half_res_core(params_dt, cfg_plain, x1, state))
+        bound_ms, bound_by = core_bound_ms(core_args, DEPTH)
+        say(f"[time] K2 {DNAME[dtype]}: kernel {k2_ms:.4f} ms/call ({launches_per_call(DEPTH)} "
+            f"launches), plain {k2_plain_ms:.4f} ms; the layers core it replaces (ConvLSTC, "
+            f"K1, Dg conv, ConvLSTM) {layers_ms:.4f} ms, the same with the plain ISTA (cuDNN "
+            f"convs only) {cudnn_ms:.4f} ms; bound {bound_ms:.4f} ms ({bound_by}; peak "
+            f"{PEAK_FLOPS[dtype] / 1e12:.0f} TFLOP/s) = {100 * bound_ms / k2_ms:.1f}% of bound")
+        entries.append({
+            "name": f"cista_core ({DNAME[dtype]})", "route": "cuda", "source": K2_SOURCE,
+            "replaces": K2_REPLACES, "launches": k2_launches[dtype],
+            "max_abs_err": k2[dtype]["max_abs_err"], "ms": k2_ms, "plain_ms": k2_plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "layers_core_ms": layers_ms, "cudnn_core_ms": cudnn_ms,
+            "note": "no single PyTorch call computes the core; layers_core_ms is the path "
+                    "it replaces (cuDNN convs and K1), cudnn_core_ms that path with cuDNN "
+                    "convs only",
+        })
+
+        vox = {i: voxelize(packets[i]) for i in range(CAPACITY)}
+        step_times = {"layers": [], "cuda": []}
+        peak = {}
+        for impl in ("layers", "cuda", "cuda", "layers"):  # in turns
+            pool = StreamPool(dataclasses.replace(cfg, core_impl=impl), weights, CAPACITY, dtype)
+            sids = [pool.attach() for _ in range(CAPACITY)]
+            torch.cuda.reset_peak_memory_stats()
+            for i in range(8):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                pool.step({sid: vox[i] for i, sid in enumerate(sids)}, fetch=False)
+                torch.cuda.synchronize()
+                if i >= 2:
+                    step_times[impl].append(1e3 * (time.perf_counter() - t0))
+            peak[impl] = max(peak.get(impl, 0.0), torch.cuda.max_memory_allocated() / 2**20)
+            del pool
         front_ms = time_ms(lambda: voxelize(packets[0]))
-        step_ms = float(np.median(step_times))
-        say(f"[time] pool {DNAME[dtype]} capacity {CAPACITY}, all active: step {step_ms:.3f} ms "
-            f"(median of {len(step_times)}, host clock, min {min(step_times):.3f}), "
-            f"{CAPACITY * 1e3 / step_ms:.1f} reconstructions/s; K1 share "
-            f"{100 * ms / step_ms:.1f}%; front end (voxelise + normalise one packet) "
-            f"{front_ms:.4f} ms; max_memory_allocated "
-            f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+        step_ms = {k: float(np.median(v)) for k, v in step_times.items()}
+        say(f"[time] pool {DNAME[dtype]} capacity {CAPACITY}, all active, core_impl layers / "
+            f"cuda in turns: step {step_ms['layers']:.3f} / {step_ms['cuda']:.3f} ms (median "
+            f"of {len(step_times['cuda'])} each, host clock, min "
+            f"{min(step_times['layers']):.3f} / {min(step_times['cuda']):.3f}), "
+            f"{CAPACITY * 1e3 / step_ms['layers']:.1f} / {CAPACITY * 1e3 / step_ms['cuda']:.1f} "
+            f"reconstructions/s; K1 share of the layers step {100 * ms / step_ms['layers']:.1f}%, "
+            f"K2 share of the cuda step {100 * k2_ms / step_ms['cuda']:.1f}%; front end "
+            f"(voxelise + normalise one packet) {front_ms:.4f} ms; max_memory_allocated "
+            f"{peak['layers']:.1f} / {peak['cuda']:.1f} MiB")
 
     # 8. K3 and V2E2V times, on the main path's inputs
     t_phase = time.perf_counter()

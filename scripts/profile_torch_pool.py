@@ -2,11 +2,13 @@
 """Where a pool step, or a V2E2V pack, of the PyTorch/CUDA port spends its
 time on the card.
 
-    python3 scripts/profile_torch_pool.py [--dtype float32|bfloat16] [--steps 10]
+    python3 scripts/profile_torch_pool.py [--dtype float32|bfloat16] [--core_impl layers|cuda]
+                                          [--steps 10]
     python3 scripts/profile_torch_pool.py --v2e2v [--steps 10]
 
 Builds the flagship ``StreamPool`` (CISTA-LSTC 180x240, 64 channels, depth 5,
-5 bins, capacity 8, all slots active, random weights from ``--seed``), warms
+5 bins, capacity 8, all slots active, random weights from ``--seed``, its
+half-res core layer by layer or as kernel K2 as ``--core_impl`` says), warms
 it up, and traces ``--steps`` pool steps with ``torch.profiler``. With
 ``--v2e2v`` it traces ``--steps`` packs of ``v2e2v_forward`` on the default
 V2E2V path instead (``V2E2VConfig.from_flags`` with the emulator of
@@ -14,9 +16,10 @@ V2E2V path instead (``V2E2VConfig.from_flags`` with the emulator of
 ``--seed``, float32), then ``--steps`` calls of its ``emulate_pack`` alone on
 one pack. Prints the card's name and power limit, the step time on the host
 clock, the device's busy and idle share over the traced window, and device
-time by kernel, with kernels K1 (``ista_conv3x3_kernel``) and K3
-(``emulator_iters_kernel``) apart. Needs a CUDA card; float32 runs with TF32
-off.
+time by kernel, with kernels K1 (``ista_conv3x3_kernel``), K2 (its
+``core_conv3x3_kernel`` convs and its two cell kernels) and K3
+(``emulator_iters_kernel``) apart, each with its launches per step. Needs a
+CUDA card; float32 runs with TF32 off.
 """
 
 from __future__ import annotations
@@ -91,6 +94,7 @@ def v2e2v_steps(weights, seed, packs, batch=8, n=10):
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--dtype", choices=["float32", "bfloat16"], default="float32")
+    ap.add_argument("--core_impl", choices=["layers", "cuda"], default="layers")
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--v2e2v", action="store_true", help="trace V2E2V packs, not pool steps")
@@ -104,7 +108,8 @@ def main() -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip(), flush=True)
 
-    cfg = CistaConfig(image_dim=(180, 240), base_channels=64, depth=5, num_bins=5)
+    cfg = CistaConfig(image_dim=(180, 240), base_channels=64, depth=5, num_bins=5,
+                      core_impl=args.core_impl)
     weights = init_cista_lstc(torch.Generator().manual_seed(args.seed), cfg)
     if args.v2e2v:
         step, emulate = v2e2v_steps(weights, args.seed, args.steps + 3)
@@ -112,7 +117,7 @@ def main() -> None:
         trace(emulate, args.steps, "emulate_pack alone, batch 8 pack")
     else:
         trace(pool_steps(cfg, weights, dtype, args.seed), args.steps,
-              f"{args.dtype} capacity 8 step")
+              f"{args.dtype} core_impl={args.core_impl} capacity 8 step")
 
 
 def trace(step, steps: int, what: str) -> None:
@@ -135,13 +140,18 @@ def trace(step, steps: int, what: str) -> None:
             by_kernel[evt.name] += evt.time_range.elapsed_us() / 1e3
             count[evt.name] += 1
     busy_ms = sum(by_kernel.values())
-    k1_ms = sum(v for k, v in by_kernel.items() if "ista_conv3x3_kernel" in k)
-    k3_ms = sum(v for k, v in by_kernel.items() if "emulator_iters_kernel" in k)
+    parts = []
+    for label, keys in (("K1", ("ista_conv3x3_kernel",)),
+                        ("K2", ("core_conv3x3_kernel", "core_lstc_cell", "core_lstm_cell")),
+                        ("K3", ("emulator_iters_kernel",))):
+        ms = sum(v for k, v in by_kernel.items() if any(key in k for key in keys))
+        n = sum(v for k, v in count.items() if any(key in k for key in keys))
+        parts.append(f"{label} {ms / steps:.4f} ms/step in {n / steps:g} launches "
+                     f"({100 * ms / busy_ms:.1f}% of device time)")
     print(f"[profile] {what}: {wall_ms / steps:.3f} ms (host clock, traced), "
           f"device busy {busy_ms / steps:.3f} ms/step = {100 * busy_ms / wall_ms:.1f}%, idle "
-          f"{100 * (1 - busy_ms / wall_ms):.1f}%; K1 {k1_ms / steps:.3f} ms/step "
-          f"({100 * k1_ms / busy_ms:.1f}% of device time); K3 {k3_ms / steps:.4f} ms/step "
-          f"({100 * k3_ms / busy_ms:.1f}%); {sum(count.values()) // steps} kernels/step")
+          f"{100 * (1 - busy_ms / wall_ms):.1f}%; {'; '.join(parts)}; "
+          f"{sum(count.values()) // steps} kernels/step")
     for name, ms in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:15]:
         print(f"[profile]   {ms / steps:8.3f} ms/step {count[name] // steps:4d}x  {name[:110]}")
 

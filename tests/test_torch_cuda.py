@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from v2e2v_tpu_torch.models.cista import CistaConfig, cista_sequence, init_cista_lstc
+from v2e2v_tpu_torch.ops.cuda import core as k2
 from v2e2v_tpu_torch.ops.cuda.ista import ista_loop, ista_loop_plain
 
 pytestmark = pytest.mark.cuda
@@ -45,8 +46,10 @@ def _inputs(b, h, w, c, device, dtype, seed=0):
 
 
 # (B, H, W, C, depth): tiles that fit, ragged tiles, the 2x2 minimum, the
-# flagship's C = 64 and depth 5
-SHAPES = [(2, 16, 32, 8, 3), (3, 13, 21, 16, 2), (1, 2, 2, 8, 1), (2, 9, 17, 64, 5)]
+# flagship's C = 64 and depth 5, and C = 128 (the P conv's 256 output
+# channels in two chunks)
+SHAPES = [(2, 16, 32, 8, 3), (3, 13, 21, 16, 2), (1, 2, 2, 8, 1), (2, 9, 17, 64, 5),
+          (2, 9, 17, 128, 2)]
 
 
 @pytest.mark.parametrize("shape", SHAPES, ids=str)
@@ -74,10 +77,9 @@ def test_ista_kernel_leaves_its_inputs_alone(card):
 
 
 def test_ista_kernel_refuses_what_it_cannot_run(card):
-    for c in (12, 128):
-        args = list(_inputs(1, 8, 8, c, card, torch.float32))
-        with pytest.raises(ValueError, match="C % 8 == 0 and C <= 64"):
-            ista_loop(*args, depth=1)
+    args = list(_inputs(1, 8, 8, 12, card, torch.float32))
+    with pytest.raises(ValueError, match="C % 8 == 0"):
+        ista_loop(*args, depth=1)
     args = list(_inputs(1, 8, 8, 8, card, torch.float32))
     args[0] = args[0].transpose(1, 2)
     with pytest.raises(ValueError, match="contiguous"):
@@ -94,6 +96,113 @@ def test_model_with_kernel_matches_plain(card, dtype, tol):
     got, _ = cista_sequence(sd, cfg, vox)
     want, _ = cista_sequence(sd, dataclasses.replace(cfg, ista_impl="plain"), vox)
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+def _core_args(b, h, w, c, depth, device, dtype, seed=0):
+    """K2's taps from ``init_cista_lstc`` weights, x1 ~ N(0, 0.5^2) and the
+    recurrent state ~ N(0, 0.3^2)."""
+    cfg = CistaConfig(image_dim=(2 * h, 2 * w), base_channels=c, depth=depth)
+    sd = init_cista_lstc(torch.Generator().manual_seed(seed), cfg, device=device)
+    g = torch.Generator().manual_seed(seed + 1)
+    x1 = (0.5 * torch.randn(b, h, w, c, generator=g)).to(device, dtype)
+    state = [(0.3 * torch.randn(b, h, w, k, generator=g)).to(device, dtype)
+             for k in (2 * c, 2 * c, c, c)]
+    return k2.core_taps(sd, dtype), x1, *state
+
+
+# (B, H, W, C, depth): ragged tiles, the 2x2 minimum, and the flagship pool's
+# core (B = 8, 90x120, C = 64, depth 5)
+CORE_SHAPES = [(2, 13, 21, 16, 2), (1, 2, 2, 8, 1), (8, 90, 120, 64, 5)]
+
+
+@pytest.mark.parametrize("shape", CORE_SHAPES, ids=str)
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 3e-2)],
+                         ids=["f32", "bf16"])
+def test_core_kernel_matches_plain(card, shape, dtype, tol):
+    *dims, depth = shape
+    args = _core_args(*dims, depth, card, dtype)
+    copies = [a.clone() for a in args[1:]]
+    before = k2.cista_core.launches
+    got = k2.cista_core(*args, depth=depth)
+    torch.cuda.synchronize()
+    assert k2.cista_core.launches - before == k2.launches_per_call(depth) == 7 + 2 * depth
+    want = k2.cista_core_plain(*args, depth=depth)
+    assert got[0] is got[3]
+    for name, g, w_ in zip(("rec_h", "z", "cell", "dg_h", "dg_c"), got, want):
+        assert g.dtype == dtype and g.shape == w_.shape, name
+        torch.testing.assert_close(g.float(), w_.float(), atol=tol, rtol=tol, msg=name)
+    for a, c in zip(args[1:], copies):  # new tensors hold the outputs
+        assert torch.equal(a, c)
+
+
+def test_core_kernel_raises_and_never_falls_back(card, monkeypatch):
+    """A failed build or a refused launch raises; the plain version is never
+    taken for a CUDA tensor."""
+    from v2e2v_tpu_torch.ops.cuda import _lib
+
+    args = _core_args(1, 8, 8, 8, 1, card, torch.float32)
+    real = _lib.load()
+
+    def no_plain(*a, **k):
+        raise AssertionError("the plain version ran for CUDA tensors")
+
+    monkeypatch.setattr(k2, "cista_core_plain", no_plain)
+
+    def no_build():
+        raise RuntimeError("nvcc failed (1)")
+
+    monkeypatch.setattr(_lib, "load", no_build)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        k2.cista_core(*args, depth=1)
+
+    class Refusing:
+        class lib:
+            @staticmethod
+            def v2e_core_conv3x3(*a):
+                return 1  # cudaErrorInvalidValue
+
+        check = staticmethod(real.check)
+
+    monkeypatch.setattr(_lib, "load", lambda: Refusing)
+    with pytest.raises(RuntimeError, match="core_conv3x3 launch failed"):
+        k2.cista_core(*args, depth=1)
+
+    # a grid the card refuses: B > 65535 blocks along grid axis y
+    monkeypatch.setattr(_lib, "load", lambda: real)
+    big = _core_args(65536, 2, 2, 8, 1, card, torch.float32)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        k2.cista_core(*big, depth=1)
+    with pytest.raises(ValueError, match="C % 8 == 0"):
+        k2.cista_core(*_core_args(1, 4, 4, 12, 1, card, torch.float32), depth=1)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 3e-2)],
+                         ids=["f32", "bf16"])
+def test_model_and_pool_with_core_kernel_match_plain_core(card, dtype, tol):
+    """cista_sequence and StreamPool with core_impl='cuda' against
+    core_impl='plain' on the same weights and voxel grids."""
+    from v2e2v_tpu_torch.serving import StreamPool
+
+    cfg = CistaConfig(image_dim=(32, 48), base_channels=16, depth=3, num_bins=5,
+                      core_impl="cuda")
+    plain = dataclasses.replace(cfg, core_impl="plain")
+    sd = init_cista_lstc(torch.Generator().manual_seed(0), cfg, device=card)
+    vox = torch.randn(3, 2, 32, 48, 5, generator=torch.Generator().manual_seed(1)).to(card, dtype)
+    sd_dt = {k: v.to(dtype) for k, v in sd.items()}
+    before = k2.cista_core.launches
+    got, _ = cista_sequence(sd_dt, cfg, vox)
+    assert k2.cista_core.launches - before == 3 * k2.launches_per_call(3)
+    want, _ = cista_sequence(sd_dt, plain, vox)
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+    pools = [StreamPool(c, sd, capacity=3, dtype=dtype) for c in (cfg, plain)]
+    ids = [[p.attach() for _ in range(3)] for p in pools]
+    for step, active in enumerate(([0, 1, 2], [1], [0, 2])):
+        outs = [p.step({i[a]: vox[step, a % 2] for a in active}, fetch=False)
+                for p, i in zip(pools, ids)]
+        for a in active:
+            torch.testing.assert_close(outs[0][ids[0][a]].float(), outs[1][ids[1][a]].float(),
+                                       atol=tol, rtol=tol)
 
 
 def test_front_end_on_card_matches_cpu(card):

@@ -1,5 +1,6 @@
-"""Port's StreamPool against the JAX StreamPool (float32, reference-shaped
-full-res path) on one attach/step/detach sequence, atol 1e-4."""
+"""Port's StreamPool against the JAX StreamPool (reference-shaped full-res
+path) on one attach/step/detach sequence: float32 at atol 1e-4, bfloat16 at
+atol = rtol = 3e-2."""
 
 import jax
 import jax.numpy as jnp
@@ -17,22 +18,22 @@ from v2e2v_tpu_torch.utils.checkpoint import params_from_jax
 H, W, NB, C, DEPTH = 16, 20, 5, 8, 2
 
 
-def _pools(capacity=3):
+def _pools(capacity=3, dtype="float32"):
     jcfg = JCfg(image_dim=(H, W), base_channels=C, depth=DEPTH, num_bins=NB,
                 fullres_impl="ref")
     params = jinit(jax.random.PRNGKey(0), jcfg)
-    jpool = JPool(jcfg, params, capacity=capacity, dtype=jnp.float32)
+    jpool = JPool(jcfg, params, capacity=capacity, dtype=getattr(jnp, dtype))
     cfg = CistaConfig(image_dim=(H, W), base_channels=C, depth=DEPTH, num_bins=NB)
     sd = params_from_jax(jax.tree_util.tree_map(np.asarray, params), DEPTH)
-    return jpool, StreamPool(cfg, sd, capacity=capacity, dtype=torch.float32, device="cpu")
+    return jpool, StreamPool(cfg, sd, capacity=capacity, dtype=getattr(torch, dtype),
+                             device="cpu")
 
 
 def _vox(seed):
     return np.random.default_rng(seed).normal(size=(H, W, NB)).astype(np.float32)
 
 
-def test_pool_sequence_matches_jax_pool():
-    jpool, pool = _pools()
+def _run_schedule(jpool, pool, tol):
     ids = [(jpool.attach(), pool.attach()) for _ in range(3)]
     schedule = [[0, 1, 2], [1], [0, 2], "detach 1", "attach", [0, 1, 2], [2]]
     seed = 0
@@ -51,7 +52,17 @@ def test_pool_sequence_matches_jax_pool():
         for i in entry:
             g, w = got[ids[i][1]], want[ids[i][0]]
             assert g.shape == (H, W) and g.dtype == np.float32
-            np.testing.assert_allclose(g, w, atol=1e-4)
+            np.testing.assert_allclose(g, w, **tol)
+
+
+def test_pool_sequence_matches_jax_pool():
+    _run_schedule(*_pools(), dict(atol=1e-4))
+
+
+def test_pool_sequence_matches_jax_pool_bfloat16():
+    """bfloat16 pools, each framework rounding its own convs and elementwise
+    ops to bfloat16, on the same float32 weights and voxel grids."""
+    _run_schedule(*_pools(dtype="bfloat16"), dict(atol=3e-2, rtol=3e-2))
 
 
 def test_pool_fetch_false_returns_device_views():

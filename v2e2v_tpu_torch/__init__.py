@@ -8,8 +8,9 @@ hand-written CUDA kernels for ``sm_90a`` (``csrc/``), each beside a plain
 PyTorch version that CPU tensors take.
 
 Ported so far: CISTA-LSTC stream serving (events -> voxel grid -> StreamPool)
-with the ISTA loop as CUDA kernel K1; the V2E event emulator and the V2E2V
-composite (HFR frames -> emulated voxel grids -> reconstruction) with the
+with the ISTA loop as CUDA kernel K1, or the whole half-resolution core as
+CUDA kernel K2 (``CistaConfig.core_impl``); the V2E event emulator and the
+V2E2V composite (HFR frames -> emulated voxel grids -> reconstruction) with the
 emulator's iteration loop as CUDA kernel K3.
 """
 

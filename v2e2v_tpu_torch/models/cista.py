@@ -4,8 +4,10 @@ Reference network ``CistaLSTCNet`` (lsying009/V2E2V ``e2v/e2v_model.py``):
 event/image heads -> stride-2 downsample -> ConvLSTC sparse-code init ->
 ``depth`` weight-tied ISTA iterations -> ConvLSTM decoder -> bilinear
 upsample conv -> final conv -> sigmoid. The full-resolution convs follow the
-JAX package's ``fullres_impl='ref'`` path; the ISTA loop is kernel K1
-(``ops/cuda/ista.py``) or its plain version.
+JAX package's ``fullres_impl='ref'`` path. The half-resolution core (ConvLSTC,
+ISTA, decoder conv and ConvLSTM) runs layer by layer, with the ISTA loop as
+kernel K1 (``ops/cuda/ista.py``) or its plain version, or as one call of
+kernel K2 (``ops/cuda/core.py``) or its plain version (``core_impl``).
 
 Weights are a flat state dict under the reference module names (see
 ``utils/checkpoint.py``); activations are NHWC, as in the JAX package.
@@ -21,6 +23,7 @@ import torch
 
 from .._device import resolve_device
 from ..ops.conv import conv_layer, conv_lstc_step, conv_lstm_step, upsample_conv_layer
+from ..ops.cuda.core import cista_core, cista_core_plain, core_taps
 from ..ops.cuda.ista import ista_loop, ista_loop_plain
 
 StateDict = dict[str, torch.Tensor]
@@ -32,7 +35,11 @@ class CistaConfig:
 
     ``image_dim`` is (H, W) of the voxel grid (even). ``ista_impl``: 'cuda'
     (kernel K1 for CUDA tensors; its plain version for CPU tensors) or
-    'plain' (the plain version on any device).
+    'plain' (the plain version on any device). ``core_impl``: 'layers' (the
+    default: the core layer by layer, its ISTA loop as ``ista_impl`` says),
+    'cuda' (kernel K2 for CUDA tensors, its plain version for CPU tensors) or
+    'plain' (K2's plain version on any device); with K2, ``ista_impl`` is not
+    read.
     """
 
     image_dim: tuple[int, int] = (180, 240)
@@ -41,10 +48,17 @@ class CistaConfig:
     num_bins: int = 5
     model_mode: str = "cista-lstc"
     ista_impl: str = "cuda"
+    core_impl: str = "layers"
 
     def __post_init__(self):
         if self.ista_impl not in ("plain", "cuda"):
             raise ValueError(f"ista_impl must be 'plain' or 'cuda', got {self.ista_impl!r}")
+        if self.core_impl not in ("layers", "cuda", "plain"):
+            hint = (" ('xla' and 'pallas' are the JAX package's names: 'layers' and 'cuda' "
+                    "here)" if self.core_impl in ("xla", "pallas") else "")
+            raise ValueError(
+                f"core_impl must be 'layers', 'cuda' or 'plain', got {self.core_impl!r}{hint}"
+            )
 
 
 class CistaState(NamedTuple):
@@ -141,33 +155,22 @@ def _upsample_final(
     return conv_layer(rec, _conv(params, "final_conv.conv2d"), padding=1)
 
 
-def _decode(params: StateDict, cfg: CistaConfig, z: torch.Tensor, dg_state):
-    """Decoder: conv+relu -> ConvLSTM -> upsample conv (relu) -> final conv
-    -> sigmoid."""
-    x = conv_layer(z, _conv(params, "Dg.conv.conv2d"), padding=1, activation="relu")
-    rec, dg_state = conv_lstm_step(
-        {"Gates": _conv(params, "Dg.recurrent_block.Gates")}, x, dg_state
-    )
-    rec = _upsample_final(params, cfg, rec, upsamp_activation="relu")
-    return torch.sigmoid(rec), dg_state
-
-
-def cista_lstc_step(
-    params: StateDict,
-    cfg: CistaConfig,
-    events: torch.Tensor,
-    prev_image: torch.Tensor,
-    state: CistaState,
+def half_res_core(
+    params: StateDict, cfg: CistaConfig, x1: torch.Tensor, state: CistaState
 ) -> tuple[torch.Tensor, CistaState]:
-    """One CISTA-LSTC reconstruction.
-
-    Args:
-      events: ``[B, H, W, num_bins]`` voxel grid (NHWC).
-      prev_image: ``[B, H, W, 1]`` previous reconstruction.
-      state: ``CistaState`` from the previous step (zeros at sequence start).
-    Returns ``(rec_image [B, H, W, 1], new_state)``.
-    """
-    x1 = _heads(params, events, prev_image).contiguous()
+    """The half-resolution core on the heads' output ``x1 [B, H/2, W/2, C]``:
+    ConvLSTC -> ISTA x depth -> conv + relu -> ConvLSTM, as ``cfg.core_impl``
+    says. Returns ``(rec_h, new_state)``, ``rec_h`` the ConvLSTM hidden."""
+    if cfg.core_impl != "layers":
+        # "_core_taps" is injected once per sequence (cista_sequence) or pool
+        taps = params.get("_core_taps")
+        if taps is None:
+            taps = core_taps(params, x1.dtype)
+        core = cista_core if cfg.core_impl == "cuda" else cista_core_plain
+        rec_h, z, cell, dg_h, dg_c = core(
+            taps, x1, state.z, state.cell, state.dg[0], state.dg[1], depth=cfg.depth
+        )
+        return rec_h, CistaState(cell=cell, z=z, dg=(dg_h, dg_c))
     z, cell = conv_lstc_step(
         {name: _conv(params, f"P0.{name}") for name in ("gates", "out_gates", "P0")},
         x1, state.z, state.cell,
@@ -179,8 +182,33 @@ def cista_lstc_step(
         _hwio(params["lista_blocks.0.P.conv2d.weight"]), params["lista_blocks.0.P.conv2d.bias"],
         params["lista_blocks.0.Lambda"].reshape(-1), depth=cfg.depth,
     )
-    rec, dg_state = _decode(params, cfg, z, state.dg)
-    return rec, CistaState(cell=cell, z=z, dg=dg_state)
+    x = conv_layer(z, _conv(params, "Dg.conv.conv2d"), padding=1, activation="relu")
+    rec_h, dg_state = conv_lstm_step(
+        {"Gates": _conv(params, "Dg.recurrent_block.Gates")}, x, state.dg
+    )
+    return rec_h, CistaState(cell=cell, z=z, dg=dg_state)
+
+
+def cista_lstc_step(
+    params: StateDict,
+    cfg: CistaConfig,
+    events: torch.Tensor,
+    prev_image: torch.Tensor,
+    state: CistaState,
+) -> tuple[torch.Tensor, CistaState]:
+    """One CISTA-LSTC reconstruction: heads, the half-resolution core,
+    upsample conv (relu), final conv, sigmoid.
+
+    Args:
+      events: ``[B, H, W, num_bins]`` voxel grid (NHWC).
+      prev_image: ``[B, H, W, 1]`` previous reconstruction.
+      state: ``CistaState`` from the previous step (zeros at sequence start).
+    Returns ``(rec_image [B, H, W, 1], new_state)``.
+    """
+    x1 = _heads(params, events, prev_image).contiguous()
+    rec_h, state = half_res_core(params, cfg, x1, state)
+    rec = _upsample_final(params, cfg, rec_h, upsamp_activation="relu")
+    return torch.sigmoid(rec), state
 
 
 def get_step_fn(cfg: CistaConfig):
@@ -207,6 +235,8 @@ def cista_sequence(
     if prev_image is None:
         prev_image = voxel_seq.new_zeros((b, cfg.image_dim[0], cfg.image_dim[1], 1))
     step = get_step_fn(cfg)
+    if cfg.core_impl != "layers":
+        params = {**params, "_core_taps": core_taps(params, voxel_seq.dtype)}
     recs = []
     for events in voxel_seq:
         prev_image, state = step(params, cfg, events, prev_image, state)

@@ -1,10 +1,12 @@
 """Build the package's CUDA sources with ``nvcc`` and load them with ``ctypes``.
 
-All sources under ``v2e2v_tpu_torch/csrc/`` go through ONE ``nvcc`` command
-into one shared library with a plain C interface (no PyTorch headers, so it
-builds in seconds). The library lands in ``build/kernels/`` at the repo root,
-named by a hash of the sources and flags, and is built at first use in a
-process; a later process with the same sources loads it as it is.
+Every source under ``v2e2v_tpu_torch/csrc/`` is compiled by its own ``nvcc``
+process, all started together, and one more ``nvcc`` links the objects into
+one shared library with a plain C interface (no PyTorch headers, so it builds
+in seconds). The library lands in ``build/kernels/`` at the repo root, named by
+a hash of the sources, the shared headers (``*.cuh``) and the flags, and is
+built at first use in a process; a later process with the same files loads it
+as it is.
 """
 
 from __future__ import annotations
@@ -22,10 +24,8 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
-NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
-    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-]
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 
 @dataclass(frozen=True)
@@ -55,12 +55,30 @@ def _declare(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.v2e_ista_conv3x3.argtypes = [i, i, p, p, p, p, p, p, i, i, i, i, i, p]
     lib.v2e_ista_conv3x3.restype = i
-    lib.v2e_ista_conv3x3_smem_bytes.argtypes = [i]
-    lib.v2e_ista_conv3x3_smem_bytes.restype = i
+    lib.v2e_conv3x3_smem_bytes.argtypes = [i]
+    lib.v2e_conv3x3_smem_bytes.restype = i
+    lib.v2e_core_conv3x3.argtypes = [i, i, p, p, i, p, p, i, p, p, p, p, i, i, i, i, p]
+    lib.v2e_core_conv3x3.restype = i
+    lib.v2e_core_lstc_cell.argtypes = [i, p, p, p, p, p, p, i, i, p]
+    lib.v2e_core_lstc_cell.restype = i
+    lib.v2e_core_lstm_cell.argtypes = [i, p, p, p, p, i, i, p]
+    lib.v2e_core_lstm_cell.restype = i
     lib.v2e_emulator_iters.argtypes = [*[p] * 11, ctypes.c_float, *[p] * 3, *[i] * 6, p]
     lib.v2e_emulator_iters.restype = i
     lib.v2e_error_string.argtypes = [i]
     lib.v2e_error_string.restype = ctypes.c_char_p
+
+
+def _run_nvcc(cmds: list[list[str]]) -> str:
+    """Run the nvcc commands all at once; returns their output in order, or
+    raises with it if one fails."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    outs = [proc.communicate()[0] for proc in procs]
+    for cmd, proc, out in zip(cmds, procs, outs):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{out}")
+    return "".join(outs)
 
 
 @functools.cache
@@ -68,23 +86,25 @@ def load() -> KernelLibrary:
     """Build (if needed) and load the kernel library; raises if nvcc fails."""
     sources = sorted(CSRC.glob("*.cu"))
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    for src in sorted(CSRC.glob("*.cu*")):
         digest.update(src.name.encode() + src.read_bytes())
     out = BUILD_DIR / f"libv2e2v_kernels_{digest.hexdigest()[:16]}.so"
     log_path = out.with_suffix(".log")
     seconds = 0.0
     if not out.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+        work = BUILD_DIR / f"{out.stem}.{os.getpid()}"
+        work.mkdir(parents=True, exist_ok=True)
+        objs = [work / f"{src.stem}.o" for src in sources]
+        nvcc = _nvcc()
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
+        log = _run_nvcc([[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                         for src, obj in zip(sources, objs)])
+        tmp = work / out.name
+        log += _run_nvcc([[nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]])
         seconds = time.perf_counter() - t0
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{log}")
         log_path.write_text(log)
         os.replace(tmp, out)
+        shutil.rmtree(work, ignore_errors=True)
     lib = ctypes.CDLL(str(out))
     _declare(lib)
     log = log_path.read_text() if log_path.exists() else ""

@@ -119,24 +119,24 @@ def ista_loop(
     """The ISTA loop: the CUDA kernel for CUDA tensors (2 x depth launches
     on the current stream, counted in ``ista_loop.launches``), the plain
     version for CPU tensors. Arguments as ``ista_loop_plain``; the kernel
-    needs ``C % 8 == 0`` and ``C <= 64``."""
+    needs ``C % 8 == 0``."""
     _check(x1, z, d_weight, d_bias, p_weight, p_bias, lam, depth)
     if x1.device.type == "cpu":
         return ista_loop_plain(x1, z, d_weight, d_bias, p_weight, p_bias, lam, depth)
     if x1.device.type != "cuda":
         raise ValueError(f"ista_loop runs on cuda or cpu, not {x1.device}")
     b, h, w, c = x1.shape
-    if c % 8 or c > 64:
-        raise ValueError(f"the CUDA kernel needs C % 8 == 0 and C <= 64, got C={c}")
+    if c % 8:
+        raise ValueError(f"the CUDA kernel needs C % 8 == 0, got C={c}")
     from ._lib import load
 
     lib = load()
     dtype = x1.dtype
     d_taps = d_weight.to(dtype).reshape(9, 2 * c, c).contiguous()
     p_taps = p_weight.to(dtype).reshape(9, c, 2 * c).contiguous()
-    db = d_bias.to(dtype).contiguous()
-    pb = p_bias.to(dtype).contiguous()
-    lam_t = lam.to(dtype).contiguous()
+    # cast to the activation dtype as the Pallas kernel does; the kernel
+    # reads them as float32
+    db, pb, lam_t = (t.to(dtype).float().contiguous() for t in (d_bias, p_bias, lam))
     xm = torch.empty_like(x1)
     bufs = (torch.empty_like(z), torch.empty_like(z))
     with torch.cuda.device(x1.device):

@@ -21,6 +21,7 @@ import torch
 
 from ._device import resolve_device
 from .models.cista import CistaConfig, CistaState, cista_zero_state, get_step_fn
+from .ops.cuda.core import core_taps
 
 
 def _pool_step(params, cfg, states, prev_images, voxels, active):
@@ -58,6 +59,9 @@ class StreamPool:
         self.capacity = capacity
         self.dtype = dtype
         self.params = {k: v.to(self.device, dtype) for k, v in params.items()}
+        if cfg.core_impl != "layers":
+            # kernel K2's taps, once, in the pool's dtype (not in every step)
+            self.params["_core_taps"] = core_taps(self.params, dtype)
         h, w = cfg.image_dim
         self._states = cista_zero_state(cfg, capacity, dtype, self.device)
         self._prev = torch.zeros((capacity, h, w, 1), dtype=dtype, device=self.device)
