@@ -8,7 +8,9 @@ Phases, one line each (any failure exits non-zero before the last line):
 1. device: ``nvidia-smi`` name and power limit, and torch's device name;
 2. build: every CUDA source by its own ``nvcc``, all at once, and one link
    (seconds, and ``-Xptxas -v``'s registers, shared memory and spills per
-   kernel);
+   kernel); ``cuobjdump --dump-sass`` of the library counts the ``HGMMA``
+   (wgmma) instructions of each kernel: every bfloat16 conv kernel of K1 and
+   K2 (``*_conv3x3_tc_kernel``) must have some and spill nothing;
 3. kernel K1 (``ista_loop``) against its plain version at the flagship shape
    (B = 8, 90x120, C = 64, depth 5), in float32 with TF32 off and in bfloat16;
 4. the slice: a ``StreamPool`` of CISTA-LSTC at 180x240, 64 channels, depth 5,
@@ -30,7 +32,11 @@ Phases, one line each (any failure exits non-zero before the last line):
 5. times with CUDA events after warm-up: K1, its plain version, the nearest
    library call (cuDNN convs), its bound; K2, its plain version, the layers
    core it replaces (ConvLSTC, K1, Dg conv, ConvLSTM) and the same with the
-   plain ISTA (cuDNN convs only), its bound; the pool's step time with
+   plain ISTA (cuDNN convs only), its bound; each of K1, K2, cuDNN's convs and
+   the layers core both per call as the host issues them (``ms``) and as
+   device time (``device_ms``: launches back to back after the card spins),
+   and for K1 and K2 the host's time to issue a call (``host_ms``);
+   the pool's step time with
    ``core_impl`` "layers" and "cuda" in turns, reconstructions per second and
    peak memory;
 6. kernel K3 (``emulator_iters``) against its plain version at the V2E2V
@@ -67,9 +73,11 @@ import argparse
 import dataclasses
 import json
 import re
+import shutil
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -95,6 +103,12 @@ FLAGS = dict(image_dim=[H, W], base_channels=C, depth=DEPTH, num_bins=NB,
              event_mode="voxel_grid", pl=1.5, ps=0.5, ql=1.0, qs=0.0, C=0.6,
              threshold_sigma=0.03, cutoff_hz=200.0, refractory_period_s=0.001)
 DNAME = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
+EPILOGUES = ("D conv", "P conv", "pre-activation", "relu", "out gate")
+# what runs the convs of K1 and K2 in each dtype
+DESIGN = {torch.float32: "SIMT direct conv on CUDA cores (csrc/conv3x3.cuh), exact float32 sums",
+          torch.bfloat16: "wgmma implicit GEMM on tensor cores (csrc/conv3x3_tc.cuh): 16x8-pixel "
+                          "tiles staged once per 64-channel chunk for all 9 taps, taps laid out "
+                          "once and streamed by cp.async.bulk through a 4-slot ring"}
 
 
 def say(msg: str) -> None:
@@ -119,15 +133,34 @@ def short_name(mangled: str) -> str:
     m = re.search(r"emulator_iters_kernelILi([012])E", mangled)
     if m:
         return f"emulator_iters_kernel<{('no shot', 'explicit', 'internal')[int(m.group(1))]}>"
+    m = re.search(r"((?:ista|core)_conv3x3_tc_kernel)ILi([0-4])ELi(\d+)E", mangled)
+    if m:
+        return f"{m.group(1)}<bfloat16, {EPILOGUES[int(m.group(2))]}, NB={m.group(3)}>"
     m = re.search(r"((?:ista|core)_conv3x3_kernel)I(\w+?)Li([0-4])E", mangled)
     if m:
         dtype = "bfloat16" if "bfloat16" in m.group(2) else "float32"
-        epi = ("D conv", "P conv", "pre-activation", "relu", "out gate")[int(m.group(3))]
-        return f"{m.group(1)}<{dtype}, {epi}>"
+        return f"{m.group(1)}<{dtype}, {EPILOGUES[int(m.group(3))]}>"
     m = re.search(r"(core_lst[cm]_cell_kernel)I(\w+?)EEv", mangled)
     if m:
         return f"{m.group(1)}<{'bfloat16' if 'bfloat16' in m.group(2) else 'float32'}>"
     return mangled[:80]
+
+
+def sass_counts(lib_path, opcode: str) -> dict[str, int]:
+    """Instructions of ``opcode`` in each kernel of the built library, from
+    ``cuobjdump --dump-sass``."""
+    tool = shutil.which("cuobjdump") or str(Path("/usr/local/cuda/bin/cuobjdump"))
+    sass = subprocess.run([tool, "--dump-sass", str(lib_path)], capture_output=True, text=True,
+                          check=True, timeout=300).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            counts[fn] = 0
+        elif fn and re.search(rf"\b{opcode}\b", line):
+            counts[fn] += 1
+    return counts
 
 
 def time_ms(fn, warmup: int = 3, iters: int = 10) -> float:
@@ -144,11 +177,12 @@ def time_ms(fn, warmup: int = 3, iters: int = 10) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, warmup: int = 3, iters: int = 20) -> float:
-    """Device time per call of a launch-bound ``fn``: the card first spins
-    (``torch.cuda._sleep``) for three times as long as the host takes to
-    enqueue all calls, so the events time the launches back to back, without
-    the host's gaps."""
+def issue_ms(fn, warmup: int = 3, iters: int = 20) -> tuple[float, float]:
+    """``(device, host)`` ms per call of a launch-bound ``fn``: the card first
+    spins (``torch.cuda._sleep``) for three times as long as the host takes
+    to enqueue all calls, so the events time the launches back to back,
+    without the host's gaps, and the host's clock times its enqueueing alone,
+    without waits on the card."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -160,11 +194,18 @@ def device_ms(fn, warmup: int = 3, iters: int = 20) -> float:
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda._sleep(int(3 * 2e9 * iters * host_s) + 10_000_000)  # ~2 GHz clock
     start.record()
+    t0 = time.perf_counter()
     for _ in range(iters):
         fn()
+    host_s = time.perf_counter() - t0
     end.record()
     end.synchronize()
-    return start.elapsed_time(end) / iters
+    return start.elapsed_time(end) / iters, 1e3 * host_s / iters
+
+
+def device_ms(fn, warmup: int = 3, iters: int = 20) -> float:
+    """Device time per call of a launch-bound ``fn`` (``issue_ms``)."""
+    return issue_ms(fn, warmup, iters)[0]
 
 
 def ista_inputs(gen: torch.Generator, dtype: torch.dtype, weights: dict):
@@ -424,16 +465,30 @@ def main() -> None:
     # 2. build
     lib = _lib.load()
     say(f"[build] {lib.path.name}: nvcc {lib.build_seconds:.1f} s")
-    name = None
+    name, spills = None, {}
     for line in lib.log.splitlines():
         if "Compiling entry function" in line:
             name = line.split("'")[1]
         elif name and ("registers" in line or "spill" in line):
             say(f"[build]   {short_name(name)}: {line.split('ptxas info    :')[-1].strip()}")
-    smem = {cout: lib.lib.v2e_conv3x3_smem_bytes(cout) for cout in (C, 2 * C, 4 * C)}
-    say(f"[build] K1/K2 conv dynamic shared memory per block: cout={C} {smem[C]} B, "
-        f"cout={2 * C} {smem[2 * C]} B, cout={4 * C} {smem[4 * C]} B (chunks of at most 128 "
-        f"output channels)")
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if m:
+                spills[name] = int(m.group(1)) + int(m.group(2))
+    hgmma = sass_counts(lib.path, "HGMMA")
+    tc_kernels = [k for k in hgmma if "conv3x3_tc_kernel" in k]
+    say(f"[build] HGMMA (wgmma) instructions per kernel, cuobjdump --dump-sass: "
+        f"{ {short_name(k): v for k, v in hgmma.items()} }")
+    if not any("ista_conv3x3_tc" in k for k in tc_kernels) or not any(
+            "core_conv3x3_tc" in k for k in tc_kernels):
+        fail("the library has no bfloat16 tensor-core conv kernel for K1 or K2")
+    if any(hgmma[k] == 0 or spills.get(k, 1) for k in tc_kernels):
+        fail("a bfloat16 conv kernel of K1 or K2 has no HGMMA instruction, or spills")
+    for label, fn in (("float32 (SIMT)", lib.lib.v2e_conv3x3_smem_bytes),
+                      ("bfloat16 (tensor cores)", lib.lib.v2e_conv3x3_tc_smem_bytes)):
+        smem = {cout: fn(cout) for cout in (C, 2 * C, 4 * C)}
+        say(f"[build] K1/K2 {label} conv dynamic shared memory per block: cout={C} {smem[C]} B, "
+            f"cout={2 * C} {smem[2 * C]} B, cout={4 * C} {smem[4 * C]} B (chunks of at most "
+            f"128 output channels)")
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -645,7 +700,12 @@ def main() -> None:
     entries = []
     for dtype in (torch.float32, torch.bfloat16):
         inputs = k1[dtype]["inputs"]
+        # ms: per call as the host issues them (the wrapper's host work
+        # included); device_ms: the launches back to back on the card. In
+        # bfloat16 K1's launches take about as long on the card as the host
+        # takes to issue them, so the two differ
         ms = time_ms(lambda: ista_loop(*inputs, depth=DEPTH))
+        dev_ms, host_ms = issue_ms(lambda: ista_loop(*inputs, depth=DEPTH))
         plain_ms = time_ms(lambda: ista_loop_plain(*inputs, depth=DEPTH))
         x1, z, dw, db, pw, pb, _ = inputs
         x1c, zc = x1.permute(0, 3, 1, 2), z.permute(0, 3, 1, 2)  # channels_last views
@@ -658,38 +718,56 @@ def main() -> None:
             torch.nn.functional.conv2d(x1c, pwc, pbc, padding=1)
 
         library_ms = DEPTH * time_ms(library)
+        library_dev_ms = DEPTH * device_ms(library)
         bound_ms, bound_by = ista_bound_ms(inputs, DEPTH)
-        say(f"[time] K1 {DNAME[dtype]}: kernel {ms:.4f} ms/call, plain {plain_ms:.4f} ms, "
-            f"library (F.conv2d D + P, zero padding, channels_last) x depth {library_ms:.4f} ms, "
-            f"bound {bound_ms:.4f} ms ({bound_by}; peak {PEAK_FLOPS[dtype] / 1e12:.0f} TFLOP/s, "
-            f"{PEAK_BYTES / 1e12} TB/s) = {100 * bound_ms / ms:.1f}% of bound")
+        say(f"[time] K1 {DNAME[dtype]}: kernel {ms:.4f} ms/call as issued, {dev_ms:.4f} ms on "
+            f"the device, {host_ms:.4f} ms of the host's to issue it; plain {plain_ms:.4f} ms; "
+            f"library (F.conv2d D + P, zero padding, channels_last) x depth {library_ms:.4f} "
+            f"ms as issued, {library_dev_ms:.4f} ms on the device; bound {bound_ms:.4f} ms "
+            f"({bound_by}; peak {PEAK_FLOPS[dtype] / 1e12:.0f} TFLOP/s, {PEAK_BYTES / 1e12} "
+            f"TB/s) = {100 * bound_ms / ms:.1f}% of bound as issued, "
+            f"{100 * bound_ms / dev_ms:.1f}% on the device")
         entries.append({
             "name": f"ista_loop ({DNAME[dtype]})", "route": "cuda", "source": K1_SOURCE,
             "replaces": K1_REPLACES, "launches": main_launches[dtype],
-            "max_abs_err": k1[dtype]["max_abs_err"], "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
+            "max_abs_err": k1[dtype]["max_abs_err"], "ms": ms, "device_ms": dev_ms,
+            "host_ms": host_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by,
+            "library_ms": library_ms, "library_device_ms": library_dev_ms,
+            "tensor_cores": dtype == torch.bfloat16, "design": DESIGN[dtype],
         })
 
         core_args = k2[dtype]["inputs"]
         k2_ms = time_ms(lambda: cista_core(*core_args, depth=DEPTH))
+        k2_dev_ms, k2_host_ms = issue_ms(lambda: cista_core(*core_args, depth=DEPTH))
         k2_plain_ms = time_ms(lambda: cista_core_plain(*core_args, depth=DEPTH))
         _, x1, z, cell, dg_h, dg_c = core_args
         state = CistaState(cell=cell, z=z, dg=(dg_h, dg_c))
         params_dt = {k: v.to(dtype) for k, v in weights.items()}
         layers_ms = time_ms(lambda: half_res_core(params_dt, cfg, x1, state))
+        layers_dev_ms = device_ms(lambda: half_res_core(params_dt, cfg, x1, state))
         cudnn_ms = time_ms(lambda: half_res_core(params_dt, cfg_plain, x1, state))
+        cudnn_dev_ms = device_ms(lambda: half_res_core(params_dt, cfg_plain, x1, state))
         bound_ms, bound_by = core_bound_ms(core_args, DEPTH)
-        say(f"[time] K2 {DNAME[dtype]}: kernel {k2_ms:.4f} ms/call ({launches_per_call(DEPTH)} "
-            f"launches), plain {k2_plain_ms:.4f} ms; the layers core it replaces (ConvLSTC, "
-            f"K1, Dg conv, ConvLSTM) {layers_ms:.4f} ms, the same with the plain ISTA (cuDNN "
-            f"convs only) {cudnn_ms:.4f} ms; bound {bound_ms:.4f} ms ({bound_by}; peak "
-            f"{PEAK_FLOPS[dtype] / 1e12:.0f} TFLOP/s) = {100 * bound_ms / k2_ms:.1f}% of bound")
+        say(f"[time] K2 {DNAME[dtype]}: kernel {k2_ms:.4f} ms/call as issued, {k2_dev_ms:.4f} "
+            f"ms on the device, {k2_host_ms:.4f} ms of the host's to issue it "
+            f"({launches_per_call(DEPTH)} launches); plain {k2_plain_ms:.4f} "
+            f"ms; the layers core it replaces (ConvLSTC, K1, Dg conv, ConvLSTM) "
+            f"{layers_ms:.4f} ms as issued, {layers_dev_ms:.4f} ms on the device; the same "
+            f"with the plain ISTA (cuDNN convs only) {cudnn_ms:.4f} / {cudnn_dev_ms:.4f} ms; "
+            f"bound {bound_ms:.4f} ms ({bound_by}; peak {PEAK_FLOPS[dtype] / 1e12:.0f} "
+            f"TFLOP/s) = {100 * bound_ms / k2_ms:.1f}% of bound as issued, "
+            f"{100 * bound_ms / k2_dev_ms:.1f}% on the device")
         entries.append({
             "name": f"cista_core ({DNAME[dtype]})", "route": "cuda", "source": K2_SOURCE,
             "replaces": K2_REPLACES, "launches": k2_launches[dtype],
-            "max_abs_err": k2[dtype]["max_abs_err"], "ms": k2_ms, "plain_ms": k2_plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-            "layers_core_ms": layers_ms, "cudnn_core_ms": cudnn_ms,
+            "max_abs_err": k2[dtype]["max_abs_err"], "ms": k2_ms, "device_ms": k2_dev_ms,
+            "host_ms": k2_host_ms, "plain_ms": k2_plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by,
+            "library_ms": None, "layers_core_ms": layers_ms,
+            "layers_core_device_ms": layers_dev_ms, "cudnn_core_ms": cudnn_ms,
+            "cudnn_core_device_ms": cudnn_dev_ms,
+            "tensor_cores": dtype == torch.bfloat16, "design": DESIGN[dtype],
             "note": "no single PyTorch call computes the core; layers_core_ms is the path "
                     "it replaces (cuDNN convs and K1), cudnn_core_ms that path with cuDNN "
                     "convs only",

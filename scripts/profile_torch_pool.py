@@ -16,8 +16,9 @@ V2E2V path instead (``V2E2VConfig.from_flags`` with the emulator of
 ``--seed``, float32), then ``--steps`` calls of its ``emulate_pack`` alone on
 one pack. Prints the card's name and power limit, the step time on the host
 clock, the device's busy and idle share over the traced window, and device
-time by kernel, with kernels K1 (``ista_conv3x3_kernel``), K2 (its
-``core_conv3x3_kernel`` convs and its two cell kernels) and K3
+time by kernel, with kernels K1 (``ista_conv3x3_kernel``, and
+``ista_conv3x3_tc_kernel`` in bfloat16), K2 (its ``core_conv3x3_kernel`` or
+``core_conv3x3_tc_kernel`` convs and its two cell kernels) and K3
 (``emulator_iters_kernel``) apart, each with its launches per step. Needs a
 CUDA card; float32 runs with TF32 off.
 """
@@ -141,8 +142,8 @@ def trace(step, steps: int, what: str) -> None:
             count[evt.name] += 1
     busy_ms = sum(by_kernel.values())
     parts = []
-    for label, keys in (("K1", ("ista_conv3x3_kernel",)),
-                        ("K2", ("core_conv3x3_kernel", "core_lstc_cell", "core_lstm_cell")),
+    for label, keys in (("K1", ("ista_conv3x3_",)),
+                        ("K2", ("core_conv3x3_", "core_lstc_cell", "core_lstm_cell")),
                         ("K3", ("emulator_iters_kernel",))):
         ms = sum(v for k, v in by_kernel.items() if any(key in k for key in keys))
         n = sum(v for k, v in count.items() if any(key in k for key in keys))

@@ -6,7 +6,10 @@
 Times kernel K1 (``ista_loop``) and, where the tree has it, kernel K2
 (``cista_core``) at B = 8, 90x120, C = 64, depth 5 on ``init_cista_lstc``
 weights, in float32 (TF32 off) and bfloat16, with CUDA events (3 warm-up and
-10 timed calls per round, ``--rounds`` rounds in turns). It imports the
+10 timed calls per round, ``--rounds`` rounds in turns). Then each of the
+seven convs of K1 and K2 alone, through the library's C entry points at the
+same shape, in both dtypes, with its achieved TFLOP/s (2 * 9 * B*H*W * cin *
+cout operations per call). It imports the
 package of the tree it lies in, so a copy of it placed in another checkout
 (an unpacked parent commit, say) times that checkout's kernels: run both in
 one call to compare two commits on one card. Prints the card's name and power
@@ -85,6 +88,62 @@ def main() -> None:
     for key, ts in times.items():
         print(f"[time] {ROOT.name} {key}: {' / '.join(f'{t:.4f}' for t in ts)} ms per call "
               f"(B={B}, {H2}x{W2}, C={C}, depth={DEPTH})", flush=True)
+    time_convs()
+
+
+# (name, C entry, epilogue, cin_a, cin_b, cout) of every conv of K1 and K2
+CONVS = [("D", "ista", 0, 2 * C, 0, C), ("P", "ista", 1, C, 0, 2 * C),
+         ("gates (pre-activation)", "core", 2, C, 2 * C, 4 * C),
+         ("P0 (pre-activation)", "core", 2, C, 0, 2 * C),
+         ("out gate", "core", 4, 2 * C, 2 * C, 2 * C), ("Dg (relu)", "core", 3, 2 * C, 0, C),
+         ("ConvLSTM gates (pre-activation)", "core", 2, C, C, 4 * C)]
+
+
+def time_convs() -> None:
+    """Each conv of K1 and K2 alone at the flagship shape, with its TFLOP/s."""
+    from v2e2v_tpu_torch.ops.cuda._lib import load
+
+    try:  # the bfloat16 tensor-core conv reads its taps laid out
+        from v2e2v_tpu_torch.ops.cuda.conv_tc import wgmma_taps
+    except ImportError:  # a tree from before it
+        wgmma_taps = None
+    lib = load()
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    stream = torch.cuda.current_stream().cuda_stream
+    for dtype, code in ((torch.float32, 0), (torch.bfloat16, 1)):
+        for name, entry, epi, cin_a, cin_b, cout in CONVS:
+            def rand(*shape, s=0.5):
+                return (s * torch.randn(*shape, device="cuda", generator=gen)).to(dtype)
+
+            xa, xb = rand(B, H2, W2, cin_a), rand(B, H2, W2, max(cin_b, 8))
+            wa, wb = rand(9, cin_a, cout, s=0.05), rand(9, max(cin_b, 8), cout, s=0.05)
+            if dtype == torch.bfloat16 and wgmma_taps is not None:
+                wa, wb = wgmma_taps(wa), wgmma_taps(wb)
+            bias = torch.zeros(cout, device="cuda")
+            lam = torch.full((cout,), 0.01, device="cuda")
+            other = (rand(B, H2, W2, cout) if epi in (0, 1) else
+                     rand(B, H2, W2, cout).float() if epi == 4 else None)
+            out = torch.empty(B, H2, W2, cout, device="cuda",
+                              dtype=torch.float32 if epi == 2 else dtype)
+            optr = None if other is None else other.data_ptr()
+
+            def call():
+                if entry == "ista":
+                    err = lib.lib.v2e_ista_conv3x3(code, epi, xa.data_ptr(), wa.data_ptr(),
+                                                   bias.data_ptr(), optr, lam.data_ptr(),
+                                                   out.data_ptr(), B, H2, W2, cin_a, cout, stream)
+                else:
+                    err = lib.lib.v2e_core_conv3x3(
+                        code, epi, xa.data_ptr(), wa.data_ptr(), cin_a, xb.data_ptr(),
+                        wb.data_ptr(), cin_b, bias.data_ptr(), optr, lam.data_ptr(),
+                        out.data_ptr(), B, H2, W2, cout, stream)
+                lib.check(err, f"{name} conv")
+
+            ms = time_ms(call, warmup=3, iters=20)
+            tflops = 2 * 9 * B * H2 * W2 * (cin_a + cin_b) * cout / (ms * 1e-3) / 1e12
+            print(f"[conv] {ROOT.name} {str(dtype).split('.')[1]} {name} "
+                  f"({cin_a}{f'+{cin_b}' if cin_b else ''} -> {cout}): {ms:.4f} ms, "
+                  f"{tflops:.1f} TFLOP/s", flush=True)
 
 
 if __name__ == "__main__":

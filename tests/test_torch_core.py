@@ -26,11 +26,13 @@ from v2e2v_tpu_torch.models import cista as tcista
 from v2e2v_tpu_torch.ops.cuda.core import (
     BIAS_KEYS,
     TAP_KEYS,
+    TC_KEYS,
     cista_core,
     cista_core_plain,
     core_taps,
     launches_per_call,
 )
+from v2e2v_tpu_torch.ops.cuda.conv_tc import wgmma_taps
 from v2e2v_tpu_torch.serving import StreamPool
 from v2e2v_tpu_torch.utils.checkpoint import params_from_jax
 
@@ -78,7 +80,11 @@ def test_core_taps_equal_jax_core_taps(dtype):
     params = _jax_params(c, depth, seed=3)
     want = jcore.core_taps(params, getattr(jnp, dtype))
     got = core_taps(params_from_jax(params, depth), getattr(torch, dtype))
-    assert set(got) == set(want) == set(TAP_KEYS) | set(BIAS_KEYS)
+    assert set(want) == set(TAP_KEYS) | set(BIAS_KEYS)
+    assert set(got) == set(want) | (set(TC_KEYS) if dtype == "bfloat16" else set())
+    for k, tk in zip(TAP_KEYS, TC_KEYS):  # the tensor-core conv's layout of the same taps
+        if tk in got:
+            assert torch.equal(got[tk], wgmma_taps(got[k])), tk
     for k, w_ in want.items():
         g = got[k]
         assert tuple(g.shape) == w_.shape, k

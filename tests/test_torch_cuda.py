@@ -135,6 +135,22 @@ def test_core_kernel_matches_plain(card, shape, dtype, tol):
         assert torch.equal(a, c)
 
 
+def test_core_kernel_bf16_taps_without_their_layout_match(card):
+    """bfloat16 taps from core_taps carry the tensor-core layout; float32
+    taps with bfloat16 activations are cast and laid out on the call: both
+    give the same result."""
+    taps, *inputs = _core_args(2, 13, 21, 16, 2, card, torch.bfloat16)
+    assert set(k2.TC_KEYS) <= set(taps)
+    f32_taps = k2.core_taps(init_cista_lstc(
+        torch.Generator().manual_seed(0),
+        CistaConfig(image_dim=(26, 42), base_channels=16, depth=2), device=card), torch.float32)
+    assert not set(k2.TC_KEYS) & set(f32_taps)
+    got = k2.cista_core(f32_taps, *inputs, depth=2)
+    want = k2.cista_core(taps, *inputs, depth=2)
+    for g, w_ in zip(got, want):
+        assert torch.equal(g, w_)
+
+
 def test_core_kernel_raises_and_never_falls_back(card, monkeypatch):
     """A failed build or a refused launch raises; the plain version is never
     taken for a CUDA tensor."""
@@ -203,6 +219,120 @@ def test_model_and_pool_with_core_kernel_match_plain_core(card, dtype, tol):
         for a in active:
             torch.testing.assert_close(outs[0][ids[0][a]].float(), outs[1][ids[1][a]].float(),
                                        atol=tol, rtol=tol)
+
+
+# The bfloat16 tensor-core conv (csrc/conv3x3_tc.cuh) through both C entry
+# points: (epilogue, entry, B, H, W, cin_a, cin_b, cout). Ragged tiles (H not
+# a multiple of 16, W not of 8), B = 1 and 8, the flagship's convs at
+# 90x120, C = 8 and 16 (K chunks not a multiple of 16 channels: zero-filled
+# tails), cout 64, 128 and 256 (two chunks of 128 on grid axis z), a cout
+# below the block's 64 channels (masked), and the concat convs with and
+# without their second input.
+TC_CASES = [
+    ("D", "ista", 1, 9, 13, 16, 0, 8), ("P", "ista", 8, 17, 33, 8, 0, 16),
+    ("D", "ista", 8, 90, 120, 128, 0, 64), ("P", "ista", 8, 90, 120, 64, 0, 128),
+    ("D", "core", 1, 17, 33, 32, 0, 16), ("P", "core", 2, 9, 13, 16, 0, 32),
+    ("PRE", "core", 8, 90, 120, 64, 128, 256), ("PRE", "core", 1, 17, 33, 64, 0, 128),
+    ("PRE", "core", 2, 9, 13, 8, 8, 32), ("PRE", "core", 1, 9, 13, 64, 0, 256),
+    ("RELU", "core", 8, 90, 120, 128, 0, 64), ("RELU", "core", 1, 17, 33, 24, 0, 24),
+    ("OUT_GATE", "core", 8, 90, 120, 128, 128, 128), ("OUT_GATE", "core", 1, 9, 13, 16, 0, 16),
+    ("OUT_GATE", "core", 2, 17, 33, 8, 16, 64),
+]
+_EPI = {"D": 0, "P": 1, "PRE": 2, "RELU": 3, "OUT_GATE": 4}
+
+
+def _tc_reference(epi, xs, ws, bias, other, lam):
+    """float64 reflect conv of the bf16 inputs and taps (their sum is exact to
+    float32 rounding), then the epilogue in float32 as the kernel does it."""
+    v = bias.double()
+    for x, w in zip(xs, ws):
+        xp = torch.nn.functional.pad(x.double().permute(0, 3, 1, 2), (1, 1, 1, 1), mode="reflect")
+        w_oihw = w.double().reshape(3, 3, *w.shape[1:]).permute(3, 2, 0, 1)
+        v = v + torch.nn.functional.conv2d(xp, w_oihw).permute(0, 2, 3, 1)
+    v = v.float()
+    if epi == "PRE":
+        return v
+    if epi == "D":
+        res = other.float() - v
+    elif epi == "P":
+        y = v + other.float()
+        res = torch.relu(y - lam) - torch.relu(-y - lam)
+    elif epi == "RELU":
+        res = torch.relu(v)
+    else:
+        res = torch.sigmoid(v) * torch.tanh(other)
+    return res.to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("case", TC_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_tensor_core_conv_matches_reference(card, case):
+    """Each epilogue of the bf16 conv against a float64 conv of the same
+    bf16-rounded inputs and taps: float32 outputs (pre-activations) within
+    1e-3 + 1e-3 |ref| (float32 sums in another order), bf16 outputs within
+    1e-2 + 1e-2 |ref| (one bf16 ulp is 2^-8 relative, and a sum that differs
+    in its last float32 bits may round to the neighbouring bf16 value)."""
+    from v2e2v_tpu_torch.ops.cuda import _lib
+    from v2e2v_tpu_torch.ops.cuda.conv_tc import wgmma_taps
+
+    epi, entry, b, h, w, cin_a, cin_b, cout = case
+    lib = _lib.load()
+    g = torch.Generator().manual_seed(sum(case[2:]))
+    bf = torch.bfloat16
+
+    def act(c):
+        return (0.5 * torch.randn(b, h, w, c, generator=g)).to(card, bf)
+
+    def taps(cin):
+        bound = (9 * (cin_a + cin_b)) ** -0.5
+        return torch.empty(9, cin, cout).uniform_(-bound, bound, generator=g).to(card, bf)
+
+    xs = [act(cin_a)] + ([act(cin_b)] if cin_b else [])
+    ws = [taps(cin_a)] + ([taps(cin_b)] if cin_b else [])
+    bias = (0.1 * torch.randn(cout, generator=g)).to(card)
+    lam = (0.05 * torch.rand(cout, generator=g)).to(card)
+    other = {"D": act(cout), "P": act(cout), "OUT_GATE": torch.randn(b, h, w, cout, generator=g,
+                                                                     device="cpu").to(card)}.get(epi)
+    out = torch.empty(b, h, w, cout, device=card, dtype=torch.float32 if epi == "PRE" else bf)
+    stream = torch.cuda.current_stream().cuda_stream
+    ptr = [None if t is None else t.data_ptr() for t in (other, lam if epi == "P" else None)]
+    laid = [wgmma_taps(t) for t in ws]  # the kernel's shared-memory order
+    if entry == "ista":
+        err = lib.lib.v2e_ista_conv3x3(1, _EPI[epi], xs[0].data_ptr(), laid[0].data_ptr(),
+                                       bias.data_ptr(), ptr[0], ptr[1], out.data_ptr(),
+                                       b, h, w, cin_a, cout, stream)
+    else:
+        err = lib.lib.v2e_core_conv3x3(
+            1, _EPI[epi], xs[0].data_ptr(), laid[0].data_ptr(), cin_a,
+            xs[1].data_ptr() if cin_b else None, laid[1].data_ptr() if cin_b else None, cin_b,
+            bias.data_ptr(), ptr[0], ptr[1], out.data_ptr(), b, h, w, cout, stream)
+    lib.check(err, "tensor-core conv launch")
+    torch.cuda.synchronize()
+    want = _tc_reference(epi, xs, ws, bias, other, lam)
+    tol = 1e-3 if epi == "PRE" else 1e-2
+    torch.testing.assert_close(out.float(), want.float(), atol=tol, rtol=tol)
+
+
+def test_tensor_core_conv_refuses_misaligned_views(card):
+    """cp.async copies 16-byte rows: a bf16 view that does not start on a
+    16-byte boundary is refused by the wrappers, not read crookedly."""
+    args = list(_inputs(1, 8, 8, 8, card, torch.bfloat16))
+
+    def shifted(t):
+        flat = torch.empty(t.numel() + 1, device=card, dtype=t.dtype)
+        view = flat[1:].view(t.shape)
+        view.copy_(t)
+        return view
+
+    for i in (0, 1):
+        bad = list(args)
+        bad[i] = shifted(args[i])
+        with pytest.raises(ValueError, match="16-byte boundary"):
+            ista_loop(*bad, depth=1)
+    core = list(_core_args(1, 8, 8, 8, 1, card, torch.bfloat16))
+    core[3] = shifted(core[3])  # cell
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        k2.cista_core(*core, depth=1)
+    ista_loop(*args, depth=1)  # the aligned originals run
 
 
 def test_front_end_on_card_matches_cpu(card):

@@ -36,6 +36,7 @@ def test_importing_the_port_loads_no_jax():
         "import v2e2v_tpu_torch.models.emulator, v2e2v_tpu_torch.models.v2e2v\n"
         "import v2e2v_tpu_torch.ops.cuda.emulator_iters, v2e2v_tpu_torch.ops.numerics\n"
         "import v2e2v_tpu_torch.ops.cuda.core, v2e2v_tpu_torch.ops.cuda._lib\n"
+        "import v2e2v_tpu_torch.ops.cuda.conv_tc\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'v2e2v_tpu')]\n"
         "assert not bad, bad\n"
     )

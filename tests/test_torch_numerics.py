@@ -11,6 +11,12 @@ Tolerances and why:
 - everything else exact.
 """
 
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -112,3 +118,59 @@ def test_torch_linspace_is_not_jnp_linspace():
     """The trap the port's ``_per_row_times`` avoids."""
     want = np.asarray(jemu._per_row_times(jnp.asarray([[0.1, 0.136]], jnp.float32), 10))[0]
     assert np.sum(torch.linspace(0.1, 0.136, 10).numpy() != want) > 0
+
+
+# One fresh process: the port imported (it makes torch's first MKL VML call
+# itself), then the port's first call of a VML function: lin_log's log
+# (argv[1] == "log") or the tanh of tests/test_torch_conv.py's [tanh-1] case
+# ("tanh"). No JAX: the fault does not need it.
+_FIRST_VML_CALL = r"""
+import json, sys
+import numpy as np
+import torch
+from v2e2v_tpu_torch.ops import conv as tconv, numerics as tnum
+
+if sys.argv[1] == "log":
+    x = np.random.default_rng(0).uniform(0, 255, 200_000).astype(np.float32)
+    first, second = (tnum.lin_log(torch.from_numpy(x)).numpy() for _ in range(2))
+    print(json.dumps({"max_abs_err": float(np.abs(first - second).max())}))
+else:
+    rng = np.random.default_rng(1)
+    xc = rng.standard_normal((2, 16, 24, 6)).astype(np.float32)
+    w = (0.2 * rng.standard_normal((3, 3, 6, 8))).astype(np.float32)
+    b = (0.2 * rng.standard_normal(8)).astype(np.float32)
+    params = {"weight": torch.from_numpy(tconv.hwio_to_torch_conv(w).copy()),
+              "bias": torch.from_numpy(b)}
+    got = tconv.conv_layer(torch.from_numpy(xc), params, padding=1, activation="tanh").numpy()
+    xp = np.pad(xc.astype(np.float64), ((0, 0), (1, 1), (1, 1), (0, 0)), mode="reflect")
+    want = sum(np.einsum("nhwc,co->nhwo", xp[:, dy:dy + 16, dx:dx + 24], w[dy, dx])
+               for dy in range(3) for dx in range(3))
+    print(json.dumps({"max_abs_err": float(np.abs(got - np.tanh(want + b)).max())}))
+"""
+
+
+def test_first_vml_call_in_a_fresh_process_is_exact():
+    """Pins the repair of the flake of this file's lin_log test and of
+    test_torch_conv.py's [tanh-1] case (ROADMAP section 3): torch's CPU
+    ``log`` and ``tanh`` call MKL's VML on each intra-op thread, and the
+    first VML call of a process came out inexact on one or more threads'
+    shares in about 1 of 10 fresh processes (log up to 1549 ulp, tanh up to
+    4e-5). The port makes that first call itself when it is imported
+    (``_device.make_first_cpu_vml_call``). 64 fresh processes (the fault
+    would pass all of them well under 1% of the time); lin_log's first call
+    must equal its second, the tanh conv lie within the parity tests' 1e-5
+    of the float64 oracle."""
+    root = Path(__file__).resolve().parents[1]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(root),
+                                                       os.environ.get("PYTHONPATH", "")]))
+    cases = ["log", "tanh"] * 32
+    for at in range(0, len(cases), 8):  # 8 processes at a time
+        batch = cases[at:at + 8]
+        procs = [subprocess.Popen([sys.executable, "-c", _FIRST_VML_CALL, case], env=env,
+                                  cwd=root, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                  text=True) for case in batch]
+        for case, proc in zip(batch, procs):
+            out, err = proc.communicate(timeout=300)
+            assert proc.returncode == 0, err[-2000:]
+            got = json.loads(out.strip().splitlines()[-1])["max_abs_err"]
+            assert got <= (0.0 if case == "log" else 1e-5), (case, got)

@@ -14,7 +14,11 @@ V2E2V composite (HFR frames -> emulated voxel grids -> reconstruction) with the
 emulator's iteration loop as CUDA kernel K3.
 """
 
-from .models.cista import (  # noqa: F401
+from ._device import make_first_cpu_vml_call
+
+make_first_cpu_vml_call()
+
+from .models.cista import (  # noqa: E402, F401
     CistaConfig,
     CistaState,
     cista_lstc_step,
@@ -22,7 +26,7 @@ from .models.cista import (  # noqa: F401
     cista_zero_state,
     init_cista_lstc,
 )
-from .models.emulator import (  # noqa: F401
+from .models.emulator import (  # noqa: E402, F401
     EmulatorConfig,
     EmulatorState,
     EmulatorStats,
@@ -32,7 +36,7 @@ from .models.emulator import (  # noqa: F401
     emulator_init_from_pack,
     validate_pack_times,
 )
-from .models.v2e2v import (  # noqa: F401
+from .models.v2e2v import (  # noqa: E402, F401
     V2E2VConfig,
     V2E2VOutput,
     V2E2VState,
@@ -40,4 +44,4 @@ from .models.v2e2v import (  # noqa: F401
     v2e2v_init_state,
     v2e2v_sequence,
 )
-from .serving import StreamPool  # noqa: F401
+from .serving import StreamPool  # noqa: E402, F401

@@ -7,8 +7,15 @@
 //
 // Up to two NHWC inputs feed one sum, so a conv on a channel concat (the
 // gates of ConvLSTC and ConvLSTM) never materialises the concat. Weights are
-// taps [9, cin_s, cout] in the activation type T (float or bfloat16); bias and
-// lambda are float32; every sum is float32.
+// taps [9, cin_s, cout] in the activation type T; bias and lambda are
+// float32; every sum is float32.
+//
+// K1 and K2 run their float32 convs on the body below and their bfloat16
+// convs on the tensor-core body of conv3x3_tc.cuh (same ConvArgs and
+// epilogues, taps laid out for wgmma). Float32 stays here because its
+// contract is exact float32 sums, which the tensor cores (TF32 at best) do
+// not give; on CUDA cores it is bound by operations at 67 TFLOP/s and runs at
+// 16-18 TFLOP/s.
 //
 // Design: a SIMT direct convolution. A block owns an 8x16 output tile and a
 // chunk of co_block <= 128 output channels (grid axis z walks the chunks, so
@@ -17,7 +24,6 @@
 // and each thread keeps a 4-pixel x 8-channel float32 accumulator in
 // registers, reusing each loaded input row for the three horizontal taps.
 // 4 * co_block <= 512 threads, so ptxas may give each thread 128 registers.
-// It does not use the tensor cores.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -51,7 +57,7 @@ __host__ __device__ constexpr bool two_inputs(int epi) {
 
 struct ConvArgs {
   const void* xa;      // NHWC input [B, H, W, cin_a]
-  const void* wa;      // taps [9, cin_a, cout]
+  const void* wa;      // taps [9, cin_a, cout] (laid out by wgmma_taps for conv3x3_tc.cuh)
   const void* xb;      // second input [B, H, W, cin_b], or none: cin_b == 0
   const void* wb;      // taps [9, cin_b, cout]
   int cin_a, cin_b;

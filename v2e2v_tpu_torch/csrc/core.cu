@@ -36,10 +36,14 @@
 // 90x120, C = 64: 4.94 ms at the 67 TFLOP/s of float32 on CUDA cores, 0.335 ms
 // at the 989 TFLOP/s of bfloat16 on tensor cores. Its activations in and out
 // (~288 MB in float32) take 86 us at 3.35 TB/s, so it is bound by operations.
-// This first design runs on CUDA cores in both types; wgmma on bfloat16 tiles
-// with TMA loads, and fusing the launches, are the way to the bound.
+// Float32 (exact float32 sums) runs its convs on the SIMT conv of
+// conv3x3.cuh; bfloat16 runs them on the wgmma implicit GEMM of
+// conv3x3_tc.cuh, with the same epilogues. The next step to the bound is
+// fusing the launches (the float32 cell and gate pre-activations kept on
+// chip).
 
 #include "conv3x3.cuh"
+#include "conv3x3_tc.cuh"
 
 namespace {
 
@@ -93,16 +97,28 @@ __global__ void core_lstm_cell_kernel(const float* __restrict__ pre_l,
   h_out[i] = from_f32<T>(out_g * tanhf(hc));
 }
 
-template <typename T>
-cudaError_t launch_conv(int epi, const ConvArgs& a, int B, cudaStream_t s) {
+template <int EPI, int NB>
+__global__ void __launch_bounds__(v2e::tc::THREADS, 2) core_conv3x3_tc_kernel(const ConvArgs a) {
+  extern __shared__ float4 smem4[];
+  v2e::tc::conv3x3_block<EPI, NB>(a, reinterpret_cast<uint8_t*>(smem4));
+}
+
+// float32 on the SIMT conv, bfloat16 on the tensor cores
+template <int EPI>
+cudaError_t launch_epi(int dtype, const ConvArgs& a, int B, cudaStream_t s) {
+  if (dtype == 0) return v2e::launch_conv3x3(core_conv3x3_kernel<float, EPI>, a, B, s);
+  return v2e::tc::n_block(a.cout) == 128
+             ? v2e::tc::launch(core_conv3x3_tc_kernel<EPI, 128>, a, B, 128, s)
+             : v2e::tc::launch(core_conv3x3_tc_kernel<EPI, 64>, a, B, 64, s);
+}
+
+cudaError_t launch_conv(int dtype, int epi, const ConvArgs& a, int B, cudaStream_t s) {
   switch (epi) {
-    case v2e::EPI_D: return v2e::launch_conv3x3(core_conv3x3_kernel<T, v2e::EPI_D>, a, B, s);
-    case v2e::EPI_P: return v2e::launch_conv3x3(core_conv3x3_kernel<T, v2e::EPI_P>, a, B, s);
-    case v2e::EPI_PRE: return v2e::launch_conv3x3(core_conv3x3_kernel<T, v2e::EPI_PRE>, a, B, s);
-    case v2e::EPI_RELU:
-      return v2e::launch_conv3x3(core_conv3x3_kernel<T, v2e::EPI_RELU>, a, B, s);
-    default:
-      return v2e::launch_conv3x3(core_conv3x3_kernel<T, v2e::EPI_OUT_GATE>, a, B, s);
+    case v2e::EPI_D: return launch_epi<v2e::EPI_D>(dtype, a, B, s);
+    case v2e::EPI_P: return launch_epi<v2e::EPI_P>(dtype, a, B, s);
+    case v2e::EPI_PRE: return launch_epi<v2e::EPI_PRE>(dtype, a, B, s);
+    case v2e::EPI_RELU: return launch_epi<v2e::EPI_RELU>(dtype, a, B, s);
+    default: return launch_epi<v2e::EPI_OUT_GATE>(dtype, a, B, s);
   }
 }
 
@@ -117,6 +133,8 @@ extern "C" {
 // One conv of the core. dtype: 0 = float32, 1 = bfloat16; epi: the
 // v2e::Epilogue. xa [B, H, W, cin_a] with taps wa [9, cin_a, cout], and
 // optionally xb [B, H, W, cin_b] with wb [9, cin_b, cout] (cin_b = 0: none);
+// in bfloat16 the taps laid out by ops/cuda/conv_tc.py::wgmma_taps and every
+// tensor on a 16-byte boundary;
 // bias [cout] float32; other and lam as the epilogue needs them; out
 // [B, H, W, cout], float32 for EPI_PRE and of the dtype otherwise. Returns the
 // cudaError_t of the launch.
@@ -142,8 +160,7 @@ int v2e_core_conv3x3(int dtype, int epi, const void* xa, const void* wa, int cin
   a.W = W;
   a.cout = cout;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)(dtype == 0 ? launch_conv<float>(epi, a, B, s)
-                          : launch_conv<__nv_bfloat16>(epi, a, B, s));
+  return (int)launch_conv(dtype, epi, a, B, s);
 }
 
 // The ConvLSTC cell update over pixels x c2 elements (see above).

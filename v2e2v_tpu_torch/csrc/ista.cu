@@ -20,12 +20,16 @@
 // depth 5): 1.9 ms at the 67 TFLOP/s of float32 on CUDA cores, 0.13 ms at the
 // 989 TFLOP/s of bfloat16 on tensor cores. The bytes it must move (x1, z in,
 // z out, ~110 MB in float32) take 33 us at 3.35 TB/s, so it is bound by
-// operations. This first design is the plain SIMT direct convolution of
-// conv3x3.cuh (8x16 output tiles, output channels in chunks of at most 128,
-// so any C % 8 == 0 runs). It does not use the tensor cores; wgmma with TMA
-// loads and a persistent kernel are the way to the bfloat16 bound.
+// operations in both types. Float32 (exact float32 sums, so no tensor cores)
+// runs on the SIMT conv of conv3x3.cuh (8x16 output tiles, CUDA cores);
+// bfloat16 runs on the wgmma implicit GEMM of conv3x3_tc.cuh (16x8 output
+// tiles, 64 or 128 output channels a block, the input tile staged once per
+// 64-channel chunk and read by all 9 taps, the taps laid out once by the
+// wrapper and streamed by cp.async.bulk through a ring). Both take any
+// C % 8 == 0.
 
 #include "conv3x3.cuh"
+#include "conv3x3_tc.cuh"
 
 namespace {
 
@@ -37,10 +41,26 @@ __global__ void __launch_bounds__(512) ista_conv3x3_kernel(const ConvArgs a) {
   v2e::conv3x3_block<T, MODE>(a, reinterpret_cast<float*>(smem4));
 }
 
-template <typename T>
-cudaError_t launch(int mode, const ConvArgs& a, int B, cudaStream_t s) {
-  return mode == v2e::EPI_D ? v2e::launch_conv3x3(ista_conv3x3_kernel<T, v2e::EPI_D>, a, B, s)
-                            : v2e::launch_conv3x3(ista_conv3x3_kernel<T, v2e::EPI_P>, a, B, s);
+template <int MODE, int NB>
+__global__ void __launch_bounds__(v2e::tc::THREADS, 2) ista_conv3x3_tc_kernel(const ConvArgs a) {
+  extern __shared__ float4 smem4[];
+  v2e::tc::conv3x3_block<MODE, NB>(a, reinterpret_cast<uint8_t*>(smem4));
+}
+
+template <int MODE>
+cudaError_t launch_tc(const ConvArgs& a, int B, cudaStream_t s) {
+  return v2e::tc::n_block(a.cout) == 128
+             ? v2e::tc::launch(ista_conv3x3_tc_kernel<MODE, 128>, a, B, 128, s)
+             : v2e::tc::launch(ista_conv3x3_tc_kernel<MODE, 64>, a, B, 64, s);
+}
+
+// float32 on the SIMT conv, bfloat16 on the tensor cores
+cudaError_t launch(int dtype, int mode, const ConvArgs& a, int B, cudaStream_t s) {
+  if (dtype == 0)
+    return mode == v2e::EPI_D
+               ? v2e::launch_conv3x3(ista_conv3x3_kernel<float, v2e::EPI_D>, a, B, s)
+               : v2e::launch_conv3x3(ista_conv3x3_kernel<float, v2e::EPI_P>, a, B, s);
+  return mode == v2e::EPI_D ? launch_tc<v2e::EPI_D>(a, B, s) : launch_tc<v2e::EPI_P>(a, B, s);
 }
 
 }  // namespace
@@ -49,8 +69,10 @@ extern "C" {
 
 // One conv of the ISTA loop. dtype: 0 = float32, 1 = bfloat16; mode: 0 = D
 // conv with the x1 - (.) epilogue, 1 = P conv with the + z, softshrink
-// epilogue. x, w, other and out are of the dtype; bias [cout] and lam [cout]
-// (mode 1 only) are float32. Returns the cudaError_t of the launch.
+// epilogue. x, w, other and out are of the dtype (w: taps [9, cin, cout], in
+// bfloat16 laid out by ops/cuda/conv_tc.py::wgmma_taps, every tensor on a
+// 16-byte boundary); bias [cout] and lam [cout] (mode 1 only) are float32.
+// Returns the cudaError_t of the launch.
 int v2e_ista_conv3x3(int dtype, int mode, const void* x, const void* w, const void* bias,
                      const void* other, const void* lam, void* out, int B, int H, int W,
                      int cin, int cout, void* stream) {
@@ -69,12 +91,17 @@ int v2e_ista_conv3x3(int dtype, int mode, const void* x, const void* w, const vo
   a.W = W;
   a.cout = cout;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)(dtype == 0 ? launch<float>(mode, a, B, s) : launch<__nv_bfloat16>(mode, a, B, s));
+  return (int)launch(dtype, mode, a, B, s);
 }
 
-// Dynamic shared memory of one block of a conv with cout output channels.
+// Dynamic shared memory of one block of a conv with cout output channels:
+// the float32 (SIMT) conv's, and the bfloat16 (tensor-core) conv's.
 int v2e_conv3x3_smem_bytes(int cout) {
   return (int)v2e::conv_smem_bytes(v2e::co_block_for(cout));
+}
+
+int v2e_conv3x3_tc_smem_bytes(int cout) {
+  return (int)v2e::tc::smem_bytes(v2e::tc::n_block(cout));
 }
 
 const char* v2e_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }

@@ -41,6 +41,15 @@ class KernelLibrary:
             raise RuntimeError(f"{what} failed: CUDA error {err} ({msg})")
 
 
+def check_aligned(what: str, **tensors) -> None:
+    """The tensor-core conv copies 16-byte rows with ``cp.async``: raise if a
+    tensor does not start on a 16-byte boundary (a view at an odd offset)."""
+    for name, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{what}: {name} must start on a 16-byte boundary for the "
+                             f"bfloat16 kernel (data_ptr % 16 = {t.data_ptr() % 16})")
+
+
 def _nvcc() -> str:
     found = shutil.which("nvcc")
     if found:
@@ -57,6 +66,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.v2e_ista_conv3x3.restype = i
     lib.v2e_conv3x3_smem_bytes.argtypes = [i]
     lib.v2e_conv3x3_smem_bytes.restype = i
+    lib.v2e_conv3x3_tc_smem_bytes.argtypes = [i]
+    lib.v2e_conv3x3_tc_smem_bytes.restype = i
     lib.v2e_core_conv3x3.argtypes = [i, i, p, p, i, p, p, i, p, p, p, p, i, i, i, i, p]
     lib.v2e_core_conv3x3.restype = i
     lib.v2e_core_lstc_cell.argtypes = [i, p, p, p, p, p, p, i, i, p]

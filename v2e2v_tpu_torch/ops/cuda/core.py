@@ -28,6 +28,8 @@ _EPI_D, _EPI_P, _EPI_PRE, _EPI_RELU, _EPI_OUT_GATE = range(5)
 
 TAP_KEYS = ("wg_x", "wg_z", "w_p0", "wog_z0", "wog_z", "w_d", "w_p", "w_dg", "wl_x", "wl_h")
 BIAS_KEYS = ("b_g", "b_p0", "b_og", "b_d", "b_p", "lam", "b_dg", "b_l")
+# bfloat16 taps as the tensor-core conv reads them (``conv_tc.wgmma_taps``)
+TC_KEYS = tuple(f"{k}_tc" for k in TAP_KEYS)
 
 
 def core_taps(params: dict, dtype: torch.dtype = torch.bfloat16) -> dict:
@@ -38,7 +40,8 @@ def core_taps(params: dict, dtype: torch.dtype = torch.bfloat16) -> dict:
     (gates on x ``[:C]`` and z ``[C:]``, out gates on z0 ``[:2C]`` and z
     ``[2C:]``, ConvLSTM gates on xg ``[:C]`` and h ``[C:]``). Weights become
     taps ``[9, Cin, Cout]`` in ``dtype``; biases and ``Lambda`` become float32
-    ``[1, Cout]``.
+    ``[1, Cout]``. In bfloat16 the taps are also laid out for the tensor-core
+    conv, under ``TC_KEYS``, so that a pool or a sequence does it once.
     """
     c = params["W0.conv2d.weight"].shape[0]  # base channels
 
@@ -52,7 +55,7 @@ def core_taps(params: dict, dtype: torch.dtype = torch.bfloat16) -> dict:
     wog = params["P0.out_gates.weight"]  # [2C, 2C + 2C, 3, 3]
     wl = params["Dg.recurrent_block.Gates.weight"]  # [4C, C + C, 3, 3]
     ista = "lista_blocks.0."
-    return {
+    out = {
         "wg_x": taps(wg[:, :c]),
         "wg_z": taps(wg[:, c:]),
         "b_g": b("P0.gates.bias"),
@@ -72,6 +75,11 @@ def core_taps(params: dict, dtype: torch.dtype = torch.bfloat16) -> dict:
         "wl_h": taps(wl[:, c:]),
         "b_l": b("Dg.recurrent_block.Gates.bias"),
     }
+    if dtype == torch.bfloat16:
+        from .conv_tc import wgmma_taps
+
+        out |= {tk: wgmma_taps(out[k]) for k, tk in zip(TAP_KEYS, TC_KEYS)}
+    return out
 
 
 def _check(taps, x1, z, cell, dg_h, dg_c, depth) -> None:
@@ -174,8 +182,10 @@ def cista_core(
     """The core: the CUDA kernels for CUDA tensors (7 + 2 x depth launches on
     the current stream, counted in ``cista_core.launches``), the plain version
     for CPU tensors. Arguments and result as ``cista_core_plain``; the kernels
-    need ``C % 8 == 0``. New tensors hold every output: the inputs stay as
-    they were."""
+    need ``C % 8 == 0``, and in bfloat16 (the tensor-core conv) inputs
+    starting on 16-byte boundaries; bfloat16 taps from ``core_taps(params,
+    torch.bfloat16)`` carry their layout, others are laid out on every call.
+    New tensors hold every output: the inputs stay as they were."""
     _check(taps, x1, z, cell, dg_h, dg_c, depth)
     if x1.device.type == "cpu":
         return cista_core_plain(taps, x1, z, cell, dg_h, dg_c, depth)
@@ -184,13 +194,20 @@ def cista_core(
     b, h, w, c = x1.shape
     if c % 8:
         raise ValueError(f"the CUDA kernel needs C % 8 == 0, got C={c}")
-    from ._lib import load
+    from ._lib import check_aligned, load
+    from .conv_tc import wgmma_taps
 
-    lib = load()
     dtype = x1.dtype
-    code = _DTYPE_CODE[dtype]
     t = {k: taps[k].to(dtype).contiguous() for k in TAP_KEYS}
     t |= {k: taps[k].float().contiguous() for k in BIAS_KEYS}
+    cout = {k: t[k].shape[2] for k in TAP_KEYS}
+    if dtype == torch.bfloat16:  # the tensor-core conv's layout, from core_taps
+        laid = {k: taps.get(tk) for k, tk in zip(TAP_KEYS, TC_KEYS)}
+        t |= {k: v if v is not None and v.dtype == dtype else wgmma_taps(t[k])
+              for k, v in laid.items()}
+        check_aligned("cista_core", x1=x1, z=z, cell=cell, dg_h=dg_h, dg_c=dg_c)
+    lib = load()
+    code = _DTYPE_CODE[dtype]
     f32 = dict(dtype=torch.float32, device=x1.device)
     pre = torch.empty((b, h, w, 4 * c), **f32)  # gate pre-activations, LSTC then LSTM
     z0 = torch.empty((b, h, w, 2 * c), **f32)
@@ -206,12 +223,11 @@ def cista_core(
         stream = torch.cuda.current_stream().cuda_stream
 
         def conv(epi, xa, wa, out, xb=None, wb=None, bias=None, other=None, lam=None):
-            cout = t[wa].shape[2]
             err = lib.lib.v2e_core_conv3x3(
                 code, epi, xa.data_ptr(), t[wa].data_ptr(), xa.shape[3], ptr(xb),
                 None if wb is None else t[wb].data_ptr(), 0 if xb is None else xb.shape[3],
                 t[bias].data_ptr(), ptr(other), None if lam is None else t[lam].data_ptr(),
-                out.data_ptr(), b, h, w, cout, stream,
+                out.data_ptr(), b, h, w, cout[wa], stream,
             )
             lib.check(err, "core_conv3x3 launch")
             cista_core.launches += 1
