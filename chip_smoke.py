@@ -61,7 +61,32 @@ Phases, one line each (any failure exits non-zero before the last line):
    inputs, its plain version and its bound; ``emulate_pack`` per pack;
    ``v2e2v_forward`` per pack (host clock), reconstructions per second, peak
    memory;
-9. a ``{"kernels": [...]}`` JSON line, then the last line
+9. the E2V evaluation CLI (``v2e2v_tpu_torch.cli.test_e2v``): a dataset of
+   two sequences of 30 PNG frames at 180x240 (written by the port's
+   ``data/synthetic.py``) with one ``.npz`` of 15,000-30,000 events per interval
+   from ``--seed``, and a ``.pth.tar`` of ``init_cista_lstc`` weights (64
+   channels, depth 5, 5 bins), through the CLI's ``Reconstructor`` with the
+   reference CLI's defaults (``--num_events 15000``, ``--test_data_mode
+   real``) in float32 (TF32 off) and bfloat16. The same run with
+   ``ista_impl="plain"`` first; then the main path, with every count set to
+   0 just before it: K1's counter must rise by 2 x depth per reconstruction,
+   the native runtime must have built and voxelised every window, the PNGs
+   and ``result.csv`` rows must be written and the reconstructions finite, in
+   [0, 1] and within 1e-4 (float32) or 3e-2 + 3e-2 |ref| (bfloat16) of the
+   plain run's. Then the main path once more, untimed, its reconstructions
+   identical to the timed run's: at every call K1's output is held against
+   its plain version on the same inputs (B = 1), and at every step the
+   state (z, which K1 makes, the cell and the Dg ConvLSTM's h and c) against
+   the plain run's, both with the same tolerances; random-init
+   reconstructions are nearly constant, so these, not the images, show K1
+   right on the CLI's shapes. Times (timed run; the reader and the work after
+   the model wrapped from outside): reconstructions per second over
+   ``run()`` (host clock), the host's reader + voxelise time per
+   reconstruction, the model step per reconstruction (CUDA events),
+   normalise + metrics + PNG write per frame, peak memory; then the host
+   path alone, part by part (PNG decode, event load, voxelise, each norm,
+   the metrics, PNG write);
+10. a ``{"kernels": [...]}`` JSON line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX or of the JAX package ``v2e2v_tpu``.
@@ -70,12 +95,14 @@ It imports nothing of JAX or of the JAX package ``v2e2v_tpu``.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -98,6 +125,7 @@ K3_SOURCE = "v2e2v_tpu_torch/csrc/emulator_iters.cu"
 K3_REPLACES = "v2e2v_tpu/ops/pallas/emulator_iters.py:93"
 N_FRAMES, PACKS, RESET_AT, MAX_ITERS = 10, 6, 3, 32
 V2E2V_TOL = 1e-4  # atol and rtol, float32 with TF32 off
+CLI_FRAMES, CLI_SEQUENCES, CLI_EVENTS = 30, 2, (15000, 30000)
 # the emulator of bench.py:170-176, as the V2E2V CLI's flags give it
 FLAGS = dict(image_dim=[H, W], base_channels=C, depth=DEPTH, num_bins=NB,
              event_mode="voxel_grid", pl=1.5, ps=0.5, ql=1.0, qs=0.0, C=0.6,
@@ -415,6 +443,273 @@ def run_v2e2v(cfg, weights, video, noise_seed: int, counters, state_before=None,
         outs.append(out)
     torch.cuda.synchronize()
     return outs, launches
+
+
+def timed(fn, parts: dict, key: str):
+    """``fn``, adding its host-clock seconds and one call to ``parts[key]``
+    (a ``[seconds, calls]`` pair)."""
+    def wrapper(*a, **k):
+        t0 = time.perf_counter()
+        try:
+            return fn(*a, **k)
+        finally:
+            parts[key][0] += time.perf_counter() - t0
+            parts[key][1] += 1
+    return wrapper
+
+
+@contextlib.contextmanager
+def swapped(*patches):
+    """Set each ``(obj, name, value)`` for the block, then restore them."""
+    saved = [(obj, name, obj.__dict__[name]) for obj, name, _ in patches]
+    for obj, name, value in patches:
+        setattr(obj, name, value)
+    try:
+        yield
+    finally:
+        for obj, name, value in saved:
+            setattr(obj, name, value)
+
+
+def cli_reconstructor(root: Path, model: Path, dtype: torch.dtype, out: str, ista_impl: str):
+    """The CLI's ``Reconstructor`` over the dataset at ``root`` with the
+    reference CLI's defaults at full width, its ISTA loop as ``ista_impl``."""
+    from v2e2v_tpu_torch.cli import test_e2v as cli
+    from v2e2v_tpu_torch.utils.configs import set_configs
+
+    parser = argparse.ArgumentParser()
+    set_configs(parser)
+    cfgs = parser.parse_args([
+        "--path_to_test_model", str(model), "--path_to_test_data", str(root),
+        "--image_dim", str(H), str(W), "-c", str(C),
+        "-d", str(DEPTH), "-b", str(NB), "--num_events", str(NUM_EVENTS), "--test_data_mode",
+        "real", "--precision", DNAME[dtype], "-o", str(root.parent / out)])
+    rec = cli.Reconstructor(cfgs, "cuda")
+    if ista_impl != rec.cfg.ista_impl:
+        rec.cfg = dataclasses.replace(rec.cfg, ista_impl=ista_impl)
+        rec.step = cli.make_step(rec.cfg, cli.DTYPES[cfgs.precision])
+    return rec
+
+
+def record_steps(rec, keep_state: bool, events: list | None = None) -> list:
+    """Wrap ``rec.step``: each step appends ``(reconstruction, state or
+    None)`` to the returned list and, given ``events``, its CUDA event pair
+    around the step."""
+    step, steps = rec.step, []
+
+    def recorded(*a):
+        if events is not None:
+            ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+        out_, st = step(*a)
+        if events is not None:
+            ev[1].record()
+            events.append(ev)
+        steps.append((out_, st if keep_state else None))
+        return out_, st
+
+    rec.step = recorded
+    return steps
+
+
+def cli_phase(seed: int, cfg, smi: str) -> dict:
+    """Phase 9: the E2V evaluation CLI at full width: the plain ISTA first,
+    then the main path (K1) with every count set to 0 just before it, then
+    the main path again with K1 held against its plain version at every call
+    and the state against the plain run's at every step. Returns K1's
+    launches on the main path and its largest error per dtype."""
+    from v2e2v_tpu_torch import runtime
+    from v2e2v_tpu_torch.data.synthetic import write_dataset
+    from v2e2v_tpu_torch.models import cista as cista_mod
+    from v2e2v_tpu_torch.models.cista import init_cista_lstc
+    from v2e2v_tpu_torch.ops import image
+    from v2e2v_tpu_torch.ops.cuda.core import cista_core
+    from v2e2v_tpu_torch.ops.cuda.emulator_iters import emulator_iters
+    from v2e2v_tpu_torch.ops.cuda.ista import ista_loop, ista_loop_plain
+    from v2e2v_tpu_torch.ops.voxel import voxelize_and_preprocess_np
+    from v2e2v_tpu_torch.utils import data_io
+
+    t_phase = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="v2e2v_cli_"))
+    cli_k1 = {}
+    try:
+        data, model = tmp / "data", tmp / "model.pth.tar"
+        t0 = time.perf_counter()
+        write_dataset(data, seed, CLI_SEQUENCES, CLI_FRAMES, H, W, CLI_EVENTS)
+        sd = init_cista_lstc(torch.Generator().manual_seed(seed), cfg, device="cpu")
+        torch.save({"epoch": 0, "state_dict": sd, "v2e_params": None}, model)
+        say(f"[cli] dataset: {CLI_SEQUENCES} sequences of {CLI_FRAMES} PNG frames {H}x{W}, "
+            f"{CLI_EVENTS[0]}-{CLI_EVENTS[1]} events per interval (.npz), written in "
+            f"{time.perf_counter() - t0:.1f} s; native runtime built={runtime.available()} "
+            f"({runtime.library_path().name})")
+        if not runtime.available():
+            fail("the native runtime (g++) did not build on this machine")
+        for dtype in (torch.float32, torch.bfloat16):
+            name, tol = DNAME[dtype], TOL[dtype]
+            plain = cli_reconstructor(data, model, dtype, f"plain_{name}", "plain")
+            plain_steps = record_steps(plain, keep_state=True)
+            plain.run()
+
+            # the main path, timed: the reader (frames, events, host voxelise)
+            # and the work after the model (norms, metrics, PNG write) by
+            # wrapping them, the step by CUDA events
+            rec = cli_reconstructor(data, model, dtype, f"cuda_{name}", "cuda")
+            step_ev = []
+            steps = record_steps(rec, keep_state=False, events=step_ev)
+            parts = {k: [0.0, 0] for k in ("read", "post", "evaluate")}
+            reader = rec.video_renderer
+            post = (
+                (image, "normalize_image_minmax_u8",
+                 timed(image.normalize_image_minmax_u8, parts, "post")),
+                (image, "normalize_image_percentile",
+                 timed(image.normalize_image_percentile, parts, "post")),
+                (data_io.ImageWriter, "__call__",
+                 timed(data_io.ImageWriter.__call__, parts, "post")))
+            reader.update_event_frame_pack = timed(reader.update_event_frame_pack, parts, "read")
+            rec.evaluate = timed(rec.evaluate, parts, "evaluate")
+            ista_loop.launches = cista_core.launches = emulator_iters.launches = 0
+            served = voxelize_and_preprocess_np.served
+            served.update(native=0, numpy=0)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            with swapped(*post):
+                t0 = time.perf_counter()
+                rec.run()
+                torch.cuda.synchronize()
+                run_s = time.perf_counter() - t0
+            k1_n, other_n = ista_loop.launches, cista_core.launches + emulator_iters.launches
+            peak = (torch.cuda.max_memory_allocated() - base) / 2**20
+            n_rec, n_frames = len(steps), parts["evaluate"][1]
+            out_dir = tmp / f"cuda_{name}" / "model.pth"
+            pngs = sorted(out_dir.glob("*/frame_*.png"))
+            rows = [(out_dir / d.name / "result.csv").read_text().splitlines()
+                    for d in sorted(out_dir.iterdir())]
+            stacked = torch.stack([r for r, _ in steps])
+            finite = bool(torch.isfinite(stacked).all())
+            in_range = bool(((stacked >= 0) & (stacked <= 1)).all())
+            ok = (finite and in_range and k1_n == 2 * DEPTH * n_rec and other_n == 0
+                  and len(pngs) == n_frames == CLI_SEQUENCES * (CLI_FRAMES - 1)
+                  and len(rows) == CLI_SEQUENCES and all(len(r) == 2 for r in rows)
+                  and served["native"] == n_rec and served["numpy"] == 0)
+            say(f"[cli] {name}: {n_frames} frames, {n_rec} reconstructions of {H}x{W} "
+                f"(C={C}, depth {DEPTH}, --num_events {NUM_EVENTS}, real); K1 launches {k1_n} "
+                f"(want 2 x depth x {n_rec} = {2 * DEPTH * n_rec}), K2 and K3 {other_n}; host "
+                f"voxeliser served native {served['native']}, numpy {served['numpy']}; "
+                f"{len(pngs)} PNGs, result.csv rows {[r[1] for r in rows]}; finite={finite} "
+                f"in[0,1]={in_range} {'pass' if ok else 'FAIL'}")
+            if not ok:
+                fail(f"the CLI's main path in {name} did not run as it should")
+            if len(plain_steps) != n_rec:
+                fail(f"the plain run made {len(plain_steps)} reconstructions, not {n_rec}")
+            err, ok = within(stacked, torch.stack([r for r, _ in plain_steps]), tol)
+            say(f"[cli] {name}: reconstructions through K1 vs the plain ISTA, {n_rec} recurrent "
+                f"steps: max_abs_err={err:.3e} (tol {tol} + {tol} |ref|) "
+                f"{'pass' if ok else 'FAIL'}")
+            if not ok:
+                fail(f"the CLI through K1 disagrees with the plain ISTA in {name}")
+
+            # the main path again, untimed: K1 held against its plain version
+            # on each call's own inputs (B = 1), the state against the plain
+            # run's at each step; launches here are not the main path's
+            chk = cli_reconstructor(data, model, dtype, f"check_{name}", "cuda")
+            chk_steps, k1_errs = record_steps(chk, keep_state=True), []
+
+            def k1_checked(*a, **k):
+                got = ista_loop(*a, **k)
+                k1_errs.append(within(got, ista_loop_plain(*a, **k), tol))
+                return got
+
+            with swapped((cista_mod, "ista_loop", k1_checked)):
+                chk.run()
+            same = len(chk_steps) == n_rec and all(
+                torch.equal(a, b) for (a, _), (b, _) in zip(chk_steps, steps))
+            k1_err = max(e for e, _ in k1_errs)
+            ok = same and len(k1_errs) == n_rec and all(o for _, o in k1_errs)
+            say(f"[cli] {name}: K1 against its plain version on each of the {len(k1_errs)} "
+                f"calls of the CLI path (B=1, {H // 2}x{W // 2}, C={C}, depth {DEPTH}): "
+                f"max_abs_err={k1_err:.3e} (tol {tol} + {tol} |ref|); reconstructions "
+                f"identical to the timed run's: {same} {'pass' if ok else 'FAIL'}")
+            if not ok:
+                fail(f"K1 disagrees with its plain version on the CLI path in {name}")
+            state_err = {}
+            for field in ("z", "cell", "dg h", "dg c"):
+                errs = [within(pick(a, field), pick(b, field), tol)
+                        for (_, a), (_, b) in zip(chk_steps, plain_steps)]
+                state_err[field] = (max(e for e, _ in errs), all(o for _, o in errs))
+            ok = all(o for _, o in state_err.values())
+            say(f"[cli] {name}: state through K1 vs the plain run at each of {n_rec} steps, "
+                f"max_abs_err " + ", ".join(f"{f} {e:.3e}" for f, (e, _) in state_err.items())
+                + f" (tol {tol} + {tol} |ref|) {'pass' if ok else 'FAIL'}")
+            if not ok:
+                fail(f"the CLI's state through K1 disagrees with the plain run's in {name}")
+            cli_k1[dtype] = {"cli_launches": k1_n, "cli_max_abs_err": k1_err}
+            del plain_steps, chk_steps
+
+            step_ms = sum(a.elapsed_time(b) for a, b in step_ev) / n_rec
+            read_ms = 1e3 * parts["read"][0] / n_rec
+            post_ms = 1e3 * (parts["post"][0] + parts["evaluate"][0]) / n_frames
+            rest_ms = 1e3 * run_s - read_ms * n_rec - post_ms * n_frames - step_ms * n_rec
+            say(f"[time] CLI {name} ({smi}): run() {run_s:.3f} s host clock, "
+                f"{n_rec / run_s:.1f} reconstructions/s, {n_frames / run_s:.1f} frames/s; per "
+                f"reconstruction: reader + voxelise {read_ms:.3f} ms (host), model step "
+                f"{step_ms:.3f} ms (CUDA events); per frame: normalise + metrics + PNG write "
+                f"{post_ms:.3f} ms (host); the rest of run() (transfers, syncs, Python) "
+                f"{rest_ms / n_rec:.3f} ms per reconstruction; max_memory_allocated "
+                f"{peak:.1f} MiB above what earlier phases hold ({base / 2**20:.1f} MiB)")
+        host_breakdown(data, smi)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    say(f"[phase] CLI runs {time.perf_counter() - t_phase:.1f} s")
+    return cli_k1
+
+
+def pick(state, field: str) -> torch.Tensor:
+    """One tensor of a ``CistaState``: z, cell, or the Dg ConvLSTM's h or c."""
+    return {"z": state.z, "cell": state.cell, "dg h": state.dg[0], "dg c": state.dg[1]}[field]
+
+
+def host_breakdown(data: Path, smi: str) -> None:
+    """Where the CLI's host time goes, part by part, on the first sequence
+    (host clock, no model): PNG decode, event window load, host voxelise (per
+    reconstruction) and each of the per-frame steps after the model."""
+    from v2e2v_tpu_torch.data import event_readers, video_readers
+    from v2e2v_tpu_torch.ops import image
+    from v2e2v_tpu_torch.utils import evaluate, image_io
+
+    parts = {k: [0.0, 0] for k in ("png decode", "events load", "voxelise", "minmax norm",
+                                   "gt percentile norm", "mse+psnr", "ssim", "png write")}
+    n_rec = n_frames = 0
+    with swapped(
+            (video_readers, "read_gray", timed(video_readers.read_gray, parts, "png decode")),
+            (video_readers, "voxelize_and_preprocess_np",
+             timed(video_readers.voxelize_and_preprocess_np, parts, "voxelise")),
+            (event_readers.NpzEventReader, "__next__",
+             timed(event_readers.NpzEventReader.__next__, parts, "events load"))):
+        reader = video_readers.ImageReader([H, W], num_bins=NB, is_with_events=True)
+        reader.initialize(str(sorted(data.iterdir())[0]), -1)
+        out = data.parent / "breakdown.png"
+        while not reader.ending:
+            grids, gt = reader.update_event_frame_pack(NUM_EVENTS, "real")
+            n_rec += len(grids)
+            n_frames += 1
+            pred = np.ascontiguousarray(grids[-1][0] * 0.1 + 0.5, dtype=np.float32)
+            u8 = timed(image.normalize_image_minmax_u8, parts, "minmax norm")(pred)
+            gt_n = timed(image.normalize_image_percentile, parts, "gt percentile norm")(
+                gt.astype(np.float32))
+            pred_f = u8 / 255.0
+            timed(lambda a, b: (evaluate.mse(a, b), evaluate.psnr(a, b)), parts,
+                  "mse+psnr")(pred_f, gt_n)
+            timed(evaluate.ssim, parts, "ssim")(pred_f, gt_n)
+            timed(image_io.write_gray, parts, "png write")(str(out), u8)
+    per = {k: 1e3 * s / (n_rec if k == "voxelise" else n_frames) for k, (s, _) in parts.items()}
+    say(f"[time] CLI host path by part ({smi}; {n_frames} frames, {n_rec} reconstructions, "
+        f"host clock): per frame read: png decode {per['png decode']:.3f} ms, events load "
+        f"{per['events load']:.3f} ms; per reconstruction: voxelise (native) "
+        f"{per['voxelise']:.3f} ms; per frame after the model: minmax norm "
+        f"{per['minmax norm']:.3f} ms, gt percentile norm {per['gt percentile norm']:.3f} ms, "
+        f"mse+psnr {per['mse+psnr']:.3f} ms, ssim {per['ssim']:.3f} ms, png write "
+        f"{per['png write']:.3f} ms")
 
 
 def main_path_k3_inputs(cfg, state, frames, ts, internal: bool):
@@ -851,7 +1146,13 @@ def main() -> None:
         fail("the main path did not launch K3 and K1")
     say(f"[phase] K3 and V2E2V times {time.perf_counter() - t_phase:.1f} s")
 
-    # 9. kernels, then the result line
+    # 9. the E2V evaluation CLI at full width
+    cli_k1 = cli_phase(args.seed, cfg, smi)
+
+    # 10. kernels, then the result line
+    for e in entries:
+        if e["name"].startswith("ista_loop"):
+            e.update(cli_k1[torch.float32 if "float32" in e["name"] else torch.bfloat16])
     say(json.dumps({"kernels": entries}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": torch.cuda.device_count()}}))

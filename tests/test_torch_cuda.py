@@ -498,3 +498,74 @@ def test_emulate_pack_never_waits_for_the_card(card):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert voxel.shape == (2, 16, 24, 5) and int(n_events) > 0
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 3e-2)],
+                         ids=["f32", "bf16"])
+def test_e2v_cli_through_k1_matches_plain_ista(card, tmp_path, dtype, tol):
+    """The evaluation CLI on a small dataset written without PIL
+    (data/synthetic.py): every reconstruction launches K1 2 x depth times;
+    at every call K1's output equals its plain version on the same inputs
+    (batch 1), and at every step the reconstruction and the state (z, which
+    K1 makes, the cell and the Dg ConvLSTM's h and c) equal the same run's
+    with the plain ISTA. Random-init reconstructions are nearly constant,
+    so the images alone would not show a wrong K1."""
+    from v2e2v_tpu_torch.cli import test_e2v as cli
+    from v2e2v_tpu_torch.data.synthetic import write_dataset
+    from v2e2v_tpu_torch.models import cista as cista_mod
+    from v2e2v_tpu_torch.utils.configs import set_configs
+
+    h, w, c, depth = 32, 48, 16, 3
+    write_dataset(tmp_path / "data", 0, 2, 7, h, w, (400, 900))
+    cfg = CistaConfig(image_dim=(h, w), base_channels=c, depth=depth)
+    torch.save({"epoch": 0, "v2e_params": None,
+                "state_dict": init_cista_lstc(torch.Generator().manual_seed(0), cfg, "cpu")},
+               tmp_path / "model.pth.tar")
+    runs, k1_calls = {}, []
+
+    def k1_checked(*a, **k):
+        got = ista_loop(*a, **k)
+        k1_calls.append((got, ista_loop_plain(*a, **k)))
+        return got
+
+    for impl in ("cuda", "plain"):
+        parser = cli.argparse.ArgumentParser()
+        set_configs(parser)
+        cfgs = parser.parse_args([
+            "--path_to_test_model", str(tmp_path / "model.pth.tar"), "--path_to_test_data",
+            str(tmp_path / "data"), "--image_dim", str(h), str(w), "-c", str(c), "-d", str(depth),
+            "--num_events", "500", "--precision", {torch.float32: "float32",
+                                                   torch.bfloat16: "bfloat16"}[dtype],
+            "-o", str(tmp_path / impl)])
+        rec = cli.Reconstructor(cfgs, card)
+        if impl == "plain":
+            rec.cfg = dataclasses.replace(rec.cfg, ista_impl="plain")
+        steps, step = [], cli.make_step(rec.cfg, dtype)
+
+        def recorded(*a, step=step, steps=steps):
+            out, st = step(*a)
+            steps.append((out, st))
+            return out, st
+
+        rec.step = recorded
+        before = ista_loop.launches
+        saved = cista_mod.ista_loop
+        cista_mod.ista_loop = k1_checked
+        try:
+            rec.run()
+        finally:
+            cista_mod.ista_loop = saved
+        torch.cuda.synchronize()
+        runs[impl] = (steps, ista_loop.launches - before)
+        assert len(list((tmp_path / impl / "model.pth").glob("*/frame_*.png"))) == 12
+    (got, k1), (want, k1_plain) = runs["cuda"], runs["plain"]
+    assert len(got) == len(want) == len(k1_calls) > 12
+    assert k1 == 2 * depth * len(got) and k1_plain == 0
+    for k1_out, plain_out in k1_calls:
+        assert k1_out.shape == (1, h // 2, w // 2, 2 * c) and k1_out.dtype == dtype
+        torch.testing.assert_close(k1_out.float(), plain_out.float(), atol=tol, rtol=tol)
+    for (g, g_st), (w_, w_st) in zip(got, want):
+        assert g.dtype == torch.float32 and g.shape == (1, h, w, 1)
+        torch.testing.assert_close(g, w_, atol=tol, rtol=tol)
+        for a, b in zip((g_st.z, g_st.cell, *g_st.dg), (w_st.z, w_st.cell, *w_st.dg)):
+            torch.testing.assert_close(a.float(), b.float(), atol=tol, rtol=tol)

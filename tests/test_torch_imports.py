@@ -1,5 +1,6 @@
-"""The port stands alone: no JAX, nothing of v2e2v_tpu, and no silent CPU
-fallback in its entry points."""
+"""The port stands alone: no JAX, nothing of v2e2v_tpu, no cv2, PIL or pandas
+(the card's machine has none of them), and no silent CPU fallback in its entry
+points."""
 
 import ast
 import subprocess
@@ -13,7 +14,7 @@ from _torch_parity import no_new_jax_cache_entries  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "v2e2v_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
-FORBIDDEN = ("jax", "v2e2v_tpu")
+FORBIDDEN = ("jax", "v2e2v_tpu", "cv2", "PIL", "pandas")
 
 
 def _imported_roots(path):
@@ -36,8 +37,14 @@ def test_importing_the_port_loads_no_jax():
         "import v2e2v_tpu_torch.models.emulator, v2e2v_tpu_torch.models.v2e2v\n"
         "import v2e2v_tpu_torch.ops.cuda.emulator_iters, v2e2v_tpu_torch.ops.numerics\n"
         "import v2e2v_tpu_torch.ops.cuda.core, v2e2v_tpu_torch.ops.cuda._lib\n"
-        "import v2e2v_tpu_torch.ops.cuda.conv_tc\n"
-        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'v2e2v_tpu')]\n"
+        "import v2e2v_tpu_torch.ops.cuda.conv_tc, v2e2v_tpu_torch.ops.image\n"
+        "import v2e2v_tpu_torch.runtime, v2e2v_tpu_torch.data.event_readers\n"
+        "import v2e2v_tpu_torch.data.video_readers, v2e2v_tpu_torch.utils.image_io\n"
+        "import v2e2v_tpu_torch.utils.evaluate, v2e2v_tpu_torch.utils.data_io\n"
+        "import v2e2v_tpu_torch.utils.configs, v2e2v_tpu_torch.utils.profiling\n"
+        "import v2e2v_tpu_torch.cli.test_e2v, v2e2v_tpu_torch.data.synthetic\n"
+        "bad = [m for m in sys.modules\n"
+        "       if m.split('.')[0] in ('jax', 'jaxlib', 'v2e2v_tpu', 'cv2', 'PIL', 'pandas')]\n"
         "assert not bad, bad\n"
     )
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)

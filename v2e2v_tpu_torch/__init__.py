@@ -11,7 +11,9 @@ Ported so far: CISTA-LSTC stream serving (events -> voxel grid -> StreamPool)
 with the ISTA loop as CUDA kernel K1, or the whole half-resolution core as
 CUDA kernel K2 (``CistaConfig.core_impl``); the V2E event emulator and the
 V2E2V composite (HFR frames -> emulated voxel grids -> reconstruction) with the
-emulator's iteration loop as CUDA kernel K3.
+emulator's iteration loop as CUDA kernel K3; the E2V evaluation CLI
+(``python -m v2e2v_tpu_torch.cli.test_e2v``) with its readers, host
+voxeliser, native runtime, PNG codec, metrics and writers.
 """
 
 from ._device import make_first_cpu_vml_call

@@ -1,13 +1,19 @@
 """Events -> normalised voxel grid (port of ``v2e2v_tpu/ops/voxel.py``).
 
-The request front end of the E2V slice: ``events_to_voxel_grid`` bins a
-packet of events into a ``(num_bins, H, W)`` grid with one ``index_add_``
-(the JAX package's ``method='scatter', layout='ref'`` path), and
-``event_preprocess`` normalises it per sample (its ``mode='std'``).
+The device path, the request front end of stream serving:
+``events_to_voxel_grid`` bins a packet of events into a ``(num_bins, H, W)``
+grid with one ``index_add_`` (the JAX package's ``method='scatter',
+layout='ref'`` path), and ``event_preprocess`` normalises it per sample.
+
+The host path, the evaluation CLI's data readers: ``events_to_voxel_grid_np``
+and ``event_preprocess_np`` are the JAX package's numpy functions as they
+are, and ``voxelize_and_preprocess_np`` makes its choice between the native
+runtime (``v2e2v_tpu_torch.runtime``) and numpy.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -71,14 +77,34 @@ def events_to_voxel_grid(
     return grid[:grid_size].reshape(num_bins, height, width)
 
 
-def event_preprocess(voxel: torch.Tensor) -> torch.Tensor:
-    """Per-sample 'std' normalisation of the non-zero voxels.
+def event_preprocess(
+    voxel: torch.Tensor,
+    mode: str = "std",
+    filter_hot_pixel: bool = False,
+    hot_pixel_threshold: float | None = None,
+) -> torch.Tensor:
+    """Per-sample normalisation of a voxel grid on its device.
 
     Leading dims are batch; statistics reduce over the trailing
-    ``[bins, H, W]``. The std is ``sqrt(E[x^2] - mean^2)`` over the non-zero
+    ``[bins, H, W]``. ``filter_hot_pixel`` first zeroes the voxels whose
+    magnitude exceeds the threshold (default ``20 / num_bins`` on the device,
+    as in the JAX package). ``mode='std'``: the non-zero voxels to zero mean
+    and unit std, the std being ``sqrt(E[x^2] - mean^2)`` over the non-zero
     count (not ``torch.std``); a grid with no events is returned unchanged.
+    ``mode='maxmin'``: ``(v - min) / (max - min + 1e-8)``. Any other mode
+    leaves the values as they are.
     """
     red = (-3, -2, -1)
+    if filter_hot_pixel:
+        num_bins = voxel.shape[-3]
+        thr = 20.0 / num_bins if hot_pixel_threshold is None else hot_pixel_threshold
+        voxel = torch.where(voxel.abs() > thr, torch.zeros_like(voxel), voxel)
+    if mode == "maxmin":
+        vmin = voxel.amin(dim=red, keepdim=True)
+        vmax = voxel.amax(dim=red, keepdim=True)
+        return (voxel - vmin) / (vmax - vmin + 1e-8)
+    if mode != "std":
+        return voxel
     nonzero = voxel != 0
     num_nonzeros = nonzero.sum(dim=red, keepdim=True)
     denom = num_nonzeros.clamp(min=1).to(torch.float32)
@@ -88,3 +114,108 @@ def event_preprocess(voxel: torch.Tensor) -> torch.Tensor:
     )
     normalized = nonzero.to(torch.float32) * (voxel - mean) / (stddev + 1e-8)
     return torch.where(num_nonzeros > 0, normalized, voxel)
+
+
+def events_to_voxel_grid_np(
+    events: np.ndarray, num_bins: int, width: int, height: int
+) -> np.ndarray:
+    """Host (numpy) voxelisation of ``[N, 4]`` rows ``[t, x, y, p]`` sorted by
+    ``t``: stamps in float64 normalised to ``[0, num_bins - 1]`` (a window of
+    one stamp counts as ``deltaT = 1``), polarity 0 -> -1, each event split
+    bilinearly between its two bins. Does not mutate its input. Raises
+    IndexError for events outside the grid."""
+    voxel_grid = np.zeros((num_bins, height, width), np.float32).ravel()
+    if len(events) == 0:
+        return voxel_grid.reshape(num_bins, height, width)
+
+    events = np.asarray(events, dtype=np.float64)
+    last_stamp = events[-1, 0]
+    first_stamp = events[0, 0]
+    delta_t = last_stamp - first_stamp
+    if delta_t == 0:
+        delta_t = 1.0
+
+    ts = (num_bins - 1) * (events[:, 0] - first_stamp) / delta_t
+    xs = events[:, 1].astype(np.int64)
+    ys = events[:, 2].astype(np.int64)
+    pols = events[:, 3].copy()
+    pols[pols == 0] = -1  # polarity should be +1 / -1
+
+    tis = np.floor(ts).astype(np.int64)
+    dts = ts - tis
+    vals_left = pols * (1.0 - dts)
+    vals_right = pols * dts
+
+    valid = tis < num_bins
+    np.add.at(
+        voxel_grid,
+        xs[valid] + ys[valid] * width + tis[valid] * width * height,
+        vals_left[valid],
+    )
+    valid = (tis + 1) < num_bins
+    np.add.at(
+        voxel_grid,
+        xs[valid] + ys[valid] * width + (tis[valid] + 1) * width * height,
+        vals_right[valid],
+    )
+    return voxel_grid.reshape(num_bins, height, width).astype(np.float32)
+
+
+def event_preprocess_np(
+    voxel: np.ndarray,
+    mode: str = "std",
+    filter_hot_pixel: bool = False,
+    hot_pixel_threshold: float | None = None,
+) -> np.ndarray:
+    """Host voxel normalisation over the whole ``[bins, H, W]`` grid; the
+    host's hot-pixel threshold default is ``25 / num_bins``."""
+    voxel = np.array(voxel, dtype=np.float32)
+    num_bins = voxel.shape[0]
+    if filter_hot_pixel:
+        thr = 25.0 / num_bins if hot_pixel_threshold is None else hot_pixel_threshold
+        voxel[np.abs(voxel) > thr] = 0
+    if mode == "maxmin":
+        voxel = (voxel - voxel.min()) / (voxel.max() - voxel.min() + 1e-8)
+    elif mode == "std":
+        nonzero = voxel != 0
+        num_nonzeros = nonzero.sum()
+        if num_nonzeros > 0:
+            mean = voxel.sum() / num_nonzeros
+            stddev = np.sqrt((voxel**2).sum() / num_nonzeros - mean**2)
+            voxel = nonzero.astype(np.float32) * (voxel - mean) / (stddev + 1e-8)
+    return voxel
+
+
+def voxelize_and_preprocess_np(
+    events: np.ndarray,
+    num_bins: int,
+    width: int,
+    height: int,
+    filter_hot_pixel: bool = False,
+) -> np.ndarray:
+    """Host voxelisation + 'std' normalisation for the data readers.
+
+    The native runtime serves when it builds (its normalisation sums in
+    float64), else the numpy functions (float32 sums): the JAX package's
+    choice, so each gives that package's numbers on the same host. The two
+    differ by about 1e-4 relative. Events outside the grid raise IndexError
+    on either path. ``voxelize_and_preprocess_np.served`` counts the calls
+    each one served.
+    """
+    from .. import runtime
+
+    if runtime.available():
+        thr = 25.0 / num_bins if filter_hot_pixel else 0.0
+        grid = runtime.voxelize_events(
+            np.ascontiguousarray(events, np.float64),
+            num_bins, width, height,
+            preprocess=True, hot_pixel_threshold=thr,
+        )
+        voxelize_and_preprocess_np.served["native"] += 1
+        return grid
+    grid = events_to_voxel_grid_np(events, num_bins, width, height)
+    voxelize_and_preprocess_np.served["numpy"] += 1
+    return event_preprocess_np(grid, mode="std", filter_hot_pixel=filter_hot_pixel)
+
+
+voxelize_and_preprocess_np.served = {"native": 0, "numpy": 0}

@@ -4,11 +4,13 @@ The port keeps CISTA-LSTC weights as a flat state dict under the reference
 torch module names (OIHW convs, ``Lambda`` as ``[1, 2C, 1, 1]``), so a
 reference ``.pth.tar`` state dict and the port's weights are one format. This
 module keeps the port's own copy of ``export_torch_state_dict`` from
-``v2e2v_tpu/utils/checkpoint.py``, for cista-lstc.
+``v2e2v_tpu/utils/checkpoint.py``, for cista-lstc, and loads reference
+checkpoints (``load_torch_checkpoint``).
 """
 
 from __future__ import annotations
 
+import os
 from typing import Any, Mapping
 
 import numpy as np
@@ -55,3 +57,39 @@ def params_from_jax(params_np: Mapping[str, Any], depth: int = 5) -> dict[str, t
         for k, v in export_torch_state_dict(params_np, depth).items()
     }
 
+
+# the tensors a cista-lstc step reads (the tied ISTA block under index 0)
+CISTA_LSTC_KEYS = tuple(
+    f"{name}.{leaf}"
+    for name in ("We.conv2d", "Wi.conv2d", "W0.conv2d", "P0.gates", "P0.out_gates", "P0.P0",
+                 "lista_blocks.0.D.conv2d", "lista_blocks.0.P.conv2d", "Dg.conv.conv2d",
+                 "Dg.recurrent_block.Gates", "upsamp_conv.conv2d", "final_conv.conv2d")
+    for leaf in ("weight", "bias")
+) + ("lista_blocks.0.Lambda",)
+
+
+def load_torch_checkpoint(path: str, model_mode: str = "cista-lstc"):
+    """Load a reference ``.pth.tar`` checkpoint (``{epoch, state_dict,
+    v2e_params}`` or a bare state dict) as ``(state_dict, epoch, v2e_params or
+    None)``, the state dict float32 CPU tensors under the reference names. A
+    V2E2V checkpoint's ``e2v_net.`` prefix is stripped, as the JAX package's
+    loader strips it."""
+    if os.path.isdir(path):
+        raise ValueError(
+            f"{path} is a directory (a JAX/orbax checkpoint?): the port loads torch "
+            "checkpoints only; export the parameters to a .pth.tar with "
+            "v2e2v_tpu.utils.checkpoint.export_torch_state_dict and torch.save"
+        )
+    if model_mode != "cista-lstc":
+        raise NotImplementedError(
+            f"model_mode {model_mode!r} is not ported yet (ROADMAP.md queue 1, item 5)"
+        )
+    ckpt = torch.load(path, map_location="cpu", weights_only=False)
+    sd = ckpt["state_dict"] if "state_dict" in ckpt else ckpt
+    if any(k.startswith("e2v_net.") for k in sd):
+        sd = {k[len("e2v_net."):]: v for k, v in sd.items() if k.startswith("e2v_net.")}
+    missing = [k for k in CISTA_LSTC_KEYS if k not in sd]
+    if missing:
+        raise KeyError(f"{path}: not a cista-lstc checkpoint, missing {missing}")
+    sd = {k: torch.as_tensor(v).detach().to(torch.float32) for k, v in sd.items()}
+    return sd, ckpt.get("epoch", 0), ckpt.get("v2e_params")
