@@ -86,7 +86,33 @@ Phases, one line each (any failure exits non-zero before the last line):
    normalise + metrics + PNG write per frame, peak memory; then the host
    path alone, part by part (PNG decode, event load, voxelise, each norm,
    the metrics, PNG write);
-10. a ``{"kernels": [...]}`` JSON line, then the last line
+10. the V2E2V CLI (``v2e2v_tpu_torch.cli.test``): two sequences of 37 HFR
+   PNG frames at 180x240, 250 fps (``data/synthetic.write_hfr_dataset``, from
+   ``--seed``), a ``.pth.tar`` of ``e2v_net.``-prefixed ``init_cista_lstc``
+   weights (64 channels, depth 5, 5 bins) whose ``v2e_params`` (those of
+   ``bench.py:170-176``) override other flags; 3 packs of 10 frames per
+   sequence. Run 1 through the plain versions and run 2 through K3 and K1
+   with the same explicit draws (equal event counts, reconstructions within
+   1e-4); run 3, the default path (internal Philox), with every count set to
+   0 just before it: K3 launches once per frame pair (9 on a sequence's first
+   pack, 8 on the others, whose reader returns 9 new frames), K1 2 x depth
+   per pack, the PNGs and event previews written, reconstructions finite in
+   [0, 1], event counts within 1% of run 2's. Times of run 3 (packs per
+   second, reader, emulate + reconstruct, writes, peak memory);
+11. raw-event generation: ``cli.generate_events`` over phase 10's dataset
+   (one ``.npz`` per frame interval, every event in one of them: their total
+   equals the printed one; no K3 launch); one pack with the same explicit
+   draws through ``emulate_pack_raw`` and through ``emulate_pack`` with K3
+   (equal counts, binned raw events within 1e-4 of K3's voxel grid), and
+   each one's time;
+12. CISTA-TC (``init_cista_tc``, 64 channels, depth 5): a ``StreamPool``
+   with ``model_mode="cista-tc"`` on phase 4's schedule and voxel grids in
+   float32 (TF32 off) and bfloat16 with every count set to 0 just before
+   (K1, K2 and K3 stay at 0); stream 0's first 3 steps against the CPU
+   (1e-4), bfloat16 within 3e-2 + 3e-2 |ref| of float32, finite in [0, 1];
+   the pool's step time; the E2V CLI with ``--model_mode cista-tc`` over
+   phase 9's first sequence (frames and the ``result.csv`` row written);
+13. a ``{"kernels": [...]}`` JSON line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX or of the JAX package ``v2e2v_tpu``.
@@ -126,6 +152,12 @@ K3_REPLACES = "v2e2v_tpu/ops/pallas/emulator_iters.py:93"
 N_FRAMES, PACKS, RESET_AT, MAX_ITERS = 10, 6, 3, 32
 V2E2V_TOL = 1e-4  # atol and rtol, float32 with TF32 off
 CLI_FRAMES, CLI_SEQUENCES, CLI_EVENTS = 30, 2, (15000, 30000)
+HFR_FRAMES, HFR_SEQUENCES = 37, 2  # the V2E2V CLI's dataset: 3 packs of 10 per sequence
+# the checkpoint's emulator parameters (bench.py:170-176), and flags that differ
+V2E_PARAMS = dict(C=0.6, ps=0.5, pl=1.5, cutoff_hz=200.0, qs=0.0, ql=1.0,
+                  refractory_period_s=0.001)
+V2E_FLAGS = ["--C", "0.3", "--pl", "1.0", "--ps", "1.0", "--cutoff_hz", "0", "--qs", "1",
+             "--ql", "1", "--refractory_period_s", "0"]
 # the emulator of bench.py:170-176, as the V2E2V CLI's flags give it
 FLAGS = dict(image_dim=[H, W], base_channels=C, depth=DEPTH, num_bins=NB,
              event_mode="voxel_grid", pl=1.5, ps=0.5, ql=1.0, qs=0.0, C=0.6,
@@ -712,6 +744,370 @@ def host_breakdown(data: Path, smi: str) -> None:
         f"{per['png write']:.3f} ms")
 
 
+def v2e2v_cli(data: Path, model: Path, out: Path, seed: int, noise_for_sequence=None,
+              plain: bool = False):
+    """The V2E2V CLI's ``V2E2V`` over ``data`` at full width, the flags'
+    emulator parameters overridden by the checkpoint's, writing event
+    previews; with ``plain``, through the plain versions of K3 and K1."""
+    from v2e2v_tpu_torch.cli import test as cli
+    from v2e2v_tpu_torch.models.v2e2v import V2E2VConfig
+    from v2e2v_tpu_torch.utils.configs import set_configs
+
+    parser = argparse.ArgumentParser()
+    set_configs(parser)
+    cfgs = parser.parse_args([
+        "--path_to_test_model", str(model), "--path_to_test_data", str(data), "--image_dim",
+        str(H), str(W), "-c", str(C), "-d", str(DEPTH), "-b", str(NB), "--seed", str(seed),
+        "--is_write_event", "-o", str(out), *V2E_FLAGS])
+    run = cli.V2E2V(cfgs, "cuda", noise_for_sequence)
+    if plain:
+        run.cfg = V2E2VConfig(dataclasses.replace(run.cfg.cista, ista_impl="plain"),
+                              dataclasses.replace(run.cfg.emulator, iters_impl="plain"))
+    return run
+
+
+def recorded_forward(records: list, events: list | None = None):
+    """Patch ``models.v2e2v.v2e2v_forward`` (the CLI imports it when it runs)
+    to append ``(output, [K3, K1] launches, frame pairs)`` per pack and, given
+    ``events``, a CUDA event pair around each call."""
+    from v2e2v_tpu_torch.models import v2e2v as v2e2v_mod
+    from v2e2v_tpu_torch.ops.cuda.emulator_iters import emulator_iters
+    from v2e2v_tpu_torch.ops.cuda.ista import ista_loop
+
+    forward = v2e2v_mod.v2e2v_forward
+
+    def recorded(params, cfg, frames, *a, **k):
+        before = (emulator_iters.launches, ista_loop.launches)
+        if events is not None:
+            ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+        out, state = forward(params, cfg, frames, *a, **k)
+        if events is not None:
+            ev[1].record()
+            events.append(ev)
+        records.append((out, [emulator_iters.launches - before[0],
+                              ista_loop.launches - before[1]], frames.shape[1] - 1))
+        return out, state
+
+    return swapped((v2e2v_mod, "v2e2v_forward", recorded))
+
+
+def v2e2v_cli_phase(seed: int, smi: str, root: Path) -> dict:
+    """Phase 10: the V2E2V CLI at full width over two sequences of 37 HFR
+    frames: run 1 through the plain versions and run 2 through K3 and K1,
+    both with the same explicit draws from card generators; then run 3, the
+    default path (internal Philox), with every count set to 0 just before it.
+    Returns the main path's launches."""
+    from v2e2v_tpu_torch.cli import test as cli_test
+    from v2e2v_tpu_torch.data.synthetic import write_hfr_dataset
+    from v2e2v_tpu_torch.models.cista import CistaConfig, init_cista_lstc
+    from v2e2v_tpu_torch.models.emulator import GeneratorNoise
+    from v2e2v_tpu_torch.models.v2e2v import V2E2VConfig
+    from v2e2v_tpu_torch.ops import image
+    from v2e2v_tpu_torch.ops.cuda.core import cista_core
+    from v2e2v_tpu_torch.ops.cuda.emulator_iters import emulator_iters
+    from v2e2v_tpu_torch.ops.cuda.ista import ista_loop
+    from v2e2v_tpu_torch.utils import data_io
+
+    t_phase = time.perf_counter()
+    data, model = root / "hfr", root / "v2e2v.pth.tar"
+    write_hfr_dataset(data, seed, HFR_SEQUENCES, HFR_FRAMES, H, W)
+    cfg = CistaConfig(image_dim=(H, W), base_channels=C, depth=DEPTH, num_bins=NB)
+    sd = init_cista_lstc(torch.Generator().manual_seed(seed), cfg, device="cpu")
+    torch.save({"epoch": 0, "v2e_params": V2E_PARAMS,
+                "state_dict": {f"e2v_net.{k}": v for k, v in sd.items()}}, model)
+
+    def explicit(i):
+        # the default path's generator seed (run 3), the shot uniforms drawn from it
+        return GeneratorNoise(torch.Generator(device="cuda").manual_seed(
+            cli_test.sequence_seed(seed, i)), explicit_shot=True)
+
+    runs = {}
+    for name, plain in (("run 1 (plain)", True), ("run 2 (K3, K1)", False)):
+        run = v2e2v_cli(data, model, root / f"v2e2v_{len(runs)}", seed, explicit, plain)
+        records = []
+        with recorded_forward(records), contextlib.redirect_stdout(None):
+            run.run()
+        torch.cuda.synchronize()
+        runs[name] = records
+    want_emu = V2E2VConfig.from_flags(argparse.Namespace(**FLAGS)).emulator
+    if run.cfg.emulator != want_emu:
+        fail(f"the checkpoint's v2e_params did not override the flags: {run.cfg.emulator}")
+    (r1, r2) = runs.values()
+    ev1, ev2 = [int(o.num_events) for o, _, _ in r1], [int(o.num_events) for o, _, _ in r2]
+    launches2 = [n for _, n, _ in r2]
+    pairs = [p for _, _, p in r2]
+    rec2 = torch.stack([o.reconstruction for o, _, _ in r2])
+    err, ok = within(rec2, torch.stack([o.reconstruction for o, _, _ in r1]), V2E2V_TOL)
+    ok = ok and ev1 == ev2 and len(r2) == 3 * HFR_SEQUENCES and min(ev2) > 0
+    ok = ok and [n for _, n, _ in r1] == [[0, 0]] * len(r1)
+    ok = ok and launches2 == [[p, 2 * DEPTH] for p in pairs]
+    say(f"[v2e2v-cli] {HFR_SEQUENCES} sequences of {HFR_FRAMES} PNG frames {H}x{W} (250 fps), "
+        f"{len(r2)} packs of 10 frames; checkpoint v2e_params override "
+        f"the flags {' '.join(V2E_FLAGS)}: emulator == bench.py's: True; run 1 (plain) vs run "
+        f"2 (K3, K1), same explicit draws: num_events {ev1} vs {ev2} equal={ev1 == ev2}; K3, K1 "
+        f"launches per pack in run 2 {launches2} (want frame pairs {pairs}, 2 x depth); "
+        f"reconstructions max_abs_err={err:.3e} (tol atol=rtol={V2E2V_TOL}) "
+        f"{'pass' if ok else 'FAIL'}")
+    if not ok:
+        fail("the V2E2V CLI through K3 and K1 disagrees with its plain versions")
+
+    # run 3: the main path, timed from outside (the CLI carries no timers)
+    run = v2e2v_cli(data, model, root / "v2e2v_main", seed)
+    parts = {k: [0.0, 0] for k in ("read", "write")}
+    run.video_renderer.update_frame_pack = timed(run.video_renderer.update_frame_pack, parts,
+                                                 "read")
+    writes = ((image, "normalize_image_minmax_u8",
+               timed(image.normalize_image_minmax_u8, parts, "write")),
+              (data_io, "make_event_preview", timed(data_io.make_event_preview, parts, "write")),
+              (data_io.ImageWriter, "__call__", timed(data_io.ImageWriter.__call__, parts,
+                                                      "write")),
+              (data_io.EventWriter, "__call__", timed(data_io.EventWriter.__call__, parts,
+                                                      "write")))
+    records, step_ev = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    ista_loop.launches = cista_core.launches = emulator_iters.launches = 0
+    emulator_iters.launches_by_shot = dict.fromkeys(emulator_iters.launches_by_shot, 0)
+    with recorded_forward(records, step_ev), swapped(*writes):
+        t0 = time.perf_counter()
+        run.run()
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+    k3_n, k1_n, k2_n = emulator_iters.launches, ista_loop.launches, cista_core.launches
+    k3_internal = emulator_iters.launches_by_shot["internal"]
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**20
+    n_packs = len(records)
+    ev3 = [int(o.num_events) for o, _, _ in records]
+    rec3 = torch.stack([o.reconstruction for o, _, _ in records])
+    finite = bool(torch.isfinite(rec3).all())
+    in_range = bool(((rec3 >= 0) & (rec3 <= 1)).all())
+    out_dir = root / "v2e2v_main" / "v2e2v.pth"
+    pngs = sorted(out_dir.glob("*/frame_*.png"))
+    previews = sorted(out_dir.glob("*/events/events_*.png"))
+    close = len(ev3) == len(ev2) and all(abs(a - b) <= 0.01 * b for a, b in zip(ev3, ev2))
+    ok = (finite and in_range and close and k2_n == 0 and n_packs == len(r2)
+          and k3_n == k3_internal == sum(pairs) and k1_n == 2 * DEPTH * n_packs
+          and [n for _, n, _ in records] == [[p, 2 * DEPTH] for p in pairs]
+          and len(pngs) == len(previews) == n_packs)
+    say(f"[v2e2v-cli] run 3 (default path, internal Philox; counts set to 0 just before): "
+        f"{n_packs} packs, K3 launches {k3_n} (internal {k3_internal}; want {sum(pairs)}, one "
+        f"per frame pair), K1 {k1_n} (want {2 * DEPTH * n_packs}), K2 {k2_n}; num_events {ev3} "
+        f"within 1% of run 2's={close}; {len(pngs)} reconstruction PNGs, {len(previews)} event "
+        f"previews; finite={finite} in[0,1]={in_range} {'pass' if ok else 'FAIL'}")
+    if not ok:
+        fail("the V2E2V CLI's main path did not run as it should")
+    step_ms = sum(a.elapsed_time(b) for a, b in step_ev) / n_packs
+    read_ms = 1e3 * parts["read"][0] / n_packs
+    write_ms = 1e3 * parts["write"][0] / n_packs
+    say(f"[time] V2E2V CLI ({smi}), batch 1, {H}x{W}, float32: run() {run_s:.3f} s host clock, "
+        f"{n_packs / run_s:.2f} packs/s; per pack: reader {read_ms:.3f} ms (host), emulate + "
+        f"reconstruct {step_ms:.3f} ms (CUDA events around v2e2v_forward), minmax norm + "
+        f"preview + PNG writes {write_ms:.3f} ms (host), the rest of run() "
+        f"{1e3 * run_s / n_packs - read_ms - step_ms - write_ms:.3f} ms; max_memory_allocated "
+        f"{peak:.1f} MiB above what earlier phases hold ({base / 2**20:.1f} MiB)")
+    say(f"[phase] V2E2V CLI runs {time.perf_counter() - t_phase:.1f} s")
+    return {"k3": k3_n, "k1": k1_n, "data": data}
+
+
+def raw_phase(seed: int, smi: str, root: Path, data: Path) -> None:
+    """Phase 11: the generation tool over phase 10's dataset, then one pack
+    with the same explicit draws through raw mode and through voxel mode."""
+    from v2e2v_tpu_torch.cli import generate_events as gen
+    from v2e2v_tpu_torch.data.video_readers import ImageReader
+    from v2e2v_tpu_torch.models.emulator import (
+        GeneratorNoise,
+        bin_raw_events,
+        emulate_pack,
+        emulate_pack_raw,
+    )
+    from v2e2v_tpu_torch.models.v2e2v import V2E2VConfig
+    from v2e2v_tpu_torch.ops.cuda.emulator_iters import emulator_iters
+    from v2e2v_tpu_torch.ops.voxel import event_preprocess
+    from v2e2v_tpu_torch.utils.configs import set_configs
+
+    t_phase = time.perf_counter()
+    parser = argparse.ArgumentParser()
+    set_configs(parser)
+    out = root / "generated"
+    cfgs = parser.parse_args(["--path_to_test_data", str(data), "--image_dim", str(H), str(W),
+                              "-b", str(NB), "--seed", str(seed), "-o", str(out),
+                              *[a for k, v in V2E_PARAMS.items() for a in (f"--{k}", str(v))]])
+    k3_before = emulator_iters.launches
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(None):
+        total = gen.generate(cfgs, torch.device("cuda"))
+    gen_s = time.perf_counter() - t0
+    files = sorted(out.glob("*/events/events_*.npz"))
+    in_files = sum(len(np.load(f)["t"]) for f in files)
+    # per sequence: 9 intervals in the first pack, 8 in each later one
+    want_files = HFR_SEQUENCES * (9 + 8 * (HFR_FRAMES // 9 - 2))
+    ok = len(files) == want_files and in_files == total > 0 and emulator_iters.launches == k3_before
+    say(f"[raw] generate_events over phase 10's dataset: {len(files)} .npz files (want "
+        f"{want_files}, one per frame interval), {in_files} events in them, printed total "
+        f"{total}, K3 launches {emulator_iters.launches - k3_before} (raw mode records events "
+        f"with the plain loop); {gen_s:.3f} s host clock {'pass' if ok else 'FAIL'}")
+    if not ok:
+        fail("the event generation tool did not write every event once")
+
+    reader = ImageReader([H, W])
+    reader.initialize(str(sorted(data.iterdir())[0]), -1)
+    frames, _, ts = reader.update_frame_pack(10)
+    frames = torch.from_numpy(frames.astype(np.float32))[None].cuda()
+    ts = torch.from_numpy(ts.astype(np.float32))[None].cuda()
+    emu = V2E2VConfig.from_flags(argparse.Namespace(**FLAGS)).emulator
+    emu_raw = dataclasses.replace(emu, output_mode="raw")
+
+    def noise():
+        return GeneratorNoise(torch.Generator(device="cuda").manual_seed(seed + 7),
+                              explicit_shot=True)
+
+    before = emulator_iters.launches
+    events, n_raw, _ = emulate_pack_raw(emu_raw, None, frames, ts, noise(), device="cuda")
+    raw_k3 = emulator_iters.launches - before
+    voxel, n_vox, _ = emulate_pack(emu, None, frames, ts, noise(), device="cuda")
+    vox_k3 = emulator_iters.launches - before - raw_k3
+    binned = bin_raw_events(events, 1, H, W, NB, device="cuda")
+    normed = event_preprocess(binned.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+    err, close = within(normed, voxel, V2E2V_TOL)
+    ok = close and n_raw == int(n_vox) == len(events) > 0 and raw_k3 == 0 and vox_k3 == 9
+    say(f"[raw] one pack of 10 frames {H}x{W}, the same explicit draws: emulate_pack_raw "
+        f"{n_raw} events (K3 launches {raw_k3}), emulate_pack {int(n_vox)} (K3 {vox_k3}); raw "
+        f"events binned in time and normalised vs K3's voxel grid: max_abs_err={err:.3e} (tol "
+        f"atol=rtol={V2E2V_TOL}) {'pass' if ok else 'FAIL'}")
+    if not ok:
+        fail("raw mode and voxel mode disagree on the card")
+    raw_ms = time_ms(lambda: emulate_pack_raw(emu_raw, None, frames, ts, noise(), device="cuda"),
+                     1, 3)
+    vox_ms = time_ms(lambda: emulate_pack(emu, None, frames, ts, noise(), device="cuda"), 1, 3)
+    say(f"[time] one pack, batch 1, {H}x{W} ({smi}): emulate_pack_raw {raw_ms:.3f} ms (plain "
+        f"loop, masks to the host, extraction and sorts), emulate_pack {vox_ms:.3f} ms (K3), "
+        f"both as the host issues them (CUDA events, explicit draws)")
+    say(f"[phase] raw-event generation {time.perf_counter() - t_phase:.1f} s")
+
+
+def tc_phase(seed: int, smi: str, root: Path, serve, served: dict) -> dict:
+    """Phase 12: CISTA-TC at full width: a StreamPool on phase 4's schedule
+    and voxel grids in float32 and bfloat16 (counts set to 0 just before;
+    K1 and K2 stay at 0), one stream's first 3 steps against the CPU, then the
+    E2V CLI with --model_mode cista-tc over one sequence."""
+    from v2e2v_tpu_torch.cli import test_e2v as cli
+    from v2e2v_tpu_torch.data.synthetic import write_dataset
+    from v2e2v_tpu_torch.models.cista import (
+        CistaConfig,
+        cista_tc_step,
+        cista_zero_state,
+        init_cista_tc,
+    )
+    from v2e2v_tpu_torch.ops.cuda.core import cista_core
+    from v2e2v_tpu_torch.ops.cuda.emulator_iters import emulator_iters
+    from v2e2v_tpu_torch.ops.cuda.ista import ista_loop
+    from v2e2v_tpu_torch.serving import StreamPool
+    from v2e2v_tpu_torch.utils.configs import set_configs
+
+    t_phase = time.perf_counter()
+    cfg = CistaConfig(image_dim=(H, W), base_channels=C, depth=DEPTH, num_bins=NB,
+                      model_mode="cista-tc")
+    sd = init_cista_tc(torch.Generator().manual_seed(seed), cfg, device="cpu")
+    recs, launches = {}, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        pool = StreamPool(cfg, sd, CAPACITY, dtype, device="cuda")
+        snaps, step = [], pool.step
+
+        def stepped(*a, pool=pool, step=step, snaps=snaps, **k):
+            out = step(*a, **k)
+            st = pool._states
+            snaps.append([t[0].float().clone() for t in (pool._prev, st.z, st.cell, *st.dg)])
+            return out
+
+        pool.step = stepped
+        ista_loop.launches = cista_core.launches = emulator_iters.launches = 0
+        recs[dtype], _, _ = serve(pool, served[dtype])
+        launches[dtype] = ista_loop.launches + cista_core.launches + emulator_iters.launches
+        stacked = torch.stack(list(recs[dtype].values()))
+        finite = bool(torch.isfinite(stacked).all())
+        in_range = bool(((stacked >= 0) & (stacked <= 1)).all())
+        ok = finite and in_range and launches[dtype] == 0
+        say(f"[tc] pool {DNAME[dtype]}: {len(recs[dtype])} reconstructions of {H}x{W} "
+            f"(CISTA-TC, C={C}, depth {DEPTH}); K1, K2, K3 launches {launches[dtype]} (want 0: "
+            f"no kernel of the port computes CISTA-TC); finite={finite} in[0,1]={in_range} "
+            f"{'pass' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"the CISTA-TC pool in {DNAME[dtype]} did not run as it should")
+        if dtype == torch.float32:
+            state = cista_zero_state(cfg, 1, torch.float32, "cpu")
+            prev = torch.zeros((1, H, W, 1))
+            errs = []
+            for r in range(3):
+                prev, state = cista_tc_step(sd, cfg, served[dtype][(0, r)].float().cpu()[None],
+                                            prev, state)
+                want = [prev[0], state.z[0], state.cell[0], state.dg[0][0], state.dg[1][0]]
+                errs += [within(g.cpu(), w_, TOL[dtype]) for g, w_ in zip(snaps[r], want)]
+            ok = all(o for _, o in errs)
+            say(f"[tc] float32 stream 0, first 3 steps, card vs CPU (same weights and voxel "
+                f"grids): reconstruction and state (z, cell, Dg h, c) max_abs_err="
+                f"{max(e for e, _ in errs):.3e} (tol {TOL[dtype]} + {TOL[dtype]} |ref|) "
+                f"{'pass' if ok else 'FAIL'}")
+            if not ok:
+                fail("CISTA-TC on the card disagrees with the CPU")
+    err, ok = within(torch.stack(list(recs[torch.bfloat16].values())),
+                     torch.stack(list(recs[torch.float32].values())), TOL[torch.bfloat16])
+    say(f"[tc] bfloat16 vs float32 pool: max_abs_err={err:.3e} (tol 3e-2 + 3e-2 |ref|) "
+        f"{'pass' if ok else 'FAIL'}")
+    if not ok:
+        fail("the bfloat16 CISTA-TC pool disagrees with float32")
+
+    vox = [served[torch.float32][k] for k in sorted(served[torch.float32])[:CAPACITY]]
+    for dtype in (torch.float32, torch.bfloat16):
+        pool = StreamPool(cfg, sd, CAPACITY, dtype, device="cuda")
+        sids = [pool.attach() for _ in range(CAPACITY)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for i in range(8):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pool.step({sid: vox[j] for j, sid in enumerate(sids)}, fetch=False)
+            torch.cuda.synchronize()
+            if i >= 2:
+                times.append(1e3 * (time.perf_counter() - t0))
+        step_ms = float(np.median(times))
+        say(f"[time] CISTA-TC pool {DNAME[dtype]} capacity {CAPACITY}, all active ({smi}): step "
+            f"{step_ms:.3f} ms (median of {len(times)}, host clock, min {min(times):.3f}), "
+            f"{CAPACITY * 1e3 / step_ms:.1f} reconstructions/s; max_memory_allocated "
+            f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+        del pool
+
+    data, model = root / "tc_data", root / "tc_model.pth.tar"
+    write_dataset(data, seed, 1, CLI_FRAMES, H, W, CLI_EVENTS)  # phase 9's first sequence
+    torch.save({"epoch": 0, "state_dict": sd}, model)
+    parser = argparse.ArgumentParser()
+    set_configs(parser)
+    cfgs = parser.parse_args([
+        "--path_to_test_model", str(model), "--path_to_test_data", str(data), "--image_dim",
+        str(H), str(W), "-c", str(C), "-d", str(DEPTH), "-b", str(NB), "--model_mode",
+        "cista-tc", "-o", str(root / "tc_cli")])
+    ista_loop.launches = cista_core.launches = 0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(None):
+        cli.Reconstructor(cfgs, "cuda").run()
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    out_dir = root / "tc_cli" / "tc_model.pth"
+    pngs = sorted(out_dir.glob("*/frame_*.png"))
+    rows = [f.read_text().splitlines() for f in sorted(out_dir.glob("*/result.csv"))]
+    k_n = ista_loop.launches + cista_core.launches
+    ok = len(pngs) == CLI_FRAMES - 1 and len(rows) == 1 and len(rows[0]) == 2 and k_n == 0
+    say(f"[tc] E2V CLI --model_mode cista-tc, float32, one sequence of {CLI_FRAMES} frames: "
+        f"{len(pngs)} PNGs, result.csv row {rows[0][1] if rows else None!r}, K1 and K2 "
+        f"launches {k_n}; run() {cli_s:.3f} s host clock {'pass' if ok else 'FAIL'}")
+    if not ok:
+        fail("the E2V CLI with cista-tc did not run as it should")
+    say(f"[phase] CISTA-TC {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main_path_k3_inputs(cfg, state, frames, ts, internal: bool):
     """The K3 inputs of the first frame pair of a pack on the main path: the
     emulator's own front end, stopped where it calls K3."""
@@ -1149,10 +1545,24 @@ def main() -> None:
     # 9. the E2V evaluation CLI at full width
     cli_k1 = cli_phase(args.seed, cfg, smi)
 
-    # 10. kernels, then the result line
+    # 10-12. the V2E2V CLI, raw-event generation, CISTA-TC
+    tmp = Path(tempfile.mkdtemp(prefix="v2e2v_slice5_"))
+    try:
+        hfr = v2e2v_cli_phase(args.seed, smi, tmp)
+        raw_phase(args.seed, smi, tmp, hfr["data"])
+        tc_launches = tc_phase(args.seed, smi, tmp, serve, served)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # 13. kernels, then the result line
     for e in entries:
         if e["name"].startswith("ista_loop"):
             e.update(cli_k1[torch.float32 if "float32" in e["name"] else torch.bfloat16])
+            if "float32" in e["name"]:
+                e["v2e2v_cli_launches"] = hfr["k1"]
+        if e["name"] == "emulator_iters (internal rng)":
+            e.update(v2e2v_cli_launches=hfr["k3"], raw_launches=0)
+        e["tc_pool_launches"] = sum(tc_launches.values())
     say(json.dumps({"kernels": entries}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": torch.cuda.device_count()}}))

@@ -89,5 +89,10 @@ def test_config_and_step_fn_refuse_what_is_not_ported():
     with pytest.raises(ValueError, match="ista_impl"):
         tcista.CistaConfig(ista_impl="pallas")
     cfg = tcista.CistaConfig()
-    with pytest.raises(NotImplementedError, match="cista-tc"):
-        tcista.get_step_fn(dataclasses.replace(cfg, model_mode="cista-tc"))
+    assert tcista.get_step_fn(cfg) is tcista.cista_lstc_step
+    assert tcista.get_step_fn(dataclasses.replace(cfg, model_mode="cista-tc")) \
+        is tcista.cista_tc_step
+    with pytest.raises(ValueError, match="model_mode"):
+        dataclasses.replace(cfg, model_mode="cista-xx")
+    with pytest.raises(ValueError, match="cista-tc runs with core_impl='layers'"):
+        dataclasses.replace(cfg, model_mode="cista-tc", core_impl="cuda")

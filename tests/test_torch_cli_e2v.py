@@ -183,7 +183,7 @@ def test_cli_without_card_or_platform_raises(setup, monkeypatch):
 
 
 UNSUPPORTED = [
-    (["--model_mode", "cista-tc"], {}, "item 5"),
+    (["--model_mode", "cista-tc", "--quant", "int8"], {}, "item 7"),
     (["--quant", "int8"], {}, "item 7"),
     (["--quant", "int8-static"], {}, "item 7"),
     (["--reader_type", "upsampling"], {}, "item 8"),

@@ -183,8 +183,8 @@ def test_core_impl_choices_and_refusals(monkeypatch):
             dataclasses.replace(base, core_impl=impl)
     with pytest.raises(ValueError, match="core_impl must be"):
         dataclasses.replace(base, core_impl="fused")
-    with pytest.raises(NotImplementedError, match="cista-tc"):
-        tcista.get_step_fn(dataclasses.replace(base, model_mode="cista-tc", core_impl="cuda"))
+    with pytest.raises(ValueError, match="cista-tc runs with core_impl='layers'"):
+        dataclasses.replace(base, model_mode="cista-tc", core_impl="cuda")
 
     # which core function each choice calls, on CPU tensors
     calls = []

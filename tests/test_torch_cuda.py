@@ -569,3 +569,129 @@ def test_e2v_cli_through_k1_matches_plain_ista(card, tmp_path, dtype, tol):
         torch.testing.assert_close(g, w_, atol=tol, rtol=tol)
         for a, b in zip((g_st.z, g_st.cell, *g_st.dg), (w_st.z, w_st.cell, *w_st.dg)):
             torch.testing.assert_close(a.float(), b.float(), atol=tol, rtol=tol)
+
+
+def test_raw_mode_on_card_matches_voxel_mode(card):
+    """Two packs on the card with the same explicit draws through raw mode
+    (the plain loop records the events; K3 records none) and through voxel
+    mode with K3: equal event counts, and the raw events binned in time and
+    normalised equal K3's voxel grid within 1e-4."""
+    from v2e2v_tpu_torch.models.emulator import (
+        EmulatorConfig,
+        GeneratorNoise,
+        bin_raw_events,
+        emulate_pack,
+        emulate_pack_raw,
+    )
+    from v2e2v_tpu_torch.ops.cuda.emulator_iters import emulator_iters
+    from v2e2v_tpu_torch.ops.voxel import event_preprocess
+
+    b, n, h, w = 2, 6, 32, 48
+    cfg = EmulatorConfig(pos_thres=0.6, neg_thres=0.6, sigma_thres=0.03, pl=1.5, ps=0.5,
+                         cutoff_hz=200.0, ql=1.0, qs=0.0, refractory_period_s=0.001,
+                         leak_rate_hz=0.1, shot_noise_rate_hz=100.0)
+    g = torch.Generator().manual_seed(3)
+    base = 30 + 190 * torch.rand(b, 1, h, w, generator=g)
+    i = torch.arange(2 * n, dtype=torch.float32).reshape(1, -1, 1, 1)
+    frames = (base * torch.exp(0.5 * torch.sin(0.7 * i + 6 * base / 220))).clamp(0, 255).to(card)
+    ts = (0.004 * i.reshape(1, -1)).expand(b, -1).to(card)
+    noises = [GeneratorNoise(torch.Generator(device=card).manual_seed(4), explicit_shot=True)
+              for _ in range(2)]
+    raw_state = vox_state = None
+    for p in range(2):
+        f, t = frames[:, p * n:(p + 1) * n], ts[:, p * n:(p + 1) * n]
+        before = emulator_iters.launches
+        events, n_raw, raw_state = emulate_pack_raw(cfg, raw_state, f, t, noises[0], device=card)
+        assert emulator_iters.launches == before
+        voxel, n_vox, vox_state = emulate_pack(cfg, vox_state, f, t, noises[1], device=card)
+        assert emulator_iters.launches - before == n - 1
+        assert n_raw == int(n_vox) == len(events) > 1000
+        binned = bin_raw_events(events, b, h, w, cfg.num_bins, device=card)
+        normed = event_preprocess(binned.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+        torch.testing.assert_close(normed, voxel, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 3e-2)],
+                         ids=["f32", "bf16"])
+def test_cista_tc_on_card_matches_cpu(card, dtype, tol):
+    """CISTA-TC (layers on cuDNN, no kernel of the port) three steps on the
+    card against float32 on the CPU with the same weights and voxel grids;
+    K1 and K2 are not launched."""
+    from v2e2v_tpu_torch.models.cista import init_cista_tc
+
+    cfg = CistaConfig(image_dim=(32, 48), base_channels=16, depth=3, model_mode="cista-tc")
+    sd = init_cista_tc(torch.Generator().manual_seed(0), cfg, device="cpu")
+    vox = torch.randn(3, 2, 32, 48, 5, generator=torch.Generator().manual_seed(1))
+    want, want_state = cista_sequence(sd, cfg, vox)
+    before = (ista_loop.launches, k2.cista_core.launches)
+    got, got_state = cista_sequence({k: v.to(card, dtype) for k, v in sd.items()}, cfg,
+                                    vox.to(card, dtype))
+    torch.cuda.synchronize()
+    assert (ista_loop.launches, k2.cista_core.launches) == before
+    torch.testing.assert_close(got.float().cpu(), want, atol=tol, rtol=tol)
+    torch.testing.assert_close(got_state.z.float().cpu(), want_state.z, atol=tol, rtol=tol)
+
+
+def test_v2e2v_cli_through_kernels_matches_plain(card, tmp_path, capsys):
+    """The V2E2V CLI on two short sequences (data/synthetic.write_hfr_dataset)
+    through K3 and K1 and through their plain versions, with the same
+    explicit draws per sequence: K3 launches once per frame pair (N - 1 on a
+    sequence's first pack, N - 2 on the next, whose reader returns N - 1 new
+    frames) and K1 2 x depth times per pack, the printed averages are equal
+    and every reconstruction is within 1e-4."""
+    from v2e2v_tpu_torch.cli import test as cli
+    from v2e2v_tpu_torch.data.synthetic import write_hfr_dataset
+    from v2e2v_tpu_torch.models import v2e2v as v2e2v_mod
+    from v2e2v_tpu_torch.models.emulator import GeneratorNoise
+    from v2e2v_tpu_torch.ops.cuda.emulator_iters import emulator_iters
+    from v2e2v_tpu_torch.utils.configs import set_configs
+
+    h, w, c, depth, n = 32, 48, 16, 3, 6
+    write_hfr_dataset(tmp_path / "data", 0, 2, 16, h, w)
+    cfg = CistaConfig(image_dim=(h, w), base_channels=c, depth=depth)
+    torch.save({"epoch": 0, "v2e_params": None,
+                "state_dict": init_cista_lstc(torch.Generator().manual_seed(0), cfg, "cpu")},
+               tmp_path / "model.pth.tar")
+    forward, runs = v2e2v_mod.v2e2v_forward, {}
+
+    for impl in ("cuda", "plain"):
+        parser = cli.argparse.ArgumentParser()
+        set_configs(parser)
+        cfgs = parser.parse_args([
+            "--path_to_test_model", str(tmp_path / "model.pth.tar"), "--path_to_test_data",
+            str(tmp_path / "data"), "--image_dim", str(h), str(w), "-c", str(c), "-d", str(depth),
+            "--num_pack_frames", str(n), "--C", "0.4", "--cutoff_hz", "200", "--qs", "0",
+            "--is_write_event", "-o", str(tmp_path / impl)])
+        run = cli.V2E2V(cfgs, card, lambda i: GeneratorNoise(
+            torch.Generator(device=card).manual_seed(10 + i), explicit_shot=True))
+        if impl == "plain":
+            run.cfg = v2e2v_mod.V2E2VConfig(
+                dataclasses.replace(run.cfg.cista, ista_impl="plain"),
+                dataclasses.replace(run.cfg.emulator, iters_impl="plain"))
+        outs, launches = [], []
+
+        def recorded(*a, outs=outs, launches=launches, **k):
+            before = (emulator_iters.launches, ista_loop.launches)
+            out, state = forward(*a, **k)
+            launches.append((emulator_iters.launches - before[0],
+                             ista_loop.launches - before[1]))
+            outs.append(out)
+            return out, state
+
+        v2e2v_mod.v2e2v_forward = recorded
+        try:
+            run.run()
+        finally:
+            v2e2v_mod.v2e2v_forward = forward
+        torch.cuda.synchronize()
+        runs[impl] = (outs, launches, capsys.readouterr().out)
+        assert len(list((tmp_path / impl / "model.pth").glob("*/events/events_*.png"))) == 4
+    (got, k_got, out_got), (want, k_want, out_want) = runs["cuda"], runs["plain"]
+    assert len(got) == len(want) == 4
+    assert k_got == [(n - 1, 2 * depth), (n - 2, 2 * depth)] * 2 and k_want == [(0, 0)] * 4
+    avg = [line for line in out_got.splitlines() if line.startswith("Avg number")]
+    assert len(avg) == 2 and avg == [line for line in out_want.splitlines()
+                                     if line.startswith("Avg number")]
+    for a, b in zip(got, want):
+        assert int(a.num_events) == int(b.num_events) > 0
+        torch.testing.assert_close(a.reconstruction, b.reconstruction, atol=1e-4, rtol=1e-4)

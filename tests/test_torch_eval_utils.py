@@ -123,8 +123,14 @@ def test_load_torch_checkpoint_refuses(tmp_path, jax_params):
     (tmp_path / "orbax").mkdir()
     with pytest.raises(ValueError, match=r"export.*\.pth\.tar"):
         tcheckpoint.load_torch_checkpoint(str(tmp_path / "orbax"))
-    with pytest.raises(NotImplementedError, match="item 5"):
-        tcheckpoint.load_torch_checkpoint(str(tmp_path / "x.pth.tar"), "cista-tc")
+    with pytest.raises(ValueError, match="model_mode"):
+        tcheckpoint.load_torch_checkpoint(str(tmp_path / "x.pth.tar"), "cista-xx")
     torch.save({"state_dict": {"We.conv2d.weight": torch.zeros(1)}}, tmp_path / "bad.pth.tar")
     with pytest.raises(KeyError, match="missing"):
         tcheckpoint.load_torch_checkpoint(str(tmp_path / "bad.pth.tar"))
+    # a cista-lstc checkpoint is not a cista-tc one
+    sd = {k: torch.from_numpy(np.array(v))
+          for k, v in export_torch_state_dict(jax_params, "cista-lstc", depth=2).items()}
+    torch.save({"state_dict": sd}, tmp_path / "lstc.pth.tar")
+    with pytest.raises(KeyError, match="not a cista-tc checkpoint.*alpha.0"):
+        tcheckpoint.load_torch_checkpoint(str(tmp_path / "lstc.pth.tar"), "cista-tc")

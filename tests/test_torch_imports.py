@@ -1,6 +1,6 @@
-"""The port stands alone: no JAX, nothing of v2e2v_tpu, no cv2, PIL or pandas
-(the card's machine has none of them), and no silent CPU fallback in its entry
-points."""
+"""The port stands alone: no JAX, nothing of v2e2v_tpu, no cv2, PIL, pandas or
+matplotlib (the card's machine has none of them), and no silent CPU fallback
+in its entry points."""
 
 import ast
 import subprocess
@@ -14,7 +14,7 @@ from _torch_parity import no_new_jax_cache_entries  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "v2e2v_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
-FORBIDDEN = ("jax", "v2e2v_tpu", "cv2", "PIL", "pandas")
+FORBIDDEN = ("jax", "v2e2v_tpu", "cv2", "PIL", "pandas", "matplotlib")
 
 
 def _imported_roots(path):
@@ -43,15 +43,23 @@ def test_importing_the_port_loads_no_jax():
         "import v2e2v_tpu_torch.utils.evaluate, v2e2v_tpu_torch.utils.data_io\n"
         "import v2e2v_tpu_torch.utils.configs, v2e2v_tpu_torch.utils.profiling\n"
         "import v2e2v_tpu_torch.cli.test_e2v, v2e2v_tpu_torch.data.synthetic\n"
+        "import v2e2v_tpu_torch.cli.test, v2e2v_tpu_torch.cli.generate_events\n"
         "bad = [m for m in sys.modules\n"
-        "       if m.split('.')[0] in ('jax', 'jaxlib', 'v2e2v_tpu', 'cv2', 'PIL', 'pandas')]\n"
+        "       if m.split('.')[0] in ('jax', 'jaxlib', 'v2e2v_tpu', 'cv2', 'PIL', 'pandas',\n"
+        "                              'matplotlib')]\n"
         "assert not bad, bad\n"
     )
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)
 
 
 def test_entry_points_without_device_raise_when_no_card(monkeypatch):
-    from v2e2v_tpu_torch import CistaConfig, StreamPool, cista_zero_state, init_cista_lstc
+    from v2e2v_tpu_torch import (
+        CistaConfig,
+        StreamPool,
+        cista_zero_state,
+        init_cista_lstc,
+        init_cista_tc,
+    )
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = CistaConfig(image_dim=(8, 8), base_channels=8, depth=1)
@@ -62,6 +70,27 @@ def test_entry_points_without_device_raise_when_no_card(monkeypatch):
     sd = init_cista_lstc(torch.Generator().manual_seed(0), cfg, device="cpu")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         StreamPool(cfg, sd)
+    tc = CistaConfig(image_dim=(8, 8), base_channels=8, depth=1, model_mode="cista-tc")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_cista_tc(torch.Generator().manual_seed(0), tc)
+    sd = init_cista_tc(torch.Generator().manual_seed(0), tc, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        StreamPool(tc, sd)
+
+
+@pytest.mark.parametrize("cli", ["test", "test_e2v", "generate_events"])
+def test_cli_entry_points_raise_when_no_card(cli, monkeypatch, tmp_path):
+    """Each CLI's main() without V2E2V_PLATFORM needs the card, and raises
+    before it reads any data."""
+    import importlib
+
+    module = importlib.import_module(f"v2e2v_tpu_torch.cli.{cli}")
+    monkeypatch.delenv("V2E2V_PLATFORM", raising=False)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        module.main(["--path_to_test_data", str(tmp_path / "absent"), "--path_to_test_model",
+                     str(tmp_path / "absent.pth.tar"), "-o", str(tmp_path / "out")])
+    assert not (tmp_path / "out").exists()
 
 
 def test_emulator_and_v2e2v_entry_points_raise_when_no_card(monkeypatch):

@@ -116,3 +116,19 @@ def test_from_flags():
     for flag, impl in (("xla", "plain"), ("pallas", "cuda"), ("auto", "cuda")):
         flags.v2e_iters_impl = flag
         assert tv2e2v.V2E2VConfig.from_flags(flags).emulator.iters_impl == impl
+
+
+def test_from_flags_refuses_bins_above_k3_limit():
+    """K3 keeps the bins in registers (at most 16); ``from_flags`` names the
+    limit before any work."""
+    from v2e2v_tpu_torch.ops.cuda.emulator_iters import MAX_BINS
+
+    flags = types.SimpleNamespace(image_dim=[H, W], base_channels=C, depth=DEPTH,
+                                  num_bins=MAX_BINS, event_mode="voxel_grid", pl=1.5, ps=0.5,
+                                  ql=1.0, qs=0.0, C=0.6, threshold_sigma=0.03, cutoff_hz=200.0,
+                                  refractory_period_s=0.001)
+    assert tv2e2v.V2E2VConfig.from_flags(flags).emulator.num_bins == MAX_BINS == 16
+    flags.num_bins = MAX_BINS + 1
+    with pytest.raises(ValueError, match=r"--num_bins 17: the emulator's iteration kernel K3 "
+                                         r"keeps the bins in registers and takes at most 16"):
+        tv2e2v.V2E2VConfig.from_flags(flags)

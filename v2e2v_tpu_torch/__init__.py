@@ -7,13 +7,16 @@ unless the caller passes ``device="cpu"``; the TPU's Pallas kernels become
 hand-written CUDA kernels for ``sm_90a`` (``csrc/``), each beside a plain
 PyTorch version that CPU tensors take.
 
-Ported so far: CISTA-LSTC stream serving (events -> voxel grid -> StreamPool)
-with the ISTA loop as CUDA kernel K1, or the whole half-resolution core as
-CUDA kernel K2 (``CistaConfig.core_impl``); the V2E event emulator and the
-V2E2V composite (HFR frames -> emulated voxel grids -> reconstruction) with the
-emulator's iteration loop as CUDA kernel K3; the E2V evaluation CLI
+Ported so far: CISTA-LSTC and CISTA-TC stream serving (events -> voxel grid
+-> StreamPool), CISTA-LSTC with the ISTA loop as CUDA kernel K1, or the whole
+half-resolution core as CUDA kernel K2 (``CistaConfig.core_impl``); the V2E
+event emulator and the V2E2V composite (HFR frames -> emulated voxel grids ->
+reconstruction) with the emulator's iteration loop as CUDA kernel K3; the E2V
+evaluation CLI
 (``python -m v2e2v_tpu_torch.cli.test_e2v``) with its readers, host
-voxeliser, native runtime, PNG codec, metrics and writers.
+voxeliser, native runtime, PNG codec, metrics and writers; the V2E2V CLI
+(``python -m v2e2v_tpu_torch.cli.test``) through K3 and K1; raw-event mode and
+the event generation tool (``python -m v2e2v_tpu_torch.cli.generate_events``).
 """
 
 from ._device import make_first_cpu_vml_call
@@ -25,8 +28,10 @@ from .models.cista import (  # noqa: E402, F401
     CistaState,
     cista_lstc_step,
     cista_sequence,
+    cista_tc_step,
     cista_zero_state,
     init_cista_lstc,
+    init_cista_tc,
 )
 from .models.emulator import (  # noqa: E402, F401
     EmulatorConfig,
@@ -34,6 +39,7 @@ from .models.emulator import (  # noqa: E402, F401
     EmulatorStats,
     GeneratorNoise,
     emulate_pack,
+    emulate_pack_raw,
     emulator_init,
     emulator_init_from_pack,
     validate_pack_times,

@@ -5,10 +5,12 @@
 
 For every sequence folder under ``--path_to_test_data``: read the frames and
 events, pack the events to the ``--num_events`` budget ('real' or
-'upsampled'), voxelise them on the host, reconstruct with CISTA-LSTC on the
-card with its state fed back (the ISTA loop is kernel K1), normalise each
-prediction to uint8 (minmax or percentile), write the frames, and report the
-sequence's mean MSE/PSNR/SSIM/LPIPS on stdout and in ``result.csv``.
+'upsampled'), voxelise them on the host, reconstruct with CISTA-LSTC or
+(``--model_mode cista-tc``) CISTA-TC on the card with its state fed back
+(CISTA-LSTC's ISTA loop is kernel K1; CISTA-TC runs no kernel of the port,
+its convs are cuDNN's), normalise each prediction to uint8 (minmax or
+percentile), write the frames, and report the sequence's mean
+MSE/PSNR/SSIM/LPIPS on stdout and in ``result.csv``.
 
 It runs on the CUDA card, and on the CPU only under ``V2E2V_PLATFORM=cpu``.
 Flags it does not cover yet raise at once, naming the ROADMAP.md item that
@@ -30,18 +32,17 @@ ROADMAP = "ROADMAP.md queue 1"
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
-def check_flags(cfgs) -> None:
-    """Raise on every flag (or environment variable) the port's CLI does not
-    cover yet."""
-    def missing(what: str, item: int, why: str = "") -> None:
-        raise NotImplementedError(
-            f"{what} is not ported yet ({ROADMAP}, item {item}){': ' + why if why else ''}"
-        )
+def missing(what: str, item: int, why: str = "") -> None:
+    """Raise for a flag whose ROADMAP.md queue 1 item is not ported yet."""
+    raise NotImplementedError(
+        f"{what} is not ported yet ({ROADMAP}, item {item}){': ' + why if why else ''}"
+    )
 
-    if cfgs.model_mode == "cista-tc":
-        missing("--model_mode cista-tc", 5)
-    if cfgs.model_mode != "cista-lstc":
-        raise ValueError(f"--model_mode must be cista-lstc or cista-tc, got {cfgs.model_mode!r}")
+
+def check_common_flags(cfgs) -> None:
+    """Raise on the flags (and environment variables) that neither of the
+    port's evaluation CLIs covers yet: int8, Super-SloMo upsampling,
+    distributed runs, profiling."""
     if getattr(cfgs, "quant", "none").startswith("int8"):
         missing(f"--quant {cfgs.quant}", 7)
     if cfgs.reader_type == "upsampling":
@@ -56,6 +57,14 @@ def check_flags(cfgs) -> None:
         dist_env.append("V2E2V_DIST_AUTO=1")
     if dist_flags or dist_env:
         missing(" and ".join(dist_flags + dist_env), 9, "distributed runs")
+
+
+def check_flags(cfgs) -> None:
+    """Raise on every flag (or environment variable) this CLI does not cover
+    yet."""
+    if cfgs.model_mode not in ("cista-lstc", "cista-tc"):
+        raise ValueError(f"--model_mode must be cista-lstc or cista-tc, got {cfgs.model_mode!r}")
+    check_common_flags(cfgs)
     lpips = os.environ.get("V2E2V_LPIPS_WEIGHTS")
     if lpips and os.path.exists(lpips):
         missing(f"LPIPS (V2E2V_LPIPS_WEIGHTS={lpips})", 6,

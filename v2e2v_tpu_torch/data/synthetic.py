@@ -8,6 +8,8 @@ port's dependencies are installed.
 
 This is the layout of ``scripts/make_synth_data.py`` without its training
 lists; the events are random, not emulated from the frames.
+``write_hfr_dataset`` writes frame folders alone, the input of the V2E2V CLI
+and of the event generation tool.
 """
 
 from __future__ import annotations
@@ -49,3 +51,38 @@ def write_dataset(root: Path, seed: int, sequences: int, frames: int, h: int, w:
                      x=rng.integers(0, w, n).astype(np.int16),
                      y=rng.integers(0, h, n).astype(np.int16),
                      p=rng.integers(0, 2, n).astype(np.int16))
+
+
+def hfr_frames(seed: int, frames: int, h: int, w: int, batch: int = 1,
+               base: tuple[float, float] = (30.0, 200.0), fps: float = 250.0):
+    """Flickering HFR frames ``[batch, frames, h, w]`` float32 in 0-255 and
+    their times ``[frames]`` (seconds, ``i / fps`` in float32): each pixel is
+    ``base * exp(a * sin(2 pi f t + phase))``, clipped, with base uniform in
+    ``base``, a in [0.2, 1], f in [2, 8] Hz and the phase drawn from ``seed``."""
+    rng = np.random.default_rng(seed)
+    shape = (batch, 1, h, w)
+    b0 = rng.uniform(*base, shape).astype(np.float32)
+    amp = rng.uniform(0.2, 1.0, shape).astype(np.float32)
+    freq = rng.uniform(2.0, 8.0, shape).astype(np.float32)
+    phase = rng.uniform(0, 2 * np.pi, shape).astype(np.float32)
+    t = np.arange(frames, dtype=np.float32) * np.float32(1.0 / fps)
+    arg = 2 * np.pi * freq * t[None, :, None, None] + phase
+    return np.clip(b0 * np.exp(amp * np.sin(arg)), 0, 255).astype(np.float32), t
+
+
+def write_hfr_dataset(root: Path, seed: int, sequences: int, frames: int, h: int, w: int,
+                      base: tuple[float, float] = (30.0, 200.0), fps: float = 250.0) -> None:
+    """Write ``sequences`` folders ``sequence_XXXXXXXXXX/frames`` of
+    ``frames`` 8-bit gray PNGs (``hfr_frames`` of seed ``seed + s``, rounded)
+    and their ``timestamps.txt`` (``i / fps`` seconds)."""
+    from ..utils.image_io import write_gray
+
+    root = Path(root)
+    for s in range(1, sequences + 1):
+        fdir = root / f"sequence_{s:010d}" / "frames"
+        fdir.mkdir(parents=True)
+        video, _ = hfr_frames(seed + s, frames, h, w, base=base, fps=fps)
+        (fdir / "timestamps.txt").write_text(
+            "".join(f"{i} {i / fps:.9f}\n" for i in range(frames)))
+        for i, img in enumerate(np.rint(video[0]).astype(np.uint8)):
+            write_gray(str(fdir / f"frame_{i:010d}.png"), img)

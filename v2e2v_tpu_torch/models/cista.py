@@ -1,4 +1,4 @@
-"""CISTA-LSTC events-to-video reconstruction (port of ``v2e2v_tpu/models/cista.py``).
+"""CISTA events-to-video reconstruction (port of ``v2e2v_tpu/models/cista.py``).
 
 Reference network ``CistaLSTCNet`` (lsying009/V2E2V ``e2v/e2v_model.py``):
 event/image heads -> stride-2 downsample -> ConvLSTC sparse-code init ->
@@ -8,6 +8,13 @@ JAX package's ``fullres_impl='ref'`` path. The half-resolution core (ConvLSTC,
 ISTA, decoder conv and ConvLSTM) runs layer by layer, with the ISTA loop as
 kernel K1 (``ops/cuda/ista.py``) or its plain version, or as one call of
 kernel K2 (``ops/cuda/core.py``) or its plain version (``core_impl``).
+
+``CistaTCNet`` (``model_mode="cista-tc"``, the ICASSP'22 network) starts the
+sparse code from one conv ``P0`` and adds, in every weight-tied ISTA
+iteration, a temporal term: a sigmoid attention between one-channel
+projections of the previous step's code and the current one gates
+``alpha * (prev_z - tmp)``. Its decoder's upsample conv has no activation.
+It runs layer by layer on ``F.conv2d``: K1 and K2 compute LSTC's core only.
 
 Weights are a flat state dict under the reference module names (see
 ``utils/checkpoint.py``); activations are NHWC, as in the JAX package.
@@ -25,13 +32,14 @@ from .._device import resolve_device
 from ..ops.conv import conv_layer, conv_lstc_step, conv_lstm_step, upsample_conv_layer
 from ..ops.cuda.core import cista_core, cista_core_plain, core_taps
 from ..ops.cuda.ista import ista_loop, ista_loop_plain
+from ..ops.numerics import softshrink
 
 StateDict = dict[str, torch.Tensor]
 
 
 @dataclass(frozen=True)
 class CistaConfig:
-    """The parts of the JAX ``CistaConfig`` that CISTA-LSTC uses.
+    """The parts of the JAX ``CistaConfig`` that the float path uses.
 
     ``image_dim`` is (H, W) of the voxel grid (even). ``ista_impl``: 'cuda'
     (kernel K1 for CUDA tensors; its plain version for CPU tensors) or
@@ -39,7 +47,8 @@ class CistaConfig:
     default: the core layer by layer, its ISTA loop as ``ista_impl`` says),
     'cuda' (kernel K2 for CUDA tensors, its plain version for CPU tensors) or
     'plain' (K2's plain version on any device); with K2, ``ista_impl`` is not
-    read.
+    read. CISTA-TC (``model_mode="cista-tc"``) reads neither and takes
+    ``core_impl="layers"`` only.
     """
 
     image_dim: tuple[int, int] = (180, 240)
@@ -51,6 +60,9 @@ class CistaConfig:
     core_impl: str = "layers"
 
     def __post_init__(self):
+        if self.model_mode not in ("cista-lstc", "cista-tc"):
+            raise ValueError(
+                f"model_mode must be 'cista-lstc' or 'cista-tc', got {self.model_mode!r}")
         if self.ista_impl not in ("plain", "cuda"):
             raise ValueError(f"ista_impl must be 'plain' or 'cuda', got {self.ista_impl!r}")
         if self.core_impl not in ("layers", "cuda", "plain"):
@@ -58,6 +70,11 @@ class CistaConfig:
                     "here)" if self.core_impl in ("xla", "pallas") else "")
             raise ValueError(
                 f"core_impl must be 'layers', 'cuda' or 'plain', got {self.core_impl!r}{hint}"
+            )
+        if self.model_mode == "cista-tc" and self.core_impl != "layers":
+            raise ValueError(
+                f"core_impl={self.core_impl!r} computes CISTA-LSTC's core (kernel K2); "
+                "cista-tc runs with core_impl='layers'"
             )
 
 
@@ -86,46 +103,75 @@ def cista_zero_state(
     return CistaState(cell=zeros(2 * c), z=zeros(2 * c), dg=(zeros(c), zeros(c)))
 
 
+# the weight-tied tensors: the reference repeats ONE IstaBlock (and, in
+# CISTA-TC, one alpha), so every index names the same tensors
+_TIED = ("lista_blocks.{}.D.conv2d.weight", "lista_blocks.{}.D.conv2d.bias",
+         "lista_blocks.{}.P.conv2d.weight", "lista_blocks.{}.P.conv2d.bias",
+         "lista_blocks.{}.Lambda")
+
+
+def _random_weights(generator, cfg, device, layers, tied=_TIED) -> StateDict:
+    """Draw ``layers`` in order on the CPU: ``(name, cin, cout)`` is a 3x3
+    conv with torch's default init (weights and biases U(-1/sqrt(fan_in),
+    1/sqrt(fan_in))), ``(name,)`` a ``[1, 2C, 1, 1]`` vector ``0.001 * U[0,
+    1)``; move them to ``device`` and alias index 0 of ``tied`` for every
+    index below ``cfg.depth``."""
+    device = resolve_device(device)
+    sd: StateDict = {}
+    for name, *io in layers:
+        if not io:
+            sd[name] = 0.001 * torch.rand(1, 2 * cfg.base_channels, 1, 1, generator=generator)
+            continue
+        cin, cout = io
+        bound = 1.0 / math.sqrt(cin * 9)
+        sd[name + ".weight"] = torch.empty(cout, cin, 3, 3).uniform_(
+            -bound, bound, generator=generator
+        )
+        sd[name + ".bias"] = torch.empty(cout).uniform_(-bound, bound, generator=generator)
+    sd = {k: v.to(device) for k, v in sd.items()}
+    for i in range(1, cfg.depth):
+        for leaf in tied:
+            sd[leaf.format(i)] = sd[leaf.format(0)]
+    return sd
+
+
 def init_cista_lstc(
     generator: torch.Generator,
     cfg: CistaConfig,
     device: torch.device | str | None = None,
 ) -> StateDict:
-    """Random CISTA-LSTC weights with torch's default conv init
-    (U(-1/sqrt(fan_in), 1/sqrt(fan_in)) for weights and biases) and
+    """Random CISTA-LSTC weights with torch's default conv init and
     ``Lambda ~ 0.001 * U[0, 1)``, drawn on the CPU from ``generator`` (so a
     seed gives the same weights on every device), then moved to ``device``."""
-    device = resolve_device(device)
     c = cfg.base_channels
-    sd: StateDict = {}
+    return _random_weights(generator, cfg, device, [
+        ("We.conv2d", cfg.num_bins, c // 2), ("Wi.conv2d", 1, c // 2), ("W0.conv2d", c, c),
+        ("P0.gates", c + 2 * c, 4 * c), ("P0.out_gates", 4 * c, 2 * c), ("P0.P0", c, 2 * c),
+        ("lista_blocks.0.D.conv2d", 2 * c, c), ("lista_blocks.0.P.conv2d", c, 2 * c),
+        ("lista_blocks.0.Lambda",), ("Dg.conv.conv2d", 2 * c, c),
+        ("Dg.recurrent_block.Gates", 2 * c, 4 * c), ("upsamp_conv.conv2d", c, c),
+        ("final_conv.conv2d", c, 1),
+    ])
 
-    def conv(name, cin, cout, k=3):
-        bound = 1.0 / math.sqrt(cin * k * k)
-        sd[name + ".weight"] = torch.empty(cout, cin, k, k).uniform_(
-            -bound, bound, generator=generator
-        )
-        sd[name + ".bias"] = torch.empty(cout).uniform_(-bound, bound, generator=generator)
 
-    conv("We.conv2d", cfg.num_bins, c // 2)
-    conv("Wi.conv2d", 1, c // 2)
-    conv("W0.conv2d", c, c)
-    conv("P0.gates", c + 2 * c, 4 * c)
-    conv("P0.out_gates", 4 * c, 2 * c)
-    conv("P0.P0", c, 2 * c)
-    conv("lista_blocks.0.D.conv2d", 2 * c, c)
-    conv("lista_blocks.0.P.conv2d", c, 2 * c)
-    sd["lista_blocks.0.Lambda"] = 0.001 * torch.rand(1, 2 * c, 1, 1, generator=generator)
-    conv("Dg.conv.conv2d", 2 * c, c)
-    conv("Dg.recurrent_block.Gates", 2 * c, 4 * c)
-    conv("upsamp_conv.conv2d", c, c)
-    conv("final_conv.conv2d", c, 1)
-    sd = {k: v.to(device) for k, v in sd.items()}
-    # the reference repeats ONE IstaBlock: every index names the same tensors
-    for i in range(1, cfg.depth):
-        for leaf in ("D.conv2d.weight", "D.conv2d.bias", "P.conv2d.weight",
-                     "P.conv2d.bias", "Lambda"):
-            sd[f"lista_blocks.{i}.{leaf}"] = sd[f"lista_blocks.0.{leaf}"]
-    return sd
+def init_cista_tc(
+    generator: torch.Generator,
+    cfg: CistaConfig,
+    device: torch.device | str | None = None,
+) -> StateDict:
+    """Random CISTA-TC weights under the reference names, drawn as
+    ``init_cista_lstc`` draws them, with ``alpha ~ 0.001 * U[0, 1)`` of shape
+    ``[1, 2C, 1, 1]`` (one tensor for every iteration, stored as
+    ``alpha.{i}``, as the reference repeats one parameter)."""
+    c = cfg.base_channels
+    return _random_weights(generator, cfg, device, [
+        ("one_conv_for_prev.conv2d", 2 * c, 1), ("one_conv_for_cur.conv2d", 2 * c, 1),
+        ("alpha.0",), ("We.conv2d", cfg.num_bins, c // 2), ("Wi.conv2d", 1, c // 2),
+        ("W0.conv2d", c, c), ("P0.conv2d", c, 2 * c), ("lista_blocks.0.D.conv2d", 2 * c, c),
+        ("lista_blocks.0.P.conv2d", c, 2 * c), ("lista_blocks.0.Lambda",),
+        ("Dg.conv.conv2d", 2 * c, c), ("Dg.recurrent_block.Gates", 2 * c, 4 * c),
+        ("upsamp_conv.conv2d", c, c), ("final_conv.conv2d", c, 1),
+    ], _TIED + ("alpha.{}",))
 
 
 def _conv(params: StateDict, name: str) -> dict[str, torch.Tensor]:
@@ -211,12 +257,49 @@ def cista_lstc_step(
     return torch.sigmoid(rec), state
 
 
+def cista_tc_step(
+    params: StateDict,
+    cfg: CistaConfig,
+    events: torch.Tensor,
+    prev_image: torch.Tensor,
+    state: CistaState,
+) -> tuple[torch.Tensor, CistaState]:
+    """One CISTA-TC reconstruction (reference ``e2v_model.py:146-197``).
+
+    Arguments and results as ``cista_lstc_step``; ``state.cell`` is carried
+    unchanged (the network has no ConvLSTC). ``one_conv_for_prev`` runs once
+    per step on the previous code, ``one_conv_for_cur`` once per ISTA
+    iteration.
+    """
+    x1 = _heads(params, events, prev_image)
+    z = conv_layer(x1, _conv(params, "P0.conv2d"), padding=1)
+    tmp = z
+    prev_z = state.z
+    one_ch_prev = conv_layer(prev_z, _conv(params, "one_conv_for_prev.conv2d"), padding=1)
+    cur = _conv(params, "one_conv_for_cur.conv2d")
+    d = _conv(params, "lista_blocks.0.D.conv2d")
+    p = _conv(params, "lista_blocks.0.P.conv2d")
+    lam = params["lista_blocks.0.Lambda"].reshape(-1).to(x1.dtype)
+    alpha = params["alpha.0"].reshape(-1).to(x1.dtype)
+    for _ in range(cfg.depth):
+        one_ch_cur = conv_layer(tmp, cur, padding=1)
+        attention = torch.sigmoid(one_ch_prev * one_ch_cur)
+        temporal_z = attention * ((prev_z - tmp) * alpha)
+        tmp = conv_layer(tmp, d, padding=1)
+        x = conv_layer(x1 - tmp, p, padding=1)
+        z = softshrink(x + z + temporal_z, lam)
+        tmp = z
+    x = conv_layer(z, _conv(params, "Dg.conv.conv2d"), padding=1, activation="relu")
+    rec_h, dg_state = conv_lstm_step(
+        {"Gates": _conv(params, "Dg.recurrent_block.Gates")}, x, state.dg
+    )
+    rec = _upsample_final(params, cfg, rec_h, upsamp_activation=None)
+    return torch.sigmoid(rec), CistaState(cell=state.cell, z=z, dg=dg_state)
+
+
 def get_step_fn(cfg: CistaConfig):
-    if cfg.model_mode == "cista-lstc":
-        return cista_lstc_step
-    if cfg.model_mode == "cista-tc":
-        raise NotImplementedError("cista-tc is not ported yet")
-    raise ValueError(f"model_mode must be 'cista-lstc' or 'cista-tc', got {cfg.model_mode!r}")
+    """The step of ``cfg.model_mode`` (``CistaConfig`` admits no other)."""
+    return cista_tc_step if cfg.model_mode == "cista-tc" else cista_lstc_step
 
 
 def cista_sequence(

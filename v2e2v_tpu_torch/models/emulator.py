@@ -1,5 +1,6 @@
 """DVS event-camera emulator with sensing diversity (port of
-``v2e2v_tpu/models/emulator.py``, voxel-grid mode).
+``v2e2v_tpu/models/emulator.py``: voxel-grid mode, ``emulate_pack``, and
+raw-event mode, ``emulate_pack_raw``).
 
 Per frame pair: leak subtraction, the difference of the lin-log frame against
 the memorised base frame, per-pixel event counts ``floor(|diff| / C)``, an
@@ -33,6 +34,11 @@ JAX package's TPU path draws it, and explicit on the CPU, where tests replay
 given numbers; a noise source with ``explicit_shot = True`` hands over the
 uniforms on the card too. The order does not depend on ``iters_impl``. The
 pair loop never waits for the device.
+
+Raw-event mode runs the same pair loop with the plain iteration loop, which
+records each iteration's events (K3 only accumulates voxel grids), always
+with explicit shot uniforms (as the JAX package's raw path draws them), and
+extracts the events on the host.
 """
 
 from __future__ import annotations
@@ -381,9 +387,12 @@ def _internal_rng(noise: Noise, device: torch.device) -> bool:
     return device.type == "cuda" and not getattr(noise, "explicit_shot", False)
 
 
-def _pair_step(cfg, state, pack, base, mem, t_prev, p, noise, iters_fn, internal):
+def _pair_step(cfg, state, pack, base, mem, t_prev, p, noise, iters_fn, internal,
+               collect=False):
     """One frame pair (reference hot loop :362-522). Returns
-    ``(base, mem, voxel_add, n_ev, max_cnt, clipped)``."""
+    ``(base, mem, voxel_add, n_ev, max_cnt, clipped)``; with ``collect``
+    (raw-event mode) ``voxel_add`` is ``(masks [I,B,H,W], ts_all [I,B], pol)``
+    from the plain loop, which alone records each iteration's events."""
     b, h, w = base.shape
     device = base.device
     delta_time = (pack.t_n[p] - t_prev)[:, None, None]  # [B,1,1], per batch row
@@ -415,11 +424,14 @@ def _pair_step(cfg, state, pack, base, mem, t_prev, p, noise, iters_fn, internal
             seed = noise.seeds("shot_seed", b, device)
         else:
             rand01 = noise.uniform("shot", (cfg.max_iters, b, h, w), device)
-    voxel_add, mem, final = iters_fn(
-        event_counts, pol, mem, pack.tr_frames, om, off, rand01, seed, ts_step, num_iters,
-        pack.tr > ts_step, pack.tf_base[p], num_bins=cfg.num_bins, max_iters=cfg.max_iters,
-        shot=shot, internal_rng=internal,
-    )
+    args = (event_counts, pol, mem, pack.tr_frames, om, off, rand01, seed, ts_step, num_iters,
+            pack.tr > ts_step, pack.tf_base[p])
+    kw = dict(num_bins=cfg.num_bins, max_iters=cfg.max_iters, shot=shot, internal_rng=internal)
+    if collect:
+        masks, ts_all, mem, final = k3.emulator_iters_plain(*args, **kw, collect=True)
+        voxel_add = (masks, ts_all, pol)
+    else:
+        voxel_add, mem, final = iters_fn(*args, **kw)
     n_ev = final.sum(dtype=torch.int32)
     # the memorised value moves by the emitted events (reference :522)
     base = base + pol * final.to(torch.float32) * c
@@ -479,3 +491,76 @@ def emulate_pack(
     else:
         second = n_events
     return voxel, second, new_state
+
+
+def _emulate_pack_dense(cfg, state, frames, t_frames, noise):
+    """``emulate_pack``'s pair loop with the dense per-iteration records of
+    raw-event mode: ``(masks [P,I,B,H,W] bool, ts [P,I,B], pol [P,B,H,W],
+    num_events, new_state)`` on the device. The shot uniforms are always
+    drawn from ``noise`` (JAX's raw path draws them explicitly), and the loop
+    is the plain version: K3 accumulates voxel grids and records no masks."""
+    state, pack = _prepare_pack(cfg, state, frames, t_frames, noise)
+    base, mem, t_prev = state.base_log_frame, state.timestamp_mem, state.t_previous
+    masks, ts, pols, n_events = [], [], [], None
+    for p in range(len(pack.filtered)):
+        base, mem, (m, ts_all, pol), n_ev, _, _ = _pair_step(
+            cfg, state, pack, base, mem, t_prev, p, noise, None, False, collect=True)
+        t_prev = pack.t_n[p]
+        masks.append(m)
+        ts.append(ts_all)
+        pols.append(pol)
+        n_events = n_ev if n_events is None else n_events + n_ev
+    new_state = state._replace(base_log_frame=base, timestamp_mem=mem, t_previous=t_prev)
+    return torch.stack(masks), torch.stack(ts), torch.stack(pols), n_events, new_state
+
+
+@torch.no_grad()
+def emulate_pack_raw(
+    cfg: EmulatorConfig,
+    state: EmulatorState | None,
+    frames: torch.Tensor,
+    t_frames: torch.Tensor,
+    noise: Noise | torch.Generator,
+    device: torch.device | str | None = None,
+):
+    """Raw-event output mode (reference ``output_mode='raw'``, :504-534).
+
+    Arguments as ``emulate_pack``. Returns ``(events [K, 5] float64 numpy,
+    num_events, new_state)``, rows ``[t, x, y, p, batch]`` with ``t`` in
+    voxel-bin units, sorted by time and then, stably, by batch row (the
+    reference's two sorts). The masks go to the host (``[P, I, B, H, W]``
+    bool, 12.4 MB for a pack of 10 frames at 180x240, 32 iterations) and the
+    events are extracted there.
+    """
+    device = resolve_device(device)
+    noise = as_noise(noise)
+    frames = torch.as_tensor(frames).to(device, torch.float32)
+    t_frames = torch.as_tensor(t_frames).to(device, torch.float32)
+    masks, ts_iter, pols, num_events, new_state = _emulate_pack_dense(
+        cfg, state, frames, t_frames, noise)
+    masks, ts_iter, pols = masks.cpu().numpy(), ts_iter.cpu().numpy(), pols.cpu().numpy()
+
+    p_idx, i_idx, b_idx, y_idx, x_idx = np.nonzero(masks)
+    events = np.stack(
+        [ts_iter[p_idx, i_idx, b_idx], x_idx.astype(np.float64), y_idx.astype(np.float64),
+         pols[p_idx, b_idx, y_idx, x_idx], b_idx.astype(np.float64)], axis=1,
+    )
+    events = events[np.argsort(events[:, 0], kind="stable")]
+    events = events[np.argsort(events[:, -1], kind="stable")]
+    return events, int(num_events), new_state
+
+
+def bin_raw_events(events: np.ndarray, batch: int, height: int, width: int, num_bins: int,
+                   device: torch.device | str = "cpu") -> torch.Tensor:
+    """Raw-mode events ``[K, 5]`` (``[t, x, y, p, batch]``, t in bin units)
+    binned bilinearly in time into the ``[B, H, W, num_bins]`` grid that voxel
+    mode accumulates before it normalises: each event adds
+    ``p * max(0, 1 - |t - k|)`` to bin ``k`` of its pixel, in float32."""
+    ev = torch.as_tensor(np.asarray(events, np.float64)).to(device)
+    t = ev[:, 0].to(torch.float32)
+    pol = ev[:, 3].to(torch.float32)
+    idx = ((ev[:, 4] * height + ev[:, 2]) * width + ev[:, 1]).long()
+    grid = torch.zeros((batch * height * width, num_bins), dtype=torch.float32, device=device)
+    for k in range(num_bins):
+        grid[:, k].index_add_(0, idx, pol * torch.clamp(1.0 - (t - float(k)).abs(), min=0.0))
+    return grid.reshape(batch, height, width, num_bins)

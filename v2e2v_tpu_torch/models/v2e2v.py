@@ -17,6 +17,7 @@ from typing import Any, NamedTuple
 import torch
 
 from .._device import resolve_device
+from ..ops.cuda import emulator_iters as k3
 from .cista import CistaConfig, CistaState, StateDict, cista_lstc_step, cista_zero_state
 from .emulator import (
     EmulatorConfig,
@@ -44,7 +45,14 @@ class V2E2VConfig:
         ``utils/configs.py``), with the composite's hardcoded emulator noise
         settings (``model_v2e2v.py:56-57``). ``v2e_iters_impl`` defaults to
         'auto'; the JAX names 'auto' and 'pallas' mean 'cuda' (K3 for CUDA
-        tensors) and 'xla' means 'plain'."""
+        tensors) and 'xla' means 'plain'. ``--num_bins`` above K3's limit
+        (``ops/cuda/emulator_iters.MAX_BINS``) is refused here, before any
+        work, not at the first pack."""
+        if cfgs.num_bins > k3.MAX_BINS:
+            raise ValueError(
+                f"--num_bins {cfgs.num_bins}: the emulator's iteration kernel K3 keeps the bins "
+                f"in registers and takes at most {k3.MAX_BINS} (csrc/emulator_iters.cu)"
+            )
         iters_impl = getattr(cfgs, "v2e_iters_impl", "auto")
         cista = CistaConfig(
             image_dim=tuple(cfgs.image_dim),

@@ -130,8 +130,10 @@ def emulator_iters_plain(
     max_iters: int,
     shot: bool,
     internal_rng: bool = False,
-) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of the kernel, with the same signature.
+    collect: bool = False,
+) -> tuple[torch.Tensor, ...]:
+    """Plain PyTorch version of the kernel, with the same signature and one
+    more flag, ``collect`` (raw-event mode; the kernel has no such output).
 
     Args:
       event_counts: ``[B, H, W]`` int32; pol, timestamp_mem, tr_frames,
@@ -140,14 +142,19 @@ def emulator_iters_plain(
         shot noise) or None; seed: ``[B]`` int64 (``internal_rng``) or None;
         ts_step ``[B]`` float32, num_iters ``[B]`` int32, gate ``[B]`` bool;
         tf_base: the pair's voxel-time base (a float32 value).
-    Returns ``(voxel_add [B, H, W, num_bins], timestamp_mem, final_counts)``.
+    Returns ``(voxel_add [B, H, W, num_bins], timestamp_mem, final_counts)``;
+    with ``collect``, ``(masks [max_iters, B, H, W] bool, ts_all [max_iters,
+    B], timestamp_mem, final_counts)`` instead: each iteration's events after
+    the refractory gate and its event time (0 from ``num_iters[b]`` on), and
+    no voxel grid.
     """
     _check(event_counts, pol, timestamp_mem, tr_frames, one_minus_on_prob, off_prob, rand01,
            seed, ts_step, num_iters, gate, num_bins, max_iters, shot, internal_rng)
     b, h, w = event_counts.shape
     mem = timestamp_mem
     final = torch.zeros_like(event_counts)
-    accs = [torch.zeros_like(pol) for _ in range(num_bins)]
+    accs = [torch.zeros_like(pol) for _ in range(0 if collect else num_bins)]
+    masks, ts_all = [], []
     gate3 = gate[:, None, None]
     uniforms: list[torch.Tensor] = []
     for i in range(max_iters):
@@ -162,14 +169,21 @@ def emulator_iters_plain(
                 r = rand01[i]
             s = ((pol > 0) & (r > one_minus_on_prob)) | ((pol < 0) & (r < off_prob))
             m = m | (s & active[:, None, None])
-        ts_i = torch.where(active, tf_base + ts_step * float(i + 1), 0.0)[:, None, None]
+        ts_b = torch.where(active, tf_base + ts_step * float(i + 1), 0.0)
+        ts_i = ts_b[:, None, None]
         m = m & (~gate3 | ((ts_i - mem) > tr_frames))
         mem = torch.where(m & gate3, ts_i, mem)
         final = final + m.to(torch.int32)
+        if collect:
+            masks.append(m)
+            ts_all.append(ts_b)
+            continue
         ev = pol * m.to(torch.float32)
         for k in range(num_bins):
             wk = torch.clamp(1.0 - (ts_i - float(k)).abs(), min=0.0)
             accs[k] = accs[k] + ev * wk
+    if collect:
+        return torch.stack(masks), torch.stack(ts_all), mem, final
     return torch.stack(accs, dim=-1), mem, final
 
 

@@ -3,8 +3,9 @@
 A fixed-capacity pool of slots on the device; each slot holds one stream's
 recurrent state and previous reconstruction. A step runs every slot as one
 batch and keeps the old state of slots that had no input (masked update);
-``attach`` zeroes the claimed slot. int8 calibration and a multi-device
-mesh are not ported.
+``attach`` zeroes the claimed slot. The step is ``cfg.model_mode``'s
+(CISTA-LSTC or CISTA-TC, ``get_step_fn``). int8 calibration and a
+multi-device mesh are not ported.
 
     pool = StreamPool(cfg, params, capacity=8)
     sid = pool.attach()
@@ -60,7 +61,8 @@ class StreamPool:
         self.dtype = dtype
         self.params = {k: v.to(self.device, dtype) for k, v in params.items()}
         if cfg.core_impl != "layers":
-            # kernel K2's taps, once, in the pool's dtype (not in every step)
+            # kernel K2's taps (CISTA-LSTC only: CistaConfig refuses K2 for
+            # cista-tc), once, in the pool's dtype (not in every step)
             self.params["_core_taps"] = core_taps(self.params, dtype)
         h, w = cfg.image_dim
         self._states = cista_zero_state(cfg, capacity, dtype, self.device)

@@ -1,11 +1,11 @@
 """Weights between the JAX package's parameter tree and the port's state dict.
 
-The port keeps CISTA-LSTC weights as a flat state dict under the reference
-torch module names (OIHW convs, ``Lambda`` as ``[1, 2C, 1, 1]``), so a
-reference ``.pth.tar`` state dict and the port's weights are one format. This
-module keeps the port's own copy of ``export_torch_state_dict`` from
-``v2e2v_tpu/utils/checkpoint.py``, for cista-lstc, and loads reference
-checkpoints (``load_torch_checkpoint``).
+The port keeps CISTA-LSTC and CISTA-TC weights as a flat state dict under the
+reference torch module names (OIHW convs, ``Lambda`` and ``alpha`` as
+``[1, 2C, 1, 1]``), so a reference ``.pth.tar`` state dict and the port's
+weights are one format. This module keeps the port's own copy of
+``export_torch_state_dict`` from ``v2e2v_tpu/utils/checkpoint.py`` and loads
+reference checkpoints (``load_torch_checkpoint``).
 """
 
 from __future__ import annotations
@@ -19,16 +19,20 @@ import torch
 from ..ops.conv import hwio_to_torch_conv
 
 
-def export_torch_state_dict(params: Mapping[str, Any], depth: int = 5) -> dict[str, np.ndarray]:
+def export_torch_state_dict(params: Mapping[str, Any], depth: int = 5,
+                            model_mode: str = "cista-lstc") -> dict[str, np.ndarray]:
     """JAX-layout parameter tree (numpy, HWIO) -> reference-named numpy
-    state dict. The weight-tied ISTA block appears under every
-    ``lista_blocks.{i}`` for ``i < depth``, as torch's ``state_dict`` lists it."""
+    state dict. The weight-tied ISTA block (and CISTA-TC's one ``alpha``)
+    appears under every index ``i < depth``, as torch's ``state_dict`` lists
+    it."""
 
     def conv_out(p, prefix, sd):
         sd[prefix + ".weight"] = hwio_to_torch_conv(np.asarray(p["weight"]))
         if "bias" in p:
             sd[prefix + ".bias"] = np.asarray(p["bias"])
 
+    if model_mode not in ("cista-lstc", "cista-tc"):
+        raise ValueError(f"unknown model_mode {model_mode!r}")
     sd: dict[str, np.ndarray] = {}
     conv_out(params["We"], "We.conv2d", sd)
     conv_out(params["Wi"], "Wi.conv2d", sd)
@@ -43,53 +47,66 @@ def export_torch_state_dict(params: Mapping[str, Any], depth: int = 5) -> dict[s
     conv_out(params["Dg"]["lstm"]["Gates"], "Dg.recurrent_block.Gates", sd)
     conv_out(params["upsamp_conv"], "upsamp_conv.conv2d", sd)
     conv_out(params["final_conv"], "final_conv.conv2d", sd)
-    conv_out(params["P0"]["gates"], "P0.gates", sd)
-    conv_out(params["P0"]["out_gates"], "P0.out_gates", sd)
-    conv_out(params["P0"]["P0"], "P0.P0", sd)
+    if model_mode == "cista-lstc":
+        conv_out(params["P0"]["gates"], "P0.gates", sd)
+        conv_out(params["P0"]["out_gates"], "P0.out_gates", sd)
+        conv_out(params["P0"]["P0"], "P0.P0", sd)
+    else:
+        conv_out(params["P0"], "P0.conv2d", sd)
+        conv_out(params["one_conv_for_prev"], "one_conv_for_prev.conv2d", sd)
+        conv_out(params["one_conv_for_cur"], "one_conv_for_cur.conv2d", sd)
+        for i in range(depth):
+            sd[f"alpha.{i}"] = np.asarray(params["alpha"]).reshape(1, -1, 1, 1)
     return sd
 
 
-def params_from_jax(params_np: Mapping[str, Any], depth: int = 5) -> dict[str, torch.Tensor]:
+def params_from_jax(params_np: Mapping[str, Any], depth: int = 5,
+                    model_mode: str = "cista-lstc") -> dict[str, torch.Tensor]:
     """JAX parameter tree (as numpy) -> the port's state dict of float32 CPU
     tensors. Move it to a device with the model's entry points."""
     return {
         k: torch.from_numpy(np.array(v, dtype=np.float32))
-        for k, v in export_torch_state_dict(params_np, depth).items()
+        for k, v in export_torch_state_dict(params_np, depth, model_mode).items()
     }
 
 
-# the tensors a cista-lstc step reads (the tied ISTA block under index 0)
-CISTA_LSTC_KEYS = tuple(
-    f"{name}.{leaf}"
-    for name in ("We.conv2d", "Wi.conv2d", "W0.conv2d", "P0.gates", "P0.out_gates", "P0.P0",
-                 "lista_blocks.0.D.conv2d", "lista_blocks.0.P.conv2d", "Dg.conv.conv2d",
-                 "Dg.recurrent_block.Gates", "upsamp_conv.conv2d", "final_conv.conv2d")
-    for leaf in ("weight", "bias")
-) + ("lista_blocks.0.Lambda",)
+def _step_keys(convs: tuple[str, ...], vectors: tuple[str, ...]) -> tuple[str, ...]:
+    return tuple(f"{name}.{leaf}" for name in convs for leaf in ("weight", "bias")) + vectors
+
+
+_SHARED = ("We.conv2d", "Wi.conv2d", "W0.conv2d", "lista_blocks.0.D.conv2d",
+           "lista_blocks.0.P.conv2d", "Dg.conv.conv2d", "Dg.recurrent_block.Gates",
+           "upsamp_conv.conv2d", "final_conv.conv2d")
+# the tensors a step reads (the tied ISTA block and alpha under index 0)
+STEP_KEYS = {
+    "cista-lstc": _step_keys(_SHARED + ("P0.gates", "P0.out_gates", "P0.P0"),
+                             ("lista_blocks.0.Lambda",)),
+    "cista-tc": _step_keys(_SHARED + ("P0.conv2d", "one_conv_for_prev.conv2d",
+                                      "one_conv_for_cur.conv2d"),
+                           ("lista_blocks.0.Lambda", "alpha.0")),
+}
 
 
 def load_torch_checkpoint(path: str, model_mode: str = "cista-lstc"):
     """Load a reference ``.pth.tar`` checkpoint (``{epoch, state_dict,
-    v2e_params}`` or a bare state dict) as ``(state_dict, epoch, v2e_params or
-    None)``, the state dict float32 CPU tensors under the reference names. A
-    V2E2V checkpoint's ``e2v_net.`` prefix is stripped, as the JAX package's
-    loader strips it."""
+    v2e_params}`` or a bare state dict) of ``model_mode`` ('cista-lstc' or
+    'cista-tc') as ``(state_dict, epoch, v2e_params or None)``, the state
+    dict float32 CPU tensors under the reference names. A V2E2V checkpoint's
+    ``e2v_net.`` prefix is stripped, as the JAX package's loader strips it."""
     if os.path.isdir(path):
         raise ValueError(
             f"{path} is a directory (a JAX/orbax checkpoint?): the port loads torch "
             "checkpoints only; export the parameters to a .pth.tar with "
             "v2e2v_tpu.utils.checkpoint.export_torch_state_dict and torch.save"
         )
-    if model_mode != "cista-lstc":
-        raise NotImplementedError(
-            f"model_mode {model_mode!r} is not ported yet (ROADMAP.md queue 1, item 5)"
-        )
+    if model_mode not in STEP_KEYS:
+        raise ValueError(f"model_mode must be 'cista-lstc' or 'cista-tc', got {model_mode!r}")
     ckpt = torch.load(path, map_location="cpu", weights_only=False)
     sd = ckpt["state_dict"] if "state_dict" in ckpt else ckpt
     if any(k.startswith("e2v_net.") for k in sd):
         sd = {k[len("e2v_net."):]: v for k, v in sd.items() if k.startswith("e2v_net.")}
-    missing = [k for k in CISTA_LSTC_KEYS if k not in sd]
+    missing = [k for k in STEP_KEYS[model_mode] if k not in sd]
     if missing:
-        raise KeyError(f"{path}: not a cista-lstc checkpoint, missing {missing}")
+        raise KeyError(f"{path}: not a {model_mode} checkpoint, missing {missing}")
     sd = {k: torch.as_tensor(v).detach().to(torch.float32) for k, v in sd.items()}
     return sd, ckpt.get("epoch", 0), ckpt.get("v2e_params")

@@ -11,7 +11,9 @@ are dropped. Gray at 1, 2 or 4 bits is scaled to 8 bits (x255, x85, x17).
 Colour goes to gray as libpng's ``png_set_rgb_to_gray(0.299, 0.587)`` does it
 for OpenCV: ``(9797 R + 19234 G + 3737 B) >> 15``, truncated, and ``R`` itself
 where ``R == G == B``. 16-bit samples, interlaced PNGs and JPEG frames raise a
-ValueError that names what is missing.
+ValueError that names what is missing. ``write_rgb`` writes the 8-bit RGB
+previews and panels of the V2E2V CLI, what PIL writes for an ``[H, W, 3]``
+uint8 array.
 """
 
 from __future__ import annotations
@@ -163,22 +165,45 @@ def _chunk(kind: bytes, body: bytes) -> bytes:
     return struct.pack(">I", len(body)) + kind + body + struct.pack(">I", zlib.crc32(kind + body))
 
 
+def _encode(img: np.ndarray, color: int) -> bytes:
+    """``[H, W]`` (gray) or ``[H, W, 3]`` (RGB) uint8 -> PNG bytes, 8 bits per
+    sample, filter None on every row, zlib level 6."""
+    h, w = img.shape[:2]
+    rows = np.zeros((h, 1 + img[0].size), np.uint8)
+    rows[:, 1:] = img.reshape(h, -1)
+    return (PNG_SIGNATURE
+            + _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, color, 0, 0, 0))
+            + _chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
+            + _chunk(b"IEND", b""))
+
+
 def encode_gray(img: np.ndarray) -> bytes:
     """``[H, W]`` uint8 -> the bytes of an 8-bit gray PNG (filter None)."""
     img = np.asarray(img)
     if img.dtype != np.uint8 or img.ndim != 2:
         raise ValueError(f"write_gray takes a 2-D uint8 image, got {img.dtype} {img.shape}")
-    h, w = img.shape
-    rows = np.zeros((h, w + 1), np.uint8)
-    rows[:, 1:] = img
-    return (PNG_SIGNATURE
-            + _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 0, 0, 0, 0))
-            + _chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
-            + _chunk(b"IEND", b""))
+    return _encode(img, 0)
+
+
+def encode_rgb(img: np.ndarray) -> bytes:
+    """``[H, W, 3]`` uint8 -> the bytes of an 8-bit RGB PNG (colour type 2,
+    filter None); channel 0 is stored as red, as PIL stores such an array."""
+    img = np.ascontiguousarray(img)
+    if img.dtype != np.uint8 or img.ndim != 3 or img.shape[2] != 3:
+        raise ValueError(f"write_rgb takes an [H, W, 3] uint8 image, got {img.dtype} {img.shape}")
+    return _encode(img, 2)
+
+
+def _write(path: str, data: bytes) -> None:
+    with open(path, "wb") as f:
+        f.write(data)
 
 
 def write_gray(path: str, img: np.ndarray) -> None:
     """Write ``[H, W]`` uint8 as an 8-bit gray PNG."""
-    data = encode_gray(img)
-    with open(path, "wb") as f:
-        f.write(data)
+    _write(path, encode_gray(img))
+
+
+def write_rgb(path: str, img: np.ndarray) -> None:
+    """Write ``[H, W, 3]`` uint8 as an 8-bit RGB PNG."""
+    _write(path, encode_rgb(img))
