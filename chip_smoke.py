@@ -9,8 +9,11 @@ Phases, one line each (any failure exits non-zero before the last line):
 2. build: every CUDA source by its own ``nvcc``, all at once, and one link
    (seconds, and ``-Xptxas -v``'s registers, shared memory and spills per
    kernel); ``cuobjdump --dump-sass`` of the library counts the ``HGMMA``
-   (wgmma) instructions of each kernel: every bfloat16 conv kernel of K1 and
-   K2 (``*_conv3x3_tc_kernel``) must have some and spill nothing;
+   (wgmma) and ``HMMA`` instructions of each kernel: every bfloat16 conv
+   kernel of K1 and K2 (``*_conv3x3_tc_kernel``) must have ``HGMMA`` and
+   spill nothing, every float32 conv kernel (``*_conv3x3_kernel``, FFMA on
+   CUDA cores: float32 products and sums) must have neither and spill
+   nothing; the float32 conv's tile at the flagship and CLI shapes;
 3. kernel K1 (``ista_loop``) against its plain version at the flagship shape
    (B = 8, 90x120, C = 64, depth 5), in float32 with TF32 off and in bfloat16;
 4. the slice: a ``StreamPool`` of CISTA-LSTC at 180x240, 64 channels, depth 5,
@@ -35,7 +38,9 @@ Phases, one line each (any failure exits non-zero before the last line):
    plain ISTA (cuDNN convs only), its bound; each of K1, K2, cuDNN's convs and
    the layers core both per call as the host issues them (``ms``) and as
    device time (``device_ms``: launches back to back after the card spins),
-   and for K1 and K2 the host's time to issue a call (``host_ms``);
+   and for K1 and K2 the host's time to issue a call (``host_ms``); K1
+   float32 also at the CLIs' batch 1 (B = 1, 90x120), with its bound and
+   cuDNN's D + P at that shape;
    the pool's step time with
    ``core_impl`` "layers" and "cuda" in turns, reconstructions per second and
    peak memory;
@@ -165,7 +170,12 @@ FLAGS = dict(image_dim=[H, W], base_channels=C, depth=DEPTH, num_bins=NB,
 DNAME = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
 EPILOGUES = ("D conv", "P conv", "pre-activation", "relu", "out gate")
 # what runs the convs of K1 and K2 in each dtype
-DESIGN = {torch.float32: "SIMT direct conv on CUDA cores (csrc/conv3x3.cuh), exact float32 sums",
+DESIGN = {torch.float32: "FFMA direct conv on CUDA cores (csrc/conv3x3.cuh): 8x32-pixel x "
+                         "64-channel tiles (8x16 or 8x8 where the grid would not fill the "
+                         "card), 64 float32 accumulators a thread, the next input row "
+                         "prefetched into registers, 16-channel chunks staged by cp.async "
+                         "(inputs) and one cp.async.bulk (taps laid out once) through a "
+                         "2-stage ring, float32 products and sums",
           torch.bfloat16: "wgmma implicit GEMM on tensor cores (csrc/conv3x3_tc.cuh): 16x8-pixel "
                           "tiles staged once per 64-channel chunk for all 9 taps, taps laid out "
                           "once and streamed by cp.async.bulk through a 4-slot ring"}
@@ -196,10 +206,10 @@ def short_name(mangled: str) -> str:
     m = re.search(r"((?:ista|core)_conv3x3_tc_kernel)ILi([0-4])ELi(\d+)E", mangled)
     if m:
         return f"{m.group(1)}<bfloat16, {EPILOGUES[int(m.group(2))]}, NB={m.group(3)}>"
-    m = re.search(r"((?:ista|core)_conv3x3_kernel)I(\w+?)Li([0-4])E", mangled)
+    m = re.search(r"((?:ista|core)_conv3x3_kernel)ILi([0-4])ELi([124])E", mangled)
     if m:
-        dtype = "bfloat16" if "bfloat16" in m.group(2) else "float32"
-        return f"{m.group(1)}<{dtype}, {EPILOGUES[int(m.group(3))]}>"
+        return (f"{m.group(1)}<float32, {EPILOGUES[int(m.group(2))]}, "
+                f"8x{8 * int(m.group(3))} tile>")
     m = re.search(r"(core_lst[cm]_cell_kernel)I(\w+?)EEv", mangled)
     if m:
         return f"{m.group(1)}<{'bfloat16' if 'bfloat16' in m.group(2) else 'float32'}>"
@@ -268,10 +278,11 @@ def device_ms(fn, warmup: int = 3, iters: int = 20) -> float:
     return issue_ms(fn, warmup, iters)[0]
 
 
-def ista_inputs(gen: torch.Generator, dtype: torch.dtype, weights: dict):
-    """K1's inputs at the pool's shape: x1 and z ~ N(0, 0.5^2) in ``dtype``,
-    and the ISTA block (HWIO D and P, biases, Lambda) of the model's weights."""
-    b, h, w, c = CAPACITY, H // 2, W // 2, C
+def ista_inputs(gen: torch.Generator, dtype: torch.dtype, weights: dict, b: int = CAPACITY):
+    """K1's inputs at the pool's shape (batch ``b``): x1 and z ~ N(0, 0.5^2)
+    in ``dtype``, and the ISTA block (HWIO D and P, biases, Lambda) of the
+    model's weights."""
+    h, w, c = H // 2, W // 2, C
     act = [(0.5 * torch.randn(b, h, w, k, generator=gen)).cuda().to(dtype) for k in (c, 2 * c)]
     blk = "lista_blocks.0."
     return (*act, weights[blk + "D.conv2d.weight"].permute(2, 3, 1, 0),
@@ -1166,7 +1177,9 @@ def main() -> None:
             if m:
                 spills[name] = int(m.group(1)) + int(m.group(2))
     hgmma = sass_counts(lib.path, "HGMMA")
+    hmma = sass_counts(lib.path, "HMMA")
     tc_kernels = [k for k in hgmma if "conv3x3_tc_kernel" in k]
+    f32_kernels = [k for k in hgmma if re.search(r"(ista|core)_conv3x3_kernelI", k)]
     say(f"[build] HGMMA (wgmma) instructions per kernel, cuobjdump --dump-sass: "
         f"{ {short_name(k): v for k, v in hgmma.items()} }")
     if not any("ista_conv3x3_tc" in k for k in tc_kernels) or not any(
@@ -1174,12 +1187,23 @@ def main() -> None:
         fail("the library has no bfloat16 tensor-core conv kernel for K1 or K2")
     if any(hgmma[k] == 0 or spills.get(k, 1) for k in tc_kernels):
         fail("a bfloat16 conv kernel of K1 or K2 has no HGMMA instruction, or spills")
-    for label, fn in (("float32 (SIMT)", lib.lib.v2e_conv3x3_smem_bytes),
-                      ("bfloat16 (tensor cores)", lib.lib.v2e_conv3x3_tc_smem_bytes)):
-        smem = {cout: fn(cout) for cout in (C, 2 * C, 4 * C)}
-        say(f"[build] K1/K2 {label} conv dynamic shared memory per block: cout={C} {smem[C]} B, "
-            f"cout={2 * C} {smem[2 * C]} B, cout={4 * C} {smem[4 * C]} B (chunks of at most "
-            f"128 output channels)")
+    # 2 ISTA epilogues + 5 core epilogues, each in 3 tile widths
+    say(f"[build] float32 conv kernels of K1 and K2: {len(f32_kernels)} (want 21); HGMMA + "
+        f"HMMA {sum(hgmma[k] + hmma.get(k, 0) for k in f32_kernels)}, spilled bytes "
+        f"{sum(spills.get(k, 1) for k in f32_kernels)} (want 0 and 0: FFMA only)")
+    if len(f32_kernels) != 21 or any(hgmma[k] or hmma.get(k, 0) or spills.get(k, 1)
+                                     for k in f32_kernels):
+        fail("a float32 conv kernel of K1 or K2 is missing, holds a tensor-core instruction, "
+             "or spills")
+    tiles = {(b, cout): lib.lib.v2e_conv3x3_tile_w(b, H // 2, W // 2, cout)
+             for b in (1, CAPACITY) for cout in (C, 2 * C, 4 * C)}
+    say(f"[build] K1/K2 float32 conv: tile width (8 rows) by (B, cout) at {H // 2}x{W // 2}: "
+        f"{tiles}; dynamic shared memory per block "
+        f"{ {tw: lib.lib.v2e_conv3x3_smem_bytes(tw) for tw in (8, 16, 32)} } B by tile width")
+    smem = {cout: lib.lib.v2e_conv3x3_tc_smem_bytes(cout) for cout in (C, 2 * C, 4 * C)}
+    say(f"[build] K1/K2 bfloat16 (tensor cores) conv dynamic shared memory per block: "
+        f"cout={C} {smem[C]} B, cout={2 * C} {smem[2 * C]} B, cout={4 * C} {smem[4 * C]} B "
+        f"(chunks of at most 128 output channels)")
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1388,9 +1412,9 @@ def main() -> None:
     say(f"[phase] V2E2V runs {time.perf_counter() - t_phase:.1f} s")
 
     # 5. times
-    entries = []
-    for dtype in (torch.float32, torch.bfloat16):
-        inputs = k1[dtype]["inputs"]
+    def k1_times(inputs, dtype, label):
+        """K1 per call as issued and on the device, the host's time to issue
+        it, its plain version, cuDNN's D + P convs x depth and its bound."""
         # ms: per call as the host issues them (the wrapper's host work
         # included); device_ms: the launches back to back on the card. In
         # bfloat16 K1's launches take about as long on the card as the host
@@ -1411,22 +1435,37 @@ def main() -> None:
         library_ms = DEPTH * time_ms(library)
         library_dev_ms = DEPTH * device_ms(library)
         bound_ms, bound_by = ista_bound_ms(inputs, DEPTH)
-        say(f"[time] K1 {DNAME[dtype]}: kernel {ms:.4f} ms/call as issued, {dev_ms:.4f} ms on "
-            f"the device, {host_ms:.4f} ms of the host's to issue it; plain {plain_ms:.4f} ms; "
-            f"library (F.conv2d D + P, zero padding, channels_last) x depth {library_ms:.4f} "
-            f"ms as issued, {library_dev_ms:.4f} ms on the device; bound {bound_ms:.4f} ms "
-            f"({bound_by}; peak {PEAK_FLOPS[dtype] / 1e12:.0f} TFLOP/s, {PEAK_BYTES / 1e12} "
-            f"TB/s) = {100 * bound_ms / ms:.1f}% of bound as issued, "
+        say(f"[time] K1 {DNAME[dtype]}{label}: kernel {ms:.4f} ms/call as issued, {dev_ms:.4f} "
+            f"ms on the device, {host_ms:.4f} ms of the host's to issue it; plain "
+            f"{plain_ms:.4f} ms; library (F.conv2d D + P, zero padding, channels_last) x depth "
+            f"{library_ms:.4f} ms as issued, {library_dev_ms:.4f} ms on the device; bound "
+            f"{bound_ms:.4f} ms ({bound_by}; peak {PEAK_FLOPS[dtype] / 1e12:.0f} TFLOP/s, "
+            f"{PEAK_BYTES / 1e12} TB/s) = {100 * bound_ms / ms:.1f}% of bound as issued, "
             f"{100 * bound_ms / dev_ms:.1f}% on the device")
+        return {"ms": ms, "device_ms": dev_ms, "host_ms": host_ms, "plain_ms": plain_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
+                "library_device_ms": library_dev_ms}
+
+    entries = []
+    for dtype in (torch.float32, torch.bfloat16):
+        inputs = k1[dtype]["inputs"]
+        times = k1_times(inputs, dtype, "")
+        ms = times["ms"]
         entries.append({
             "name": f"ista_loop ({DNAME[dtype]})", "route": "cuda", "source": K1_SOURCE,
             "replaces": K1_REPLACES, "launches": main_launches[dtype],
-            "max_abs_err": k1[dtype]["max_abs_err"], "ms": ms, "device_ms": dev_ms,
-            "host_ms": host_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by,
-            "library_ms": library_ms, "library_device_ms": library_dev_ms,
+            "max_abs_err": k1[dtype]["max_abs_err"], **times,
             "tensor_cores": dtype == torch.bfloat16, "design": DESIGN[dtype],
         })
+        if dtype == torch.float32:  # the CLIs' batch 1, on the 8x8 and 8x16 tiles
+            one = ista_inputs(torch.Generator().manual_seed(args.seed + 1), dtype, weights, b=1)
+            err, ok = within(ista_loop(*one, depth=DEPTH), ista_loop_plain(*one, depth=DEPTH),
+                             TOL[dtype])
+            say(f"[k1] ista_loop float32 B=1 {H // 2}x{W // 2} C={C} depth={DEPTH}: "
+                f"max_abs_err={err:.3e} (tol atol=rtol={TOL[dtype]}) {'pass' if ok else 'FAIL'}")
+            if not ok:
+                fail("K1 disagrees with its plain version in float32 at B = 1")
+            entries[-1]["batch1"] = {"max_abs_err": err, **k1_times(one, dtype, " B=1")}
 
         core_args = k2[dtype]["inputs"]
         k2_ms = time_ms(lambda: cista_core(*core_args, depth=DEPTH))

@@ -221,16 +221,21 @@ def test_model_and_pool_with_core_kernel_match_plain_core(card, dtype, tol):
                                        atol=tol, rtol=tol)
 
 
-# The bfloat16 tensor-core conv (csrc/conv3x3_tc.cuh) through both C entry
-# points: (epilogue, entry, B, H, W, cin_a, cin_b, cout). Ragged tiles (H not
-# a multiple of 16, W not of 8), B = 1 and 8, the flagship's convs at
-# 90x120, C = 8 and 16 (K chunks not a multiple of 16 channels: zero-filled
-# tails), cout 64, 128 and 256 (two chunks of 128 on grid axis z), a cout
-# below the block's 64 channels (masked), and the concat convs with and
-# without their second input.
+# The convs of K1 and K2 through both C entry points, in float32 (the FFMA
+# conv of csrc/conv3x3.cuh) and bfloat16 (the tensor-core conv of
+# csrc/conv3x3_tc.cuh): (epilogue, entry, B, H, W, cin_a, cin_b, cout).
+# Ragged tiles (H not a multiple of 8 or 16, W not of 8, 16 or 32), the 2x2
+# minimum, B = 1 and 8, the flagship's convs at 90x120 (B = 8: the float32
+# conv's 8x32 tile) and the CLIs' D and P convs at B = 1 (its 8x8 and 8x16
+# tiles), C = 8, 16 and 24 (K chunks not a multiple of 16 channels:
+# zero-filled tails), cout 64, 128 and 256 (several output-channel chunks on
+# grid axis z), a cout below the block's 64 channels (masked), and the concat
+# convs with and without their second input.
 TC_CASES = [
     ("D", "ista", 1, 9, 13, 16, 0, 8), ("P", "ista", 8, 17, 33, 8, 0, 16),
     ("D", "ista", 8, 90, 120, 128, 0, 64), ("P", "ista", 8, 90, 120, 64, 0, 128),
+    ("D", "ista", 1, 90, 120, 128, 0, 64), ("P", "ista", 1, 90, 120, 64, 0, 128),
+    ("D", "ista", 2, 2, 2, 16, 0, 8),
     ("D", "core", 1, 17, 33, 32, 0, 16), ("P", "core", 2, 9, 13, 16, 0, 32),
     ("PRE", "core", 8, 90, 120, 64, 128, 256), ("PRE", "core", 1, 17, 33, 64, 0, 128),
     ("PRE", "core", 2, 9, 13, 8, 8, 32), ("PRE", "core", 1, 9, 13, 64, 0, 256),
@@ -241,9 +246,10 @@ TC_CASES = [
 _EPI = {"D": 0, "P": 1, "PRE": 2, "RELU": 3, "OUT_GATE": 4}
 
 
-def _tc_reference(epi, xs, ws, bias, other, lam):
-    """float64 reflect conv of the bf16 inputs and taps (their sum is exact to
-    float32 rounding), then the epilogue in float32 as the kernel does it."""
+def _conv_reference(epi, xs, ws, bias, other, lam, dtype):
+    """float64 reflect conv of the inputs and taps (their sum is exact to
+    float32 rounding), then the epilogue in float32 as the kernel does it,
+    cast to ``dtype`` (float32 for the pre-activations)."""
     v = bias.double()
     for x, w in zip(xs, ws):
         xp = torch.nn.functional.pad(x.double().permute(0, 3, 1, 2), (1, 1, 1, 1), mode="reflect")
@@ -261,30 +267,33 @@ def _tc_reference(epi, xs, ws, bias, other, lam):
         res = torch.relu(v)
     else:
         res = torch.sigmoid(v) * torch.tanh(other)
-    return res.to(torch.bfloat16)
+    return res.to(dtype)
 
 
 @pytest.mark.parametrize("case", TC_CASES, ids=lambda c: "-".join(map(str, c)))
-def test_tensor_core_conv_matches_reference(card, case):
-    """Each epilogue of the bf16 conv against a float64 conv of the same
-    bf16-rounded inputs and taps: float32 outputs (pre-activations) within
-    1e-3 + 1e-3 |ref| (float32 sums in another order), bf16 outputs within
-    1e-2 + 1e-2 |ref| (one bf16 ulp is 2^-8 relative, and a sum that differs
-    in its last float32 bits may round to the neighbouring bf16 value)."""
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_tensor_core_conv_matches_reference(card, dtype, case):
+    """Each epilogue of the conv of ``dtype`` against a float64 conv of the
+    same inputs and taps. Float32 (FFMA): within 2e-5 + 2e-5 |ref| (float32
+    sums of up to 9 x 384 = 3,456 products, here in another order: about
+    sqrt(3456) x 6e-8 of the terms' O(1) scale, with room). Bfloat16: float32
+    outputs (pre-activations) within 1e-3 + 1e-3 |ref| (float32 sums of
+    bf16-rounded products in another order), bf16 outputs within 1e-2 +
+    1e-2 |ref| (one bf16 ulp is 2^-8 relative, and a sum that differs in its
+    last float32 bits may round to the neighbouring bf16 value)."""
     from v2e2v_tpu_torch.ops.cuda import _lib
-    from v2e2v_tpu_torch.ops.cuda.conv_tc import wgmma_taps
+    from v2e2v_tpu_torch.ops.cuda.conv_tc import simt_taps, wgmma_taps
 
     epi, entry, b, h, w, cin_a, cin_b, cout = case
     lib = _lib.load()
     g = torch.Generator().manual_seed(sum(case[2:]))
-    bf = torch.bfloat16
 
     def act(c):
-        return (0.5 * torch.randn(b, h, w, c, generator=g)).to(card, bf)
+        return (0.5 * torch.randn(b, h, w, c, generator=g)).to(card, dtype)
 
     def taps(cin):
         bound = (9 * (cin_a + cin_b)) ** -0.5
-        return torch.empty(9, cin, cout).uniform_(-bound, bound, generator=g).to(card, bf)
+        return torch.empty(9, cin, cout).uniform_(-bound, bound, generator=g).to(card, dtype)
 
     xs = [act(cin_a)] + ([act(cin_b)] if cin_b else [])
     ws = [taps(cin_a)] + ([taps(cin_b)] if cin_b else [])
@@ -292,30 +301,33 @@ def test_tensor_core_conv_matches_reference(card, case):
     lam = (0.05 * torch.rand(cout, generator=g)).to(card)
     other = {"D": act(cout), "P": act(cout), "OUT_GATE": torch.randn(b, h, w, cout, generator=g,
                                                                      device="cpu").to(card)}.get(epi)
-    out = torch.empty(b, h, w, cout, device=card, dtype=torch.float32 if epi == "PRE" else bf)
+    out = torch.empty(b, h, w, cout, device=card,
+                      dtype=torch.float32 if epi == "PRE" else dtype)
     stream = torch.cuda.current_stream().cuda_stream
     ptr = [None if t is None else t.data_ptr() for t in (other, lam if epi == "P" else None)]
-    laid = [wgmma_taps(t) for t in ws]  # the kernel's shared-memory order
+    code = 0 if dtype == torch.float32 else 1
+    laid = [(simt_taps if code == 0 else wgmma_taps)(t) for t in ws]  # the kernel's smem order
     if entry == "ista":
-        err = lib.lib.v2e_ista_conv3x3(1, _EPI[epi], xs[0].data_ptr(), laid[0].data_ptr(),
+        err = lib.lib.v2e_ista_conv3x3(code, _EPI[epi], xs[0].data_ptr(), laid[0].data_ptr(),
                                        bias.data_ptr(), ptr[0], ptr[1], out.data_ptr(),
                                        b, h, w, cin_a, cout, stream)
     else:
         err = lib.lib.v2e_core_conv3x3(
-            1, _EPI[epi], xs[0].data_ptr(), laid[0].data_ptr(), cin_a,
+            code, _EPI[epi], xs[0].data_ptr(), laid[0].data_ptr(), cin_a,
             xs[1].data_ptr() if cin_b else None, laid[1].data_ptr() if cin_b else None, cin_b,
             bias.data_ptr(), ptr[0], ptr[1], out.data_ptr(), b, h, w, cout, stream)
-    lib.check(err, "tensor-core conv launch")
+    lib.check(err, f"{dtype} conv launch")
     torch.cuda.synchronize()
-    want = _tc_reference(epi, xs, ws, bias, other, lam)
-    tol = 1e-3 if epi == "PRE" else 1e-2
+    want = _conv_reference(epi, xs, ws, bias, other, lam, out.dtype)
+    tol = 2e-5 if code == 0 else 1e-3 if epi == "PRE" else 1e-2
     torch.testing.assert_close(out.float(), want.float(), atol=tol, rtol=tol)
 
 
-def test_tensor_core_conv_refuses_misaligned_views(card):
-    """cp.async copies 16-byte rows: a bf16 view that does not start on a
-    16-byte boundary is refused by the wrappers, not read crookedly."""
-    args = list(_inputs(1, 8, 8, 8, card, torch.bfloat16))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_tensor_core_conv_refuses_misaligned_views(card, dtype):
+    """Both convs copy 16-byte rows with cp.async: a view that does not start
+    on a 16-byte boundary is refused by the wrappers, not read crookedly."""
+    args = list(_inputs(1, 8, 8, 8, card, dtype))
 
     def shifted(t):
         flat = torch.empty(t.numel() + 1, device=card, dtype=t.dtype)
@@ -328,7 +340,7 @@ def test_tensor_core_conv_refuses_misaligned_views(card):
         bad[i] = shifted(args[i])
         with pytest.raises(ValueError, match="16-byte boundary"):
             ista_loop(*bad, depth=1)
-    core = list(_core_args(1, 8, 8, 8, 1, card, torch.bfloat16))
+    core = list(_core_args(1, 8, 8, 8, 1, card, dtype))
     core[3] = shifted(core[3])  # cell
     with pytest.raises(ValueError, match="16-byte boundary"):
         k2.cista_core(*core, depth=1)

@@ -36,11 +36,12 @@
 // 90x120, C = 64: 4.94 ms at the 67 TFLOP/s of float32 on CUDA cores, 0.335 ms
 // at the 989 TFLOP/s of bfloat16 on tensor cores. Its activations in and out
 // (~288 MB in float32) take 86 us at 3.35 TB/s, so it is bound by operations.
-// Float32 (exact float32 sums) runs its convs on the SIMT conv of
-// conv3x3.cuh; bfloat16 runs them on the wgmma implicit GEMM of
-// conv3x3_tc.cuh, with the same epilogues. The next step to the bound is
-// fusing the launches (the float32 cell and gate pre-activations kept on
-// chip).
+// Float32 (float32 products and sums) runs its convs on the FFMA conv of
+// conv3x3.cuh (8x32-pixel x 64-channel tiles, 64 accumulators a thread,
+// operands staged asynchronously through a ring); bfloat16 runs them on the
+// wgmma implicit GEMM of conv3x3_tc.cuh, with the same epilogues. The next
+// step to the bound is fusing the launches (the float32 cell and gate
+// pre-activations kept on chip).
 
 #include "conv3x3.cuh"
 #include "conv3x3_tc.cuh"
@@ -52,10 +53,10 @@ using v2e::from_f32;
 using v2e::sigmoid;
 using v2e::to_f32;
 
-template <typename T, int EPI>
-__global__ void __launch_bounds__(512) core_conv3x3_kernel(const ConvArgs a) {
+template <int EPI, int GX>
+__global__ void __launch_bounds__(v2e::Tile<GX>::THREADS, 1) core_conv3x3_kernel(const ConvArgs a) {
   extern __shared__ float4 smem4[];
-  v2e::conv3x3_block<T, EPI>(a, reinterpret_cast<float*>(smem4));
+  v2e::conv3x3_block<EPI, GX>(a, reinterpret_cast<uint8_t*>(smem4));
 }
 
 // ConvLSTC cell over n = pixels * c2 elements (c2 = 2C): pre_g [P, 2 * c2]
@@ -103,10 +104,14 @@ __global__ void __launch_bounds__(v2e::tc::THREADS, 2) core_conv3x3_tc_kernel(co
   v2e::tc::conv3x3_block<EPI, NB>(a, reinterpret_cast<uint8_t*>(smem4));
 }
 
-// float32 on the SIMT conv, bfloat16 on the tensor cores
+// float32 on the CUDA cores, bfloat16 on the tensor cores
 template <int EPI>
 cudaError_t launch_epi(int dtype, const ConvArgs& a, int B, cudaStream_t s) {
-  if (dtype == 0) return v2e::launch_conv3x3(core_conv3x3_kernel<float, EPI>, a, B, s);
+  if (dtype == 0) {
+    const v2e::ConvKernel kernels[3] = {core_conv3x3_kernel<EPI, 1>, core_conv3x3_kernel<EPI, 2>,
+                                        core_conv3x3_kernel<EPI, 4>};
+    return v2e::launch_conv3x3(kernels, a, B, s);
+  }
   return v2e::tc::n_block(a.cout) == 128
              ? v2e::tc::launch(core_conv3x3_tc_kernel<EPI, 128>, a, B, 128, s)
              : v2e::tc::launch(core_conv3x3_tc_kernel<EPI, 64>, a, B, 64, s);
@@ -133,8 +138,8 @@ extern "C" {
 // One conv of the core. dtype: 0 = float32, 1 = bfloat16; epi: the
 // v2e::Epilogue. xa [B, H, W, cin_a] with taps wa [9, cin_a, cout], and
 // optionally xb [B, H, W, cin_b] with wb [9, cin_b, cout] (cin_b = 0: none);
-// in bfloat16 the taps laid out by ops/cuda/conv_tc.py::wgmma_taps and every
-// tensor on a 16-byte boundary;
+// the taps laid out by ops/cuda/conv_tc.py (simt_taps in float32, wgmma_taps
+// in bfloat16) and every tensor on a 16-byte boundary;
 // bias [cout] float32; other and lam as the epilogue needs them; out
 // [B, H, W, cout], float32 for EPI_PRE and of the dtype otherwise. Returns the
 // cudaError_t of the launch.

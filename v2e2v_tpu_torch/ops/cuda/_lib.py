@@ -42,12 +42,14 @@ class KernelLibrary:
 
 
 def check_aligned(what: str, **tensors) -> None:
-    """The tensor-core conv copies 16-byte rows with ``cp.async``: raise if a
-    tensor does not start on a 16-byte boundary (a view at an odd offset)."""
+    """The convs of K1 and K2 copy 16-byte rows with ``cp.async`` (and the
+    float32 conv stores 16-byte vectors): raise if a tensor does not start on
+    a 16-byte boundary (a view at an odd offset)."""
     for name, t in tensors.items():
         if t.data_ptr() % 16:
             raise ValueError(f"{what}: {name} must start on a 16-byte boundary for the "
-                             f"bfloat16 kernel (data_ptr % 16 = {t.data_ptr() % 16})")
+                             f"{str(t.dtype).split('.')[1]} kernel "
+                             f"(data_ptr % 16 = {t.data_ptr() % 16})")
 
 
 def _nvcc() -> str:
@@ -64,6 +66,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.v2e_ista_conv3x3.argtypes = [i, i, p, p, p, p, p, p, i, i, i, i, i, p]
     lib.v2e_ista_conv3x3.restype = i
+    lib.v2e_conv3x3_tile_w.argtypes = [i, i, i, i]
+    lib.v2e_conv3x3_tile_w.restype = i
     lib.v2e_conv3x3_smem_bytes.argtypes = [i]
     lib.v2e_conv3x3_smem_bytes.restype = i
     lib.v2e_conv3x3_tc_smem_bytes.argtypes = [i]

@@ -1,15 +1,20 @@
-"""The taps of the bfloat16 tensor-core conv (``csrc/conv3x3_tc.cuh``) in the
-order the kernel stages them in shared memory.
+"""The taps of the hand-written convs of kernels K1 and K2 in the order the
+kernels stage them in shared memory.
 
-The kernel streams one tap's slice of one 64-channel K chunk at a time into a
-ring of shared-memory buffers, each slice with a single bulk copy, so the
-slices are laid out once, here, in the exact byte order that ``wgmma`` reads:
-for every block of ``NB`` output channels, every 64-channel chunk of the
-input channels and every tap, a contiguous ``[8, NB / 8, 8, 8]`` block
-(input-channel group, output-channel group, 8 input channels, 8 output
-channels), each 16-byte row 8 neighbouring output channels of one input
-channel: N-major core matrices, read with wgmma's B-transpose bit. Input
-channels past ``cin`` and output channels past ``cout`` are zeros.
+The bfloat16 tensor-core conv (``csrc/conv3x3_tc.cuh``) streams one tap's
+slice of one 64-channel K chunk at a time into a ring of shared-memory
+buffers, each slice with a single bulk copy, so the slices are laid out once,
+here, in the exact byte order that ``wgmma`` reads: for every block of ``NB``
+output channels, every 64-channel chunk of the input channels and every tap,
+a contiguous ``[8, NB / 8, 8, 8]`` block (input-channel group, output-channel
+group, 8 input channels, 8 output channels), each 16-byte row 8 neighbouring
+output channels of one input channel: N-major core matrices, read with
+wgmma's B-transpose bit (``wgmma_taps``). The float32 conv
+(``csrc/conv3x3.cuh``) stages all 9 taps of one 16-channel chunk for a block
+of 64 output channels with one bulk copy: for every block of 64 output
+channels and every chunk of 16 input channels, a contiguous ``[9, 16, 64]``
+block (``simt_taps``). Input channels past ``cin`` and output channels past
+``cout`` are zeros.
 """
 
 from __future__ import annotations
@@ -20,7 +25,8 @@ import torch
 import torch.nn.functional as F
 
 KCH = 64  # input channels per K chunk (conv3x3_tc.cuh KCH)
-_CACHE_SIZE = 8
+SIMT_KC, SIMT_CO = 16, 64  # input channels per chunk, output channels per block (conv3x3.cuh)
+_CACHE_SIZE = 32
 _cache: OrderedDict = OrderedDict()  # key -> (source weight, laid-out taps)
 
 
@@ -42,22 +48,45 @@ def wgmma_taps(taps: torch.Tensor) -> torch.Tensor:
     return t.permute(4, 1, 0, 2, 5, 3, 6).contiguous()
 
 
-def cached_wgmma_taps(weight: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """``wgmma_taps(weight.to(dtype))``, laid out once for the same weight:
-    kernel K1 takes its weights as tensors on every call (a pool passes the
-    same ones every step), so its wrapper keeps their layout here. The key is
-    the storage, offset, strides, shape, dtype and version counter of
-    ``weight`` (an in-place update bumps the version) and ``dtype``; an entry
-    holds ``weight``, so its memory is not reused while cached. Kernel K2's
-    taps are laid out once by ``core_taps`` instead."""
+def simt_taps(taps: torch.Tensor) -> torch.Tensor:
+    """Taps ``[9, cin, cout]`` or HWIO ``[3, 3, cin, cout]`` -> ``[ceil(cout /
+    64), ceil(cin / 16), 9, 16, 64]`` in ``taps.dtype``."""
+    cin, cout = taps.shape[-2:]
+    taps = taps.reshape(9, cin, cout)
+    kc, nc = -(-cin // SIMT_KC), -(-cout // SIMT_CO)
+    t = F.pad(taps, (0, nc * SIMT_CO - cout, 0, kc * SIMT_KC - cin))
+    t = t.reshape(9, kc, SIMT_KC, nc, SIMT_CO)  # tap, chunk, ci, block, co
+    return t.permute(3, 1, 0, 2, 4).contiguous()
+
+
+def _cached(layout, weight: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``layout(weight.to(dtype))``, laid out once for the same weight: the
+    key is the storage, offset, strides, shape, dtype and version counter of
+    ``weight`` (an in-place update bumps the version), ``dtype`` and the
+    layout; an entry holds ``weight``, so its memory is not reused while
+    cached."""
     key = (weight.untyped_storage().data_ptr(), weight.storage_offset(), weight.stride(),
-           tuple(weight.shape), weight.dtype, weight.device, weight._version, dtype)
+           tuple(weight.shape), weight.dtype, weight.device, weight._version, dtype, layout)
     hit = _cache.get(key)
     if hit is not None:
         _cache.move_to_end(key)
         return hit[1]
-    laid = wgmma_taps(weight.to(dtype))
+    laid = layout(weight.to(dtype))
     _cache[key] = (weight, laid)
     if len(_cache) > _CACHE_SIZE:
         _cache.popitem(last=False)
     return laid
+
+
+def cached_wgmma_taps(weight: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``wgmma_taps(weight.to(dtype))``, laid out once for the same weight:
+    kernel K1 takes its weights as tensors on every call (a pool passes the
+    same ones every step), so its wrapper keeps their layout here. Kernel
+    K2's bfloat16 taps are laid out once by ``core_taps`` instead."""
+    return _cached(wgmma_taps, weight, dtype)
+
+
+def cached_simt_taps(weight: torch.Tensor) -> torch.Tensor:
+    """``simt_taps(weight.float())``, laid out once for the same weight: the
+    float32 taps of K1 (per call) and of K2 (``core_taps``' float32 taps)."""
+    return _cached(simt_taps, weight, torch.float32)

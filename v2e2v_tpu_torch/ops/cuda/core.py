@@ -182,10 +182,11 @@ def cista_core(
     """The core: the CUDA kernels for CUDA tensors (7 + 2 x depth launches on
     the current stream, counted in ``cista_core.launches``), the plain version
     for CPU tensors. Arguments and result as ``cista_core_plain``; the kernels
-    need ``C % 8 == 0``, and in bfloat16 (the tensor-core conv) inputs
-    starting on 16-byte boundaries; bfloat16 taps from ``core_taps(params,
-    torch.bfloat16)`` carry their layout, others are laid out on every call.
-    New tensors hold every output: the inputs stay as they were."""
+    need ``C % 8 == 0`` and inputs starting on 16-byte boundaries (the convs
+    copy 16-byte rows); bfloat16 taps from ``core_taps(params,
+    torch.bfloat16)`` carry their layout, float32 taps are laid out once per
+    tensor (``conv_tc.cached_simt_taps``), others on every call. New
+    tensors hold every output: the inputs stay as they were."""
     _check(taps, x1, z, cell, dg_h, dg_c, depth)
     if x1.device.type == "cpu":
         return cista_core_plain(taps, x1, z, cell, dg_h, dg_c, depth)
@@ -195,17 +196,20 @@ def cista_core(
     if c % 8:
         raise ValueError(f"the CUDA kernel needs C % 8 == 0, got C={c}")
     from ._lib import check_aligned, load
-    from .conv_tc import wgmma_taps
+    from .conv_tc import cached_simt_taps, wgmma_taps
 
     dtype = x1.dtype
     t = {k: taps[k].to(dtype).contiguous() for k in TAP_KEYS}
     t |= {k: taps[k].float().contiguous() for k in BIAS_KEYS}
     cout = {k: t[k].shape[2] for k in TAP_KEYS}
+    # the taps in the order the conv stages them
     if dtype == torch.bfloat16:  # the tensor-core conv's layout, from core_taps
         laid = {k: taps.get(tk) for k, tk in zip(TAP_KEYS, TC_KEYS)}
         t |= {k: v if v is not None and v.dtype == dtype else wgmma_taps(t[k])
               for k, v in laid.items()}
-        check_aligned("cista_core", x1=x1, z=z, cell=cell, dg_h=dg_h, dg_c=dg_c)
+    else:
+        t |= {k: cached_simt_taps(t[k]) for k in TAP_KEYS}
+    check_aligned("cista_core", x1=x1, z=z, cell=cell, dg_h=dg_h, dg_c=dg_c)
     lib = load()
     code = _DTYPE_CODE[dtype]
     f32 = dict(dtype=torch.float32, device=x1.device)

@@ -119,8 +119,8 @@ def ista_loop(
     """The ISTA loop: the CUDA kernel for CUDA tensors (2 x depth launches
     on the current stream, counted in ``ista_loop.launches``), the plain
     version for CPU tensors. Arguments as ``ista_loop_plain``; the kernel
-    needs ``C % 8 == 0``, and in bfloat16 (the tensor-core conv) x1 and z
-    starting on 16-byte boundaries."""
+    needs ``C % 8 == 0`` and x1 and z starting on 16-byte boundaries (both
+    convs copy 16-byte rows)."""
     _check(x1, z, d_weight, d_bias, p_weight, p_bias, lam, depth)
     if x1.device.type == "cpu":
         return ista_loop_plain(x1, z, d_weight, d_bias, p_weight, p_bias, lam, depth)
@@ -130,17 +130,16 @@ def ista_loop(
     if c % 8:
         raise ValueError(f"the CUDA kernel needs C % 8 == 0, got C={c}")
     from ._lib import check_aligned, load
-    from .conv_tc import cached_wgmma_taps
+    from .conv_tc import cached_simt_taps, cached_wgmma_taps
 
-    if x1.dtype == torch.bfloat16:
-        check_aligned("ista_loop", x1=x1, z=z)
+    check_aligned("ista_loop", x1=x1, z=z)
     lib = load()
     dtype = x1.dtype
-    if dtype == torch.bfloat16:  # the tensor-core conv's layout, built once per weights
+    # the taps in the order the conv stages them, laid out once per weights
+    if dtype == torch.bfloat16:
         d_taps, p_taps = (cached_wgmma_taps(w, dtype) for w in (d_weight, p_weight))
     else:
-        d_taps = d_weight.to(dtype).reshape(9, 2 * c, c).contiguous()
-        p_taps = p_weight.to(dtype).reshape(9, c, 2 * c).contiguous()
+        d_taps, p_taps = (cached_simt_taps(w) for w in (d_weight, p_weight))
     # cast to the activation dtype as the Pallas kernel does; the kernel
     # reads them as float32
     db, pb, lam_t = (t.to(dtype).float().contiguous() for t in (d_bias, p_bias, lam))
