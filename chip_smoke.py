@@ -117,7 +117,32 @@ Phases, one line each (any failure exits non-zero before the last line):
    (1e-4), bfloat16 within 3e-2 + 3e-2 |ref| of float32, finite in [0, 1];
    the pool's step time; the E2V CLI with ``--model_mode cista-tc`` over
    phase 9's first sequence (frames and the ``result.csv`` row written);
-13. a ``{"kernels": [...]}`` JSON line, then the last line
+13. training at full width (CISTA-LSTC 180x240, 64 channels, depth 5, 5
+   bins, windows of 10, float32 with TF32 off, the training config
+   ``ista_impl="plain"``, ``core_impl="layers"``): (a) one E2V train step
+   (B = 2) on the card against the same step on the CPU from the same weights
+   and batch (loss within 1e-4 relative, each gradient within 1e-3 of its
+   largest entry; K1 and K2 at 0 launches), two controls from the same
+   weights (the card's step with TF32 on, whose gradients must read above
+   that bound, and with cuDNN off), and ``ista_loop`` on CUDA tensors that
+   require grad refusing; (b) E2V train steps at B = 1 and 8
+   (ms per step by CUDA events, split into forward + loss, backward and
+   optimizer, peak memory with and without remat; the loss finite and
+   falling over 20 steps on one batch at B = 8; counts at 0 just before the
+   timed steps); (c) ``cli.train_e2v`` for 2 epochs over a synthetic dataset
+   (``data/synthetic.write_dataset``, manifest by ``make_train_e2v_txt``; no
+   K1, K2 or K3 launch), ``cli.test_e2v`` on its epoch-2 checkpoint with K1
+   held against its plain version at every call, and a resume from epoch 1
+   to epoch 3 (the Adam moments survive); (d) V2E2V train steps at B = 8
+   through K3 (its Philox) against ``iters_impl="plain"`` on the same noise
+   seed (equal event counts, loss within 1e-5; K3 9 x 10 launches per step,
+   K1 and K2 0), ms per step and peak memory; (e) ``cli.train`` for 1 epoch
+   warm-started from (c)'s checkpoint, then ``cli.test`` on its checkpoint,
+   the emulator rebuilt from its ``v2e_params``. Each part prints its
+   seconds;
+14. a ``{"kernels": [...]}`` JSON line (each row's launches on the paths of
+   phases 10-13, every count set to 0 just before each path: K1 and K2
+   counted by dtype, K3 by shot mode), then the last line
    ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX or of the JAX package ``v2e2v_tpu``.
@@ -128,6 +153,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import io
 import json
 import re
 import shutil
@@ -808,7 +834,7 @@ def v2e2v_cli_phase(seed: int, smi: str, root: Path) -> dict:
     frames: run 1 through the plain versions and run 2 through K3 and K1,
     both with the same explicit draws from card generators; then run 3, the
     default path (internal Philox), with every count set to 0 just before it.
-    Returns the main path's launches."""
+    Returns run 3's launches by row of the kernels line and the dataset."""
     from v2e2v_tpu_torch.cli import test as cli_test
     from v2e2v_tpu_torch.data.synthetic import write_hfr_dataset
     from v2e2v_tpu_torch.models.cista import CistaConfig, init_cista_lstc
@@ -879,8 +905,7 @@ def v2e2v_cli_phase(seed: int, smi: str, root: Path) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
-    ista_loop.launches = cista_core.launches = emulator_iters.launches = 0
-    emulator_iters.launches_by_shot = dict.fromkeys(emulator_iters.launches_by_shot, 0)
+    counts_zero(*kernel_counters())
     with recorded_forward(records, step_ev), swapped(*writes):
         t0 = time.perf_counter()
         run.run()
@@ -888,6 +913,7 @@ def v2e2v_cli_phase(seed: int, smi: str, root: Path) -> dict:
         run_s = time.perf_counter() - t0
     k3_n, k1_n, k2_n = emulator_iters.launches, ista_loop.launches, cista_core.launches
     k3_internal = emulator_iters.launches_by_shot["internal"]
+    rows = row_counts()
     peak = (torch.cuda.max_memory_allocated() - base) / 2**20
     n_packs = len(records)
     ev3 = [int(o.num_events) for o, _, _ in records]
@@ -919,12 +945,13 @@ def v2e2v_cli_phase(seed: int, smi: str, root: Path) -> dict:
         f"{1e3 * run_s / n_packs - read_ms - step_ms - write_ms:.3f} ms; max_memory_allocated "
         f"{peak:.1f} MiB above what earlier phases hold ({base / 2**20:.1f} MiB)")
     say(f"[phase] V2E2V CLI runs {time.perf_counter() - t_phase:.1f} s")
-    return {"k3": k3_n, "k1": k1_n, "data": data}
+    return {"rows": rows, "data": data}
 
 
-def raw_phase(seed: int, smi: str, root: Path, data: Path) -> None:
+def raw_phase(seed: int, smi: str, root: Path, data: Path) -> dict[str, int]:
     """Phase 11: the generation tool over phase 10's dataset, then one pack
-    with the same explicit draws through raw mode and through voxel mode."""
+    with the same explicit draws through raw mode and through voxel mode.
+    Returns the tool's launches by row of the kernels line."""
     from v2e2v_tpu_torch.cli import generate_events as gen
     from v2e2v_tpu_torch.data.video_readers import ImageReader
     from v2e2v_tpu_torch.models.emulator import (
@@ -945,19 +972,20 @@ def raw_phase(seed: int, smi: str, root: Path, data: Path) -> None:
     cfgs = parser.parse_args(["--path_to_test_data", str(data), "--image_dim", str(H), str(W),
                               "-b", str(NB), "--seed", str(seed), "-o", str(out),
                               *[a for k, v in V2E_PARAMS.items() for a in (f"--{k}", str(v))]])
-    k3_before = emulator_iters.launches
+    counts_zero(*kernel_counters())
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(None):
         total = gen.generate(cfgs, torch.device("cuda"))
     gen_s = time.perf_counter() - t0
+    rows = row_counts()
     files = sorted(out.glob("*/events/events_*.npz"))
     in_files = sum(len(np.load(f)["t"]) for f in files)
     # per sequence: 9 intervals in the first pack, 8 in each later one
     want_files = HFR_SEQUENCES * (9 + 8 * (HFR_FRAMES // 9 - 2))
-    ok = len(files) == want_files and in_files == total > 0 and emulator_iters.launches == k3_before
+    ok = len(files) == want_files and in_files == total > 0 and not any(rows.values())
     say(f"[raw] generate_events over phase 10's dataset: {len(files)} .npz files (want "
         f"{want_files}, one per frame interval), {in_files} events in them, printed total "
-        f"{total}, K3 launches {emulator_iters.launches - k3_before} (raw mode records events "
+        f"{total}, launches {rows} (raw mode records events "
         f"with the plain loop); {gen_s:.3f} s host clock {'pass' if ok else 'FAIL'}")
     if not ok:
         fail("the event generation tool did not write every event once")
@@ -996,13 +1024,15 @@ def raw_phase(seed: int, smi: str, root: Path, data: Path) -> None:
         f"loop, masks to the host, extraction and sorts), emulate_pack {vox_ms:.3f} ms (K3), "
         f"both as the host issues them (CUDA events, explicit draws)")
     say(f"[phase] raw-event generation {time.perf_counter() - t_phase:.1f} s")
+    return rows
 
 
 def tc_phase(seed: int, smi: str, root: Path, serve, served: dict) -> dict:
     """Phase 12: CISTA-TC at full width: a StreamPool on phase 4's schedule
     and voxel grids in float32 and bfloat16 (counts set to 0 just before;
     K1 and K2 stay at 0), one stream's first 3 steps against the CPU, then the
-    E2V CLI with --model_mode cista-tc over one sequence."""
+    E2V CLI with --model_mode cista-tc over one sequence. Returns the pool
+    runs' launches by row of the kernels line."""
     from v2e2v_tpu_torch.cli import test_e2v as cli
     from v2e2v_tpu_torch.data.synthetic import write_dataset
     from v2e2v_tpu_torch.models.cista import (
@@ -1021,7 +1051,7 @@ def tc_phase(seed: int, smi: str, root: Path, serve, served: dict) -> dict:
     cfg = CistaConfig(image_dim=(H, W), base_channels=C, depth=DEPTH, num_bins=NB,
                       model_mode="cista-tc")
     sd = init_cista_tc(torch.Generator().manual_seed(seed), cfg, device="cpu")
-    recs, launches = {}, {}
+    recs, launches, pool_rows = {}, {}, {}
     for dtype in (torch.float32, torch.bfloat16):
         pool = StreamPool(cfg, sd, CAPACITY, dtype, device="cuda")
         snaps, step = [], pool.step
@@ -1033,9 +1063,10 @@ def tc_phase(seed: int, smi: str, root: Path, serve, served: dict) -> dict:
             return out
 
         pool.step = stepped
-        ista_loop.launches = cista_core.launches = emulator_iters.launches = 0
+        counts_zero(ista_loop, cista_core, emulator_iters)
         recs[dtype], _, _ = serve(pool, served[dtype])
         launches[dtype] = ista_loop.launches + cista_core.launches + emulator_iters.launches
+        pool_rows = add_counts(pool_rows, row_counts())
         stacked = torch.stack(list(recs[dtype].values()))
         finite = bool(torch.isfinite(stacked).all())
         in_range = bool(((stacked >= 0) & (stacked <= 1)).all())
@@ -1116,7 +1147,531 @@ def tc_phase(seed: int, smi: str, root: Path, serve, served: dict) -> dict:
     if not ok:
         fail("the E2V CLI with cista-tc did not run as it should")
     say(f"[phase] CISTA-TC {time.perf_counter() - t_phase:.1f} s")
-    return launches
+    return pool_rows
+
+
+TRAIN_T, TRAIN_LR = 10, 1e-4  # --len_sequence and --lr defaults
+TRAIN_CPU_B = 2  # the CPU's side of the card-vs-CPU step (phase 13a)
+GRAD_TOL = 1e-3  # of each gradient tensor's largest entry
+TRAIN_SEQ_FRAMES = TRAIN_T * (N_FRAMES - 1) + 1  # one V2E2V video: TRAIN_T pack lines
+
+
+def train_batch(seed: int, b: int, t: int = TRAIN_T):
+    """A training batch at full width: voxel grids ``[t, b, H, W, NB]`` ~ N(0, 1)
+    (as the std-normalised grids are) and a smooth target ``[b, H, W, 1]``
+    in [0, 1] (frames of ``data/synthetic.hfr_frames`` / 255)."""
+    from v2e2v_tpu_torch.data.synthetic import hfr_frames
+
+    seq = torch.randn(t, b, H, W, NB, generator=torch.Generator().manual_seed(seed))
+    frames, _ = hfr_frames(seed, 1, H, W, batch=b)
+    return seq, torch.from_numpy(frames[:, 0, :, :, None] / 255.0)
+
+
+def train_weights(cfg, seed: int, device):
+    """CISTA-LSTC init weights from ``seed`` with the ISTA block tied."""
+    from v2e2v_tpu_torch.models.cista import init_cista_lstc, tie_weights
+
+    return tie_weights(init_cista_lstc(torch.Generator().manual_seed(seed), cfg, device), cfg)
+
+
+def counts_zero(*counters) -> None:
+    for c in counters:
+        c.launches = 0
+        for split in ("launches_by_dtype", "launches_by_shot"):
+            if hasattr(c, split):
+                getattr(c, split).update(dict.fromkeys(getattr(c, split), 0))
+
+
+def kernel_counters() -> tuple:
+    from v2e2v_tpu_torch.ops.cuda.core import cista_core
+    from v2e2v_tpu_torch.ops.cuda.emulator_iters import emulator_iters
+    from v2e2v_tpu_torch.ops.cuda.ista import ista_loop
+
+    return ista_loop, cista_core, emulator_iters
+
+
+def row_counts() -> dict[str, int]:
+    """The launches of each row of the kernels line since the counts were set
+    to 0: K1 and K2 by dtype, K3 by shot mode, as the wrappers count them."""
+    k1, k2, k3 = kernel_counters()
+    rows = {f"{k.__name__} ({d})": n for k in (k1, k2) for d, n in k.launches_by_dtype.items()}
+    return rows | {f"emulator_iters ({m} rng)": k3.launches_by_shot[m]
+                   for m in ("internal", "explicit")}
+
+
+def add_counts(a: dict[str, int], b: dict[str, int]) -> dict[str, int]:
+    return {k: a.get(k, 0) + n for k, n in b.items()}
+
+
+def split_step(sd, cfg, opt, seq, gt, remat: bool = True) -> tuple[float, float, float, float]:
+    """One E2V step by its parts, each between CUDA events: the forward and
+    loss, the backward, the optimizer. Returns ``(loss, ms, ms, ms)``."""
+    from v2e2v_tpu_torch._device import float32_math
+    from v2e2v_tpu_torch.training.steps import e2v_loss
+
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    with float32_math():
+        opt.zero_grad(set_to_none=True)
+        ev[0].record()
+        loss = e2v_loss(sd, cfg, seq, gt, remat=remat)
+        ev[1].record()
+        loss.backward()
+        ev[2].record()
+        opt.step()
+        ev[3].record()
+    ev[3].synchronize()
+    return (float(loss.detach()), ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2]),
+            ev[2].elapsed_time(ev[3]))
+
+
+@contextlib.contextmanager
+def tf32_math():
+    """TF32 on in cuDNN's convs and in matmuls for the block (13a's control)."""
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+@contextlib.contextmanager
+def cudnn_off():
+    """PyTorch's own convs in place of cuDNN's for the block (13a's control)."""
+    saved = torch.backends.cudnn.enabled
+    torch.backends.cudnn.enabled = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.enabled = saved
+
+
+def e2v_step_vs_cpu(cfg, seed: int, counters) -> None:
+    """13a: one E2V train step at full width on the card and on the CPU from
+    the same weights and batch; K1 and K2 stay at 0 launches; K1 on CUDA
+    tensors that require grad refuses. Two controls from the same weights:
+    the card's step with TF32 let into every conv and matmul of the step
+    (forward, recompute, backward, SSIM), which the gradient bound must
+    reject, and the step with cuDNN off (PyTorch's own float32 convs)."""
+    from v2e2v_tpu_torch.ops.cuda.ista import ista_loop
+    from v2e2v_tpu_torch.training import losses as losses_mod
+    from v2e2v_tpu_torch.training import steps as steps_mod
+    from v2e2v_tpu_torch.training.steps import make_adam, make_e2v_train_step
+    from v2e2v_tpu_torch.utils.checkpoint import STEP_KEYS
+
+    seq, gt = train_batch(seed, TRAIN_CPU_B)
+    runs = {
+        "cpu": ("cpu", contextlib.nullcontext),
+        "card": ("cuda", contextlib.nullcontext),
+        "card, TF32 on": ("cuda", lambda: swapped((steps_mod, "float32_math", tf32_math),
+                                                  (losses_mod, "float32_math", tf32_math))),
+        "card, cuDNN off": ("cuda", cudnn_off),
+    }
+    res = {}
+    for run, (device, context) in runs.items():
+        sd = train_weights(cfg, seed, device)
+        step = make_e2v_train_step(cfg, make_adam(sd, cfg, TRAIN_LR))
+        s, g = seq.to(device), gt.to(device)
+        counts_zero(*counters)
+        t0 = time.perf_counter()
+        with context():
+            loss = float(step(sd, s, g))
+        torch.cuda.synchronize()
+        res[run] = (loss, {k: sd[k].grad.cpu() for k in STEP_KEYS[cfg.model_mode]},
+                    time.perf_counter() - t0, [c.launches for c in counters])
+    want, want_g, cpu_s, _ = res["cpu"]
+    errs, rels = {}, {}
+    for run, (got, got_g, run_s, launches) in res.items():
+        if run == "cpu":
+            continue
+        rels[run] = abs(got - want) / abs(want)
+        errs[run] = {k: float((got_g[k] - w).abs().max()) / float(w.abs().max())
+                     for k, w in want_g.items()}
+        worst = max(errs[run], key=errs[run].get)
+        say(f"[train] E2V step {run} vs CPU (CISTA-LSTC {H}x{W}, C={C}, depth {DEPTH}, "
+            f"T={TRAIN_T}, B={TRAIN_CPU_B}, remat; the same weights and batch): loss {got:.7f} "
+            f"vs {want:.7f}, relative error {rels[run]:.3e}; gradients: largest max|diff| / "
+            f"max|g| {errs[run][worst]:.3e} ({worst}); per tensor "
+            f"{ {k: float(f'{v:.2e}') for k, v in errs[run].items()} }; K1, K2, K3 launches "
+            f"{launches}; step {run_s:.1f} s (CPU {cpu_s:.1f} s)")
+    card, tf32 = max(errs["card"].values()), max(errs["card, TF32 on"].values())
+    ok = (rels["card"] <= 1e-4 and card <= GRAD_TOL < tf32
+          and not any(res["card"][3]))
+    say(f"[train] E2V step card vs CPU: loss relative error {rels['card']:.3e} (tol 1e-4), "
+        f"gradients {card:.3e} of their largest entry (tol {GRAD_TOL}); the TF32 control "
+        f"reads {tf32:.3e} (must exceed the tolerance), cuDNN off "
+        f"{max(errs['card, cuDNN off'].values()):.3e}; K1, K2 launches {res['card'][3][:2]} "
+        f"(want 0) {'pass' if ok else 'FAIL'}")
+    if not ok:
+        fail("the E2V train step on the card disagrees with the CPU, launched K1 or K2, or "
+             "the gradient bound does not see TF32")
+    args = [a.detach().clone() for a in ista_inputs(torch.Generator().manual_seed(seed),
+                                                     torch.float32, train_weights(cfg, seed,
+                                                                                  "cuda"), b=1)]
+    args[2].requires_grad_(True)
+    try:
+        ista_loop(*args, depth=DEPTH)
+    except RuntimeError as e:
+        say(f"[train] ista_loop on CUDA tensors that require grad refuses: {e} pass")
+    else:
+        fail("ista_loop ran on CUDA tensors that require grad under autograd")
+
+
+def e2v_step_times(cfg, seed: int, smi: str, counters) -> dict:
+    """13b: E2V train steps at B = 1 and 8 on a fixed batch: ms per step on
+    the main path (``make_e2v_train_step``, CUDA events after warm-up), its
+    split, peak memory with and without remat; the loss falls over the B = 8
+    steps. Returns the launches over the timed steps by row of the kernels
+    line."""
+    from v2e2v_tpu_torch.training.steps import make_adam, make_e2v_train_step
+
+    launches, rows = [0] * len(counters), {}
+    for b, n_steps in ((1, 8), (8, 20)):
+        seq, gt = (x.cuda() for x in train_batch(seed + b, b))
+        sd = train_weights(cfg, seed, "cuda")
+        opt = make_adam(sd, cfg, TRAIN_LR)
+        step = make_e2v_train_step(cfg, opt)
+        losses = [float(step(sd, seq, gt)) for _ in range(2)]  # warm-up
+        counts_zero(*counters)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        losses += [step(sd, seq, gt) for _ in range(n_steps - 2)]
+        ev[1].record()
+        ev[1].synchronize()
+        launches = [n + c.launches for n, c in zip(launches, counters)]
+        rows = add_counts(rows, row_counts())
+        step_ms = ev[0].elapsed_time(ev[1]) / (n_steps - 2)
+        losses = [float(x) for x in losses]
+        parts = [split_step(sd, cfg, opt, seq, gt) for _ in range(2)][-1]
+        peaks = {}
+        for remat in (True, False):
+            opt.zero_grad(set_to_none=True)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            split_step(sd, cfg, opt, seq, gt, remat=remat)
+            peaks[remat] = (torch.cuda.max_memory_allocated() - base) / 2**20
+        finite = all(np.isfinite(losses))
+        falls = losses[-1] < losses[0]
+        ok = finite and (falls or b == 1) and not any(launches)
+        say(f"[time] E2V train step B={b} ({smi}; CISTA-LSTC {H}x{W}, C={C}, depth {DEPTH}, "
+            f"T={TRAIN_T}, remat, float32, TF32 off, Adam lr {TRAIN_LR}): {step_ms:.3f} ms per "
+            f"step (CUDA events, {n_steps - 2} steps after 2 of warm-up), "
+            f"{b * TRAIN_T * 1e3 / step_ms:.1f} reconstructions trained per s; split: forward + "
+            f"loss {parts[1]:.3f} ms, backward (with the remat recompute) {parts[2]:.3f} ms, "
+            f"optimizer {parts[3]:.3f} ms; max_memory_allocated above the weights and batch "
+            f"with remat {peaks[True]:.1f} MiB, without {peaks[False]:.1f} MiB; loss "
+            f"{losses[0]:.5f} -> {losses[-1]:.5f} over {n_steps} steps on one batch "
+            f"(finite={finite}, falls={falls}) {'pass' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"E2V training at B={b} did not run as it should")
+        del sd, opt, step, seq, gt
+    return rows
+
+
+def train_argv(data: Path, models: Path, *extra) -> list[str]:
+    return ["--path_to_train_data", str(data), "--path_to_model", str(models), "--image_dim",
+            str(H), str(W), "-c", str(C), "-d", str(DEPTH), "-b", str(NB), "--num_events",
+            str(NUM_EVENTS), "--len_sequence", str(TRAIN_T), "--seed", "0", *extra]
+
+
+def e2v_train_cli(seed: int, smi: str, root: Path, counters) -> Path:
+    """13c: ``cli.train_e2v`` for 2 epochs over a synthetic dataset (counts at
+    0 just before: no K1, K2 or K3 launch), its epoch-2 checkpoint through
+    ``cli.test_e2v`` with K1 held against its plain version at every call,
+    then a resume from epoch 1 for a third epoch. Returns the epoch-2
+    checkpoint."""
+    from v2e2v_tpu_torch.cli import train_e2v
+    from v2e2v_tpu_torch.data.manifests import make_train_e2v_txt
+    from v2e2v_tpu_torch.data.synthetic import write_dataset
+    from v2e2v_tpu_torch.models import cista as cista_mod
+    from v2e2v_tpu_torch.ops.cuda.ista import ista_loop, ista_loop_plain
+    from v2e2v_tpu_torch.training import steps as steps_mod
+    from v2e2v_tpu_torch.utils.checkpoint import load_torch_checkpoint
+
+    data, models = root / "train_e2v_data", root / "train_e2v_models"
+    write_dataset(data, seed, CLI_SEQUENCES, CLI_FRAMES, H, W, CLI_EVENTS)
+    n_lines = make_train_e2v_txt(str(data))
+    name = f"_cista-lstc_b{NB}_d{DEPTH}_c{C}"
+    folder = models / name
+    # each step of the CLI between host-clock marks (it syncs on the loss):
+    # the time between two steps of an epoch is the loop's wait for its data
+    marks = []
+    build = steps_mod.make_e2v_train_step
+
+    def timed_build(*a, **k):
+        step = build(*a, **k)
+
+        def timed(*sa):
+            t0 = time.perf_counter()
+            loss = step(*sa)
+            torch.cuda.synchronize()
+            marks.append((t0, time.perf_counter()))
+            return loss
+
+        return timed
+
+    counts_zero(*counters)
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out), swapped((steps_mod, "make_e2v_train_step", timed_build)):
+        train_e2v.main(train_argv(data, models, "--epochs", "2"))
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = [c.launches for c in counters]
+    log = out.getvalue()
+    last = marks[len(marks) // 2:]  # epoch 2
+    step_ms = 1e3 * sum(b - a for a, b in last) / len(last)
+    wait_ms = 1e3 * sum(n[0] - p[1] for p, n in zip(last, last[1:])) / max(len(last) - 1, 1)
+    ckpt = folder / f"{name}_2.pth.tar"
+    sd, epoch, _ = load_torch_checkpoint(str(ckpt))
+    finite = all(bool(torch.isfinite(v).all()) for v in sd.values())
+    samples = int(log.split("training sequences: ")[1].split()[0])
+    ok = (finite and epoch == 1 and not any(launches) and log.count("epoch ") >= 2
+          and (folder / f"{name}_1.pth.tar").exists() and samples > 0
+          and len(marks) == 2 * samples)
+    say(f"[train] cli.train_e2v: {n_lines} manifest lines (make_train_e2v_txt) over "
+        f"{CLI_SEQUENCES} synthetic sequences of {CLI_FRAMES} frames {H}x{W}, {samples} "
+        f"training sequences of {TRAIN_T} reconstructions, 2 epochs at batch 1 in "
+        f"{train_s:.3f} s host clock ({smi}); epoch means: "
+        f"{[ln.split('mean loss ')[1] for ln in log.splitlines() if 'mean loss' in ln]}; "
+        f"K1, K2, K3 launches {launches} (want 0); checkpoint {ckpt.name} epoch {epoch}, "
+        f"finite={finite} {'pass' if ok else 'FAIL'}")
+    say(f"[time] cli.train_e2v epoch 2, batch 1 ({smi}): {step_ms:.3f} ms per step (host "
+        f"clock from the call to the loss, the data thread running beside it), {wait_ms:.3f} "
+        f"ms between steps over {len(last)} steps: the loop's wait for its next batch, not "
+        f"what the data thread costs the steps (scripts/time_torch_train_loop.py times the "
+        f"loop over an epoch of hundreds of steps, with and without the thread)")
+    if not ok:
+        fail("cli.train_e2v did not run as it should")
+
+    rec = cli_reconstructor(data, ckpt, torch.float32, "trained_cli", "cuda")
+    steps_ = record_steps(rec, keep_state=False)
+    k1_errs = []
+
+    def k1_checked(*a, **k):
+        got = ista_loop(*a, **k)
+        k1_errs.append(within(got, ista_loop_plain(*a, **k), TOL[torch.float32]))
+        return got
+
+    counts_zero(*counters)
+    with swapped((cista_mod, "ista_loop", k1_checked)), contextlib.redirect_stdout(None):
+        rec.run()
+    torch.cuda.synchronize()
+    k1_n = counters[0].launches
+    stacked = torch.stack([r for r, _ in steps_])
+    finite = bool(torch.isfinite(stacked).all())
+    in_range = bool(((stacked >= 0) & (stacked <= 1)).all())
+    k1_err = max(e for e, _ in k1_errs)
+    pngs = list((root / "trained_cli").rglob("frame_*.png"))
+    ok = (finite and in_range and len(k1_errs) == len(steps_) > 0
+          and all(o for _, o in k1_errs) and k1_n == 2 * DEPTH * len(steps_) and pngs)
+    say(f"[train] cli.test_e2v on the epoch-2 checkpoint: {len(steps_)} reconstructions, "
+        f"{len(pngs)} PNGs; K1 launches {k1_n} (want 2 x depth x {len(steps_)}), held against "
+        f"its plain version at each of {len(k1_errs)} calls: max_abs_err={k1_err:.3e} "
+        f"(tol 1e-4 + 1e-4 |ref|); finite={finite} in[0,1]={in_range} "
+        f"{'pass' if ok else 'FAIL'}")
+    if not ok:
+        fail("the trained checkpoint did not serve through K1 as it should")
+
+    resumed = root / "train_e2v_resumed"
+    (resumed / name).mkdir(parents=True)
+    shutil.copy(folder / f"{name}_1.pth.tar", resumed / name / f"{name}_1.pth.tar")
+    with contextlib.redirect_stdout(io.StringIO()):
+        train_e2v.main(train_argv(data, resumed, "--epochs", "3", "--load_epoch_for_train", "1"))
+    third = torch.load(resumed / name / f"{name}_3.pth.tar", map_location="cpu",
+                       weights_only=False)
+    again, _, _ = load_torch_checkpoint(str(resumed / name / f"{name}_2.pth.tar"))
+    diff = max(float((again[k] - v).abs().max()) for k, v in sd.items())
+    adam_steps = {int(s["step"]) for s in third["optimizer"]["state"].values()}
+    finite = all(bool(torch.isfinite(v).all()) for v in third["state_dict"].values())
+    ok = third["epoch"] == 2 and adam_steps == {3 * samples} and finite
+    say(f"[train] resume from epoch 1 (--load_epoch_for_train 1 --epochs 3): epochs 2 and 3 "
+        f"written; Adam step counts {sorted(adam_steps)} (want {3 * samples}: the moments "
+        f"survive); its epoch-2 weights within {diff:.3e} of the straight run's (cuDNN's "
+        f"backward is not bit-reproducible); finite={finite} {'pass' if ok else 'FAIL'}")
+    if not ok:
+        fail("resuming E2V training did not run as it should")
+    return ckpt
+
+
+def v2e2v_train_steps(seed: int, smi: str, counters) -> dict:
+    """13d: V2E2V train steps at B = 8, T packs of 10 frames, through K3 (the
+    default path, internal Philox) against ``iters_impl="plain"`` on the same
+    noise seed; counts at 0 before the step through K3. Returns its launches
+    by row of the kernels line."""
+    from v2e2v_tpu_torch.data.synthetic import hfr_frames
+    from v2e2v_tpu_torch.models.emulator import GeneratorNoise
+    from v2e2v_tpu_torch.models.v2e2v import V2E2VConfig
+    from v2e2v_tpu_torch.training.steps import make_adam, make_v2e2v_train_step
+
+    cfg = V2E2VConfig.from_flags(argparse.Namespace(**FLAGS))
+    cfg = dataclasses.replace(cfg, cista=dataclasses.replace(cfg.cista, ista_impl="plain"))
+    plain = dataclasses.replace(cfg, emulator=dataclasses.replace(cfg.emulator,
+                                                                  iters_impl="plain"))
+    b, n = CAPACITY, N_FRAMES
+    video, t = hfr_frames(seed, TRAIN_T * (n - 1) + 1, H, W, batch=b)
+    frames = torch.stack([torch.from_numpy(video[:, p * (n - 1):p * (n - 1) + n])
+                          for p in range(TRAIN_T)]).cuda()
+    ts = torch.stack([torch.from_numpy(np.tile(t[p * (n - 1):p * (n - 1) + n], (b, 1)))
+                      for p in range(TRAIN_T)]).cuda()
+    gt = frames[-1][:, -1, :, :, None] / 255.0
+
+    def run(c, n_steps):
+        sd = train_weights(c.cista, seed, "cuda")
+        step = make_v2e2v_train_step(c, make_adam(sd, c.cista, TRAIN_LR))
+        out = []
+        for i in range(n_steps):
+            noise = GeneratorNoise(torch.Generator(device="cuda").manual_seed(seed + i))
+            loss, stats = step(sd, frames, ts, gt, noise)
+            out.append((float(loss), int(stats["num_events"]), int(stats["clipped_pixels"])))
+        return out
+
+    want = run(plain, 1)[0]
+    counts_zero(*counters)
+    got = run(cfg, 1)[0]
+    per_step = [c.launches for c in counters]
+    rows = row_counts()
+    ok = (got[1] == want[1] > 0 and abs(got[0] - want[0]) <= 1e-5
+          and per_step == [9 * TRAIN_T, 0, 0]
+          and rows["emulator_iters (internal rng)"] == 9 * TRAIN_T)
+    say(f"[train] V2E2V step B={b}, {TRAIN_T} packs of {n} frames {H}x{W} (the emulator of "
+        f"bench.py:170-176), K3 with its Philox vs iters_impl='plain' on the same noise seed: "
+        f"events {got[1]} vs {want[1]}, loss {got[0]:.7f} vs {want[0]:.7f} (|diff| "
+        f"{abs(got[0] - want[0]):.2e}, tol 1e-5); launches K3, K1, K2 per step {per_step} (want "
+        f"[{9 * TRAIN_T}, 0, 0], K3's internal Philox {rows['emulator_iters (internal rng)']}) "
+        f"{'pass' if ok else 'FAIL'}")
+    if not ok:
+        fail("the V2E2V train step through K3 disagrees with the plain loop")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    n_steps = 4
+    sd = train_weights(cfg.cista, seed, "cuda")
+    step = make_v2e2v_train_step(cfg, make_adam(sd, cfg.cista, TRAIN_LR))
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    losses = []
+    for i in range(n_steps):
+        if i == 1:
+            ev[0].record()
+        noise = GeneratorNoise(torch.Generator(device="cuda").manual_seed(seed + i))
+        losses.append(step(sd, frames, ts, gt, noise)[0])
+    ev[1].record()
+    ev[1].synchronize()
+    host_s = time.perf_counter() - t0
+    step_ms = ev[0].elapsed_time(ev[1]) / (n_steps - 1)
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**20
+    losses = [float(x) for x in losses]
+    ok = all(np.isfinite(losses))
+    say(f"[time] V2E2V train step B={b} ({smi}; {TRAIN_T} packs of {n} frames {H}x{W}, K3 for "
+        f"the emulator, CISTA-LSTC C={C} depth {DEPTH} with remat, float32, TF32 off): "
+        f"{step_ms:.3f} ms per step (CUDA events, {n_steps - 1} steps after 1 of warm-up; "
+        f"{n_steps} steps {host_s:.1f} s host clock), {b * TRAIN_T * 1e3 / step_ms:.1f} "
+        f"reconstructions trained per s; max_memory_allocated {peak:.1f} MiB above what "
+        f"earlier phases hold; losses {[round(x, 5) for x in losses]} "
+        f"{'pass' if ok else 'FAIL'}")
+    if not ok:
+        fail("V2E2V training produced a loss that is not finite")
+    return rows
+
+
+def v2e2v_train_cli(seed: int, smi: str, root: Path, e2v_ckpt: Path, counters) -> None:
+    """13e: ``cli.train`` for 1 epoch over synthetic HFR frames, warm-started
+    from 13c's checkpoint; ``cli.test`` rebuilds the emulator from its
+    checkpoint's ``v2e_params`` and runs through K3 and K1."""
+    from v2e2v_tpu_torch.cli import test as cli_test
+    from v2e2v_tpu_torch.cli import train
+    from v2e2v_tpu_torch.data.manifests import make_train_txt_wo_events
+    from v2e2v_tpu_torch.data.synthetic import write_hfr_dataset
+    from v2e2v_tpu_torch.utils.configs import set_configs
+
+    data, models = root / "train_v2e2v_data", root / "train_v2e2v_models"
+    write_hfr_dataset(data, seed, 1, TRAIN_SEQ_FRAMES, H, W)
+    n_lines = make_train_txt_wo_events(str(data), "train_v2e2v.txt", N_FRAMES, N_FRAMES - 1)
+    v2e = [f"--{k}={v}" for k, v in V2E_PARAMS.items()]
+    counts_zero(*counters)
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        train.main(train_argv(data, models, "--epochs", "1", "--path_to_e2v", str(e2v_ckpt),
+                              *v2e))
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = [c.launches for c in counters]
+    log = out.getvalue()
+    ckpts = sorted(models.rglob("*_1.pth.tar"))
+    raw = torch.load(ckpts[0], map_location="cpu", weights_only=False) if ckpts else {}
+    samples = int(log.split("training sequences: ")[1].split()[0])
+    ok = (len(ckpts) == 1 and raw.get("v2e_params") == V2E_PARAMS and launches[1:] == [0, 0]
+          and launches[0] > 0 and all(k.startswith("e2v_net.") for k in raw["state_dict"]))
+    say(f"[train] cli.train: {n_lines} pack lines (make_train_txt_wo_events) over 1 synthetic "
+        f"HFR sequence of {TRAIN_SEQ_FRAMES} frames {H}x{W}, {samples} training sequences, 1 "
+        f"epoch at batch 1 from --path_to_e2v {e2v_ckpt.name} in {train_s:.1f} s ({smi}); "
+        f"{[ln for ln in log.splitlines() if 'mean loss' in ln]}; K3, K1, K2 launches "
+        f"{launches} (K3 once per frame pair, K1 and K2 0); checkpoint "
+        f"{ckpts[0].name if ckpts else None} with v2e_params {raw.get('v2e_params')} "
+        f"{'pass' if ok else 'FAIL'}")
+    if not ok:
+        fail("cli.train did not run as it should")
+
+    parser = argparse.ArgumentParser()
+    set_configs(parser)
+    cfgs = parser.parse_args(["--path_to_test_model", str(ckpts[0]), "--path_to_test_data",
+                              str(data), "--image_dim", str(H), str(W), "-c", str(C), "-d",
+                              str(DEPTH), "-b", str(NB), "-o", str(root / "trained_v2e2v_cli"),
+                              *V2E_FLAGS])
+    runner = cli_test.V2E2V(cfgs, "cuda")
+    emu = runner.cfg.emulator
+    rebuilt = (emu.pos_thres == V2E_PARAMS["C"] and emu.pl == V2E_PARAMS["pl"]
+               and emu.ps == V2E_PARAMS["ps"] and emu.cutoff_hz == V2E_PARAMS["cutoff_hz"]
+               and emu.refractory_period_s == V2E_PARAMS["refractory_period_s"])
+    counts_zero(*counters)
+    with contextlib.redirect_stdout(io.StringIO()) as printed:
+        runner.run()
+    torch.cuda.synchronize()
+    pngs = list((root / "trained_v2e2v_cli").rglob("frame_*.png"))
+    k3_n, k1_n = counters[0].launches, counters[1].launches
+    ok = rebuilt and pngs and k3_n > 0 and k1_n == 2 * DEPTH * len(pngs)
+    say(f"[train] cli.test on the V2E2V checkpoint (flags {' '.join(V2E_FLAGS)} overridden by "
+        f"its v2e_params: {rebuilt}): {len(pngs)} reconstructions written, K3 launches {k3_n}, "
+        f"K1 {k1_n} (want 2 x depth per pack); "
+        f"{[ln for ln in printed.getvalue().splitlines() if 'Avg' in ln]} "
+        f"{'pass' if ok else 'FAIL'}")
+    if not ok:
+        fail("cli.test did not serve the trained V2E2V checkpoint as it should")
+
+
+def train_phase(seed: int, smi: str, root: Path) -> dict:
+    """Phase 13: training at full width (13a-e). Returns the launches on the
+    E2V and V2E2V training steps by row of the kernels line."""
+    from v2e2v_tpu_torch.models.cista import CistaConfig
+    from v2e2v_tpu_torch.ops.cuda.core import cista_core
+    from v2e2v_tpu_torch.ops.cuda.emulator_iters import emulator_iters
+    from v2e2v_tpu_torch.ops.cuda.ista import ista_loop
+
+    t_phase = time.perf_counter()
+    cfg = CistaConfig(image_dim=(H, W), base_channels=C, depth=DEPTH, num_bins=NB,
+                      ista_impl="plain", core_impl="layers")
+    kernels = (ista_loop, cista_core, emulator_iters)
+    t0 = time.perf_counter()
+    e2v_step_vs_cpu(cfg, seed, kernels)
+    say(f"[phase] 13a E2V step card vs CPU {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    e2v = e2v_step_times(cfg, seed, smi, kernels)
+    say(f"[phase] 13b E2V train steps {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    ckpt = e2v_train_cli(seed, smi, root, kernels)
+    say(f"[phase] 13c E2V training CLI {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    v2e2v = v2e2v_train_steps(seed, smi, (emulator_iters, ista_loop, cista_core))
+    say(f"[phase] 13d V2E2V train steps {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    v2e2v_train_cli(seed, smi, root, ckpt, (emulator_iters, ista_loop, cista_core))
+    say(f"[phase] 13e V2E2V training CLI {time.perf_counter() - t0:.1f} s")
+    say(f"[phase] training {time.perf_counter() - t_phase:.1f} s")
+    return {"e2v": e2v, "v2e2v": v2e2v}
 
 
 def main_path_k3_inputs(cfg, state, frames, ts, internal: bool):
@@ -1584,24 +2139,25 @@ def main() -> None:
     # 9. the E2V evaluation CLI at full width
     cli_k1 = cli_phase(args.seed, cfg, smi)
 
-    # 10-12. the V2E2V CLI, raw-event generation, CISTA-TC
+    # 10-13. the V2E2V CLI, raw-event generation, CISTA-TC, training
     tmp = Path(tempfile.mkdtemp(prefix="v2e2v_slice5_"))
     try:
         hfr = v2e2v_cli_phase(args.seed, smi, tmp)
-        raw_phase(args.seed, smi, tmp, hfr["data"])
-        tc_launches = tc_phase(args.seed, smi, tmp, serve, served)
+        raw_rows = raw_phase(args.seed, smi, tmp, hfr["data"])
+        tc_rows = tc_phase(args.seed, smi, tmp, serve, served)
+        trained = train_phase(args.seed, smi, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
-    # 13. kernels, then the result line
+    # 14. kernels, then the result line
+    # each path's launches by row, every count set to 0 just before the path
+    paths = {"v2e2v_cli_launches": hfr["rows"], "raw_launches": raw_rows,
+             "tc_pool_launches": tc_rows, "e2v_train_launches": trained["e2v"],
+             "v2e2v_train_launches_per_step": trained["v2e2v"]}
     for e in entries:
         if e["name"].startswith("ista_loop"):
             e.update(cli_k1[torch.float32 if "float32" in e["name"] else torch.bfloat16])
-            if "float32" in e["name"]:
-                e["v2e2v_cli_launches"] = hfr["k1"]
-        if e["name"] == "emulator_iters (internal rng)":
-            e.update(v2e2v_cli_launches=hfr["k3"], raw_launches=0)
-        e["tc_pool_launches"] = sum(tc_launches.values())
+        e.update({key: rows[e["name"]] for key, rows in paths.items()})
     say(json.dumps({"kernels": entries}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": torch.cuda.device_count()}}))

@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
-"""Where a pool step, or a V2E2V pack, of the PyTorch/CUDA port spends its
-time on the card.
+"""Where a pool step, a V2E2V pack, or an E2V train step of the PyTorch/CUDA
+port spends its time on the card.
 
     python3 scripts/profile_torch_pool.py [--dtype float32|bfloat16] [--core_impl layers|cuda]
                                           [--steps 10]
     python3 scripts/profile_torch_pool.py --v2e2v [--steps 10]
+    python3 scripts/profile_torch_pool.py --train B [--steps 3]
 
 Builds the flagship ``StreamPool`` (CISTA-LSTC 180x240, 64 channels, depth 5,
 5 bins, capacity 8, all slots active, random weights from ``--seed``, its
@@ -14,7 +15,10 @@ it up, and traces ``--steps`` pool steps with ``torch.profiler``. With
 V2E2V path instead (``V2E2VConfig.from_flags`` with the emulator of
 ``bench.py:170-176``, batch 8, packs of 10 synthetic flickering frames from
 ``--seed``, float32), then ``--steps`` calls of its ``emulate_pack`` alone on
-one pack. Prints the card's name and power limit, the step time on the host
+one pack. With ``--train B`` it traces ``--steps`` E2V train steps at batch
+``B`` (``training/steps.make_e2v_train_step``: windows of 10, remat, Adam,
+the training config ``ista_impl="plain"``, ``core_impl="layers"``, float32)
+on one batch of N(0, 1) voxel grids. Prints the card's name and power limit, the step time on the host
 clock, the device's busy and idle share over the traced window, and device
 time by kernel, with kernels K1 (``ista_conv3x3_kernel``, and
 ``ista_conv3x3_tc_kernel`` in bfloat16), K2 (its ``core_conv3x3_kernel`` or
@@ -27,6 +31,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import dataclasses
 import math
 import subprocess
 import sys
@@ -92,6 +97,19 @@ def v2e2v_steps(weights, seed, packs, batch=8, n=10):
     return step, emulate
 
 
+def train_steps(cfg, seed, batch, t=10):
+    """One E2V train step per call on a fixed batch."""
+    from v2e2v_tpu_torch.models.cista import tie_weights
+    from v2e2v_tpu_torch.training.steps import make_adam, make_e2v_train_step
+
+    sd = tie_weights(init_cista_lstc(torch.Generator().manual_seed(seed), cfg), cfg)
+    step = make_e2v_train_step(cfg, make_adam(sd, cfg, 1e-4))
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    seq = torch.randn(t, batch, 180, 240, 5, device="cuda", generator=gen)
+    gt = torch.rand(batch, 180, 240, 1, device="cuda", generator=gen)
+    return lambda: step(sd, seq, gt)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--dtype", choices=["float32", "bfloat16"], default="float32")
@@ -99,6 +117,8 @@ def main() -> None:
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--v2e2v", action="store_true", help="trace V2E2V packs, not pool steps")
+    ap.add_argument("--train", type=int, default=0, metavar="B",
+                    help="trace E2V train steps at batch B, not pool steps")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("needs a CUDA card")
@@ -112,7 +132,11 @@ def main() -> None:
     cfg = CistaConfig(image_dim=(180, 240), base_channels=64, depth=5, num_bins=5,
                       core_impl=args.core_impl)
     weights = init_cista_lstc(torch.Generator().manual_seed(args.seed), cfg)
-    if args.v2e2v:
+    if args.train:
+        cfg = dataclasses.replace(cfg, ista_impl="plain", core_impl="layers")
+        trace(train_steps(cfg, args.seed, args.train), args.steps,
+              f"E2V train step float32 B={args.train} T=10")
+    elif args.v2e2v:
         step, emulate = v2e2v_steps(weights, args.seed, args.steps + 3)
         trace(step, args.steps, "v2e2v float32 batch 8 pack")
         trace(emulate, args.steps, "emulate_pack alone, batch 8 pack")

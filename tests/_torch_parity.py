@@ -19,6 +19,25 @@ def no_new_jax_cache_entries():
     jax.config.update("jax_persistent_cache_min_compile_time_secs", old)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Run this module's torch CPU work on one intra-op thread, then restore
+    the count.
+
+    The suite runs in several worker processes at once; with torch's default
+    of one thread per core in each, the many small ops of a training step at
+    test size wait on descheduled threads (measured: the CLI training tests
+    took 470 s beside five other workers against 17 s alone). One thread
+    gives the same results within each test's tolerance.
+    """
+    import torch
+
+    old = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(old)
+
+
 INIT_DRAWS = ("pos_large", "pos_small", "neg_large", "neg_small", "leak_rate")
 
 

@@ -193,7 +193,7 @@ UNSUPPORTED = [
     ([], {"V2E2V_COORDINATOR": "localhost:1", "V2E2V_NUM_PROCESSES": "2",
           "V2E2V_PROCESS_ID": "0"}, "item 9"),
     ([], {"V2E2V_DIST_AUTO": "1"}, "item 9"),
-    ([], {"V2E2V_LPIPS_WEIGHTS": "MODEL"}, "item 6"),
+    ([], {"V2E2V_LPIPS_WEIGHTS": "MODEL"}, "item 12"),
 ]
 
 

@@ -1,0 +1,232 @@
+"""The port's training CLIs (``python -m v2e2v_tpu_torch.cli.train_e2v`` and
+``python -m v2e2v_tpu_torch.cli.train``) on the CPU, on data from
+scripts/make_synth_data.py (two sequences of 24 frames at 32x40, C = 8,
+depth 2, windows of 3): two epochs of E2V training write ``.pth.tar``
+checkpoints that the port's evaluation CLI runs and the JAX package's
+``load_torch_checkpoint`` loads to the same weights; resuming from epoch 1
+equals a straight run of two epochs, the Adam moments included; the
+device-data and worker paths train; V2E2V training warm-starts from the E2V
+checkpoint and writes one that the port's V2E2V CLI rebuilds its emulator
+from. Each flag neither CLI covers yet raises, naming its ROADMAP.md item.
+The step's numbers against JAX's are in tests/test_torch_train_step.py.
+"""
+
+import os
+import shutil
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from _torch_parity import no_new_jax_cache_entries, one_torch_thread  # noqa: F401
+from v2e2v_tpu.utils import checkpoint as jckpt
+from v2e2v_tpu_torch.cli import test as tcli_v2e2v
+from v2e2v_tpu_torch.cli import test_e2v as tcli_e2v
+from v2e2v_tpu_torch.cli import train as ttrain
+from v2e2v_tpu_torch.cli import train_e2v as ttrain_e2v
+from v2e2v_tpu_torch.utils.checkpoint import load_torch_checkpoint
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+NET = ["--image_dim", "32", "40", "-c", "8", "-d", "2", "--len_sequence", "3"]
+E2V_NAME = "_cista-lstc_b5_d2_c8"
+V2E2V_NAME = "_C0.6_1_1_fc0_1_1"
+
+
+@pytest.fixture(scope="module")
+def data(tmp_path_factory):
+    out = tmp_path_factory.mktemp("train_cli") / "data"
+    subprocess.run([sys.executable, os.path.join(REPO, "scripts", "make_synth_data.py"),
+                    "--out_dir", str(out), "--num_sequences", "2", "--num_frames", "24",
+                    "--image_dim", "32", "40", "--num_pack_frames", "5", "--seed", "3"],
+                   check=True, capture_output=True)
+    return out
+
+
+def _e2v_argv(data, models, *extra):
+    return ["--path_to_train_data", str(data), "--num_events", "500", "--path_to_model",
+            str(models), *NET, *extra]
+
+
+def _train_e2v(monkeypatch, data, models, *extra):
+    monkeypatch.setenv("V2E2V_PLATFORM", "cpu")
+    ttrain_e2v.main(_e2v_argv(data, models, *extra))
+    return models / E2V_NAME
+
+
+def _ckpt(folder, name, epoch):
+    return folder / f"{name}_{epoch}.pth.tar"
+
+
+@pytest.fixture(scope="module")
+def e2v_run(data, tmp_path_factory):
+    """Two epochs of E2V training with --add_noise and --cache_samples."""
+    models = tmp_path_factory.mktemp("e2v_models")
+    mp = pytest.MonkeyPatch()
+    try:
+        folder = _train_e2v(mp, data, models, "--epochs", "2", "--add_noise", "--cache_samples")
+    finally:
+        mp.undo()
+    return folder
+
+
+def test_e2v_checkpoints_load_in_both_packages(e2v_run):
+    path = _ckpt(e2v_run, E2V_NAME, 2)
+    sd, epoch, v2e = load_torch_checkpoint(str(path))
+    assert epoch == 1 and v2e is None
+    raw = torch.load(path, map_location="cpu", weights_only=False)
+    assert set(raw) == {"epoch", "state_dict", "optimizer"}
+    assert {"lista_blocks.0.Lambda", "lista_blocks.1.Lambda"} <= set(sd)
+    assert torch.equal(sd["lista_blocks.1.P.conv2d.weight"], sd["lista_blocks.0.P.conv2d.weight"])
+    first, _, _ = load_torch_checkpoint(str(_ckpt(e2v_run, E2V_NAME, 1)))
+    assert not torch.equal(first["We.conv2d.weight"], sd["We.conv2d.weight"])  # it trained
+    params, jepoch, _ = jckpt.load_torch_checkpoint(str(path), "cista-lstc")
+    assert jepoch == 1
+    back = jckpt.export_torch_state_dict(params, "cista-lstc", depth=2)
+    assert set(back) == set(sd)
+    for k, v in back.items():
+        np.testing.assert_array_equal(sd[k].numpy(), v, err_msg=k)
+
+
+def test_e2v_checkpoint_runs_in_the_evaluation_cli(e2v_run, data, tmp_path, monkeypatch, capsys):
+    monkeypatch.setenv("V2E2V_PLATFORM", "cpu")
+    tcli_e2v.main(["--path_to_test_model", str(_ckpt(e2v_run, E2V_NAME, 2)),
+                   "--path_to_test_data", str(data), *NET, "-o", str(tmp_path / "out")])
+    assert capsys.readouterr().out.count("Test set sequence_") == 2
+    assert len(list((tmp_path / "out").rglob("frame_*.png"))) > 10
+
+
+def test_resume_equals_a_straight_run(e2v_run, data, tmp_path, monkeypatch):
+    """--load_epoch_for_train 1 --epochs 2 from the straight run's epoch-1
+    checkpoint gives its epoch-2 weights and Adam moments bit for bit."""
+    folder = tmp_path / E2V_NAME
+    folder.mkdir()
+    shutil.copy(_ckpt(e2v_run, E2V_NAME, 1), _ckpt(folder, E2V_NAME, 1))
+    _train_e2v(monkeypatch, data, tmp_path, "--epochs", "2", "--add_noise", "--cache_samples",
+               "--load_epoch_for_train", "1")
+    want = torch.load(_ckpt(e2v_run, E2V_NAME, 2), map_location="cpu", weights_only=False)
+    got = torch.load(_ckpt(folder, E2V_NAME, 2), map_location="cpu", weights_only=False)
+    assert got["epoch"] == want["epoch"] == 1
+    for k, v in want["state_dict"].items():
+        assert torch.equal(got["state_dict"][k], v), k
+    for i, s in want["optimizer"]["state"].items():
+        for name, v in s.items():
+            assert torch.equal(got["optimizer"]["state"][i][name], v), (i, name)
+
+
+@pytest.mark.parametrize("extra", [
+    ("--num_workers", "2", "--batch_size", "1"),
+    ("--device_data", "f32", "--drop_seq_tails", "--batch_size", "2", "--add_noise"),
+    ("--device_data", "bf16", "--drop_seq_tails", "--batch_size", "2"),
+    ("--model_mode", "cista-tc", "--is_SummaryWriter"),
+], ids=["workers", "device_data-f32", "device_data-bf16", "cista-tc"])
+def test_e2v_training_paths(data, tmp_path, monkeypatch, capsys, extra):
+    monkeypatch.chdir(tmp_path)  # the scalar logger writes summary/ here
+    _train_e2v(monkeypatch, data, tmp_path, "--epochs", "1", *extra)
+    out = capsys.readouterr().out
+    mode = "cista-tc" if "cista-tc" in extra else "cista-lstc"
+    name = E2V_NAME.replace("cista-lstc", mode)
+    sd, _, _ = load_torch_checkpoint(str(_ckpt(tmp_path / name, name, 1)), mode)
+    assert all(torch.isfinite(v).all() for v in sd.values())
+    loss = float(out.split("mean loss ")[1].split()[0])
+    assert 0.0 < loss < 2.0
+    if "--device_data" in extra:
+        assert "uploading dataset to device" in out and "padded" in out
+    if "--is_SummaryWriter" in extra:
+        assert os.listdir(tmp_path / "summary" / name)
+
+
+def test_device_data_needs_drop_seq_tails(data, tmp_path, monkeypatch):
+    with pytest.raises(SystemExit, match="drop_seq_tails"):
+        _train_e2v(monkeypatch, data, tmp_path, "--device_data", "f32")
+
+
+@pytest.fixture(scope="module")
+def v2e2v_run(e2v_run, data, tmp_path_factory):
+    """One epoch of V2E2V training warm-started from the E2V checkpoint."""
+    models = tmp_path_factory.mktemp("v2e2v_models")
+    mp = pytest.MonkeyPatch()
+    try:
+        mp.setenv("V2E2V_PLATFORM", "cpu")
+        ttrain.main(["--path_to_train_data", str(data), "--path_to_model", str(models),
+                     "--path_to_e2v", str(_ckpt(e2v_run, E2V_NAME, 2)), "--num_pack_frames",
+                     "5", *NET, "--epochs", "1", "--display_train", "-o",
+                     str(models / "panels")])
+    finally:
+        mp.undo()
+    return models
+
+
+def test_v2e2v_training_warm_starts_and_feeds_the_v2e2v_cli(v2e2v_run, e2v_run, data, tmp_path,
+                                                           monkeypatch, capsys):
+    path = _ckpt(v2e2v_run / V2E2V_NAME, V2E2V_NAME, 1)
+    raw = torch.load(path, map_location="cpu", weights_only=False)
+    assert raw["epoch"] == 1 and all(k.startswith("e2v_net.") for k in raw["state_dict"])
+    assert raw["v2e_params"] == {"C": 0.6, "ps": 1.0, "pl": 1.0, "cutoff_hz": 0.0, "qs": 1.0,
+                                 "ql": 1.0, "refractory_period_s": 0.001}
+    assert list((v2e2v_run / "panels").rglob("panel_*.png"))
+    sd, _, _ = load_torch_checkpoint(str(path))
+    start, _, _ = load_torch_checkpoint(str(_ckpt(e2v_run, E2V_NAME, 2)))
+    assert set(sd) == set(start)
+    assert not torch.equal(sd["W0.conv2d.weight"], start["W0.conv2d.weight"])
+    params, _, v2e = jckpt.load_torch_checkpoint(str(path), "cista-lstc")
+    assert v2e == raw["v2e_params"]
+    np.testing.assert_array_equal(jckpt.export_torch_state_dict(params, depth=2)["We.conv2d.weight"],
+                                  sd["We.conv2d.weight"].numpy())
+
+    # the V2E2V CLI rebuilds the emulator from v2e_params, over the flags
+    monkeypatch.setenv("V2E2V_PLATFORM", "cpu")
+    cfgs = ttrain_e2v.parse_flags(["--path_to_test_model", str(path), "--path_to_test_data",
+                                   str(data), *NET, "--num_pack_frames", "5", "--C", "0.3",
+                                   "-o", str(tmp_path / "out")], "test")
+    runner = tcli_v2e2v.V2E2V(cfgs, "cpu")
+    assert runner.cfg.emulator.pos_thres == 0.6 and runner.cfg.emulator.refractory_period_s == 1e-3
+    runner.run()
+    assert "Avg number of events per reconstruction" in capsys.readouterr().out
+    assert list((tmp_path / "out").rglob("frame_*.png"))
+
+
+def test_v2e2v_resume_and_device_data(v2e2v_run, data, tmp_path, monkeypatch, capsys):
+    folder = tmp_path / V2E2V_NAME
+    folder.mkdir()
+    shutil.copy(_ckpt(v2e2v_run / V2E2V_NAME, V2E2V_NAME, 1), _ckpt(folder, V2E2V_NAME, 1))
+    monkeypatch.setenv("V2E2V_PLATFORM", "cpu")
+    ttrain.main(["--path_to_train_data", str(data), "--path_to_model", str(tmp_path),
+                 "--num_pack_frames", "5", *NET, "--epochs", "2", "--load_epoch_for_train",
+                 "1", "--device_data", "f32", "--drop_seq_tails", "--batch_size", "2"])
+    assert "uploading dataset to device" in capsys.readouterr().out
+    got = torch.load(_ckpt(folder, V2E2V_NAME, 2), map_location="cpu", weights_only=False)
+    assert got["epoch"] == 2 and got["optimizer"]["state"]
+
+
+def _refusals():
+    cases = []
+    for cli in ("train_e2v", "train"):
+        for argv, env, item in [
+            (["--mesh_data", "2"], {}, "item 9"),
+            (["--mesh_spatial", "2"], {}, "item 9"),
+            (["--dist_coordinator", "localhost:1", "--dist_num_processes", "2",
+              "--dist_process_id", "0"], {}, "item 9"),
+            ([], {"V2E2V_DIST_AUTO": "1"}, "item 9"),
+            (["--profile_dir", "trace"], {}, "item 10"),
+            (["--debug_nans"], {}, "item 10"),
+            ([], {"V2E2V_LPIPS_WEIGHTS": "FILE"}, "item 12"),
+        ]:
+            name = (argv[0].lstrip("-") if argv else next(iter(env))).lower()
+            cases.append(pytest.param(cli, argv, env, item, id=f"{cli}-{name}"))
+    return cases
+
+
+@pytest.mark.parametrize("cli,argv,env,item", _refusals())
+def test_unsupported_flags_raise_with_their_item(cli, argv, env, item, data, tmp_path,
+                                                 monkeypatch):
+    module = ttrain_e2v if cli == "train_e2v" else ttrain
+    monkeypatch.setenv("V2E2V_PLATFORM", "cpu")
+    weights = tmp_path / "vgg.pth"
+    weights.write_bytes(b"")
+    for k, v in env.items():
+        monkeypatch.setenv(k, str(weights) if v == "FILE" else v)
+    with pytest.raises(NotImplementedError, match=item):
+        module.main(_e2v_argv(data, tmp_path / "models", *argv))
+    assert not (tmp_path / "models").exists()

@@ -707,3 +707,96 @@ def test_v2e2v_cli_through_kernels_matches_plain(card, tmp_path, capsys):
     for a, b in zip(got, want):
         assert int(a.num_events) == int(b.num_events) > 0
         torch.testing.assert_close(a.reconstruction, b.reconstruction, atol=1e-4, rtol=1e-4)
+
+
+def test_kernels_refuse_to_run_under_autograd(card):
+    """K1 and K2 write through raw pointers and have no backward: under
+    autograd, with an argument that requires grad, they raise on the card as
+    on the CPU; under ``torch.no_grad`` they run."""
+    args = list(_inputs(1, 8, 16, 8, card, torch.float32))
+    args[2] = args[2].clone().requires_grad_(True)
+    with pytest.raises(RuntimeError, match='ista_impl="plain", core_impl="layers"'):
+        ista_loop(*args, depth=2)
+    before = ista_loop.launches
+    with torch.no_grad():
+        ista_loop(*args, depth=2)
+    assert ista_loop.launches - before == 4
+
+    cfg = CistaConfig(image_dim=(16, 32), base_channels=8, depth=2)
+    sd = init_cista_lstc(torch.Generator().manual_seed(0), cfg, device=card)
+    taps = k2.core_taps(sd, torch.float32)
+    taps["w_p"] = taps["w_p"].clone().requires_grad_(True)
+    state = [torch.randn(1, 8, 16, ch, device=card) for ch in (8, 16, 16, 8, 8)]
+    with pytest.raises(RuntimeError, match="cista_core"):
+        k2.cista_core(taps, *state, depth=2)
+    with torch.no_grad():
+        k2.cista_core(taps, *state, depth=2)
+
+
+def test_e2v_train_step_on_card_matches_cpu(card):
+    """One E2V train step (32x48, C = 16, depth 3, T = 3, B = 2) on the card
+    and on the CPU from the same weights and batch: the loss within 1e-4
+    relative, each gradient within 1e-3 of its largest entry; K1 and K2 are
+    not launched (the training config runs the plain ISTA loop)."""
+    from v2e2v_tpu_torch.models.cista import tie_weights
+    from v2e2v_tpu_torch.training import steps
+    from v2e2v_tpu_torch.utils.checkpoint import STEP_KEYS
+
+    cfg = CistaConfig(image_dim=(32, 48), base_channels=16, depth=3, ista_impl="plain")
+    g = torch.Generator().manual_seed(3)
+    seq, gt = torch.randn(3, 2, 32, 48, 5, generator=g), torch.rand(2, 32, 48, 1, generator=g)
+    results = []
+    for device in ("cpu", card):
+        sd = tie_weights(init_cista_lstc(torch.Generator().manual_seed(0), cfg, device), cfg)
+        step = steps.make_e2v_train_step(cfg, steps.make_adam(sd, cfg, 1e-4))
+        before = (ista_loop.launches, k2.cista_core.launches)
+        loss = step(sd, seq.to(device), gt.to(device))
+        torch.cuda.synchronize()
+        assert (ista_loop.launches, k2.cista_core.launches) == before
+        results.append((float(loss), {k: sd[k].grad.cpu() for k in STEP_KEYS["cista-lstc"]}))
+    (want, want_g), (got, got_g) = results
+    assert abs(got - want) <= 1e-4 * abs(want)
+    for k, w in want_g.items():
+        assert float((got_g[k] - w).abs().max()) <= 1e-3 * float(w.abs().max()), k
+
+
+@pytest.mark.parametrize("explicit_shot", [True, False], ids=["explicit", "internal"])
+def test_v2e2v_train_step_through_k3_matches_plain(card, explicit_shot):
+    """One V2E2V train step with the emulator's loop as K3 (once per frame
+    pair and pack) against ``iters_impl="plain"`` on the same card generator
+    seed: equal event counts, the loss within 1e-5; K1 is not launched."""
+    from v2e2v_tpu_torch.models.cista import tie_weights
+    from v2e2v_tpu_torch.models.emulator import EmulatorConfig, GeneratorNoise
+    from v2e2v_tpu_torch.models.v2e2v import V2E2VConfig
+    from v2e2v_tpu_torch.ops.cuda.emulator_iters import emulator_iters
+    from v2e2v_tpu_torch.training import steps
+
+    h, w, n, b, t = 32, 48, 6, 2, 3
+    emu = EmulatorConfig(pos_thres=0.6, neg_thres=0.6, sigma_thres=0.03, pl=1.5, ps=0.5,
+                         cutoff_hz=200.0, ql=1.0, qs=0.0, refractory_period_s=0.001,
+                         leak_rate_hz=0.1, shot_noise_rate_hz=100.0)
+    cista = CistaConfig(image_dim=(h, w), base_channels=16, depth=2, ista_impl="plain")
+    g = torch.Generator().manual_seed(1)
+    base = 30 + 190 * torch.rand(b, 1, h, w, generator=g)
+    rate = torch.rand(b, 1, h, w, generator=g) - 0.5
+    i = torch.arange(t * (n - 1) + 1, dtype=torch.float32).reshape(1, -1, 1, 1)
+    video = (base * torch.exp(rate * torch.sin(0.7 * i))).clamp(0, 255)
+    frames = torch.stack([video[:, p * (n - 1):p * (n - 1) + n] for p in range(t)]).to(card)
+    ts = torch.stack([(0.004 * i.reshape(1, -1)[:, p * (n - 1):p * (n - 1) + n]).expand(b, -1)
+                      for p in range(t)]).to(card)
+    gt = torch.rand(b, h, w, 1, generator=g).to(card)
+    results = []
+    for impl in ("cuda", "plain"):
+        cfg = V2E2VConfig(cista, dataclasses.replace(emu, iters_impl=impl))
+        sd = tie_weights(init_cista_lstc(torch.Generator().manual_seed(0), cista, card), cista)
+        step = steps.make_v2e2v_train_step(cfg, steps.make_adam(sd, cista, 1e-4))
+        noise = GeneratorNoise(torch.Generator(device=card).manual_seed(2), explicit_shot)
+        before = (emulator_iters.launches, ista_loop.launches)
+        loss, stats = step(sd, frames, ts, gt, noise)
+        torch.cuda.synchronize()
+        launches = (emulator_iters.launches - before[0], ista_loop.launches - before[1])
+        results.append((float(loss), int(stats["num_events"]), launches))
+    (loss_k, ev_k, (k3_n, k1_n)), (loss_p, ev_p, plain_n) = results
+    assert (k3_n, k1_n) == (t * (n - 1), 0) and plain_n == (0, 0)
+    assert ev_k == ev_p > 0
+    assert abs(loss_k - loss_p) <= 1e-5

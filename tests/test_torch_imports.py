@@ -44,6 +44,10 @@ def test_importing_the_port_loads_no_jax():
         "import v2e2v_tpu_torch.utils.configs, v2e2v_tpu_torch.utils.profiling\n"
         "import v2e2v_tpu_torch.cli.test_e2v, v2e2v_tpu_torch.data.synthetic\n"
         "import v2e2v_tpu_torch.cli.test, v2e2v_tpu_torch.cli.generate_events\n"
+        "import v2e2v_tpu_torch.cli.train_e2v, v2e2v_tpu_torch.cli.train\n"
+        "import v2e2v_tpu_torch.training.losses, v2e2v_tpu_torch.training.steps\n"
+        "import v2e2v_tpu_torch.data.datasets, v2e2v_tpu_torch.data.manifests\n"
+        "import v2e2v_tpu_torch.data.prefetch, v2e2v_tpu_torch.utils.logging\n"
         "bad = [m for m in sys.modules\n"
         "       if m.split('.')[0] in ('jax', 'jaxlib', 'v2e2v_tpu', 'cv2', 'PIL', 'pandas',\n"
         "                              'matplotlib')]\n"
@@ -78,7 +82,7 @@ def test_entry_points_without_device_raise_when_no_card(monkeypatch):
         StreamPool(tc, sd)
 
 
-@pytest.mark.parametrize("cli", ["test", "test_e2v", "generate_events"])
+@pytest.mark.parametrize("cli", ["test", "test_e2v", "generate_events", "train_e2v", "train"])
 def test_cli_entry_points_raise_when_no_card(cli, monkeypatch, tmp_path):
     """Each CLI's main() without V2E2V_PLATFORM needs the card, and raises
     before it reads any data."""
@@ -89,8 +93,10 @@ def test_cli_entry_points_raise_when_no_card(cli, monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         module.main(["--path_to_test_data", str(tmp_path / "absent"), "--path_to_test_model",
-                     str(tmp_path / "absent.pth.tar"), "-o", str(tmp_path / "out")])
-    assert not (tmp_path / "out").exists()
+                     str(tmp_path / "absent.pth.tar"), "-o", str(tmp_path / "out"),
+                     "--path_to_train_data", str(tmp_path / "absent"), "--path_to_model",
+                     str(tmp_path / "models")])
+    assert not (tmp_path / "out").exists() and not (tmp_path / "models").exists()
 
 
 def test_emulator_and_v2e2v_entry_points_raise_when_no_card(monkeypatch):

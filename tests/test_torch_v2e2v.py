@@ -97,8 +97,12 @@ def test_sequence_with_stats_and_monitor():
     again, _ = tv2e2v.v2e2v_sequence(sd, tcfg, frames_seq, ts_seq, noise, state=state,
                                      device="cpu")
     assert torch.equal(again, trecs)
-    with pytest.raises(NotImplementedError, match="remat"):
-        tv2e2v.v2e2v_sequence(sd, tcfg, frames_seq, ts_seq, noise, remat=True, device="cpu")
+    # remat (training) recomputes the reconstruction steps on the backward
+    # pass and changes no value
+    remat, _, remat_stats = tv2e2v.v2e2v_sequence(sd, tcfg, frames_seq, ts_seq, JaxKeyNoise(key),
+                                                  with_stats=True, remat=True, device="cpu")
+    assert torch.equal(remat, trecs)
+    assert all(torch.equal(remat_stats[k], tstats[k]) for k in tstats)
 
 
 def test_from_flags():

@@ -16,7 +16,11 @@ evaluation CLI
 (``python -m v2e2v_tpu_torch.cli.test_e2v``) with its readers, host
 voxeliser, native runtime, PNG codec, metrics and writers; the V2E2V CLI
 (``python -m v2e2v_tpu_torch.cli.test``) through K3 and K1; raw-event mode and
-the event generation tool (``python -m v2e2v_tpu_torch.cli.generate_events``).
+the event generation tool (``python -m v2e2v_tpu_torch.cli.generate_events``);
+training (``python -m v2e2v_tpu_torch.cli.train_e2v`` and ``cli.train``) with
+its data path, losses and train steps, the core layer by layer with the
+plain ISTA loop (K1 and K2 have no backward and refuse to run under
+autograd), the V2E2V training forward's emulator through K3.
 """
 
 from ._device import make_first_cpu_vml_call

@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 
@@ -33,3 +35,19 @@ def make_first_cpu_vml_call() -> None:
     every thread to take a share, so no result of the port comes from it.
     """
     torch.ones(max(1 << 16, 4096 * torch.get_num_threads())).log_()
+
+
+@contextlib.contextmanager
+def float32_math():
+    """TF32 off in cuDNN's convs and in matmuls for the block, then the old
+    settings back. torch lets cuDNN round float32 conv inputs to TF32 by
+    default; the port's float32 paths hold the JAX package's float32 numbers
+    (SSIM's ``blur(x^2) - mu^2`` cancels catastrophically at TF32's 10-bit
+    mantissa). A backward pass reads the settings when it runs, so run it
+    inside the block too."""
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved

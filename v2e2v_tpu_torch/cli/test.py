@@ -52,9 +52,10 @@ def check_flags(cfgs) -> None:
                          "with cista-lstc")
 
 
-def sequence_seed(seed: int, seq_id: int) -> int:
-    """The default generator seed of sequence ``seq_id``."""
-    return int(np.random.SeedSequence([seed, seq_id]).generate_state(1, np.uint64)[0] >> 1)
+def sequence_seed(seed: int, *ids: int) -> int:
+    """The default generator seed of sequence ``ids[0]`` (and the training
+    CLIs' seed of a step, named by its ids)."""
+    return int(np.random.SeedSequence([seed, *ids]).generate_state(1, np.uint64)[0] >> 1)
 
 
 class V2E2V:

@@ -47,6 +47,12 @@ def check_common_flags(cfgs) -> None:
         missing(f"--quant {cfgs.quant}", 7)
     if cfgs.reader_type == "upsampling":
         missing("--reader_type upsampling", 8)
+    check_run_flags(cfgs)
+
+
+def check_run_flags(cfgs) -> None:
+    """Raise on the flags (and environment variables) of a run that no CLI of
+    the port covers yet: profiling and distributed runs."""
     if getattr(cfgs, "profile_dir", None):
         missing("--profile_dir", 10)
     dist_flags = [f"--{k}" for k in ("dist_coordinator", "dist_num_processes", "dist_process_id")
@@ -67,7 +73,7 @@ def check_flags(cfgs) -> None:
     check_common_flags(cfgs)
     lpips = os.environ.get("V2E2V_LPIPS_WEIGHTS")
     if lpips and os.path.exists(lpips):
-        missing(f"LPIPS (V2E2V_LPIPS_WEIGHTS={lpips})", 6,
+        missing(f"LPIPS (V2E2V_LPIPS_WEIGHTS={lpips})", 12,
                 "unset the variable to report LPIPS as NaN")
     if cfgs.precision not in DTYPES:
         raise ValueError(f"--precision must be float32 or bfloat16, got {cfgs.precision!r}")

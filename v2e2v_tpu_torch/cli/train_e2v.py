@@ -1,0 +1,286 @@
+"""E2V training CLI of the port (port of the root ``train_e2v.py``).
+
+    python -m v2e2v_tpu_torch.cli.train_e2v --path_to_train_data data/ \\
+        [the root train_e2v.py's flags]
+
+Trains CISTA-LSTC or (``--model_mode cista-tc``) CISTA-TC on fixed-event-count
+sequences (``train_e2v.txt`` under ``--path_to_train_data``): the
+many-to-one loss ``L1 + (1 - SSIM)`` on the last reconstruction of each
+``--len_sequence`` window, Adam with the learning rate times 0.9 every 10
+epochs, a checkpoint per epoch. Checkpoints are the reference's ``.pth.tar``
+(``{epoch, state_dict, optimizer}``) at
+``--path_to_model/<name>/<name>_<epoch>.pth.tar``, which the port's
+evaluation CLIs and the JAX package's ``load_torch_checkpoint`` load, and
+``--load_epoch_for_train`` resumes from, the Adam moments included.
+
+It trains float32 (TF32 off) on one device: the CUDA card, and the CPU only
+under ``V2E2V_PLATFORM=cpu``. The core runs layer by layer with the plain
+ISTA loop (kernels K1 and K2 have no backward). Flags it does not cover yet
+raise at once, naming the ROADMAP.md item that brings them.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import time
+
+import numpy as np
+import torch
+
+from .test_e2v import check_run_flags, missing
+
+CHECKPOINT_SUFFIX = ".pth.tar"
+
+
+def check_train_flags(cfgs) -> None:
+    """Raise on the flags (and environment variables) that neither of the
+    port's training CLIs covers yet: distributed runs and a mesh, profiling,
+    NaN debugging, LPIPS; and on ``--device_data`` without
+    ``--drop_seq_tails``, as the JAX CLIs do."""
+    check_run_flags(cfgs)
+    if cfgs.debug_nans:
+        missing("--debug_nans", 10)
+    if cfgs.mesh_data > 1 or cfgs.mesh_spatial > 1:
+        missing(f"--mesh_data {cfgs.mesh_data} --mesh_spatial {cfgs.mesh_spatial}", 9,
+                "the port's trainers run on one device")
+    lpips = os.environ.get("V2E2V_LPIPS_WEIGHTS")
+    if lpips and os.path.exists(lpips):
+        missing(f"LPIPS (V2E2V_LPIPS_WEIGHTS={lpips})", 12,
+                "unset the variable to train with L1 + (1 - SSIM)")
+    if cfgs.device_data != "off" and not cfgs.drop_seq_tails:
+        raise SystemExit("--device_data requires --drop_seq_tails (uniform [T, ...] sample "
+                         "shapes)")
+
+
+def check_flags(cfgs) -> None:
+    if cfgs.model_mode not in ("cista-lstc", "cista-tc"):
+        raise ValueError(f"--model_mode must be cista-lstc or cista-tc, got {cfgs.model_mode!r}")
+    check_train_flags(cfgs)
+
+
+def epoch_summary(epoch: int, seconds: float, losses: list[float]) -> str:
+    return (f"epoch {epoch + 1} done in {seconds:.1f}s, mean loss "
+            f"{sum(losses) / max(len(losses), 1):.5f}")
+
+
+def tail_padded(chunk: np.ndarray, bsz: int) -> tuple[np.ndarray, np.ndarray]:
+    """A batch of indices padded to ``bsz`` with its first index, and its
+    weights: 1.0 for the real samples, 0.0 for the padding."""
+    w = np.ones(bsz, np.float32)
+    if len(chunk) < bsz:
+        w[len(chunk):] = 0.0
+        chunk = np.concatenate([chunk, np.full(bsz - len(chunk), chunk[0], chunk.dtype)])
+    return chunk, w
+
+
+class Train:
+    """The root CLI's ``Train`` on the port. ``device`` None means the card
+    (raising without one)."""
+
+    def __init__(self, cfgs, device: torch.device | str | None = None):
+        from .._device import resolve_device
+        from ..data.datasets import TrainFixNEventData
+        from ..models.cista import CistaConfig, init_cista_lstc, init_cista_tc, tie_weights
+        from ..training.steps import (
+            lr_for_epoch,
+            make_adam,
+            make_e2v_train_step,
+            make_e2v_train_step_device_data,
+        )
+        from ..utils.checkpoint import checkpoint_name, load_optimizer_state, load_torch_checkpoint
+
+        check_flags(cfgs)
+        self.cfgs = cfgs
+        self.device = resolve_device(device)
+        self.model_name = checkpoint_name(cfgs)
+        self.path_to_model = os.path.join(cfgs.path_to_model, self.model_name)
+        os.makedirs(self.path_to_model, exist_ok=True)
+
+        self.cfg = CistaConfig(
+            image_dim=tuple(cfgs.image_dim),
+            base_channels=cfgs.base_channels,
+            depth=cfgs.depth,
+            num_bins=cfgs.num_bins,
+            model_mode=cfgs.model_mode,
+            ista_impl="plain",
+            core_impl="layers",
+        )
+        resume = None
+        if cfgs.load_epoch_for_train:
+            resume = self.checkpoint_path(cfgs.load_epoch_for_train)
+            sd, _, _ = load_torch_checkpoint(resume, cfgs.model_mode)
+            params = {k: v.to(self.device) for k, v in sd.items()}
+        else:
+            init_fn = init_cista_lstc if cfgs.model_mode == "cista-lstc" else init_cista_tc
+            params = init_fn(torch.Generator().manual_seed(cfgs.seed), self.cfg, self.device)
+        self.params = tie_weights(params, self.cfg)
+
+        self.train_data = TrainFixNEventData(
+            os.path.join(cfgs.path_to_train_data, "train_e2v.txt"), cfgs
+        )
+        print(f"training sequences: {len(self.train_data)}")
+
+        self.lr_for_epoch = lambda e: lr_for_epoch(cfgs.lr, e)
+        self.optimizer = make_adam(self.params, self.cfg, self.lr_for_epoch(cfgs.load_epoch_for_train))
+        if resume is not None:
+            # a true resume: the Adam moments survive (the reference resets them)
+            opt_state = load_optimizer_state(resume)
+            if opt_state is not None:
+                self.optimizer.load_state_dict(opt_state)
+        print("LPIPS weights unavailable; training with L1 + (1 - SSIM) only")
+        if cfgs.device_data != "off":
+            self.train_step = make_e2v_train_step_device_data(
+                self.cfg, self.optimizer, noise_std=0.1 if cfgs.add_noise else 0.0
+            )
+        else:
+            self.train_step = make_e2v_train_step(self.cfg, self.optimizer)
+
+    def checkpoint_path(self, epoch: int) -> str:
+        return os.path.join(self.path_to_model,
+                            f"{self.model_name}_{epoch}{CHECKPOINT_SUFFIX}")
+
+    def save(self, epoch: int) -> None:
+        from ..utils.checkpoint import save_checkpoint
+
+        save_checkpoint(self.checkpoint_path(epoch + 1), self.params, epoch, self.optimizer)
+
+    def _upload_dataset(self):
+        """--device_data: the whole uniform-shape training set on the device
+        once, float32 or bfloat16 (cast on the host, so only the final bytes
+        move)."""
+        cfgs = self.cfgs
+        dtype = torch.bfloat16 if cfgs.device_data == "bf16" else torch.float32
+        ds = self.train_data
+        seqs, gts = [], []
+        for i in range(len(ds)):
+            seq_events, _img, gt = ds._load_cacheable(i)
+            seqs.append(seq_events.astype(np.float32))
+            gts.append(gt)
+        data = torch.from_numpy(np.stack(seqs, 0)).to(dtype)  # [N, T, H, W, nb]
+        gt_all = torch.from_numpy(np.stack(gts, 0)).to(dtype)  # [N, H, W, 1]
+        gbytes = data.numel() * data.element_size() / 2**30
+        print(f"uploading dataset to device: {tuple(data.shape)} {cfgs.device_data} "
+              f"({gbytes:.1f} GiB)")
+        return data.to(self.device), gt_all.to(self.device)
+
+    def _run_device_data(self, logger):
+        """The epoch loop over the dataset on the device: per step the host
+        sends only the batch's indices."""
+        from ..training.steps import set_lr
+        from .test import sequence_seed
+
+        cfgs = self.cfgs
+        data_dev, gt_dev = self._upload_dataset()
+        n = len(self.train_data)
+        bsz = cfgs.batch_size
+        if n % bsz:
+            print(f"note: final {n % bsz}-sample batch each epoch is padded "
+                  f"to batch_size and loss-masked (n={n}, batch_size={bsz})")
+        step_idx = 0
+        for epoch in range(cfgs.load_epoch_for_train, cfgs.epochs):
+            lr = float(self.lr_for_epoch(epoch))
+            set_lr(self.optimizer, lr)
+            print(f"lr: {lr}")
+            t_epoch = time.time()
+            order = np.arange(n)
+            if cfgs.shuffle:
+                np.random.default_rng(cfgs.seed + epoch).shuffle(order)
+            losses = []
+            for start in range(0, n, bsz):
+                chunk, w = tail_padded(order[start:start + bsz].astype(np.int64), bsz)
+                # noise from (epoch, batch in epoch): a resumed run continues the stream
+                gen = torch.Generator(device=self.device).manual_seed(
+                    sequence_seed(cfgs.seed + 17, epoch, len(losses)))
+                loss = float(self.train_step(
+                    self.params, data_dev, gt_dev, torch.from_numpy(chunk).to(self.device), gen,
+                    torch.from_numpy(w).to(self.device)))
+                if len(losses) % 50 == 0:
+                    print(f"Train Epoch: {epoch + 1} [{len(losses) * bsz}/{n}]"
+                          f"\tloss: {loss:.6f}")
+                    logger.scalar("loss", loss, step_idx)
+                losses.append(loss)
+                step_idx += 1
+            print(epoch_summary(epoch, time.time() - t_epoch, losses))
+            logger.scalar("epoch_mean_loss", sum(losses) / max(len(losses), 1), epoch)
+            self.save(epoch)
+        logger.close()
+
+    def run(self):
+        from ..data.datasets import SampleLoader, iterate_batches
+        from ..data.prefetch import device_prefetch
+        from ..training.steps import set_lr
+        from ..utils.logging import ScalarLogger
+
+        cfgs = self.cfgs
+        logger = ScalarLogger(os.path.join("summary", self.model_name),
+                              enabled=cfgs.is_SummaryWriter)
+        if cfgs.device_data != "off":
+            self._run_device_data(logger)
+            return
+        # the persistent spawn-worker pool, reused across epochs
+        loader = SampleLoader(self.train_data, cfgs.num_workers) if cfgs.num_workers > 0 else None
+
+        def to_device_layout(batch):
+            seq_events, _img, gt = batch  # [B, T, H, W, nb], ..., [B, H, W, 1]
+            return np.moveaxis(seq_events, 1, 0), gt  # [T, B, H, W, nb]
+
+        step_idx = 0
+        try:
+            for epoch in range(cfgs.load_epoch_for_train, cfgs.epochs):
+                lr = float(self.lr_for_epoch(epoch))
+                set_lr(self.optimizer, lr)
+                print(f"lr: {lr}")
+                self.train_data.epoch = epoch  # salts the per-epoch noise draws
+                t_epoch = time.time()
+                losses = []
+                # the host pipeline in a thread, each batch on the device one step early
+                for voxel_seq, gt in device_prefetch(
+                    iterate_batches(self.train_data, cfgs.batch_size, cfgs.shuffle,
+                                    seed=cfgs.seed + epoch, loader=loader),
+                    transform=to_device_layout, device=self.device,
+                ):
+                    loss = float(self.train_step(self.params, voxel_seq, gt))
+                    if len(losses) % 50 == 0:
+                        print(f"Train Epoch: {epoch + 1} [{len(losses) * cfgs.batch_size}/"
+                              f"{len(self.train_data)}]\tloss: {loss:.6f}")
+                        logger.scalar("loss", loss, step_idx)
+                    losses.append(loss)
+                    step_idx += 1
+                print(epoch_summary(epoch, time.time() - t_epoch, losses))
+                logger.scalar("epoch_mean_loss", sum(losses) / max(len(losses), 1), epoch)
+                self.save(epoch)
+        finally:
+            if loader is not None:
+                loader.close()
+            logger.close()
+
+
+def parse_flags(argv: list[str] | None, description: str):
+    """The reference flag surface, with shuffling always on, as the JAX
+    training CLIs set it."""
+    from ..utils.configs import set_configs
+
+    parser = argparse.ArgumentParser(description=description)
+    set_configs(parser)
+    cfgs = parser.parse_args(argv)
+    cfgs.shuffle = True
+    return cfgs
+
+
+def training_device() -> torch.device:
+    """The CLI's device (``V2E2V_PLATFORM``). The train steps turn TF32 off
+    around their own work (``_device.float32_math``)."""
+    from ..utils.profiling import apply_platform_override
+
+    return apply_platform_override()
+
+
+def main(argv: list[str] | None = None) -> None:
+    cfgs = parse_flags(argv, "E2V training options")
+    check_flags(cfgs)
+    Train(cfgs, training_device()).run()
+
+
+if __name__ == "__main__":
+    main()

@@ -27,6 +27,7 @@ from dataclasses import dataclass
 from typing import NamedTuple
 
 import torch
+import torch.utils.checkpoint
 
 from .._device import resolve_device
 from ..ops.conv import conv_layer, conv_lstc_step, conv_lstm_step, upsample_conv_layer
@@ -302,16 +303,46 @@ def get_step_fn(cfg: CistaConfig):
     return cista_tc_step if cfg.model_mode == "cista-tc" else cista_lstc_step
 
 
+def remat_step(step, params: StateDict, cfg: CistaConfig, events: torch.Tensor,
+               prev_image: torch.Tensor, state: CistaState) -> tuple[torch.Tensor, CistaState]:
+    """``step(params, cfg, events, prev_image, state)`` rematerialised on the
+    backward pass (the JAX package's ``jax.checkpoint``): autograd keeps the
+    step's inputs, not its activations, and runs the step again to
+    differentiate it. The step draws no random numbers, so the RNG state is
+    not saved (``preserve_rng_state=False``); callers keep every draw outside."""
+    return torch.utils.checkpoint.checkpoint(
+        step, params, cfg, events, prev_image, state, use_reentrant=False,
+        preserve_rng_state=False,
+    )
+
+
+def tie_weights(params: StateDict, cfg: CistaConfig) -> StateDict:
+    """The state dict with every ``depth`` index of the weight-tied tensors
+    (the ISTA block, and CISTA-TC's ``alpha``) naming index 0's tensor, as
+    ``init_cista_lstc`` makes them: a loaded checkpoint holds one copy per
+    index, and training must update the one tensor the steps read."""
+    tied = _TIED + (("alpha.{}",) if cfg.model_mode == "cista-tc" else ())
+    params = dict(params)
+    for i in range(1, cfg.depth):
+        for leaf in tied:
+            params[leaf.format(i)] = params[leaf.format(0)]
+    return params
+
+
 def cista_sequence(
     params: StateDict,
     cfg: CistaConfig,
     voxel_seq: torch.Tensor,
     prev_image: torch.Tensor | None = None,
     state: CistaState | None = None,
+    remat: bool = False,
 ) -> tuple[torch.Tensor, CistaState]:
     """Reconstruct ``voxel_seq [T, B, H, W, num_bins]`` step by step, feeding
-    each output back as the next ``prev_image``. Returns
-    ``(recs [T, B, H, W, 1], final_state)`` on ``voxel_seq``'s device."""
+    each output back as the next ``prev_image``. With ``remat`` each step is
+    rematerialised on the backward pass (``remat_step``): backpropagation
+    through time keeps the per-step carries, not every conv activation; the
+    values and gradients are the same. Returns ``(recs [T, B, H, W, 1],
+    final_state)`` on ``voxel_seq``'s device."""
     b = voxel_seq.shape[1]
     if state is None:
         state = cista_zero_state(cfg, b, voxel_seq.dtype, voxel_seq.device)
@@ -322,6 +353,9 @@ def cista_sequence(
         params = {**params, "_core_taps": core_taps(params, voxel_seq.dtype)}
     recs = []
     for events in voxel_seq:
-        prev_image, state = step(params, cfg, events, prev_image, state)
+        if remat:
+            prev_image, state = remat_step(step, params, cfg, events, prev_image, state)
+        else:
+            prev_image, state = step(params, cfg, events, prev_image, state)
         recs.append(prev_image)
     return torch.stack(recs), state

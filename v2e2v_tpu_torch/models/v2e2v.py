@@ -18,7 +18,14 @@ import torch
 
 from .._device import resolve_device
 from ..ops.cuda import emulator_iters as k3
-from .cista import CistaConfig, CistaState, StateDict, cista_lstc_step, cista_zero_state
+from .cista import (
+    CistaConfig,
+    CistaState,
+    StateDict,
+    cista_lstc_step,
+    cista_zero_state,
+    remat_step,
+)
 from .emulator import (
     EmulatorConfig,
     EmulatorState,
@@ -103,6 +110,7 @@ def v2e2v_forward(
     noise: Noise | torch.Generator,
     with_stats: bool = False,
     device: torch.device | str | None = None,
+    remat: bool = False,
 ) -> tuple[V2E2VOutput, V2E2VState]:
     """One V2E2V step: a pack of frames -> one reconstruction.
 
@@ -114,6 +122,11 @@ def v2e2v_forward(
       noise: the emulator's noise source (or a ``torch.Generator``).
       with_stats: also return ``EmulatorStats`` in ``output.stats``.
       device: where to run; the card unless ``"cpu"`` is given.
+      remat: rematerialise the reconstruction step on the backward pass
+        (``models/cista.remat_step``). The emulator runs outside autograd's
+        graph (``emulate_pack`` is ``torch.no_grad``, JAX's
+        ``stop_gradient``) and outside the rematerialised region, so its
+        random draws are made once.
     """
     device = resolve_device(device)
     b, _, h, w = frames.shape
@@ -130,7 +143,11 @@ def v2e2v_forward(
         prev_image = torch.zeros((b, h, w, 1), dtype=voxel.dtype, device=device)
         cista_state = cista_zero_state(cfg.cista, b, voxel.dtype, device)
 
-    rec, cista_state = cista_lstc_step(params, cfg.cista, voxel, prev_image, cista_state)
+    if remat:
+        rec, cista_state = remat_step(cista_lstc_step, params, cfg.cista, voxel, prev_image,
+                                      cista_state)
+    else:
+        rec, cista_state = cista_lstc_step(params, cfg.cista, voxel, prev_image, cista_state)
     new_state = V2E2VState(emulator=emu_state, cista=cista_state, prev_image=rec)
     return V2E2VOutput(rec, voxel, num_events, stats), new_state
 
@@ -175,13 +192,12 @@ def v2e2v_sequence(
       with_monitor: also stack the per-pack voxel grids ``[T, B, H, W, nb]``.
       with_stats: also return per-pack emulator saturation scalars
         (``{"num_events", "max_event_count", "clipped_pixels"}``, each ``[T]``).
-      remat: rematerialisation for training; not ported (raises).
+      remat: rematerialise each pack's reconstruction step on the backward
+        pass (see ``v2e2v_forward``); the values and gradients are the same.
     Returns ``(recs [T, B, H, W, 1], final_state)``; with ``with_stats``,
     ``(recs, final_state, stats_dict)``; with ``with_monitor``,
     ``(recs, final_state, (voxels, stats_dict))``.
     """
-    if remat:
-        raise NotImplementedError("remat is for training, which is not ported yet")
     device = resolve_device(device)
     noise = as_noise(noise)
     if state is None:
@@ -191,7 +207,7 @@ def v2e2v_sequence(
     recs, voxels, stats = [], [], []
     for frames, ts in zip(frames_seq, ts_seq):
         out, state = v2e2v_forward(params, cfg, frames, ts, state, noise, with_stats=collect,
-                                   device=device)
+                                   device=device, remat=remat)
         recs.append(out.reconstruction)
         if with_monitor:
             voxels.append(out.event_voxel_grids)

@@ -22,6 +22,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from . import DTYPE_NAMES, refuse_grad
+
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # v2e::Epilogue of csrc/conv3x3.cuh
 _EPI_D, _EPI_P, _EPI_PRE, _EPI_RELU, _EPI_OUT_GATE = range(5)
@@ -180,14 +182,18 @@ def cista_core(
     depth: int = 5,
 ):
     """The core: the CUDA kernels for CUDA tensors (7 + 2 x depth launches on
-    the current stream, counted in ``cista_core.launches``), the plain version
+    the current stream, counted in ``cista_core.launches`` and, by dtype, in
+    ``cista_core.launches_by_dtype``), the plain version
     for CPU tensors. Arguments and result as ``cista_core_plain``; the kernels
     need ``C % 8 == 0`` and inputs starting on 16-byte boundaries (the convs
     copy 16-byte rows); bfloat16 taps from ``core_taps(params,
     torch.bfloat16)`` carry their layout, float32 taps are laid out once per
     tensor (``conv_tc.cached_simt_taps``), others on every call. New
-    tensors hold every output: the inputs stay as they were."""
+    tensors hold every output: the inputs stay as they were. Under autograd
+    it raises when an input or a value of ``taps`` requires grad, on every
+    device (``refuse_grad``)."""
     _check(taps, x1, z, cell, dg_h, dg_c, depth)
+    refuse_grad("cista_core", (x1, z, cell, dg_h, dg_c, *taps.values()))
     if x1.device.type == "cpu":
         return cista_core_plain(taps, x1, z, cell, dg_h, dg_c, depth)
     if x1.device.type != "cuda":
@@ -220,6 +226,10 @@ def cista_core(
     xm, xg, hidden, hc = (torch.empty_like(x1) for _ in range(4))
     pixels = b * h * w
 
+    def counted():
+        cista_core.launches += 1
+        cista_core.launches_by_dtype[DTYPE_NAMES[dtype]] += 1
+
     def ptr(x):
         return None if x is None else x.data_ptr()
 
@@ -234,7 +244,7 @@ def cista_core(
                 out.data_ptr(), b, h, w, cout[wa], stream,
             )
             lib.check(err, "core_conv3x3 launch")
-            cista_core.launches += 1
+            counted()
 
         conv(_EPI_PRE, x1, "wg_x", pre, z, "wg_z", bias="b_g")
         conv(_EPI_PRE, x1, "w_p0", z0, bias="b_p0")
@@ -242,7 +252,7 @@ def cista_core(
                                          cell32.data_ptr(), cell_out.data_ptr(),
                                          z0_t.data_ptr(), pixels, 2 * c, stream)
         lib.check(err, "core_lstc_cell launch")
-        cista_core.launches += 1
+        counted()
         conv(_EPI_OUT_GATE, z0_t, "wog_z0", z_a, z, "wog_z", bias="b_og", other=cell32)
         z_cur, z_next = z_a, z_b
         for _ in range(depth):
@@ -254,11 +264,12 @@ def cista_core(
         err = lib.lib.v2e_core_lstm_cell(code, pre.data_ptr(), dg_c.data_ptr(),
                                          hidden.data_ptr(), hc.data_ptr(), pixels, c, stream)
         lib.check(err, "core_lstm_cell launch")
-        cista_core.launches += 1
+        counted()
     return hidden, z_cur, cell_out, hidden, hc
 
 
 cista_core.launches = 0
+cista_core.launches_by_dtype = dict.fromkeys(DTYPE_NAMES.values(), 0)
 
 
 def launches_per_call(depth: int) -> int:

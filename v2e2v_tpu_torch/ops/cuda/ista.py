@@ -18,6 +18,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from . import DTYPE_NAMES, refuse_grad
+
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _MODE_D, _MODE_P = 0, 1
 
@@ -104,6 +106,7 @@ def _launch(lib, mode, x, taps, bias, other, lam, out, cin, cout, stream) -> Non
     )
     lib.check(err, "ista_conv3x3 launch")
     ista_loop.launches += 1
+    ista_loop.launches_by_dtype[DTYPE_NAMES[x.dtype]] += 1
 
 
 def ista_loop(
@@ -117,11 +120,14 @@ def ista_loop(
     depth: int = 5,
 ) -> torch.Tensor:
     """The ISTA loop: the CUDA kernel for CUDA tensors (2 x depth launches
-    on the current stream, counted in ``ista_loop.launches``), the plain
+    on the current stream, counted in ``ista_loop.launches`` and, by dtype, in
+    ``ista_loop.launches_by_dtype``), the plain
     version for CPU tensors. Arguments as ``ista_loop_plain``; the kernel
     needs ``C % 8 == 0`` and x1 and z starting on 16-byte boundaries (both
-    convs copy 16-byte rows)."""
+    convs copy 16-byte rows). Under autograd it raises when an argument
+    requires grad, on every device (``refuse_grad``)."""
     _check(x1, z, d_weight, d_bias, p_weight, p_bias, lam, depth)
+    refuse_grad("ista_loop", (x1, z, d_weight, d_bias, p_weight, p_bias, lam))
     if x1.device.type == "cpu":
         return ista_loop_plain(x1, z, d_weight, d_bias, p_weight, p_bias, lam, depth)
     if x1.device.type != "cuda":
@@ -157,3 +163,4 @@ def ista_loop(
 
 
 ista_loop.launches = 0
+ista_loop.launches_by_dtype = dict.fromkeys(DTYPE_NAMES.values(), 0)

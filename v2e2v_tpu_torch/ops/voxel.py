@@ -5,6 +5,9 @@ The device path, the request front end of stream serving:
 grid with one ``index_add_`` (the JAX package's ``method='scatter',
 layout='ref'`` path), and ``event_preprocess`` normalises it per sample.
 
+``add_noise_to_voxel`` is the training augmentation, drawn from a
+``torch.Generator``.
+
 The host path, the evaluation CLI's data readers: ``events_to_voxel_grid_np``
 and ``event_preprocess_np`` are the JAX package's numpy functions as they
 are, and ``voxelize_and_preprocess_np`` makes its choice between the native
@@ -114,6 +117,27 @@ def event_preprocess(
     )
     normalized = nonzero.to(torch.float32) * (voxel - mean) / (stddev + 1e-8)
     return torch.where(num_nonzeros > 0, normalized, voxel)
+
+
+def add_noise_to_voxel(
+    generator: torch.Generator,
+    voxel: torch.Tensor,
+    noise_std: float = 1.0,
+    noise_fraction: float = 0.1,
+) -> torch.Tensor:
+    """Training augmentation (reference ``event_process.py:8-13``): Gaussian
+    noise of ``noise_std`` on a random ``noise_fraction`` of the entries (all
+    of them at 1.0). Draws come from ``generator``, on its own device, first
+    the normals then the mask's uniforms, and move to ``voxel``'s device; JAX
+    draws from a key instead, so the numbers differ and the law is the same.
+    Returns a new tensor."""
+    g = generator
+    noise = noise_std * torch.randn(voxel.shape, generator=g, device=g.device,
+                                    dtype=voxel.dtype).to(voxel.device)
+    if noise_fraction < 1.0:
+        keep = torch.rand(voxel.shape, generator=g, device=g.device).to(voxel.device)
+        noise = torch.where(keep < noise_fraction, noise, 0.0)
+    return voxel + noise
 
 
 def events_to_voxel_grid_np(

@@ -4,8 +4,11 @@ The port keeps CISTA-LSTC and CISTA-TC weights as a flat state dict under the
 reference torch module names (OIHW convs, ``Lambda`` and ``alpha`` as
 ``[1, 2C, 1, 1]``), so a reference ``.pth.tar`` state dict and the port's
 weights are one format. This module keeps the port's own copy of
-``export_torch_state_dict`` from ``v2e2v_tpu/utils/checkpoint.py`` and loads
-reference checkpoints (``load_torch_checkpoint``).
+``export_torch_state_dict`` from ``v2e2v_tpu/utils/checkpoint.py``, loads
+reference checkpoints (``load_torch_checkpoint``) and writes them
+(``save_checkpoint``): the port's trainers save the reference's ``.pth.tar``
+where the JAX trainers save orbax directories, so one file serves the port's
+CLIs, the JAX package's ``load_torch_checkpoint`` and a resumed run.
 """
 
 from __future__ import annotations
@@ -110,3 +113,57 @@ def load_torch_checkpoint(path: str, model_mode: str = "cista-lstc"):
         raise KeyError(f"{path}: not a {model_mode} checkpoint, missing {missing}")
     sd = {k: torch.as_tensor(v).detach().to(torch.float32) for k, v in sd.items()}
     return sd, ckpt.get("epoch", 0), ckpt.get("v2e_params")
+
+
+def checkpoint_name(cfgs) -> str:
+    """E2V checkpoint naming convention (reference ``train_e2v.py:35-36``)."""
+    return "{}_{}_b{}_d{}_c{}".format(
+        cfgs.model_name, cfgs.model_mode, cfgs.num_bins, cfgs.depth, cfgs.base_channels
+    )
+
+
+def v2e2v_checkpoint_name(cfgs) -> str:
+    """V2E2V naming convention encoding the emulator parameters (reference
+    ``train.py:34-35``)."""
+    return "{}_C{}_{}_{}_fc{}_{}_{}".format(
+        cfgs.model_name, cfgs.C, cfgs.pl, cfgs.ps, cfgs.cutoff_hz, cfgs.ql, cfgs.qs
+    )
+
+
+def _to_cpu(obj):
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().cpu()
+    if isinstance(obj, dict):
+        return {k: _to_cpu(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_to_cpu(v) for v in obj)
+    return obj
+
+
+def save_checkpoint(path: str, state_dict: Mapping[str, torch.Tensor], epoch: int,
+                    optimizer: torch.optim.Optimizer | None = None,
+                    v2e_params: Mapping[str, float] | None = None, prefix: str = "") -> None:
+    """Write a reference ``.pth.tar``: ``{epoch, state_dict, optimizer?,
+    v2e_params?}``. The state dict is float32 CPU tensors under the reference
+    names with ``prefix`` (``"e2v_net."`` for a V2E2V checkpoint, as the
+    reference's composite names its net), every ``depth`` index of the tied
+    weights included; ``optimizer`` is ``optimizer.state_dict()`` on the CPU
+    (the Adam moments, for ``load_optimizer_state`` on resume)."""
+    payload: dict[str, Any] = {
+        "epoch": epoch,
+        "state_dict": {prefix + k: v.detach().to("cpu", torch.float32)
+                       for k, v in state_dict.items()},
+    }
+    if optimizer is not None:
+        payload["optimizer"] = _to_cpu(optimizer.state_dict())
+    if v2e_params is not None:
+        payload["v2e_params"] = dict(v2e_params)
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    torch.save(payload, path)
+
+
+def load_optimizer_state(path: str) -> dict | None:
+    """The ``optimizer`` entry of a checkpoint ``save_checkpoint`` wrote (None
+    when it has none, as the reference's checkpoints), for
+    ``Optimizer.load_state_dict``, which moves it to the parameters' device."""
+    return torch.load(path, map_location="cpu", weights_only=False).get("optimizer")
