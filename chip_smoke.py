@@ -140,9 +140,27 @@ Phases, one line each (any failure exits non-zero before the last line):
    warm-started from (c)'s checkpoint, then ``cli.test`` on its checkpoint,
    the emulator rebuilt from its ``v2e_params``. Each part prints its
    seconds;
+15. the full-resolution path in the parity domain (``fullres_impl="fused"``,
+   ``ops/fused.py``), run after phase 13 and before the kernels line: (a)
+   phase 4's schedule and voxel grids through ``StreamPool`` fused, in
+   float32 (TF32 off) and bfloat16, with ``core_impl="layers"`` (K1's counter
+   rising by 2 x depth per step) and ``"cuda"`` (K2's by 7 + 2 x depth, K1's
+   by 0), every count at 0 just before each run; reconstructions and all
+   four state tensors within 1e-4 (float32) or 3e-2 + 3e-2 |ref| (bfloat16)
+   of the ref pool's on the same weights, finite, reconstructions in [0, 1];
+   (b) ``cista_sequence`` with ``io_layout="parity"`` from the parity voxel
+   producer (``events_to_voxel_grid(layout="parity")``, ``input_packed``)
+   against ``io_layout="full"``, B = 8, T = 6, float32, 1e-4; (c) phase 7's
+   run C fused: equal event counts, K3 9 and K1 10 launches per pack,
+   reconstructions within 1e-4 of run C's; (d) CUDA-event times of the pool
+   step fused against ref per dtype and core, in turns, with peak memory;
+   the E2V CLI's model step (``cli.test_e2v.make_step``) at B = 1 fused
+   against ref; the default rule's two conditions; ``torch.profiler`` traces
+   (``scripts/profile_torch_pool.py``'s ``trace``) of the bfloat16 K2 and
+   float32 layers pools, ref and fused, by kind of kernel;
 14. a ``{"kernels": [...]}`` JSON line (each row's launches on the paths of
-   phases 10-13, every count set to 0 just before each path: K1 and K2
-   counted by dtype, K3 by shot mode), then the last line
+   phases 10-13 and 15, every count set to 0 just before each path: K1 and
+   K2 counted by dtype, K3 by shot mode), then the last line
    ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX or of the JAX package ``v2e2v_tpu``.
@@ -1674,6 +1692,221 @@ def train_phase(seed: int, smi: str, root: Path) -> dict:
     return {"e2v": e2v, "v2e2v": v2e2v}
 
 
+FUSED_PACKETS_SEED = 15  # phase 15b's packets: --seed + this
+
+
+def cuda_ms(fn) -> float:
+    """One call of ``fn`` between CUDA events, ms."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
+def fused_phase(seed: int, smi: str, cfg, weights, serve, served: dict, video, cfg_c,
+                outs_c) -> dict:
+    """Phase 15: the full-resolution path in the parity domain
+    (``fullres_impl="fused"``, ``ops/fused.py``): (a) phase 4's pool schedule
+    and voxel grids, float32 and bfloat16, the core as layers (K1) and as K2,
+    against the ref pool on the same weights, reconstructions and all four
+    state tensors; (b) parity IO from the parity voxel producer against the
+    full layout (B = 8, T = 6, float32); (c) phase 7's run C fused; (d) times
+    (pool step fused against ref with CUDA events, the E2V CLI's model step at
+    B = 1, peak memory, traces by kind of kernel). Every count is set to 0
+    just before each checked path. Returns each path's launches by row."""
+    from v2e2v_tpu_torch.cli import test_e2v as cli
+    from v2e2v_tpu_torch.models.cista import cista_sequence, cista_zero_state, with_derived
+    from v2e2v_tpu_torch.models.v2e2v import V2E2VConfig
+    from v2e2v_tpu_torch.ops.cuda.core import launches_per_call
+    from v2e2v_tpu_torch.ops.voxel import event_preprocess, events_to_voxel_grid
+    from v2e2v_tpu_torch.serving import StreamPool
+
+    k1, k2, k3 = kernel_counters()
+    t_phase = time.perf_counter()
+    dev = weights["We.conv2d.weight"].device
+    fused = dataclasses.replace(cfg, fullres_impl="fused")
+    rows = {"fused_pool_launches": {}}
+
+    # (a) the fused pool against the ref pool, per dtype and core
+    for dtype in (torch.float32, torch.bfloat16):
+        for impl in ("layers", "cuda"):
+            counter, other = (k1, k2) if impl == "layers" else (k2, k1)
+            want_n = 2 * DEPTH if impl == "layers" else launches_per_call(DEPTH)
+            ref_pool = StreamPool(dataclasses.replace(cfg, core_impl=impl), weights, CAPACITY,
+                                  dtype)
+            ref, _, _ = serve(ref_pool, served[dtype], counter=counter)
+            pool = StreamPool(dataclasses.replace(fused, core_impl=impl), weights, CAPACITY, dtype)
+            counts_zero(k1, k2, k3)
+            recs, _, per_step = serve(pool, served[dtype], counter=counter)
+            rows["fused_pool_launches"] = add_counts(rows["fused_pool_launches"], row_counts())
+            stray = other.launches + k3.launches
+            stacked = torch.stack(list(recs.values()))
+            finite = bool(torch.isfinite(stacked).all()) and all(
+                bool(torch.isfinite(s.float()).all()) for s in
+                (pool._states.cell, pool._states.z, *pool._states.dg))
+            in_range = bool(((stacked >= 0) & (stacked <= 1)).all())
+            err, ok = within(stacked, torch.stack([ref[k] for k in recs]), TOL[dtype])
+            state_errs = [within(g, w_, TOL[dtype]) for g, w_ in zip(
+                (pool._states.cell, pool._states.z, *pool._states.dg),
+                (ref_pool._states.cell, ref_pool._states.z, *ref_pool._states.dg))]
+            ok = ok and all(o for _, o in state_errs)
+            say(f"[fused-pool] {DNAME[dtype]} core_impl={impl}: {len(recs)} reconstructions, "
+                f"finite={finite} in[0,1]={in_range}; {counter.__name__} launches per step "
+                f"{per_step} (want {want_n} each), others {stray} (want 0); fused vs ref pool: "
+                f"reconstructions max_abs_err={err:.3e}, states (cell, z, dg h, dg c) "
+                f"{', '.join(f'{e:.3e}' for e, _ in state_errs)} (tol {TOL[dtype]} + "
+                f"{TOL[dtype]} |ref|) {'pass' if ok else 'FAIL'}")
+            if not (finite and in_range):
+                fail(f"fused pool reconstructions in {DNAME[dtype]} ({impl}) are not finite "
+                     "values in [0, 1]")
+            if any(n != want_n for n in per_step) or stray:
+                fail(f"the fused {impl} pool did not launch {counter.__name__} {want_n} times "
+                     "per step alone")
+            if not ok:
+                fail(f"the fused pool ({DNAME[dtype]}, {impl}) disagrees with the ref pool")
+
+    # (b) parity IO from the parity voxel producer against the full layout
+    t_steps, b = 6, CAPACITY
+    pk = synthetic_packets(np.random.default_rng(seed + FUSED_PACKETS_SEED), t_steps * b, dev)
+    full = torch.stack([event_preprocess(events_to_voxel_grid(
+        *q[:4], q[4], num_bins=NB, width=W, height=H)).permute(1, 2, 0) for q in pk])
+    packed = torch.stack([event_preprocess(events_to_voxel_grid(
+        *q[:4], q[4], num_bins=NB, width=W, height=H, layout="parity")) for q in pk])
+    full = full.reshape(t_steps, b, H, W, NB)
+    packed = packed.reshape(t_steps, b, H // 2, W // 2, 4 * NB)
+    want, want_st = cista_sequence(weights, fused, full)
+    counts_zero(k1, k2, k3)
+    got, got_st = cista_sequence(weights, dataclasses.replace(fused, io_layout="parity"), packed,
+                                 input_packed=True)
+    torch.cuda.synchronize()
+    rows["parity_io_launches"] = row_counts()
+    n_k1 = k1.launches
+    errs = [within(g, w_, TOL[torch.float32]) for g, w_ in zip(
+        (got, got_st.cell, got_st.z, *got_st.dg), (want, want_st.cell, want_st.z, *want_st.dg))]
+    ok = all(o for _, o in errs) and bool(torch.isfinite(got).all()) and n_k1 == 2 * DEPTH * t_steps
+    say(f"[parity-io] cista_sequence io_layout=parity, input_packed (events_to_voxel_grid "
+        f"layout=parity) vs io_layout=full, B={b} T={t_steps} float32: reconstructions, cell, z, "
+        f"dg h, dg c max_abs_err {', '.join(f'{e:.3e}' for e, _ in errs)} (tol "
+        f"{TOL[torch.float32]}); K1 launches {n_k1} (want {2 * DEPTH * t_steps}) "
+        f"{'pass' if ok else 'FAIL'}")
+    if not ok:
+        fail("parity IO disagrees with the full layout or did not run K1")
+
+    # (c) phase 7's run C on the fused path
+    cfg_f = V2E2VConfig(dataclasses.replace(cfg_c.cista, fullres_impl="fused"), cfg_c.emulator)
+    counts_zero(k1, k2, k3)
+    outs_f, per_pack = run_v2e2v(cfg_f, with_derived(weights, cfg_f.cista, torch.float32), video,
+                                 seed + 1, (k3, k1))
+    rows["fused_v2e2v_launches"] = row_counts()
+    ev_c, ev_f = [int(o.num_events) for o in outs_c], [int(o.num_events) for o in outs_f]
+    err, rec_ok = within(torch.stack([o.reconstruction for o in outs_f]),
+                         torch.stack([o.reconstruction for o in outs_c]), V2E2V_TOL)
+    ok = ev_f == ev_c and rec_ok and all(n == [N_FRAMES - 1, 2 * DEPTH] for n in per_pack)
+    say(f"[fused-v2e2v] run C with fullres_impl=fused: num_events {ev_f} equal to run C's="
+        f"{ev_f == ev_c}; K3, K1 launches per pack {per_pack} (want {[N_FRAMES - 1, 2 * DEPTH]} "
+        f"each); reconstructions vs run C max_abs_err={err:.3e} (tol atol=rtol={V2E2V_TOL}) "
+        f"{'pass' if ok else 'FAIL'}")
+    if not ok:
+        fail("the fused V2E2V composite disagrees with run C")
+
+    # (d) times: the pool step, fused against ref, in turns, CUDA events
+    times = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        vox = list(served[dtype].values())[:CAPACITY]
+        for impl in ("layers", "cuda"):
+            ms, peak = {"ref": [], "fused": []}, {}
+            for fr in ("ref", "fused", "fused", "ref"):
+                pool = StreamPool(dataclasses.replace(cfg, core_impl=impl, fullres_impl=fr),
+                                  weights, CAPACITY, dtype)
+                batch = {pool.attach(): v for v in vox}
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                for i in range(8):
+                    t = cuda_ms(lambda: pool.step(batch, fetch=False))
+                    if i >= 2:
+                        ms[fr].append(t)
+                peak[fr] = max(peak.get(fr, 0.0), torch.cuda.max_memory_allocated() / 2**20)
+                del pool
+            med = {fr: float(np.median(v)) for fr, v in ms.items()}
+            times[(DNAME[dtype], impl)] = med
+            say(f"[fused-time] pool {DNAME[dtype]} core_impl={impl} capacity {CAPACITY}: step "
+                f"ref {med['ref']:.3f} ms, fused {med['fused']:.3f} ms (median of "
+                f"{len(ms['ref'])} each, in turns, CUDA events; min {min(ms['ref']):.3f} / "
+                f"{min(ms['fused']):.3f}); fused/ref {med['fused'] / med['ref']:.3f}; "
+                f"{CAPACITY * 1e3 / med['fused']:.1f} reconstructions/s fused; "
+                f"max_memory_allocated ref {peak['ref']:.1f} / fused {peak['fused']:.1f} MiB")
+
+    # the E2V CLI's model step at B = 1 (its make_step, K1, as the CLI builds it)
+    one = list(served[torch.float32].values())[0][None]
+    for dtype in (torch.float32, torch.bfloat16):
+        ms = {"ref": [], "fused": []}
+        for fr in ("ref", "fused", "fused", "ref"):
+            c = dataclasses.replace(cfg, core_impl="layers", fullres_impl=fr)
+            params = with_derived({k: v.to(dtype) for k, v in weights.items()}, c, dtype)
+            step = cli.make_step(c, dtype)
+            prev = torch.zeros(1, H, W, 1, device=dev)
+            st = cista_zero_state(c, 1, torch.float32, dev)
+            ms[fr].append(time_ms(lambda: step(params, one, prev, st), warmup=3, iters=20))
+        med = {fr: float(np.mean(v)) for fr, v in ms.items()}
+        times[(DNAME[dtype], "cli_b1")] = med
+        say(f"[fused-time] E2V CLI model step B=1 {H}x{W} {DNAME[dtype]} (make_step, K1): ref "
+            f"{med['ref']:.4f} ms, fused {med['fused']:.4f} ms (mean of 2 x 20 calls each, in "
+            f"turns, CUDA events as issued); fused/ref {med['fused'] / med['ref']:.3f}")
+
+    # the full-resolution stages alone, per call: heads, then upsample + final
+    from torch.profiler import ProfilerActivity, profile
+
+    from v2e2v_tpu_torch.models import cista as cista_mod
+
+    def kernels_per_call(fn) -> int:
+        with profile(activities=[ProfilerActivity.CUDA]) as p:
+            fn()
+            torch.cuda.synchronize()
+        return sum(1 for e in p.events() if e.device_type == torch.autograd.DeviceType.CUDA)
+
+    for dtype in (torch.float32, torch.bfloat16):
+        for b in (CAPACITY, 1):
+            vox = torch.stack(list(served[dtype].values())[:b]).to(dtype)
+            img = torch.rand(b, H, W, 1, device=dev, generator=torch.Generator(dev).manual_seed(
+                seed)).to(dtype)
+            rec_h = torch.rand(b, H // 2, W // 2, C, device=dev).to(dtype)
+            parts = []
+            for fr in ("ref", "fused"):
+                c = dataclasses.replace(cfg, fullres_impl=fr)
+                p = with_derived({k: v.to(dtype) for k, v in weights.items()}, c, dtype)
+                for stage, fn in (
+                        ("heads", lambda: cista_mod._heads(p, c, vox, img)),
+                        ("upsample+final",
+                         lambda: cista_mod._upsample_final(p, c, rec_h, upsamp_activation="relu"))):
+                    parts.append(f"{stage} {fr} {time_ms(fn, iters=20):.4f} / "
+                                 f"{device_ms(fn):.4f} ms in {kernels_per_call(fn)} kernels")
+            say(f"[fused-stage] {DNAME[dtype]} B={b} {H}x{W}, per call as issued / on the "
+                f"device (CUDA events): {'; '.join(parts)}")
+
+    faster = all(times[(d, i)]["fused"] < times[(d, i)]["ref"]
+                 for d in ("float32", "bfloat16") for i in ("layers", "cuda"))
+    b1_ok = all(times[(d, "cli_b1")]["fused"] <= times[(d, "cli_b1")]["ref"]
+                for d in ("float32", "bfloat16"))
+    say(f"[fused-time] the default rule: fused pool step faster in all four cells={faster}; "
+        f"B = 1 CLI step not slower={b1_ok} ({smi})")
+
+    # traces by kind of kernel: the bf16 K2 and the f32 layers pools, ref and fused
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "profile_torch_pool", Path(__file__).resolve().parent / "scripts" / "profile_torch_pool.py")
+    prof = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(prof)
+    for dtype, impl in ((torch.bfloat16, "cuda"), (torch.float32, "layers")):
+        for fr in ("ref", "fused"):
+            c = dataclasses.replace(cfg, core_impl=impl, fullres_impl=fr)
+            prof.trace(prof.pool_steps(c, weights, dtype, seed), 5,
+                       f"{DNAME[dtype]} core_impl={impl} fullres_impl={fr} capacity 8 step")
+    say(f"[phase] fused full-resolution path {time.perf_counter() - t_phase:.1f} s")
+    return rows
+
+
 def main_path_k3_inputs(cfg, state, frames, ts, internal: bool):
     """The K3 inputs of the first frame pair of a pack on the main path: the
     emulator's own front end, stopped where it calls K3."""
@@ -2149,11 +2382,14 @@ def main() -> None:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
+    # 15. the fused full-resolution path, parity IO, the fused V2E2V run C
+    fused_rows = fused_phase(args.seed, smi, cfg, weights, serve, served, video, cfg_c, outs_c)
+
     # 14. kernels, then the result line
     # each path's launches by row, every count set to 0 just before the path
     paths = {"v2e2v_cli_launches": hfr["rows"], "raw_launches": raw_rows,
              "tc_pool_launches": tc_rows, "e2v_train_launches": trained["e2v"],
-             "v2e2v_train_launches_per_step": trained["v2e2v"]}
+             "v2e2v_train_launches_per_step": trained["v2e2v"], **fused_rows}
     for e in entries:
         if e["name"].startswith("ista_loop"):
             e.update(cli_k1[torch.float32 if "float32" in e["name"] else torch.bfloat16])

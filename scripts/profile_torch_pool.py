@@ -3,13 +3,15 @@
 port spends its time on the card.
 
     python3 scripts/profile_torch_pool.py [--dtype float32|bfloat16] [--core_impl layers|cuda]
-                                          [--steps 10]
+                                          [--fullres_impl ref|fused] [--steps 10]
     python3 scripts/profile_torch_pool.py --v2e2v [--steps 10]
     python3 scripts/profile_torch_pool.py --train B [--steps 3]
 
 Builds the flagship ``StreamPool`` (CISTA-LSTC 180x240, 64 channels, depth 5,
 5 bins, capacity 8, all slots active, random weights from ``--seed``, its
-half-res core layer by layer or as kernel K2 as ``--core_impl`` says), warms
+half-res core layer by layer or as kernel K2 as ``--core_impl`` says, its
+full-resolution convs as the reference shapes them or in the parity domain
+as ``--fullres_impl`` says), warms
 it up, and traces ``--steps`` pool steps with ``torch.profiler``. With
 ``--v2e2v`` it traces ``--steps`` packs of ``v2e2v_forward`` on the default
 V2E2V path instead (``V2E2VConfig.from_flags`` with the emulator of
@@ -20,11 +22,12 @@ one pack. With ``--train B`` it traces ``--steps`` E2V train steps at batch
 the training config ``ista_impl="plain"``, ``core_impl="layers"``, float32)
 on one batch of N(0, 1) voxel grids. Prints the card's name and power limit, the step time on the host
 clock, the device's busy and idle share over the traced window, and device
-time by kernel, with kernels K1 (``ista_conv3x3_kernel``, and
-``ista_conv3x3_tc_kernel`` in bfloat16), K2 (its ``core_conv3x3_kernel`` or
-``core_conv3x3_tc_kernel`` convs and its two cell kernels) and K3
-(``emulator_iters_kernel``) apart, each with its launches per step. Needs a
-CUDA card; float32 runs with TF32 off.
+time and launches per step by kind (``CATEGORIES``: kernels K1
+(``ista_conv3x3_kernel``, and ``ista_conv3x3_tc_kernel`` in bfloat16), K2
+(its ``core_conv3x3_kernel`` or ``core_conv3x3_tc_kernel`` convs and its two
+cell kernels) and K3 (``emulator_iters_kernel``), cuDNN's convs, layout
+transposes, reflect pads, copies and concats, matmuls, the rest), then the
+15 largest kernels. Needs a CUDA card; float32 runs with TF32 off.
 """
 
 from __future__ import annotations
@@ -114,6 +117,7 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--dtype", choices=["float32", "bfloat16"], default="float32")
     ap.add_argument("--core_impl", choices=["layers", "cuda"], default="layers")
+    ap.add_argument("--fullres_impl", choices=["ref", "fused"], default="ref")
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--v2e2v", action="store_true", help="trace V2E2V packs, not pool steps")
@@ -130,7 +134,7 @@ def main() -> None:
         capture_output=True, text=True, check=True, timeout=60).stdout.strip(), flush=True)
 
     cfg = CistaConfig(image_dim=(180, 240), base_channels=64, depth=5, num_bins=5,
-                      core_impl=args.core_impl)
+                      core_impl=args.core_impl, fullres_impl=args.fullres_impl)
     weights = init_cista_lstc(torch.Generator().manual_seed(args.seed), cfg)
     if args.train:
         cfg = dataclasses.replace(cfg, ista_impl="plain", core_impl="layers")
@@ -142,11 +146,31 @@ def main() -> None:
         trace(emulate, args.steps, "emulate_pack alone, batch 8 pack")
     else:
         trace(pool_steps(cfg, weights, dtype, args.seed), args.steps,
-              f"{args.dtype} core_impl={args.core_impl} capacity 8 step")
+              f"{args.dtype} core_impl={args.core_impl} fullres_impl={args.fullres_impl} "
+              "capacity 8 step")
 
 
-def trace(step, steps: int, what: str) -> None:
-    """Warm up, trace ``steps`` calls, print the breakdown."""
+# kinds of device kernels, by name, first match wins
+CATEGORIES = (
+    ("K1", ("ista_conv3x3_",)),
+    ("K2", ("core_conv3x3_", "core_lstc_cell", "core_lstm_cell")),
+    ("K3", ("emulator_iters_kernel",)),
+    ("layout transposes", ("nchwToNhwc", "nhwcToNchw", "ToNhwc", "ToNchw")),
+    ("cuDNN convs", ("fprop", "implicit", "conv", "cudnn", "fft", "dgrad", "wgrad")),
+    ("reflect pads", ("reflection_pad",)),
+    ("copies and concats", ("copy", "CatArray", "cat_")),
+    ("matmuls", ("gemm", "gemv")),
+)
+
+
+def kind(name: str) -> str:
+    return next((label for label, keys in CATEGORIES if any(k in name for k in keys)), "rest")
+
+
+def trace(step, steps: int, what: str) -> dict:
+    """Warm up, trace ``steps`` calls, print the breakdown; returns the step
+    time (host clock, traced), the device's busy share and ``{kind: (ms,
+    launches)}`` per step."""
     for _ in range(3):
         step()
     torch.cuda.synchronize()
@@ -165,20 +189,22 @@ def trace(step, steps: int, what: str) -> None:
             by_kernel[evt.name] += evt.time_range.elapsed_us() / 1e3
             count[evt.name] += 1
     busy_ms = sum(by_kernel.values())
-    parts = []
-    for label, keys in (("K1", ("ista_conv3x3_",)),
-                        ("K2", ("core_conv3x3_", "core_lstc_cell", "core_lstm_cell")),
-                        ("K3", ("emulator_iters_kernel",))):
-        ms = sum(v for k, v in by_kernel.items() if any(key in k for key in keys))
-        n = sum(v for k, v in count.items() if any(key in k for key in keys))
-        parts.append(f"{label} {ms / steps:.4f} ms/step in {n / steps:g} launches "
-                     f"({100 * ms / busy_ms:.1f}% of device time)")
+    kinds: dict[str, list] = {label: [0.0, 0] for label, _ in CATEGORIES + (("rest", ()),)}
+    for name, ms in by_kernel.items():
+        kinds[kind(name)][0] += ms
+        kinds[kind(name)][1] += count[name]
+    per_step = {k: (ms / steps, n / steps) for k, (ms, n) in kinds.items()}
+    parts = [f"{k} {ms:.4f} ms/step in {n:g} launches ({100 * ms * steps / busy_ms:.1f}%)"
+             for k, (ms, n) in per_step.items() if n]
     print(f"[profile] {what}: {wall_ms / steps:.3f} ms (host clock, traced), "
           f"device busy {busy_ms / steps:.3f} ms/step = {100 * busy_ms / wall_ms:.1f}%, idle "
-          f"{100 * (1 - busy_ms / wall_ms):.1f}%; {'; '.join(parts)}; "
-          f"{sum(count.values()) // steps} kernels/step")
+          f"{100 * (1 - busy_ms / wall_ms):.1f}%; {sum(count.values()) // steps} kernels/step; "
+          f"{'; '.join(parts)}", flush=True)
     for name, ms in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:15]:
-        print(f"[profile]   {ms / steps:8.3f} ms/step {count[name] // steps:4d}x  {name[:110]}")
+        print(f"[profile]   {ms / steps:8.3f} ms/step {count[name] // steps:4d}x  "
+              f"[{kind(name)}] {name[:100]}", flush=True)
+    return {"step_ms": wall_ms / steps, "busy": busy_ms / wall_ms, "kinds": per_step}
+
 
 if __name__ == "__main__":
     main()

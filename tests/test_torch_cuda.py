@@ -800,3 +800,91 @@ def test_v2e2v_train_step_through_k3_matches_plain(card, explicit_shot):
     assert (k3_n, k1_n) == (t * (n - 1), 0) and plain_n == (0, 0)
     assert ev_k == ev_p > 0
     assert abs(loss_k - loss_p) <= 1e-5
+
+
+@pytest.mark.parametrize("mode,core_impl", [("cista-lstc", "layers"), ("cista-lstc", "cuda"),
+                                            ("cista-tc", "layers")])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 3e-2)],
+                         ids=["f32", "bf16"])
+def test_fused_fullres_on_card_matches_cpu(card, mode, core_impl, dtype, tol):
+    """``fullres_impl="fused"`` (ops/fused.py on cuDNN) three steps on the card
+    against float32 on the CPU (the plain versions), with K1 or K2 in the
+    LSTC core as ``core_impl`` says, 2 x depth or 7 + 2 x depth launches per
+    step; the card's fused kernels are channels_last OIHW in memory."""
+    from v2e2v_tpu_torch.models.cista import init_cista_tc, with_derived
+
+    cfg = CistaConfig(image_dim=(32, 48), base_channels=16, depth=3, model_mode=mode,
+                      core_impl=core_impl, fullres_impl="fused")
+    init = init_cista_lstc if mode == "cista-lstc" else init_cista_tc
+    sd = init(torch.Generator().manual_seed(0), cfg, device="cpu")
+    vox = torch.randn(3, 2, 32, 48, 5, generator=torch.Generator().manual_seed(1))
+    want, want_state = cista_sequence(sd, cfg, vox)
+    sd_card = {k: v.to(card, dtype) for k, v in sd.items()}
+    kernels = with_derived(sd_card, cfg, dtype)["_fullres_fused"]
+    assert kernels["upsamp"][0].permute(3, 2, 0, 1).is_contiguous(
+        memory_format=torch.channels_last)
+    before = (ista_loop.launches, k2.cista_core.launches)
+    got, got_state = cista_sequence(sd_card, cfg, vox.to(card, dtype))
+    torch.cuda.synchronize()
+    launches = (ista_loop.launches - before[0], k2.cista_core.launches - before[1])
+    if mode == "cista-tc":
+        assert launches == (0, 0)
+    elif core_impl == "cuda":
+        assert launches == (0, 3 * k2.launches_per_call(3))
+    else:
+        assert launches == (3 * 2 * 3, 0)
+    torch.testing.assert_close(got.float().cpu(), want, atol=tol, rtol=tol)
+    torch.testing.assert_close(got_state.z.float().cpu(), want_state.z, atol=tol, rtol=tol)
+
+
+def test_parity_io_and_fused_lstc_on_card_match_full_layout(card):
+    """``io_layout="parity"`` from the parity voxel producer
+    (``input_packed``) and ``lstc_impl="fused"`` on the card against the
+    full layout with the three-conv ConvLSTC, float32."""
+    from v2e2v_tpu_torch.ops.voxel import events_to_voxel_grid
+
+    cfg = CistaConfig(image_dim=(32, 48), base_channels=16, depth=3, fullres_impl="fused")
+    sd = init_cista_lstc(torch.Generator().manual_seed(0), cfg, device=card)
+    g = torch.Generator().manual_seed(2)
+    n = 3000
+    grids = []
+    for _ in range(6):  # 3 steps x B = 2
+        t = torch.sort(torch.rand(n, generator=g))[0].double()
+        x, y = torch.randint(0, 48, (n,), generator=g), torch.randint(0, 32, (n,), generator=g)
+        p = torch.randint(0, 2, (n,), generator=g)
+        ev = [a.to(card) for a in (t, x, y, p)]
+        grids.append((events_to_voxel_grid(*ev, n, num_bins=5, width=48, height=32),
+                      events_to_voxel_grid(*ev, n, num_bins=5, width=48, height=32,
+                                           layout="parity")))
+    full = torch.stack([a.permute(1, 2, 0) for a, _ in grids]).reshape(3, 2, 32, 48, 5)
+    packed = torch.stack([b for _, b in grids]).reshape(3, 2, 16, 24, 20)
+    want, want_state = cista_sequence(sd, cfg, full)
+    for c, seq, kw in ((dataclasses.replace(cfg, io_layout="parity"), packed,
+                        {"input_packed": True}),
+                       (dataclasses.replace(cfg, lstc_impl="fused"), full, {})):
+        got, got_state = cista_sequence(sd, c, seq, **kw)
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+        torch.testing.assert_close(got_state.cell, want_state.cell, atol=1e-4, rtol=1e-4)
+
+
+def test_fused_e2v_train_step_on_card_matches_cpu(card):
+    """The E2V train step on the fused full-resolution path on the card
+    against the CPU (as ``test_e2v_train_step_on_card_matches_cpu``)."""
+    from v2e2v_tpu_torch.models.cista import tie_weights
+    from v2e2v_tpu_torch.training import steps
+    from v2e2v_tpu_torch.utils.checkpoint import STEP_KEYS
+
+    cfg = CistaConfig(image_dim=(32, 48), base_channels=16, depth=3, ista_impl="plain",
+                      fullres_impl="fused")
+    g = torch.Generator().manual_seed(3)
+    seq, gt = torch.randn(3, 2, 32, 48, 5, generator=g), torch.rand(2, 32, 48, 1, generator=g)
+    results = []
+    for device in ("cpu", card):
+        sd = tie_weights(init_cista_lstc(torch.Generator().manual_seed(0), cfg, device), cfg)
+        step = steps.make_e2v_train_step(cfg, steps.make_adam(sd, cfg, 1e-4))
+        loss = step(sd, seq.to(device), gt.to(device))
+        results.append((float(loss), {k: sd[k].grad.cpu() for k in STEP_KEYS["cista-lstc"]}))
+    (want, want_g), (got, got_g) = results
+    assert abs(got - want) <= 1e-4 * abs(want)
+    for k, w in want_g.items():
+        assert float((got_g[k] - w).abs().max()) <= 1e-3 * float(w.abs().max()), k

@@ -38,6 +38,7 @@ def test_importing_the_port_loads_no_jax():
         "import v2e2v_tpu_torch.ops.cuda.emulator_iters, v2e2v_tpu_torch.ops.numerics\n"
         "import v2e2v_tpu_torch.ops.cuda.core, v2e2v_tpu_torch.ops.cuda._lib\n"
         "import v2e2v_tpu_torch.ops.cuda.conv_tc, v2e2v_tpu_torch.ops.image\n"
+        "import v2e2v_tpu_torch.ops.fused\n"
         "import v2e2v_tpu_torch.runtime, v2e2v_tpu_torch.data.event_readers\n"
         "import v2e2v_tpu_torch.data.video_readers, v2e2v_tpu_torch.utils.image_io\n"
         "import v2e2v_tpu_torch.utils.evaluate, v2e2v_tpu_torch.utils.data_io\n"

@@ -1,6 +1,6 @@
 """Port's StreamPool against the JAX StreamPool (reference-shaped full-res
-path) on one attach/step/detach sequence: float32 at atol 1e-4, bfloat16 at
-atol = rtol = 3e-2."""
+path, and the fused one in bfloat16) on one attach/step/detach sequence:
+float32 at atol 1e-4, bfloat16 at atol = rtol = 3e-2."""
 
 import jax
 import jax.numpy as jnp
@@ -18,12 +18,13 @@ from v2e2v_tpu_torch.utils.checkpoint import params_from_jax
 H, W, NB, C, DEPTH = 16, 20, 5, 8, 2
 
 
-def _pools(capacity=3, dtype="float32"):
+def _pools(capacity=3, dtype="float32", fullres_impl="ref"):
     jcfg = JCfg(image_dim=(H, W), base_channels=C, depth=DEPTH, num_bins=NB,
-                fullres_impl="ref")
+                fullres_impl=fullres_impl)
     params = jinit(jax.random.PRNGKey(0), jcfg)
     jpool = JPool(jcfg, params, capacity=capacity, dtype=getattr(jnp, dtype))
-    cfg = CistaConfig(image_dim=(H, W), base_channels=C, depth=DEPTH, num_bins=NB)
+    cfg = CistaConfig(image_dim=(H, W), base_channels=C, depth=DEPTH, num_bins=NB,
+                      fullres_impl=fullres_impl)
     sd = params_from_jax(jax.tree_util.tree_map(np.asarray, params), DEPTH)
     return jpool, StreamPool(cfg, sd, capacity=capacity, dtype=getattr(torch, dtype),
                              device="cpu")
@@ -63,6 +64,13 @@ def test_pool_sequence_matches_jax_pool_bfloat16():
     """bfloat16 pools, each framework rounding its own convs and elementwise
     ops to bfloat16, on the same float32 weights and voxel grids."""
     _run_schedule(*_pools(dtype="bfloat16"), dict(atol=3e-2, rtol=3e-2))
+
+
+def test_fused_pool_matches_jax_fused_pool_bfloat16():
+    """The same on the fused full-resolution path (``fullres_impl="fused"``,
+    the JAX package's default): each pool makes its fused kernels once, in
+    bfloat16."""
+    _run_schedule(*_pools(dtype="bfloat16", fullres_impl="fused"), dict(atol=3e-2, rtol=3e-2))
 
 
 def test_pool_fetch_false_returns_device_views():

@@ -3,8 +3,10 @@ JAX package's (``v2e2v_tpu/parallel/mesh.py``) on the CPU, at 32x40, C = 8,
 depth 2, T = 3, B = 2, on the same weights (``params_from_jax``) and inputs.
 
 The JAX steps run as the JAX CLIs build them (``make_mesh(1, 1)``, the
-default ``CistaConfig``: ``fullres_impl="fused"``, which the port computes
-the reference's way, an exact rewrite), with an optax transformation that
+default ``CistaConfig``: ``fullres_impl="fused"``), and the port's E2V step
+is held against them on its ``fullres_impl="ref"`` path (the reference's
+way, of which the fused path is an exact rewrite) and on its
+``fullres_impl="fused"`` path, with an optax transformation that
 keeps the gradients in its state, so the jitted step hands back its own
 gradients. Held: the loss to rtol 1e-6 and every gradient tensor to
 ``2e-5 * max |g|`` (observed: loss within 1.2e-7, gradients within 5e-6 of
@@ -15,6 +17,7 @@ The V2E2V steps are in tests/test_torch_train_v2e2v.py.
 """
 
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -82,21 +85,46 @@ def _voxels(seed, n=B):
             rng.uniform(size=(n, H, W, 1)).astype(np.float32))
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_e2v_step(mode):
+    """JAX's default E2V step on ``_voxels(1)``: ``(loss, gradients as a
+    state dict)``, compiled once per mode for the tests below."""
+    cfg, params, _, _ = _weights(mode)
+    jstep = jmesh.make_e2v_train_step(cfg, grad_keeper(), jmesh.make_mesh(1, 1))
+    (_, _, jloss), jgrads = _run_jax(jstep, params, *_voxels(1))
+    return float(jloss), jgrads
+
+
 @pytest.mark.parametrize("mode", ["cista-lstc", "cista-tc"])
 def test_e2v_step_matches_jax(mode):
-    cfg, params, tcfg, sd = _weights(mode)
+    _, _, tcfg, sd = _weights(mode)
     seq, gt = _voxels(1)
-    jstep = jmesh.make_e2v_train_step(cfg, grad_keeper(), jmesh.make_mesh(1, 1))
-    (_, _, jloss), jgrads = _run_jax(jstep, params, seq, gt)
+    jloss, jgrads = _jax_e2v_step(mode)
     opt = steps.make_adam(sd, tcfg, 1e-4)
     before = {k: sd[k].detach().clone() for k in STEP_KEYS[mode]}
     loss = steps.make_e2v_train_step(tcfg, opt)(sd, torch.from_numpy(seq), torch.from_numpy(gt))
-    np.testing.assert_allclose(float(loss), float(jloss), rtol=1e-6)
+    np.testing.assert_allclose(float(loss), jloss, rtol=1e-6)
     _assert_grads(sd, mode, jgrads)
     # the tied ISTA block: every depth name is the one trained tensor
     for leaf in ("D.conv2d.weight", "Lambda"):
         assert sd[f"lista_blocks.1.{leaf}"] is sd[f"lista_blocks.0.{leaf}"]
     assert all(not torch.equal(sd[k], before[k]) for k in ("We.conv2d.weight", "final_conv.conv2d.bias"))
+
+
+@pytest.mark.parametrize("mode", ["cista-lstc", "cista-tc"])
+def test_fused_e2v_step_matches_jax(mode):
+    """The port's step on the fused full-resolution path, the JAX default's,
+    with the fused ConvLSTC (an exact rewrite; CISTA-TC has none): the
+    kernels are made once per window (``cista_sequence``), and the gradients
+    reach the stored convs through them."""
+    _, _, tcfg, sd = _weights(mode)
+    tcfg = dataclasses.replace(tcfg, fullres_impl="fused", lstc_impl="fused")
+    seq, gt = _voxels(1)
+    jloss, jgrads = _jax_e2v_step(mode)
+    step = steps.make_e2v_train_step(tcfg, steps.make_adam(sd, tcfg, 1e-4))
+    loss = step(sd, torch.from_numpy(seq), torch.from_numpy(gt))
+    np.testing.assert_allclose(float(loss), jloss, rtol=1e-6)
+    _assert_grads(sd, mode, jgrads)
 
 
 def test_e2v_device_data_step_with_a_masked_tail_matches_jax():

@@ -67,6 +67,7 @@ class V2E2V:
                  noise_for_sequence: Callable[[int], Noise] | None = None):
         from .._device import resolve_device
         from ..data.video_readers import ImageReader
+        from ..models.cista import with_derived
         from ..models.v2e2v import V2E2VConfig
         from ..utils.checkpoint import load_torch_checkpoint
 
@@ -96,7 +97,8 @@ class V2E2V:
             for k in V2E_PARAMS:
                 setattr(cfgs, k, float(v2e_params[k]))
         self.cfg = V2E2VConfig.from_flags(cfgs)
-        self.params = {k: v.to(self.device) for k, v in sd.items()}
+        self.params = with_derived({k: v.to(self.device) for k, v in sd.items()},
+                                   self.cfg.cista, torch.float32)
         if noise_for_sequence is None:
             def noise_for_sequence(seq_id):
                 gen = torch.Generator(device=self.device)

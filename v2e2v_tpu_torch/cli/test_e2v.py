@@ -26,7 +26,7 @@ import os
 import numpy as np
 import torch
 
-from ..models.cista import CistaConfig, CistaState, cista_zero_state, get_step_fn
+from ..models.cista import CistaConfig, CistaState, cista_zero_state, get_step_fn, with_derived
 
 ROADMAP = "ROADMAP.md queue 1"
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -95,7 +95,7 @@ def build_model(cfgs, device: torch.device):
     )
     sd, _, _ = load_torch_checkpoint(cfgs.path_to_test_model, cfgs.model_mode)
     dtype = DTYPES[cfgs.precision]
-    params = {k: v.to(device, dtype) for k, v in sd.items()}
+    params = with_derived({k: v.to(device, dtype) for k, v in sd.items()}, cfg, dtype)
     return cfg, params, make_step(cfg, dtype), cista_zero_state
 
 

@@ -3,11 +3,15 @@
 Reference network ``CistaLSTCNet`` (lsying009/V2E2V ``e2v/e2v_model.py``):
 event/image heads -> stride-2 downsample -> ConvLSTC sparse-code init ->
 ``depth`` weight-tied ISTA iterations -> ConvLSTM decoder -> bilinear
-upsample conv -> final conv -> sigmoid. The full-resolution convs follow the
-JAX package's ``fullres_impl='ref'`` path. The half-resolution core (ConvLSTC,
-ISTA, decoder conv and ConvLSTM) runs layer by layer, with the ISTA loop as
-kernel K1 (``ops/cuda/ista.py``) or its plain version, or as one call of
-kernel K2 (``ops/cuda/core.py``) or its plain version (``core_impl``).
+upsample conv -> final conv -> sigmoid. The full-resolution convs run as the
+reference shapes them (``fullres_impl='ref'``) or as the JAX package's exact
+rewrites in the half-resolution parity domain (``'fused'``,
+``ops/fused.py``), which never build a full-resolution 64-channel map. The
+half-resolution core (ConvLSTC, ISTA, decoder conv and ConvLSTM) runs layer
+by layer, with the ISTA loop as kernel K1 (``ops/cuda/ista.py``) or its plain
+version, or as one call of kernel K2 (``ops/cuda/core.py``) or its plain
+version (``core_impl``). ``io_layout='parity'`` keeps a whole sequence's
+input and feedback image parity-packed (``cista_sequence``).
 
 ``CistaTCNet`` (``model_mode="cista-tc"``, the ICASSP'22 network) starts the
 sparse code from one conv ``P0`` and adds, in every weight-tied ISTA
@@ -30,9 +34,25 @@ import torch
 import torch.utils.checkpoint
 
 from .._device import resolve_device
-from ..ops.conv import conv_layer, conv_lstc_step, conv_lstm_step, upsample_conv_layer
+from ..ops.conv import (
+    conv_layer,
+    conv_lstc_fuse,
+    conv_lstc_step,
+    conv_lstc_step_fused,
+    conv_lstm_step,
+    upsample_conv_layer,
+)
 from ..ops.cuda.core import cista_core, cista_core_plain, core_taps
 from ..ops.cuda.ista import ista_loop, ista_loop_plain
+from ..ops.fused import (
+    depth_to_space,
+    final_conv_parity_edgek,
+    heads_fused_edgek,
+    heads_parity_edgek,
+    precompute_fused_kernels,
+    space_to_depth,
+    upsample_conv_parity_edgek,
+)
 from ..ops.numerics import softshrink
 
 StateDict = dict[str, torch.Tensor]
@@ -47,9 +67,23 @@ class CistaConfig:
     'plain' (the plain version on any device). ``core_impl``: 'layers' (the
     default: the core layer by layer, its ISTA loop as ``ista_impl`` says),
     'cuda' (kernel K2 for CUDA tensors, its plain version for CPU tensors) or
-    'plain' (K2's plain version on any device); with K2, ``ista_impl`` is not
-    read. CISTA-TC (``model_mode="cista-tc"``) reads neither and takes
-    ``core_impl="layers"`` only.
+    'plain' (K2's plain version on any device); with K2, ``ista_impl`` and
+    ``lstc_impl`` are not read. CISTA-TC (``model_mode="cista-tc"``) reads
+    neither and takes ``core_impl="layers"`` only.
+
+    ``fullres_impl``: 'ref' (the default: the heads, the upsample conv and
+    the final conv as the reference shapes them) or 'fused' (their exact
+    rewrites in the parity domain, ``ops/fused.py``; the JAX package's
+    default), for both model modes. On the card the fused pool step is the
+    faster at batch 8, but the fused E2V CLI step at batch 1 is the slower:
+    its thin border convs and writes cost the host more launches than the
+    full-resolution maps they remove cost the card (PERF.md section 6).
+    ``lstc_impl``: 'ref' or 'fused' (the ConvLSTC's three convs as two,
+    ``ops/conv.conv_lstc_fuse``). ``io_layout``: 'full' or 'parity'
+    (``cista_sequence`` packs the input and the feedback image once and runs
+    ``cista_lstc_step_parity``; CISTA-LSTC with ``fullres_impl='fused'``
+    only, else the sequence runs 'full'). The same values and meaning as the
+    JAX package's; an unknown value raises.
     """
 
     image_dim: tuple[int, int] = (180, 240)
@@ -59,6 +93,9 @@ class CistaConfig:
     model_mode: str = "cista-lstc"
     ista_impl: str = "cuda"
     core_impl: str = "layers"
+    fullres_impl: str = "ref"
+    lstc_impl: str = "ref"
+    io_layout: str = "full"
 
     def __post_init__(self):
         if self.model_mode not in ("cista-lstc", "cista-tc"):
@@ -72,6 +109,10 @@ class CistaConfig:
             raise ValueError(
                 f"core_impl must be 'layers', 'cuda' or 'plain', got {self.core_impl!r}{hint}"
             )
+        for name, allowed in (("fullres_impl", ("ref", "fused")), ("lstc_impl", ("ref", "fused")),
+                              ("io_layout", ("full", "parity"))):
+            if getattr(self, name) not in allowed:
+                raise ValueError(f"{name} must be one of {allowed}, got {getattr(self, name)!r}")
         if self.model_mode == "cista-tc" and self.core_impl != "layers":
             raise ValueError(
                 f"core_impl={self.core_impl!r} computes CISTA-LSTC's core (kernel K2); "
@@ -183,8 +224,12 @@ def _hwio(w_oihw: torch.Tensor) -> torch.Tensor:
     return w_oihw.permute(2, 3, 1, 0)
 
 
-def _heads(params: StateDict, events: torch.Tensor, prev_image: torch.Tensor) -> torch.Tensor:
-    """Event/image heads + concat + stride-2 downsample."""
+def _heads(params: StateDict, cfg: CistaConfig, events: torch.Tensor,
+           prev_image: torch.Tensor) -> torch.Tensor:
+    """Event/image heads + concat + stride-2 downsample; on the 'fused' path
+    one composed 5x5 stride-2 conv and its border kernels."""
+    if cfg.fullres_impl == "fused":
+        return heads_fused_edgek(params, events, prev_image, kernels=params.get("_fullres_fused"))
     x_e = conv_layer(events, _conv(params, "We.conv2d"), padding=1)
     x_i = conv_layer(prev_image, _conv(params, "Wi.conv2d"), padding=1)
     return conv_layer(
@@ -195,11 +240,22 @@ def _heads(params: StateDict, events: torch.Tensor, prev_image: torch.Tensor) ->
 def _upsample_final(
     params: StateDict, cfg: CistaConfig, rec: torch.Tensor, upsamp_activation: str | None
 ) -> torch.Tensor:
+    """Bilinear-upsample conv -> final conv; on the 'fused' path both in the
+    parity domain (the full-res 64-channel map is never built)."""
+    if cfg.fullres_impl == "fused":
+        kernels = params.get("_fullres_fused")
+        rec = upsample_conv_parity_edgek(_conv(params, "upsamp_conv.conv2d"), rec,
+                                         activation=upsamp_activation, kernels=kernels)
+        return final_conv_parity_edgek(_conv(params, "final_conv.conv2d"), rec, kernels=kernels)
     rec = upsample_conv_layer(
         rec, _conv(params, "upsamp_conv.conv2d"), activation=upsamp_activation,
         out_hw=cfg.image_dim,
     )
     return conv_layer(rec, _conv(params, "final_conv.conv2d"), padding=1)
+
+
+def _lstc_params(params: StateDict) -> dict:
+    return {name: _conv(params, f"P0.{name}") for name in ("gates", "out_gates", "P0")}
 
 
 def half_res_core(
@@ -218,10 +274,14 @@ def half_res_core(
             taps, x1, state.z, state.cell, state.dg[0], state.dg[1], depth=cfg.depth
         )
         return rec_h, CistaState(cell=cell, z=z, dg=(dg_h, dg_c))
-    z, cell = conv_lstc_step(
-        {name: _conv(params, f"P0.{name}") for name in ("gates", "out_gates", "P0")},
-        x1, state.z, state.cell,
-    )
+    if cfg.lstc_impl == "fused":
+        # "_lstc_fused" is injected once per sequence or pool (with_derived)
+        fused = params.get("_lstc_fused")
+        if fused is None:
+            fused = conv_lstc_fuse(_lstc_params(params))
+        z, cell = conv_lstc_step_fused(fused, x1, state.z, state.cell)
+    else:
+        z, cell = conv_lstc_step(_lstc_params(params), x1, state.z, state.cell)
     ista = ista_loop if cfg.ista_impl == "cuda" else ista_loop_plain
     z = ista(
         x1, z.contiguous(),
@@ -252,9 +312,32 @@ def cista_lstc_step(
       state: ``CistaState`` from the previous step (zeros at sequence start).
     Returns ``(rec_image [B, H, W, 1], new_state)``.
     """
-    x1 = _heads(params, events, prev_image).contiguous()
+    x1 = _heads(params, cfg, events, prev_image).contiguous()
     rec_h, state = half_res_core(params, cfg, x1, state)
     rec = _upsample_final(params, cfg, rec_h, upsamp_activation="relu")
+    return torch.sigmoid(rec), state
+
+
+def cista_lstc_step_parity(
+    params: StateDict,
+    cfg: CistaConfig,
+    ev_parity: torch.Tensor,
+    prev_parity: torch.Tensor,
+    state: CistaState,
+) -> tuple[torch.Tensor, CistaState]:
+    """``cista_lstc_step`` with parity-packed IO (``io_layout='parity'``):
+    events ``[B, H/2, W/2, 4 num_bins]`` and previous image ``[B, H/2, W/2,
+    4]`` in, reconstruction ``[B, H/2, W/2, 4]`` out (``ops/fused.py``'s
+    ``space_to_depth`` order), so the image feeds back without ever being
+    built at full resolution. The core runs as ``cfg`` says (the JAX
+    package's parity step always runs its layers core)."""
+    kernels = params.get("_fullres_fused")
+    x1 = heads_parity_edgek(params, ev_parity, prev_parity, kernels=kernels).contiguous()
+    rec_h, state = half_res_core(params, cfg, x1, state)
+    rec = upsample_conv_parity_edgek(_conv(params, "upsamp_conv.conv2d"), rec_h,
+                                     activation="relu", kernels=kernels)
+    rec = final_conv_parity_edgek(_conv(params, "final_conv.conv2d"), rec, kernels=kernels,
+                                  packed=True)
     return torch.sigmoid(rec), state
 
 
@@ -272,7 +355,7 @@ def cista_tc_step(
     per step on the previous code, ``one_conv_for_cur`` once per ISTA
     iteration.
     """
-    x1 = _heads(params, events, prev_image)
+    x1 = _heads(params, cfg, events, prev_image)
     z = conv_layer(x1, _conv(params, "P0.conv2d"), padding=1)
     tmp = z
     prev_z = state.z
@@ -329,6 +412,37 @@ def tie_weights(params: StateDict, cfg: CistaConfig) -> StateDict:
     return params
 
 
+# entries a step derives from the weights, made once per sequence or pool
+# (never written to a checkpoint: utils/checkpoint.save_checkpoint)
+DERIVED = ("_core_taps", "_fullres_fused", "_lstc_fused")
+
+
+def with_derived(params: StateDict, cfg: CistaConfig, dtype: torch.dtype) -> StateDict:
+    """``params`` with the entries ``cfg``'s steps read instead of computing
+    them per step, each made once from the weights for activations of
+    ``dtype``: kernel K2's taps (``core_impl`` other than 'layers'), the
+    fused full-resolution kernels (``fullres_impl='fused'``) and the fused
+    ConvLSTC kernels (CISTA-LSTC, ``lstc_impl='fused'``). Differentiable: a
+    loss over the steps reaches the weights through them."""
+    params = {k: v for k, v in params.items() if k not in DERIVED}
+    if cfg.model_mode == "cista-lstc" and cfg.lstc_impl == "fused":
+        params["_lstc_fused"] = conv_lstc_fuse(_lstc_params(params))
+    if cfg.fullres_impl == "fused":
+        params["_fullres_fused"] = precompute_fused_kernels(params, dtype)
+    if cfg.core_impl != "layers":
+        params["_core_taps"] = core_taps(params, dtype)
+    return params
+
+
+def parity_io(cfg: CistaConfig) -> bool:
+    """Whether ``cista_sequence`` runs ``cfg`` with parity-packed IO: the JAX
+    package's conditions (CISTA-LSTC, ``fullres_impl='fused'``, even H and
+    W); ``io_layout='parity'`` otherwise runs 'full'."""
+    return (cfg.io_layout == "parity" and cfg.model_mode == "cista-lstc"
+            and cfg.fullres_impl == "fused"
+            and cfg.image_dim[0] % 2 == 0 and cfg.image_dim[1] % 2 == 0)
+
+
 def cista_sequence(
     params: StateDict,
     cfg: CistaConfig,
@@ -336,21 +450,42 @@ def cista_sequence(
     prev_image: torch.Tensor | None = None,
     state: CistaState | None = None,
     remat: bool = False,
+    input_packed: bool = False,
 ) -> tuple[torch.Tensor, CistaState]:
     """Reconstruct ``voxel_seq [T, B, H, W, num_bins]`` step by step, feeding
-    each output back as the next ``prev_image``. With ``remat`` each step is
-    rematerialised on the backward pass (``remat_step``): backpropagation
-    through time keeps the per-step carries, not every conv activation; the
-    values and gradients are the same. Returns ``(recs [T, B, H, W, 1],
-    final_state)`` on ``voxel_seq``'s device."""
-    b = voxel_seq.shape[1]
+    each output back as the next ``prev_image``. The derived kernels
+    (``with_derived``) are made once, outside the steps. With ``remat`` each
+    step is rematerialised on the backward pass (``remat_step``):
+    backpropagation through time keeps the per-step carries, not every conv
+    activation; the values and gradients are the same.
+
+    With parity IO (``parity_io(cfg)``) the sequence and the feedback image
+    are packed once (``space_to_depth``) and every step runs
+    ``cista_lstc_step_parity``. ``input_packed`` (parity IO only, else a
+    ``ValueError``) takes ``voxel_seq`` as the producer's parity layout
+    ``[T, B, H/2, W/2, 4 num_bins]`` (``ops/voxel.events_to_voxel_grid(...,
+    layout='parity')``) and ``prev_image``, if given, as ``[B, H/2, W/2, 4]``.
+    Returns ``(recs [T, B, H, W, 1], final_state)`` on ``voxel_seq``'s
+    device."""
+    t, b = voxel_seq.shape[0], voxel_seq.shape[1]
+    h, w = cfg.image_dim
+    packed_io = parity_io(cfg)
+    if input_packed and not packed_io:
+        raise ValueError("input_packed requires io_layout='parity'")
     if state is None:
         state = cista_zero_state(cfg, b, voxel_seq.dtype, voxel_seq.device)
     if prev_image is None:
-        prev_image = voxel_seq.new_zeros((b, cfg.image_dim[0], cfg.image_dim[1], 1))
-    step = get_step_fn(cfg)
-    if cfg.core_impl != "layers":
-        params = {**params, "_core_taps": core_taps(params, voxel_seq.dtype)}
+        prev_image = voxel_seq.new_zeros((b, h // 2, w // 2, 4) if input_packed else (b, h, w, 1))
+    params = with_derived(params, cfg, voxel_seq.dtype)
+    if packed_io:
+        if not input_packed:
+            # pack the whole sequence and the feedback image once
+            voxel_seq = space_to_depth(voxel_seq.reshape(t * b, h, w, cfg.num_bins)).reshape(
+                t, b, h // 2, w // 2, 4 * cfg.num_bins)
+            prev_image = space_to_depth(prev_image)
+        step = cista_lstc_step_parity
+    else:
+        step = get_step_fn(cfg)
     recs = []
     for events in voxel_seq:
         if remat:
@@ -358,4 +493,7 @@ def cista_sequence(
         else:
             prev_image, state = step(params, cfg, events, prev_image, state)
         recs.append(prev_image)
-    return torch.stack(recs), state
+    recs = torch.stack(recs)
+    if packed_io:
+        recs = depth_to_space(recs.reshape(t * b, h // 2, w // 2, 4)).reshape(t, b, h, w, 1)
+    return recs, state

@@ -25,6 +25,7 @@ from .cista import (
     cista_lstc_step,
     cista_zero_state,
     remat_step,
+    with_derived,
 )
 from .emulator import (
     EmulatorConfig,
@@ -194,6 +195,8 @@ def v2e2v_sequence(
         (``{"num_events", "max_event_count", "clipped_pixels"}``, each ``[T]``).
       remat: rematerialise each pack's reconstruction step on the backward
         pass (see ``v2e2v_forward``); the values and gradients are the same.
+    The kernels the reconstruction step derives from the weights
+    (``models/cista.with_derived``) are made once, ahead of the packs.
     Returns ``(recs [T, B, H, W, 1], final_state)``; with ``with_stats``,
     ``(recs, final_state, stats_dict)``; with ``with_monitor``,
     ``(recs, final_state, (voxels, stats_dict))``.
@@ -202,6 +205,7 @@ def v2e2v_sequence(
     noise = as_noise(noise)
     if state is None:
         state = v2e2v_init_state(cfg, frames_seq[0], ts_seq[0], noise, device)
+    params = with_derived(params, cfg.cista, torch.float32)
 
     collect = with_monitor or with_stats
     recs, voxels, stats = [], [], []

@@ -121,6 +121,44 @@ def conv_lstc_step(
     return out_g * torch.tanh(cell), cell
 
 
+def conv_lstc_fuse(params: Params) -> Params:
+    """The two-conv rewrite of ``conv_lstc_step``'s three convs (exact; the
+    JAX package's ``lstc_impl='fused'``): pass 1 is ONE conv over cat(x, z)
+    emitting ``[gates | z0 | og_z]`` (P0's kernel zero-padded over the z
+    channels, out_gates' z half zero-padded over the x channels); pass 2 is
+    out_gates' z0 half over z0, added to the ``og_z`` partial. Weights stay
+    the cell's (``gates``, ``P0``, ``out_gates``, OIHW): gradients flow back
+    to them."""
+    wg, wp, wo = (params[k]["weight"] for k in ("gates", "P0", "out_gates"))
+    out, x_ch = wp.shape[0], wp.shape[1]
+    z_ch = wg.shape[1] - x_ch
+    p0_blk = F.pad(wp, (0, 0, 0, 0, 0, z_ch))          # [out, x + z, 3, 3]
+    og_z_blk = F.pad(wo[:, out:], (0, 0, 0, 0, x_ch, 0))
+    bias = params["P0"]["bias"]
+    return {
+        "W1": {"weight": torch.cat([wg, p0_blk, og_z_blk], dim=0),
+               "bias": torch.cat([params["gates"]["bias"], bias, bias.new_zeros(out)])},
+        "W2": {"weight": wo[:, :out], "bias": params["out_gates"]["bias"]},
+    }
+
+
+def conv_lstc_step_fused(
+    fused: Params,
+    x: torch.Tensor,
+    z: torch.Tensor,
+    prev_cell: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """``conv_lstc_step`` through the kernels of ``conv_lstc_fuse``."""
+    out = fused["W2"]["weight"].shape[0]
+    y1 = conv2d(torch.cat([x, z], dim=-1), fused["W1"], padding=1)
+    in_g = torch.sigmoid(y1[..., :out])
+    forget_g = torch.sigmoid(y1[..., out:2 * out])
+    z0 = y1[..., 2 * out:3 * out]
+    out_g = torch.sigmoid(conv2d(z0, fused["W2"], padding=1) + y1[..., 3 * out:])
+    cell = forget_g * prev_cell + in_g * z0
+    return out_g * torch.tanh(cell), cell
+
+
 def torch_conv_to_hwio(weight: np.ndarray) -> np.ndarray:
     """torch OIHW conv weight -> HWIO."""
     return np.transpose(weight, (2, 3, 1, 0))

@@ -2,8 +2,9 @@
 
 The device path, the request front end of stream serving:
 ``events_to_voxel_grid`` bins a packet of events into a ``(num_bins, H, W)``
-grid with one ``index_add_`` (the JAX package's ``method='scatter',
-layout='ref'`` path), and ``event_preprocess`` normalises it per sample.
+grid, or the parity-packed ``(H/2, W/2, 4 num_bins)`` one that
+``cista_sequence(..., input_packed=True)`` reads, with one ``index_add_``
+(the JAX package's ``method='scatter'`` path), and ``event_preprocess`` normalises it per sample.
 
 ``add_noise_to_voxel`` is the training augmentation, drawn from a
 ``torch.Generator``.
@@ -30,6 +31,7 @@ def events_to_voxel_grid(
     num_bins: int,
     width: int,
     height: int,
+    layout: str = "ref",
 ) -> torch.Tensor:
     """Voxelize ``[N]`` event arrays with a static capacity ``N``.
 
@@ -37,7 +39,11 @@ def events_to_voxel_grid(
     Timestamps are cast to float32 BEFORE the first stamp is subtracted, as
     in the JAX package; polarity 0 maps to -1, and each event is split
     bilinearly between its two neighbouring bins. Returns a float32
-    ``(num_bins, height, width)`` grid on the events' device.
+    ``(num_bins, height, width)`` grid on the events' device, or with
+    ``layout='parity'`` (even ``height`` and ``width``) the same values as
+    ``(height/2, width/2, 4 num_bins)``, channels in ``(y % 2, x % 2, bin)``
+    order (``ops/fused.space_to_depth`` of the ``[H, W, num_bins]`` grid):
+    only the flat index differs.
     """
     device = t.device
     capacity = t.shape[0]
@@ -58,8 +64,20 @@ def events_to_voxel_grid(
     tis_f = torch.floor(ts)
     dts = ts - tis_f
     tis = tis_f.to(torch.int64)
-    base = x.to(torch.int64) + y.to(torch.int64) * width
-    bin_stride = width * height
+    xs, ys = x.to(torch.int64), y.to(torch.int64)
+    if layout == "ref":
+        base = xs + ys * width
+        bin_stride = width * height
+    elif layout == "parity":
+        if height % 2 or width % 2:
+            raise ValueError("layout='parity' requires even height/width")
+        # flat index into [H/2, W/2, 4 nb], channel order (y%2, x%2, bin)
+        base = ((torch.div(ys, 2, rounding_mode="floor") * (width // 2)
+                 + torch.div(xs, 2, rounding_mode="floor")) * (4 * num_bins)
+                + (ys % 2 * 2 + xs % 2) * num_bins)
+        bin_stride = 1
+    else:
+        raise ValueError(f"unknown layout: {layout!r}")
 
     left_idx = base + tis * bin_stride
     right_idx = left_idx + bin_stride
@@ -77,6 +95,8 @@ def events_to_voxel_grid(
     ])
     grid = torch.zeros(grid_size + 1, dtype=torch.float32, device=device)
     grid.index_add_(0, idx, val)
+    if layout == "parity":
+        return grid[:grid_size].reshape(height // 2, width // 2, 4 * num_bins)
     return grid[:grid_size].reshape(num_bins, height, width)
 
 

@@ -21,8 +21,7 @@ import numpy as np
 import torch
 
 from ._device import resolve_device
-from .models.cista import CistaConfig, CistaState, cista_zero_state, get_step_fn
-from .ops.cuda.core import core_taps
+from .models.cista import CistaConfig, CistaState, cista_zero_state, get_step_fn, with_derived
 
 
 def _pool_step(params, cfg, states, prev_images, voxels, active):
@@ -59,11 +58,10 @@ class StreamPool:
         self.cfg = cfg
         self.capacity = capacity
         self.dtype = dtype
-        self.params = {k: v.to(self.device, dtype) for k, v in params.items()}
-        if cfg.core_impl != "layers":
-            # kernel K2's taps (CISTA-LSTC only: CistaConfig refuses K2 for
-            # cista-tc), once, in the pool's dtype (not in every step)
-            self.params["_core_taps"] = core_taps(self.params, dtype)
+        # the derived kernels (K2's taps, the fused full-resolution and
+        # ConvLSTC kernels) once, in the pool's dtype, not in every step
+        self.params = with_derived(
+            {k: v.to(self.device, dtype) for k, v in params.items()}, cfg, dtype)
         h, w = cfg.image_dim
         self._states = cista_zero_state(cfg, capacity, dtype, self.device)
         self._prev = torch.zeros((capacity, h, w, 1), dtype=dtype, device=self.device)

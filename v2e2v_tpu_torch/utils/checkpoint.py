@@ -148,11 +148,13 @@ def save_checkpoint(path: str, state_dict: Mapping[str, torch.Tensor], epoch: in
     names with ``prefix`` (``"e2v_net."`` for a V2E2V checkpoint, as the
     reference's composite names its net), every ``depth`` index of the tied
     weights included; ``optimizer`` is ``optimizer.state_dict()`` on the CPU
-    (the Adam moments, for ``load_optimizer_state`` on resume)."""
+    (the Adam moments, for ``load_optimizer_state`` on resume). The entries a
+    step derives from the weights (``_``-prefixed: K2's taps, the fused
+    kernels; ``models/cista.with_derived``) are not written."""
     payload: dict[str, Any] = {
         "epoch": epoch,
         "state_dict": {prefix + k: v.detach().to("cpu", torch.float32)
-                       for k, v in state_dict.items()},
+                       for k, v in state_dict.items() if not k.startswith("_")},
     }
     if optimizer is not None:
         payload["optimizer"] = _to_cpu(optimizer.state_dict())
