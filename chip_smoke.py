@@ -158,9 +158,37 @@ Phases, one line each (any failure exits non-zero before the last line):
    against ref; the default rule's two conditions; ``torch.profiler`` traces
    (``scripts/profile_torch_pool.py``'s ``trace``) of the bfloat16 K2 and
    float32 layers pools, ref and fused, by kind of kernel;
+16. int8 inference (``CistaConfig.quant="int8"``, ``ops/qconv.py``), after
+   phase 15: (a) K4's build (``csrc/qconv3x3.cu``): both of its kernels hold
+   ``IMMA`` (``mma.sync`` on the integer tensor cores) and no ``HGMMA``, and
+   spill nothing; (b) K4 against its plain version at every conv site shape
+   of a step (gates 192->256, P0/P 64->128, out_gates 256->128, D/dg 128->64,
+   lstm 128->256) at B = 8 and B = 1, 90x120, out float32 and bfloat16: codes
+   in [-15, 15] with unit scales equal, full-range codes with real scales
+   equal or one ulp apart at a count the line prints; each shape's time as
+   issued and on the device, its bound (bytes at 3.35 TB/s or int8
+   operations at 1,979 TOPS), ``torch._int_mm`` on the int8 im2col and
+   cuDNN's bfloat16 conv of the same shape; (c) a CISTA-LSTC int8
+   ``StreamPool`` on phase 4's schedule and voxel grids in float32 (TF32 off)
+   and bfloat16, with every count set to 0 just before: K4 15 launches per
+   step, K1, K2 and K3 0; reconstructions and all four states within 1e-4 /
+   3e-2 + 3e-2 |ref| of the same pool through K4's plain version
+   (``qconv_impl="plain"``), finite, in [0, 1], and within JAX's own bound of
+   phase 4's float pool (mean |diff| < 0.03, last step < 0.05); then pools
+   calibrated (``calibrate()`` on 24 of the served grids as 3 steps of 8:
+   the SSIM delta, whether the static scales were adopted, each site's
+   ``s_x``) and held the same way; (d) the same for CISTA-TC (13 K4 launches
+   per step); (e) the E2V CLI with ``--quant int8`` and ``int8-static`` on
+   phase 9's first sequence (recon/s, the model step at B = 1 by CUDA events,
+   K4 15 launches per reconstruction, 30 more to calibrate and K1 10 for the
+   drift gate's float step, the calibration line); (f) the int8 pool step against the float pool step of the same
+   dtype (``fullres_impl="ref"``) by CUDA events, in turns, with peak memory,
+   and a ``torch.profiler`` trace of the int8 step by kind of kernel (K4, the
+   quantize passes, cuDNN, the rest);
 14. a ``{"kernels": [...]}`` JSON line (each row's launches on the paths of
-   phases 10-13 and 15, every count set to 0 just before each path: K1 and
-   K2 counted by dtype, K3 by shot mode), then the last line
+   phases 10-13, 15 and 16, every count set to 0 just before each path: K1,
+   K2 and K4 counted by dtype, K3 by shot mode; K4's rows hold its times per
+   pool step, the 15 calls of one step summed), then the last line
    ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX or of the JAX package ``v2e2v_tpu``.
@@ -242,8 +270,8 @@ def within(got: torch.Tensor, want: torch.Tensor, tol: float) -> tuple[float, bo
 
 def short_name(mangled: str) -> str:
     """K1's and K2's conv instances as <kernel><dtype, epilogue>, K2's cell
-    kernels as <kernel><dtype>, K3's as emulator_iters_kernel<shot mode>;
-    others as given."""
+    kernels and K4's as <kernel><dtype>, K3's as emulator_iters_kernel<shot
+    mode>; others as given."""
     m = re.search(r"emulator_iters_kernelILi([012])E", mangled)
     if m:
         return f"emulator_iters_kernel<{('no shot', 'explicit', 'internal')[int(m.group(1))]}>"
@@ -254,6 +282,9 @@ def short_name(mangled: str) -> str:
     if m:
         return (f"{m.group(1)}<float32, {EPILOGUES[int(m.group(2))]}, "
                 f"8x{8 * int(m.group(3))} tile>")
+    m = re.search(r"qconv3x3_kernelI(\w+?)EEv", mangled)
+    if m:
+        return f"qconv3x3_kernel<{'bfloat16' if 'bfloat16' in m.group(1) else 'float32'}>"
     m = re.search(r"(core_lst[cm]_cell_kernel)I(\w+?)EEv", mangled)
     if m:
         return f"{m.group(1)}<{'bfloat16' if 'bfloat16' in m.group(2) else 'float32'}>"
@@ -1204,15 +1235,18 @@ def kernel_counters() -> tuple:
     from v2e2v_tpu_torch.ops.cuda.core import cista_core
     from v2e2v_tpu_torch.ops.cuda.emulator_iters import emulator_iters
     from v2e2v_tpu_torch.ops.cuda.ista import ista_loop
+    from v2e2v_tpu_torch.ops.cuda.qconv import qconv3x3
 
-    return ista_loop, cista_core, emulator_iters
+    return ista_loop, cista_core, emulator_iters, qconv3x3
 
 
 def row_counts() -> dict[str, int]:
     """The launches of each row of the kernels line since the counts were set
-    to 0: K1 and K2 by dtype, K3 by shot mode, as the wrappers count them."""
-    k1, k2, k3 = kernel_counters()
-    rows = {f"{k.__name__} ({d})": n for k in (k1, k2) for d, n in k.launches_by_dtype.items()}
+    to 0: K1, K2 and K4 by dtype (K4's out dtype), K3 by shot mode, as the
+    wrappers count them."""
+    k1, k2, k3, k4 = kernel_counters()
+    rows = {f"{k.__name__} ({d})": n for k in (k1, k2, k4)
+            for d, n in k.launches_by_dtype.items()}
     return rows | {f"emulator_iters ({m} rng)": k3.launches_by_shot[m]
                    for m in ("internal", "explicit")}
 
@@ -1723,7 +1757,7 @@ def fused_phase(seed: int, smi: str, cfg, weights, serve, served: dict, video, c
     from v2e2v_tpu_torch.ops.voxel import event_preprocess, events_to_voxel_grid
     from v2e2v_tpu_torch.serving import StreamPool
 
-    k1, k2, k3 = kernel_counters()
+    k1, k2, k3, _ = kernel_counters()
     t_phase = time.perf_counter()
     dev = weights["We.conv2d.weight"].device
     fused = dataclasses.replace(cfg, fullres_impl="fused")
@@ -1905,6 +1939,369 @@ def fused_phase(seed: int, smi: str, cfg, weights, serve, served: dict, video, c
                        f"{DNAME[dtype]} core_impl={impl} fullres_impl={fr} capacity 8 step")
     say(f"[phase] fused full-resolution path {time.perf_counter() - t_phase:.1f} s")
     return rows
+
+
+K4_SOURCE = "v2e2v_tpu_torch/csrc/qconv3x3.cu"
+K4_REPLACES = "v2e2v_tpu/ops/qconv.py:110"
+PEAK_INT8_OPS = 1979e12  # H100 SXM, dense int8 tensor cores
+# K4's conv sites at C = 64 (cin_a, cin_b, cout) and how many a CISTA-LSTC
+# step runs: gates, P0 (and P), out_gates, D (and dg), lstm
+K4_SHAPES = {"gates 192->256": ((C, 2 * C, 4 * C), 1), "P0/P 64->128": ((C, 0, 2 * C), 1 + DEPTH),
+             "out_gates 256->128": ((2 * C, 2 * C, 2 * C), 1),
+             "D/dg 128->64": ((2 * C, 0, C), DEPTH + 1), "lstm 128->256": ((C, C, 4 * C), 1)}
+K4_PER_STEP = {"cista-lstc": 3 + 2 * DEPTH + 2, "cista-tc": 1 + 2 * DEPTH + 2}
+INT8_VS_FLOAT = (0.03, 0.05)  # JAX's own bound: mean |int8 - float|, over all and the last step
+
+
+def k4_inputs(b, site, full: bool, out_dtype, seed: int):
+    """K4's arguments at a site's shape on the card (90x120): codes in [-15,
+    15] with unit scales and no bias (the integer core, ``|acc| < 2^24``), or
+    full-range codes with real scales and a bias."""
+    (cin_a, cin_b, cout) = site
+    g = torch.Generator().manual_seed(seed)
+    lim = 128 if full else 16
+    h, w = H // 2, W // 2
+    xa = torch.randint(1 - lim, lim, (b, h, w, cin_a), generator=g, dtype=torch.int8)
+    xb = torch.randint(1 - lim, lim, (b, h, w, cin_b), generator=g, dtype=torch.int8)
+    wq = torch.randint(-127, 128, (cout, cin_a + cin_b, 3, 3), generator=g, dtype=torch.int8)
+    if full:
+        s_x, s_w, bias = torch.tensor(0.0123), torch.rand(cout, generator=g) * 1e-3, \
+            torch.randn(cout, generator=g)
+    else:
+        s_x, s_w, bias = torch.tensor(1.0), torch.ones(cout), None
+    dev = lambda t: None if t is None else t.cuda()  # noqa: E731
+    return (dev(xa), dev(s_x), dev(wq), dev(s_w), dev(bias), dev(xb) if cin_b else None), \
+        {"out_dtype": out_dtype}
+
+
+def k4_bound_ms(b, site, out_dtype) -> tuple[float, str, float, float]:
+    """K4's least time at a site: the larger of its bytes (int8 inputs and
+    weights read once, the output written once, scales and bias) at 3.35 TB/s
+    and its 2 x 9 x B*H*W x cin x cout integer operations at 1,979 TOPS."""
+    cin_a, cin_b, cout = site
+    px = b * (H // 2) * (W // 2)
+    nbytes = px * (cin_a + cin_b) + 9 * cout * (cin_a + cin_b) + 8 * cout + \
+        px * cout * (4 if out_dtype == torch.float32 else 2)
+    ops = 2 * 9 * px * (cin_a + cin_b) * cout
+    t_bytes, t_ops = 1e3 * nbytes / PEAK_BYTES, 1e3 * ops / PEAK_INT8_OPS
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations", nbytes, ops
+
+
+def ulp_count(got, want) -> tuple[int, int]:
+    """(outputs that differ, the largest difference) in units in the last place."""
+    bits = torch.int32 if got.dtype == torch.float32 else torch.int16
+    d = (got.view(bits).int() - want.view(bits).int()).abs()
+    return int((d > 0).sum()), int(d.max())
+
+
+def k4_library(args, kw):
+    """The nearest library calls at a site: ``torch._int_mm`` on the int8
+    im2col (built outside the timed call) and cuDNN's bfloat16 conv of the
+    same shape (channels_last)."""
+    xa, _, wq, _, _, xb = args
+    x = xa if xb is None else torch.cat([xa, xb], -1)
+    xp = torch.nn.functional.pad(x.permute(0, 3, 1, 2).float(), (1, 1, 1, 1),
+                                 mode="reflect").to(torch.int8).permute(0, 2, 3, 1)
+    b, h, w, cin = x.shape
+    cols = torch.cat([xp[:, dy:dy + h, dx:dx + w] for dy in range(3) for dx in range(3)],
+                     -1).reshape(b * h * w, 9 * cin).contiguous()
+    wmat = wq.permute(2, 3, 1, 0).reshape(9 * cin, -1).contiguous()
+    xbf = x.to(torch.bfloat16).permute(0, 3, 1, 2)  # a channels_last view
+    wbf = wq.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    return (lambda: torch._int_mm(cols, wmat)), \
+        (lambda: torch.nn.functional.conv2d(xbf, wbf, padding=1))
+
+
+def site_scale(qp: dict, site: str) -> torch.Tensor:
+    """The static ``s_x`` of a conv site named as ``ops/qconv._SITE_ORDERS``
+    names it (``lstc.gates``, ``D``, ...)."""
+    for k in site.split("."):
+        qp = qp[k]
+    return qp["s_x"]
+
+
+def int8_phase(seed: int, smi: str, root: Path, serve, served: dict, layers_recs: dict,
+               weights) -> dict:
+    """Phase 16: int8 inference at full width: (a) K4's build; (b) K4 against
+    its plain version at every site shape and its times; (c) the CISTA-LSTC
+    int8 pool on phase 4's schedule and voxel grids, dynamic and calibrated;
+    (d) the CISTA-TC int8 pool; (e) the E2V CLI with --quant int8 and
+    int8-static; (f) int8 against float pool steps and a trace by kind of
+    kernel. Every count is set to 0 just before each checked path. Returns
+    K4's rows of the kernels line and each path's launches by row."""
+    from v2e2v_tpu_torch.cli import test_e2v as cli
+    from v2e2v_tpu_torch.data.synthetic import write_dataset
+    from v2e2v_tpu_torch.models.cista import CistaConfig, init_cista_tc, with_derived
+    from v2e2v_tpu_torch.models import cista as cista_mod
+    from v2e2v_tpu_torch import serving
+    from v2e2v_tpu_torch.ops.cuda import _lib
+    from v2e2v_tpu_torch.ops.cuda.qconv import qconv3x3, qconv3x3_plain
+    from v2e2v_tpu_torch.ops.qconv import _SITE_ORDERS
+    from v2e2v_tpu_torch.serving import StreamPool
+    from v2e2v_tpu_torch.utils.configs import set_configs
+
+    t_phase = time.perf_counter()
+    k1, k2, k3, k4 = kernel_counters()
+    rows = {}
+
+    # (a) the build: IMMA (mma.sync on the integer tensor cores), no HGMMA, no spill
+    lib = _lib.load()
+    imma = {k: v for k, v in sass_counts(lib.path, "IMMA").items() if "qconv3x3_kernel" in k}
+    hgmma = sass_counts(lib.path, "HGMMA")
+    spills, name = {}, None
+    for line in lib.log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif name in imma:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if m:
+                spills[name] = int(m.group(1)) + int(m.group(2))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                say(f"[int8-build] {short_name(name)}: {m.group(1)} registers")
+    say(f"[int8-build] K4 (csrc/qconv3x3.cu): IMMA per kernel "
+        f"{ {short_name(k): v for k, v in imma.items()} }, HGMMA "
+        f"{sum(hgmma.get(k, 0) for k in imma)}, spilled bytes "
+        f"{sum(spills.get(k, 1) for k in imma)}; dynamic shared memory per block "
+        f"{lib.lib.v2e_qconv3x3_smem_bytes()} B (want 2 kernels, IMMA in each, no HGMMA, 0 spills)")
+    if len(imma) != 2 or any(v == 0 or hgmma.get(k, 0) or spills.get(k, 1)
+                             for k, v in imma.items()):
+        fail("a K4 kernel is missing, has no IMMA instruction, has HGMMA, or spills")
+
+    # (b) K4 against its plain version at every site shape, and its times
+    k4_err = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    per_shape = {DNAME[d]: {} for d in k4_err}
+    for b in (CAPACITY, 1):
+        for label, (site, n) in K4_SHAPES.items():
+            for dtype in (torch.float32, torch.bfloat16):
+                res = {}
+                for full in (False, True):
+                    args, kw = k4_inputs(b, site, full, dtype, seed)
+                    got, want = qconv3x3(*args, **kw), qconv3x3_plain(*args, **kw)
+                    torch.cuda.synchronize()
+                    res[full] = ulp_count(got, want)
+                    k4_err[dtype] = max(k4_err[dtype], float((got.float() - want.float()).abs().max()))
+                ok = res[False] == (0, 0) and res[True][1] <= 1 and res[True][0] <= 1e-5 * got.numel()
+                ms = time_ms(lambda: qconv3x3(*args, **kw), iters=20)
+                dev_ms = device_ms(lambda: qconv3x3(*args, **kw))
+                plain_ms = time_ms(lambda: qconv3x3_plain(*args, **kw), warmup=1, iters=3)
+                bound, by, nbytes, ops = k4_bound_ms(b, site, dtype)
+                int_mm, cudnn = k4_library(args, kw)
+                int_mm_ms, cudnn_ms = time_ms(int_mm, iters=20), time_ms(cudnn, iters=20)
+                per_shape[DNAME[dtype]][f"{label} B={b}"] = {
+                    "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": bound,
+                    "bound_by": by, "int_mm_ms": int_mm_ms, "cudnn_bf16_ms": cudnn_ms,
+                    "calls_per_step": n}
+                say(f"[k4] {label} B={b} {H // 2}x{W // 2} out {DNAME[dtype]}: integer core "
+                    f"{'equal' if res[False] == (0, 0) else f'DIFFERS {res[False]}'}; full range "
+                    f"{res[True][0]} outputs 1 ulp apart (max {res[True][1]} ulp) of {got.numel()}; "
+                    f"kernel {ms:.4f} ms as issued, {dev_ms:.4f} ms on the device; plain "
+                    f"{plain_ms:.4f} ms; bound {bound:.4f} ms ({by}: {nbytes / 1e6:.1f} MB, "
+                    f"{ops / 1e9:.2f} G int8 ops) = {100 * bound / dev_ms:.1f}% on the device; "
+                    f"torch._int_mm on the im2col {int_mm_ms:.4f} ms; cuDNN bfloat16 conv "
+                    f"{cudnn_ms:.4f} ms ({smi}) {'pass' if ok else 'FAIL'}")
+                if not ok:
+                    fail(f"K4 disagrees with its plain version at {label} B={b} {DNAME[dtype]}")
+
+    # (c) and (d) the int8 pools against their plain versions, dynamic, then calibrated
+    cfgs = {"cista-lstc": CistaConfig(image_dim=(H, W), base_channels=C, depth=DEPTH, num_bins=NB,
+                                      quant="int8"),
+            "cista-tc": CistaConfig(image_dim=(H, W), base_channels=C, depth=DEPTH, num_bins=NB,
+                                    model_mode="cista-tc", quant="int8")}
+    sds = {"cista-lstc": weights,
+           "cista-tc": init_cista_tc(torch.Generator().manual_seed(seed), cfgs["cista-tc"],
+                                     device="cuda")}
+    calib_lines = []
+
+    def drift_recorded(*a, **k):
+        out = cista_mod.int8_static_drift_check(*a, **k)
+        calib_lines.append(out)
+        return out
+
+    main_k4 = {}
+    for mode, cfg in cfgs.items():
+        want_n = K4_PER_STEP[mode]
+        for dtype in (torch.float32, torch.bfloat16):
+            float_recs = layers_recs[dtype] if mode == "cista-lstc" else serve(StreamPool(
+                dataclasses.replace(cfg, quant="none"), sds[mode], CAPACITY, dtype),
+                served[dtype])[0]
+            vals = list(served[dtype].values())
+            calib = torch.stack(vals[:3 * CAPACITY]).reshape(3, CAPACITY, H, W, NB)
+            for scales in ("dynamic", "calibrated"):
+                pools = {}
+                for impl in ("plain", "cuda"):
+                    pool = StreamPool(dataclasses.replace(cfg, qconv_impl=impl), sds[mode],
+                                      CAPACITY, dtype)
+                    if scales == "calibrated":
+                        calib_lines.clear()
+                        with swapped((serving, "int8_static_drift_check", drift_recorded)):
+                            adopted = pool.calibrate(calib)
+                        delta = calib_lines[-1][0]
+                        sites = {s: round(float(site_scale(pool.params["_quant"], s)), 8)
+                                 for s in dict.fromkeys(_SITE_ORDERS[mode](DEPTH))}
+                        say(f"[int8-pool] {mode} {DNAME[dtype]} {impl}: calibrate() on 3 steps "
+                            f"of {CAPACITY} grids: SSIM delta {delta:.6f}, static scales adopted="
+                            f"{adopted}, requant_chain={pool.cfg.requant_chain}; s_x {sites}")
+                    if impl == "cuda":
+                        counts_zero(k1, k2, k3, k4)
+                    pools[impl] = (pool, *serve(pool, served[dtype], counter=k4))
+                    if impl == "cuda":
+                        key = f"int8_{mode.replace('-', '_')}_{scales}_pool_launches"
+                        rows[key] = add_counts(rows.get(key, {}), row_counts())
+                        other = k1.launches + k2.launches + k3.launches
+                pool, recs, _, per_step = pools["cuda"]
+                ref_pool, ref, _, _ = pools["plain"]
+                stacked = torch.stack(list(recs.values()))
+                states = (pool._states.cell, pool._states.z, *pool._states.dg)
+                finite = bool(torch.isfinite(stacked).all()) and all(
+                    bool(torch.isfinite(s.float()).all()) for s in states)
+                in_range = bool(((stacked >= 0) & (stacked <= 1)).all())
+                err, ok = within(stacked, torch.stack([ref[k] for k in recs]), TOL[dtype])
+                state_errs = [within(g, w_, TOL[dtype]) for g, w_ in zip(
+                    states, (ref_pool._states.cell, ref_pool._states.z, *ref_pool._states.dg))]
+                ok = ok and all(o for _, o in state_errs)
+                # JAX's bound of int8 against float: over all reconstructions,
+                # and over the last step's (the schedule's last entry: stream 6)
+                mean_all = float((stacked - torch.stack([float_recs[k] for k in recs])).abs().mean())
+                k_last = list(recs)[-1]
+                mean_last = float((recs[k_last] - float_recs[k_last]).abs().mean())
+                near = mean_all < INT8_VS_FLOAT[0] and mean_last < INT8_VS_FLOAT[1]
+                say(f"[int8-pool] {mode} {DNAME[dtype]} {scales}: {len(recs)} reconstructions, "
+                    f"finite={finite} in[0,1]={in_range}; K4 launches per step {per_step} (want "
+                    f"{want_n} each), K1 + K2 + K3 {other} (want 0); K4 vs its plain version: "
+                    f"reconstructions max_abs_err={err:.3e}, states (cell, z, dg h, dg c) "
+                    f"{', '.join(f'{e:.3e}' for e, _ in state_errs)} (tol {TOL[dtype]} + "
+                    f"{TOL[dtype]} |ref|); vs the float pool mean |diff| {mean_all:.4f} (< "
+                    f"{INT8_VS_FLOAT[0]}), last step {mean_last:.4f} (< {INT8_VS_FLOAT[1]}) "
+                    f"{'pass' if ok and finite and in_range and near else 'FAIL'}")
+                if not (finite and in_range) or any(n != want_n for n in per_step) or other:
+                    fail(f"the int8 {mode} pool ({DNAME[dtype]}, {scales}) did not run K4 "
+                         f"{want_n} times per step alone, or gave bad reconstructions")
+                if not (ok and near):
+                    fail(f"the int8 {mode} pool ({DNAME[dtype]}, {scales}) disagrees with its "
+                         "plain version or strays from the float pool")
+                if mode == "cista-lstc" and scales == "dynamic":
+                    main_k4[dtype] = k4.launches_by_dtype[DNAME[dtype]]
+    # (e) the E2V CLI with --quant int8 and int8-static (phase 9's first sequence, B = 1)
+    data, model = root / "int8_data", root / "int8_model.pth.tar"
+    write_dataset(data, seed, 1, CLI_FRAMES, H, W, CLI_EVENTS)
+    torch.save({"epoch": 0, "state_dict": {k: v.cpu() for k, v in weights.items()}}, model)
+    parser = argparse.ArgumentParser()
+    set_configs(parser)
+    for quant in ("int8", "int8-static"):
+        opts = parser.parse_args([
+            "--path_to_test_model", str(model), "--path_to_test_data", str(data),
+            "--image_dim", str(H), str(W), "-c", str(C), "-d", str(DEPTH), "-b", str(NB),
+            "--quant", quant, "-o", str(root / f"int8_cli_{quant}")])
+        calls = [0]
+        make = cli.make_step
+
+        def counted(cfg, dtype, make=make, calls=calls):
+            step = make(cfg, dtype)
+
+            def run(*a):
+                calls[0] += 1
+                return step(*a)
+            return run
+
+        with swapped((cli, "make_step", counted)):
+            rec = cli.Reconstructor(opts, "cuda")
+            counts_zero(k1, k2, k3, k4)
+            out = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                rec.run()
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t0
+        rows[f"int8_cli_{quant.replace('-', '_')}_launches"] = row_counts()
+        n_k4, n_k12 = k4.launches, k1.launches + k2.launches
+        line = [ln for ln in out.getvalue().splitlines() if ln.startswith("[int8-static]")]
+        # calibrating runs the int8 step twice (the dynamic scales, then the
+        # drift gate's static step) and the float step once (K1, 2 x depth)
+        static = quant == "int8-static"
+        extra, want_k1 = (2 * K4_PER_STEP["cista-lstc"], 2 * DEPTH) if static else (0, 0)
+        n = calls[0]
+        prev = torch.zeros(1, H, W, 1, device="cuda")
+        st = cista_mod.cista_zero_state(rec.cfg, 1, torch.float32, "cuda")
+        one = served[torch.float32][(0, 0)][None]
+        step_ms = time_ms(lambda: rec.step(rec.params, one, prev, st), iters=20)
+        ok = n > 0 and n_k4 == K4_PER_STEP["cista-lstc"] * n + extra and n_k12 == want_k1 and \
+            (not static or len(line) == 1)
+        say(f"[int8-cli] E2V CLI --quant {quant} float32, one sequence of {CLI_FRAMES} frames: "
+            f"{n} reconstructions, {n / run_s:.1f} recon/s (run(), host clock); model step "
+            f"{step_ms:.4f} ms (B = 1, CUDA events); K4 launches {n_k4} (want "
+            f"{K4_PER_STEP['cista-lstc']} x {n}{f' + {extra} calibrating' if extra else ''}), K1 "
+            f"+ K2 {n_k12} (want {want_k1}{': the drift gate' if static else ''}); "
+            f"{line[0] if line else 'no calibration line'}"
+            f" ({smi}) {'pass' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"the E2V CLI with --quant {quant} did not run as it should")
+
+    # (f) the int8 pool step against the float pool step, in turns, and traces
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "profile_torch_pool", Path(__file__).resolve().parent / "scripts" / "profile_torch_pool.py")
+    prof = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(prof)
+    times = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        vox = list(served[dtype].values())[:CAPACITY]
+        ms, peak = {"none": [], "int8": []}, {}
+        for quant in ("none", "int8", "int8", "none"):
+            pool = StreamPool(dataclasses.replace(cfgs["cista-lstc"], quant=quant), weights,
+                              CAPACITY, dtype)
+            batch = {pool.attach(): v for v in vox}
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            for i in range(8):
+                t = cuda_ms(lambda: pool.step(batch, fetch=False))
+                if i >= 2:
+                    ms[quant].append(t)
+            peak[quant] = max(peak.get(quant, 0.0), torch.cuda.max_memory_allocated() / 2**20)
+            del pool
+        med = {q: float(np.median(v)) for q, v in ms.items()}
+        times[DNAME[dtype]] = med
+        say(f"[int8-time] pool {DNAME[dtype]} capacity {CAPACITY} (fullres ref, float core K1): "
+            f"step float {med['none']:.3f} ms, int8 {med['int8']:.3f} ms (median of "
+            f"{len(ms['none'])} each, in turns, CUDA events; min {min(ms['none']):.3f} / "
+            f"{min(ms['int8']):.3f}); int8/float {med['int8'] / med['none']:.3f}; "
+            f"max_memory_allocated float {peak['none']:.1f} / int8 {peak['int8']:.1f} MiB ({smi})")
+        prof.trace(prof.pool_steps(cfgs["cista-lstc"], weights, dtype, seed), 5,
+                   f"{DNAME[dtype]} quant=int8 capacity 8 step")
+
+    entries = []
+    for dtype in (torch.float32, torch.bfloat16):
+        shapes = per_shape[DNAME[dtype]]
+        step = {key: sum(v[key] * v["calls_per_step"] for k, v in shapes.items()
+                         if k.endswith(f"B={CAPACITY}"))
+                for key in ("ms", "device_ms", "plain_ms", "int_mm_ms", "cudnn_bf16_ms")}
+        # the step's 15 calls as one function: the larger of all their bytes
+        # at 3.35 TB/s and all their operations at 1,979 TOPS
+        t_bytes = 1e3 * sum(k4_bound_ms(CAPACITY, s, dtype)[2] * n
+                            for s, n in K4_SHAPES.values()) / PEAK_BYTES
+        t_ops = 1e3 * sum(k4_bound_ms(CAPACITY, s, dtype)[3] * n
+                          for s, n in K4_SHAPES.values()) / PEAK_INT8_OPS
+        step["bound_ms"] = max(t_bytes, t_ops)
+        by = "bytes" if t_bytes >= t_ops else "operations"
+        entries.append({
+            "name": f"qconv3x3 ({DNAME[dtype]})", "route": "cuda", "source": K4_SOURCE,
+            "replaces": K4_REPLACES, "launches": main_k4[dtype],
+            "max_abs_err": k4_err[dtype], "ms": step["ms"], "device_ms": step["device_ms"],
+            "plain_ms": step["plain_ms"], "bound_ms": step["bound_ms"], "bound_by": by,
+            "library_ms": step["int_mm_ms"], "cudnn_bf16_ms": step["cudnn_bf16_ms"],
+            "per_shape": shapes, "pool_step_ms": times[DNAME[dtype]],
+            "tensor_cores": True,
+            "design": "implicit GEMM on mma.sync m16n8k32 s8 (IMMA): 8x16-pixel x 64-channel "
+                      "tiles, one warp per tile row, 32-channel K chunks staged by cp.async "
+                      "(haloed input from reflected sources, taps laid out once in B-fragment "
+                      "order) through a 2-stage ring, int32 sums, fused float32 dequant",
+            "note": "times are per pool step at B = 8 (the 15 calls of one CISTA-LSTC step "
+                    "summed over the site shapes); library_ms is torch._int_mm on the int8 "
+                    "im2col (built outside the timed call), which computes the integer core "
+                    "only; no Pallas kernel: it replaces XLA's int8 conv",
+        })
+    say(f"[phase] int8 inference {time.perf_counter() - t_phase:.1f} s")
+    return {"entries": entries, "rows": rows}
 
 
 def main_path_k3_inputs(cfg, state, frames, ts, internal: bool):
@@ -2385,15 +2782,23 @@ def main() -> None:
     # 15. the fused full-resolution path, parity IO, the fused V2E2V run C
     fused_rows = fused_phase(args.seed, smi, cfg, weights, serve, served, video, cfg_c, outs_c)
 
+    # 16. int8 inference: K4, the int8 pools, the E2V CLI with --quant
+    tmp = Path(tempfile.mkdtemp(prefix="v2e2v_int8_"))
+    try:
+        int8 = int8_phase(args.seed, smi, tmp, serve, served, layers_recs, weights)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    entries += int8["entries"]
+
     # 14. kernels, then the result line
     # each path's launches by row, every count set to 0 just before the path
     paths = {"v2e2v_cli_launches": hfr["rows"], "raw_launches": raw_rows,
              "tc_pool_launches": tc_rows, "e2v_train_launches": trained["e2v"],
-             "v2e2v_train_launches_per_step": trained["v2e2v"], **fused_rows}
+             "v2e2v_train_launches_per_step": trained["v2e2v"], **fused_rows, **int8["rows"]}
     for e in entries:
         if e["name"].startswith("ista_loop"):
             e.update(cli_k1[torch.float32 if "float32" in e["name"] else torch.bfloat16])
-        e.update({key: rows[e["name"]] for key, rows in paths.items()})
+        e.update({key: rows.get(e["name"], 0) for key, rows in paths.items()})
     say(json.dumps({"kernels": entries}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": torch.cuda.device_count()}}))

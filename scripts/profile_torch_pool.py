@@ -3,7 +3,8 @@
 port spends its time on the card.
 
     python3 scripts/profile_torch_pool.py [--dtype float32|bfloat16] [--core_impl layers|cuda]
-                                          [--fullres_impl ref|fused] [--steps 10]
+                                          [--fullres_impl ref|fused] [--quant none|int8]
+                                          [--steps 10]
     python3 scripts/profile_torch_pool.py --v2e2v [--steps 10]
     python3 scripts/profile_torch_pool.py --train B [--steps 3]
 
@@ -11,7 +12,8 @@ Builds the flagship ``StreamPool`` (CISTA-LSTC 180x240, 64 channels, depth 5,
 5 bins, capacity 8, all slots active, random weights from ``--seed``, its
 half-res core layer by layer or as kernel K2 as ``--core_impl`` says, its
 full-resolution convs as the reference shapes them or in the parity domain
-as ``--fullres_impl`` says), warms
+as ``--fullres_impl`` says, its core convs in int8 through kernel K4 with
+``--quant int8``), warms
 it up, and traces ``--steps`` pool steps with ``torch.profiler``. With
 ``--v2e2v`` it traces ``--steps`` packs of ``v2e2v_forward`` on the default
 V2E2V path instead (``V2E2VConfig.from_flags`` with the emulator of
@@ -25,7 +27,10 @@ clock, the device's busy and idle share over the traced window, and device
 time and launches per step by kind (``CATEGORIES``: kernels K1
 (``ista_conv3x3_kernel``, and ``ista_conv3x3_tc_kernel`` in bfloat16), K2
 (its ``core_conv3x3_kernel`` or ``core_conv3x3_tc_kernel`` convs and its two
-cell kernels) and K3 (``emulator_iters_kernel``), cuDNN's convs, layout
+cell kernels), K3 (``emulator_iters_kernel``) and K4 (``qconv3x3_kernel``),
+the int8 quantize passes (abs, amax, max of two parts, division, round,
+clamp, with relu, which runs as a clamp; the cast to int8 is a copy and
+counts there), cuDNN's convs, layout
 transposes, reflect pads, copies and concats, matmuls, the rest), then the
 15 largest kernels. Needs a CUDA card; float32 runs with TF32 off.
 """
@@ -118,6 +123,7 @@ def main() -> None:
     ap.add_argument("--dtype", choices=["float32", "bfloat16"], default="float32")
     ap.add_argument("--core_impl", choices=["layers", "cuda"], default="layers")
     ap.add_argument("--fullres_impl", choices=["ref", "fused"], default="ref")
+    ap.add_argument("--quant", choices=["none", "int8"], default="none")
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--v2e2v", action="store_true", help="trace V2E2V packs, not pool steps")
@@ -134,7 +140,7 @@ def main() -> None:
         capture_output=True, text=True, check=True, timeout=60).stdout.strip(), flush=True)
 
     cfg = CistaConfig(image_dim=(180, 240), base_channels=64, depth=5, num_bins=5,
-                      core_impl=args.core_impl, fullres_impl=args.fullres_impl)
+                      core_impl=args.core_impl, fullres_impl=args.fullres_impl, quant=args.quant)
     weights = init_cista_lstc(torch.Generator().manual_seed(args.seed), cfg)
     if args.train:
         cfg = dataclasses.replace(cfg, ista_impl="plain", core_impl="layers")
@@ -147,7 +153,7 @@ def main() -> None:
     else:
         trace(pool_steps(cfg, weights, dtype, args.seed), args.steps,
               f"{args.dtype} core_impl={args.core_impl} fullres_impl={args.fullres_impl} "
-              "capacity 8 step")
+              f"quant={args.quant} capacity 8 step")
 
 
 # kinds of device kernels, by name, first match wins
@@ -155,6 +161,11 @@ CATEGORIES = (
     ("K1", ("ista_conv3x3_",)),
     ("K2", ("core_conv3x3_", "core_lstc_cell", "core_lstm_cell")),
     ("K3", ("emulator_iters_kernel",)),
+    ("K4", ("qconv3x3_kernel",)),
+    # int8's quantize: abs, amax, the max of two parts, divide, round, clamp
+    # (relu runs as a clamp too: the softshrinks' and decoder's relus land here)
+    ("quantize passes and relu", ("AbsFunctor", "abs_kernel", "MaxNanFunctor", "maximum_kernel",
+                                  "DivFunctor", "div_true", "round_kernel", "clamp_")),
     ("layout transposes", ("nchwToNhwc", "nhwcToNchw", "ToNhwc", "ToNchw")),
     ("cuDNN convs", ("fprop", "implicit", "conv", "cudnn", "fft", "dgrad", "wgrad")),
     ("reflect pads", ("reflection_pad",)),

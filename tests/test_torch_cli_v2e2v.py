@@ -122,7 +122,7 @@ def test_checkpoint_v2e_params_override_the_flags(setup, monkeypatch):
 UNSUPPORTED = [
     (["--reader_type", "video"], {}, NotImplementedError, "item 4.*video decoder"),
     (["--reader_type", "upsampling"], {}, NotImplementedError, "item 8"),
-    (["--quant", "int8"], {}, NotImplementedError, "item 7"),
+    (["--quant", "int8"], {}, ValueError, "JAX V2E2V CLI .* does not read the flag"),
     (["--profile_dir", "trace"], {}, NotImplementedError, "item 10"),
     (["--dist_coordinator", "localhost:1"], {}, NotImplementedError, "item 9"),
     ([], {"V2E2V_DIST_AUTO": "1"}, NotImplementedError, "item 9"),

@@ -888,3 +888,115 @@ def test_fused_e2v_train_step_on_card_matches_cpu(card):
     assert abs(got - want) <= 1e-4 * abs(want)
     for k, w in want_g.items():
         assert float((got_g[k] - w).abs().max()) <= 1e-3 * float(w.abs().max()), k
+
+
+# K4's conv sites at C = 64 (cin_a, cin_b, cout): gates, P0, out_gates, D, P,
+# dg, lstm; then a ragged tile, a half chunk of 16 channels and a partial
+# block of output channels, and the 2x2 minimum
+K4_SITES = [(64, 128, 256), (64, 0, 128), (128, 128, 128), (128, 0, 64), (64, 0, 128),
+            (128, 0, 64), (64, 64, 256)]
+K4_SMALL = [(1, 17, 23, 16, 32, 72), (3, 2, 2, 48, 0, 8)]
+
+
+def _k4_inputs(device, b, h, w, cin_a, cin_b, cout, full, seed=0):
+    """int8 inputs in [-15, 15] with unit scales and no bias (the integer
+    core: ``|acc| < 2^24``), or full-range codes with real scales and bias."""
+    g = torch.Generator().manual_seed(seed)
+    lim = 128 if full else 16
+    xa = torch.randint(-lim + 1, lim, (b, h, w, cin_a), generator=g, dtype=torch.int8)
+    xb = torch.randint(-lim + 1, lim, (b, h, w, cin_b), generator=g, dtype=torch.int8)
+    wq = torch.randint(-127, 128, (cout, cin_a + cin_b, 3, 3), generator=g, dtype=torch.int8)
+    if full:
+        s_x, s_w = torch.tensor(0.0123), torch.rand(cout, generator=g) * 1e-3
+        bias = torch.randn(cout, generator=g)
+    else:
+        s_x, s_w, bias = torch.tensor(1.0), torch.ones(cout), None
+    to = (lambda t: None if t is None else t.to(device))
+    return (to(xa), to(s_x), to(wq), to(s_w), to(bias), to(xb) if cin_b else None)
+
+
+@pytest.mark.parametrize("dims", [(1, 90, 120, *s) for s in K4_SITES] + K4_SMALL, ids=str)
+@pytest.mark.parametrize("full", [False, True], ids=["integer", "full-range"])
+@pytest.mark.parametrize("out", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_qconv_kernel_matches_plain(card, dims, full, out):
+    """K4 against its plain version: the integer core equal, and with real
+    scales equal (the plain version's float64 single rounding of the fused
+    multiply-add; a double rounding could leave one output an ulp off, never
+    seen)."""
+    from v2e2v_tpu_torch.ops.cuda.qconv import qconv3x3, qconv3x3_plain
+
+    args = _k4_inputs(card, *dims, full)
+    before = dict(qconv3x3.launches_by_dtype)
+    got = qconv3x3(*args, out_dtype=out)
+    want = qconv3x3_plain(*args, out_dtype=out)
+    torch.cuda.synchronize()
+    assert got.dtype == out and got.shape == want.shape
+    name = "float32" if out == torch.float32 else "bfloat16"
+    assert qconv3x3.launches_by_dtype[name] == before[name] + 1
+    if full:
+        bits = torch.int32 if out == torch.float32 else torch.int16
+        ulps = (got.view(bits).int() - want.view(bits).int()).abs()
+        assert int(ulps.max()) <= 1 and int((ulps > 0).sum()) <= 1e-5 * ulps.numel()
+    else:
+        assert torch.equal(got, want)
+
+
+def test_qconv_kernel_refuses_what_it_cannot_run(card):
+    from v2e2v_tpu_torch.ops.cuda.qconv import qconv3x3
+
+    xa, s_x, wq, s_w, bias, _ = _k4_inputs(card, 1, 8, 16, 32, 0, 16, True)
+    for kw, match in (({"padding": 0}, "padding=1"), ({"stride": 2}, "stride=1"),
+                      ({"pad_mode": "zeros"}, "reflect")):
+        with pytest.raises(ValueError, match=match):
+            qconv3x3(xa, s_x, wq, s_w, bias, **kw)
+    x8, w8 = xa[..., :8].contiguous(), wq[:, :8].contiguous()
+    with pytest.raises(ValueError, match="% 16"):
+        qconv3x3(x8, s_x, w8, s_w, bias)
+    with pytest.raises(ValueError, match="cout % 8"):
+        qconv3x3(xa, s_x, wq[:12].contiguous(), s_w[:12], bias[:12])
+    with pytest.raises(ValueError, match="contiguous"):
+        qconv3x3(xa.transpose(1, 2), s_x, wq, s_w, bias)
+    flat = torch.zeros(xa.numel() + 8, dtype=torch.int8, device=card)
+    with pytest.raises(ValueError, match="16-byte"):
+        qconv3x3(flat[8:].view(xa.shape), s_x, wq, s_w, bias)
+    with pytest.raises(RuntimeError, match="without a backward"):
+        qconv3x3(xa, s_x.clone().requires_grad_(True), wq, s_w, bias)
+    with torch.no_grad():
+        qconv3x3(xa, s_x.clone().requires_grad_(True), wq, s_w, bias)
+
+
+@pytest.mark.parametrize("mode", ["cista-lstc", "cista-tc"])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 3e-2)],
+                         ids=["f32", "bf16"])
+def test_int8_pool_through_k4_matches_plain(card, mode, dtype, tol):
+    """A 3-step int8 pool (32x48, C = 16, depth 2, capacity 2) through K4
+    against the same pool through K4's plain version (``qconv_impl="plain"``):
+    reconstructions and all four states; K4 launched 3 + 2 depth + 2 (LSTC)
+    or 1 + 2 depth + 2 (TC) times per step; then ``calibrate`` and 3 more
+    steps with the static scales."""
+    from v2e2v_tpu_torch.models.cista import init_cista_tc
+    from v2e2v_tpu_torch.ops.cuda.qconv import qconv3x3
+    from v2e2v_tpu_torch.serving import StreamPool
+
+    cfg = CistaConfig(image_dim=(32, 48), base_channels=16, depth=2, model_mode=mode,
+                      quant="int8")
+    init = init_cista_lstc if mode == "cista-lstc" else init_cista_tc
+    sd = init(torch.Generator().manual_seed(0), cfg, device=card)
+    g = torch.Generator().manual_seed(1)
+    vox = torch.randn(6, 2, 32, 48, 5, generator=g).to(card)
+    pools = [StreamPool(dataclasses.replace(cfg, qconv_impl=impl), sd, 2, dtype, device=card)
+             for impl in ("cuda", "plain")]
+    ids = [[p.attach() for _ in range(2)] for p in pools]
+    per_step = (3 if mode == "cista-lstc" else 1) + 2 * 2 + 2
+    for t in range(6):
+        if t == 3:
+            assert [p.calibrate(vox[:3]) for p in pools] == [True, True]
+        before = qconv3x3.launches
+        outs = [p.step({s: vox[t, i] for i, s in enumerate(sids)}, fetch=False)
+                for p, sids in zip(pools, ids)]
+        assert qconv3x3.launches - before == per_step
+        for a, b in zip(ids[0], ids[1]):
+            torch.testing.assert_close(outs[0][a].float(), outs[1][b].float(), atol=tol, rtol=tol)
+        for x, y in zip((pools[0]._states.cell, pools[0]._states.z, *pools[0]._states.dg),
+                        (pools[1]._states.cell, pools[1]._states.z, *pools[1]._states.dg)):
+            torch.testing.assert_close(x.float(), y.float(), atol=tol, rtol=tol)

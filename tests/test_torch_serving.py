@@ -90,7 +90,7 @@ def test_pool_refuses_what_is_not_ported_and_overflow():
     with pytest.raises(NotImplementedError, match="multi-device"):
         StreamPool(cfg, {}, mesh=object(), device="cpu")
     _, pool = _pools(capacity=1)
-    with pytest.raises(NotImplementedError, match="int8"):
+    with pytest.raises(ValueError, match="requires cfg.quant == 'int8'"):
         pool.calibrate(None)
     pool.attach()
     with pytest.raises(RuntimeError, match="pool full"):

@@ -20,7 +20,9 @@ the event generation tool (``python -m v2e2v_tpu_torch.cli.generate_events``);
 training (``python -m v2e2v_tpu_torch.cli.train_e2v`` and ``cli.train``) with
 its data path, losses and train steps, the core layer by layer with the
 plain ISTA loop (K1 and K2 have no backward and refuse to run under
-autograd), the V2E2V training forward's emulator through K3.
+autograd), the V2E2V training forward's emulator through K3; int8 inference
+(``CistaConfig.quant="int8"``: ``ops/qconv.py``, calibration, the int8 pool
+and the E2V CLI's ``--quant``) with the int8 3x3 conv as CUDA kernel K4.
 """
 
 from ._device import make_first_cpu_vml_call

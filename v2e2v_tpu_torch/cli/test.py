@@ -44,6 +44,9 @@ def check_flags(cfgs) -> None:
                 "it needs a video decoder (cv2.VideoCapture in the JAX package), which the "
                 "port does not have")
     check_common_flags(cfgs)
+    if getattr(cfgs, "quant", "none") != "none":
+        raise ValueError(f"--quant {cfgs.quant}: the JAX V2E2V CLI (test.py) does not read the "
+                         "flag; int8 inference runs in the E2V CLI (cli.test_e2v)")
     if cfgs.precision != "float32":
         raise ValueError(f"--precision {cfgs.precision}: the V2E2V CLI runs float32, as "
                          "test.py does")

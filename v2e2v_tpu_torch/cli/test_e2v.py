@@ -8,8 +8,9 @@ events, pack the events to the ``--num_events`` budget ('real' or
 'upsampled'), voxelise them on the host, reconstruct with CISTA-LSTC or
 (``--model_mode cista-tc``) CISTA-TC on the card with its state fed back
 (CISTA-LSTC's ISTA loop is kernel K1; CISTA-TC runs no kernel of the port,
-its convs are cuDNN's), normalise each prediction to uint8 (minmax or
-percentile), write the frames, and report the sequence's mean
+its convs are cuDNN's; with ``--quant int8`` or ``int8-static`` either
+network's core convs are int8, kernel K4), normalise each prediction to uint8
+(minmax or percentile), write the frames, and report the sequence's mean
 MSE/PSNR/SSIM/LPIPS on stdout and in ``result.csv``.
 
 It runs on the CUDA card, and on the CPU only under ``V2E2V_PLATFORM=cpu``.
@@ -41,10 +42,8 @@ def missing(what: str, item: int, why: str = "") -> None:
 
 def check_common_flags(cfgs) -> None:
     """Raise on the flags (and environment variables) that neither of the
-    port's evaluation CLIs covers yet: int8, Super-SloMo upsampling,
-    distributed runs, profiling."""
-    if getattr(cfgs, "quant", "none").startswith("int8"):
-        missing(f"--quant {cfgs.quant}", 7)
+    port's evaluation CLIs covers yet: Super-SloMo upsampling, distributed
+    runs, profiling."""
     if cfgs.reader_type == "upsampling":
         missing("--reader_type upsampling", 8)
     check_run_flags(cfgs)
@@ -79,20 +78,29 @@ def check_flags(cfgs) -> None:
         raise ValueError(f"--precision must be float32 or bfloat16, got {cfgs.precision!r}")
 
 
-def build_model(cfgs, device: torch.device):
-    """Config, weights (cast once to ``--precision`` on ``device``), the
-    step and the zero-state function."""
-    from ..utils.checkpoint import load_torch_checkpoint
-
-    cfg = CistaConfig(
-        image_dim=tuple(cfgs.image_dim),
+def model_config(cfgs, image_dim) -> CistaConfig:
+    """The network's config from the flags: ``--quant int8-static`` runs the
+    same int8 step as ``int8``, with static scales calibrated on the first
+    pack (``Reconstructor.run``)."""
+    return CistaConfig(
+        image_dim=tuple(image_dim),
         base_channels=cfgs.base_channels,
         depth=cfgs.depth,
         num_bins=cfgs.num_bins,
         model_mode=cfgs.model_mode,
         ista_impl="cuda",
         core_impl="layers",
+        quant="int8" if cfgs.quant.startswith("int8") else "none",
     )
+
+
+def build_model(cfgs, device: torch.device):
+    """Config, weights (cast once to ``--precision`` on ``device``; with
+    int8, their int8 form made once from the cast weights, as the JAX CLI's
+    step makes it), the step and the zero-state function."""
+    from ..utils.checkpoint import load_torch_checkpoint
+
+    cfg = model_config(cfgs, cfgs.image_dim)
     sd, _, _ = load_torch_checkpoint(cfgs.path_to_test_model, cfgs.model_mode)
     dtype = DTYPES[cfgs.precision]
     params = with_derived({k: v.to(device, dtype) for k, v in sd.items()}, cfg, dtype)
@@ -144,12 +152,48 @@ class Reconstructor:
         )
         self.cfg, self.params, self.step, self.zero_state = build_model(cfgs, self.device)
         self.model_name = os.path.splitext(os.path.basename(cfgs.path_to_test_model))[0]
+        self.calibrated = False
 
     def evaluate(self, pred_u8: np.ndarray, gt: np.ndarray):
         from ..utils.evaluate import mse, psnr, ssim
 
         pred = pred_u8 / 255.0
         return [mse(pred, gt), psnr(pred, gt), ssim(pred, gt), float("nan")]
+
+    def _calibrate_static(self, ev, prev, state) -> dict:
+        """``--quant int8-static``: static int8 activation scales from one run
+        of the int8 step on the first voxel grid (margin 1.25: the recurrent
+        state warms past the first pack's range, and values past it
+        saturate), used for every sequence. CISTA-LSTC then runs the requant
+        chain. Drift gate: if the float-vs-int8 SSIM delta on that grid
+        exceeds 0.01, the dynamic scales stay. Returns the weights to run
+        with."""
+        from ..models.cista import int8_static_drift_check
+        from ..ops.qconv import calibrate_step_scales
+
+        step_fn = get_step_fn(self.cfg)
+        qp = self.params["_quant"]
+        ev, prev = ev.to(self.dtype), prev.to(self.dtype)
+        state = CistaState(*(s.to(self.dtype) for s in (state.cell, state.z)),
+                           tuple(s.to(self.dtype) for s in state.dg))
+        qp_static = calibrate_step_scales(
+            lambda: step_fn(self.params, self.cfg, ev, prev, state), qp,
+            model_mode=self.cfg.model_mode, depth=self.cfg.depth, margin=1.25)
+        cfg_run = self.cfg
+        if self.cfg.model_mode == "cista-lstc":
+            cfg_run = dataclasses.replace(self.cfg, requant_chain=True)
+        p_static = {**self.params, "_quant": qp_static}
+        delta, ok = int8_static_drift_check(p_static, cfg_run, ev, prev, state, budget=0.01)
+        if not ok:
+            print(f"[int8-static] WARNING: float-vs-int8 SSIM delta {delta:.4f} exceeds the "
+                  "0.01 budget on the calibration pack — falling back to dynamic int8 scales")
+            return self.params
+        print("[int8-static] activation scales calibrated on the first pack "
+              f"(float-vs-int8 SSIM delta {delta:.4f}, budget 0.01)")
+        if cfg_run is not self.cfg:
+            self.cfg = cfg_run
+            self.step = make_step(self.cfg, self.dtype)
+        return p_static
 
     def run(self):
         from ..ops.image import normalize_image_minmax_u8, normalize_image_percentile
@@ -163,8 +207,10 @@ class Reconstructor:
 
             h, w = self.video_renderer.height, self.video_renderer.width
             if (h, w) != tuple(self.cfg.image_dim):
-                # another resolution: the same weights under a new config
-                self.cfg = dataclasses.replace(self.cfg, image_dim=(h, w))
+                # another resolution: the same weights under a config made
+                # from the flags again, as the JAX CLI makes it (quant kept,
+                # the requant chain of an int8-static run not)
+                self.cfg = model_config(self.cfgs, (h, w))
                 self.step = make_step(self.cfg, self.dtype)
 
             state = self.zero_state(self.cfg, 1, torch.float32, self.device)
@@ -183,6 +229,9 @@ class Reconstructor:
                 for evs in events:
                     evs = np.ascontiguousarray(np.moveaxis(evs, 0, -1))[None]  # NHWC
                     evs = torch.from_numpy(evs).to(self.device)
+                    if self.cfgs.quant == "int8-static" and not self.calibrated:
+                        self.params = self._calibrate_static(evs, prev_image, state)
+                        self.calibrated = True
                     pred_image, state = self.step(self.params, evs, prev_image, state)
                     prev_image = pred_image
 

@@ -20,6 +20,10 @@ projections of the previous step's code and the current one gates
 ``alpha * (prev_z - tmp)``. Its decoder's upsample conv has no activation.
 It runs layer by layer on ``F.conv2d``: K1 and K2 compute LSTC's core only.
 
+With ``quant="int8"`` either network's half-resolution core runs its convs in
+int8 (``ops/qconv.py``: kernel K4, ``ops/cuda/qconv.py``); the heads, the
+CISTA-TC attention projections and the upsample and final convs stay float.
+
 Weights are a flat state dict under the reference module names (see
 ``utils/checkpoint.py``); activations are NHWC, as in the JAX package.
 """
@@ -54,6 +58,14 @@ from ..ops.fused import (
     upsample_conv_parity_edgek,
 )
 from ..ops.numerics import softshrink
+from ..ops.qconv import (
+    qconv2d,
+    qconv2d_pre,
+    qconv_lstc_step,
+    qconv_lstm_step,
+    quantize_core,
+    quantize_with,
+)
 
 StateDict = dict[str, torch.Tensor]
 
@@ -84,6 +96,14 @@ class CistaConfig:
     ``cista_lstc_step_parity``; CISTA-LSTC with ``fullres_impl='fused'``
     only, else the sequence runs 'full'). The same values and meaning as the
     JAX package's; an unknown value raises.
+
+    ``quant``: 'none' or 'int8' (``cista_lstc_step_int8`` and
+    ``cista_tc_step_int8``: the core's convs in int8, ``ops/qconv.py``; they
+    read neither ``ista_impl``, ``core_impl`` nor ``lstc_impl``, as in the JAX
+    package). ``requant_chain``: with int8 and a calibrated static scale at
+    the D site, the ISTA code stays int8 between iterations, as in the JAX
+    package. ``qconv_impl``: 'cuda' (kernel K4 for CUDA tensors, its plain
+    version for CPU tensors) or 'plain' (the plain version on any device).
     """
 
     image_dim: tuple[int, int] = (180, 240)
@@ -96,6 +116,9 @@ class CistaConfig:
     fullres_impl: str = "ref"
     lstc_impl: str = "ref"
     io_layout: str = "full"
+    quant: str = "none"
+    requant_chain: bool = False
+    qconv_impl: str = "cuda"
 
     def __post_init__(self):
         if self.model_mode not in ("cista-lstc", "cista-tc"):
@@ -110,7 +133,8 @@ class CistaConfig:
                 f"core_impl must be 'layers', 'cuda' or 'plain', got {self.core_impl!r}{hint}"
             )
         for name, allowed in (("fullres_impl", ("ref", "fused")), ("lstc_impl", ("ref", "fused")),
-                              ("io_layout", ("full", "parity"))):
+                              ("io_layout", ("full", "parity")), ("quant", ("none", "int8")),
+                              ("qconv_impl", ("cuda", "plain"))):
             if getattr(self, name) not in allowed:
                 raise ValueError(f"{name} must be one of {allowed}, got {getattr(self, name)!r}")
         if self.model_mode == "cista-tc" and self.core_impl != "layers":
@@ -381,9 +405,127 @@ def cista_tc_step(
     return torch.sigmoid(rec), CistaState(cell=state.cell, z=z, dg=dg_state)
 
 
+def _quant_params(params: StateDict, cfg: CistaConfig) -> dict:
+    """The int8 weights: ``params["_quant"]`` (made once per sequence or pool
+    by ``with_derived``, or injected with static scales), else made here."""
+    qp = params.get("_quant")
+    return qp if qp is not None else quantize_core(params, cfg.model_mode)
+
+
+def cista_lstc_step_int8(
+    params: StateDict,
+    cfg: CistaConfig,
+    events: torch.Tensor,
+    prev_image: torch.Tensor,
+    state: CistaState,
+) -> tuple[torch.Tensor, CistaState]:
+    """``cista_lstc_step`` with the half-resolution core in int8
+    (``cfg.quant``): ConvLSTC, the ISTA depth loop, the decoder conv and the
+    ConvLSTM through ``ops/qconv.py``; the heads and upsample/final as
+    ``cfg.fullres_impl`` says.
+
+    With ``cfg.requant_chain`` and a static scale ``s_z`` at the D site, z
+    stays int8 between ISTA iterations: the D conv reads ``z_q`` as it is and
+    the residual ``x + z`` reads the dequantized ``z_q * s_z``."""
+    impl = cfg.qconv_impl
+    qp = _quant_params(params, cfg)
+    x1 = _heads(params, cfg, events, prev_image)
+    z, cell = qconv_lstc_step(qp["lstc"], x1, state.z, state.cell, impl=impl)
+    lam = params["lista_blocks.0.Lambda"].reshape(-1).to(x1.dtype)
+    s_z = qp["D"].get("s_x") if cfg.requant_chain else None
+    if s_z is not None:
+        dt = x1.dtype
+        z_q = quantize_with(z, s_z)
+        for i in range(cfg.depth):
+            tmp = qconv2d_pre(z_q, s_z, qp["D"], out_dtype=dt, impl=impl)
+            x = qconv2d(x1 - tmp, qp["P"], impl=impl)
+            z = softshrink(x + (z_q.to(torch.float32) * s_z).to(dt), lam)
+            if i + 1 < cfg.depth:
+                z_q = quantize_with(z, s_z)
+    else:
+        tmp = z
+        for _ in range(cfg.depth):
+            tmp = qconv2d(tmp, qp["D"], impl=impl)
+            x = qconv2d(x1 - tmp, qp["P"], impl=impl)
+            z = softshrink(x + z, lam)
+            tmp = z
+    x = torch.relu(qconv2d(z, qp["dg_conv"], impl=impl))
+    rec_h, dg_state = qconv_lstm_step(qp["lstm"], x, state.dg, impl=impl)
+    rec = _upsample_final(params, cfg, rec_h, upsamp_activation="relu")
+    return torch.sigmoid(rec), CistaState(cell=cell, z=z, dg=dg_state)
+
+
+def cista_tc_step_int8(
+    params: StateDict,
+    cfg: CistaConfig,
+    events: torch.Tensor,
+    prev_image: torch.Tensor,
+    state: CistaState,
+) -> tuple[torch.Tensor, CistaState]:
+    """``cista_tc_step`` with the wide core convs in int8 (``cfg.quant``): the
+    plain-conv ``P0``, the ISTA pair, the decoder conv and the ConvLSTM
+    gates. The one-channel attention projections, ``alpha``, the heads and
+    upsample/final stay float."""
+    impl = cfg.qconv_impl
+    qp = _quant_params(params, cfg)
+    x1 = _heads(params, cfg, events, prev_image)
+    z = qconv2d(x1, qp["P0"], impl=impl)
+    tmp = z
+    prev_z = state.z
+    one_ch_prev = conv_layer(prev_z, _conv(params, "one_conv_for_prev.conv2d"), padding=1)
+    cur = _conv(params, "one_conv_for_cur.conv2d")
+    lam = params["lista_blocks.0.Lambda"].reshape(-1).to(x1.dtype)
+    alpha = params["alpha.0"].reshape(-1).to(x1.dtype)
+    for _ in range(cfg.depth):
+        one_ch_cur = conv_layer(tmp, cur, padding=1)
+        attention = torch.sigmoid(one_ch_prev * one_ch_cur)
+        temporal_z = attention * ((prev_z - tmp) * alpha)
+        tmp = qconv2d(tmp, qp["D"], impl=impl)
+        x = qconv2d(x1 - tmp, qp["P"], impl=impl)
+        z = softshrink(x + z + temporal_z, lam)
+        tmp = z
+    x = torch.relu(qconv2d(z, qp["dg_conv"], impl=impl))
+    rec_h, dg_state = qconv_lstm_step(qp["lstm"], x, state.dg, impl=impl)
+    rec = _upsample_final(params, cfg, rec_h, upsamp_activation=None)
+    return torch.sigmoid(rec), CistaState(cell=state.cell, z=z, dg=dg_state)
+
+
 def get_step_fn(cfg: CistaConfig):
-    """The step of ``cfg.model_mode`` (``CistaConfig`` admits no other)."""
-    return cista_tc_step if cfg.model_mode == "cista-tc" else cista_lstc_step
+    """The step of ``cfg.model_mode`` and ``cfg.quant`` (``CistaConfig``
+    admits no other)."""
+    if cfg.model_mode == "cista-tc":
+        return cista_tc_step_int8 if cfg.quant == "int8" else cista_tc_step
+    return cista_lstc_step_int8 if cfg.quant == "int8" else cista_lstc_step
+
+
+def int8_static_drift_check(
+    params: StateDict,
+    cfg: CistaConfig,
+    events: torch.Tensor,
+    prev_image: torch.Tensor,
+    state: CistaState,
+    budget: float = 0.01,
+) -> tuple[float, bool]:
+    """Run ``events`` through the float step and the int8 step with whatever
+    ``params["_quant"]`` carries (static scales after calibration) and
+    compare the reconstructions: returns ``(delta, delta <= budget)``, where
+    ``delta = 1 - mean over the batch of SSIM(float, int8)`` (float64 SSIM,
+    ``utils/evaluate.ssim``). Saturated static scales show up as structural
+    damage; callers then keep the dynamic scales."""
+    import dataclasses
+
+    import numpy as np
+
+    from ..utils.evaluate import ssim
+
+    cfg_f = dataclasses.replace(cfg, quant="none")
+    with torch.no_grad():
+        rec_f, _ = get_step_fn(cfg_f)(params, cfg_f, events, prev_image, state)
+        rec_q, _ = get_step_fn(cfg)(params, cfg, events, prev_image, state)
+    a = rec_f[..., 0].to(torch.float32).cpu().numpy()
+    b = rec_q[..., 0].to(torch.float32).cpu().numpy()
+    delta = 1.0 - float(np.mean([ssim(a[i], b[i]) for i in range(a.shape[0])]))
+    return delta, delta <= budget
 
 
 def remat_step(step, params: StateDict, cfg: CistaConfig, events: torch.Tensor,
@@ -414,32 +556,41 @@ def tie_weights(params: StateDict, cfg: CistaConfig) -> StateDict:
 
 # entries a step derives from the weights, made once per sequence or pool
 # (never written to a checkpoint: utils/checkpoint.save_checkpoint)
-DERIVED = ("_core_taps", "_fullres_fused", "_lstc_fused")
+DERIVED = ("_core_taps", "_fullres_fused", "_lstc_fused", "_quant")
 
 
 def with_derived(params: StateDict, cfg: CistaConfig, dtype: torch.dtype) -> StateDict:
     """``params`` with the entries ``cfg``'s steps read instead of computing
     them per step, each made once from the weights for activations of
     ``dtype``: kernel K2's taps (``core_impl`` other than 'layers'), the
-    fused full-resolution kernels (``fullres_impl='fused'``) and the fused
-    ConvLSTC kernels (CISTA-LSTC, ``lstc_impl='fused'``). Differentiable: a
-    loss over the steps reaches the weights through them."""
+    fused full-resolution kernels (``fullres_impl='fused'``), the fused
+    ConvLSTC kernels (CISTA-LSTC, ``lstc_impl='fused'``) and, with
+    ``quant='int8'``, the int8 weights (``ops/qconv.quantize_core``, from the
+    weights as given, in float32), unless the caller injected ``_quant`` (a
+    pool's, or one with calibrated static scales), which is kept. The float
+    entries are differentiable: a loss over the steps reaches the weights
+    through them."""
+    quant = params.get("_quant")
     params = {k: v for k, v in params.items() if k not in DERIVED}
-    if cfg.model_mode == "cista-lstc" and cfg.lstc_impl == "fused":
-        params["_lstc_fused"] = conv_lstc_fuse(_lstc_params(params))
+    if cfg.quant == "int8":
+        params["_quant"] = quant if quant is not None else quantize_core(params, cfg.model_mode)
+    else:
+        if cfg.model_mode == "cista-lstc" and cfg.lstc_impl == "fused":
+            params["_lstc_fused"] = conv_lstc_fuse(_lstc_params(params))
+        if cfg.core_impl != "layers":
+            params["_core_taps"] = core_taps(params, dtype)
     if cfg.fullres_impl == "fused":
         params["_fullres_fused"] = precompute_fused_kernels(params, dtype)
-    if cfg.core_impl != "layers":
-        params["_core_taps"] = core_taps(params, dtype)
     return params
 
 
 def parity_io(cfg: CistaConfig) -> bool:
     """Whether ``cista_sequence`` runs ``cfg`` with parity-packed IO: the JAX
-    package's conditions (CISTA-LSTC, ``fullres_impl='fused'``, even H and
-    W); ``io_layout='parity'`` otherwise runs 'full'."""
+    package's conditions (CISTA-LSTC, float, ``fullres_impl='fused'``, even
+    H and W; the int8 step has no parity form); ``io_layout='parity'``
+    otherwise runs 'full'."""
     return (cfg.io_layout == "parity" and cfg.model_mode == "cista-lstc"
-            and cfg.fullres_impl == "fused"
+            and cfg.quant == "none" and cfg.fullres_impl == "fused"
             and cfg.image_dim[0] % 2 == 0 and cfg.image_dim[1] % 2 == 0)
 
 

@@ -42,9 +42,9 @@ class KernelLibrary:
 
 
 def check_aligned(what: str, **tensors) -> None:
-    """The convs of K1 and K2 copy 16-byte rows with ``cp.async`` (and the
-    float32 conv stores 16-byte vectors): raise if a tensor does not start on
-    a 16-byte boundary (a view at an odd offset)."""
+    """The convs of K1, K2 and K4 copy 16-byte rows with ``cp.async`` (and
+    the float32 conv stores 16-byte vectors): raise if a tensor does not start
+    on a 16-byte boundary (a view at an odd offset)."""
     for name, t in tensors.items():
         if t.data_ptr() % 16:
             raise ValueError(f"{what}: {name} must start on a 16-byte boundary for the "
@@ -80,6 +80,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.v2e_core_lstm_cell.restype = i
     lib.v2e_emulator_iters.argtypes = [*[p] * 11, ctypes.c_float, *[p] * 3, *[i] * 6, p]
     lib.v2e_emulator_iters.restype = i
+    lib.v2e_qconv3x3.argtypes = [p, p, i, i, p, p, p, p, p, i, i, i, i, i, p]
+    lib.v2e_qconv3x3.restype = i
+    lib.v2e_qconv3x3_smem_bytes.argtypes = []
+    lib.v2e_qconv3x3_smem_bytes.restype = i
     lib.v2e_error_string.argtypes = [i]
     lib.v2e_error_string.restype = ctypes.c_char_p
 

@@ -13,7 +13,10 @@ wgmma's B-transpose bit (``wgmma_taps``). The float32 conv
 (``csrc/conv3x3.cuh``) stages all 9 taps of one 16-channel chunk for a block
 of 64 output channels with one bulk copy: for every block of 64 output
 channels and every chunk of 16 input channels, a contiguous ``[9, 16, 64]``
-block (``simt_taps``). Input channels past ``cin`` and output channels past
+block (``simt_taps``). The int8 conv of kernel K4 (``csrc/qconv3x3.cu``)
+copies one 32-channel K chunk's 9 taps for a block of 64 output channels as
+one slice, in the order of the ``mma.sync`` m16n8k32 B fragments
+(``imma_taps``). Input channels past ``cin`` and output channels past
 ``cout`` are zeros.
 """
 
@@ -26,6 +29,7 @@ import torch.nn.functional as F
 
 KCH = 64  # input channels per K chunk (conv3x3_tc.cuh KCH)
 SIMT_KC, SIMT_CO = 16, 64  # input channels per chunk, output channels per block (conv3x3.cuh)
+IMMA_KC, IMMA_CO = 32, 64  # the same for the int8 conv (qconv3x3.cu KC and NBLK)
 _CACHE_SIZE = 32
 _cache: OrderedDict = OrderedDict()  # key -> (source weight, laid-out taps)
 
@@ -59,19 +63,43 @@ def simt_taps(taps: torch.Tensor) -> torch.Tensor:
     return t.permute(3, 1, 0, 2, 4).contiguous()
 
 
-def _cached(layout, weight: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """``layout(weight.to(dtype))``, laid out once for the same weight: the
-    key is the storage, offset, strides, shape, dtype and version counter of
-    ``weight`` (an in-place update bumps the version), ``dtype`` and the
-    layout; an entry holds ``weight``, so its memory is not reused while
-    cached."""
+def imma_taps(w_q: torch.Tensor, cin_a: int) -> torch.Tensor:
+    """int8 OIHW weights ``[cout, cin_a + cin_b, 3, 3]`` of a conv on the
+    concat of two inputs (``cin_b`` may be 0) -> ``[ceil(cout / 64), chunks,
+    9, 4, 32, 16]`` int8: each input's channels in chunks of 32 (the first
+    input's chunks, then the second's), and per chunk and tap, for each pair
+    of 8-channel N-tiles and each lane (``g = lane // 4``, ``t = lane % 4``),
+    the 16 bytes of that lane's two B fragments: output channel ``16 q + 8 h
+    + g`` (h = 0, 1), input channels ``4 t .. 4 t + 3`` then ``16 + 4 t ..
+    16 + 4 t + 3`` of the chunk."""
+    cout = w_q.shape[0]
+    nc = -(-cout // IMMA_CO)
+    parts = []
+    for w in (w_q[:, :cin_a], w_q[:, cin_a:]):
+        if w.shape[1] == 0:
+            continue
+        kc = -(-w.shape[1] // IMMA_KC)
+        t = F.pad(w, (0, 0, 0, 0, 0, kc * IMMA_KC - w.shape[1], 0, nc * IMMA_CO - cout))
+        # block, pair q, h, g, chunk, K half, t, byte e, dy, dx
+        t = t.reshape(nc, 4, 2, 8, kc, 2, 4, 4, 3, 3)
+        parts.append(t.permute(0, 4, 8, 9, 1, 3, 6, 2, 5, 7).reshape(nc, kc, 9, 4, 32, 16))
+    return torch.cat(parts, dim=1).contiguous()
+
+
+def _cached(layout, weight: torch.Tensor, dtype: torch.dtype, *args) -> torch.Tensor:
+    """``layout(weight.to(dtype), *args)``, laid out once for the same weight:
+    the key is the storage, offset, strides, shape, dtype and version counter
+    of ``weight`` (an in-place update bumps the version), ``dtype``, the
+    layout and ``args``; an entry holds ``weight``, so its memory is not
+    reused while cached."""
     key = (weight.untyped_storage().data_ptr(), weight.storage_offset(), weight.stride(),
-           tuple(weight.shape), weight.dtype, weight.device, weight._version, dtype, layout)
+           tuple(weight.shape), weight.dtype, weight.device, weight._version, dtype, layout,
+           args)
     hit = _cache.get(key)
     if hit is not None:
         _cache.move_to_end(key)
         return hit[1]
-    laid = layout(weight.to(dtype))
+    laid = layout(weight.to(dtype), *args)
     _cache[key] = (weight, laid)
     if len(_cache) > _CACHE_SIZE:
         _cache.popitem(last=False)
@@ -90,3 +118,10 @@ def cached_simt_taps(weight: torch.Tensor) -> torch.Tensor:
     """``simt_taps(weight.float())``, laid out once for the same weight: the
     float32 taps of K1 (per call) and of K2 (``core_taps``' float32 taps)."""
     return _cached(simt_taps, weight, torch.float32)
+
+
+def cached_imma_taps(w_q: torch.Tensor, cin_a: int) -> torch.Tensor:
+    """``imma_taps(w_q, cin_a)``, laid out once for the same int8 weights:
+    kernel K4 takes them as tensors on every call (a pool quantizes them once
+    and passes the same ones every step)."""
+    return _cached(imma_taps, w_q, torch.int8, cin_a)

@@ -4,8 +4,9 @@ A fixed-capacity pool of slots on the device; each slot holds one stream's
 recurrent state and previous reconstruction. A step runs every slot as one
 batch and keeps the old state of slots that had no input (masked update);
 ``attach`` zeroes the claimed slot. The step is ``cfg.model_mode``'s
-(CISTA-LSTC or CISTA-TC, ``get_step_fn``). int8 calibration and a
-multi-device mesh are not ported.
+(CISTA-LSTC or CISTA-TC, float or int8, ``get_step_fn``). An int8 pool
+quantizes its weights once and can calibrate static activation scales
+(``calibrate``). A multi-device mesh is not ported.
 
     pool = StreamPool(cfg, params, capacity=8)
     sid = pool.attach()
@@ -21,7 +22,15 @@ import numpy as np
 import torch
 
 from ._device import resolve_device
-from .models.cista import CistaConfig, CistaState, cista_zero_state, get_step_fn, with_derived
+from .models.cista import (
+    CistaConfig,
+    CistaState,
+    cista_zero_state,
+    get_step_fn,
+    int8_static_drift_check,
+    with_derived,
+)
+from .ops.qconv import calibrate_step_scales, quantize_core
 
 
 def _pool_step(params, cfg, states, prev_images, voxels, active):
@@ -58,10 +67,15 @@ class StreamPool:
         self.cfg = cfg
         self.capacity = capacity
         self.dtype = dtype
+        cast = {k: v.to(self.device, dtype) for k, v in params.items()}
+        if cfg.quant == "int8":
+            # the int8 weights once, from the weights as given, not from
+            # their cast to the pool's dtype
+            cast["_quant"] = quantize_core(
+                {k: v.to(self.device) for k, v in params.items()}, cfg.model_mode)
         # the derived kernels (K2's taps, the fused full-resolution and
         # ConvLSTC kernels) once, in the pool's dtype, not in every step
-        self.params = with_derived(
-            {k: v.to(self.device, dtype) for k, v in params.items()}, cfg, dtype)
+        self.params = with_derived(cast, cfg, dtype)
         h, w = cfg.image_dim
         self._states = cista_zero_state(cfg, capacity, dtype, self.device)
         self._prev = torch.zeros((capacity, h, w, 1), dtype=dtype, device=self.device)
@@ -70,7 +84,53 @@ class StreamPool:
         self._slot_of: dict[int, int] = {}
 
     def calibrate(self, voxels, drift_budget: float = 0.01) -> bool:
-        raise NotImplementedError("int8 serving is not ported")
+        """Calibrate static int8 activation scales on sample voxel grids
+        ``[steps, batch, H, W, num_bins]`` (each reconstruction fed back as the
+        next ``prev_image``, as in the pool), with margin 1.25 over the
+        largest scale seen; afterwards a pool step quantizes with them
+        instead of taking each conv input's ``max|x|``. CISTA-LSTC then also
+        runs the requant chain (``CistaConfig.requant_chain``).
+
+        Drift gate: the first calibration step runs float and int8 with the
+        static scales (``int8_static_drift_check``); if the SSIM delta
+        exceeds ``drift_budget`` the pool keeps its dynamic scales, warns and
+        returns False. Returns True when the static scales were adopted.
+        Requires ``cfg.quant == 'int8'``."""
+        if self.cfg.quant != "int8":
+            raise ValueError("calibrate() requires cfg.quant == 'int8'")
+        import dataclasses
+
+        voxels = torch.as_tensor(voxels).to(self.device)
+        step_fn = get_step_fn(self.cfg)
+        b = voxels.shape[1]
+        state = cista_zero_state(self.cfg, b, self.dtype, self.device)
+        prev = torch.zeros(tuple(voxels.shape[1:4]) + (1,), dtype=self.dtype, device=self.device)
+        p = self.params
+
+        def run_steps():
+            s, pv = state, prev
+            for t in range(voxels.shape[0]):
+                out, s = step_fn(p, self.cfg, voxels[t].to(self.dtype), pv, s)
+                pv = out.to(self.dtype)
+
+        qp_static = calibrate_step_scales(run_steps, self.params["_quant"],
+                                          model_mode=self.cfg.model_mode,
+                                          depth=self.cfg.depth, margin=1.25)
+        cfg_run = self.cfg
+        if self.cfg.model_mode == "cista-lstc":
+            # static scales let the ISTA code stay int8 between iterations;
+            # the gate below runs the chained step
+            cfg_run = dataclasses.replace(self.cfg, requant_chain=True)
+        p_static = {**self.params, "_quant": qp_static}
+        delta, ok = int8_static_drift_check(p_static, cfg_run, voxels[0].to(self.dtype), prev,
+                                            state, budget=drift_budget)
+        if not ok:
+            print(f"[StreamPool] WARNING: float-vs-int8 SSIM delta {delta:.4f} exceeds the "
+                  f"{drift_budget} budget — keeping dynamic int8 scales")
+            return False
+        self.cfg = cfg_run
+        self.params = p_static
+        return True
 
     def attach(self) -> int:
         """Claim a free slot for a new stream (its state zeroed); returns the
