@@ -159,36 +159,51 @@ Phases, one line each (any failure exits non-zero before the last line):
    (``scripts/profile_torch_pool.py``'s ``trace``) of the bfloat16 K2 and
    float32 layers pools, ref and fused, by kind of kernel;
 16. int8 inference (``CistaConfig.quant="int8"``, ``ops/qconv.py``), after
-   phase 15: (a) K4's build (``csrc/qconv3x3.cu``): both of its kernels hold
-   ``IMMA`` (``mma.sync`` on the integer tensor cores) and no ``HGMMA``, and
-   spill nothing; (b) K4 against its plain version at every conv site shape
-   of a step (gates 192->256, P0/P 64->128, out_gates 256->128, D/dg 128->64,
-   lstm 128->256) at B = 8 and B = 1, 90x120, out float32 and bfloat16: codes
-   in [-15, 15] with unit scales equal, full-range codes with real scales
-   equal or one ulp apart at a count the line prints; each shape's time as
-   issued and on the device, its bound (bytes at 3.35 TB/s or int8
-   operations at 1,979 TOPS), ``torch._int_mm`` on the int8 im2col and
-   cuDNN's bfloat16 conv of the same shape; (c) a CISTA-LSTC int8
+   phase 15: (a) K4's build (``csrc/qconv3x3.cu``): its 12 kernels (int8,
+   float32 and bfloat16 in x float32 and bfloat16 out x 64 or 128 output
+   channels a block) hold ``IGMMA`` (``wgmma`` on the integer tensor cores)
+   and no ``IMMA`` or ``HGMMA``, and they and the scale kernel's two
+   (``csrc/qscale.cu``) spill nothing; (b) at every conv site shape of a step
+   (gates 192->256, P0/P 64->128, out_gates 256->128, D/dg 128->64, lstm
+   128->256) at B = 8 and B = 1, 90x120, for float32 and bfloat16 inputs on
+   the ties of a static ``s_x = 2^-4``, past +-127 and at a few extremes: K4
+   against its plain version on the float input (static and dynamic scale)
+   and on its int8 codes, out float32 and bfloat16 (outputs an ulp apart at
+   a count the line prints), the codes K4 stages read back through identity
+   centre taps, the scale kernel bit for bit against its plain version (and
+   1 on zeros); times as issued and on the device of K4 (float and int8
+   entries), of the route it replaces (eager ``quantize_with``, then the int8
+   entry) and of the dynamic site (the scale kernel + K4 against the eager
+   scale passes + ``quantize_with`` + the int8 entry), its bound (bytes at
+   3.35 TB/s or int8 operations at 1,979 TOPS, the float input read once),
+   ``torch._int_mm`` on the int8 im2col and cuDNN's bfloat16 conv of the
+   same shape; the scale kernel's times against its eager passes and
+   ``torch.linalg.vector_norm(x, inf)``, and its bound; (c) a CISTA-LSTC int8
    ``StreamPool`` on phase 4's schedule and voxel grids in float32 (TF32 off)
    and bfloat16, with every count set to 0 just before: K4 15 launches per
-   step, K1, K2 and K3 0; reconstructions and all four states within 1e-4 /
-   3e-2 + 3e-2 |ref| of the same pool through K4's plain version
-   (``qconv_impl="plain"``), finite, in [0, 1], and within JAX's own bound of
-   phase 4's float pool (mean |diff| < 0.03, last step < 0.05); then pools
-   calibrated (``calibrate()`` on 24 of the served grids as 3 steps of 8:
-   the SSIM delta, whether the static scales were adopted, each site's
-   ``s_x``) and held the same way; (d) the same for CISTA-TC (13 K4 launches
-   per step); (e) the E2V CLI with ``--quant int8`` and ``int8-static`` on
-   phase 9's first sequence (recon/s, the model step at B = 1 by CUDA events,
-   K4 15 launches per reconstruction, 30 more to calibrate and K1 10 for the
-   drift gate's float step, the calibration line); (f) the int8 pool step against the float pool step of the same
-   dtype (``fullres_impl="ref"``) by CUDA events, in turns, with peak memory,
-   and a ``torch.profiler`` trace of the int8 step by kind of kernel (K4, the
-   quantize passes, cuDNN, the rest);
+   step and the scale kernel 15 (dynamic) or 0 (calibrated), K1, K2 and K3
+   0; reconstructions and all four states within 1e-4 / 3e-2 + 3e-2 |ref| of
+   the same pool through the plain versions (``qconv_impl="plain"``),
+   finite, in [0, 1], and within JAX's own bound of phase 4's float pool
+   (mean |diff| < 0.03, last step < 0.05); then pools calibrated
+   (``calibrate()`` on 24 of the served grids as 3 steps of 8: the SSIM
+   delta, whether the static scales were adopted, each site's ``s_x``) and
+   held the same way; (d) the same for CISTA-TC (13 K4 launches per step);
+   (e) the E2V CLI with ``--quant int8`` and ``int8-static`` on phase 9's
+   first sequence (recon/s, the model step at B = 1 by CUDA events, K4 and
+   the scale kernel 15 launches per reconstruction, K4 30 more and the scale
+   kernel 15 to calibrate, K1 10 for the drift gate's float step, the
+   calibration line); (f) the int8 pool step against the float pool step of
+   the same dtype (``fullres_impl="ref"``) by CUDA events, in turns, with
+   peak memory, each K4 call's input strides over one step, and a
+   ``torch.profiler`` trace of the dynamic int8 step by kind of kernel (K4,
+   the scale kernel, eager quantize passes, which must be none, clamps and
+   relus, cuDNN, the rest);
 14. a ``{"kernels": [...]}`` JSON line (each row's launches on the paths of
    phases 10-13, 15 and 16, every count set to 0 just before each path: K1,
-   K2 and K4 counted by dtype, K3 by shot mode; K4's rows hold its times per
-   pool step, the 15 calls of one step summed), then the last line
+   K2, K4 and the scale kernel counted by dtype, K3 by shot mode; the rows
+   of K4 and the scale kernel hold their times per pool step, the 15 calls
+   of one step summed), then the last line
    ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX or of the JAX package ``v2e2v_tpu``.
@@ -270,8 +285,8 @@ def within(got: torch.Tensor, want: torch.Tensor, tol: float) -> tuple[float, bo
 
 def short_name(mangled: str) -> str:
     """K1's and K2's conv instances as <kernel><dtype, epilogue>, K2's cell
-    kernels and K4's as <kernel><dtype>, K3's as emulator_iters_kernel<shot
-    mode>; others as given."""
+    kernels and the scale kernel's as <kernel><dtype>, K4's as <kernel><in,
+    out, NB>, K3's as emulator_iters_kernel<shot mode>; others as given."""
     m = re.search(r"emulator_iters_kernelILi([012])E", mangled)
     if m:
         return f"emulator_iters_kernel<{('no shot', 'explicit', 'internal')[int(m.group(1))]}>"
@@ -282,9 +297,15 @@ def short_name(mangled: str) -> str:
     if m:
         return (f"{m.group(1)}<float32, {EPILOGUES[int(m.group(2))]}, "
                 f"8x{8 * int(m.group(3))} tile>")
-    m = re.search(r"qconv3x3_kernelI(\w+?)EEv", mangled)
+    types = {"a": "int8", "f": "float32", "13__nv_bfloat16": "bfloat16"}
+    m = re.search(r"qconv3x3_kernelI(a|f|13__nv_bfloat16)(f|13__nv_bfloat16|S\d*_)Li(\d+)E",
+                  mangled)
+    if m:  # S<n>_ repeats an earlier type of the name: the input's
+        out = types.get(m.group(2), types[m.group(1)])
+        return f"qconv3x3_kernel<in {types[m.group(1)]}, out {out}, NB={m.group(3)}>"
+    m = re.search(r"qscale_kernelI(f|13__nv_bfloat16)E", mangled)
     if m:
-        return f"qconv3x3_kernel<{'bfloat16' if 'bfloat16' in m.group(1) else 'float32'}>"
+        return f"qscale_kernel<{types[m.group(1)]}>"
     m = re.search(r"(core_lst[cm]_cell_kernel)I(\w+?)EEv", mangled)
     if m:
         return f"{m.group(1)}<{'bfloat16' if 'bfloat16' in m.group(2) else 'float32'}>"
@@ -1226,7 +1247,7 @@ def train_weights(cfg, seed: int, device):
 def counts_zero(*counters) -> None:
     for c in counters:
         c.launches = 0
-        for split in ("launches_by_dtype", "launches_by_shot"):
+        for split in ("launches_by_dtype", "launches_by_shot", "launches_by_input"):
             if hasattr(c, split):
                 getattr(c, split).update(dict.fromkeys(getattr(c, split), 0))
 
@@ -1236,16 +1257,17 @@ def kernel_counters() -> tuple:
     from v2e2v_tpu_torch.ops.cuda.emulator_iters import emulator_iters
     from v2e2v_tpu_torch.ops.cuda.ista import ista_loop
     from v2e2v_tpu_torch.ops.cuda.qconv import qconv3x3
+    from v2e2v_tpu_torch.ops.cuda.qscale import act_scale
 
-    return ista_loop, cista_core, emulator_iters, qconv3x3
+    return ista_loop, cista_core, emulator_iters, qconv3x3, act_scale
 
 
 def row_counts() -> dict[str, int]:
     """The launches of each row of the kernels line since the counts were set
-    to 0: K1, K2 and K4 by dtype (K4's out dtype), K3 by shot mode, as the
-    wrappers count them."""
-    k1, k2, k3, k4 = kernel_counters()
-    rows = {f"{k.__name__} ({d})": n for k in (k1, k2, k4)
+    to 0: K1, K2, K4 and the scale kernel by dtype (K4's out dtype, the scale
+    kernel's input dtype), K3 by shot mode, as the wrappers count them."""
+    k1, k2, k3, k4, k5 = kernel_counters()
+    rows = {f"{k.__name__} ({d})": n for k in (k1, k2, k4, k5)
             for d, n in k.launches_by_dtype.items()}
     return rows | {f"emulator_iters ({m} rng)": k3.launches_by_shot[m]
                    for m in ("internal", "explicit")}
@@ -1757,7 +1779,7 @@ def fused_phase(seed: int, smi: str, cfg, weights, serve, served: dict, video, c
     from v2e2v_tpu_torch.ops.voxel import event_preprocess, events_to_voxel_grid
     from v2e2v_tpu_torch.serving import StreamPool
 
-    k1, k2, k3, _ = kernel_counters()
+    k1, k2, k3, _, _ = kernel_counters()
     t_phase = time.perf_counter()
     dev = weights["We.conv2d.weight"].device
     fused = dataclasses.replace(cfg, fullres_impl="fused")
@@ -1943,6 +1965,8 @@ def fused_phase(seed: int, smi: str, cfg, weights, serve, served: dict, video, c
 
 K4_SOURCE = "v2e2v_tpu_torch/csrc/qconv3x3.cu"
 K4_REPLACES = "v2e2v_tpu/ops/qconv.py:110"
+QSCALE_SOURCE = "v2e2v_tpu_torch/csrc/qscale.cu"
+QSCALE_REPLACES = "v2e2v_tpu/ops/qconv.py:74"
 PEAK_INT8_OPS = 1979e12  # H100 SXM, dense int8 tensor cores
 # K4's conv sites at C = 64 (cin_a, cin_b, cout) and how many a CISTA-LSTC
 # step runs: gates, P0 (and P), out_gates, D (and dg), lstm
@@ -1951,37 +1975,57 @@ K4_SHAPES = {"gates 192->256": ((C, 2 * C, 4 * C), 1), "P0/P 64->128": ((C, 0, 2
              "D/dg 128->64": ((2 * C, 0, C), DEPTH + 1), "lstm 128->256": ((C, C, 4 * C), 1)}
 K4_PER_STEP = {"cista-lstc": 3 + 2 * DEPTH + 2, "cista-tc": 1 + 2 * DEPTH + 2}
 INT8_VS_FLOAT = (0.03, 0.05)  # JAX's own bound: mean |int8 - float|, over all and the last step
+K4_STATIC_SX = 0.0625  # 2^-4: x = (k + 1/2) 2^-4 lies exactly on a tie of x / s_x
+K4_DESIGN = ("implicit GEMM on wgmma.mma_async m64nNk32 s32.s8.s8 (IGMMA): 16x8-pixel x 64/128-"
+             "channel tiles, two consumer warpgroups, two blocks an SM; the haloed input tile "
+             "staged once per 32-channel chunk for all 9 taps through registers (float32/bfloat16 "
+             "quantized with s_x while staged, div.rn's result by two FMA corrections: the codes "
+             "never reach device memory), a chunk's taps laid out once K-major and loaded by one "
+             "cp.async.bulk a chunk ahead, double-buffered; int32 sums in registers, fused "
+             "float32 dequant")
+# the kinds of device kernel phase 16f's traces sort the int8 step into,
+# ahead of scripts/profile_torch_pool.py's own
+INT8_KINDS = (
+    ("K4", ("qconv3x3_kernel",)),
+    ("K4 scale", ("qscale_kernel",)),
+    ("quantize passes", ("AbsFunctor", "abs_kernel", "MaxNanFunctor", "maximum_kernel",
+                         "DivFunctor", "div_true", "round_kernel")),
+    ("clamp and relu", ("clamp_",)),
+)
 
 
-def k4_inputs(b, site, full: bool, out_dtype, seed: int):
-    """K4's arguments at a site's shape on the card (90x120): codes in [-15,
-    15] with unit scales and no bias (the integer core, ``|acc| < 2^24``), or
-    full-range codes with real scales and a bias."""
+def k4_inputs(b, site, dtype, seed: int):
+    """K4's arguments at a site's shape on the card (90x120): a float input in
+    ``dtype`` on the .5 ties of the static ``s_x = 2^-4`` and past +-127
+    (saturating) with a few extremes (whose dynamic scale, past 2^60, sends
+    every row down the kernel's div.rn path), full-range int8 weights, real
+    weight scales and a bias."""
     (cin_a, cin_b, cout) = site
-    g = torch.Generator().manual_seed(seed)
-    lim = 128 if full else 16
-    h, w = H // 2, W // 2
-    xa = torch.randint(1 - lim, lim, (b, h, w, cin_a), generator=g, dtype=torch.int8)
-    xb = torch.randint(1 - lim, lim, (b, h, w, cin_b), generator=g, dtype=torch.int8)
-    wq = torch.randint(-127, 128, (cout, cin_a + cin_b, 3, 3), generator=g, dtype=torch.int8)
-    if full:
-        s_x, s_w, bias = torch.tensor(0.0123), torch.rand(cout, generator=g) * 1e-3, \
-            torch.randn(cout, generator=g)
-    else:
-        s_x, s_w, bias = torch.tensor(1.0), torch.ones(cout), None
-    dev = lambda t: None if t is None else t.cuda()  # noqa: E731
-    return (dev(xa), dev(s_x), dev(wq), dev(s_w), dev(bias), dev(xb) if cin_b else None), \
-        {"out_dtype": out_dtype}
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    s_x = torch.tensor(K4_STATIC_SX, device="cuda")
+    x = torch.randint(-300, 301, (b, H // 2, W // 2, cin_a + cin_b), generator=g,
+                      device="cuda").float() / 2 * s_x
+    # values past 2^64, subnormals and zeros: the other path of K4's division
+    x.view(-1)[:8] = torch.tensor([1e30, -3e38, 1e-40, -1e-30, 0.0, -0.0, 2e19, -7e-20],
+                                  device="cuda")
+    x = x.to(dtype)
+    wq = torch.randint(-127, 128, (cout, cin_a + cin_b, 3, 3), generator=g, device="cuda",
+                       dtype=torch.int8)
+    s_w = torch.rand(cout, generator=g, device="cuda") * 1e-3
+    bias = torch.randn(cout, generator=g, device="cuda")
+    xa, xb = x[..., :cin_a].contiguous(), x[..., cin_a:].contiguous() if cin_b else None
+    return xa, s_x, wq, s_w, bias, xb
 
 
-def k4_bound_ms(b, site, out_dtype) -> tuple[float, str, float, float]:
-    """K4's least time at a site: the larger of its bytes (int8 inputs and
-    weights read once, the output written once, scales and bias) at 3.35 TB/s
-    and its 2 x 9 x B*H*W x cin x cout integer operations at 1,979 TOPS."""
+def k4_bound_ms(b, site, in_dtype, out_dtype) -> tuple[float, str, float, float]:
+    """K4's least time at a site: the larger of its bytes (the input in
+    ``in_dtype`` and the weights read once, the output written once, scales
+    and bias) at 3.35 TB/s and its 2 x 9 x B*H*W x cin x cout integer
+    operations at 1,979 TOPS."""
     cin_a, cin_b, cout = site
     px = b * (H // 2) * (W // 2)
-    nbytes = px * (cin_a + cin_b) + 9 * cout * (cin_a + cin_b) + 8 * cout + \
-        px * cout * (4 if out_dtype == torch.float32 else 2)
+    nbytes = px * (cin_a + cin_b) * in_dtype.itemsize + 9 * cout * (cin_a + cin_b) + \
+        8 * cout + 4 + px * cout * out_dtype.itemsize
     ops = 2 * 9 * px * (cin_a + cin_b) * cout
     t_bytes, t_ops = 1e3 * nbytes / PEAK_BYTES, 1e3 * ops / PEAK_INT8_OPS
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations", nbytes, ops
@@ -1994,12 +2038,11 @@ def ulp_count(got, want) -> tuple[int, int]:
     return int((d > 0).sum()), int(d.max())
 
 
-def k4_library(args, kw):
+def k4_library(codes, wq):
     """The nearest library calls at a site: ``torch._int_mm`` on the int8
-    im2col (built outside the timed call) and cuDNN's bfloat16 conv of the
-    same shape (channels_last)."""
-    xa, _, wq, _, _, xb = args
-    x = xa if xb is None else torch.cat([xa, xb], -1)
+    im2col of the codes (built outside the timed call) and cuDNN's bfloat16
+    conv of the same shape (channels_last)."""
+    x = torch.cat(codes, -1)
     xp = torch.nn.functional.pad(x.permute(0, 3, 1, 2).float(), (1, 1, 1, 1),
                                  mode="reflect").to(torch.int8).permute(0, 2, 3, 1)
     b, h, w, cin = x.shape
@@ -2012,6 +2055,109 @@ def k4_library(args, kw):
         (lambda: torch.nn.functional.conv2d(xbf, wbf, padding=1))
 
 
+def k4_site(b, label, site, dtype, seed: int, smi: str) -> tuple[dict, dict, float, bool]:
+    """Phase 16b at one site shape, batch and float dtype: K4 against its
+    plain version on the float input (static and dynamic ``s_x``) and on the
+    int8 codes, out float32 and bfloat16; its codes read back through
+    identity centre-tap weights; the scale kernel against its plain version;
+    then the times of the main path's combination (out = in = ``dtype``).
+    Returns (K4's times, the scale kernel's, the largest |kernel - plain|
+    with the static scale and on the codes, pass). The dynamic scale of the
+    extremes lies past 2^60, so the plain version's float64 dequant of
+    outputs near 1e35 may round twice and land an ulp from the fused
+    multiply-add, as its docstring says; the ulp counts show it."""
+    from v2e2v_tpu_torch.ops.cuda.qconv import qconv3x3, qconv3x3_plain, quantize_with
+    from v2e2v_tpu_torch.ops.cuda.qscale import act_scale, act_scale_plain
+
+    xa, s_x, wq, s_w, bias, xb = k4_inputs(b, site, dtype, seed)
+    parts = (xa,) if xb is None else (xa, xb)
+    codes = tuple(quantize_with(p, s_x) for p in parts)
+    s_dyn, s_plain = act_scale(parts), act_scale_plain(parts)
+    scale_ok = bool(s_dyn.view(torch.int32) == s_plain.view(torch.int32)) and \
+        float(act_scale([torch.zeros_like(p) for p in parts])) == 1.0
+    err, diffs = 0.0, {}
+    for out in (torch.float32, torch.bfloat16):
+        for kind, (xa_, xb_), s in (("float", (xa, xb), s_x), ("float dynamic", (xa, xb), s_dyn),
+                                    ("int8", (codes[0], codes[1] if xb is not None else None),
+                                     s_x)):
+            args = (xa_, s, wq, s_w, bias, xb_)
+            got, want = qconv3x3(*args, out_dtype=out), qconv3x3_plain(*args, out_dtype=out)
+            torch.cuda.synchronize()
+            diffs[(kind, DNAME[out])] = ulp_count(got, want)
+            if kind != "float dynamic":  # its outputs reach 1e35, where an ulp is ~1e28
+                err = max(err, float((got.float() - want.float()).abs().max()))
+    # the codes K4 staged: identity centre taps, unit weight scales, no bias
+    n = min(wq.shape[:2])
+    eye = torch.zeros_like(wq)
+    eye[torch.arange(n), torch.arange(n), 1, 1] = 1
+    back = qconv3x3(xa, s_x, eye, torch.ones(wq.shape[0], device="cuda"), None, xb) / s_x
+    cat = torch.cat(codes, -1)
+    codes_equal = torch.equal(back[..., :n], cat[..., :n].float())
+    ties = int(((torch.cat(parts, -1).float() / s_x).frac().abs() == 0.5).sum())
+    ok = codes_equal and scale_ok and all(
+        d[1] <= 1 and d[0] <= 1e-5 * cat[..., :1].numel() * wq.shape[0] for d in diffs.values())
+
+    # times: the main path's combination, float input with out = in = dtype
+    kw = {"out_dtype": dtype}
+    fwd = (xa, s_x, wq, s_w, bias, xb)
+    int8_args = (codes[0], s_x, wq, s_w, bias, codes[1] if xb is not None else None)
+
+    def pr13_route():  # eager quantize_with of each part, then the int8 entry
+        return qconv3x3(*(quantize_with(xa, s_x), s_x, wq, s_w, bias,
+                          None if xb is None else quantize_with(xb, s_x)), **kw)
+
+    def pr13_dynamic():  # eager scale passes, eager quantize, the int8 entry
+        s = act_scale_plain(parts)
+        return qconv3x3(*(quantize_with(xa, s), s, wq, s_w, bias,
+                          None if xb is None else quantize_with(xb, s)), **kw)
+
+    def dynamic():  # the scale kernel, then K4 on the float input
+        return qconv3x3(xa, act_scale(parts), wq, s_w, bias, xb, **kw)
+
+    t = {"ms": time_ms(lambda: qconv3x3(*fwd, **kw), iters=20),
+         "device_ms": device_ms(lambda: qconv3x3(*fwd, **kw)),
+         "int8_entry_device_ms": device_ms(lambda: qconv3x3(*int8_args, **kw)),
+         "pr13_route_ms": time_ms(pr13_route, iters=20),
+         "pr13_route_device_ms": device_ms(pr13_route),
+         "dynamic_device_ms": device_ms(dynamic),
+         "pr13_dynamic_device_ms": device_ms(pr13_dynamic),
+         "plain_ms": time_ms(lambda: qconv3x3_plain(*fwd, **kw), warmup=1, iters=3)}
+    t["bound_ms"], t["bound_by"], nbytes, ops = k4_bound_ms(b, site, dtype, dtype)
+    int_mm, cudnn = k4_library(codes, wq)
+    t["int_mm_ms"], t["cudnn_bf16_ms"] = time_ms(int_mm, iters=20), time_ms(cudnn, iters=20)
+    sc = {"ms": time_ms(lambda: act_scale(parts), iters=20),
+          "device_ms": device_ms(lambda: act_scale(parts)),
+          "plain_device_ms": device_ms(lambda: act_scale_plain(parts)),
+          "plain_ms": time_ms(lambda: act_scale_plain(parts), iters=20),
+          "vector_norm_device_ms": device_ms(
+              lambda: [torch.linalg.vector_norm(p, float("inf")) for p in parts]),
+          "bound_ms": 1e3 * (sum(p.numel() for p in parts) * dtype.itemsize + 4) / PEAK_BYTES}
+    sc["vector_norm_ms"] = time_ms(
+        lambda: [torch.linalg.vector_norm(p, float("inf")) for p in parts], iters=20)
+    say(f"[k4] {label} B={b} {H // 2}x{W // 2} in {DNAME[dtype]}: vs plain (outputs 1 ulp apart, "
+        f"max ulp) {', '.join(f'{k} out {o} {d[0]}/{d[1]}' for (k, o), d in diffs.items())} of "
+        f"{got.numel()}; codes through identity taps {'equal' if codes_equal else 'DIFFER'} "
+        f"({n} channels, {ties} inputs on .5 ties, max |code| {int(cat.abs().max())}); scale "
+        f"kernel {'equal' if scale_ok else 'DIFFERS'} (s_x {float(s_dyn):.8g}); kernel "
+        f"{t['ms']:.4f} ms as issued, {t['device_ms']:.4f} ms on the device (int8 entry "
+        f"{t['int8_entry_device_ms']:.4f}); the PR-13 route (eager quantize + int8 entry) "
+        f"{t['pr13_route_ms']:.4f} / {t['pr13_route_device_ms']:.4f} ms; dynamic scale kernel + "
+        f"K4 {t['dynamic_device_ms']:.4f} ms against eager scale + quantize + int8 entry "
+        f"{t['pr13_dynamic_device_ms']:.4f} ms on the device; plain {t['plain_ms']:.4f} ms; "
+        f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}: {nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} G "
+        f"int8 ops) = {100 * t['bound_ms'] / t['device_ms']:.1f}% on the device; torch._int_mm "
+        f"on the im2col {t['int_mm_ms']:.4f} ms; cuDNN bfloat16 conv {t['cudnn_bf16_ms']:.4f} ms "
+        f"({smi}) {'pass' if ok else 'FAIL'}")
+    say(f"[qscale] {label} B={b} in {DNAME[dtype]} ({len(parts)} part(s), "
+        f"{sum(p.numel() for p in parts)} values): kernel {sc['ms']:.4f} ms as issued, "
+        f"{sc['device_ms']:.4f} ms on the device; plain (eager passes) {sc['plain_ms']:.4f} / "
+        f"{sc['plain_device_ms']:.4f} ms; vector_norm(inf) per part {sc['vector_norm_ms']:.4f} / "
+        f"{sc['vector_norm_device_ms']:.4f} ms; bound {sc['bound_ms']:.4f} ms (bytes) = "
+        f"{100 * sc['bound_ms'] / sc['device_ms']:.1f}% on the device ({smi}) "
+        f"{'pass' if scale_ok else 'FAIL'}")
+    return t, sc, err, ok
+
+
 def site_scale(qp: dict, site: str) -> torch.Tensor:
     """The static ``s_x`` of a conv site named as ``ops/qconv._SITE_ORDERS``
     names it (``lstc.gates``, ``D``, ...)."""
@@ -2020,88 +2166,84 @@ def site_scale(qp: dict, site: str) -> torch.Tensor:
     return qp["s_x"]
 
 
-def int8_phase(seed: int, smi: str, root: Path, serve, served: dict, layers_recs: dict,
-               weights) -> dict:
-    """Phase 16: int8 inference at full width: (a) K4's build; (b) K4 against
-    its plain version at every site shape and its times; (c) the CISTA-LSTC
-    int8 pool on phase 4's schedule and voxel grids, dynamic and calibrated;
-    (d) the CISTA-TC int8 pool; (e) the E2V CLI with --quant int8 and
-    int8-static; (f) int8 against float pool steps and a trace by kind of
-    kernel. Every count is set to 0 just before each checked path. Returns
-    K4's rows of the kernels line and each path's launches by row."""
-    from v2e2v_tpu_torch.cli import test_e2v as cli
-    from v2e2v_tpu_torch.data.synthetic import write_dataset
-    from v2e2v_tpu_torch.models.cista import CistaConfig, init_cista_tc, with_derived
-    from v2e2v_tpu_torch.models import cista as cista_mod
-    from v2e2v_tpu_torch import serving
+def k4_build() -> None:
+    """Phase 16a: K4's kernels hold the integer wgmma (IGMMA) and no IMMA or
+    HGMMA, and they and the scale kernels spill nothing."""
     from v2e2v_tpu_torch.ops.cuda import _lib
-    from v2e2v_tpu_torch.ops.cuda.qconv import qconv3x3, qconv3x3_plain
-    from v2e2v_tpu_torch.ops.qconv import _SITE_ORDERS
-    from v2e2v_tpu_torch.serving import StreamPool
-    from v2e2v_tpu_torch.utils.configs import set_configs
 
-    t_phase = time.perf_counter()
-    k1, k2, k3, k4 = kernel_counters()
-    rows = {}
-
-    # (a) the build: IMMA (mma.sync on the integer tensor cores), no HGMMA, no spill
     lib = _lib.load()
-    imma = {k: v for k, v in sass_counts(lib.path, "IMMA").items() if "qconv3x3_kernel" in k}
-    hgmma = sass_counts(lib.path, "HGMMA")
+    igmma = {k: v for k, v in sass_counts(lib.path, "IGMMA").items() if "qconv3x3_kernel" in k}
+    imma, hgmma = sass_counts(lib.path, "IMMA"), sass_counts(lib.path, "HGMMA")
+    scale = [k for k in hgmma if "qscale_kernel" in k]
     spills, name = {}, None
     for line in lib.log.splitlines():
         if "Compiling entry function" in line:
             name = line.split("'")[1]
-        elif name in imma:
+        elif name in igmma or name in scale:
             m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
             if m:
                 spills[name] = int(m.group(1)) + int(m.group(2))
             m = re.search(r"Used (\d+) registers", line)
             if m:
                 say(f"[int8-build] {short_name(name)}: {m.group(1)} registers")
-    say(f"[int8-build] K4 (csrc/qconv3x3.cu): IMMA per kernel "
-        f"{ {short_name(k): v for k, v in imma.items()} }, HGMMA "
-        f"{sum(hgmma.get(k, 0) for k in imma)}, spilled bytes "
-        f"{sum(spills.get(k, 1) for k in imma)}; dynamic shared memory per block "
-        f"{lib.lib.v2e_qconv3x3_smem_bytes()} B (want 2 kernels, IMMA in each, no HGMMA, 0 spills)")
-    if len(imma) != 2 or any(v == 0 or hgmma.get(k, 0) or spills.get(k, 1)
-                             for k, v in imma.items()):
-        fail("a K4 kernel is missing, has no IMMA instruction, has HGMMA, or spills")
+    say(f"[int8-build] K4 (csrc/qconv3x3.cu): IGMMA per kernel "
+        f"{ {short_name(k): v for k, v in igmma.items()} }, IMMA "
+        f"{sum(imma.get(k, 0) for k in igmma)}, HGMMA {sum(hgmma.get(k, 0) for k in igmma)}, "
+        f"spilled bytes {sum(spills.get(k, 1) for k in igmma)}; dynamic shared memory per block "
+        f"cout={C} {lib.lib.v2e_qconv3x3_smem_bytes(C)} B, cout={2 * C} "
+        f"{lib.lib.v2e_qconv3x3_smem_bytes(2 * C)} B (want 12 kernels: int8, float32 and bfloat16 "
+        f"in x float32 and bfloat16 out x NB 64 and 128, IGMMA in each, no IMMA or HGMMA, 0 "
+        f"spills); the scale kernel (csrc/qscale.cu) {[short_name(k) for k in scale]}, spilled "
+        f"bytes {sum(spills.get(k, 1) for k in scale)} (want 2 kernels, 0 spills)")
+    if len(igmma) != 12 or any(v == 0 or imma.get(k, 0) or hgmma.get(k, 0) or spills.get(k, 1)
+                               for k, v in igmma.items()):
+        fail("a K4 kernel is missing, has no IGMMA instruction, has IMMA or HGMMA, or spills")
+    if len(scale) != 2 or any(spills.get(k, 1) for k in scale):
+        fail("a scale kernel is missing or spills")
 
-    # (b) K4 against its plain version at every site shape, and its times
+
+def int8_phase(seed: int, smi: str, root: Path, serve, served: dict, layers_recs: dict,
+               weights) -> dict:
+    """Phase 16: int8 inference at full width: (a) K4's build; (b) K4 and the
+    scale kernel against their plain versions at every site shape and their
+    times; (c) the CISTA-LSTC int8 pool on phase 4's schedule and voxel
+    grids, dynamic and calibrated; (d) the CISTA-TC int8 pool; (e) the E2V
+    CLI with --quant int8 and int8-static; (f) int8 against float pool steps,
+    each site's input strides and a trace by kind of kernel. Every count is
+    set to 0 just before each checked path. Returns the rows of K4 and the
+    scale kernel in the kernels line and each path's launches by row."""
+    from v2e2v_tpu_torch.cli import test_e2v as cli
+    from v2e2v_tpu_torch.data.synthetic import write_dataset
+    from v2e2v_tpu_torch.models.cista import CistaConfig, init_cista_tc
+    from v2e2v_tpu_torch.models import cista as cista_mod
+    from v2e2v_tpu_torch import serving
+    from v2e2v_tpu_torch.ops import qconv as qconv_mod
+    from v2e2v_tpu_torch.ops.qconv import _SITE_ORDERS
+    from v2e2v_tpu_torch.serving import StreamPool
+    from v2e2v_tpu_torch.utils.configs import set_configs
+
+    t_phase = time.perf_counter()
+    k1, k2, k3, k4, k5 = kernel_counters()
+    rows = {}
+
+    # (a) the build
+    k4_build()
+
+    # (b) K4 and the scale kernel against their plain versions at every site
+    # shape, and their times
     k4_err = {torch.float32: 0.0, torch.bfloat16: 0.0}
     per_shape = {DNAME[d]: {} for d in k4_err}
+    per_scale = {DNAME[d]: {} for d in k4_err}
     for b in (CAPACITY, 1):
         for label, (site, n) in K4_SHAPES.items():
             for dtype in (torch.float32, torch.bfloat16):
-                res = {}
-                for full in (False, True):
-                    args, kw = k4_inputs(b, site, full, dtype, seed)
-                    got, want = qconv3x3(*args, **kw), qconv3x3_plain(*args, **kw)
-                    torch.cuda.synchronize()
-                    res[full] = ulp_count(got, want)
-                    k4_err[dtype] = max(k4_err[dtype], float((got.float() - want.float()).abs().max()))
-                ok = res[False] == (0, 0) and res[True][1] <= 1 and res[True][0] <= 1e-5 * got.numel()
-                ms = time_ms(lambda: qconv3x3(*args, **kw), iters=20)
-                dev_ms = device_ms(lambda: qconv3x3(*args, **kw))
-                plain_ms = time_ms(lambda: qconv3x3_plain(*args, **kw), warmup=1, iters=3)
-                bound, by, nbytes, ops = k4_bound_ms(b, site, dtype)
-                int_mm, cudnn = k4_library(args, kw)
-                int_mm_ms, cudnn_ms = time_ms(int_mm, iters=20), time_ms(cudnn, iters=20)
-                per_shape[DNAME[dtype]][f"{label} B={b}"] = {
-                    "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": bound,
-                    "bound_by": by, "int_mm_ms": int_mm_ms, "cudnn_bf16_ms": cudnn_ms,
-                    "calls_per_step": n}
-                say(f"[k4] {label} B={b} {H // 2}x{W // 2} out {DNAME[dtype]}: integer core "
-                    f"{'equal' if res[False] == (0, 0) else f'DIFFERS {res[False]}'}; full range "
-                    f"{res[True][0]} outputs 1 ulp apart (max {res[True][1]} ulp) of {got.numel()}; "
-                    f"kernel {ms:.4f} ms as issued, {dev_ms:.4f} ms on the device; plain "
-                    f"{plain_ms:.4f} ms; bound {bound:.4f} ms ({by}: {nbytes / 1e6:.1f} MB, "
-                    f"{ops / 1e9:.2f} G int8 ops) = {100 * bound / dev_ms:.1f}% on the device; "
-                    f"torch._int_mm on the im2col {int_mm_ms:.4f} ms; cuDNN bfloat16 conv "
-                    f"{cudnn_ms:.4f} ms ({smi}) {'pass' if ok else 'FAIL'}")
+                t, sc, err, ok = k4_site(b, label, site, dtype, seed, smi)
+                k4_err[dtype] = max(k4_err[dtype], err)
+                per_shape[DNAME[dtype]][f"{label} B={b}"] = {**t, "calls_per_step": n}
+                per_scale[DNAME[dtype]][f"{label} B={b}"] = {**sc, "calls_per_step": n}
                 if not ok:
-                    fail(f"K4 disagrees with its plain version at {label} B={b} {DNAME[dtype]}")
+                    fail(f"K4 or the scale kernel disagrees with its plain version at {label} "
+                         f"B={b} {DNAME[dtype]}")
 
     # (c) and (d) the int8 pools against their plain versions, dynamic, then calibrated
     cfgs = {"cista-lstc": CistaConfig(image_dim=(H, W), base_channels=C, depth=DEPTH, num_bins=NB,
@@ -2118,7 +2260,7 @@ def int8_phase(seed: int, smi: str, root: Path, serve, served: dict, layers_recs
         calib_lines.append(out)
         return out
 
-    main_k4 = {}
+    main_k4, main_scale = {}, {}
     for mode, cfg in cfgs.items():
         want_n = K4_PER_STEP[mode]
         for dtype in (torch.float32, torch.bfloat16):
@@ -2143,14 +2285,16 @@ def int8_phase(seed: int, smi: str, root: Path, serve, served: dict, layers_recs
                             f"of {CAPACITY} grids: SSIM delta {delta:.6f}, static scales adopted="
                             f"{adopted}, requant_chain={pool.cfg.requant_chain}; s_x {sites}")
                     if impl == "cuda":
-                        counts_zero(k1, k2, k3, k4)
+                        counts_zero(k1, k2, k3, k4, k5)
                     pools[impl] = (pool, *serve(pool, served[dtype], counter=k4))
                     if impl == "cuda":
                         key = f"int8_{mode.replace('-', '_')}_{scales}_pool_launches"
                         rows[key] = add_counts(rows.get(key, {}), row_counts())
                         other = k1.launches + k2.launches + k3.launches
+                        n_scale, by_input = k5.launches, dict(k4.launches_by_input)
                 pool, recs, _, per_step = pools["cuda"]
                 ref_pool, ref, _, _ = pools["plain"]
+                want_scale = (want_n if scales == "dynamic" else 0) * len(per_step)
                 stacked = torch.stack(list(recs.values()))
                 states = (pool._states.cell, pool._states.z, *pool._states.dg)
                 finite = bool(torch.isfinite(stacked).all()) and all(
@@ -2168,20 +2312,24 @@ def int8_phase(seed: int, smi: str, root: Path, serve, served: dict, layers_recs
                 near = mean_all < INT8_VS_FLOAT[0] and mean_last < INT8_VS_FLOAT[1]
                 say(f"[int8-pool] {mode} {DNAME[dtype]} {scales}: {len(recs)} reconstructions, "
                     f"finite={finite} in[0,1]={in_range}; K4 launches per step {per_step} (want "
-                    f"{want_n} each), K1 + K2 + K3 {other} (want 0); K4 vs its plain version: "
-                    f"reconstructions max_abs_err={err:.3e}, states (cell, z, dg h, dg c) "
-                    f"{', '.join(f'{e:.3e}' for e, _ in state_errs)} (tol {TOL[dtype]} + "
-                    f"{TOL[dtype]} |ref|); vs the float pool mean |diff| {mean_all:.4f} (< "
-                    f"{INT8_VS_FLOAT[0]}), last step {mean_last:.4f} (< {INT8_VS_FLOAT[1]}) "
-                    f"{'pass' if ok and finite and in_range and near else 'FAIL'}")
-                if not (finite and in_range) or any(n != want_n for n in per_step) or other:
+                    f"{want_n} each; by input {by_input}), scale kernel {n_scale} in "
+                    f"{len(per_step)} steps (want {want_scale}), K1 + K2 + K3 {other} (want 0); "
+                    f"K4 vs its plain version: reconstructions max_abs_err={err:.3e}, states "
+                    f"(cell, z, dg h, dg c) {', '.join(f'{e:.3e}' for e, _ in state_errs)} (tol "
+                    f"{TOL[dtype]} + {TOL[dtype]} |ref|); vs the float pool mean |diff| "
+                    f"{mean_all:.4f} (< {INT8_VS_FLOAT[0]}), last step {mean_last:.4f} (< "
+                    f"{INT8_VS_FLOAT[1]}) {'pass' if ok and finite and in_range and near else 'FAIL'}")
+                if not (finite and in_range) or any(n != want_n for n in per_step) or other or \
+                        n_scale != want_scale:
                     fail(f"the int8 {mode} pool ({DNAME[dtype]}, {scales}) did not run K4 "
-                         f"{want_n} times per step alone, or gave bad reconstructions")
+                         f"{want_n} times and the scale kernel {want_scale} times alone, or gave "
+                         "bad reconstructions")
                 if not (ok and near):
                     fail(f"the int8 {mode} pool ({DNAME[dtype]}, {scales}) disagrees with its "
                          "plain version or strays from the float pool")
                 if mode == "cista-lstc" and scales == "dynamic":
                     main_k4[dtype] = k4.launches_by_dtype[DNAME[dtype]]
+                    main_scale[dtype] = k5.launches_by_dtype[DNAME[dtype]]
     # (e) the E2V CLI with --quant int8 and int8-static (phase 9's first sequence, B = 1)
     data, model = root / "int8_data", root / "int8_model.pth.tar"
     write_dataset(data, seed, 1, CLI_FRAMES, H, W, CLI_EVENTS)
@@ -2206,7 +2354,7 @@ def int8_phase(seed: int, smi: str, root: Path, serve, served: dict, layers_recs
 
         with swapped((cli, "make_step", counted)):
             rec = cli.Reconstructor(opts, "cuda")
-            counts_zero(k1, k2, k3, k4)
+            counts_zero(k1, k2, k3, k4, k5)
             out = io.StringIO()
             t0 = time.perf_counter()
             with contextlib.redirect_stdout(out):
@@ -2214,36 +2362,41 @@ def int8_phase(seed: int, smi: str, root: Path, serve, served: dict, layers_recs
             torch.cuda.synchronize()
             run_s = time.perf_counter() - t0
         rows[f"int8_cli_{quant.replace('-', '_')}_launches"] = row_counts()
-        n_k4, n_k12 = k4.launches, k1.launches + k2.launches
+        n_k4, n_k12, n_scale = k4.launches, k1.launches + k2.launches, k5.launches
         line = [ln for ln in out.getvalue().splitlines() if ln.startswith("[int8-static]")]
         # calibrating runs the int8 step twice (the dynamic scales, then the
         # drift gate's static step) and the float step once (K1, 2 x depth)
         static = quant == "int8-static"
         extra, want_k1 = (2 * K4_PER_STEP["cista-lstc"], 2 * DEPTH) if static else (0, 0)
         n = calls[0]
+        want_scale = K4_PER_STEP["cista-lstc"] * (1 if static else n)
         prev = torch.zeros(1, H, W, 1, device="cuda")
         st = cista_mod.cista_zero_state(rec.cfg, 1, torch.float32, "cuda")
         one = served[torch.float32][(0, 0)][None]
         step_ms = time_ms(lambda: rec.step(rec.params, one, prev, st), iters=20)
         ok = n > 0 and n_k4 == K4_PER_STEP["cista-lstc"] * n + extra and n_k12 == want_k1 and \
-            (not static or len(line) == 1)
+            n_scale == want_scale and (not static or len(line) == 1)
         say(f"[int8-cli] E2V CLI --quant {quant} float32, one sequence of {CLI_FRAMES} frames: "
             f"{n} reconstructions, {n / run_s:.1f} recon/s (run(), host clock); model step "
             f"{step_ms:.4f} ms (B = 1, CUDA events); K4 launches {n_k4} (want "
-            f"{K4_PER_STEP['cista-lstc']} x {n}{f' + {extra} calibrating' if extra else ''}), K1 "
-            f"+ K2 {n_k12} (want {want_k1}{': the drift gate' if static else ''}); "
+            f"{K4_PER_STEP['cista-lstc']} x {n}{f' + {extra} calibrating' if extra else ''}), "
+            f"scale kernel {n_scale} (want {want_scale}{': the calibrating step' if static else ''}"
+            f"), K1 + K2 {n_k12} (want {want_k1}{': the drift gate' if static else ''}); "
             f"{line[0] if line else 'no calibration line'}"
             f" ({smi}) {'pass' if ok else 'FAIL'}")
         if not ok:
             fail(f"the E2V CLI with --quant {quant} did not run as it should")
 
-    # (f) the int8 pool step against the float pool step, in turns, and traces
+    # (f) the int8 pool step against the float pool step, in turns; each
+    # site's input strides; traces by kind of kernel
     import importlib.util
     spec = importlib.util.spec_from_file_location(
         "profile_torch_pool", Path(__file__).resolve().parent / "scripts" / "profile_torch_pool.py")
     prof = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(prof)
-    times = {}
+    prof.CATEGORIES = INT8_KINDS + tuple(c for c in prof.CATEGORIES
+                                         if c[0] not in ("K4", "quantize passes and relu"))
+    times, traces = {}, {}
     for dtype in (torch.float32, torch.bfloat16):
         vox = list(served[dtype].values())[:CAPACITY]
         ms, peak = {"none": [], "int8": []}, {}
@@ -2258,6 +2411,23 @@ def int8_phase(seed: int, smi: str, root: Path, serve, served: dict, layers_recs
                 if i >= 2:
                     ms[quant].append(t)
             peak[quant] = max(peak.get(quant, 0.0), torch.cuda.max_memory_allocated() / 2**20)
+            if quant == "int8" and len(ms[quant]) == 6:  # each site's input, one step
+                seen, conv = [], qconv_mod._IMPLS["cuda"]
+
+                def record(xa, *a, **k):
+                    xb = a[4] if len(a) > 4 else k.get("xb")
+                    seen.append(f"{str(xa.dtype).split('.')[1]} {xa.stride()}"
+                                f"{'' if xb is None else f' + {xb.stride()}'}")
+                    return conv(xa, *a, **k)
+
+                qconv_mod._IMPLS["cuda"] = record
+                try:
+                    pool.step(batch, fetch=False)
+                finally:
+                    qconv_mod._IMPLS["cuda"] = conv
+                say(f"[int8-strides] {DNAME[dtype]} step, each K4 call's input (dtype, strides; "
+                    f"every one contiguous NHWC): "
+                    f"{'; '.join(f'{s}: {v}' for s, v in zip(_SITE_ORDERS['cista-lstc'](DEPTH), seen))}")
             del pool
         med = {q: float(np.median(v)) for q, v in ms.items()}
         times[DNAME[dtype]] = med
@@ -2266,39 +2436,68 @@ def int8_phase(seed: int, smi: str, root: Path, serve, served: dict, layers_recs
             f"{len(ms['none'])} each, in turns, CUDA events; min {min(ms['none']):.3f} / "
             f"{min(ms['int8']):.3f}); int8/float {med['int8'] / med['none']:.3f}; "
             f"max_memory_allocated float {peak['none']:.1f} / int8 {peak['int8']:.1f} MiB ({smi})")
-        prof.trace(prof.pool_steps(cfgs["cista-lstc"], weights, dtype, seed), 5,
-                   f"{DNAME[dtype]} quant=int8 capacity 8 step")
+        traces[DNAME[dtype]] = prof.trace(prof.pool_steps(cfgs["cista-lstc"], weights, dtype, seed),
+                                          5, f"{DNAME[dtype]} quant=int8 capacity 8 step")
+        kinds = traces[DNAME[dtype]]["kinds"]
+        say(f"[int8-trace] {DNAME[dtype]} dynamic int8 step: K4 {kinds['K4'][1]:g} and the scale "
+            f"kernel {kinds['K4 scale'][1]:g} launches per step (want {K4_PER_STEP['cista-lstc']} "
+            f"each), eager quantize passes {kinds['quantize passes'][1]:g} (want 0)")
+        if kinds["quantize passes"][1] or kinds["K4 scale"][1] != K4_PER_STEP["cista-lstc"]:
+            fail("the dynamic int8 step still runs eager quantize passes, or not one scale "
+                 "kernel per site")
 
     entries = []
     for dtype in (torch.float32, torch.bfloat16):
-        shapes = per_shape[DNAME[dtype]]
-        step = {key: sum(v[key] * v["calls_per_step"] for k, v in shapes.items()
-                         if k.endswith(f"B={CAPACITY}"))
-                for key in ("ms", "device_ms", "plain_ms", "int_mm_ms", "cudnn_bf16_ms")}
+        shapes, scales = per_shape[DNAME[dtype]], per_scale[DNAME[dtype]]
+
+        def per_step(table, key):  # the step's 15 calls at B = 8, summed
+            return sum(v[key] * v["calls_per_step"] for k, v in table.items()
+                       if k.endswith(f"B={CAPACITY}"))
+
         # the step's 15 calls as one function: the larger of all their bytes
         # at 3.35 TB/s and all their operations at 1,979 TOPS
-        t_bytes = 1e3 * sum(k4_bound_ms(CAPACITY, s, dtype)[2] * n
+        t_bytes = 1e3 * sum(k4_bound_ms(CAPACITY, s, dtype, dtype)[2] * n
                             for s, n in K4_SHAPES.values()) / PEAK_BYTES
-        t_ops = 1e3 * sum(k4_bound_ms(CAPACITY, s, dtype)[3] * n
+        t_ops = 1e3 * sum(k4_bound_ms(CAPACITY, s, dtype, dtype)[3] * n
                           for s, n in K4_SHAPES.values()) / PEAK_INT8_OPS
-        step["bound_ms"] = max(t_bytes, t_ops)
-        by = "bytes" if t_bytes >= t_ops else "operations"
         entries.append({
             "name": f"qconv3x3 ({DNAME[dtype]})", "route": "cuda", "source": K4_SOURCE,
             "replaces": K4_REPLACES, "launches": main_k4[dtype],
-            "max_abs_err": k4_err[dtype], "ms": step["ms"], "device_ms": step["device_ms"],
-            "plain_ms": step["plain_ms"], "bound_ms": step["bound_ms"], "bound_by": by,
-            "library_ms": step["int_mm_ms"], "cudnn_bf16_ms": step["cudnn_bf16_ms"],
+            "max_abs_err": k4_err[dtype], "ms": per_step(shapes, "ms"),
+            "device_ms": per_step(shapes, "device_ms"), "plain_ms": per_step(shapes, "plain_ms"),
+            "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else
+            "operations", "library_ms": per_step(shapes, "int_mm_ms"),
+            "cudnn_bf16_ms": per_step(shapes, "cudnn_bf16_ms"),
+            "int8_entry_device_ms": per_step(shapes, "int8_entry_device_ms"),
+            "pr13_route_ms": per_step(shapes, "pr13_route_ms"),
+            "pr13_route_device_ms": per_step(shapes, "pr13_route_device_ms"),
+            "dynamic_device_ms": per_step(shapes, "dynamic_device_ms"),
+            "pr13_dynamic_device_ms": per_step(shapes, "pr13_dynamic_device_ms"),
             "per_shape": shapes, "pool_step_ms": times[DNAME[dtype]],
-            "tensor_cores": True,
-            "design": "implicit GEMM on mma.sync m16n8k32 s8 (IMMA): 8x16-pixel x 64-channel "
-                      "tiles, one warp per tile row, 32-channel K chunks staged by cp.async "
-                      "(haloed input from reflected sources, taps laid out once in B-fragment "
-                      "order) through a 2-stage ring, int32 sums, fused float32 dequant",
+            "trace_per_step": traces[DNAME[dtype]]["kinds"], "tensor_cores": True,
+            "design": K4_DESIGN,
             "note": "times are per pool step at B = 8 (the 15 calls of one CISTA-LSTC step "
-                    "summed over the site shapes); library_ms is torch._int_mm on the int8 "
-                    "im2col (built outside the timed call), which computes the integer core "
-                    "only; no Pallas kernel: it replaces XLA's int8 conv",
+                    "summed over the site shapes), float input and output in the row's dtype, "
+                    "static s_x; the bound counts the float input read once; library_ms is "
+                    "torch._int_mm on the int8 im2col (built outside the timed call), which "
+                    "computes the integer core only; pr13_route_* is eager quantize_with of each "
+                    "part and the kernel's int8 entry; no Pallas kernel: it replaces XLA's "
+                    "int8 conv and the quantize before it",
+        })
+        entries.append({
+            "name": f"act_scale ({DNAME[dtype]})", "route": "cuda", "source": QSCALE_SOURCE,
+            "replaces": QSCALE_REPLACES, "launches": main_scale[dtype], "max_abs_err": 0.0,
+            "ms": per_step(scales, "ms"), "device_ms": per_step(scales, "device_ms"),
+            "plain_ms": per_step(scales, "plain_ms"),
+            "plain_device_ms": per_step(scales, "plain_device_ms"),
+            "bound_ms": per_step(scales, "bound_ms"), "bound_by": "bytes",
+            "library_ms": per_step(scales, "vector_norm_ms"),
+            "library_device_ms": per_step(scales, "vector_norm_device_ms"),
+            "per_shape": scales,
+            "note": "times per pool step at B = 8 (the 15 dynamic sites of one CISTA-LSTC step "
+                    "summed); library_ms is torch.linalg.vector_norm(x, inf) once per part; "
+                    "bit-equal to its plain version (the eager passes it replaces); no Pallas "
+                    "kernel: it replaces XLA's max |x| / 127 of quantize_activation",
         })
     say(f"[phase] int8 inference {time.perf_counter() - t_phase:.1f} s")
     return {"entries": entries, "rows": rows}

@@ -941,6 +941,87 @@ def test_qconv_kernel_matches_plain(card, dims, full, out):
         assert torch.equal(got, want)
 
 
+def _k4_float_inputs(device, b, h, w, cin_a, cin_b, cout, dtype, seed=0):
+    """Float inputs for K4 to quantize with the static s_x = 2^-4: values on
+    its .5 ties and past +-127 (saturating), a few extremes, weights, scales
+    and a bias."""
+    g = torch.Generator().manual_seed(seed)
+    s_x = torch.tensor(0.0625)
+    x = (torch.randint(-300, 301, (b, h, w, cin_a + cin_b), generator=g).float() / 2 * s_x)
+    # values past 2^64, infinities, subnormals and zeros take the kernel's
+    # exact division's other path
+    x.view(-1)[:10] = torch.tensor([1e30, -3e38, float("inf"), float("-inf"), 1e-40, -1e-30,
+                                    0.0, -0.0, 2e19, -7e-20])
+    x = x.to(dtype)
+    wq = torch.randint(-127, 128, (cout, cin_a + cin_b, 3, 3), generator=g, dtype=torch.int8)
+    s_w, bias = torch.rand(cout, generator=g) * 1e-3, torch.randn(cout, generator=g)
+    xa, xb = x[..., :cin_a].contiguous(), x[..., cin_a:].contiguous() if cin_b else None
+    to = (lambda t: None if t is None else t.to(device))
+    return (to(xa), to(s_x), to(wq), to(s_w), to(bias), to(xb))
+
+
+@pytest.mark.parametrize("dims", [(1, 90, 120, *s) for s in K4_SITES] + K4_SMALL, ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["in-f32", "in-bf16"])
+@pytest.mark.parametrize("out", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_qconv_kernel_float_input_matches_plain(card, dims, dtype, out):
+    """K4 quantizing a float input while it stages it, against its plain
+    version (``quantize_with``, then the integer conv): outputs as in
+    ``test_qconv_kernel_matches_plain``; and the codes themselves, read back
+    through identity centre-tap weights (unit scales, out = code * 2^-4
+    exactly), equal ``quantize_with``'s, ties to even and +-127 included."""
+    from v2e2v_tpu_torch.ops.cuda.qconv import qconv3x3, qconv3x3_plain, quantize_with
+
+    args = _k4_float_inputs(card, *dims, dtype)
+    before = dict(qconv3x3.launches_by_input)
+    got = qconv3x3(*args, out_dtype=out)
+    want = qconv3x3_plain(*args, out_dtype=out)
+    torch.cuda.synchronize()
+    name = "float32" if dtype == torch.float32 else "bfloat16"
+    assert qconv3x3.launches_by_input[name] == before[name] + 1
+    assert got.dtype == out and got.shape == want.shape
+    bits = torch.int32 if out == torch.float32 else torch.int16
+    ulps = (got.view(bits).int() - want.view(bits).int()).abs()
+    assert int(ulps.max()) <= 1 and int((ulps > 0).sum()) <= 1e-5 * ulps.numel()
+    if out == torch.float32:
+        xa, s_x, wq, _, _, xb = args
+        cin, cout = wq.shape[1], wq.shape[0]
+        eye = torch.zeros_like(wq)
+        n = min(cin, cout)
+        eye[torch.arange(n), torch.arange(n), 1, 1] = 1
+        ones = torch.ones(cout, device=card)
+        codes = torch.cat([quantize_with(p, s_x) for p in (xa, xb) if p is not None], -1)
+        back = qconv3x3(xa, s_x, eye, ones, None, xb) / s_x
+        assert torch.equal(back[..., :n], codes[..., :n].float())
+        assert int(codes.abs().max()) == 127
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shapes", [[(8, 90, 120, 64), (8, 90, 120, 128)], [(1, 90, 120, 128)],
+                                    [(3, 5, 7, 3)], [(2, 3, 1, 5), (2, 3, 1, 7)]], ids=str)
+def test_qscale_kernel_matches_plain(card, dtype, shapes):
+    """The scale kernel against its plain version, bit for bit: a site's
+    parts at B = 8 and 1, element counts that leave a tail of fewer than 16
+    bytes, twice in a row (the ticket resets), a zero tensor (scale 1) and a
+    maximum where dividing by 127 and multiplying by f32(1 / 127) differ."""
+    from v2e2v_tpu_torch.ops.cuda.qscale import act_scale, act_scale_plain
+
+    g = torch.Generator().manual_seed(len(shapes))
+    parts = [(torch.randn(s, generator=g) * (1 + 3 * i)).to(dtype).to(card)
+             for i, s in enumerate(shapes)]
+    before = act_scale.launches
+    for _ in range(2):
+        got, want = act_scale(parts), act_scale_plain(parts)
+        assert got.dtype == torch.float32 and got.dim() == 0
+        assert got.view(torch.int32) == want.view(torch.int32)
+    assert act_scale.launches == before + 2
+    assert float(act_scale([torch.zeros_like(p) for p in parts])) == 1.0
+    # max |x| = 0.8125: its product with f32(1 / 127) and a true division
+    # by 127 round apart
+    x = torch.full((3, 5, 7, 16), 0.25, dtype=dtype, device=card)
+    x[1, 2, 3, 4] = -0.8125
+    assert act_scale([x]).view(torch.int32) == act_scale_plain([x]).view(torch.int32)
+
+
 def test_qconv_kernel_refuses_what_it_cannot_run(card):
     from v2e2v_tpu_torch.ops.cuda.qconv import qconv3x3
 
@@ -963,6 +1044,19 @@ def test_qconv_kernel_refuses_what_it_cannot_run(card):
         qconv3x3(xa, s_x.clone().requires_grad_(True), wq, s_w, bias)
     with torch.no_grad():
         qconv3x3(xa, s_x.clone().requires_grad_(True), wq, s_w, bias)
+    # a float input: the same refusals, never a copy of a strided input
+    from v2e2v_tpu_torch.ops.cuda.qscale import act_scale
+
+    xf = xa.float()
+    with pytest.raises(ValueError, match="contiguous"):
+        qconv3x3(xf.transpose(1, 2), s_x, wq, s_w, bias)
+    with pytest.raises(ValueError, match="contiguous"):
+        act_scale([xf.transpose(1, 2)])
+    with pytest.raises(TypeError, match="one dtype"):
+        qconv3x3(xf[..., :16].contiguous(), s_x, wq, s_w, bias, xb=xa[..., 16:].contiguous())
+    flat = torch.zeros(xf.numel() + 1, device=card)
+    with pytest.raises(ValueError, match="16-byte"):
+        qconv3x3(flat[1:].view(xf.shape), s_x, wq, s_w, bias)
 
 
 @pytest.mark.parametrize("mode", ["cista-lstc", "cista-tc"])
@@ -972,10 +1066,12 @@ def test_int8_pool_through_k4_matches_plain(card, mode, dtype, tol):
     """A 3-step int8 pool (32x48, C = 16, depth 2, capacity 2) through K4
     against the same pool through K4's plain version (``qconv_impl="plain"``):
     reconstructions and all four states; K4 launched 3 + 2 depth + 2 (LSTC)
-    or 1 + 2 depth + 2 (TC) times per step; then ``calibrate`` and 3 more
-    steps with the static scales."""
+    or 1 + 2 depth + 2 (TC) times per step, and the scale kernel as many
+    times; then ``calibrate`` and 3 more steps with the static scales (no
+    scale kernel)."""
     from v2e2v_tpu_torch.models.cista import init_cista_tc
     from v2e2v_tpu_torch.ops.cuda.qconv import qconv3x3
+    from v2e2v_tpu_torch.ops.cuda.qscale import act_scale
     from v2e2v_tpu_torch.serving import StreamPool
 
     cfg = CistaConfig(image_dim=(32, 48), base_channels=16, depth=2, model_mode=mode,
@@ -991,10 +1087,12 @@ def test_int8_pool_through_k4_matches_plain(card, mode, dtype, tol):
     for t in range(6):
         if t == 3:
             assert [p.calibrate(vox[:3]) for p in pools] == [True, True]
-        before = qconv3x3.launches
+        before, scales = qconv3x3.launches, act_scale.launches
         outs = [p.step({s: vox[t, i] for i, s in enumerate(sids)}, fetch=False)
                 for p, sids in zip(pools, ids)]
         assert qconv3x3.launches - before == per_step
+        # one scale kernel per site with dynamic scales, none once calibrated
+        assert act_scale.launches - scales == (per_step if t < 3 else 0)
         for a, b in zip(ids[0], ids[1]):
             torch.testing.assert_close(outs[0][a].float(), outs[1][b].float(), atol=tol, rtol=tol)
         for x, y in zip((pools[0]._states.cell, pools[0]._states.z, *pools[0]._states.dg),

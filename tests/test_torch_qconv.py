@@ -1,6 +1,8 @@
-"""The port's int8 primitives (``v2e2v_tpu_torch/ops/qconv.py``) and kernel
-K4's plain version and tap layout (``ops/cuda/qconv.py``,
-``ops/cuda/conv_tc.imma_taps``) against the JAX package's ``ops/qconv.py``.
+"""The port's int8 primitives (``v2e2v_tpu_torch/ops/qconv.py``), kernel
+K4's plain version, tap layout and a model of its blocks (``ops/cuda/qconv.py``,
+``ops/cuda/conv_tc.s8_taps``, ``csrc/qconv3x3.cu``) and the scale kernel's
+plain version (``ops/cuda/qscale.py``) against the JAX package's
+``ops/qconv.py``.
 
 The JAX side runs jitted, as every JAX step runs it: compiled XLA divides by
 the constant 127 as a product with its float32 reciprocal, which the port
@@ -247,114 +249,286 @@ def test_qconv_lstm_step_matches_jax():
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=0, atol=2e-6)
 
 
+# K4's staging and descriptor strides as the source states them (checked
+# against it below), in bytes
+KCH = K["KCH"]
+IN_H, IN_W = K["TILE_H"] + 2, K["TILE_W"] + 2
+PIXELS = IN_H * IN_W
+ITEMS = KCH // 16 * PIXELS
+A_SBO, A_LBO = IN_W * 16, PIXELS * 16
+
+
+def _b_lbo(nb):
+    return nb * 16
+
+
+B_SBO = 128
+
+
+def test_k4_source_states_the_modelled_layout():
+    """The constants and descriptor strides the models below restate."""
+    assert (K["TILE_H"], K["TILE_W"], K["THREADS"], KCH, K["PER_THREAD"]) == (
+        16, 8, 256, conv_tc.S8_KCH, 2)
+    for decl in ("IN_H = TILE_H + 2, IN_W = TILE_W + 2", "ROWS = KCH / 16",
+                 "PIXELS = IN_H * IN_W", "ITEMS = ROWS * PIXELS", "A_SBO = IN_W * 16",
+                 "A_LBO = PIXELS * 16", "B_LBO = NB * 16, B_SBO = 128",
+                 "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8",
+                 "for (int q = 0; q < KCH / 32; ++q)",
+                 "return cout > 64 ? 128 : 64"):
+        assert decl in SOURCE, decl
+    assert [conv_tc.n_block(c) for c in (8, 64, 72, 128, 256)] == [64, 64, 128, 128, 128]
+
+
+def _b_operand(slot, nb, q):
+    """The ``[32, nb]`` B operand of k-step ``q`` read from one tap slice
+    (flat bytes) through the K-major no-swizzle descriptor: element (k, n) in
+    core matrix (k // 16, n // 8), row n % 8, byte k % 16."""
+    k = torch.arange(32)[:, None]
+    n = torch.arange(nb)[None, :]
+    return slot[(2 * q + k // 16) * _b_lbo(nb) + (n // 8) * B_SBO + 16 * (n % 8) + k % 16]
+
+
 @pytest.mark.parametrize("cin_a,cin_b,cout", [(64, 128, 256), (64, 0, 128), (128, 128, 128),
-                                              (16, 32, 72), (48, 0, 8)])
-def test_imma_taps_hold_every_b_fragment(cin_a, cin_b, cout):
-    """K4's taps, read back through the ``mma.sync`` m16n8k32 B-fragment
-    mapping (lane ``g = lane // 4``, ``t = lane % 4``; register 0 holds K rows
-    ``4t .. 4t + 3`` of column g, register 1 rows ``16 + 4t ..``), give back
-    every weight once, zeros past cin and cout, in the source's chunk and
-    block sizes."""
-    assert (K["KC"], K["NBLK"], K["TH"], K["TW"]) == (conv_tc.IMMA_KC, conv_tc.IMMA_CO, 8, 16)
+                                              (128, 0, 64), (64, 64, 256), (16, 32, 72),
+                                              (48, 0, 8)])
+def test_s8_taps_hold_every_b_operand(cin_a, cin_b, cout):
+    """K4's taps, read back through the K-major descriptor of each tap's two
+    k32 steps, give back every weight once, zeros past cin and cout, in the
+    source's chunk and block sizes."""
     rng = np.random.default_rng(cin_a + cout)
     w = torch.from_numpy(rng.integers(-127, 128, (cout, cin_a + cin_b, 3, 3), dtype=np.int8))
-    laid = conv_tc.imma_taps(w, cin_a)
-    kca, kcb, nc = -(-cin_a // 32), -(-cin_b // 32), -(-cout // 64)
-    assert laid.shape == (nc, kca + kcb, 9, 4, 32, 16) and laid.dtype == torch.int8
-    lane = torch.arange(32)
-    g, t = lane // 4, lane % 4
-    for part, (c0, cin, k0, kc) in enumerate(((0, cin_a, 0, kca), (cin_a, cin_b, kca, kcb))):
-        for z in range(nc):
+    laid = conv_tc.s8_taps(w, cin_a)
+    nb = conv_tc.n_block(cout)
+    kca, kcb, nz = -(-cin_a // KCH), -(-cin_b // KCH), -(-cout // nb)
+    assert laid.shape == (nz, kca + kcb, 9, KCH // 16, nb // 8, 8, 16)
+    assert laid.dtype == torch.int8
+    slots = laid.reshape(nz, kca + kcb, 9, KCH * nb)
+    seen = torch.zeros(cout, cin_a + cin_b, 3, 3, dtype=torch.int32)
+    for c0, cin, k0, kc in ((0, cin_a, 0, kca), (cin_a, cin_b, kca, kcb)):
+        for z in range(nz):
             for c in range(kc):
                 for tap in range(9):
-                    back = torch.zeros(64, 32, dtype=torch.int8)  # [co in block, ci in chunk]
-                    for q in range(4):
-                        frag = laid[z, k0 + c, tap, q]  # [lane, 16 bytes]
-                        for h in range(2):
-                            for r in range(2):  # register 0 and 1 of n-tile 2q + h
-                                for e in range(4):
-                                    back[16 * q + 8 * h + g, 16 * r + 4 * t + e] = \
-                                        frag[:, 8 * h + 4 * r + e]
-                    want = torch.zeros(64, 32, dtype=torch.int8)
-                    src = w[64 * z:64 * z + 64, c0 + 32 * c:c0 + min(32 * c + 32, cin),
+                    back = torch.cat([_b_operand(slots[z, k0 + c, tap], nb, q)
+                                      for q in range(KCH // 32)])
+                    want = torch.zeros(KCH, nb, dtype=torch.int8)  # [ci in chunk, co in block]
+                    src = w[nb * z:nb * z + nb, c0 + KCH * c:c0 + min(KCH * c + KCH, cin),
                             tap // 3, tap % 3]
-                    want[:src.shape[0], :src.shape[1]] = src
-                    assert torch.equal(back, want), (part, z, c, tap)
+                    want[:src.shape[1], :src.shape[0]] = src.T
+                    assert torch.equal(back, want), (c0, z, c, tap)
+                    seen[nb * z:nb * z + nb, c0 + KCH * c:c0 + min(KCH * c + KCH, cin),
+                         tap // 3, tap % 3] += 1
+    assert bool((seen == 1).all())
 
 
-def test_k4_model_of_its_tiles_matches_plain():
-    """A pure-torch model of K4's block: the haloed 10 x 18-pixel tile staged
-    with the source's reflect/clamp index arithmetic and 48-byte pixel pitch,
-    each chunk's A fragments read at (row warp + dy, column g + dx [+ 8]),
-    the B fragments from ``imma_taps``, the C fragments stored at (column g
-    [+ 8], channel 8 j + 2 t [+ 1]) with the ragged edge masked, equals the
-    plain version's integer sum: two inputs, a zero-filled half chunk,
-    ragged tiles and a partial block of output channels."""
-    rng = np.random.default_rng(11)
-    b, h, w, ca, cb, cout = 1, 11, 19, 16, 32, 72
-    xa = torch.from_numpy(rng.integers(-127, 128, (b, h, w, ca), dtype=np.int8))
-    xb = torch.from_numpy(rng.integers(-127, 128, (b, h, w, cb), dtype=np.int8))
-    wq = torch.from_numpy(rng.integers(-127, 128, (cout, ca + cb, 3, 3), dtype=np.int8))
-    taps = conv_tc.imma_taps(wq, ca).long()
-    th, tw, pitch = K["TH"], K["TW"], K["PIX_BYTES"]
-    ih, iw = th + 2, tw + 2  # the staged tile with its halo
+def _reflect(i, n):
+    i = i.abs()
+    i = torch.where(i >= n, 2 * (n - 1) - i, i)
+    return i.clamp(0, n - 1)
 
-    def reflect(i, n):
-        i = i.abs()
-        i = torch.where(i >= n, 2 * (n - 1) - i, i)
-        return i.clamp(0, n - 1)
 
-    lane = torch.arange(32)
-    g, t = lane // 4, lane % 4
+def _k4_model(xa, xb, s_x, w_q):
+    """A pure-torch model of K4's blocks, returning the int32 sums: per 16 x
+    8-pixel tile, block of NB output channels and KCH-channel chunk, the
+    staged rows (row i: 16-channel group i // PIXELS of staged pixel i %
+    PIXELS, from its reflected or clamped source, quantized with ``s_x`` if
+    float, zeros past cin) in one flat buffer; per tap and k32 step, A read
+    through the shifted K-major descriptor, B through ``_b_operand``; the
+    accumulator fragment of the wgmma D layout (thread ``lane`` of warp
+    ``warp``, register ``i``: row ``16 warp + lane // 4 + 8 ((i // 2) % 2)``,
+    column ``8 (i // 4) + 2 (lane % 4) + i % 2``) stored by the epilogue's
+    formulas with the ragged edge and channels past cout masked."""
+    b, h, w, ca = xa.shape
+    cout = w_q.shape[0]
+    nb = conv_tc.n_block(cout)
+    slots = conv_tc.s8_taps(w_q, ca).long()
+    nz, nchunks = slots.shape[:2]
+    slots = slots.reshape(nz, nchunks, 9, -1)
+    nca = -(-ca // KCH)
+    i = torch.arange(ITEMS)
+    g, p = i // PIXELS, i % PIXELS
+    iy, ix = p // IN_W, p % IN_W
+    m = torch.arange(64)[:, None]
+    k = torch.arange(32)[None, :]
+    # the epilogue: (warp, lane, register) -> (tile row, column, channel) and
+    # the fragment's (row, column)
+    warp, lane, reg = torch.meshgrid(torch.arange(4), torch.arange(32), torch.arange(nb // 2),
+                                     indexing="ij")
+    j, hh, e = reg // 4, (reg // 2) % 2, reg % 2
+    frag_m = 16 * warp + lane // 4 + 8 * ((reg // 2) % 2)
+    frag_n = 8 * (reg // 4) + 2 * (lane % 4) + reg % 2
     out = torch.zeros(b, h, w, cout, dtype=torch.long)
-    nca = -(-ca // 32)
-    nchunks = nca + -(-cb // 32)
-    for h0 in range(0, h, th):
-        for w0 in range(0, w, tw):
-            ys = reflect(h0 - 1 + torch.arange(ih), h)
-            xs = reflect(w0 - 1 + torch.arange(iw), w)
-            for z in range(taps.shape[0]):
-                acc = torch.zeros(th, 8, 32, 4, dtype=torch.long)
-                for c in range(nchunks):
-                    x, ci0 = (xb, (c - nca) * 32) if c >= nca else (xa, c * 32)
-                    stage = torch.zeros(ih * iw, pitch, dtype=torch.long)
-                    for half in range(2):
-                        if ci0 + 16 * half < x.shape[3]:
-                            rows = x[0][ys][:, xs, ci0 + 16 * half:ci0 + 16 * half + 16]
-                            stage[:, 16 * half:16 * half + 16] = rows.reshape(ih * iw, 16)
-                    for warp in range(th):
+    for bi in range(b):
+        for h0 in range(0, h, K["TILE_H"]):
+            for w0 in range(0, w, K["TILE_W"]):
+                sy, sx = _reflect(h0 - 1 + iy, h), _reflect(w0 - 1 + ix, w)
+                for z in range(nz):
+                    acc = torch.zeros(2, 64, nb, dtype=torch.long)
+                    for c in range(nchunks):
+                        x, kc = (xb, c - nca) if c >= nca else (xa, c)
+                        ci = kc * KCH + 16 * g
+                        ok = ci < x.shape[3]
+                        vals = x[bi, sy[ok][:, None], sx[ok][:, None],
+                                 ci[ok][:, None] + torch.arange(16)]
+                        if vals.dtype != torch.int8:
+                            vals = tq.quantize_with(vals, s_x)
+                        buf = torch.zeros(ITEMS, 16, dtype=torch.long)
+                        buf[ok] = vals.long()
+                        buf = buf.reshape(-1)
                         for tap in range(9):
-                            dy, dx = divmod(tap, 3)
-                            p0 = (warp + dy) * iw + g + dx
-                            a = torch.zeros(16, 32, dtype=torch.long)
-                            for r, (pix, k0) in enumerate(((p0, 0), (p0 + 8, 0), (p0, 16),
-                                                           (p0 + 8, 16))):
-                                for e in range(4):
-                                    a[g + 8 * (r % 2), k0 + 4 * t + e] = stage[pix, k0 + 4 * t + e]
-                            for j in range(8):
-                                q, hh = divmod(j, 2)
-                                bm = torch.zeros(32, 8, dtype=torch.long)
-                                for r in range(2):
-                                    for e in range(4):
-                                        bm[16 * r + 4 * t + e, g] = taps[z, c, tap, q, :,
-                                                                         8 * hh + 4 * r + e]
-                                cm = a @ bm
-                                acc[warp, j] += torch.stack(
-                                    [cm[g, 2 * t], cm[g, 2 * t + 1], cm[g + 8, 2 * t],
-                                     cm[g + 8, 2 * t + 1]], -1)
-                for warp in range(th):
-                    if h0 + warp >= h:
-                        continue
-                    for j in range(8):
-                        for half in range(2):
-                            for ln in range(32):
-                                co = 64 * z + 8 * j + 2 * int(t[ln])
-                                ox = w0 + int(g[ln]) + 8 * half
-                                if co < cout and ox < w:
-                                    out[0, h0 + warp, ox, co:co + 2] = acc[warp, j, ln,
-                                                                           2 * half:2 * half + 2]
-    want = qconv3x3_plain(xa, torch.tensor(1.0), wq, torch.ones(cout), None, xb)
-    assert torch.equal(out.float(), want)
+                            for wg in range(2):
+                                a0 = ((8 * wg + tap // 3) * IN_W + tap % 3) * 16
+                                for q in range(KCH // 32):
+                                    a = buf[a0 + (2 * q + k // 16) * A_LBO + (m // 8) * A_SBO
+                                            + 16 * (m % 8) + k % 16]
+                                    acc[wg] += a @ _b_operand(slots[z, c, tap], nb, q)
+                    for wg in range(2):
+                        oy = h0 + 8 * wg + 2 * warp + hh
+                        ox = w0 + lane // 4
+                        co = z * nb + 8 * j + 2 * (lane % 4) + e
+                        keep = (oy < h) & (ox < w) & (co < cout)
+                        out[bi, oy[keep], ox[keep], co[keep]] = acc[wg][frag_m[keep],
+                                                                       frag_n[keep]]
+    return out
+
+
+@pytest.mark.parametrize("dtype,b,h,w,ca,cb,cout", [
+    ("int8", 1, 19, 11, 16, 32, 72),      # two inputs, a partial chunk and block, ragged
+    ("float32", 1, 17, 9, 64, 0, 64),     # NB = 64, one ragged row and column
+    ("bfloat16", 2, 5, 13, 48, 16, 136),  # two blocks of output channels, a short tile
+])
+def test_k4_model_of_its_tiles_matches_plain(dtype, b, h, w, ca, cb, cout):
+    """The model of K4's blocks (``_k4_model``) gives the plain version's
+    integer sum: two inputs, zero-filled channel groups, ragged tiles,
+    partial blocks of output channels, and float inputs quantized as
+    staged (values on the .5 ties and past +-127 included)."""
+    rng = np.random.default_rng(ca + cout)
+    s_x = torch.tensor(np.float32(0.0625))
+
+    def draw(c):
+        if dtype == "int8":
+            return torch.from_numpy(rng.integers(-127, 128, (b, h, w, c), dtype=np.int8))
+        halves = rng.integers(-300, 301, (b, h, w, c)).astype(np.float32) / 2  # ties, saturation
+        return (torch.from_numpy(halves) * s_x).to(getattr(torch, dtype))
+
+    xa, xb = draw(ca), draw(cb) if cb else None
+    wq = torch.from_numpy(rng.integers(-127, 128, (cout, ca + cb, 3, 3), dtype=np.int8))
+    got = _k4_model(xa, xb, s_x, wq)
+    codes = [p if p.dtype == torch.int8 else tq.quantize_with(p, s_x) for p in (xa, xb)
+             if p is not None]
+    want = qconv3x3_plain(codes[0], torch.tensor(1.0), wq, torch.ones(cout), None,
+                          codes[1] if cb else None)
+    assert int(got.abs().max()) < 2 ** 24
+    assert torch.equal(got.float(), want)
+
+
+SITES = [(64, 128, 256), (64, 0, 128), (128, 128, 128), (128, 0, 64), (64, 64, 256)]
+
+
+@pytest.mark.parametrize("scale", ["dynamic", "static"])
+@pytest.mark.parametrize("out", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("site", SITES, ids=lambda s: "-".join(map(str, s)))
+def test_float_input_plain_matches_quantize_then_int8_and_jax(site, dtype, out, scale):
+    """K4's plain version on a float input (what K4 computes on the card):
+    bit-equal to ``quantize_with`` + ``qconv3x3_plain`` on the codes, and to
+    JAX's ``qconv2d`` with its dynamic or a static ``s_x``: JAX's codes equal
+    (static ``s_x = 2^-4``, inputs on the .5 ties and past +-127; dynamic,
+    codes at +-127), and each side's output its own rounding of the same
+    exact int32 sum (the port's fused, JAX's here separate)."""
+    cin_a, cin_b, cout = site
+    rng = np.random.default_rng(sum(site))
+    wgt, bias = _weights(cin_a + cin_b, cout, cout)
+    jqp = _jqp(wgt, bias)
+    tqp = _tqp(jqp)
+    if scale == "static":
+        s = np.float32(0.0625)
+        x = rng.integers(-300, 301, (2, 4, 5, cin_a + cin_b)).astype(np.float32) / 2 * s
+        jqp = {**jqp, "s_x": jnp.float32(s)}
+        tqp = {**tqp, "s_x": torch.tensor(s)}
+    else:
+        x = (rng.standard_normal((2, 4, 5, cin_a + cin_b)) * 2).astype(np.float32)
+    tdt, odt = getattr(torch, dtype), getattr(torch, out)
+    jx = jnp.asarray(x, getattr(jnp, dtype))
+    tx = torch.from_numpy(x).to(tdt)
+    parts = (tx[..., :cin_a].contiguous(), tx[..., cin_a:].contiguous()) if cin_b else (tx,)
+
+    got = tq.qconv2d(parts if cin_b else tx, tqp, out_dtype=odt)
+    if scale == "static":
+        s_x = tqp["s_x"]
+        want_codes = jax.jit(jq.quantize_with)(jx, jqp["s_x"])
+    else:
+        want_codes, want_s = jax.jit(jq.quantize_activation)(jx)
+        s_x = tq._dynamic_scale(parts)
+        assert float(s_x) == float(want_s)
+    codes = tuple(tq.quantize_with(p, s_x) for p in parts)
+    assert torch.equal(torch.cat(codes, -1), torch.from_numpy(np.array(want_codes)))
+    if scale == "static":
+        assert int(torch.cat(codes, -1).abs().max()) == 127
+        assert int((torch.cat(codes, -1) % 2 == 0).sum()) > 0  # ties went to even codes
+    else:
+        assert int(torch.cat(codes, -1).abs().max()) == 127
+    # bit-equal to quantize_with + the integer conv, through the plain version
+    # and the CPU wrapper (float input)
+    split = (parts[0], parts[1] if cin_b else None)
+    args = (s_x, tqp["w_q"], tqp["s_w"], tqp["bias"])
+    twice = qconv3x3_plain(codes[0], *args, codes[1] if cin_b else None, odt)
+    assert torch.equal(got, twice)
+    assert torch.equal(qconv3x3_plain(split[0], *args, split[1], odt), twice)
+    assert torch.equal(qconv3x3(split[0], *args, split[1], odt), twice)
+    # against JAX: each side its own rounding of the exact sum
+    unit = qconv3x3_plain(codes[0], torch.tensor(1.0), tqp["w_q"], torch.ones(cout), None,
+                          codes[1] if cin_b else None)
+    want = jax.jit(jq.qconv2d, static_argnames=("out_dtype",))(jx, jqp,
+                                                              out_dtype=getattr(jnp, out))
+    fused, separate = _dequant(unit.numpy().astype(np.int64),
+                               np.float32(s_x) * np.asarray(jqp["s_w"]), bias)
+    fused, separate = (torch.from_numpy(v).to(odt) for v in (fused, separate))
+    want = torch.from_numpy(np.array(want.astype(jnp.float32))).to(odt)
+    assert torch.equal(got, fused) and torch.equal(want, separate)
+
+
+def _abs_bits(t):
+    """|t| as the kernel compares it: the float32 bits with the sign cleared
+    (a bfloat16 as the upper half of a float32)."""
+    if t.dtype == torch.bfloat16:
+        return (t.view(torch.int16).numpy().astype(np.uint16).astype(np.uint32) << 16) & 0x7FFFFFFF
+    return t.numpy().view(np.uint32) & 0x7FFFFFFF
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", ["one", "two", "zero", "ragged", "reciprocal"])
+def test_act_scale_plain_matches_dynamic_scale_and_jax(dtype, case):
+    """The scale kernel's plain version equals ``_dynamic_scale`` (which the
+    pools call; the CPU wrapper takes the plain version) and JAX's
+    ``quantize_activation`` scale of the concat, a zero tensor's 1 included,
+    and so does a numpy model of the kernel's arithmetic: the largest |x| as
+    unsigned bits, one float32 product with f32(1 / 127), 0 -> 1. In
+    "reciprocal" max |x| = 0.8125, where that product and a true division by
+    127 round apart."""
+    rng = np.random.default_rng(12)
+    shapes = {"one": [(2, 9, 12, 48)], "two": [(2, 6, 7, 16), (2, 6, 7, 32)],
+              "zero": [(1, 4, 5, 16)], "ragged": [(3, 5, 7, 3), (3, 5, 7, 5)],
+              "reciprocal": [(2, 3, 4, 16)]}[case]
+    xs = [(rng.standard_normal(s) * (1 + 3 * i)).astype(np.float32) * (case != "zero")
+          for i, s in enumerate(shapes)]
+    if case == "reciprocal":
+        xs[0] = np.clip(xs[0], -0.5, 0.5)
+        xs[0][1, 2, 3, 4] = -0.8125
+        assert np.float32(0.8125) / np.float32(127) != np.float32(0.8125) * (
+            np.float32(1) / np.float32(127))
+    tdt = getattr(torch, dtype)
+    parts = tuple(torch.from_numpy(x).to(tdt) for x in xs)
+    _, want = jax.jit(jq.quantize_activation)(
+        jnp.concatenate([jnp.asarray(x, getattr(jnp, dtype)) for x in xs], -1))
+    got = tq.act_scale_plain(parts)
+    assert got.dtype == torch.float32 and got.dim() == 0
+    assert float(got) == float(want) == float(tq._dynamic_scale(parts)) == float(
+        tq.act_scale(parts))
+    amax = max(int(_abs_bits(p).max()) for p in parts)
+    model = np.uint32(amax).view(np.float32) * (np.float32(1) / np.float32(127))
+    assert float(got) == (1.0 if model == 0 else float(model))
+    if case == "zero":
+        assert float(got) == 1.0
 
 
 def test_qconv3x3_checks_and_refuses_grad():
@@ -362,7 +536,9 @@ def test_qconv3x3_checks_and_refuses_grad():
     w = torch.zeros(8, 16, 3, 3, dtype=torch.int8)
     one = torch.tensor(1.0)
     with pytest.raises(TypeError, match="int8"):
-        qconv3x3(x.float(), one, w, torch.ones(8))
+        qconv3x3(x.half(), one, w, torch.ones(8))
+    with pytest.raises(TypeError, match="one dtype"):
+        qconv3x3(x, one, torch.zeros(8, 32, 3, 3, dtype=torch.int8), torch.ones(8), xb=x.float())
     with pytest.raises(ValueError, match="OIHW"):
         qconv3x3(x, one, w[:, :8], torch.ones(8))
     with pytest.raises(ValueError, match="scalar"):

@@ -78,23 +78,9 @@ inline size_t smem_bytes(int nb) {
   return (size_t)STAGES * slot_bytes(nb) + 2 * IN_BYTES + 8 * STAGES;
 }
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
+// smem_u32, cp_async16, cp_async_commit, cp_async_wait, mbar_init, bulk_load
+// and mbar_wait are conv3x3.cuh's (namespace v2e).
 
-// 16-byte copy from global to shared memory; zero-fills when !valid (src is
-// then not read).
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
@@ -160,33 +146,6 @@ __device__ __forceinline__ void wgmma_bf16<128>(float (&d)[64], uint64_t da, uin
 }
 
 #undef V2E_F8
-
-// mbarrier helpers: one barrier per ring slot, completed by the bytes of the
-// bulk copy that fills the slot.
-__device__ __forceinline__ void mbar_init(uint32_t bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar) : "memory");
-}
-__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
-                                          uint32_t bar) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-               "r"(bytes)
-               : "memory");
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
-          dst),
-      "l"(src), "r"(bytes), "r"(bar)
-      : "memory");
-}
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done)
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-}
 
 // The body of one block; ista.cu and core.cu wrap it in __global__s of their
 // own names. gridDim = (ceil(H / 16) * ceil(W / 8), B, ceil(cout / NB)),

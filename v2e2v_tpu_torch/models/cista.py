@@ -429,7 +429,10 @@ def cista_lstc_step_int8(
     the residual ``x + z`` reads the dequantized ``z_q * s_z``."""
     impl = cfg.qconv_impl
     qp = _quant_params(params, cfg)
-    x1 = _heads(params, cfg, events, prev_image)
+    # K4 stages its float input from contiguous NHWC: x1 (a permuted NCHW
+    # view from the heads' conv) feeds gates, P0 and every x1 - tmp, so it
+    # is made contiguous once per step
+    x1 = _heads(params, cfg, events, prev_image).contiguous()
     z, cell = qconv_lstc_step(qp["lstc"], x1, state.z, state.cell, impl=impl)
     lam = params["lista_blocks.0.Lambda"].reshape(-1).to(x1.dtype)
     s_z = qp["D"].get("s_x") if cfg.requant_chain else None
@@ -468,7 +471,7 @@ def cista_tc_step_int8(
     upsample/final stay float."""
     impl = cfg.qconv_impl
     qp = _quant_params(params, cfg)
-    x1 = _heads(params, cfg, events, prev_image)
+    x1 = _heads(params, cfg, events, prev_image).contiguous()  # as in cista_lstc_step_int8
     z = qconv2d(x1, qp["P0"], impl=impl)
     tmp = z
     prev_z = state.z

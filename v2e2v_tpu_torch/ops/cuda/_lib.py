@@ -42,9 +42,10 @@ class KernelLibrary:
 
 
 def check_aligned(what: str, **tensors) -> None:
-    """The convs of K1, K2 and K4 copy 16-byte rows with ``cp.async`` (and
-    the float32 conv stores 16-byte vectors): raise if a tensor does not start
-    on a 16-byte boundary (a view at an odd offset)."""
+    """The convs of K1, K2 and K4 and K4's scale kernel read 16-byte rows
+    (``cp.async`` or 16-byte loads; the float32 conv also stores 16-byte
+    vectors): raise if a tensor does not start on a 16-byte boundary (a view
+    at an odd offset)."""
     for name, t in tensors.items():
         if t.data_ptr() % 16:
             raise ValueError(f"{what}: {name} must start on a 16-byte boundary for the "
@@ -80,10 +81,15 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.v2e_core_lstm_cell.restype = i
     lib.v2e_emulator_iters.argtypes = [*[p] * 11, ctypes.c_float, *[p] * 3, *[i] * 6, p]
     lib.v2e_emulator_iters.restype = i
-    lib.v2e_qconv3x3.argtypes = [p, p, i, i, p, p, p, p, p, i, i, i, i, i, p]
+    lib.v2e_qconv3x3.argtypes = [p, p, i, i, i, p, p, p, p, p, i, i, i, i, i, p]
     lib.v2e_qconv3x3.restype = i
-    lib.v2e_qconv3x3_smem_bytes.argtypes = []
+    lib.v2e_qconv3x3_smem_bytes.argtypes = [i]
     lib.v2e_qconv3x3_smem_bytes.restype = i
+    n = ctypes.c_longlong
+    lib.v2e_qscale.argtypes = [p, n, p, n, i, p, p, p]
+    lib.v2e_qscale.restype = i
+    lib.v2e_qscale_work_words.argtypes = []
+    lib.v2e_qscale_work_words.restype = i
     lib.v2e_error_string.argtypes = [i]
     lib.v2e_error_string.restype = ctypes.c_char_p
 

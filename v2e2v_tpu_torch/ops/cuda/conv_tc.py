@@ -14,10 +14,13 @@ wgmma's B-transpose bit (``wgmma_taps``). The float32 conv
 of 64 output channels with one bulk copy: for every block of 64 output
 channels and every chunk of 16 input channels, a contiguous ``[9, 16, 64]``
 block (``simt_taps``). The int8 conv of kernel K4 (``csrc/qconv3x3.cu``)
-copies one 32-channel K chunk's 9 taps for a block of 64 output channels as
-one slice, in the order of the ``mma.sync`` m16n8k32 B fragments
-(``imma_taps``). Input channels past ``cin`` and output channels past
-``cout`` are zeros.
+copies the 9 taps of one 32-channel K chunk for a block of ``NB`` output
+channels with one bulk copy; 8-bit ``wgmma`` has no transpose bit, so its B
+operand is K-major: per tap a ``[2, NB / 8, 8, 16]`` block (input-channel
+group, output-channel group, 8 output channels, 16 input channels), each
+16-byte row 16 neighbouring input channels of one output channel
+(``s8_taps``). Input
+channels past ``cin`` and output channels past ``cout`` are zeros.
 """
 
 from __future__ import annotations
@@ -29,7 +32,7 @@ import torch.nn.functional as F
 
 KCH = 64  # input channels per K chunk (conv3x3_tc.cuh KCH)
 SIMT_KC, SIMT_CO = 16, 64  # input channels per chunk, output channels per block (conv3x3.cuh)
-IMMA_KC, IMMA_CO = 32, 64  # the same for the int8 conv (qconv3x3.cu KC and NBLK)
+S8_KCH, S8_KG = 32, 16  # int8 conv: input channels per K chunk and per core-matrix row
 _CACHE_SIZE = 32
 _cache: OrderedDict = OrderedDict()  # key -> (source weight, laid-out taps)
 
@@ -63,26 +66,27 @@ def simt_taps(taps: torch.Tensor) -> torch.Tensor:
     return t.permute(3, 1, 0, 2, 4).contiguous()
 
 
-def imma_taps(w_q: torch.Tensor, cin_a: int) -> torch.Tensor:
+def s8_taps(w_q: torch.Tensor, cin_a: int) -> torch.Tensor:
     """int8 OIHW weights ``[cout, cin_a + cin_b, 3, 3]`` of a conv on the
-    concat of two inputs (``cin_b`` may be 0) -> ``[ceil(cout / 64), chunks,
-    9, 4, 32, 16]`` int8: each input's channels in chunks of 32 (the first
-    input's chunks, then the second's), and per chunk and tap, for each pair
-    of 8-channel N-tiles and each lane (``g = lane // 4``, ``t = lane % 4``),
-    the 16 bytes of that lane's two B fragments: output channel ``16 q + 8 h
-    + g`` (h = 0, 1), input channels ``4 t .. 4 t + 3`` then ``16 + 4 t ..
-    16 + 4 t + 3`` of the chunk."""
+    concat of two inputs (``cin_b`` may be 0) -> ``[ceil(cout / NB), chunks,
+    9, 2, NB / 8, 8, 16]`` int8, ``NB = n_block(cout)``: each input's
+    channels in chunks of 32 (the first input's chunks, then the second's),
+    and per chunk and tap the K-major B operand of ``wgmma`` m64nNk32 s8: for
+    16-channel group ``kg`` and output channel ``8 ng + r`` of the block, the
+    16 bytes of input channels ``16 kg .. 16 kg + 15`` of the chunk."""
     cout = w_q.shape[0]
-    nc = -(-cout // IMMA_CO)
+    nb = n_block(cout)
+    nc = -(-cout // nb)
     parts = []
     for w in (w_q[:, :cin_a], w_q[:, cin_a:]):
         if w.shape[1] == 0:
             continue
-        kc = -(-w.shape[1] // IMMA_KC)
-        t = F.pad(w, (0, 0, 0, 0, 0, kc * IMMA_KC - w.shape[1], 0, nc * IMMA_CO - cout))
-        # block, pair q, h, g, chunk, K half, t, byte e, dy, dx
-        t = t.reshape(nc, 4, 2, 8, kc, 2, 4, 4, 3, 3)
-        parts.append(t.permute(0, 4, 8, 9, 1, 3, 6, 2, 5, 7).reshape(nc, kc, 9, 4, 32, 16))
+        kc = -(-w.shape[1] // S8_KCH)
+        t = F.pad(w, (0, 0, 0, 0, 0, kc * S8_KCH - w.shape[1], 0, nc * nb - cout))
+        # block, co group, co, chunk, ci group, ci, dy, dx
+        t = t.reshape(nc, nb // 8, 8, kc, S8_KCH // S8_KG, S8_KG, 3, 3)
+        parts.append(t.permute(0, 3, 6, 7, 4, 1, 2, 5).reshape(
+            nc, kc, 9, S8_KCH // S8_KG, nb // 8, 8, S8_KG))
     return torch.cat(parts, dim=1).contiguous()
 
 
@@ -120,8 +124,8 @@ def cached_simt_taps(weight: torch.Tensor) -> torch.Tensor:
     return _cached(simt_taps, weight, torch.float32)
 
 
-def cached_imma_taps(w_q: torch.Tensor, cin_a: int) -> torch.Tensor:
-    """``imma_taps(w_q, cin_a)``, laid out once for the same int8 weights:
+def cached_s8_taps(w_q: torch.Tensor, cin_a: int) -> torch.Tensor:
+    """``s8_taps(w_q, cin_a)``, laid out once for the same int8 weights:
     kernel K4 takes them as tensors on every call (a pool quantizes them once
     and passes the same ones every step)."""
-    return _cached(imma_taps, w_q, torch.int8, cin_a)
+    return _cached(s8_taps, w_q, torch.int8, cin_a)

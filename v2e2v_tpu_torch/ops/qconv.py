@@ -6,14 +6,17 @@ Symmetric post-training quantization, as the JAX package does it:
                 channel gets 1); ``w_q = clip(round(w / s_w), -127, 127)``,
                 once per checkpoint (``quantize_conv_params``);
 - activations:  ``s_x = max|x| / 127`` per tensor (a zero tensor gets 1),
-                on the fly, or a static scale after calibration
+                on the fly (one reduction kernel per site on the card,
+                ``ops/cuda/qscale.py``), or a static scale after calibration
                 (``calibrate_step_scales``); ``x_q = clip(round(x / s_x),
                 -127, 127)``, rounding half to even;
 - conv:         reflect padding on the int8 tensor and an exact int32 sum,
                 then ``acc * (s_x * s_w) + bias`` in float32, cast to the
                 activation dtype: kernel K4 (``ops/cuda/qconv.py``) for CUDA
-                tensors, its plain version for CPU tensors or where a caller
-                asks for it (``impl="plain"``).
+                tensors, which takes the float input and quantizes it while
+                it stages it, so ``x_q`` never reaches device memory; its
+                plain version (``quantize_with``, then the integer conv) for
+                CPU tensors or where a caller asks for it (``impl="plain"``).
 
 Weights are OIHW under the reference's state-dict names, so ``w_q`` equals
 the JAX package's HWIO ``w_q`` transposed. The divisions round as the JAX
@@ -35,7 +38,8 @@ from typing import Any, Callable
 
 import torch
 
-from .cuda.qconv import qconv3x3, qconv3x3_plain
+from .cuda.qconv import qconv3x3, qconv3x3_plain, quantize_with
+from .cuda.qscale import act_scale, act_scale_plain
 from .numerics import div_const
 
 Params = dict[str, Any]
@@ -45,6 +49,7 @@ Params = dict[str, Any]
 _CALIB: list | None = None
 
 _IMPLS = {"cuda": qconv3x3, "plain": qconv3x3_plain}
+_SCALES = {"cuda": act_scale, "plain": act_scale_plain}
 
 
 def quantize_conv_params(params: Params) -> Params:
@@ -61,24 +66,14 @@ def quantize_conv_params(params: Params) -> Params:
     return out
 
 
-def _dynamic_scale(parts) -> torch.Tensor:
+def _dynamic_scale(parts, impl: str = "cuda") -> torch.Tensor:
     """``max|x| / 127`` over all of ``parts`` (0 -> 1), a float32 scalar on
-    their device; appended to ``_CALIB`` when calibrating."""
-    amax = parts[0].abs().amax()
-    for p in parts[1:]:
-        amax = torch.maximum(amax, p.abs().amax())
-    s_x = div_const(amax.to(torch.float32), 127.0)
-    s_x = torch.where(s_x == 0, 1.0, s_x)
+    their device (the scale kernel on the card, ``impl="cuda"``); appended to
+    ``_CALIB`` when calibrating."""
+    s_x = _SCALES[impl](tuple(parts))
     if _CALIB is not None:
         _CALIB.append(s_x)
     return s_x
-
-
-def quantize_with(x: torch.Tensor, s_x: torch.Tensor) -> torch.Tensor:
-    """Quantize with a given scale (a float32 scalar tensor on ``x``'s
-    device): beyond-range values saturate at +-127. Contiguous int8."""
-    return torch.clamp(torch.round(x.to(torch.float32) / s_x), -127, 127).to(
-        torch.int8).contiguous()
 
 
 def quantize_activation(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -89,6 +84,12 @@ def quantize_activation(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
 def _parts(x) -> tuple:
     return tuple(x) if isinstance(x, (tuple, list)) else (x,)
+
+
+def _conv(parts, s_x, qp: Params, padding, stride, pad_mode, out_dtype, impl) -> torch.Tensor:
+    return _IMPLS[impl](parts[0], s_x, qp["w_q"], qp["s_w"], qp.get("bias"),
+                        parts[1] if len(parts) > 1 else None, out_dtype, padding, stride,
+                        pad_mode)
 
 
 def qconv2d_pre(
@@ -104,10 +105,7 @@ def qconv2d_pre(
     """``qconv2d`` on an already-quantized int8 input ``x_q`` NHWC (or the
     two parts of a channel concat) with scale ``s_x`` (the requant chain:
     the producer quantized once, with a static scale)."""
-    parts = _parts(x_q)
-    return _IMPLS[impl](parts[0], s_x, qp["w_q"], qp["s_w"], qp.get("bias"),
-                        parts[1] if len(parts) > 1 else None, out_dtype, padding, stride,
-                        pad_mode)
+    return _conv(_parts(x_q), s_x, qp, padding, stride, pad_mode, out_dtype, impl)
 
 
 def qconv2d(
@@ -123,13 +121,15 @@ def qconv2d(
     concat, quantized with one scale), as ``ops.conv.conv2d`` up to rounding.
     With a calibrated static scale ``qp["s_x"]`` the input is quantized with
     it (saturating past its range); else with the dynamic ``max|x| / 127``.
-    Returns ``out_dtype`` (default: the input's dtype)."""
+    The float input goes to the conv as it is: K4 quantizes it while it
+    stages it (on the card it must be contiguous NHWC), the plain version
+    with ``quantize_with``. Returns ``out_dtype`` (default: the input's
+    dtype)."""
     parts = _parts(x)
     s_x = qp.get("s_x")
     if s_x is None:
-        s_x = _dynamic_scale(parts)
-    return qconv2d_pre(tuple(quantize_with(p, s_x) for p in parts), s_x, qp, padding, stride,
-                       pad_mode, out_dtype or parts[0].dtype, impl)
+        s_x = _dynamic_scale(parts, impl)
+    return _conv(parts, s_x, qp, padding, stride, pad_mode, out_dtype or parts[0].dtype, impl)
 
 
 # ---------------------------------------------------------------------------
