@@ -199,8 +199,28 @@ Phases, one line each (any failure exits non-zero before the last line):
    ``torch.profiler`` trace of the dynamic int8 step by kind of kernel (K4,
    the scale kernel, eager quantize passes, which must be none, clamps and
    relus, cuDNN, the rest);
+17. Super-SloMo upsampling (``models/superslomo.py``; no kernel of the port:
+   cuDNN's float32 convs and eager torch), after phase 16, at 180x240
+   padded to 192x256, float32, TF32 off: (a) the flow and interpolation
+   UNets on the card against the CPU on the same weights (within 1e-4 of the
+   largest entry; the same comparison with TF32 on must read above it) and
+   ``backwarp`` (flows reaching outside the frame; 1e-5); (b)
+   ``Upsampler.upsampling`` over one sequence of 8 LFR frames, the flow
+   net's output conv scaled so that each pair's count is at most 8 and
+   every flow magnitude 0.15 or more from an integer (the checkpoint
+   written here): counts and stamps equal to the CPU's, frames within one
+   code (the count that differs printed); ms per ``flow_pair`` and
+   ``interp_at_t`` call as issued in that run and on the device, their FLOP
+   and bound (operations at 67 TFLOP/s or bytes at 3.35 TB/s), ms per pair,
+   peak memory, and a trace of each call by kind of kernel; (c) the V2E2V
+   CLI and the E2V CLI (``--test_data_mode upsampled``) with
+   ``--reader_type upsampling`` over two sequences of 8 LFR frames, the
+   checkpoint through ``V2E2V_SUPERSLOMO_CKPT``, every count at 0 just
+   before each: K3 one launch per frame pair and K1 2 x depth per pack or
+   reconstruction, K2 0; reconstructions finite and in [0, 1]; one PNG (and
+   event preview) per pack or reconstruction;
 14. a ``{"kernels": [...]}`` JSON line (each row's launches on the paths of
-   phases 10-13, 15 and 16, every count set to 0 just before each path: K1,
+   phases 10-13 and 15-17, every count set to 0 just before each path: K1,
    K2, K4 and the scale kernel counted by dtype, K3 by shot mode; the rows
    of K4 and the scale kernel hold their times per pool step, the 15 calls
    of one step summed), then the last line
@@ -213,6 +233,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import copy
 import dataclasses
 import io
 import json
@@ -610,9 +631,11 @@ def swapped(*patches):
             setattr(obj, name, value)
 
 
-def cli_reconstructor(root: Path, model: Path, dtype: torch.dtype, out: str, ista_impl: str):
+def cli_reconstructor(root: Path, model: Path, dtype: torch.dtype, out: str, ista_impl: str,
+                      extra: tuple = ()):
     """The CLI's ``Reconstructor`` over the dataset at ``root`` with the
-    reference CLI's defaults at full width, its ISTA loop as ``ista_impl``."""
+    reference CLI's defaults at full width and the flags ``extra``, its ISTA
+    loop as ``ista_impl``."""
     from v2e2v_tpu_torch.cli import test_e2v as cli
     from v2e2v_tpu_torch.utils.configs import set_configs
 
@@ -622,7 +645,7 @@ def cli_reconstructor(root: Path, model: Path, dtype: torch.dtype, out: str, ist
         "--path_to_test_model", str(model), "--path_to_test_data", str(root),
         "--image_dim", str(H), str(W), "-c", str(C),
         "-d", str(DEPTH), "-b", str(NB), "--num_events", str(NUM_EVENTS), "--test_data_mode",
-        "real", "--precision", DNAME[dtype], "-o", str(root.parent / out)])
+        "real", "--precision", DNAME[dtype], "-o", str(root.parent / out), *extra])
     rec = cli.Reconstructor(cfgs, "cuda")
     if ista_impl != rec.cfg.ista_impl:
         rec.cfg = dataclasses.replace(rec.cfg, ista_impl=ista_impl)
@@ -852,10 +875,11 @@ def host_breakdown(data: Path, smi: str) -> None:
 
 
 def v2e2v_cli(data: Path, model: Path, out: Path, seed: int, noise_for_sequence=None,
-              plain: bool = False):
-    """The V2E2V CLI's ``V2E2V`` over ``data`` at full width, the flags'
-    emulator parameters overridden by the checkpoint's, writing event
-    previews; with ``plain``, through the plain versions of K3 and K1."""
+              plain: bool = False, extra: tuple = ()):
+    """The V2E2V CLI's ``V2E2V`` over ``data`` at full width with the flags
+    ``extra``, the flags' emulator parameters overridden by the checkpoint's,
+    writing event previews; with ``plain``, through the plain versions of K3
+    and K1."""
     from v2e2v_tpu_torch.cli import test as cli
     from v2e2v_tpu_torch.models.v2e2v import V2E2VConfig
     from v2e2v_tpu_torch.utils.configs import set_configs
@@ -865,7 +889,7 @@ def v2e2v_cli(data: Path, model: Path, out: Path, seed: int, noise_for_sequence=
     cfgs = parser.parse_args([
         "--path_to_test_model", str(model), "--path_to_test_data", str(data), "--image_dim",
         str(H), str(W), "-c", str(C), "-d", str(DEPTH), "-b", str(NB), "--seed", str(seed),
-        "--is_write_event", "-o", str(out), *V2E_FLAGS])
+        "--is_write_event", "-o", str(out), *V2E_FLAGS, *extra])
     run = cli.V2E2V(cfgs, "cuda", noise_for_sequence)
     if plain:
         run.cfg = V2E2VConfig(dataclasses.replace(run.cfg.cista, ista_impl="plain"),
@@ -2503,6 +2527,315 @@ def int8_phase(seed: int, smi: str, root: Path, serve, served: dict, layers_recs
     return {"entries": entries, "rows": rows}
 
 
+SLOMO_FRAMES, SLOMO_SEQUENCES = 8, 2  # LFR frames per sequence of phase 17's dataset
+SLOMO_TOL = 1e-4  # UNets card vs CPU, of the largest entry, TF32 off
+BACKWARP_TOL = 1e-5  # card vs CPU, absolute
+SLOMO_GAP = 0.15  # least distance of a flow magnitude from an integer (the counts' margin)
+# the kinds of device kernel phase 17b's traces sort a Super-SloMo call into
+SLOMO_KINDS = (
+    ("layout transposes", ("nchwToNhwc", "nhwcToNchw", "ToNhwc", "ToNchw")),
+    ("cuDNN convs", ("fprop", "implicit", "conv", "cudnn", "fft", "sm90_xmma", "gemm")),
+    ("gathers (backwarp)", ("gather",)),
+    ("bilinear 2x", ("upsample_bilinear",)),
+    ("average pools", ("avg_pool",)),
+    ("leaky relus", ("leaky",)),
+    ("copies and concats", ("copy", "CatArray", "cat_")),
+)
+
+
+def unet_cost(net, x) -> tuple[float, float]:
+    """``(flops, bytes)`` of the UNet ``net``'s convs on ``x``: two per
+    multiply-add of every conv at its output size, and its float32 weights
+    read once."""
+    flops = []
+
+    def count(m, _, out):
+        flops.append(2 * m.weight.numel() * out.shape[0] * out.shape[2] * out.shape[3])
+
+    hooks = [m.register_forward_hook(count) for m in net.modules()
+             if isinstance(m, torch.nn.Conv2d)]
+    with torch.no_grad():
+        net(x)
+    for h in hooks:
+        h.remove()
+    return float(sum(flops)), 4.0 * sum(p.numel() for p in net.parameters())
+
+
+def bound_of(flops: float, nbytes: float) -> tuple[float, str]:
+    ops_ms, bytes_ms = 1e3 * flops / PEAK_FLOPS[torch.float32], 1e3 * nbytes / PEAK_BYTES
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def flow_scale(mags: np.ndarray) -> float:
+    """The largest scale of the flows (a quarter step) that keeps every
+    pair's count at 8 or less and every magnitude ``SLOMO_GAP`` or more from
+    an integer, so that the card's and the CPU's counts cannot differ."""
+    best = None
+    for s in np.arange(0.25, 1e4, 0.25):
+        x = s * mags
+        if x.max() > 8 - SLOMO_GAP:
+            break
+        if np.abs(x - np.round(x)).min() >= SLOMO_GAP:
+            best = float(s)
+    if best is None:
+        fail(f"no flow scale keeps the magnitudes {mags} off the integers")
+    return best
+
+
+def upsampling_phase(seed: int, smi: str, root: Path) -> dict:
+    """Phase 17: Super-SloMo upsampling at full width (180x240, padded to
+    192x256, float32, TF32 off): (a) both UNets and ``backwarp`` on the card
+    against the CPU on the same weights, with the UNets' TF32 control; (b)
+    ``Upsampler.upsampling`` over one sequence of LFR frames with the flow
+    net scaled (a checkpoint written here) on the card against the CPU, and
+    its times; (c) both CLIs with ``--reader_type upsampling`` reading that
+    checkpoint through ``V2E2V_SUPERSLOMO_CKPT``, every count set to 0 just
+    before each. Returns each CLI's launches by row of the kernels line."""
+    import os
+
+    from v2e2v_tpu_torch._device import float32_math
+    from v2e2v_tpu_torch.data import interpolating_reader as reader_mod
+    from v2e2v_tpu_torch.data.synthetic import write_dataset
+    from v2e2v_tpu_torch.models import superslomo as slomo
+    from v2e2v_tpu_torch.models.cista import CistaConfig, init_cista_lstc
+    from v2e2v_tpu_torch.ops.cuda.core import cista_core
+    from v2e2v_tpu_torch.ops.cuda.emulator_iters import emulator_iters
+    from v2e2v_tpu_torch.ops.cuda.ista import ista_loop
+    from v2e2v_tpu_torch.utils.image_io import read_gray
+
+    t_phase = time.perf_counter()
+    data, ckpt = root / "lfr", root / "SuperSloMo.ckpt"
+    write_dataset(data, seed, SLOMO_SEQUENCES, SLOMO_FRAMES, H, W, CLI_EVENTS)
+    seq = sorted(data.iterdir())[0] / "frames"
+    frames = [read_gray(str(p)) for p in sorted(seq.glob("*.png"))]
+    stamps = [float(ln.split()[1]) for ln in (seq / "timestamps.txt").read_text().splitlines()]
+    gen = torch.Generator().manual_seed(seed)
+    flow_net, intrp_net = slomo.UNet(6, 4, gen), slomo.UNet(20, 5, gen)
+    torch.save({"state_dictFC": flow_net.state_dict(), "state_dictAT": intrp_net.state_dict()},
+               ckpt)
+    probe = slomo.Upsampler([H, W], ckpt_path=str(ckpt), device="cpu")
+    net_in = [probe.crop.pad(torch.from_numpy(probe._to_net(f))[None]) for f in frames]
+    hp, wp = net_in[0].shape[1:3]
+
+    # (a) the UNets and backwarp on the card against the CPU
+    cpu_gen = torch.Generator().manual_seed(seed + 1)
+    inputs = {"flow": (probe.flow_net, torch.cat(net_in[:2], -1)),
+              "interp": (probe.intrp_net, 0.5 * torch.randn(1, hp, wp, 20, generator=cpu_gen))}
+    for name, (net, x) in inputs.items():
+        card = copy.deepcopy(net).to("cuda")
+        with torch.no_grad():
+            want = net(x)
+            with float32_math():
+                got = card(x.cuda()).cpu()
+            with tf32_math():
+                got_tf32 = card(x.cuda()).cpu()
+        scale = float(want.abs().max())
+        err = float((got - want).abs().max()) / scale
+        err_tf32 = float((got_tf32 - want).abs().max()) / scale
+        ok = bool(torch.isfinite(got).all()) and err <= SLOMO_TOL < err_tf32
+        say(f"[slomo] {name} UNet {tuple(x.shape)} card vs CPU, same weights, float32 TF32 "
+            f"off: max |diff| {err:.3e} of the largest entry ({scale:.4e}; tol {SLOMO_TOL}); "
+            f"the TF32 control reads {err_tf32:.3e} (must exceed the tolerance) "
+            f"{'pass' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"the {name} UNet on the card disagrees with the CPU, or the bound does not "
+                 "see TF32")
+    img = torch.randn(1, hp, wp, 3, generator=cpu_gen)
+    flow = 3 * torch.randn(1, hp, wp, 2, generator=cpu_gen)
+    want = slomo.backwarp(img, flow)
+    got = slomo.backwarp(img.cuda(), flow.cuda()).cpu()
+    err = float((got - want).abs().max())
+    outside = float(((torch.arange(wp) + flow[..., 0] < 0)
+                     | (torch.arange(wp) + flow[..., 0] > wp - 1)).float().mean())
+    say(f"[slomo] backwarp {tuple(img.shape)}, flows N(0, 3^2) ({100 * outside:.1f}% of the x "
+        f"sample points outside): card vs CPU max |diff| {err:.3e} (tol {BACKWARP_TOL}) "
+        f"{'pass' if err <= BACKWARP_TOL else 'FAIL'}")
+    if not err <= BACKWARP_TOL:
+        fail("backwarp on the card disagrees with the CPU")
+
+    # (b) the upsampler with the flow net scaled, card against CPU, and times
+    with torch.no_grad():
+        mags = np.array([max(float(f.square().sum(-1).sqrt().max())
+                             for f in slomo.flow_pair(probe.flow_net, a, b))
+                         for a, b in zip(net_in[:-1], net_in[1:])])
+    s = flow_scale(mags)
+    with torch.no_grad():
+        flow_net.conv3.weight.mul_(s)
+        flow_net.conv3.bias.mul_(s)
+    torch.save({"state_dictFC": flow_net.state_dict(), "state_dictAT": intrp_net.state_dict()},
+               ckpt)
+    up = slomo.Upsampler([H, W], ckpt_path=str(ckpt), device="cuda")
+    up_cpu = slomo.Upsampler([H, W], ckpt_path=str(ckpt), device="cpu")
+    counts = [int(np.ceil(m)) for m in s * mags]
+    gaps = np.abs(s * mags - np.round(s * mags))
+    up.upsampling(frames[:2], stamps[:2])  # the first cuDNN calls
+    calls = {"flow": [], "interp": []}
+
+    def recorded(fn, key):
+        def call(*a):
+            ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+            out = fn(*a)
+            ev[1].record()
+            calls[key].append(ev)
+            return out
+        return call
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    with swapped((slomo, "flow_pair", recorded(slomo.flow_pair, "flow")),
+                 (slomo, "interp_at_t", recorded(slomo.interp_at_t, "interp"))):
+        t0 = time.perf_counter()
+        got_frames, got_ts = up.upsampling(frames, stamps)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**20
+    t0 = time.perf_counter()
+    want_frames, want_ts = up_cpu.upsampling(frames, stamps)
+    cpu_s = time.perf_counter() - t0
+    got_counts = [int(((got_ts > a) & (got_ts < b)).sum()) + 1 for a, b in zip(stamps, stamps[1:])]
+    diff = got_frames.astype(int) - want_frames.astype(int) if got_frames.shape == \
+        want_frames.shape else np.full(1, 255)
+    ok = (got_counts == counts and np.array_equal(got_ts, want_ts)
+          and got_frames.shape == (sum(counts) + 1, H, W) and np.abs(diff).max() <= 1
+          and min(counts) >= 2)
+    say(f"[slomo] Upsampler.upsampling, {len(frames)} LFR frames {H}x{W} (padded {hp}x{wp}), "
+        f"flow net's conv3 scaled by {s} (unscaled max |flow| per pair "
+        f"{np.round(mags, 5).tolist()}): counts card {got_counts}, want {counts} (each "
+        f"magnitude >= {gaps.min():.3f} from an integer; tol {SLOMO_GAP}); {len(got_ts)} frames; "
+        f"timestamps equal to the CPU's={np.array_equal(got_ts, want_ts)}; frames within one "
+        f"code: max |diff| {int(np.abs(diff).max())}, {np.count_nonzero(diff)} of {diff.size} "
+        f"codes differ; CPU run {cpu_s:.2f} s {'pass' if ok else 'FAIL'}")
+    if not ok:
+        fail("the upsampler on the card disagrees with the CPU")
+    i0, i1 = (f.cuda() for f in net_in[:2])
+    with torch.no_grad(), float32_math():
+        f01, f10 = slomo.flow_pair(up.flow_net, i0, i1)
+        # each function's own inputs read and output written once: the two
+        # frames in and the flows out; the frames and flows in and a frame out
+        for key, fn, net, x, planes in (
+                ("flow", lambda: slomo.flow_pair(up.flow_net, i0, i1), up.flow_net,
+                 torch.cat([i0, i1], -1), 3 + 3 + 4),
+                ("interp", lambda: slomo.interp_at_t(up.intrp_net, i0, i1, f01, f10, 0.5),
+                 up.intrp_net, torch.zeros(1, hp, wp, 20, device="cuda"), 3 + 3 + 2 + 2 + 3)):
+            issued = float(np.mean([a.elapsed_time(b) for a, b in calls[key]]))
+            dev = device_ms(fn, iters=10)
+            flops, nbytes = unet_cost(net, x)
+            bound_ms, bound_by = bound_of(flops, nbytes + 4 * hp * wp * planes)
+            say(f"[time] Super-SloMo {key} call ({'flow_pair' if key == 'flow' else 'interp_at_t'}"
+                f", {hp}x{wp}, float32, TF32 off; {smi}): {issued:.4f} ms as issued in the "
+                f"upsampling run (mean of {len(calls[key])} calls, CUDA events), {dev:.4f} ms on "
+                f"the device (back to back); {flops / 1e9:.2f} GFLOP in its UNet's convs, bound "
+                f"{bound_ms:.4f} ms ({bound_by}; {PEAK_FLOPS[torch.float32] / 1e12:.0f} TFLOP/s, "
+                f"{PEAK_BYTES / 1e12:.2f} TB/s) = {100 * bound_ms / issued:.1f}% of bound as "
+                f"issued, {100 * bound_ms / dev:.1f}% on the device")
+        # where a call's device time goes, by kind of kernel
+        import importlib.util
+        spec = importlib.util.spec_from_file_location(
+            "profile_torch_pool",
+            Path(__file__).resolve().parent / "scripts" / "profile_torch_pool.py")
+        prof = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(prof)
+        prof.CATEGORIES = SLOMO_KINDS
+        prof.trace(lambda: slomo.flow_pair(up.flow_net, i0, i1), 5, "Super-SloMo flow_pair")
+        prof.trace(lambda: slomo.interp_at_t(up.intrp_net, i0, i1, f01, f10, 0.5), 5,
+                   "Super-SloMo interp_at_t")
+    pairs = len(frames) - 1
+    say(f"[time] Super-SloMo upsampling ({smi}): {1e3 * run_s / pairs:.3f} ms per pair (host "
+        f"clock, {pairs} pairs, {sum(counts) - pairs} interpolated frames, {run_s:.3f} s), "
+        f"{len(got_ts) / run_s:.1f} output frames/s; max_memory_allocated {peak:.1f} MiB above "
+        f"what earlier phases hold ({base / 2**20:.1f} MiB)")
+
+    # (c) both CLIs with --reader_type upsampling, the checkpoint through the
+    # environment variable, every count at 0 just before each
+    cfg = CistaConfig(image_dim=(H, W), base_channels=C, depth=DEPTH, num_bins=NB)
+    sd = init_cista_lstc(torch.Generator().manual_seed(seed), cfg, device="cpu")
+    e2v_model, v2e2v_model = root / "e2v.pth.tar", root / "v2e2v.pth.tar"
+    torch.save({"epoch": 0, "state_dict": sd, "v2e_params": None}, e2v_model)
+    torch.save({"epoch": 0, "v2e_params": V2E_PARAMS,
+                "state_dict": {f"e2v_net.{k}": v for k, v in sd.items()}}, v2e2v_model)
+    rows = {}
+    saved_env = os.environ.get(slomo.CKPT_ENV_VAR)
+    os.environ[slomo.CKPT_ENV_VAR] = str(ckpt)
+    upsample = {"s": [0.0, 0]}
+    reader_init = timed(reader_mod.InterpolatingReader.initialize, upsample, "s")
+    try:
+        with swapped((reader_mod.InterpolatingReader, "initialize", reader_init)):
+            # the V2E2V CLI: LFR -> Super-SloMo -> emulator (K3) -> CISTA-LSTC (K1)
+            run = v2e2v_cli(data, v2e2v_model, root / "slomo_v2e2v", seed,
+                            extra=("--reader_type", "upsampling"))
+            records = []
+            counts_zero(*kernel_counters())
+            with recorded_forward(records), contextlib.redirect_stdout(None):
+                t0 = time.perf_counter()
+                run.run()
+                torch.cuda.synchronize()
+                v2e2v_s = time.perf_counter() - t0
+            rows["upsampling_v2e2v_cli_launches"] = row_counts()
+            k3_n, k1_n, k2_n = emulator_iters.launches, ista_loop.launches, cista_core.launches
+            pairs = [p for _, _, p in records]
+            recs = torch.stack([o.reconstruction for o, _, _ in records])
+            ev = [int(o.num_events) for o, _, _ in records]
+            out_dir = root / "slomo_v2e2v" / "v2e2v.pth"
+            pngs = sorted(out_dir.glob("*/frame_*.png"))
+            previews = sorted(out_dir.glob("*/events/events_*.png"))
+            ok = (len(records) >= 2 * SLOMO_SEQUENCES and bool(torch.isfinite(recs).all())
+                  and bool(((recs >= 0) & (recs <= 1)).all()) and min(ev) > 0
+                  and k3_n == sum(pairs) and k1_n == 2 * DEPTH * len(records) and k2_n == 0
+                  and len(pngs) == len(previews) == len(records)
+                  and [n for _, n, _ in records] == [[p, 2 * DEPTH] for p in pairs])
+            seq_s = upsample["s"][0] / max(upsample["s"][1], 1)
+            say(f"[slomo-cli] V2E2V CLI --reader_type upsampling, {SLOMO_SEQUENCES} sequences "
+                f"of {SLOMO_FRAMES} LFR frames {H}x{W}: {len(records)} packs of 10 upsampled "
+                f"frames, num_events {ev}; K3 launches {k3_n} (want {sum(pairs)}, one per frame "
+                f"pair), K1 {k1_n} (want {2 * DEPTH * len(records)}), K2 {k2_n}; "
+                f"{len(pngs)} reconstruction PNGs, {len(previews)} event previews; "
+                f"reconstructions finite and in [0, 1]; run() {v2e2v_s:.3f} s, of which the "
+                f"reader's upsampling {seq_s:.3f} s a sequence {'pass' if ok else 'FAIL'}")
+            if not ok:
+                fail("the V2E2V CLI with --reader_type upsampling did not run as it should")
+
+            # the E2V CLI: upsampled frames as the ground truth beside the events
+            upsample["s"] = [0.0, 0]
+            rec = cli_reconstructor(data, e2v_model, torch.float32, "slomo_e2v", "cuda",
+                                    extra=("--reader_type", "upsampling", "--test_data_mode",
+                                           "upsampled"))
+            steps = record_steps(rec, keep_state=False)
+            counts_zero(*kernel_counters())
+            with contextlib.redirect_stdout(None):
+                t0 = time.perf_counter()
+                rec.run()
+                torch.cuda.synchronize()
+                e2v_s = time.perf_counter() - t0
+            rows["upsampling_e2v_cli_launches"] = row_counts()
+            k1_n, k2_n, k3_n = ista_loop.launches, cista_core.launches, emulator_iters.launches
+            recs = torch.stack([r for r, _ in steps])
+            out_dir = root / "slomo_e2v" / "e2v.pth"
+            pngs = sorted(out_dir.glob("*/*.png"))
+            results = sorted(out_dir.glob("*/result.csv"))
+            ok = (len(steps) >= SLOMO_SEQUENCES and bool(torch.isfinite(recs).all())
+                  and bool(((recs >= 0) & (recs <= 1)).all()) and k1_n == 2 * DEPTH * len(steps)
+                  and k2_n == k3_n == 0 and len(pngs) == len(steps)
+                  and len(results) == SLOMO_SEQUENCES)
+            say(f"[slomo-cli] E2V CLI --reader_type upsampling --test_data_mode upsampled, "
+                f"float32: {len(steps)} reconstructions; K1 launches {k1_n} (want "
+                f"{2 * DEPTH * len(steps)}), K2 {k2_n}, K3 {k3_n}; {len(pngs)} PNGs, "
+                f"{len(results)} result.csv; reconstructions finite and in [0, 1]; run() "
+                f"{e2v_s:.3f} s, of which the reader's upsampling "
+                f"{upsample['s'][0] / max(upsample['s'][1], 1):.3f} s a sequence "
+                f"{'pass' if ok else 'FAIL'}")
+            if not ok:
+                fail("the E2V CLI with --reader_type upsampling did not run as it should")
+    finally:
+        if saved_env is None:
+            os.environ.pop(slomo.CKPT_ENV_VAR, None)
+        else:
+            os.environ[slomo.CKPT_ENV_VAR] = saved_env
+    say(f"[phase] Super-SloMo upsampling {time.perf_counter() - t_phase:.1f} s")
+    return rows
+
+
 def main_path_k3_inputs(cfg, state, frames, ts, internal: bool):
     """The K3 inputs of the first frame pair of a pack on the main path: the
     emulator's own front end, stopped where it calls K3."""
@@ -2989,11 +3322,19 @@ def main() -> None:
         shutil.rmtree(tmp, ignore_errors=True)
     entries += int8["entries"]
 
+    # 17. Super-SloMo upsampling: the UNets and backwarp, the upsampler, both CLIs
+    tmp = Path(tempfile.mkdtemp(prefix="v2e2v_slomo_"))
+    try:
+        slomo_rows = upsampling_phase(args.seed, smi, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
     # 14. kernels, then the result line
     # each path's launches by row, every count set to 0 just before the path
     paths = {"v2e2v_cli_launches": hfr["rows"], "raw_launches": raw_rows,
              "tc_pool_launches": tc_rows, "e2v_train_launches": trained["e2v"],
-             "v2e2v_train_launches_per_step": trained["v2e2v"], **fused_rows, **int8["rows"]}
+             "v2e2v_train_launches_per_step": trained["v2e2v"], **fused_rows, **int8["rows"],
+             **slomo_rows}
     for e in entries:
         if e["name"].startswith("ista_loop"):
             e.update(cli_k1[torch.float32 if "float32" in e["name"] else torch.bfloat16])

@@ -1,5 +1,7 @@
 """Shared pieces of the port's parity tests (``tests/test_torch_*.py``)."""
 
+import functools
+
 import jax
 import pytest
 
@@ -83,3 +85,74 @@ def _to_torch(x, device):
     import torch
 
     return torch.from_numpy(np.array(x)).to(device)
+
+
+# Super-SloMo: the JAX package's random UNet weights, a checkpoint of them
+# with the flow scaled, and the adaptive count's margin
+
+@functools.lru_cache(maxsize=None)
+def _jax_init():
+    import numpy as np
+    from v2e2v_tpu.models.superslomo import init_unet
+
+    k1, k2 = jax.random.split(jax.random.PRNGKey(0))
+    return (jax.tree_util.tree_map(np.asarray, init_unet(k1, 6, 4)),
+            jax.tree_util.tree_map(np.asarray, init_unet(k2, 20, 5)))
+
+
+def jax_unet_params(scale: float = 1.0):
+    """The JAX Upsampler's random weights (``PRNGKey(0)``), numpy, with the
+    flow net's output conv scaled by ``scale``. With its random weights the
+    flow net's largest flow is below 0.1 pixel, so ``ceil(max |flow|) = 1``
+    and the interpolation net never runs; the flow net ends in a leaky ReLU,
+    so scaling its output conv by ``s`` scales every flow by ``s``."""
+    import numpy as np
+
+    flow, intrp = _jax_init()
+    flow = dict(flow)
+    flow["conv3"] = {k: (v * np.float32(scale)).astype(np.float32)
+                     for k, v in flow["conv3"].items()}
+    return flow, intrp
+
+
+def write_ckpt(path, scale: float):
+    """A ``SuperSloMo.ckpt`` of ``jax_unet_params(scale)``."""
+    import torch
+
+    from v2e2v_tpu_torch.utils.checkpoint import unet_state_dict_from_jax
+
+    flow, intrp = jax_unet_params(scale)
+    torch.save({"state_dictFC": unet_state_dict_from_jax(flow),
+                "state_dictAT": unet_state_dict_from_jax(intrp)}, path)
+    return path
+
+
+def pair_magnitudes(up, frames) -> list[float]:
+    """Each pair's ``max |flow|`` through the flow net of the port's
+    ``Upsampler`` ``up``, on the CPU."""
+    import torch
+
+    from v2e2v_tpu_torch.models.superslomo import flow_pair
+
+    net = [up.crop.pad(torch.from_numpy(up._to_net(f))[None]) for f in frames]
+    mags = []
+    with torch.no_grad():
+        for a, b in zip(net[:-1], net[1:]):
+            f01, f10 = flow_pair(up.flow_net, a, b)
+            mags.append(max(float(f.square().sum(-1).sqrt().max()) for f in (f01, f10)))
+    return mags
+
+
+def assert_off_integers(mags, lo: int, hi: int):
+    """Each count in [lo, hi], each magnitude 0.1 or more from an integer
+    (where the two packages' float32 roundings cannot put their counts one
+    apart). Returns the counts."""
+    import numpy as np
+
+    counts = [int(np.ceil(m)) for m in mags]
+    assert all(lo <= c <= hi for c in counts), f"counts {counts} outside [{lo}, {hi}]"
+    gaps = [abs(m - round(m)) for m in mags]
+    assert min(gaps) >= 0.1, (
+        f"a flow magnitude lies within 0.1 of an integer ({mags}): the two packages' "
+        "counts could differ by one there; pick another flow scale")
+    return counts

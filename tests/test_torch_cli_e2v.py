@@ -19,6 +19,7 @@ import importlib.util
 import os
 import subprocess
 import sys
+from pathlib import Path
 
 import cv2
 import jax
@@ -26,17 +27,27 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import no_new_jax_cache_entries  # noqa: F401
+from _torch_parity import (  # noqa: F401
+    assert_off_integers,
+    no_new_jax_cache_entries,
+    pair_magnitudes,
+    write_ckpt,
+)
+from v2e2v_tpu.data import interpolating_reader as jir
 from v2e2v_tpu.models import cista as jcista
 from v2e2v_tpu.ops import image as jimage
 from v2e2v_tpu.utils import configs as jconfigs
 from v2e2v_tpu.data import video_readers as jvr
 from v2e2v_tpu.utils.checkpoint import export_torch_state_dict
 from v2e2v_tpu_torch.cli import test_e2v as tcli
+from v2e2v_tpu_torch.data import interpolating_reader as tir
 from v2e2v_tpu_torch.data import video_readers as tvr
+from v2e2v_tpu_torch.models import superslomo as tss
+from v2e2v_tpu_torch.utils.image_io import read_gray
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 C, DEPTH = 8, 2
+FLOW_SCALE = 67.0  # the upsampling run's flows: 4-6 frames a pair, >= 0.2 from an integer
 
 
 @pytest.fixture(scope="module")
@@ -107,12 +118,15 @@ def _result(folder):
     return rows
 
 
-def _compare_clis(setup, monkeypatch, argv, tag, model_dir, norm="minmax", amplified=False):
+def _compare_clis(setup, monkeypatch, argv, tag, model_dir, norm="minmax", amplified=False,
+                  readers=(tvr.ImageReader, jvr.ImageReader), min_steps=20):
     """Run the port's CLI and the JAX CLI with ``argv`` and hold them to each
     other: every step's reconstruction, the written frames and the
     result.csv rows. With ``amplified``, two frames may differ by as many
     levels as the norm stretches the two reconstructions' difference, and the
-    rows by what that moves (see ``test_int8_cli_matches_jax_cli``)."""
+    rows by what that moves (see ``test_int8_cli_matches_jax_cli``).
+    ``readers`` are the port's and the JAX CLI's reader classes; the runs
+    take more than ``min_steps`` steps."""
     root, data, model, jcli = setup
     monkeypatch.delenv("V2E2V_LPIPS_WEIGHTS", raising=False)
     monkeypatch.setenv("V2E2V_PLATFORM", "cpu")
@@ -121,16 +135,16 @@ def _compare_clis(setup, monkeypatch, argv, tag, model_dir, norm="minmax", ampli
         steps = []
         folder = root / f"{name}_{tag}"
         if name == "port":
-            _recording(tcli, tvr.ImageReader, monkeypatch, steps)
+            _recording(tcli, readers[0], monkeypatch, steps)
             tcli.main(argv + ["-o", str(folder)])
         else:
-            _recording(jcli, jvr.ImageReader, monkeypatch, steps)
+            _recording(jcli, readers[1], monkeypatch, steps)
             parser = jcli.argparse.ArgumentParser()
             jconfigs.set_configs(parser)
             jcli.Reconstructor(parser.parse_args(argv + ["-o", str(folder)])).run()
         out[name] = (*_split(steps), folder / model_dir)
     (got_steps, got_frames, got_dir), (want_steps, want_frames, want_dir) = out["port"], out["jax"]
-    assert len(got_steps) == len(want_steps) > 20
+    assert len(got_steps) == len(want_steps) > min_steps
     for g, w in zip(got_steps, want_steps):
         assert g.shape == w.shape == (1, 32, 40, 1)
         np.testing.assert_allclose(g, w, rtol=0, atol=1e-4)
@@ -194,6 +208,35 @@ def test_cli_matches_jax_cli(setup, monkeypatch, mode, norm):
                   f"{mode}_{norm}", "model.pth", norm)
 
 
+def test_upsampling_cli_matches_jax_cli(setup, monkeypatch):
+    """``--reader_type upsampling`` over each sequence's first 6 frames, both
+    CLIs reading one checkpoint through ``V2E2V_SUPERSLOMO_CKPT`` (the JAX
+    package's random weights, the flow scaled so that every pair gives 4 to 6
+    frames), under the float CLI test's rules. The upsampled frames are each
+    CLI's ground truth: equal stamps and counts, frames within one code
+    (``tests/test_torch_interpolating_reader.py`` counts them), which moves
+    the rows' metrics by less than their rounding. 'upsampled' mode packs the
+    6 event files to 300 events a step over the ~25 frames (11 steps); in
+    'real' mode the frames past the 6th event file would be steps without
+    events, whose nearly constant reconstructions the minmax norm stretches
+    until one ulp is many levels."""
+    root, data, model, _ = setup
+    monkeypatch.setenv(tss.CKPT_ENV_VAR, str(write_ckpt(root / "scaled.ckpt", FLOW_SCALE)))
+    port_init = tir.InterpolatingReader.initialize
+
+    def port_initialize(self, path, num_load_frames):
+        port_init(self, path, num_load_frames)
+        lfr = [read_gray(str(p)) for p in sorted(Path(path).rglob("*.png"))[:num_load_frames]]
+        assert_off_integers(pair_magnitudes(self._upsampler, lfr), 4, 6)
+
+    monkeypatch.setattr(tir.InterpolatingReader, "initialize", port_initialize)
+    _compare_clis(setup, monkeypatch,
+                  _argv(data, model, "--reader_type", "upsampling", "--test_img_num", "6",
+                        "--test_data_mode", "upsampled"),
+                  "upsampling", "model.pth", min_steps=10,
+                  readers=(tir.InterpolatingReader, jir.InterpolatingReader))
+
+
 @pytest.fixture(scope="module")
 def tc_model_int8(setup):
     """A .pth.tar of JAX's random CISTA-TC weights at the CLI test's widths."""
@@ -250,7 +293,6 @@ def test_cli_without_card_or_platform_raises(setup, monkeypatch):
 
 
 UNSUPPORTED = [
-    (["--reader_type", "upsampling"], {}, "item 8"),
     (["--profile_dir", "trace"], {}, "item 10"),
     (["--dist_coordinator", "localhost:1", "--dist_num_processes", "2",
       "--dist_process_id", "0"], {}, "item 9"),
@@ -262,7 +304,7 @@ UNSUPPORTED = [
 
 
 @pytest.mark.parametrize("argv,env,item", UNSUPPORTED,
-                         ids=["upsampling", "profile",
+                         ids=["profile",
                               "dist-flags", "dist-env", "dist-auto", "lpips"])
 def test_unsupported_flags_raise_with_their_item(setup, monkeypatch, argv, env, item):
     root, data, model, _ = setup

@@ -14,6 +14,7 @@ stretches to 255 levels, so one-ulp float differences cross a truncation
 
 import importlib.util
 import os
+from pathlib import Path
 
 import jax
 import numpy as np
@@ -21,15 +22,26 @@ import pytest
 import torch
 from PIL import Image
 
-from _torch_parity import JaxKeyNoise, no_new_jax_cache_entries  # noqa: F401
+from _torch_parity import (  # noqa: F401
+    JaxKeyNoise,
+    assert_off_integers,
+    no_new_jax_cache_entries,
+    pair_magnitudes,
+    write_ckpt,
+)
+from v2e2v_tpu.data import interpolating_reader as jir
 from v2e2v_tpu.models import cista as jcista
 from v2e2v_tpu.utils import configs as jconfigs
 from v2e2v_tpu.utils.checkpoint import export_torch_state_dict
 from v2e2v_tpu_torch.cli import test as tcli
+from v2e2v_tpu_torch.data import interpolating_reader as tir
+from v2e2v_tpu_torch.models import superslomo as tss
+from v2e2v_tpu_torch.utils.image_io import read_gray
 from v2e2v_tpu_torch.data.synthetic import write_hfr_dataset
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 H, W, C, DEPTH, SEED = 32, 40, 8, 2, 3
+FLOW_SCALE = 66.0  # the upsampling run's flows: 4 frames a pair, >= 0.4 from an integer
 V2E = {"C": 0.5, "ps": 0.6, "pl": 1.4, "cutoff_hz": 150.0, "qs": 0.0, "ql": 1.0,
        "refractory_period_s": 0.0005}
 
@@ -66,15 +78,18 @@ def _pngs(folder):
             for p in sorted(folder.rglob("*.png"))}
 
 
-def test_cli_matches_jax_cli(setup, monkeypatch, capsys):
+def _compare_clis(setup, monkeypatch, capsys, tag, n_packs, *extra):
+    """Run both CLIs with ``extra`` and hold them to each other: the printed
+    averages, the previews and panels' input frames equal, the
+    reconstructions within one level on at most 0.5% of the pixels."""
     root, data, model, jcli = setup
     monkeypatch.setenv("V2E2V_PLATFORM", "cpu")
-    extra = ("--is_write_event", "--display_test")
-    tcli.main(_argv(data, model, root / "port", *extra), noise_for_sequence=_jax_noise)
+    extra = ("--is_write_event", "--display_test", *extra)
+    tcli.main(_argv(data, model, root / f"port{tag}", *extra), noise_for_sequence=_jax_noise)
     got_out = capsys.readouterr().out
     parser = jcli.argparse.ArgumentParser()
     jconfigs.set_configs(parser)
-    jcli.V2E2V(parser.parse_args(_argv(data, model, root / "jax", *extra))).run()
+    jcli.V2E2V(parser.parse_args(_argv(data, model, root / f"jax{tag}", *extra))).run()
     want_out = capsys.readouterr().out
 
     def averages(text):
@@ -82,11 +97,11 @@ def test_cli_matches_jax_cli(setup, monkeypatch, capsys):
 
     assert len(averages(want_out)) == 2 and averages(got_out) == averages(want_out)
     assert float(averages(want_out)[0].split(": ")[1]) > 100
-    got, want = _pngs(root / "port"), _pngs(root / "jax")
+    got, want = _pngs(root / f"port{tag}"), _pngs(root / f"jax{tag}")
     assert sorted(got) == sorted(want)
     kinds = {k.split("/")[-1].split("_")[0] for k in want}
     assert kinds == {"frame", "events", "panel"}
-    assert sum(k.split("/")[-1].startswith("frame_") for k in want) == 2 * 3
+    assert sum(k.split("/")[-1].startswith("frame_") for k in want) == 2 * n_packs
     diffs = []
     for name, w in want.items():
         g = got[name]
@@ -102,6 +117,44 @@ def test_cli_matches_jax_cli(setup, monkeypatch, capsys):
             diffs.append(g[:, part:].astype(int).ravel() - w[:, part:].astype(int).ravel())
     diffs = np.concatenate(diffs)
     assert np.abs(diffs).max() <= 1 and np.count_nonzero(diffs) <= 5e-3 * diffs.size
+
+
+def test_cli_matches_jax_cli(setup, monkeypatch, capsys):
+    _compare_clis(setup, monkeypatch, capsys, "", 3)
+
+
+def test_upsampling_cli_matches_jax_cli(setup, monkeypatch, capsys):
+    """``--reader_type upsampling`` over each sequence's first 4 frames, both
+    CLIs reading one checkpoint through ``V2E2V_SUPERSLOMO_CKPT`` (the JAX
+    package's random weights, the flow scaled so that every pair gives 4
+    frames: 13 a sequence, 2 packs of 5). Each reader upsamples; the two
+    upsampled sequences have equal stamps and frames within one code
+    (``tests/test_torch_interpolating_reader.py`` counts them), and the JAX
+    reader then serves the port's frames, so that the emulators see the same
+    frames and the events compare exactly."""
+    root, data, model, jcli = setup
+    monkeypatch.setenv(tss.CKPT_ENV_VAR, str(write_ckpt(root / "scaled.ckpt", FLOW_SCALE)))
+    served = []
+    port_init, jax_init = tir.InterpolatingReader.initialize, jir.InterpolatingReader.initialize
+
+    def port_initialize(self, path, num_load_frames):
+        port_init(self, path, num_load_frames)
+        lfr = [read_gray(str(p)) for p in sorted(Path(path).rglob("*.png"))[:num_load_frames]]
+        assert_off_integers(pair_magnitudes(self._upsampler, lfr), 4, 4)
+        served.append((self.frames, self.timestamps))
+
+    def jax_initialize(self, *args):
+        jax_init(self, *args)
+        frames, stamps = served.pop(0)
+        np.testing.assert_array_equal(self.timestamps, stamps)
+        assert np.abs(self.frames.astype(int) - frames.astype(int)).max() <= 1
+        self.frames = frames
+
+    monkeypatch.setattr(tir.InterpolatingReader, "initialize", port_initialize)
+    monkeypatch.setattr(jir.InterpolatingReader, "initialize", jax_initialize)
+    _compare_clis(setup, monkeypatch, capsys, "_upsampling", 2,
+                  "--reader_type", "upsampling", "--test_img_num", "4")
+    assert not served
 
 
 def test_checkpoint_v2e_params_override_the_flags(setup, monkeypatch):
@@ -121,7 +174,6 @@ def test_checkpoint_v2e_params_override_the_flags(setup, monkeypatch):
 
 UNSUPPORTED = [
     (["--reader_type", "video"], {}, NotImplementedError, "item 4.*video decoder"),
-    (["--reader_type", "upsampling"], {}, NotImplementedError, "item 8"),
     (["--quant", "int8"], {}, ValueError, "JAX V2E2V CLI .* does not read the flag"),
     (["--profile_dir", "trace"], {}, NotImplementedError, "item 10"),
     (["--dist_coordinator", "localhost:1"], {}, NotImplementedError, "item 9"),
@@ -133,7 +185,7 @@ UNSUPPORTED = [
 
 
 @pytest.mark.parametrize("argv,env,error,match", UNSUPPORTED,
-                         ids=["video", "upsampling", "int8", "profile", "dist-flags",
+                         ids=["video", "int8", "profile", "dist-flags",
                               "dist-auto", "bfloat16", "cista-tc", "bins"])
 def test_refused_flags_raise(setup, monkeypatch, argv, env, error, match):
     root, data, model, _ = setup

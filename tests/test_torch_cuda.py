@@ -1098,3 +1098,35 @@ def test_int8_pool_through_k4_matches_plain(card, mode, dtype, tol):
         for x, y in zip((pools[0]._states.cell, pools[0]._states.z, *pools[0]._states.dg),
                         (pools[1]._states.cell, pools[1]._states.z, *pools[1]._states.dg)):
             torch.testing.assert_close(x.float(), y.float(), atol=tol, rtol=tol)
+
+
+def test_upsampler_on_card_matches_cpu(card, tmp_path):
+    """The Super-SloMo upsampler (no kernel of the port: cuDNN's float32
+    convs, TF32 off by the upsampler itself) on the card against the CPU:
+    four frames at 32x40, random weights seeded 0 with the flow net's output
+    conv scaled by 60, so that each pair gives 4 frames (magnitudes 3.3-3.6,
+    0.3 or more from an integer on the CPU): equal counts and stamps, frames
+    within one code."""
+    import numpy as np
+
+    from v2e2v_tpu_torch.models import superslomo as slomo
+
+    gen = torch.Generator().manual_seed(0)
+    flow_net, intrp_net = slomo.UNet(6, 4, gen), slomo.UNet(20, 5, gen)
+    with torch.no_grad():
+        flow_net.conv3.weight.mul_(60.0)
+        flow_net.conv3.bias.mul_(60.0)
+    ckpt = str(tmp_path / "SuperSloMo.ckpt")
+    torch.save({"state_dictFC": flow_net.state_dict(), "state_dictAT": intrp_net.state_dict()},
+               ckpt)
+    rng = np.random.default_rng(3)
+    frames = [rng.uniform(0, 255, (32, 40)).astype(np.uint8) for _ in range(4)]
+    stamps = [0.0, 0.1, 0.25, 0.3]
+    torch.backends.cudnn.allow_tf32 = True  # the upsampler turns it off for its own calls
+    got_frames, got_ts = slomo.Upsampler([32, 40], ckpt_path=ckpt).upsampling(frames, stamps)
+    want_frames, want_ts = slomo.Upsampler([32, 40], ckpt_path=ckpt,
+                                           device="cpu").upsampling(frames, stamps)
+    assert torch.backends.cudnn.allow_tf32
+    np.testing.assert_array_equal(got_ts, want_ts)
+    assert len(got_ts) == 3 * 4 + 1
+    assert np.abs(got_frames.astype(int) - want_frames.astype(int)).max() <= 1

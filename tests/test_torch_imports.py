@@ -49,6 +49,7 @@ def test_importing_the_port_loads_no_jax():
         "import v2e2v_tpu_torch.training.losses, v2e2v_tpu_torch.training.steps\n"
         "import v2e2v_tpu_torch.data.datasets, v2e2v_tpu_torch.data.manifests\n"
         "import v2e2v_tpu_torch.data.prefetch, v2e2v_tpu_torch.utils.logging\n"
+        "import v2e2v_tpu_torch.models.superslomo, v2e2v_tpu_torch.data.interpolating_reader\n"
         "bad = [m for m in sys.modules\n"
         "       if m.split('.')[0] in ('jax', 'jaxlib', 'v2e2v_tpu', 'cv2', 'PIL', 'pandas',\n"
         "                              'matplotlib')]\n"
@@ -81,6 +82,9 @@ def test_entry_points_without_device_raise_when_no_card(monkeypatch):
     sd = init_cista_tc(torch.Generator().manual_seed(0), tc, device="cpu")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         StreamPool(tc, sd)
+    from v2e2v_tpu_torch.models.superslomo import Upsampler
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Upsampler([32, 40], ckpt_path="absent.ckpt")
 
 
 @pytest.mark.parametrize("cli", ["test", "test_e2v", "generate_events", "train_e2v", "train"])

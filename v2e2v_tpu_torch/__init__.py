@@ -22,7 +22,10 @@ its data path, losses and train steps, the core layer by layer with the
 plain ISTA loop (K1 and K2 have no backward and refuse to run under
 autograd), the V2E2V training forward's emulator through K3; int8 inference
 (``CistaConfig.quant="int8"``: ``ops/qconv.py``, calibration, the int8 pool
-and the E2V CLI's ``--quant``) with the int8 3x3 conv as CUDA kernel K4.
+and the E2V CLI's ``--quant``) with the int8 3x3 conv as CUDA kernel K4;
+Super-SloMo upsampling (``models/superslomo.py``,
+``data/interpolating_reader.py``) behind both evaluation CLIs'
+``--reader_type upsampling``.
 """
 
 from ._device import make_first_cpu_vml_call

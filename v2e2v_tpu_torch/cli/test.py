@@ -4,9 +4,11 @@
         --path_to_test_data frames/ [the root test.py's flags]
 
 For every sequence folder under ``--path_to_test_data`` (frames and
-``timestamps.txt``): read the HFR frames pack by pack, emulate events (the
-emulator's iteration loop is kernel K3, 9 launches for a pack of 10 frames)
-and reconstruct one frame per pack with CISTA-LSTC (its ISTA loop is kernel
+``timestamps.txt``): read the HFR frames (or, with ``--reader_type
+upsampling``, LFR frames upsampled by Super-SloMo on the run's device,
+``data/interpolating_reader.py``) pack by pack, emulate events (the
+emulator's iteration loop is kernel K3, one launch per frame pair) and
+reconstruct one frame per pack with CISTA-LSTC (its ISTA loop is kernel
 K1, 2 x depth launches), write the min-max-normalised PNGs, the red-blue event
 previews (``--is_write_event``) and the ``--display_test`` panels, and print
 the average number of events per reconstruction. The emulator parameters
@@ -30,7 +32,7 @@ import numpy as np
 import torch
 
 from ..models.emulator import GeneratorNoise, Noise
-from .test_e2v import check_common_flags, missing
+from .test_e2v import check_common_flags, make_reader, missing
 
 V2E_PARAMS = ("C", "ps", "pl", "cutoff_hz", "qs", "ql", "refractory_period_s")
 CHECKPOINT_SUFFIXES = (".pth.tar", ".pth", ".pt")
@@ -69,7 +71,6 @@ class V2E2V:
     def __init__(self, cfgs, device: torch.device | str | None = None,
                  noise_for_sequence: Callable[[int], Noise] | None = None):
         from .._device import resolve_device
-        from ..data.video_readers import ImageReader
         from ..models.cista import with_derived
         from ..models.v2e2v import V2E2VConfig
         from ..utils.checkpoint import load_torch_checkpoint
@@ -85,7 +86,7 @@ class V2E2V:
             for d in os.listdir(cfgs.path_to_test_data)
             if os.path.isdir(os.path.join(cfgs.path_to_test_data, d))
         )
-        self.video_renderer = ImageReader(cfgs.image_dim, time_unit=cfgs.time_unit)
+        self.video_renderer = make_reader(cfgs, self.device)
 
         path = cfgs.path_to_test_model
         if not path.endswith(CHECKPOINT_SUFFIXES):

@@ -3,7 +3,10 @@
     python -m v2e2v_tpu_torch.cli.test_e2v --path_to_test_model model.pth.tar \\
         --path_to_test_data data/ [the root test_e2v.py's flags]
 
-For every sequence folder under ``--path_to_test_data``: read the frames and
+For every sequence folder under ``--path_to_test_data``: read the frames (or,
+with ``--reader_type upsampling``, the LFR frames upsampled by Super-SloMo on
+the run's device, ``data/interpolating_reader.py``; its checkpoint from
+``$V2E2V_SUPERSLOMO_CKPT``, random weights with a warning without one) and
 events, pack the events to the ``--num_events`` budget ('real' or
 'upsampled'), voxelise them on the host, reconstruct with CISTA-LSTC or
 (``--model_mode cista-tc``) CISTA-TC on the card with its state fed back
@@ -42,11 +45,19 @@ def missing(what: str, item: int, why: str = "") -> None:
 
 def check_common_flags(cfgs) -> None:
     """Raise on the flags (and environment variables) that neither of the
-    port's evaluation CLIs covers yet: Super-SloMo upsampling, distributed
-    runs, profiling."""
-    if cfgs.reader_type == "upsampling":
-        missing("--reader_type upsampling", 8)
+    port's evaluation CLIs covers yet: distributed runs, profiling."""
     check_run_flags(cfgs)
+
+
+def make_reader(cfgs, device: torch.device, **kw):
+    """The frame reader of ``--reader_type``: Super-SloMo upsampling on
+    ``device``, or the frame folder as it is."""
+    from ..data.interpolating_reader import InterpolatingReader
+    from ..data.video_readers import ImageReader
+
+    if cfgs.reader_type == "upsampling":
+        return InterpolatingReader(cfgs.image_dim, time_unit=cfgs.time_unit, device=device, **kw)
+    return ImageReader(cfgs.image_dim, time_unit=cfgs.time_unit, **kw)
 
 
 def check_run_flags(cfgs) -> None:
@@ -129,7 +140,6 @@ class Reconstructor:
 
     def __init__(self, cfgs, device: torch.device | str | None = None):
         from .._device import resolve_device
-        from ..data.video_readers import ImageReader
 
         check_flags(cfgs)
         self.cfgs = cfgs
@@ -146,10 +156,8 @@ class Reconstructor:
             for d in os.listdir(cfgs.path_to_test_data)
             if os.path.isdir(os.path.join(cfgs.path_to_test_data, d))
         )
-        self.video_renderer = ImageReader(
-            self.image_dim, num_bins=cfgs.num_bins, is_with_events=True,
-            time_unit=cfgs.time_unit,
-        )
+        self.video_renderer = make_reader(cfgs, self.device, num_bins=cfgs.num_bins,
+                                          is_with_events=True)
         self.cfg, self.params, self.step, self.zero_state = build_model(cfgs, self.device)
         self.model_name = os.path.splitext(os.path.basename(cfgs.path_to_test_model))[0]
         self.calibrated = False

@@ -55,17 +55,21 @@ def conv_layer(
     return _ACTIVATIONS[activation](conv2d(x, params, stride=stride, padding=padding))
 
 
-def bilinear_resize(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
-    """Bilinear upsampling of NHWC input with half-pixel centres
-    (``align_corners=False``), the counterpart of ``jax.image.resize(...,
-    'linear')``. Downsampling is refused: ``jax.image.resize`` antialiases
-    there and ``F.interpolate`` does not."""
+def bilinear_resize(x: torch.Tensor, out_h: int, out_w: int,
+                    align_corners: bool = False) -> torch.Tensor:
+    """Bilinear resize of NHWC input.
+
+    ``align_corners=False`` (half-pixel centres) is the counterpart of
+    ``jax.image.resize(..., 'linear')`` and upsamples only: that function
+    antialiases when it downsamples and ``F.interpolate`` does not.
+    ``align_corners=True`` is the Super-SloMo decoder's convention, the JAX
+    package's gather formula (sample points ``i * f32((in - 1) / (out - 1))``,
+    rows then columns), in either direction."""
     _, h, w, _ = x.shape
-    if out_h < h or out_w < w:
+    if not align_corners and (out_h < h or out_w < w):
         raise ValueError(f"bilinear_resize upsamples only: {(h, w)} -> {(out_h, out_w)}")
-    y = F.interpolate(
-        x.permute(0, 3, 1, 2), size=(out_h, out_w), mode="bilinear", align_corners=False
-    )
+    y = F.interpolate(x.permute(0, 3, 1, 2), size=(out_h, out_w), mode="bilinear",
+                      align_corners=align_corners)
     return y.permute(0, 2, 3, 1)
 
 

@@ -9,6 +9,8 @@ reference checkpoints (``load_torch_checkpoint``) and writes them
 (``save_checkpoint``): the port's trainers save the reference's ``.pth.tar``
 where the JAX trainers save orbax directories, so one file serves the port's
 CLIs, the JAX package's ``load_torch_checkpoint`` and a resumed run.
+The Super-SloMo UNets keep the original checkpoint's names too
+(``unet_state_dict_from_jax``, ``load_superslomo_checkpoint``).
 """
 
 from __future__ import annotations
@@ -71,6 +73,36 @@ def params_from_jax(params_np: Mapping[str, Any], depth: int = 5,
         k: torch.from_numpy(np.array(v, dtype=np.float32))
         for k, v in export_torch_state_dict(params_np, depth, model_mode).items()
     }
+
+
+_UNET_CONVS = ("conv1", "conv2", "conv3") + tuple(
+    f"{block}.{conv}" for block in ("down1", "down2", "down3", "down4", "down5",
+                                    "up1", "up2", "up3", "up4", "up5")
+    for conv in ("conv1", "conv2"))
+
+
+def unet_state_dict_from_jax(params_np: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """A Super-SloMo UNet's JAX parameter tree (numpy, HWIO) -> the port's
+    ``UNet`` state dict (OIHW, the original checkpoint's names) of float32
+    CPU tensors; the inverse of the JAX package's ``_convert_unet_sd``."""
+    sd = {}
+    for name in _UNET_CONVS:
+        p = params_np
+        for part in name.split("."):
+            p = p[part]
+        sd[name + ".weight"] = torch.from_numpy(
+            np.array(hwio_to_torch_conv(np.asarray(p["weight"])), dtype=np.float32))
+        sd[name + ".bias"] = torch.from_numpy(np.array(p["bias"], dtype=np.float32))
+    return sd
+
+
+def load_superslomo_checkpoint(path: str) -> tuple[dict, dict]:
+    """The flow net's and the interpolation net's state dicts (float32 CPU
+    tensors) from the public ``SuperSloMo.ckpt`` (``{"state_dictFC": ...,
+    "state_dictAT": ...}``), read as the JAX package reads it."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=False)
+    return tuple({k: torch.as_tensor(v).detach().to(torch.float32) for k, v in ckpt[key].items()}
+                 for key in ("state_dictFC", "state_dictAT"))
 
 
 def _step_keys(convs: tuple[str, ...], vectors: tuple[str, ...]) -> tuple[str, ...]:
