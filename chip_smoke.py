@@ -219,8 +219,41 @@ Phases, one line each (any failure exits non-zero before the last line):
    before each: K3 one launch per frame pair and K1 2 x depth per pack or
    reconstruction, K2 0; reconstructions finite and in [0, 1]; one PNG (and
    event preview) per pack or reconstruction;
+18. profiling and the data axis (``utils/profiling.py``, ``parallel/``),
+   after phase 17, over the datasets and outputs of phases 9, 10 and 13:
+   (a) ``cli.train_e2v`` for one epoch over phase 13c's dataset with the
+   ``--dist_*`` flags of a world of one (NCCL), against the same run without
+   them before and after it (cuDNN deterministic): the group made and torn
+   down, its all-reduce the identity on the loss and every gradient at each
+   step, the first step's loss equal in all three runs, the checkpoints'
+   distances shown (the card's E2V backward is not reproducible run to run),
+   the step time with and without the group; (b) two ranks over gloo on the
+   one card (NCCL refuses two ranks on one device), this script started
+   once per rank (``--gloo_rank``): a V2E2V train step at full width (global
+   B = 8, 10 packs of 10 frames, K3's Philox, each rank handed its rows as
+   ``cli.train`` does, the draws for the global batch cut to them) and an
+   E2V device-data step (global B = 8, T = 10, 5 real samples, the padding
+   all on rank 1, ``--add_noise``'s draw) against the same steps in this
+   process: events equal, the loss within 1e-5 relative, each rank's
+   gradient before the reduction within 1e-5 of its largest entry of this
+   process's step on the same 4 rows, the reduction exactly the ranks' mean
+   (sum for the weighted loss), the reduced gradient within 1e-5 of this
+   process's two 4-row steps combined and within 1e-2 of its 8-row step
+   (the card's weight gradients differ at B = 8 and 2 x 4 by up to 9e-4),
+   two planted faults beyond 1e-2, K3 9 x 10 a rank a step (0 in E2V), K1
+   and K2 0; each rank's ms per step (gloo on one card: not a scaling
+   figure); (c) ``StreamPool`` over ``make_mesh(2)`` (two groups of
+   4 slots on the one card), float32, TF32 off, phase 4's schedule and
+   voxel grids: within 1e-5 of phase 4's pool, K1 2 x 10 a step; (d)
+   ``cli.train --profile_dir`` for one epoch over phase 13e's frames: one
+   trace that names K3's kernel at each of its launches; ``cli.train_e2v
+   --debug_nans`` on voxel grids holding a NaN: ``FloatingPointError`` at
+   the first step, no checkpoint; (e) ``cli.test_e2v`` and ``cli.test``
+   with the ``--dist_*`` flags of a world of one (NCCL): the same PNG and
+   ``result.csv`` bytes as phase 9's float32 main path and phase 10's run
+   3, and their K1 (and K3) counts;
 14. a ``{"kernels": [...]}`` JSON line (each row's launches on the paths of
-   phases 10-13 and 15-17, every count set to 0 just before each path: K1,
+   phases 10-13 and 15-18, every count set to 0 just before each path: K1,
    K2, K4 and the scale kernel counted by dtype, K3 by shot mode; the rows
    of K4 and the scale kernel hold their times per pool step, the 15 calls
    of one step summed), then the last line
@@ -674,11 +707,12 @@ def record_steps(rec, keep_state: bool, events: list | None = None) -> list:
     return steps
 
 
-def cli_phase(seed: int, cfg, smi: str) -> dict:
+def cli_phase(seed: int, cfg, smi: str, tmp: Path) -> dict:
     """Phase 9: the E2V evaluation CLI at full width: the plain ISTA first,
     then the main path (K1) with every count set to 0 just before it, then
     the main path again with K1 held against its plain version at every call
-    and the state against the plain run's at every step. Returns K1's
+    and the state against the plain run's at every step. Its dataset, model
+    and outputs stay under ``tmp`` (phase 18e reads them). Returns K1's
     launches on the main path and its largest error per dtype."""
     from v2e2v_tpu_torch import runtime
     from v2e2v_tpu_torch.data.synthetic import write_dataset
@@ -692,136 +726,133 @@ def cli_phase(seed: int, cfg, smi: str) -> dict:
     from v2e2v_tpu_torch.utils import data_io
 
     t_phase = time.perf_counter()
-    tmp = Path(tempfile.mkdtemp(prefix="v2e2v_cli_"))
+    tmp.mkdir(parents=True)
     cli_k1 = {}
-    try:
-        data, model = tmp / "data", tmp / "model.pth.tar"
-        t0 = time.perf_counter()
-        write_dataset(data, seed, CLI_SEQUENCES, CLI_FRAMES, H, W, CLI_EVENTS)
-        sd = init_cista_lstc(torch.Generator().manual_seed(seed), cfg, device="cpu")
-        torch.save({"epoch": 0, "state_dict": sd, "v2e_params": None}, model)
-        say(f"[cli] dataset: {CLI_SEQUENCES} sequences of {CLI_FRAMES} PNG frames {H}x{W}, "
-            f"{CLI_EVENTS[0]}-{CLI_EVENTS[1]} events per interval (.npz), written in "
-            f"{time.perf_counter() - t0:.1f} s; native runtime built={runtime.available()} "
-            f"({runtime.library_path().name})")
-        if not runtime.available():
-            fail("the native runtime (g++) did not build on this machine")
-        for dtype in (torch.float32, torch.bfloat16):
-            name, tol = DNAME[dtype], TOL[dtype]
-            plain = cli_reconstructor(data, model, dtype, f"plain_{name}", "plain")
-            plain_steps = record_steps(plain, keep_state=True)
-            plain.run()
+    data, model = tmp / "data", tmp / "model.pth.tar"
+    t0 = time.perf_counter()
+    write_dataset(data, seed, CLI_SEQUENCES, CLI_FRAMES, H, W, CLI_EVENTS)
+    sd = init_cista_lstc(torch.Generator().manual_seed(seed), cfg, device="cpu")
+    torch.save({"epoch": 0, "state_dict": sd, "v2e_params": None}, model)
+    say(f"[cli] dataset: {CLI_SEQUENCES} sequences of {CLI_FRAMES} PNG frames {H}x{W}, "
+        f"{CLI_EVENTS[0]}-{CLI_EVENTS[1]} events per interval (.npz), written in "
+        f"{time.perf_counter() - t0:.1f} s; native runtime built={runtime.available()} "
+        f"({runtime.library_path().name})")
+    if not runtime.available():
+        fail("the native runtime (g++) did not build on this machine")
+    for dtype in (torch.float32, torch.bfloat16):
+        name, tol = DNAME[dtype], TOL[dtype]
+        plain = cli_reconstructor(data, model, dtype, f"plain_{name}", "plain")
+        plain_steps = record_steps(plain, keep_state=True)
+        plain.run()
 
-            # the main path, timed: the reader (frames, events, host voxelise)
-            # and the work after the model (norms, metrics, PNG write) by
-            # wrapping them, the step by CUDA events
-            rec = cli_reconstructor(data, model, dtype, f"cuda_{name}", "cuda")
-            step_ev = []
-            steps = record_steps(rec, keep_state=False, events=step_ev)
-            parts = {k: [0.0, 0] for k in ("read", "post", "evaluate")}
-            reader = rec.video_renderer
-            post = (
-                (image, "normalize_image_minmax_u8",
-                 timed(image.normalize_image_minmax_u8, parts, "post")),
-                (image, "normalize_image_percentile",
-                 timed(image.normalize_image_percentile, parts, "post")),
-                (data_io.ImageWriter, "__call__",
-                 timed(data_io.ImageWriter.__call__, parts, "post")))
-            reader.update_event_frame_pack = timed(reader.update_event_frame_pack, parts, "read")
-            rec.evaluate = timed(rec.evaluate, parts, "evaluate")
-            ista_loop.launches = cista_core.launches = emulator_iters.launches = 0
-            served = voxelize_and_preprocess_np.served
-            served.update(native=0, numpy=0)
+        # the main path, timed: the reader (frames, events, host voxelise)
+        # and the work after the model (norms, metrics, PNG write) by
+        # wrapping them, the step by CUDA events
+        rec = cli_reconstructor(data, model, dtype, f"cuda_{name}", "cuda")
+        step_ev = []
+        steps = record_steps(rec, keep_state=False, events=step_ev)
+        parts = {k: [0.0, 0] for k in ("read", "post", "evaluate")}
+        reader = rec.video_renderer
+        post = (
+            (image, "normalize_image_minmax_u8",
+             timed(image.normalize_image_minmax_u8, parts, "post")),
+            (image, "normalize_image_percentile",
+             timed(image.normalize_image_percentile, parts, "post")),
+            (data_io.ImageWriter, "__call__",
+             timed(data_io.ImageWriter.__call__, parts, "post")))
+        reader.update_event_frame_pack = timed(reader.update_event_frame_pack, parts, "read")
+        rec.evaluate = timed(rec.evaluate, parts, "evaluate")
+        ista_loop.launches = cista_core.launches = emulator_iters.launches = 0
+        served = voxelize_and_preprocess_np.served
+        served.update(native=0, numpy=0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        with swapped(*post):
+            t0 = time.perf_counter()
+            rec.run()
             torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            base = torch.cuda.memory_allocated()
-            with swapped(*post):
-                t0 = time.perf_counter()
-                rec.run()
-                torch.cuda.synchronize()
-                run_s = time.perf_counter() - t0
-            k1_n, other_n = ista_loop.launches, cista_core.launches + emulator_iters.launches
-            peak = (torch.cuda.max_memory_allocated() - base) / 2**20
-            n_rec, n_frames = len(steps), parts["evaluate"][1]
-            out_dir = tmp / f"cuda_{name}" / "model.pth"
-            pngs = sorted(out_dir.glob("*/frame_*.png"))
-            rows = [(out_dir / d.name / "result.csv").read_text().splitlines()
-                    for d in sorted(out_dir.iterdir())]
-            stacked = torch.stack([r for r, _ in steps])
-            finite = bool(torch.isfinite(stacked).all())
-            in_range = bool(((stacked >= 0) & (stacked <= 1)).all())
-            ok = (finite and in_range and k1_n == 2 * DEPTH * n_rec and other_n == 0
-                  and len(pngs) == n_frames == CLI_SEQUENCES * (CLI_FRAMES - 1)
-                  and len(rows) == CLI_SEQUENCES and all(len(r) == 2 for r in rows)
-                  and served["native"] == n_rec and served["numpy"] == 0)
-            say(f"[cli] {name}: {n_frames} frames, {n_rec} reconstructions of {H}x{W} "
-                f"(C={C}, depth {DEPTH}, --num_events {NUM_EVENTS}, real); K1 launches {k1_n} "
-                f"(want 2 x depth x {n_rec} = {2 * DEPTH * n_rec}), K2 and K3 {other_n}; host "
-                f"voxeliser served native {served['native']}, numpy {served['numpy']}; "
-                f"{len(pngs)} PNGs, result.csv rows {[r[1] for r in rows]}; finite={finite} "
-                f"in[0,1]={in_range} {'pass' if ok else 'FAIL'}")
-            if not ok:
-                fail(f"the CLI's main path in {name} did not run as it should")
-            if len(plain_steps) != n_rec:
-                fail(f"the plain run made {len(plain_steps)} reconstructions, not {n_rec}")
-            err, ok = within(stacked, torch.stack([r for r, _ in plain_steps]), tol)
-            say(f"[cli] {name}: reconstructions through K1 vs the plain ISTA, {n_rec} recurrent "
-                f"steps: max_abs_err={err:.3e} (tol {tol} + {tol} |ref|) "
-                f"{'pass' if ok else 'FAIL'}")
-            if not ok:
-                fail(f"the CLI through K1 disagrees with the plain ISTA in {name}")
+            run_s = time.perf_counter() - t0
+        k1_n, other_n = ista_loop.launches, cista_core.launches + emulator_iters.launches
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**20
+        n_rec, n_frames = len(steps), parts["evaluate"][1]
+        out_dir = tmp / f"cuda_{name}" / "model.pth"
+        pngs = sorted(out_dir.glob("*/frame_*.png"))
+        rows = [(out_dir / d.name / "result.csv").read_text().splitlines()
+                for d in sorted(out_dir.iterdir())]
+        stacked = torch.stack([r for r, _ in steps])
+        finite = bool(torch.isfinite(stacked).all())
+        in_range = bool(((stacked >= 0) & (stacked <= 1)).all())
+        ok = (finite and in_range and k1_n == 2 * DEPTH * n_rec and other_n == 0
+              and len(pngs) == n_frames == CLI_SEQUENCES * (CLI_FRAMES - 1)
+              and len(rows) == CLI_SEQUENCES and all(len(r) == 2 for r in rows)
+              and served["native"] == n_rec and served["numpy"] == 0)
+        say(f"[cli] {name}: {n_frames} frames, {n_rec} reconstructions of {H}x{W} "
+            f"(C={C}, depth {DEPTH}, --num_events {NUM_EVENTS}, real); K1 launches {k1_n} "
+            f"(want 2 x depth x {n_rec} = {2 * DEPTH * n_rec}), K2 and K3 {other_n}; host "
+            f"voxeliser served native {served['native']}, numpy {served['numpy']}; "
+            f"{len(pngs)} PNGs, result.csv rows {[r[1] for r in rows]}; finite={finite} "
+            f"in[0,1]={in_range} {'pass' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"the CLI's main path in {name} did not run as it should")
+        if len(plain_steps) != n_rec:
+            fail(f"the plain run made {len(plain_steps)} reconstructions, not {n_rec}")
+        err, ok = within(stacked, torch.stack([r for r, _ in plain_steps]), tol)
+        say(f"[cli] {name}: reconstructions through K1 vs the plain ISTA, {n_rec} recurrent "
+            f"steps: max_abs_err={err:.3e} (tol {tol} + {tol} |ref|) "
+            f"{'pass' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"the CLI through K1 disagrees with the plain ISTA in {name}")
 
-            # the main path again, untimed: K1 held against its plain version
-            # on each call's own inputs (B = 1), the state against the plain
-            # run's at each step; launches here are not the main path's
-            chk = cli_reconstructor(data, model, dtype, f"check_{name}", "cuda")
-            chk_steps, k1_errs = record_steps(chk, keep_state=True), []
+        # the main path again, untimed: K1 held against its plain version
+        # on each call's own inputs (B = 1), the state against the plain
+        # run's at each step; launches here are not the main path's
+        chk = cli_reconstructor(data, model, dtype, f"check_{name}", "cuda")
+        chk_steps, k1_errs = record_steps(chk, keep_state=True), []
 
-            def k1_checked(*a, **k):
-                got = ista_loop(*a, **k)
-                k1_errs.append(within(got, ista_loop_plain(*a, **k), tol))
-                return got
+        def k1_checked(*a, **k):
+            got = ista_loop(*a, **k)
+            k1_errs.append(within(got, ista_loop_plain(*a, **k), tol))
+            return got
 
-            with swapped((cista_mod, "ista_loop", k1_checked)):
-                chk.run()
-            same = len(chk_steps) == n_rec and all(
-                torch.equal(a, b) for (a, _), (b, _) in zip(chk_steps, steps))
-            k1_err = max(e for e, _ in k1_errs)
-            ok = same and len(k1_errs) == n_rec and all(o for _, o in k1_errs)
-            say(f"[cli] {name}: K1 against its plain version on each of the {len(k1_errs)} "
-                f"calls of the CLI path (B=1, {H // 2}x{W // 2}, C={C}, depth {DEPTH}): "
-                f"max_abs_err={k1_err:.3e} (tol {tol} + {tol} |ref|); reconstructions "
-                f"identical to the timed run's: {same} {'pass' if ok else 'FAIL'}")
-            if not ok:
-                fail(f"K1 disagrees with its plain version on the CLI path in {name}")
-            state_err = {}
-            for field in ("z", "cell", "dg h", "dg c"):
-                errs = [within(pick(a, field), pick(b, field), tol)
-                        for (_, a), (_, b) in zip(chk_steps, plain_steps)]
-                state_err[field] = (max(e for e, _ in errs), all(o for _, o in errs))
-            ok = all(o for _, o in state_err.values())
-            say(f"[cli] {name}: state through K1 vs the plain run at each of {n_rec} steps, "
-                f"max_abs_err " + ", ".join(f"{f} {e:.3e}" for f, (e, _) in state_err.items())
-                + f" (tol {tol} + {tol} |ref|) {'pass' if ok else 'FAIL'}")
-            if not ok:
-                fail(f"the CLI's state through K1 disagrees with the plain run's in {name}")
-            cli_k1[dtype] = {"cli_launches": k1_n, "cli_max_abs_err": k1_err}
-            del plain_steps, chk_steps
+        with swapped((cista_mod, "ista_loop", k1_checked)):
+            chk.run()
+        same = len(chk_steps) == n_rec and all(
+            torch.equal(a, b) for (a, _), (b, _) in zip(chk_steps, steps))
+        k1_err = max(e for e, _ in k1_errs)
+        ok = same and len(k1_errs) == n_rec and all(o for _, o in k1_errs)
+        say(f"[cli] {name}: K1 against its plain version on each of the {len(k1_errs)} "
+            f"calls of the CLI path (B=1, {H // 2}x{W // 2}, C={C}, depth {DEPTH}): "
+            f"max_abs_err={k1_err:.3e} (tol {tol} + {tol} |ref|); reconstructions "
+            f"identical to the timed run's: {same} {'pass' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"K1 disagrees with its plain version on the CLI path in {name}")
+        state_err = {}
+        for field in ("z", "cell", "dg h", "dg c"):
+            errs = [within(pick(a, field), pick(b, field), tol)
+                    for (_, a), (_, b) in zip(chk_steps, plain_steps)]
+            state_err[field] = (max(e for e, _ in errs), all(o for _, o in errs))
+        ok = all(o for _, o in state_err.values())
+        say(f"[cli] {name}: state through K1 vs the plain run at each of {n_rec} steps, "
+            f"max_abs_err " + ", ".join(f"{f} {e:.3e}" for f, (e, _) in state_err.items())
+            + f" (tol {tol} + {tol} |ref|) {'pass' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"the CLI's state through K1 disagrees with the plain run's in {name}")
+        cli_k1[dtype] = {"cli_launches": k1_n, "cli_max_abs_err": k1_err}
+        del plain_steps, chk_steps
 
-            step_ms = sum(a.elapsed_time(b) for a, b in step_ev) / n_rec
-            read_ms = 1e3 * parts["read"][0] / n_rec
-            post_ms = 1e3 * (parts["post"][0] + parts["evaluate"][0]) / n_frames
-            rest_ms = 1e3 * run_s - read_ms * n_rec - post_ms * n_frames - step_ms * n_rec
-            say(f"[time] CLI {name} ({smi}): run() {run_s:.3f} s host clock, "
-                f"{n_rec / run_s:.1f} reconstructions/s, {n_frames / run_s:.1f} frames/s; per "
-                f"reconstruction: reader + voxelise {read_ms:.3f} ms (host), model step "
-                f"{step_ms:.3f} ms (CUDA events); per frame: normalise + metrics + PNG write "
-                f"{post_ms:.3f} ms (host); the rest of run() (transfers, syncs, Python) "
-                f"{rest_ms / n_rec:.3f} ms per reconstruction; max_memory_allocated "
-                f"{peak:.1f} MiB above what earlier phases hold ({base / 2**20:.1f} MiB)")
-        host_breakdown(data, smi)
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+        step_ms = sum(a.elapsed_time(b) for a, b in step_ev) / n_rec
+        read_ms = 1e3 * parts["read"][0] / n_rec
+        post_ms = 1e3 * (parts["post"][0] + parts["evaluate"][0]) / n_frames
+        rest_ms = 1e3 * run_s - read_ms * n_rec - post_ms * n_frames - step_ms * n_rec
+        say(f"[time] CLI {name} ({smi}): run() {run_s:.3f} s host clock, "
+            f"{n_rec / run_s:.1f} reconstructions/s, {n_frames / run_s:.1f} frames/s; per "
+            f"reconstruction: reader + voxelise {read_ms:.3f} ms (host), model step "
+            f"{step_ms:.3f} ms (CUDA events); per frame: normalise + metrics + PNG write "
+            f"{post_ms:.3f} ms (host); the rest of run() (transfers, syncs, Python) "
+            f"{rest_ms / n_rec:.3f} ms per reconstruction; max_memory_allocated "
+            f"{peak:.1f} MiB above what earlier phases hold ({base / 2**20:.1f} MiB)")
+    host_breakdown(data, smi)
     say(f"[phase] CLI runs {time.perf_counter() - t_phase:.1f} s")
     return cli_k1
 
@@ -1039,7 +1070,7 @@ def v2e2v_cli_phase(seed: int, smi: str, root: Path) -> dict:
         f"{1e3 * run_s / n_packs - read_ms - step_ms - write_ms:.3f} ms; max_memory_allocated "
         f"{peak:.1f} MiB above what earlier phases hold ({base / 2**20:.1f} MiB)")
     say(f"[phase] V2E2V CLI runs {time.perf_counter() - t_phase:.1f} s")
-    return {"rows": rows, "data": data}
+    return {"rows": rows, "data": data, "model": model, "out": out_dir}
 
 
 def raw_phase(seed: int, smi: str, root: Path, data: Path) -> dict[str, int]:
@@ -2836,6 +2867,520 @@ def upsampling_phase(seed: int, smi: str, root: Path) -> dict:
     return rows
 
 
+DIST_LOSS_TOL = 1e-5  # relative: two ranks against one process (phase 18b)
+# of each gradient tensor's largest entry (phase 18b): a rank's gradient before
+# the reduction against one process's step on the same rows, and the reduced
+# gradient against one process's two half-batch steps combined. Readings on an
+# H100 80GB HBM3 at 700 W: 3.3e-07-1.05e-06, as one process against itself
+# (5.4e-07-1.07e-06, cuDNN's nondeterministic weight gradients); the planted
+# faults 7.3e-02 and 7.2e-01
+DIST_GRAD_TOL = 1e-5
+# the same against one process's whole-batch step: the card's weight gradients
+# at B = 8 and as two steps at B = 4 differ by 1.1e-04 (V2E2V) and 9.0e-04
+# (device data) of We's largest entry in one process, group or not (same card)
+DIST_BATCH_TOL = 1e-2
+MESH_POOL_TOL = 1e-5  # float32, TF32 off: the pool over two groups against one (phase 18c)
+DD_REAL = 5  # phase 18b's device-data batch: 5 samples padded to 8, the padding all on rank 1
+K3_KERNEL = "emulator_iters_kernel"  # K3's CUDA symbol, as a trace names it
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def dist_flags(port: int) -> list[str]:
+    """A world of one: the ``--dist_*`` flags of process 0 of 1."""
+    return ["--dist_coordinator", f"localhost:{port}", "--dist_num_processes", "1",
+            "--dist_process_id", "0"]
+
+
+def gloo_steps(seed: int, mesh) -> dict:
+    """Phase 18b's two train steps on ``mesh`` (None: one process), each
+    twice from the same weights: the first is compared, the second timed
+    (host clock to a synchronize). A V2E2V step at full width (global B = 8,
+    TRAIN_T packs of 10 frames, K3 with its Philox, noise seeded by
+    ``seed``) and an E2V device-data step (global B = 8, T = TRAIN_T, 5 real
+    samples and 3 of padding, --add_noise's draw). On a mesh each rank hands
+    the V2E2V step its rows (``Mesh.rows``), as ``cli.train`` does, and the
+    device-data step the whole batch's ``idx`` and ``w``. Returns per step the
+    first call's loss, gradients (on the CPU), events and on a mesh the
+    gradients the rank handed the reduction (``local``), each call's launches
+    of K3, K1 and K2, the second call's gradients (the card's run-to-run
+    spread) and ms. In one process also each rank's share computed alone
+    (``shares``: the step's loss on those rows, the draws and weights the
+    global batch's) and two planted faults (``faults``): a rank's emulator
+    drawing for its own rows instead of the global batch (V2E2V), and the
+    padding's weight dropped (device data)."""
+    from v2e2v_tpu_torch._device import float32_math
+    from v2e2v_tpu_torch.data.synthetic import hfr_frames
+    from v2e2v_tpu_torch.models.cista import CistaConfig
+    from v2e2v_tpu_torch.models.emulator import GeneratorNoise
+    from v2e2v_tpu_torch.models.v2e2v import V2E2VConfig
+    from v2e2v_tpu_torch.ops.voxel import add_noise_to_voxel
+    from v2e2v_tpu_torch.parallel.mesh import RowsNoise
+    from v2e2v_tpu_torch.training import steps as steps_mod
+    from v2e2v_tpu_torch.utils.checkpoint import STEP_KEYS
+
+    keys = STEP_KEYS["cista-lstc"]
+    k1, k2, k3, _, _ = kernel_counters()
+    cfg = V2E2VConfig.from_flags(argparse.Namespace(**FLAGS))
+    cfg = dataclasses.replace(cfg, cista=dataclasses.replace(cfg.cista, ista_impl="plain"))
+    b, n = CAPACITY, N_FRAMES
+    video, t = hfr_frames(seed, TRAIN_T * (n - 1) + 1, H, W, batch=b)
+    frames = torch.stack([torch.from_numpy(video[:, p * (n - 1):p * (n - 1) + n])
+                          for p in range(TRAIN_T)]).cuda()
+    ts = torch.stack([torch.from_numpy(np.tile(t[p * (n - 1):p * (n - 1) + n], (b, 1)))
+                      for p in range(TRAIN_T)]).cuda()
+    gt = frames[-1][:, -1, :, :, None] / 255.0
+    e2v_cfg = CistaConfig(image_dim=(H, W), base_channels=C, depth=DEPTH, num_bins=NB,
+                          ista_impl="plain", core_impl="layers")
+    data, gt_all = train_batch(seed + 1, DD_REAL, TRAIN_T)
+    data, gt_all = data.movedim(1, 0).contiguous().cuda(), gt_all.float().cuda()  # [N, T, ...]
+    idx = torch.tensor(list(range(DD_REAL)) + [DD_REAL - 1] * (b - DD_REAL), device="cuda")
+    w = torch.tensor([1.0] * DD_REAL + [0.0] * (b - DD_REAL), device="cuda")
+    noise = lambda: GeneratorNoise(torch.Generator(device="cuda").manual_seed(seed))  # noqa: E731
+    gen = lambda: torch.Generator(device="cuda").manual_seed(seed)  # noqa: E731
+    rows = mesh.rows if mesh is not None else (lambda x, dim=0: x)
+
+    local = []
+    reduce_ = steps_mod._reduce_loss_and_grads
+
+    def keep_local(optimizer, loss, axis, summed):
+        local.append({k: p.grad.detach().cpu().clone() for k, p in
+                      zip(keys, steps_mod._weights(optimizer))})
+        return reduce_(optimizer, loss, axis, summed)
+
+    def run(name, net_cfg, make_step, call):
+        out = {"launches": [], "ms": None}
+        for i in range(2):
+            sd = train_weights(net_cfg, seed, "cuda")
+            step = make_step(sd)
+            local.clear()
+            counts_zero(k1, k2, k3)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with swapped((steps_mod, "_reduce_loss_and_grads", keep_local)):
+                loss, stats = call(step, sd)
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t0)
+            out["launches"].append([k3.launches_by_shot["internal"], k3.launches, k1.launches,
+                                    k2.launches])
+            grads = {k: sd[k].grad.detach().cpu() for k in keys}
+            if i == 0:
+                out.update(loss=float(loss), events=int(stats["num_events"]) if stats else None,
+                           grads=grads, local=local[0] if local else None)
+            else:
+                out.update(ms=ms, grads_again=grads)
+        return name, out
+
+    results = dict([
+        run("v2e2v", cfg.cista, lambda sd: steps_mod.make_v2e2v_train_step(
+                cfg, steps_mod.make_adam(sd, cfg.cista, TRAIN_LR), mesh=mesh),
+            lambda step, sd: step(sd, rows(frames, 1), rows(ts, 1), rows(gt, 0), noise())),
+        run("device_data", e2v_cfg, lambda sd: steps_mod.make_e2v_train_step_device_data(
+                e2v_cfg, steps_mod.make_adam(sd, e2v_cfg, TRAIN_LR), noise_std=0.1, mesh=mesh),
+            lambda step, sd: (step(sd, data, gt_all, idx, gen(), w), None)),
+    ])
+    if mesh is not None:
+        return results
+
+    def grads_of(net_cfg, loss_fn):
+        """The gradients of ``loss_fn(weights)`` at the seed's weights, TF32 off."""
+        sd = train_weights(net_cfg, seed, "cuda")
+        steps_mod.trainable_params(sd, net_cfg)
+        with float32_math():
+            loss_fn(sd).backward()
+        return {k: sd[k].grad.detach().cpu() for k in keys}
+
+    def v2e2v_share(s, own_draws=False):
+        draws = noise() if own_draws else RowsNoise(noise(), s, b)
+        return grads_of(cfg.cista, lambda sd: steps_mod.v2e2v_loss(
+            sd, cfg, frames[:, s], ts[:, s], gt[s], draws)[0])
+
+    def device_data_share(s):
+        vs = data.index_select(0, idx[s]).movedim(1, 0).float()
+        vs = add_noise_to_voxel(gen(), vs, 0.1, noise_fraction=1.0, rows=(1, s, b))
+        return grads_of(e2v_cfg, lambda sd: steps_mod.e2v_loss(
+            sd, e2v_cfg, vs, gt_all.index_select(0, idx[s]).float(), w[s],
+            batch_weights=w))
+
+    shares = [slice(0, b // 2), slice(b // 2, b)]
+    results["v2e2v"]["shares"] = [v2e2v_share(s) for s in shares]
+    results["device_data"]["shares"] = [device_data_share(s) for s in shares]
+    # the planted faults, each as the reduction would give it
+    own = v2e2v_share(shares[1], own_draws=True)
+    results["v2e2v"]["faults"] = {
+        "rank 1 draws its own rows": {k: (g + own[k]) / 2 for k, g in
+                                      results["v2e2v"]["shares"][0].items()}}
+    sd = train_weights(e2v_cfg, seed, "cuda")
+    steps_mod.make_e2v_train_step_device_data(
+        e2v_cfg, steps_mod.make_adam(sd, e2v_cfg, TRAIN_LR), noise_std=0.1)(
+        sd, data, gt_all, idx, gen(), torch.ones_like(w))
+    results["device_data"]["faults"] = {
+        "padding weight dropped": {k: sd[k].grad.detach().cpu() for k in keys}}
+    return results
+
+
+def gloo_rank(rank: int, port: int, workdir: Path, seed: int) -> None:
+    """One of phase 18b's two ranks: a process group over ``gloo`` on the
+    one card, ``gloo_steps`` on its data axis, the results to
+    ``workdir/rank<rank>.pt``."""
+    from v2e2v_tpu_torch.parallel import distributed
+    from v2e2v_tpu_torch.parallel.mesh import make_mesh
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    flags = argparse.Namespace(dist_coordinator=f"localhost:{port}", dist_num_processes=2,
+                               dist_process_id=rank)
+    distributed.initialize_from_flags(flags, backend="gloo")
+    try:
+        mesh = make_mesh(2)
+        torch.save(gloo_steps(seed, mesh), workdir / f"rank{rank}.pt")
+    finally:
+        distributed.shutdown()
+
+
+def gloo_verdict(single: dict, ranks: list) -> bool:
+    """Phase 18b's checks of ``gloo_steps``' results, one process's
+    (``single``) against each rank's, printed; whether all hold."""
+    def grad_err(got, want):
+        """The largest of each gradient's max |diff| / max |g|, and its tensor."""
+        return max((float((got[k] - g).abs().max()) / float(g.abs().max()), k)
+                   for k, g in want.items())
+
+    all_ok = True
+    for step_name, want_k3 in (("v2e2v", 9 * TRAIN_T), ("device_data", 0)):
+        want = single[step_name]
+        # the ranks' reduction: the mean of their gradients, their sum where
+        # the loss is weighted (each share divides by the whole batch's weight)
+        combine = ((lambda a, b: (a + b) / 2) if step_name == "v2e2v" else
+                   (lambda a, b: a + b))
+        halves = {k: combine(want["shares"][0][k], want["shares"][1][k])
+                  for k in want["grads"]}
+        spread = grad_err(want["grads_again"], want["grads"])[0]
+        split = grad_err(halves, want["grads"])[0]
+        faults = {f: (grad_err(g, halves)[0], grad_err(g, want["grads"])[0])
+                  for f, g in want["faults"].items()}
+        ok = all(min(e) > DIST_BATCH_TOL for e in faults.values())
+        errs = []
+        for r, got in enumerate(ranks):
+            got = got[step_name]
+            loss_err = abs(got["loss"] - want["loss"]) / abs(want["loss"])
+            local_err = grad_err(got["local"], want["shares"][r])[0]
+            mine = {k: combine(ranks[0][step_name]["local"][k], ranks[1][step_name]["local"][k])
+                    for k in halves}
+            exact = all(torch.equal(got["grads"][k], mine[k]) for k in mine)
+            halves_err = grad_err(got["grads"], halves)[0]
+            batch_err, worst = grad_err(got["grads"], want["grads"])
+            errs.append((loss_err, local_err, exact, halves_err, batch_err))
+            ok = ok and loss_err <= DIST_LOSS_TOL and exact and got["events"] == want["events"]
+            ok = ok and max(local_err, halves_err) <= DIST_GRAD_TOL
+            ok = ok and batch_err <= DIST_BATCH_TOL
+            ok = ok and all(n == [want_k3, want_k3, 0, 0] for n in got["launches"])
+        ok = ok and all(n == [want_k3, want_k3, 0, 0] for n in want["launches"])
+        all_ok = all_ok and ok
+        say(f"[dist] (b) {step_name} step, two ranks over gloo on one card against one process "
+            f"(global B={CAPACITY}, {TRAIN_T} packs or windows, {H}x{W}, C={C}, depth {DEPTH}"
+            f"{'' if step_name == 'v2e2v' else f'; {DD_REAL} real samples, the padding all on rank 1'}"
+            f"): events {[g[step_name]['events'] for g in ranks]} vs {want['events']}; loss "
+            f"relative error {[f'{e[0]:.2e}' for e in errs]} (tol {DIST_LOSS_TOL}); gradients, "
+            f"of each tensor's largest entry: each rank's before the reduction against one "
+            f"process's step on its {CAPACITY // 2} rows {[f'{e[1]:.2e}' for e in errs]}, the "
+            f"reduction equal to the ranks' {'mean' if step_name == 'v2e2v' else 'sum'} "
+            f"{[e[2] for e in errs]}, the reduced against one process's two half-batch steps "
+            f"{[f'{e[3]:.2e}' for e in errs]} (tol {DIST_GRAD_TOL}; one process against itself "
+            f"{spread:.2e}), against one process's whole-batch step "
+            f"{[f'{e[4]:.2e}' for e in errs]} ({worst}; tol {DIST_BATCH_TOL}; one process's "
+            f"half-batch steps against its whole-batch step {split:.2e}); planted faults, "
+            f"against the half-batch and the whole-batch reference: "
+            f"{ {f: f'{e[0]:.2e}, {e[1]:.2e}' for f, e in faults.items()} } (each must exceed "
+            f"{DIST_BATCH_TOL}); K3 (internal), K3, K1, K2 launches per rank per step "
+            f"{[g[step_name]['launches'] for g in ranks]} (want {want_k3}, {want_k3}, 0, 0) "
+            f"{'pass' if ok else 'FAIL'}")
+    return all_ok
+
+
+def same_files(a: Path, b: Path, pattern: str) -> tuple[int, bool]:
+    """How many files under ``a`` match ``pattern``, and whether ``b`` holds
+    the same names with the same bytes."""
+    fa = sorted(p.relative_to(a) for p in a.rglob(pattern))
+    fb = sorted(p.relative_to(b) for p in b.rglob(pattern))
+    return len(fa), fa == fb and all((a / f).read_bytes() == (b / f).read_bytes() for f in fa)
+
+
+def distributed_phase(seed: int, smi: str, root: Path, serve, served: dict, layers_recs: dict,
+                      weights, cfg, cli_k1: dict, hfr: dict) -> dict:
+    """Phase 18: profiling and the data axis (ROADMAP items 10 and 9). (a) one
+    rank over NCCL through ``cli.train_e2v``; (b) two ranks over gloo on the
+    one card against one process; (c) a pool over two device groups; (d)
+    ``--profile_dir`` and ``--debug_nans`` in the trainers; (e) the
+    evaluation CLIs in a world of one. Returns each path's launches by row of
+    the kernels line."""
+    from v2e2v_tpu_torch.cli import test as cli_test
+    from v2e2v_tpu_torch.cli import test_e2v as cli_e2v
+    from v2e2v_tpu_torch.cli import train, train_e2v
+    from v2e2v_tpu_torch.data.datasets import TrainFixNEventData
+    from v2e2v_tpu_torch.parallel.mesh import make_mesh
+    from v2e2v_tpu_torch.serving import StreamPool
+    from v2e2v_tpu_torch.training import steps as steps_mod
+
+    t_phase = time.perf_counter()
+    counters = kernel_counters()
+    k1, k2, k3 = counters[:3]
+    rows = {}
+    e2v_data, v2e2v_data = root / "train_e2v_data", root / "train_v2e2v_data"
+    name = f"_cista-lstc_b{NB}_d{DEPTH}_c{C}"
+
+    # (a) one rank over NCCL through the E2V trainer, against no group. The
+    # card's E2V backward is not reproducible run to run (the reflect pad's
+    # and the bilinear upsample's backward add with atomics; torch lists both
+    # as nondeterministic), so the exact checks are the ones the card allows:
+    # the first step's loss, and the group's reduction at every step
+    step_ms, losses, reduced, reduce_ms = [], [], [], []
+    build = steps_mod.make_e2v_train_step
+    reduce_ = steps_mod._reduce_loss_and_grads
+
+    def timed_build(*a, **k):
+        step = build(*a, **k)
+
+        def timed_step(*sa):
+            t0 = time.perf_counter()
+            loss = step(*sa)
+            torch.cuda.synchronize()
+            step_ms[-1].append(1e3 * (time.perf_counter() - t0))
+            losses[-1].append(loss.clone())
+            return loss
+
+        return timed_step
+
+    def checked_reduce(optimizer, loss, axis, summed):
+        before = [p.grad.clone() for g in optimizer.param_groups for p in g["params"]
+                  if p.grad is not None]
+        ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        out = reduce_(optimizer, loss, axis, summed)
+        ev[1].record()
+        ev[1].synchronize()
+        reduce_ms.append(ev[0].elapsed_time(ev[1]))
+        after = [p.grad for g in optimizer.param_groups for p in g["params"]
+                 if p.grad is not None]
+        reduced.append((bool(torch.equal(out, loss)) and len(after) == len(before)
+                        and all(torch.equal(a, b) for a, b in zip(after, before)),
+                        sum(b.numel() for b in before)))
+        return out
+
+    saved = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    ckpts, logs = {}, {}
+    try:
+        for run_name, extra in (("none", []), ("nccl", dist_flags(free_port())),
+                                ("none again", [])):
+            step_ms.append([])
+            losses.append([])
+            models = root / f"dist_a_{len(ckpts)}"
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out), swapped(
+                    (steps_mod, "make_e2v_train_step", timed_build),
+                    (steps_mod, "_reduce_loss_and_grads", checked_reduce)):
+                train_e2v.main(train_argv(e2v_data, models, "--epochs", "1", *extra))
+            logs[run_name] = out.getvalue()
+            ckpts[run_name] = torch.load(models / name / f"{name}_1.pth.tar", map_location="cpu",
+                                         weights_only=False)
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
+
+    def ckpt_diff(a, b) -> float:
+        sa, sb = a["state_dict"], b["state_dict"]
+        return max(float((sa[k] - sb[k]).abs().max()) for k in sa)
+
+    n_steps = len(step_ms[0])
+    # the checkpoints' distances are shown, not checked: Adam moves each weight
+    # by about lr a step whatever its gradient, so any two runs from the same
+    # weights end within 2 x lr x steps, and the card's backward is not
+    # reproducible run to run, so neither pair is equal
+    d_group = ckpt_diff(ckpts["nccl"], ckpts["none"])
+    d_again = ckpt_diff(ckpts["none again"], ckpts["none"])
+    first_equal = all(torch.equal(run[0], losses[0][0]) for run in losses)
+    joined = "distributed: process 0/1, 1 local / 1 global devices (nccl)" in logs["nccl"]
+    med = [float(np.median(m[1:])) for m in step_ms]
+    ok = (joined and not torch.distributed.is_initialized() and first_equal
+          and len(reduced) == n_steps and all(r for r, _ in reduced))
+    say(f"[dist] (a) cli.train_e2v, 1 epoch over phase 13c's dataset ({n_steps} steps at "
+        f"batch 1, cuDNN deterministic), a world of one over NCCL (--dist_* flags) against no "
+        f"group: group made={joined}, torn down={not torch.distributed.is_initialized()}; the "
+        f"group's all-reduce left the loss and every gradient bit for bit at "
+        f"{sum(r for r, _ in reduced)} of {len(reduced)} steps; first step's loss equal in all "
+        f"three runs: "
+        f"{first_equal} ({float(losses[0][0]):.9f}) {'pass' if ok else 'FAIL'}; shown, not "
+        f"checked: checkpoints max|diff| {d_group:.3e} against the run without the group, "
+        f"{d_again:.3e} between the two runs without it")
+    say(f"[time] (a) E2V train step at batch 1 ({smi}), median of {n_steps - 1} after the "
+        f"first, host clock to the loss: no group {med[0]:.3f} ms, world of one over NCCL "
+        f"{med[1]:.3f} ms, no group again {med[2]:.3f} ms; the group's share "
+        f"{100 * (med[1] - (med[0] + med[2]) / 2) / ((med[0] + med[2]) / 2):+.2f}%; the group's "
+        f"reduction alone (one all-reduce of the loss and "
+        f"{reduced[0][1]} float32 gradients, the concatenation and the "
+        f"copy back; CUDA events): {float(np.mean(reduce_ms)):.4f} ms a step, "
+        f"{100 * float(np.mean(reduce_ms)) / med[1]:.2f}% of the step")
+    if not ok:
+        fail("a world of one over NCCL changed what the E2V trainer computes")
+
+    # (b) two ranks over gloo on the one card against one process
+    t0 = time.perf_counter()
+    single = gloo_steps(seed, None)
+    single_s = time.perf_counter() - t0
+    workdir = root / "gloo"
+    workdir.mkdir()
+    port = free_port()
+    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--seed",
+                               str(seed), "--gloo_rank", str(r), "--port", str(port),
+                               "--dir", str(workdir)], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    t0 = time.perf_counter()
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=600)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    ranks_s = time.perf_counter() - t0
+    if any(p.returncode for p in procs):
+        for r, o in enumerate(outs):
+            say(f"[dist] rank {r} output:\n{o[-4000:]}")
+        fail("a gloo rank of phase 18b failed")
+    ranks = [torch.load(workdir / f"rank{r}.pt", weights_only=False) for r in range(2)]
+    all_ok = gloo_verdict(single, ranks)
+    say(f"[time] (b) gloo, two ranks on ONE card ({smi}; not a scaling figure): ms per step, "
+        f"second call, host clock: v2e2v {[round(g['v2e2v']['ms'], 3) for g in ranks]} (one "
+        f"process at B={CAPACITY}: {single['v2e2v']['ms']:.3f}), device_data "
+        f"{[round(g['device_data']['ms'], 3) for g in ranks]} (one process "
+        f"{single['device_data']['ms']:.3f}); the ranks' run {ranks_s:.1f} s with start-up, "
+        f"one process {single_s:.1f} s")
+    if not all_ok:
+        fail("two ranks over gloo disagree with one process")
+    rows["dist_v2e2v_step_launches_per_rank"] = {
+        "emulator_iters (internal rng)": ranks[0]["v2e2v"]["launches"][0][0]}
+
+    # (c) a pool over two device groups against the pool of phase 4
+    mesh = make_mesh(2, devices=["cuda", "cuda"])
+    counts_zero(*counters)
+    recs, _, per_step = serve(StreamPool(cfg, weights, CAPACITY, torch.float32, mesh=mesh),
+                              served[torch.float32])
+    rows["mesh_pool_launches"] = row_counts()
+    stacked = torch.stack(list(recs.values()))
+    err, close = within(stacked, torch.stack([layers_recs[torch.float32][k] for k in recs]),
+                        MESH_POOL_TOL)
+    ok = close and all(n == 2 * 2 * DEPTH for n in per_step)
+    say(f"[dist] (c) StreamPool over make_mesh(2) (two groups of {CAPACITY // 2} slots on the "
+        f"one card), float32, TF32 off, phase 4's schedule and voxel grids: K1 launches per "
+        f"step {per_step} (want 2 x {2 * DEPTH}); against phase 4's pool max_abs_err={err:.3e} "
+        f"(tol {MESH_POOL_TOL} + {MESH_POOL_TOL} |ref|) {'pass' if ok else 'FAIL'}")
+    if not ok:
+        fail("the pool over two device groups disagrees with the pool of phase 4")
+
+    # (d) --profile_dir in cli.train; --debug_nans in cli.train_e2v
+    trace_dir = root / "trace"
+    v2e = [f"--{k}={v}" for k, v in V2E_PARAMS.items()]
+    counts_zero(*counters)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        train.main(train_argv(v2e2v_data, root / "dist_d", "--epochs", "1", "--profile_dir",
+                              str(trace_dir), *v2e))
+    prof_s = time.perf_counter() - t0
+    rows["profiled_v2e2v_train_launches"] = row_counts()
+    traces = sorted(trace_dir.glob("rank0.*.pt.trace.json"))
+    events = json.loads(traces[0].read_text())["traceEvents"] if len(traces) == 1 else []
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    k3_in_trace = sum(K3_KERNEL in e.get("name", "") for e in kernels)
+    k3_n = k3.launches_by_shot["internal"]
+    ok = len(traces) == 1 and k3_in_trace == k3_n > 0
+    say(f"[dist] (d) cli.train --profile_dir, 1 epoch over phase 13e's frames: {len(traces)} "
+        f"trace ({traces[0].stat().st_size / 2**20 if traces else 0:.1f} MiB, "
+        f"{len(events)} events, {len(kernels)} kernels on the card); {K3_KERNEL} in it "
+        f"{k3_in_trace} times, K3 launches {k3_n}; run {prof_s:.1f} s with the trace "
+        f"{'pass' if ok else 'FAIL'}")
+    if not ok:
+        fail("the trace of cli.train does not name K3's kernel at each launch")
+    emit = TrainFixNEventData._emit
+    calls = []
+
+    def nan_emit(self, index, sample):
+        seq, img, gt_ = emit(self, index, sample)
+        seq = np.array(seq, np.float32)
+        seq.flat[-1] = np.nan
+        calls.append(index)
+        return seq, img, gt_
+
+    raised = None
+    with swapped((TrainFixNEventData, "_emit", nan_emit)), \
+            contextlib.redirect_stdout(io.StringIO()) as log:
+        try:
+            train_e2v.main(train_argv(e2v_data, root / "dist_nan", "--epochs", "1",
+                                      "--debug_nans"))
+        except FloatingPointError as e:
+            raised = str(e)
+    written = sorted((root / "dist_nan").rglob("*.pth.tar"))
+    ok = (raised is not None and "NaN in the loss" in raised and not written
+          and "Train Epoch" not in log.getvalue() and not torch.is_anomaly_enabled())
+    say(f"[dist] (d) cli.train_e2v --debug_nans, a NaN in every voxel grid: raised "
+        f"FloatingPointError({raised!r}) at the first step (no step printed: "
+        f"{'Train Epoch' not in log.getvalue()}); checkpoints written {len(written)}; anomaly "
+        f"mode off after: {not torch.is_anomaly_enabled()} {'pass' if ok else 'FAIL'}")
+    if not ok:
+        fail("--debug_nans did not stop the E2V trainer at its first NaN")
+
+    # (e) the evaluation CLIs in a world of one against phases 9 and 10
+    e2v_root = root / "cli"
+    argv = ["--path_to_test_model", str(e2v_root / "model.pth.tar"), "--path_to_test_data",
+            str(e2v_root / "data"), "--image_dim", str(H), str(W), "-c", str(C), "-d",
+            str(DEPTH), "-b", str(NB), "--num_events", str(NUM_EVENTS), "--test_data_mode",
+            "real", "--precision", "float32", "-o", str(root / "dist_e2v")]
+    counts_zero(*counters)
+    with contextlib.redirect_stdout(io.StringIO()) as log:
+        cli_e2v.main(argv + dist_flags(free_port()))
+    rows["dist_e2v_cli_launches"] = row_counts()
+    got_k1 = rows["dist_e2v_cli_launches"]["ista_loop (float32)"]
+    want_dir = e2v_root / "cuda_float32" / "model.pth"
+    n_png, same_png = same_files(want_dir, root / "dist_e2v" / "model.pth", "*.png")
+    n_csv, same_csv = same_files(want_dir, root / "dist_e2v" / "model.pth", "result.csv")
+    joined = "process 0/1, 1 local / 1 global devices (nccl)" in log.getvalue()
+    ok = (joined and same_png and same_csv and n_png > 0
+          and got_k1 == cli_k1[torch.float32]["cli_launches"])
+    say(f"[dist] (e) cli.test_e2v in a world of one over NCCL: {n_png} PNGs and {n_csv} "
+        f"result.csv equal to phase 9's float32 main path: {same_png and same_csv}; K1 launches "
+        f"{got_k1} (phase 9: {cli_k1[torch.float32]['cli_launches']}); group made {joined} "
+        f"{'pass' if ok else 'FAIL'}")
+    if not ok:
+        fail("the E2V CLI in a world of one did not give phase 9's outputs")
+    argv = ["--path_to_test_model", str(hfr["model"]), "--path_to_test_data", str(hfr["data"]),
+            "--image_dim", str(H), str(W), "-c", str(C), "-d", str(DEPTH), "-b", str(NB),
+            "--seed", str(seed), "--is_write_event", "-o", str(root / "dist_v2e2v"), *V2E_FLAGS]
+    counts_zero(*counters)
+    with contextlib.redirect_stdout(io.StringIO()) as log:
+        cli_test.main(argv + dist_flags(free_port()))
+    rows["dist_v2e2v_cli_launches"] = row_counts()
+    got = {k: rows["dist_v2e2v_cli_launches"][k]
+           for k in ("emulator_iters (internal rng)", "ista_loop (float32)")}
+    want = {k: hfr["rows"][k] for k in got}
+    n_png, same_png = same_files(hfr["out"], root / "dist_v2e2v" / hfr["out"].name, "*.png")
+    joined = "process 0/1, 1 local / 1 global devices (nccl)" in log.getvalue()
+    ok = joined and same_png and n_png > 0 and got == want
+    say(f"[dist] (e) cli.test in a world of one over NCCL: {n_png} PNGs (frames and event "
+        f"previews) equal to phase 10's run 3: {same_png}; K3, K1 launches {got} (phase 10: "
+        f"{want}); group made {joined} {'pass' if ok else 'FAIL'}")
+    if not ok:
+        fail("the V2E2V CLI in a world of one did not give phase 10's outputs")
+    say(f"[phase] profiling and the data axis {time.perf_counter() - t_phase:.1f} s")
+    return rows
+
+
 def main_path_k3_inputs(cfg, state, frames, ts, internal: bool):
     """The K3 inputs of the first frame pair of a pack on the main path: the
     emulator's own front end, stopped where it calls K3."""
@@ -2859,10 +3404,17 @@ def main_path_k3_inputs(cfg, state, frames, ts, internal: bool):
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    # phase 18b starts this script once per rank with these
+    ap.add_argument("--gloo_rank", type=int, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--port", type=int, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--dir", type=Path, default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
         fail("no CUDA card (torch.cuda.is_available() is False)")
+    if args.gloo_rank is not None:
+        gloo_rank(args.gloo_rank, args.port, args.dir, args.seed)
+        return
 
     from v2e2v_tpu_torch.models.cista import CistaConfig, CistaState, half_res_core, init_cista_lstc
     from v2e2v_tpu_torch.ops.cuda import _lib
@@ -3298,43 +3850,49 @@ def main() -> None:
         fail("the main path did not launch K3 and K1")
     say(f"[phase] K3 and V2E2V times {time.perf_counter() - t_phase:.1f} s")
 
-    # 9. the E2V evaluation CLI at full width
-    cli_k1 = cli_phase(args.seed, cfg, smi)
-
-    # 10-13. the V2E2V CLI, raw-event generation, CISTA-TC, training
-    tmp = Path(tempfile.mkdtemp(prefix="v2e2v_slice5_"))
+    # 9-13: the E2V CLI at full width, the V2E2V CLI, raw-event generation,
+    # CISTA-TC, training; their datasets and outputs stay for phase 18
+    shared = Path(tempfile.mkdtemp(prefix="v2e2v_slice5_"))
     try:
-        hfr = v2e2v_cli_phase(args.seed, smi, tmp)
-        raw_rows = raw_phase(args.seed, smi, tmp, hfr["data"])
-        tc_rows = tc_phase(args.seed, smi, tmp, serve, served)
-        trained = train_phase(args.seed, smi, tmp)
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+        cli_k1 = cli_phase(args.seed, cfg, smi, shared / "cli")
+        hfr = v2e2v_cli_phase(args.seed, smi, shared)
+        raw_rows = raw_phase(args.seed, smi, shared, hfr["data"])
+        tc_rows = tc_phase(args.seed, smi, shared, serve, served)
+        trained = train_phase(args.seed, smi, shared)
 
-    # 15. the fused full-resolution path, parity IO, the fused V2E2V run C
-    fused_rows = fused_phase(args.seed, smi, cfg, weights, serve, served, video, cfg_c, outs_c)
+        # 15. the fused full-resolution path, parity IO, the fused V2E2V run C
+        fused_rows = fused_phase(args.seed, smi, cfg, weights, serve, served, video, cfg_c,
+                                 outs_c)
 
-    # 16. int8 inference: K4, the int8 pools, the E2V CLI with --quant
-    tmp = Path(tempfile.mkdtemp(prefix="v2e2v_int8_"))
-    try:
-        int8 = int8_phase(args.seed, smi, tmp, serve, served, layers_recs, weights)
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
-    entries += int8["entries"]
+        # 16. int8 inference: K4, the int8 pools, the E2V CLI with --quant
+        tmp = Path(tempfile.mkdtemp(prefix="v2e2v_int8_"))
+        try:
+            int8 = int8_phase(args.seed, smi, tmp, serve, served, layers_recs, weights)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        entries += int8["entries"]
 
-    # 17. Super-SloMo upsampling: the UNets and backwarp, the upsampler, both CLIs
-    tmp = Path(tempfile.mkdtemp(prefix="v2e2v_slomo_"))
-    try:
-        slomo_rows = upsampling_phase(args.seed, smi, tmp)
+        # 17. Super-SloMo upsampling: the UNets and backwarp, the upsampler, both CLIs
+        tmp = Path(tempfile.mkdtemp(prefix="v2e2v_slomo_"))
+        try:
+            slomo_rows = upsampling_phase(args.seed, smi, tmp)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+
+        # 18. profiling and the data axis: one rank over NCCL, two over gloo,
+        # the pool over two groups, the trainers' trace and NaN stop, the
+        # evaluation CLIs in a world of one
+        dist_rows = distributed_phase(args.seed, smi, shared, serve, served, layers_recs,
+                                      weights, cfg, cli_k1, hfr)
     finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+        shutil.rmtree(shared, ignore_errors=True)
 
     # 14. kernels, then the result line
     # each path's launches by row, every count set to 0 just before the path
     paths = {"v2e2v_cli_launches": hfr["rows"], "raw_launches": raw_rows,
              "tc_pool_launches": tc_rows, "e2v_train_launches": trained["e2v"],
              "v2e2v_train_launches_per_step": trained["v2e2v"], **fused_rows, **int8["rows"],
-             **slomo_rows}
+             **slomo_rows, **dist_rows}
     for e in entries:
         if e["name"].startswith("ista_loop"):
             e.update(cli_k1[torch.float32 if "float32" in e["name"] else torch.bfloat16])

@@ -1,5 +1,6 @@
 """Shared pieces of the port's parity tests (``tests/test_torch_*.py``)."""
 
+import contextlib
 import functools
 
 import jax
@@ -19,6 +20,19 @@ def no_new_jax_cache_entries():
     jax.config.update("jax_persistent_cache_min_compile_time_secs", 1e9)
     yield
     jax.config.update("jax_persistent_cache_min_compile_time_secs", old)
+
+
+@contextlib.contextmanager
+def torch_threads(n: int):
+    """torch's intra-op thread count set to ``n`` for the block."""
+    import torch
+
+    old = torch.get_num_threads()
+    torch.set_num_threads(n)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(old)
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -156,3 +170,30 @@ def assert_off_integers(mags, lo: int, hi: int):
         f"a flow magnitude lies within 0.1 of an integer ({mags}): the two packages' "
         "counts could differ by one there; pick another flow scale")
     return counts
+
+
+# Runs over a process group of one (the lifted refusals of the CLI tests)
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def run_flags(case: str, trace_dir) -> tuple[list[str], dict[str, str]]:
+    """``(argv, environment)`` of a run flag case: ``profile`` (a trace into
+    ``trace_dir``), or a world of one over ``gloo`` from the ``--dist_*``
+    flags (``dist-flags``), the ``V2E2V_*`` variables (``dist-env``) or
+    torchrun's variables (``dist-auto``)."""
+    port = str(free_port())
+    return {
+        "profile": (["--profile_dir", str(trace_dir)], {}),
+        "dist-flags": (["--dist_coordinator", f"localhost:{port}", "--dist_num_processes", "1",
+                        "--dist_process_id", "0"], {}),
+        "dist-env": ([], {"V2E2V_COORDINATOR": f"localhost:{port}", "V2E2V_NUM_PROCESSES": "1",
+                          "V2E2V_PROCESS_ID": "0"}),
+        "dist-auto": ([], {"V2E2V_DIST_AUTO": "1", "MASTER_ADDR": "localhost",
+                           "MASTER_PORT": port, "RANK": "0", "WORLD_SIZE": "1"}),
+    }[case]

@@ -31,6 +31,8 @@ from _torch_parity import (  # noqa: F401
     assert_off_integers,
     no_new_jax_cache_entries,
     pair_magnitudes,
+    run_flags,
+    torch_threads,
     write_ckpt,
 )
 from v2e2v_tpu.data import interpolating_reader as jir
@@ -293,19 +295,57 @@ def test_cli_without_card_or_platform_raises(setup, monkeypatch):
 
 
 UNSUPPORTED = [
-    (["--profile_dir", "trace"], {}, "item 10"),
-    (["--dist_coordinator", "localhost:1", "--dist_num_processes", "2",
-      "--dist_process_id", "0"], {}, "item 9"),
-    ([], {"V2E2V_COORDINATOR": "localhost:1", "V2E2V_NUM_PROCESSES": "2",
-          "V2E2V_PROCESS_ID": "0"}, "item 9"),
-    ([], {"V2E2V_DIST_AUTO": "1"}, "item 9"),
     ([], {"V2E2V_LPIPS_WEIGHTS": "MODEL"}, "item 12"),
 ]
 
 
-@pytest.mark.parametrize("argv,env,item", UNSUPPORTED,
-                         ids=["profile",
-                              "dist-flags", "dist-env", "dist-auto", "lpips"])
+@pytest.fixture(scope="module")
+def plain_run(setup):
+    """The port's CLI once, without run flags."""
+    root, data, model, _ = setup
+    mp = pytest.MonkeyPatch()
+    try:
+        mp.setenv("V2E2V_PLATFORM", "cpu")
+        with torch_threads(1):  # as the runs it is held against
+            tcli.main(_argv(data, model, "-o", str(root / "plain")))
+    finally:
+        mp.undo()
+    return root / "plain"
+
+
+@pytest.mark.parametrize("case", ["profile", "dist-flags", "dist-env", "dist-auto"])
+def test_run_flags_are_honoured(setup, plain_run, monkeypatch, capsys, tmp_path, case):
+    """A world of one over ``gloo`` (from the flags, the ``V2E2V_*`` variables
+    or torchrun's) is made and torn down, and ``--profile_dir`` is accepted
+    and ignored, as the JAX CLI ignores it: the frames and result.csv equal
+    those of the run without them."""
+    root, data, model, _ = setup
+    argv, env = run_flags(case, tmp_path / "trace")
+    monkeypatch.setenv("V2E2V_PLATFORM", "cpu")
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    with torch_threads(1):  # beside the suite's other workers
+        tcli.main(_argv(data, model, "-o", str(tmp_path / "out"), *argv))
+    out = capsys.readouterr().out
+    assert not torch.distributed.is_initialized()
+    if case == "profile":
+        assert not (tmp_path / "trace").exists()
+    else:
+        assert "process 0/1, 1 local / 1 global devices (gloo)" in out
+    got, want = tmp_path / "out" / "model.pth", plain_run / "model.pth"
+    seqs = sorted(p.name for p in want.iterdir())
+    assert seqs
+    for q in seqs:
+        g, w = _result(got / q), _result(want / q)
+        assert list(g) == list(w) == [q]
+        np.testing.assert_array_equal(g[q], w[q])  # LPIPS is NaN in both
+    frames = sorted(p.relative_to(want) for p in want.rglob("*.png"))
+    assert frames and frames == sorted(p.relative_to(got) for p in got.rglob("*.png"))
+    for f in frames:
+        np.testing.assert_array_equal(read_gray(str(got / f)), read_gray(str(want / f)))
+
+
+@pytest.mark.parametrize("argv,env,item", UNSUPPORTED, ids=["lpips"])
 def test_unsupported_flags_raise_with_their_item(setup, monkeypatch, argv, env, item):
     root, data, model, _ = setup
     monkeypatch.setenv("V2E2V_PLATFORM", "cpu")

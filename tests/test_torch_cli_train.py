@@ -7,7 +7,13 @@ checkpoints that the port's evaluation CLI runs and the JAX package's
 equals a straight run of two epochs, the Adam moments included; the
 device-data and worker paths train; V2E2V training warm-starts from the E2V
 checkpoint and writes one that the port's V2E2V CLI rebuilds its emulator
-from. Each flag neither CLI covers yet raises, naming its ROADMAP.md item.
+from. Each flag neither CLI covers yet raises, naming its ROADMAP.md item;
+the run flags of ROADMAP.md items 9 (the data axis) and 10 work: a world of
+one over ``gloo`` from the ``--dist_*`` flags or torchrun's variables is
+made and torn down around a run that writes its checkpoint,
+``--profile_dir`` writes a trace, ``--debug_nans`` raises
+``FloatingPointError`` on a batch holding a NaN and writes no checkpoint,
+and ``--mesh_data 2`` in one process raises ``ValueError``.
 The step's numbers against JAX's are in tests/test_torch_train_step.py.
 """
 
@@ -20,8 +26,9 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import no_new_jax_cache_entries, one_torch_thread  # noqa: F401
+from _torch_parity import free_port, no_new_jax_cache_entries, one_torch_thread  # noqa: F401
 from v2e2v_tpu.utils import checkpoint as jckpt
+from v2e2v_tpu_torch.data import datasets as tdatasets
 from v2e2v_tpu_torch.cli import test as tcli_v2e2v
 from v2e2v_tpu_torch.cli import test_e2v as tcli_e2v
 from v2e2v_tpu_torch.cli import train as ttrain
@@ -204,13 +211,7 @@ def _refusals():
     cases = []
     for cli in ("train_e2v", "train"):
         for argv, env, item in [
-            (["--mesh_data", "2"], {}, "item 9"),
-            (["--mesh_spatial", "2"], {}, "item 9"),
-            (["--dist_coordinator", "localhost:1", "--dist_num_processes", "2",
-              "--dist_process_id", "0"], {}, "item 9"),
-            ([], {"V2E2V_DIST_AUTO": "1"}, "item 9"),
-            (["--profile_dir", "trace"], {}, "item 10"),
-            (["--debug_nans"], {}, "item 10"),
+            (["--mesh_spatial", "2"], {}, "item 9.*spatial"),
             ([], {"V2E2V_LPIPS_WEIGHTS": "FILE"}, "item 12"),
         ]:
             name = (argv[0].lstrip("-") if argv else next(iter(env))).lower()
@@ -230,3 +231,64 @@ def test_unsupported_flags_raise_with_their_item(cli, argv, env, item, data, tmp
     with pytest.raises(NotImplementedError, match=item):
         module.main(_e2v_argv(data, tmp_path / "models", *argv))
     assert not (tmp_path / "models").exists()
+
+
+LIFTED = ["mesh_data", "dist_coordinator", "v2e2v_dist_auto", "profile_dir", "debug_nans"]
+
+
+def _with_nan(cls, part):
+    """``cls._emit`` with a NaN in the sample's part ``part``."""
+    emit = cls._emit
+
+    def nan_emit(self, index, sample):
+        out = list(emit(self, index, sample))
+        out[part] = np.array(out[part], np.float32)
+        out[part].flat[-1] = np.nan  # the last frame: the V2E2V loss reads its gt
+        return tuple(out)
+
+    return nan_emit
+
+
+@pytest.mark.parametrize("cli,flag", [pytest.param(cli, flag, id=f"{cli}-{flag}")
+                                      for cli in ("train_e2v", "train") for flag in LIFTED])
+def test_lifted_flags_are_honoured(cli, flag, data, tmp_path, monkeypatch, capsys):
+    module = ttrain_e2v if cli == "train_e2v" else ttrain
+    name = E2V_NAME if cli == "train_e2v" else V2E2V_NAME
+    models = tmp_path / "models"
+    argv = _e2v_argv(data, models, "--epochs", "1",
+                     *(["--num_pack_frames", "5"] if cli == "train" else []))
+    monkeypatch.setenv("V2E2V_PLATFORM", "cpu")
+    if flag == "mesh_data":
+        with pytest.raises(ValueError, match="n_data=2 needs 2 devices"):
+            module.main(argv + ["--mesh_data", "2"])
+        assert not models.exists()
+        return
+    if flag == "debug_nans":
+        # E2V: a NaN in a voxel grid; V2E2V: in the ground truth
+        cls, part = ((tdatasets.TrainFixNEventData, 0) if cli == "train_e2v"
+                     else (tdatasets.TrainSeqData, 2))
+        monkeypatch.setattr(cls, "_emit", _with_nan(cls, part))
+        with pytest.raises(FloatingPointError, match="NaN in the loss"):
+            module.main(argv + ["--debug_nans"])
+        assert "Train Epoch" not in capsys.readouterr().out  # its first step raised
+        assert not list(models.rglob("*.pth.tar")) and not torch.is_anomaly_enabled()
+        return
+    port = str(free_port())
+    if flag == "dist_coordinator":
+        argv += ["--dist_coordinator", f"localhost:{port}", "--dist_num_processes", "1",
+                 "--dist_process_id", "0"]
+    elif flag == "v2e2v_dist_auto":
+        for k, v in {"V2E2V_DIST_AUTO": "1", "MASTER_ADDR": "localhost", "MASTER_PORT": port,
+                     "RANK": "0", "WORLD_SIZE": "1"}.items():
+            monkeypatch.setenv(k, v)
+    else:
+        argv += ["--profile_dir", str(tmp_path / "trace")]
+    module.main(argv)
+    out = capsys.readouterr().out
+    assert _ckpt(models / name, name, 1).exists()
+    assert not torch.distributed.is_initialized()
+    if flag == "profile_dir":
+        traces = list((tmp_path / "trace").glob("rank0.*.pt.trace.json"))
+        assert len(traces) == 1 and traces[0].stat().st_size > 0
+    else:
+        assert "process 0/1, 1 local / 1 global devices (gloo)" in out

@@ -27,6 +27,8 @@ from _torch_parity import (  # noqa: F401
     assert_off_integers,
     no_new_jax_cache_entries,
     pair_magnitudes,
+    run_flags,
+    torch_threads,
     write_ckpt,
 )
 from v2e2v_tpu.data import interpolating_reader as jir
@@ -175,18 +177,52 @@ def test_checkpoint_v2e_params_override_the_flags(setup, monkeypatch):
 UNSUPPORTED = [
     (["--reader_type", "video"], {}, NotImplementedError, "item 4.*video decoder"),
     (["--quant", "int8"], {}, ValueError, "JAX V2E2V CLI .* does not read the flag"),
-    (["--profile_dir", "trace"], {}, NotImplementedError, "item 10"),
-    (["--dist_coordinator", "localhost:1"], {}, NotImplementedError, "item 9"),
-    ([], {"V2E2V_DIST_AUTO": "1"}, NotImplementedError, "item 9"),
     (["--precision", "bfloat16"], {}, ValueError, "runs float32"),
     (["--model_mode", "cista-tc"], {}, ValueError, "cista-lstc"),
     (["-b", "17"], {}, ValueError, "at most 16"),
 ]
 
 
+@pytest.fixture(scope="module")
+def plain_run(setup):
+    """The port's CLI once, without run flags."""
+    root, data, model, _ = setup
+    mp = pytest.MonkeyPatch()
+    try:
+        mp.setenv("V2E2V_PLATFORM", "cpu")
+        with torch_threads(1):  # as the runs it is held against
+            tcli.main(_argv(data, model, root / "plain"))
+    finally:
+        mp.undo()
+    return root / "plain"
+
+
+@pytest.mark.parametrize("case", ["profile", "dist-flags", "dist-auto"])
+def test_run_flags_are_honoured(setup, plain_run, monkeypatch, capsys, tmp_path, case):
+    """A world of one over ``gloo`` is made and torn down, and
+    ``--profile_dir`` is accepted and ignored, as test.py ignores it: the
+    written frames equal those of the run without them."""
+    root, data, model, _ = setup
+    argv, env = run_flags(case, tmp_path / "trace")
+    monkeypatch.setenv("V2E2V_PLATFORM", "cpu")
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    with torch_threads(1):  # beside the suite's other workers
+        tcli.main(_argv(data, model, tmp_path / "out", *argv))
+    out = capsys.readouterr().out
+    assert not torch.distributed.is_initialized()
+    if case == "profile":
+        assert not (tmp_path / "trace").exists()
+    else:
+        assert "process 0/1, 1 local / 1 global devices (gloo)" in out
+    got, want = _pngs(tmp_path / "out"), _pngs(plain_run)
+    assert want and sorted(got) == sorted(want)
+    for name, w in want.items():
+        np.testing.assert_array_equal(got[name], w, err_msg=name)
+
+
 @pytest.mark.parametrize("argv,env,error,match", UNSUPPORTED,
-                         ids=["video", "int8", "profile", "dist-flags",
-                              "dist-auto", "bfloat16", "cista-tc", "bins"])
+                         ids=["video", "int8", "bfloat16", "cista-tc", "bins"])
 def test_refused_flags_raise(setup, monkeypatch, argv, env, error, match):
     root, data, model, _ = setup
     monkeypatch.setenv("V2E2V_PLATFORM", "cpu")

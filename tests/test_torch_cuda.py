@@ -1130,3 +1130,89 @@ def test_upsampler_on_card_matches_cpu(card, tmp_path):
     np.testing.assert_array_equal(got_ts, want_ts)
     assert len(got_ts) == 3 * 4 + 1
     assert np.abs(got_frames.astype(int) - want_frames.astype(int)).max() <= 1
+
+
+def _emulator_pack(b, h=24, w=32, n=5, seed=0):
+    """A pack of ``b`` rows of smooth frames in 0-255 and their stamps on the card."""
+    g = torch.Generator().manual_seed(seed)
+    base = 40 + 150 * torch.rand(b, 1, h, w, generator=g)
+    i = torch.arange(n, dtype=torch.float32).reshape(1, n, 1, 1)
+    frames = (base * (1 + 0.2 * torch.sin(i + 3 * torch.rand(b, 1, h, w, generator=g))))
+    ts = (torch.arange(n, dtype=torch.float32) * 0.004).expand(b, n).contiguous()
+    return frames.clamp(0, 255).cuda(), ts.cuda()
+
+
+def test_rows_noise_gives_a_rank_the_rows_of_the_global_batch(card):
+    """K3's internal Philox is keyed by each row's seed: a rank that draws
+    through ``RowsNoise`` makes, for its rows, the events and voxel grids
+    that one process makes for the whole batch."""
+    from v2e2v_tpu_torch.models.emulator import EmulatorConfig, GeneratorNoise, emulate_pack
+    from v2e2v_tpu_torch.ops.cuda.emulator_iters import emulator_iters
+    from v2e2v_tpu_torch.parallel.mesh import RowsNoise
+
+    cfg = EmulatorConfig(pos_thres=0.3, neg_thres=0.3, sigma_thres=0.03, leak_rate_hz=0.1,
+                         shot_noise_rate_hz=50.0, num_bins=5)
+    frames, ts = _emulator_pack(4)
+
+    def noise():
+        return GeneratorNoise(torch.Generator(device="cuda").manual_seed(7))
+
+    before = emulator_iters.launches_by_shot["internal"]
+    whole, stats, _ = emulate_pack(cfg, None, frames, ts, noise(), with_stats=True)
+    assert emulator_iters.launches_by_shot["internal"] - before == 4
+    parts = [emulate_pack(cfg, None, frames[rows], ts[rows], RowsNoise(noise(), rows, 4),
+                          with_stats=True) for rows in (slice(0, 2), slice(2, 4))]
+    assert sum(int(p[1].num_events) for p in parts) == int(stats.num_events) > 0
+    # the events are the same; each grid's normalisation reduces over a batch of another size
+    torch.testing.assert_close(torch.cat([p[0] for p in parts]), whole, atol=1e-6, rtol=1e-6)
+
+
+def test_mesh_pool_on_one_card_matches_one_group(card):
+    """A pool over two device groups on the one card steps each group as a
+    batch of its own (K1 2 x depth per group) and gives the one-group pool's
+    reconstructions within 1e-5 (float32, TF32 off)."""
+    from v2e2v_tpu_torch.ops.cuda.ista import ista_loop
+    from v2e2v_tpu_torch.parallel.mesh import make_mesh
+    from v2e2v_tpu_torch.serving import StreamPool
+
+    cfg = CistaConfig(image_dim=(32, 48), base_channels=16, depth=3, num_bins=5,
+                      ista_impl="cuda")
+    weights = init_cista_lstc(torch.Generator().manual_seed(0), cfg, device="cuda")
+    pools = [StreamPool(cfg, weights, 4, torch.float32),
+             StreamPool(cfg, weights, 4, torch.float32, mesh=make_mesh(2, devices=["cuda"] * 2))]
+    ids = [[p.attach() for _ in range(4)] for p in pools]
+    g = torch.Generator().manual_seed(1)
+    for step in range(3):
+        vox = [torch.randn(32, 48, 5, generator=g).cuda() for _ in range(4)]
+        outs = []
+        for p, sids in zip(pools, ids):
+            before = ista_loop.launches
+            outs.append(p.step(dict(zip(sids, vox))))
+            outs[-1]["k1"] = ista_loop.launches - before
+        assert (outs[0]["k1"], outs[1]["k1"]) == (2 * 3, 2 * 2 * 3)
+        for a, b in zip(*ids):
+            torch.testing.assert_close(torch.from_numpy(outs[1][b]), torch.from_numpy(outs[0][a]),
+                                       atol=1e-5, rtol=1e-5)
+
+
+def test_profile_traces_k3_on_the_card(card, tmp_path):
+    """``maybe_profile`` on the card records the kernels: the trace names
+    K3's kernel once per launch."""
+    import json
+
+    from v2e2v_tpu_torch.models.emulator import EmulatorConfig, GeneratorNoise, emulate_pack
+    from v2e2v_tpu_torch.ops.cuda.emulator_iters import emulator_iters
+    from v2e2v_tpu_torch.utils.profiling import maybe_profile
+
+    cfg = EmulatorConfig(pos_thres=0.3, neg_thres=0.3, shot_noise_rate_hz=50.0, num_bins=5)
+    frames, ts = _emulator_pack(2)
+    noise = GeneratorNoise(torch.Generator(device="cuda").manual_seed(3))
+    before = emulator_iters.launches
+    with maybe_profile(str(tmp_path), "cuda"):
+        emulate_pack(cfg, None, frames, ts, noise)
+        torch.cuda.synchronize()
+    (trace,) = tmp_path.glob("rank0.*.pt.trace.json")
+    kernels = [e["name"] for e in json.loads(trace.read_text())["traceEvents"]
+               if e.get("cat") == "kernel"]
+    assert sum("emulator_iters_kernel" in k for k in kernels) == emulator_iters.launches - before
+    assert emulator_iters.launches - before == 4

@@ -12,6 +12,7 @@ from _torch_parity import no_new_jax_cache_entries  # noqa: F401
 from v2e2v_tpu.models.cista import CistaConfig as JCfg, init_cista_lstc as jinit
 from v2e2v_tpu.serving import StreamPool as JPool
 from v2e2v_tpu_torch.models.cista import CistaConfig
+from v2e2v_tpu_torch.parallel.mesh import make_mesh
 from v2e2v_tpu_torch.serving import StreamPool
 from v2e2v_tpu_torch.utils.checkpoint import params_from_jax
 
@@ -87,8 +88,8 @@ def test_pool_fetch_false_returns_device_views():
 
 def test_pool_refuses_what_is_not_ported_and_overflow():
     cfg = CistaConfig(image_dim=(H, W), base_channels=C, depth=DEPTH, num_bins=NB)
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        StreamPool(cfg, {}, mesh=object(), device="cpu")
+    with pytest.raises(ValueError, match="divisible"):
+        StreamPool(cfg, {}, capacity=6, mesh=make_mesh(4, devices=["cpu"] * 4))
     _, pool = _pools(capacity=1)
     with pytest.raises(ValueError, match="requires cfg.quant == 'int8'"):
         pool.calibrate(None)

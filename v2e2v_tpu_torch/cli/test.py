@@ -18,8 +18,12 @@ Each sequence draws from its own noise source: by default a generator on the
 run's device seeded from ``(--seed, sequence index)``; on the card K3 makes
 the shot-noise uniforms with its own Philox. ``--rng_impl`` (JAX's key
 implementation) is not read. It runs float32 (TF32 off on the card), on the
-CUDA card, and on the CPU only under ``V2E2V_PLATFORM=cpu``. Flags it does not
-cover yet raise at once, naming the ROADMAP.md item that brings them.
+CUDA card, and on the CPU only under ``V2E2V_PLATFORM=cpu``. Over a process
+group (the ``--dist_*`` flags, the ``V2E2V_*`` variables or
+``V2E2V_DIST_AUTO=1``) each process runs the whole evaluation, as test.py's
+do; ``--profile_dir`` is accepted and ignored, as test.py ignores it. Flags
+it does not cover yet raise at once, naming the ROADMAP.md item that brings
+them.
 """
 
 from __future__ import annotations
@@ -32,7 +36,7 @@ import numpy as np
 import torch
 
 from ..models.emulator import GeneratorNoise, Noise
-from .test_e2v import check_common_flags, make_reader, missing
+from .test_e2v import make_reader, missing
 
 V2E_PARAMS = ("C", "ps", "pl", "cutoff_hz", "qs", "ql", "refractory_period_s")
 CHECKPOINT_SUFFIXES = (".pth.tar", ".pth", ".pt")
@@ -45,7 +49,6 @@ def check_flags(cfgs) -> None:
         missing("--reader_type video", 4,
                 "it needs a video decoder (cv2.VideoCapture in the JAX package), which the "
                 "port does not have")
-    check_common_flags(cfgs)
     if getattr(cfgs, "quant", "none") != "none":
         raise ValueError(f"--quant {cfgs.quant}: the JAX V2E2V CLI (test.py) does not read the "
                          "flag; int8 inference runs in the E2V CLI (cli.test_e2v)")
@@ -178,6 +181,7 @@ class V2E2V:
 
 def main(argv: list[str] | None = None,
          noise_for_sequence: Callable[[int], Noise] | None = None) -> None:
+    from ..parallel.distributed import initialize_from_flags, shutdown
     from ..utils.configs import set_configs
     from ..utils.profiling import apply_platform_override
 
@@ -186,11 +190,15 @@ def main(argv: list[str] | None = None,
     cfgs = parser.parse_args(argv)
     check_flags(cfgs)
     device = apply_platform_override()
-    if device.type == "cuda":
-        # float32 means float32: no TF32 in cuDNN's convs or in matmuls
-        torch.backends.cudnn.allow_tf32 = False
-        torch.backends.cuda.matmul.allow_tf32 = False
-    V2E2V(cfgs, device, noise_for_sequence).run()
+    initialize_from_flags(cfgs)  # each process runs the whole evaluation, as test.py's
+    try:
+        if device.type == "cuda":
+            # float32 means float32: no TF32 in cuDNN's convs or in matmuls
+            torch.backends.cudnn.allow_tf32 = False
+            torch.backends.cuda.matmul.allow_tf32 = False
+        V2E2V(cfgs, device, noise_for_sequence).run()
+    finally:
+        shutdown()
 
 
 if __name__ == "__main__":

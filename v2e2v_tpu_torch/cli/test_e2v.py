@@ -17,8 +17,13 @@ network's core convs are int8, kernel K4), normalise each prediction to uint8
 MSE/PSNR/SSIM/LPIPS on stdout and in ``result.csv``.
 
 It runs on the CUDA card, and on the CPU only under ``V2E2V_PLATFORM=cpu``.
-Flags it does not cover yet raise at once, naming the ROADMAP.md item that
-brings them. LPIPS is NaN, as in the JAX CLI without its weights.
+With the ``--dist_*`` flags, the ``V2E2V_*`` variables or
+``V2E2V_DIST_AUTO=1`` it joins a process group
+(``parallel/distributed.initialize_from_flags``) and, as the JAX CLI does,
+each process runs the whole evaluation. ``--profile_dir`` is accepted and
+ignored, as the JAX CLI ignores it. Flags it does not cover yet raise at
+once, naming the ROADMAP.md item that brings them. LPIPS is NaN, as in the
+JAX CLI without its weights.
 """
 
 from __future__ import annotations
@@ -43,12 +48,6 @@ def missing(what: str, item: int, why: str = "") -> None:
     )
 
 
-def check_common_flags(cfgs) -> None:
-    """Raise on the flags (and environment variables) that neither of the
-    port's evaluation CLIs covers yet: distributed runs, profiling."""
-    check_run_flags(cfgs)
-
-
 def make_reader(cfgs, device: torch.device, **kw):
     """The frame reader of ``--reader_type``: Super-SloMo upsampling on
     ``device``, or the frame folder as it is."""
@@ -60,27 +59,11 @@ def make_reader(cfgs, device: torch.device, **kw):
     return ImageReader(cfgs.image_dim, time_unit=cfgs.time_unit, **kw)
 
 
-def check_run_flags(cfgs) -> None:
-    """Raise on the flags (and environment variables) of a run that no CLI of
-    the port covers yet: profiling and distributed runs."""
-    if getattr(cfgs, "profile_dir", None):
-        missing("--profile_dir", 10)
-    dist_flags = [f"--{k}" for k in ("dist_coordinator", "dist_num_processes", "dist_process_id")
-                  if getattr(cfgs, k, None) is not None]
-    dist_env = [k for k in ("V2E2V_COORDINATOR", "V2E2V_NUM_PROCESSES", "V2E2V_PROCESS_ID")
-                if k in os.environ]
-    if os.environ.get("V2E2V_DIST_AUTO") == "1":
-        dist_env.append("V2E2V_DIST_AUTO=1")
-    if dist_flags or dist_env:
-        missing(" and ".join(dist_flags + dist_env), 9, "distributed runs")
-
-
 def check_flags(cfgs) -> None:
     """Raise on every flag (or environment variable) this CLI does not cover
     yet."""
     if cfgs.model_mode not in ("cista-lstc", "cista-tc"):
         raise ValueError(f"--model_mode must be cista-lstc or cista-tc, got {cfgs.model_mode!r}")
-    check_common_flags(cfgs)
     lpips = os.environ.get("V2E2V_LPIPS_WEIGHTS")
     if lpips and os.path.exists(lpips):
         missing(f"LPIPS (V2E2V_LPIPS_WEIGHTS={lpips})", 12,
@@ -269,6 +252,7 @@ class Reconstructor:
 
 
 def main(argv: list[str] | None = None) -> None:
+    from ..parallel.distributed import initialize_from_flags, shutdown
     from ..utils.configs import set_configs
     from ..utils.profiling import apply_platform_override
 
@@ -277,11 +261,15 @@ def main(argv: list[str] | None = None) -> None:
     cfgs = parser.parse_args(argv)
     check_flags(cfgs)
     device = apply_platform_override()
-    if device.type == "cuda" and cfgs.precision == "float32":
-        # float32 means float32: no TF32 in cuDNN's convs or in matmuls
-        torch.backends.cudnn.allow_tf32 = False
-        torch.backends.cuda.matmul.allow_tf32 = False
-    Reconstructor(cfgs, device).run()
+    initialize_from_flags(cfgs)
+    try:
+        if device.type == "cuda" and cfgs.precision == "float32":
+            # float32 means float32: no TF32 in cuDNN's convs or in matmuls
+            torch.backends.cudnn.allow_tf32 = False
+            torch.backends.cuda.matmul.allow_tf32 = False
+        Reconstructor(cfgs, device).run()
+    finally:
+        shutdown()
 
 
 if __name__ == "__main__":

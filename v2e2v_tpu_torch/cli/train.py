@@ -15,9 +15,12 @@ from which the port's ``cli/test.py`` rebuilds the emulator.
 The emulator runs outside autograd's graph; on the card its iteration loop is
 kernel K3, once per frame pair, its shot-noise uniforms made by K3's Philox
 from a generator seeded by ``(--seed, step)``. It trains float32 (TF32 off)
-on one device: the CUDA card, and the CPU only under ``V2E2V_PLATFORM=cpu``.
-Flags it does not cover yet raise at once, naming the ROADMAP.md item that
-brings them.
+on the CUDA card, and on the CPU only under ``V2E2V_PLATFORM=cpu``. Runs over
+several processes, ``--profile_dir`` and ``--debug_nans`` work as in
+``cli/train_e2v.py``: each rank emulates its rows of every batch from the
+global batch's draws (K3 in every rank), and batches the data axis cannot
+divide are dropped and reported. Flags it does not cover yet raise at once,
+naming the ROADMAP.md item that brings them.
 """
 
 from __future__ import annotations
@@ -33,10 +36,14 @@ from .test import CHECKPOINT_SUFFIXES, V2E_PARAMS, sequence_seed
 from .train_e2v import (
     CHECKPOINT_SUFFIX,
     check_train_flags,
+    data_axis,
+    drop_unshardable,
+    dropped_warning,
     epoch_summary,
     parse_flags,
+    run_training,
+    save_on_rank0,
     tail_padded,
-    training_device,
 )
 
 
@@ -70,10 +77,12 @@ class Train:
             load_torch_checkpoint,
             v2e2v_checkpoint_name,
         )
+        from ..parallel.distributed import is_main_process
 
         check_flags(cfgs)
         self.cfgs = cfgs
         self.device = resolve_device(device)
+        self.mesh = data_axis(cfgs, self.device)
         self.model_name = v2e2v_checkpoint_name(cfgs)
         self.path_to_model = os.path.join(cfgs.path_to_model, self.model_name)
         os.makedirs(self.path_to_model, exist_ok=True)
@@ -117,14 +126,16 @@ class Train:
                 self.optimizer.load_state_dict(opt_state)
         print("LPIPS weights unavailable; training with L1 + (1 - SSIM) only")
         if cfgs.device_data != "off":
-            self.train_step = make_v2e2v_train_step_device_data(self.cfg, self.optimizer)
+            self.train_step = make_v2e2v_train_step_device_data(self.cfg, self.optimizer,
+                                                                mesh=self.mesh)
         else:
+            # each batch's rows are taken on the host (run)
             self.train_step = make_v2e2v_train_step(self.cfg, self.optimizer,
-                                                    monitor=cfgs.display_train)
+                                                    monitor=cfgs.display_train, mesh=self.mesh)
         # --display_train: the reference's matplotlib previews as PNG panels
-        # every 50 batches
+        # every 50 batches, from rank 0 (its first row is the batch's first)
         self.display = None
-        if cfgs.display_train:
+        if cfgs.display_train and is_main_process():
             from ..utils.data_io import DebugPanelWriter
 
             self.display = DebugPanelWriter(cfgs, self.model_name, "train")
@@ -136,8 +147,8 @@ class Train:
     def save(self, epoch: int) -> None:
         from ..utils.checkpoint import save_checkpoint
 
-        save_checkpoint(self.checkpoint_path(epoch + 1), self.params, epoch + 1, self.optimizer,
-                        v2e_params=self.v2e_params, prefix="e2v_net.")
+        save_on_rank0(save_checkpoint, self.checkpoint_path(epoch + 1), self.params, epoch + 1,
+                      self.optimizer, self.v2e_params, "e2v_net.")
 
     def noise(self, *ids: int):
         """The emulator's noise source of one step: a generator on the device
@@ -218,18 +229,21 @@ class Train:
     def run(self):
         from ..data.datasets import SampleLoader, iterate_batches
         from ..models.emulator import validate_pack_times
+        from ..parallel.distributed import is_main_process
         from ..training.steps import set_lr
         from ..utils.data_io import make_event_preview
         from ..utils.logging import ScalarLogger
 
         cfgs = self.cfgs
         logger = ScalarLogger(os.path.join("summary", self.model_name),
-                              enabled=cfgs.is_SummaryWriter)
+                              enabled=cfgs.is_SummaryWriter and is_main_process())
         if cfgs.device_data != "off":
             self._run_device_data(logger)
             return
         loader = SampleLoader(self.train_data, cfgs.num_workers) if cfgs.num_workers > 0 else None
 
+        rows, n_data = self.mesh.rows, self.mesh.n_data
+        dropped = {"batches": 0, "samples": 0}
         step_idx = 0
         sat_clipped = sat_max_count = 0
         try:
@@ -239,9 +253,9 @@ class Train:
                 print(f"lr: {lr}")
                 t_epoch = time.time()
                 losses = []
-                for n_batches, batch in enumerate(iterate_batches(
+                for n_batches, batch in enumerate(drop_unshardable(iterate_batches(
                         self.train_data, cfgs.batch_size, cfgs.shuffle,
-                        seed=cfgs.seed + epoch, loader=loader)):
+                        seed=cfgs.seed + epoch, loader=loader), n_data, dropped)):
                     seq_ts, seq_images, seq_gt = batch  # [B,T,N], [B,T,N,H,W], [B,T,H,W,1]
                     frames_seq = np.moveaxis(seq_images, 1, 0)  # [T, B, N, H, W]
                     ts_seq = np.moveaxis(seq_ts, 1, 0).astype(np.float32)
@@ -252,10 +266,12 @@ class Train:
                     for t_pack in range(ts_seq.shape[0]):
                         t_last = validate_pack_times(ts_seq[t_pack], t_last)
 
+                    # this rank's rows only move to the device
                     loss, aux = self.train_step(
-                        self.params, torch.from_numpy(frames_seq).to(self.device),
-                        torch.from_numpy(ts_seq).to(self.device),
-                        torch.from_numpy(gt).to(self.device), self.noise(step_idx))
+                        self.params,
+                        *(torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+                          for a in (rows(frames_seq, 1), rows(ts_seq, 1), rows(gt, 0))),
+                        self.noise(step_idx))
                     # max_iters bounds the reference's unbounded per-pixel
                     # event loop (v2e/v2e_model.py:449): say when it clips
                     clip_now = int(aux["clipped_pixels"])
@@ -279,6 +295,9 @@ class Train:
                     losses.append(loss)
                     step_idx += 1
                 print(epoch_summary(epoch, time.time() - t_epoch, losses))
+                if dropped["batches"]:
+                    print(dropped_warning(dropped, n_data))
+                    dropped["batches"] = dropped["samples"] = 0
                 if sat_clipped:
                     print(self.saturation_warning(sat_clipped, sat_max_count))
                     logger.scalar("emulator_clipped_pixels", sat_clipped, epoch)
@@ -294,7 +313,7 @@ class Train:
 def main(argv: list[str] | None = None) -> None:
     cfgs = parse_flags(argv, "V2E2V training options")
     check_flags(cfgs)
-    Train(cfgs, training_device()).run()
+    run_training(cfgs, Train)
 
 
 if __name__ == "__main__":

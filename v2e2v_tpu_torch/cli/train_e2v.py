@@ -13,37 +13,48 @@ epochs, a checkpoint per epoch. Checkpoints are the reference's ``.pth.tar``
 evaluation CLIs and the JAX package's ``load_torch_checkpoint`` load, and
 ``--load_epoch_for_train`` resumes from, the Adam moments included.
 
-It trains float32 (TF32 off) on one device: the CUDA card, and the CPU only
-under ``V2E2V_PLATFORM=cpu``. The core runs layer by layer with the plain
-ISTA loop (kernels K1 and K2 have no backward). Flags it does not cover yet
-raise at once, naming the ROADMAP.md item that brings them.
+It trains float32 (TF32 off) on the CUDA card, and on the CPU only under
+``V2E2V_PLATFORM=cpu``. The core runs layer by layer with the plain ISTA
+loop (kernels K1 and K2 have no backward).
+
+Over several processes, one per device (the ``--dist_*`` flags, the
+``V2E2V_*`` variables, or torchrun with ``V2E2V_DIST_AUTO=1``;
+``parallel/distributed.py``), the data axis is ``--mesh_data``, or
+``gcd(batch_size, processes)`` when it is 0, and must equal the number of
+processes. Every rank reads the same batches, takes its rows of each on the
+host and all-reduces the gradients (``training/steps.py``); batches that the
+axis cannot divide are dropped, counted and reported at the end of each
+epoch. With ``--device_data`` every rank holds the whole dataset and
+gathers its rows of each batch's indices. Rank 0 alone writes checkpoints;
+every rank resumes from the same file. ``--profile_dir`` traces the run
+with ``torch.profiler`` (one file per rank) and ``--debug_nans`` raises
+``FloatingPointError`` at the first NaN in a step (``utils/profiling.py``).
+Flags it does not cover yet raise at once, naming the ROADMAP.md item that
+brings them.
 """
 
 from __future__ import annotations
 
 import argparse
+import math
 import os
 import time
 
 import numpy as np
 import torch
 
-from .test_e2v import check_run_flags, missing
+from .test_e2v import missing
 
 CHECKPOINT_SUFFIX = ".pth.tar"
 
 
 def check_train_flags(cfgs) -> None:
     """Raise on the flags (and environment variables) that neither of the
-    port's training CLIs covers yet: distributed runs and a mesh, profiling,
-    NaN debugging, LPIPS; and on ``--device_data`` without
-    ``--drop_seq_tails``, as the JAX CLIs do."""
-    check_run_flags(cfgs)
-    if cfgs.debug_nans:
-        missing("--debug_nans", 10)
-    if cfgs.mesh_data > 1 or cfgs.mesh_spatial > 1:
-        missing(f"--mesh_data {cfgs.mesh_data} --mesh_spatial {cfgs.mesh_spatial}", 9,
-                "the port's trainers run on one device")
+    port's training CLIs covers yet: the spatial mesh axis and LPIPS; and on
+    ``--device_data`` without ``--drop_seq_tails``, as the JAX CLIs do."""
+    if cfgs.mesh_spatial > 1:
+        missing(f"--mesh_spatial {cfgs.mesh_spatial}", 9,
+                "the spatial mesh axis; the data axis (--mesh_data) is ported")
     lpips = os.environ.get("V2E2V_LPIPS_WEIGHTS")
     if lpips and os.path.exists(lpips):
         missing(f"LPIPS (V2E2V_LPIPS_WEIGHTS={lpips})", 12,
@@ -62,6 +73,43 @@ def check_flags(cfgs) -> None:
 def epoch_summary(epoch: int, seconds: float, losses: list[float]) -> str:
     return (f"epoch {epoch + 1} done in {seconds:.1f}s, mean loss "
             f"{sum(losses) / max(len(losses), 1):.5f}")
+
+
+def data_axis(cfgs, device: torch.device):
+    """The trainers' data axis: ``--mesh_data``, or when it is 0
+    ``gcd(batch_size, processes)`` (``train_e2v.py``'s rule); one process
+    takes ``--mesh_data 1`` only."""
+    from ..parallel.distributed import world_size
+    from ..parallel.mesh import make_mesh
+
+    n_data = cfgs.mesh_data if cfgs.mesh_data > 0 else math.gcd(cfgs.batch_size, world_size())
+    return make_mesh(n_data, cfgs.mesh_spatial, devices=[device])
+
+
+def drop_unshardable(batches, n_data: int, dropped: dict):
+    """The batches whose rows divide over the data axis; the others are
+    counted in ``dropped`` (``batches``, ``samples``)."""
+    for batch in batches:
+        if batch[0].shape[0] % n_data == 0:
+            yield batch
+        else:
+            dropped["batches"] += 1
+            dropped["samples"] += batch[0].shape[0]
+
+
+def dropped_warning(dropped: dict, n_data: int) -> str:
+    return (f"warning: dropped {dropped['batches']} tail batch(es) ({dropped['samples']} "
+            f"samples) not divisible by the data-mesh axis ({n_data}); use a divisible "
+            "batch_size to avoid this")
+
+
+def save_on_rank0(save, *args) -> None:
+    """Rank 0 writes; every rank waits until it has."""
+    from ..parallel.distributed import barrier, is_main_process
+
+    if is_main_process():
+        save(*args)
+    barrier()
 
 
 def tail_padded(chunk: np.ndarray, bsz: int) -> tuple[np.ndarray, np.ndarray]:
@@ -93,6 +141,7 @@ class Train:
         check_flags(cfgs)
         self.cfgs = cfgs
         self.device = resolve_device(device)
+        self.mesh = data_axis(cfgs, self.device)
         self.model_name = checkpoint_name(cfgs)
         self.path_to_model = os.path.join(cfgs.path_to_model, self.model_name)
         os.makedirs(self.path_to_model, exist_ok=True)
@@ -131,10 +180,11 @@ class Train:
         print("LPIPS weights unavailable; training with L1 + (1 - SSIM) only")
         if cfgs.device_data != "off":
             self.train_step = make_e2v_train_step_device_data(
-                self.cfg, self.optimizer, noise_std=0.1 if cfgs.add_noise else 0.0
-            )
+                self.cfg, self.optimizer, noise_std=0.1 if cfgs.add_noise else 0.0,
+                mesh=self.mesh)
         else:
-            self.train_step = make_e2v_train_step(self.cfg, self.optimizer)
+            # each batch's rows are taken on the host (run's to_device_layout)
+            self.train_step = make_e2v_train_step(self.cfg, self.optimizer, mesh=self.mesh)
 
     def checkpoint_path(self, epoch: int) -> str:
         return os.path.join(self.path_to_model,
@@ -143,7 +193,8 @@ class Train:
     def save(self, epoch: int) -> None:
         from ..utils.checkpoint import save_checkpoint
 
-        save_checkpoint(self.checkpoint_path(epoch + 1), self.params, epoch, self.optimizer)
+        save_on_rank0(save_checkpoint, self.checkpoint_path(epoch + 1), self.params, epoch,
+                      self.optimizer)
 
     def _upload_dataset(self):
         """--device_data: the whole uniform-shape training set on the device
@@ -209,22 +260,28 @@ class Train:
     def run(self):
         from ..data.datasets import SampleLoader, iterate_batches
         from ..data.prefetch import device_prefetch
+        from ..parallel.distributed import is_main_process
         from ..training.steps import set_lr
         from ..utils.logging import ScalarLogger
 
         cfgs = self.cfgs
         logger = ScalarLogger(os.path.join("summary", self.model_name),
-                              enabled=cfgs.is_SummaryWriter)
+                              enabled=cfgs.is_SummaryWriter and is_main_process())
         if cfgs.device_data != "off":
             self._run_device_data(logger)
             return
         # the persistent spawn-worker pool, reused across epochs
         loader = SampleLoader(self.train_data, cfgs.num_workers) if cfgs.num_workers > 0 else None
 
+        rows = self.mesh.rows
+
         def to_device_layout(batch):
             seq_events, _img, gt = batch  # [B, T, H, W, nb], ..., [B, H, W, 1]
-            return np.moveaxis(seq_events, 1, 0), gt  # [T, B, H, W, nb]
+            # this rank's rows only move to the device: [T, B / n_data, H, W, nb]
+            return rows(np.moveaxis(seq_events, 1, 0), 1), rows(gt, 0)
 
+        n_data = self.mesh.n_data
+        dropped = {"batches": 0, "samples": 0}
         step_idx = 0
         try:
             for epoch in range(cfgs.load_epoch_for_train, cfgs.epochs):
@@ -236,8 +293,9 @@ class Train:
                 losses = []
                 # the host pipeline in a thread, each batch on the device one step early
                 for voxel_seq, gt in device_prefetch(
-                    iterate_batches(self.train_data, cfgs.batch_size, cfgs.shuffle,
-                                    seed=cfgs.seed + epoch, loader=loader),
+                    drop_unshardable(iterate_batches(self.train_data, cfgs.batch_size,
+                                                     cfgs.shuffle, seed=cfgs.seed + epoch,
+                                                     loader=loader), n_data, dropped),
                     transform=to_device_layout, device=self.device,
                 ):
                     loss = float(self.train_step(self.params, voxel_seq, gt))
@@ -248,6 +306,9 @@ class Train:
                     losses.append(loss)
                     step_idx += 1
                 print(epoch_summary(epoch, time.time() - t_epoch, losses))
+                if dropped["batches"]:
+                    print(dropped_warning(dropped, n_data))
+                    dropped["batches"] = dropped["samples"] = 0
                 logger.scalar("epoch_mean_loss", sum(losses) / max(len(losses), 1), epoch)
                 self.save(epoch)
         finally:
@@ -268,18 +329,32 @@ def parse_flags(argv: list[str] | None, description: str):
     return cfgs
 
 
-def training_device() -> torch.device:
-    """The CLI's device (``V2E2V_PLATFORM``). The train steps turn TF32 off
-    around their own work (``_device.float32_math``)."""
-    from ..utils.profiling import apply_platform_override
+def run_training(cfgs, train_cls) -> None:
+    """The JAX trainers' entry order: the device (``V2E2V_PLATFORM``), the
+    process group, NaN debugging under ``--debug_nans``, then the run inside
+    ``maybe_profile(--profile_dir)``; on exit the group is torn down and NaN
+    debugging turned off. The train steps turn TF32 off around their own
+    work (``_device.float32_math``)."""
+    from ..parallel.distributed import initialize_from_flags, shutdown
+    from ..utils.profiling import apply_platform_override, enable_nan_debugging, maybe_profile
 
-    return apply_platform_override()
+    device = apply_platform_override()
+    initialize_from_flags(cfgs)
+    try:
+        if cfgs.debug_nans:
+            enable_nan_debugging()
+        with maybe_profile(cfgs.profile_dir, device):
+            train_cls(cfgs, device).run()
+    finally:
+        if cfgs.debug_nans:
+            enable_nan_debugging(False)
+        shutdown()
 
 
 def main(argv: list[str] | None = None) -> None:
     cfgs = parse_flags(argv, "E2V training options")
     check_flags(cfgs)
-    Train(cfgs, training_device()).run()
+    run_training(cfgs, Train)
 
 
 if __name__ == "__main__":

@@ -144,20 +144,28 @@ def add_noise_to_voxel(
     voxel: torch.Tensor,
     noise_std: float = 1.0,
     noise_fraction: float = 0.1,
+    rows: tuple[int, slice, int] | None = None,
 ) -> torch.Tensor:
     """Training augmentation (reference ``event_process.py:8-13``): Gaussian
     noise of ``noise_std`` on a random ``noise_fraction`` of the entries (all
     of them at 1.0). Draws come from ``generator``, on its own device, first
     the normals then the mask's uniforms, and move to ``voxel``'s device; JAX
     draws from a key instead, so the numbers differ and the law is the same.
-    Returns a new tensor."""
+    ``rows = (dim, share, n)``: ``voxel`` is the rows ``share`` along ``dim``
+    of a tensor of ``n`` rows there (a rank's share of a global batch), and
+    gets those rows of the whole tensor's draws. Returns a new tensor."""
     g = generator
-    noise = noise_std * torch.randn(voxel.shape, generator=g, device=g.device,
-                                    dtype=voxel.dtype).to(voxel.device)
+    shape = tuple(voxel.shape)
+    if rows is not None:
+        dim, share, n = rows
+        shape = shape[:dim] + (n,) + shape[dim + 1:]
+    noise = noise_std * torch.randn(shape, generator=g, device=g.device, dtype=voxel.dtype)
     if noise_fraction < 1.0:
-        keep = torch.rand(voxel.shape, generator=g, device=g.device).to(voxel.device)
+        keep = torch.rand(shape, generator=g, device=g.device)
         noise = torch.where(keep < noise_fraction, noise, 0.0)
-    return voxel + noise
+    if rows is not None:
+        noise = noise.narrow(dim, share.start, share.stop - share.start)
+    return voxel + noise.to(voxel.device)
 
 
 def events_to_voxel_grid_np(

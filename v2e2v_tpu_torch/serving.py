@@ -6,12 +6,18 @@ batch and keeps the old state of slots that had no input (masked update);
 ``attach`` zeroes the claimed slot. The step is ``cfg.model_mode``'s
 (CISTA-LSTC or CISTA-TC, float or int8, ``get_step_fn``). An int8 pool
 quantizes its weights once and can calibrate static activation scales
-(``calibrate``). A multi-device mesh is not ported.
+(``calibrate``).
 
     pool = StreamPool(cfg, params, capacity=8)
     sid = pool.attach()
     recs = pool.step({sid: voxel_grid})    # [H, W, num_bins] per stream
     pool.detach(sid)
+
+Several devices: ``mesh=parallel.mesh.make_mesh(n, devices=[...])`` spreads
+the slots over the mesh's data axis, as the JAX pool shards them: slot ``i``
+lives on device ``i // (capacity / n)``, which holds its group's states,
+previous images and a copy of the weights and steps the group as one batch;
+the API stays single-process (a process group's mesh raises).
 """
 
 from __future__ import annotations
@@ -49,6 +55,17 @@ def _pool_step(params, cfg, states, prev_images, voxels, active):
     return recs, new_states
 
 
+def _to(tree, device: torch.device):
+    """A nest of dicts, lists and tuples of tensors, moved to ``device``."""
+    if isinstance(tree, torch.Tensor):
+        return tree.to(device)
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to(v, device) for v in tree)
+    return tree
+
+
 class StreamPool:
     """Fixed-capacity pool of independent reconstruction streams."""
 
@@ -61,27 +78,71 @@ class StreamPool:
         mesh=None,
         device: torch.device | str | None = None,
     ):
-        if mesh is not None:
-            raise NotImplementedError("a multi-device StreamPool is not ported")
-        self.device = resolve_device(device)
+        """``mesh``: a data axis of devices in this process
+        (``parallel/mesh.make_mesh``), in place of ``device``; ``capacity``
+        must be divisible by its size."""
+        if mesh is None:
+            devices = [resolve_device(device)]
+        elif mesh.group is not None:
+            raise ValueError("a StreamPool runs in one process, as the JAX pool does: pass a "
+                             "mesh of this process's devices, not a process group's")
+        elif capacity % mesh.n_data:
+            raise ValueError(f"capacity {capacity} must be divisible by the mesh data axis "
+                             f"({mesh.n_data})")
+        else:
+            devices = list(mesh.devices)
+        self.device = devices[0]
+        self._devices = devices
+        self._per = capacity // len(devices)
         self.cfg = cfg
         self.capacity = capacity
         self.dtype = dtype
-        cast = {k: v.to(self.device, dtype) for k, v in params.items()}
-        if cfg.quant == "int8":
-            # the int8 weights once, from the weights as given, not from
-            # their cast to the pool's dtype
-            cast["_quant"] = quantize_core(
-                {k: v.to(self.device) for k, v in params.items()}, cfg.model_mode)
-        # the derived kernels (K2's taps, the fused full-resolution and
-        # ConvLSTC kernels) once, in the pool's dtype, not in every step
-        self.params = with_derived(cast, cfg, dtype)
+        placed = {}
+        for d in devices:
+            if d not in placed:
+                placed[d] = self._place(params, d)
+        self._params = [placed[d] for d in devices]  # one copy per device
         h, w = cfg.image_dim
-        self._states = cista_zero_state(cfg, capacity, dtype, self.device)
-        self._prev = torch.zeros((capacity, h, w, 1), dtype=dtype, device=self.device)
+        self._group_states = [cista_zero_state(cfg, self._per, dtype, d) for d in devices]
+        self._group_prev = [torch.zeros((self._per, h, w, 1), dtype=dtype, device=d)
+                            for d in devices]
         self._active = np.zeros(capacity, bool)
         self._next_id = 0
         self._slot_of: dict[int, int] = {}
+
+    def _place(self, params: Mapping[str, torch.Tensor], device: torch.device):
+        cast = {k: v.to(device, self.dtype) for k, v in params.items()}
+        if self.cfg.quant == "int8":
+            # the int8 weights once, from the weights as given, not from
+            # their cast to the pool's dtype
+            cast["_quant"] = quantize_core(
+                {k: v.to(device) for k, v in params.items()}, self.cfg.model_mode)
+        # the derived kernels (K2's taps, the fused full-resolution and
+        # ConvLSTC kernels) once, in the pool's dtype, not in every step
+        return with_derived(cast, self.cfg, self.dtype)
+
+    @property
+    def params(self):
+        """The weights as the first device holds them."""
+        return self._params[0]
+
+    @property
+    def _states(self) -> CistaState:
+        """Every slot's state, in slot order (on the first device when the
+        pool spans several)."""
+        if len(self._devices) == 1:
+            return self._group_states[0]
+        cat = lambda ts: torch.cat([t.to(self.device) for t in ts])  # noqa: E731
+        gs = self._group_states
+        return CistaState(cell=cat([g.cell for g in gs]), z=cat([g.z for g in gs]),
+                          dg=(cat([g.dg[0] for g in gs]), cat([g.dg[1] for g in gs])))
+
+    @property
+    def _prev(self) -> torch.Tensor:
+        """Every slot's previous reconstruction, in slot order."""
+        if len(self._devices) == 1:
+            return self._group_prev[0]
+        return torch.cat([p.to(self.device) for p in self._group_prev])
 
     def calibrate(self, voxels, drift_budget: float = 0.01) -> bool:
         """Calibrate static int8 activation scales on sample voxel grids
@@ -100,6 +161,7 @@ class StreamPool:
             raise ValueError("calibrate() requires cfg.quant == 'int8'")
         import dataclasses
 
+        # calibrated on the first device, the scales then copied to the others
         voxels = torch.as_tensor(voxels).to(self.device)
         step_fn = get_step_fn(self.cfg)
         b = voxels.shape[1]
@@ -129,7 +191,8 @@ class StreamPool:
                   f"{drift_budget} budget — keeping dynamic int8 scales")
             return False
         self.cfg = cfg_run
-        self.params = p_static
+        self._params = [p_static if d == self.device else {**pd, "_quant": _to(qp_static, d)}
+                        for d, pd in zip(self._devices, self._params)]
         return True
 
     def attach(self) -> int:
@@ -139,10 +202,13 @@ class StreamPool:
         if len(free) == 0:
             raise RuntimeError(f"stream pool full (capacity {self.capacity})")
         slot = int(free[0])
-        for s in (self._states.cell, self._states.z, *self._states.dg):
-            s[slot].zero_()
+        g, row = divmod(slot, self._per)
+        st = self._group_states[g]
+        for s in (st.cell, st.z, *st.dg):
+            s[row].zero_()
         # out of place: fetch=False handed out views of the old images
-        self._prev = self._prev.index_fill(0, torch.tensor([slot], device=self.device), 0)
+        prev = self._group_prev[g]
+        self._group_prev[g] = prev.index_fill(0, torch.tensor([row], device=prev.device), 0)
         self._active[slot] = True
         sid = self._next_id
         self._next_id += 1
@@ -160,20 +226,23 @@ class StreamPool:
         ``fetch=False`` as views of the device tensor. Streams not in the dict
         idle (state preserved)."""
         h, w = self.cfg.image_dim
-        voxels = torch.zeros(
-            (self.capacity, h, w, self.cfg.num_bins), dtype=self.dtype, device=self.device
-        )
+        per = self._per
+        voxels = [torch.zeros((per, h, w, self.cfg.num_bins), dtype=self.dtype, device=d)
+                  for d in self._devices]
         active = np.zeros(self.capacity, bool)
         for sid, vox in voxels_by_stream.items():
-            slot = self._slot_of[sid]
-            voxels[slot] = torch.as_tensor(vox).to(self.device, self.dtype)
-            active[slot] = True
-        active_dev = torch.from_numpy(active).to(self.device)
-        recs, self._states = _pool_step(
-            self.params, self.cfg, self._states, self._prev, voxels, active_dev
-        )
-        self._prev = recs
+            g, row = divmod(self._slot_of[sid], per)
+            voxels[g][row] = torch.as_tensor(vox).to(self._devices[g], self.dtype)
+            active[self._slot_of[sid]] = True
+        # every group's step is issued before any result is read
+        for g, d in enumerate(self._devices):
+            active_dev = torch.from_numpy(active[g * per:(g + 1) * per]).to(d)
+            self._group_prev[g], self._group_states[g] = _pool_step(
+                self._params[g], self.cfg, self._group_states[g], self._group_prev[g],
+                voxels[g], active_dev)
+        recs = self._group_prev
         if not fetch:
-            return {sid: recs[self._slot_of[sid], ..., 0] for sid in voxels_by_stream}
-        recs_np = recs.float().cpu().numpy()
+            return {sid: recs[self._slot_of[sid] // per][self._slot_of[sid] % per, ..., 0]
+                    for sid in voxels_by_stream}
+        recs_np = np.concatenate([r.float().cpu().numpy() for r in recs])
         return {sid: recs_np[self._slot_of[sid], ..., 0] for sid in voxels_by_stream}

@@ -88,17 +88,22 @@ def many_to_one_loss(
     final_rec: torch.Tensor,
     gt: torch.Tensor,
     sample_weights: torch.Tensor | None = None,
+    batch_weights: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """The reference's training loss without LPIPS, ``L1 + (1 - SSIM)``.
 
     ``sample_weights [B]`` (optional): the weighted mean of the per-sample
     losses over ``max(sum(w), 1)`` instead of the batch mean. With 1.0 for
     real samples and 0.0 for padding, a padded tail batch gives the loss and
-    gradients of the unpadded batch; all ones give the plain mean."""
+    gradients of the unpadded batch; all ones give the plain mean.
+    ``batch_weights``: the weights of the whole batch when ``final_rec``,
+    ``gt`` and ``sample_weights`` are one rank's rows of it; the denominator
+    sums them, so the ranks' losses add up to the batch's."""
     if sample_weights is None:
         return l1_loss(final_rec, gt) + (1.0 - ssim(final_rec, gt))
     w = sample_weights.to(torch.float32)
-    denom = torch.clamp(torch.sum(w), min=1.0)
+    total = w if batch_weights is None else batch_weights.to(torch.float32)
+    denom = torch.clamp(torch.sum(total), min=1.0)
     per_l1 = torch.mean(torch.abs(final_rec - gt), dim=(1, 2, 3))
     per = per_l1 + (1.0 - _per_sample_ssim(final_rec, gt))
     return torch.sum(w * per) / denom

@@ -4,9 +4,29 @@ Each ``make_*_train_step`` takes the config and a ``torch.optim`` optimizer over
 weights (``make_adam``) and returns a step that computes the many-to-one loss
 on the window's last reconstruction, backpropagates through time with every
 reconstruction step rematerialised (``remat=True``, as the JAX steps), and
-updates the weights in place. The JAX steps are ``jit``-compiled over a
-``(data, spatial)`` mesh; the port's run on one device (ROADMAP.md queue 1,
-item 9 brings more).
+updates the weights in place.
+
+The JAX steps are ``jit``-compiled over a ``(data, spatial)`` mesh. Each
+builder here takes the data axis, ``mesh`` (``parallel/mesh.make_mesh``),
+one rank per process: without one, or with a single rank outside a process
+group, the step runs on one device as before. Over a process group the
+builder broadcasts rank 0's weights once; the per-batch steps take this
+rank's rows of the batch (the trainers cut them on the host, so a rank moves
+only its bytes), the device-data steps the whole batch's ``idx`` and ``w``,
+of which every rank gathers its rows; every random draw is made for the
+global batch and cut to the rank's rows (``parallel/mesh.RowsNoise``,
+``ops/voxel.add_noise_to_voxel``'s ``rows``), so a rank's rows see the
+numbers one process gives them; after the backward one
+all-reduce over a flat buffer averages the loss and the gradients (JAX's
+``psum``), or sums them where the loss is weighted (a rank divides its
+weighted sum by the whole batch's weight), and the V2E2V stats are summed
+(``max_event_count`` maxed). Every rank then takes the same Adam step. A
+world of one runs the collectives and gives the numbers of no group, bit
+for bit.
+
+While ``utils/profiling.enable_nan_debugging`` is on, a step raises
+``FloatingPointError`` at the first NaN in its loss (before the backward, so
+no rank is left waiting), its gradients or its updated weights.
 
 The half-resolution core trains layer by layer with the plain ISTA loop
 (``CistaConfig(ista_impl="plain", core_impl="layers")``, the counterpart of
@@ -23,12 +43,15 @@ import math
 from typing import Callable
 
 import torch
+import torch.distributed as dist
 
 from .._device import float32_math
 from ..models.cista import CistaConfig, StateDict, cista_sequence
 from ..ops.cuda import TRAINING_CONFIG
 from ..ops.voxel import add_noise_to_voxel
+from ..parallel.mesh import Mesh, RowsNoise
 from ..utils.checkpoint import STEP_KEYS
+from ..utils.profiling import nan_debugging
 from .losses import many_to_one_loss
 
 CLAMP = (1e-7, 1.0 - 1e-7)  # the V2E2V trainer's output clamp (reference train.py)
@@ -76,61 +99,169 @@ def set_lr(optimizer: torch.optim.Optimizer, lr: float) -> None:
         group["lr"] = lr
 
 
-def _update(optimizer: torch.optim.Optimizer, loss_fn: Callable):
+def _weights(optimizer: torch.optim.Optimizer) -> list[torch.Tensor]:
+    return [p for group in optimizer.param_groups for p in group["params"]]
+
+
+def process_axis(mesh: Mesh | None) -> Mesh | None:
+    """The data axis a step reduces over: the mesh when it is a process group
+    (a world of one too), None for no mesh or one device. A mesh of several
+    devices in one process raises: a step trains one rank's rows per
+    process."""
+    if mesh is None or (mesh.group is None and mesh.n_data == 1):
+        return None
+    if mesh.group is None:
+        raise ValueError(f"a data axis of {mesh.n_data} devices in one process: the train "
+                         "steps run one process per device (the --dist_* flags)")
+    return mesh
+
+
+def broadcast_weights(optimizer: torch.optim.Optimizer, axis: Mesh) -> None:
+    """Rank 0's weights to every rank, as one flat buffer."""
+    params = _weights(optimizer)
+    with torch.no_grad():
+        flat = torch.cat([p.reshape(-1) for p in params])
+        dist.broadcast(flat, src=0, group=axis.group)
+        for p, t in zip(params, flat.split([p.numel() for p in params])):
+            p.copy_(t.view_as(p))
+
+
+def _reduce_loss_and_grads(optimizer, loss: torch.Tensor, axis: Mesh, summed: bool):
+    """One all-reduce of ``[loss, every gradient]``: summed, or averaged over
+    the ranks. Returns the reduced loss; the gradients are reduced in place."""
+    params = [p for p in _weights(optimizer) if p.grad is not None]
+    flat = torch.cat([loss.reshape(1).to(torch.float32)] + [p.grad.reshape(-1) for p in params])
+    dist.all_reduce(flat, group=axis.group)
+    if not summed:
+        flat.div_(axis.n_data)
+    parts = flat.split([1] + [p.numel() for p in params])
+    for p, g in zip(params, parts[1:]):
+        p.grad.copy_(g.view_as(p.grad))
+    return parts[0].reshape(())
+
+
+def reduce_stats(stats: dict, axis: Mesh) -> dict:
+    """The V2E2V stats over the ranks: events and clipped pixels summed, the
+    largest count maxed."""
+    sums = torch.stack([stats["num_events"], stats["clipped_pixels"]]).to(torch.int64)
+    dist.all_reduce(sums, group=axis.group)
+    top = stats["max_event_count"].clone()
+    dist.all_reduce(top, op=dist.ReduceOp.MAX, group=axis.group)
+    return {**stats, "num_events": sums[0].to(stats["num_events"].dtype),
+            "clipped_pixels": sums[1].to(stats["clipped_pixels"].dtype),
+            "max_event_count": top}
+
+
+def _raise_on_nan(what: str, tensors, axis: Mesh | None = None) -> None:
+    """``FloatingPointError`` if any of ``tensors`` holds a NaN; with ``axis``
+    on every rank as soon as one rank's does. Reads one flag from the
+    device."""
+    bad = torch.stack([t.detach().isnan().any() for t in tensors]).any().to(torch.int32)
+    if axis is not None:
+        dist.all_reduce(bad, op=dist.ReduceOp.MAX, group=axis.group)
+    if bool(bad):
+        raise FloatingPointError(f"NaN in {what} (--debug_nans)")
+
+
+def _update(optimizer: torch.optim.Optimizer, loss_fn: Callable, axis: Mesh | None = None,
+            summed: bool = False):
     """Zero the grads, ``loss_fn()`` (a loss, or ``(loss, aux)``), backward,
-    optimizer step, all with TF32 off. The grads stay in ``.grad``."""
+    with ``axis`` the reduction of the loss and gradients over the ranks
+    (``summed``: add the ranks' shares, else average them), optimizer step,
+    all with TF32 off. The grads stay in ``.grad``. Under
+    ``enable_nan_debugging`` the loss, the gradients and the updated weights
+    are checked for NaNs."""
+    check = nan_debugging()
     with float32_math():
         optimizer.zero_grad(set_to_none=True)
         out = loss_fn()
         loss, aux = out if isinstance(out, tuple) else (out, None)
-        loss.backward()
+        if check:
+            _raise_on_nan("the loss", [loss], axis)
+        try:
+            loss.backward()
+        except RuntimeError as e:  # anomaly mode's report of a NaN made by the backward
+            if check and "nan values" in str(e):
+                raise FloatingPointError(f"NaN in the backward pass (--debug_nans): {e}") from e
+            raise
+        loss = loss.detach()
+        if axis is not None:
+            loss = _reduce_loss_and_grads(optimizer, loss, axis, summed)
+        if check:
+            _raise_on_nan("a gradient", [p.grad for p in _weights(optimizer) if p.grad is not None])
         optimizer.step()
-    return loss.detach(), aux
+        if check:
+            _raise_on_nan("an updated weight", _weights(optimizer))
+    return loss, aux
+
+
+def _setup(cfg: CistaConfig, optimizer: torch.optim.Optimizer, mesh: Mesh | None):
+    """Refuse an untrainable config, and over a process group broadcast rank
+    0's weights; returns the step's axis (``process_axis``)."""
+    check_trainable(cfg)
+    axis = process_axis(mesh)
+    if axis is not None:
+        broadcast_weights(optimizer, axis)
+    return axis
 
 
 def e2v_loss(params: StateDict, cfg: CistaConfig, voxel_seq: torch.Tensor, gt: torch.Tensor,
-             sample_weights: torch.Tensor | None = None, remat: bool = True) -> torch.Tensor:
+             sample_weights: torch.Tensor | None = None, remat: bool = True,
+             batch_weights: torch.Tensor | None = None) -> torch.Tensor:
     """The many-to-one loss of ``voxel_seq [T, B, H, W, nb]`` against
     ``gt [B, H, W, 1]`` on the last reconstruction."""
     recs, _ = cista_sequence(params, cfg, voxel_seq, remat=remat)
-    return many_to_one_loss(recs[-1], gt, sample_weights)
+    return many_to_one_loss(recs[-1], gt, sample_weights, batch_weights)
 
 
-def make_e2v_train_step(cfg: CistaConfig, optimizer: torch.optim.Optimizer):
+def make_e2v_train_step(cfg: CistaConfig, optimizer: torch.optim.Optimizer,
+                        mesh: Mesh | None = None):
     """The E2V step: ``step(params, voxel_seq [T, B, H, W, nb], gt [B, H, W, 1])
     -> loss`` (a detached scalar on the device), the weights of ``params``
-    (``optimizer``'s) updated in place."""
-    check_trainable(cfg)
+    (``optimizer``'s) updated in place. Over a process group ``B`` is this
+    rank's rows of the global batch (``Mesh.rows``) and the loss the global
+    batch's."""
+    axis = _setup(cfg, optimizer, mesh)
 
     def step(params, voxel_seq, gt):
-        return _update(optimizer, lambda: e2v_loss(params, cfg, voxel_seq, gt))[0]
+        return _update(optimizer, lambda: e2v_loss(params, cfg, voxel_seq, gt), axis)[0]
 
     return step
 
 
 def make_e2v_train_step_device_data(cfg: CistaConfig, optimizer: torch.optim.Optimizer,
-                                    noise_std: float = 0.0):
+                                    noise_std: float = 0.0, mesh: Mesh | None = None):
     """The E2V step over a dataset on the device: ``step(params, data
     [N, T, H, W, nb], gt_all [N, H, W, 1], idx [B], generator, w [B]) -> loss``.
     The batch is gathered by index on the device and cast to float32 (the
     data may be bfloat16); ``noise_std > 0`` adds Gaussian noise to every
     entry (``--add_noise``) from ``generator``; ``w`` is 1.0 for real samples
-    and 0.0 for the padding of a tail batch, whose loss it masks."""
-    check_trainable(cfg)
+    and 0.0 for the padding of a tail batch, whose loss it masks. Over a
+    process group every rank holds the whole dataset and gathers its rows
+    of ``idx``."""
+    axis = _setup(cfg, optimizer, mesh)
 
     def step(params, data, gt_all, idx, generator, w):
-        voxel_seq = data.index_select(0, idx).movedim(1, 0).float()
-        gt = gt_all.index_select(0, idx).float()
-        if noise_std > 0.0:
-            voxel_seq = add_noise_to_voxel(generator, voxel_seq, noise_std, noise_fraction=1.0)
-        return _update(optimizer, lambda: e2v_loss(params, cfg, voxel_seq, gt, w))[0]
+        batch_w, rows_idx = w, idx
+        if axis is not None:
+            rows_idx, w = axis.rows(idx), axis.rows(w)
+        voxel_seq = data.index_select(0, rows_idx).movedim(1, 0).float()
+        gt = gt_all.index_select(0, rows_idx).float()
+        if noise_std > 0.0:  # the global batch's draw, this rank's rows of it
+            voxel_seq = add_noise_to_voxel(
+                generator, voxel_seq, noise_std, noise_fraction=1.0,
+                rows=None if axis is None else (1, axis.row_slice(len(idx)), len(idx)))
+        return _update(optimizer, lambda: e2v_loss(params, cfg, voxel_seq, gt, w,
+                                                   batch_weights=batch_w),
+                       axis, summed=True)[0]
 
     return step
 
 
 def v2e2v_loss(params: StateDict, cfg, frames_seq: torch.Tensor, ts_seq: torch.Tensor,
                gt: torch.Tensor, noise, sample_weights: torch.Tensor | None = None,
-               monitor: bool = False, remat: bool = True):
+               monitor: bool = False, remat: bool = True,
+               batch_weights: torch.Tensor | None = None):
     """The V2E2V many-to-one loss and the window's emulator stats.
 
     ``frames_seq [T, B, N, H, W]`` (0-255) and ``ts_seq [T, B, N]`` run through
@@ -150,7 +281,7 @@ def v2e2v_loss(params: StateDict, cfg, frames_seq: torch.Tensor, ts_seq: torch.T
         recs, _, st = v2e2v_sequence(params, cfg, frames_seq, ts_seq, noise, with_stats=True,
                                      remat=remat, device=device)
     rec = torch.clamp(recs[-1], *CLAMP)
-    loss = many_to_one_loss(rec, gt, sample_weights)
+    loss = many_to_one_loss(rec, gt, sample_weights, batch_weights)
     stats = {
         "num_events": st["num_events"].sum(),
         "max_event_count": st["max_event_count"].amax(),
@@ -161,33 +292,52 @@ def v2e2v_loss(params: StateDict, cfg, frames_seq: torch.Tensor, ts_seq: torch.T
     return loss, stats
 
 
-def make_v2e2v_train_step(cfg, optimizer: torch.optim.Optimizer, monitor: bool = False):
+def _v2e2v_update(optimizer, loss_fn, axis, summed=False):
+    loss, stats = _update(optimizer, loss_fn, axis, summed)
+    return loss, (stats if axis is None else reduce_stats(stats, axis))
+
+
+def make_v2e2v_train_step(cfg, optimizer: torch.optim.Optimizer, monitor: bool = False,
+                          mesh: Mesh | None = None):
     """The V2E2V step: ``step(params, frames_seq [T, B, N, H, W], ts_seq
     [T, B, N], gt [B, H, W, 1], noise) -> (loss, stats)`` (see
     ``v2e2v_loss``). The emulator runs outside autograd's graph: on the card
-    its iteration loop is kernel K3, once per frame pair."""
-    check_trainable(cfg.cista)
+    its iteration loop is kernel K3, once per frame pair. Over a process
+    group ``B`` is this rank's rows of the global batch (``Mesh.rows``), the
+    loss and stats are the global batch's, and ``noise`` draws for the global
+    batch; ``monitor``'s ``rec`` and ``voxel`` are this rank's rows."""
+    axis = _setup(cfg.cista, optimizer, mesh)
 
     def step(params, frames_seq, ts_seq, gt, noise):
-        return _update(optimizer, lambda: v2e2v_loss(
-            params, cfg, frames_seq, ts_seq, gt, noise, monitor=monitor))
+        if axis is not None:
+            batch = frames_seq.shape[1] * axis.n_data
+            noise = RowsNoise(noise, axis.row_slice(batch), batch)
+        return _v2e2v_update(optimizer, lambda: v2e2v_loss(
+            params, cfg, frames_seq, ts_seq, gt, noise, monitor=monitor), axis)
 
     return step
 
 
-def make_v2e2v_train_step_device_data(cfg, optimizer: torch.optim.Optimizer):
+def make_v2e2v_train_step_device_data(cfg, optimizer: torch.optim.Optimizer,
+                                      mesh: Mesh | None = None):
     """The V2E2V step over a dataset on the device: ``step(params, frames_u8
     [S, T, N, H, W] uint8, ts_all [S, T, N] float32, idx [B], noise, w [B]) ->
     (loss, stats)``. The batch is gathered by index on the device; ``gt`` is
     its last frame / 255 (``TrainSeqData._emit``); ``w`` masks the padding of
-    a tail batch."""
-    check_trainable(cfg.cista)
+    a tail batch. Over a process group every rank holds the whole dataset and
+    gathers its rows of ``idx``."""
+    axis = _setup(cfg.cista, optimizer, mesh)
 
     def step(params, frames_u8, ts_all, idx, noise, w):
+        batch_w = w
+        if axis is not None:
+            noise = RowsNoise(noise, axis.row_slice(len(idx)), len(idx))
+            idx, w = axis.rows(idx), axis.rows(w)
         frames_seq = frames_u8.index_select(0, idx).movedim(1, 0).float()
         ts_seq = ts_all.index_select(0, idx).movedim(1, 0)
         gt = frames_seq[-1][:, -1, :, :, None] / 255.0
-        return _update(optimizer, lambda: v2e2v_loss(
-            params, cfg, frames_seq, ts_seq, gt, noise, sample_weights=w))
+        return _v2e2v_update(optimizer, lambda: v2e2v_loss(
+            params, cfg, frames_seq, ts_seq, gt, noise, sample_weights=w,
+            batch_weights=batch_w), axis, summed=True)
 
     return step
