@@ -252,8 +252,28 @@ Phases, one line each (any failure exits non-zero before the last line):
    with the ``--dist_*`` flags of a world of one (NCCL): the same PNG and
    ``result.csv`` bytes as phase 9's float32 main path and phase 10's run
    3, and their K1 (and K3) counts;
+19. the spatial axis (``parallel/spatial.py``, the E2V steps on
+   ``make_mesh(n_data, n_spatial)``): (a) the per-batch E2V step (global
+   B = 8, T = 10) and the device-data step (5 real samples,
+   ``--add_noise``) at 180x240, C = 64, depth 5, float32, TF32 off, on
+   ``(1, 2)`` and ``(2, 2)`` as 2 and 4 gloo ranks on the one card (this
+   script started once per rank with ``--spatial n_data n_spatial``),
+   against the same steps in this process: the ranks' blocks of the last
+   reconstruction joined within 1e-4, the loss within 1e-5 relative, the
+   loss's gradient with respect to the voxel input per column within 1e-1
+   of its largest entry (ill-conditioned: one process with cuDNN off
+   against on, printed beside, reads ~3e-2), the reduced weight gradients within 1e-2 of their largest entry,
+   the updated weights equal on every rank, K1-K4 and the scale kernel 0;
+   two planted faults (the inner cut reflect-padded; the halo gradients
+   dropped), patched inside the ranks, must each break a bound; (b)
+   ``cli.train_e2v --mesh_spatial 2`` through its own ``main`` in two gloo
+   ranks (their group made over gloo) for one epoch over phase 13c's
+   dataset: the first step's loss within 1e-5 relative of one process's,
+   only rank 0 writes, the checkpoint's distance shown; (c) ms per step of
+   each layout's ranks (time-sharing the card: no scaling figure) and rank
+   0's halo exchanges and gathers per step (count, bytes, ms);
 14. a ``{"kernels": [...]}`` JSON line (each row's launches on the paths of
-   phases 10-13 and 15-18, every count set to 0 just before each path: K1,
+   phases 10-13 and 15-19, every count set to 0 just before each path: K1,
    K2, K4 and the scale kernel counted by dtype, K3 by shot mode; the rows
    of K4 and the scale kernel hold their times per pool step, the 15 calls
    of one step summed), then the last line
@@ -3044,14 +3064,40 @@ def gloo_rank(rank: int, port: int, workdir: Path, seed: int) -> None:
         distributed.shutdown()
 
 
+def grad_error(got: dict, want: dict) -> tuple[float, str]:
+    """The largest of each gradient's max |diff| / max |g|, and its tensor."""
+    return max((float((got[k] - g).abs().max()) / float(g.abs().max()), k)
+               for k, g in want.items())
+
+
+def start_self(workdir: Path, world: int, *extra) -> list[str]:
+    """This script once per rank of ``world`` with ``--gloo_rank r --port p
+    --dir workdir`` and ``extra``; waits for all, kills any left over, and
+    returns their outputs (failing the run if one failed)."""
+    port = free_port()
+    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--gloo_rank",
+                               str(r), "--port", str(port), "--dir", str(workdir), *extra],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(world)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=900)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if any(p.returncode for p in procs):
+        for r, o in enumerate(outs):
+            say(f"[dist] rank {r} output:\n{o[-4000:]}")
+        fail(f"a gloo rank ({' '.join(extra)}) failed")
+    return outs
+
+
 def gloo_verdict(single: dict, ranks: list) -> bool:
     """Phase 18b's checks of ``gloo_steps``' results, one process's
     (``single``) against each rank's, printed; whether all hold."""
-    def grad_err(got, want):
-        """The largest of each gradient's max |diff| / max |g|, and its tensor."""
-        return max((float((got[k] - g).abs().max()) / float(g.abs().max()), k)
-                   for k, g in want.items())
-
     all_ok = True
     for step_name, want_k3 in (("v2e2v", 9 * TRAIN_T), ("device_data", 0)):
         want = single[step_name]
@@ -3061,21 +3107,21 @@ def gloo_verdict(single: dict, ranks: list) -> bool:
                    (lambda a, b: a + b))
         halves = {k: combine(want["shares"][0][k], want["shares"][1][k])
                   for k in want["grads"]}
-        spread = grad_err(want["grads_again"], want["grads"])[0]
-        split = grad_err(halves, want["grads"])[0]
-        faults = {f: (grad_err(g, halves)[0], grad_err(g, want["grads"])[0])
+        spread = grad_error(want["grads_again"], want["grads"])[0]
+        split = grad_error(halves, want["grads"])[0]
+        faults = {f: (grad_error(g, halves)[0], grad_error(g, want["grads"])[0])
                   for f, g in want["faults"].items()}
         ok = all(min(e) > DIST_BATCH_TOL for e in faults.values())
         errs = []
         for r, got in enumerate(ranks):
             got = got[step_name]
             loss_err = abs(got["loss"] - want["loss"]) / abs(want["loss"])
-            local_err = grad_err(got["local"], want["shares"][r])[0]
+            local_err = grad_error(got["local"], want["shares"][r])[0]
             mine = {k: combine(ranks[0][step_name]["local"][k], ranks[1][step_name]["local"][k])
                     for k in halves}
             exact = all(torch.equal(got["grads"][k], mine[k]) for k in mine)
-            halves_err = grad_err(got["grads"], halves)[0]
-            batch_err, worst = grad_err(got["grads"], want["grads"])
+            halves_err = grad_error(got["grads"], halves)[0]
+            batch_err, worst = grad_error(got["grads"], want["grads"])
             errs.append((loss_err, local_err, exact, halves_err, batch_err))
             ok = ok and loss_err <= DIST_LOSS_TOL and exact and got["events"] == want["events"]
             ok = ok and max(local_err, halves_err) <= DIST_GRAD_TOL
@@ -3235,26 +3281,9 @@ def distributed_phase(seed: int, smi: str, root: Path, serve, served: dict, laye
     single_s = time.perf_counter() - t0
     workdir = root / "gloo"
     workdir.mkdir()
-    port = free_port()
-    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--seed",
-                               str(seed), "--gloo_rank", str(r), "--port", str(port),
-                               "--dir", str(workdir)], stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT, text=True) for r in range(2)]
     t0 = time.perf_counter()
-    outs = []
-    try:
-        for p in procs:
-            outs.append(p.communicate(timeout=600)[0])
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
+    start_self(workdir, 2, "--seed", str(seed))
     ranks_s = time.perf_counter() - t0
-    if any(p.returncode for p in procs):
-        for r, o in enumerate(outs):
-            say(f"[dist] rank {r} output:\n{o[-4000:]}")
-        fail("a gloo rank of phase 18b failed")
     ranks = [torch.load(workdir / f"rank{r}.pt", weights_only=False) for r in range(2)]
     all_ok = gloo_verdict(single, ranks)
     say(f"[time] (b) gloo, two ranks on ONE card ({smi}; not a scaling figure): ms per step, "
@@ -3381,6 +3410,376 @@ def distributed_phase(seed: int, smi: str, root: Path, serve, served: dict, laye
     return rows
 
 
+# phase 19: the spatial axis. Bounds against one process's step on the same
+# global batch (float32, TF32 off): the joined last reconstruction (absolute),
+# the loss (relative), the reduced weight gradients (of each tensor's largest
+# entry; phase 18b's bound against a step at another batch size: a rank of
+# (2, 2) runs 4 rows, and the card's weight gradients move with the batch)
+SPATIAL_LAYOUTS = ((1, 2), (2, 2))
+SPATIAL_REC_TOL = 1e-4
+SPATIAL_LOSS_TOL = 1e-5
+SPATIAL_WEIGHT_TOL = DIST_BATCH_TOL
+# the gradient of the loss with respect to the voxel input, per column, of its
+# largest entry. It is ill-conditioned: SSIM on the random-init, nearly
+# constant reconstructions amplifies the 1e-7 forward differences of another
+# conv algorithm. Readings on an H100 80GB HBM3 at 700 W (T = 10, B = 8): one
+# process with cuDNN off against on 3.14e-02 at its worst column (the same
+# process against itself 6.7e-07), the ranks 1.6e-02-3.1e-02, the planted
+# faults 5.9e-01-6.1e-01; phase 19a prints the cuDNN-off reading beside
+SPATIAL_INPUT_TOL = 1e-1
+SPATIAL_FAULTS = ("inner cut reflect-padded", "halo gradients dropped")
+
+
+def planted(fault: str | None):
+    """A context that plants ``fault`` in the halo exchange of this process
+    (``SPATIAL_FAULTS``); each keeps its collective, so the ranks stay in
+    step."""
+    from v2e2v_tpu_torch.parallel import spatial
+
+    if fault is None:
+        return contextlib.nullcontext()
+    if fault == SPATIAL_FAULTS[0]:
+        forward = spatial._HaloPad.forward
+
+        def reflect_forward(ctx, x, p, mode, dim, shard):
+            forward(ctx, x, p, mode, dim, shard)
+            return torch.cat([spatial._edge(x, p, mode, dim, True), x,
+                              spatial._edge(x, p, mode, dim, False)], dim)
+
+        return swapped((spatial._HaloPad, "forward", staticmethod(reflect_forward)))
+    backward = spatial._HaloPad.backward
+
+    class Dropping(spatial.Shard):
+        def all_reduce(self, buf):
+            super().all_reduce(buf)
+            buf.zero_()
+
+    def dropping_backward(ctx, g):
+        ctx.shard = Dropping(ctx.shard.group, ctx.shard.index, ctx.shard.count)
+        return backward(ctx, g)
+
+    return swapped((spatial._HaloPad, "backward", staticmethod(dropping_backward)))
+
+
+def spatial_steps(seed: int, mesh) -> dict:
+    """Phase 19a's two E2V steps on ``mesh`` (None: one process), at full
+    width: the per-batch step (global B = 8, T = TRAIN_T; on a mesh each rank
+    hands it its rows and columns, as ``cli.train_e2v`` does) and the
+    device-data step (global B = 8, 5 real samples, ``--add_noise``'s draw;
+    every rank gathers its rows and cuts its columns). Each from the seed's
+    weights; the first call with the voxel input requiring grad. Returns per
+    step the first call's loss, last reconstruction (this rank's block),
+    input gradient, reduced weight gradients, updated weights and K1-K4
+    launches; the second call's weight gradients (the card's run-to-run
+    spread) and ms (host clock to a synchronize). In one process also the
+    input gradient of a third call and of a fourth with cuDNN off. On a mesh also a
+    third call with every collective of the spatial axis timed between
+    synchronizes (halo exchanges and the loss's gathers apart: count, bytes,
+    ms) and, on ``(1, 2)``, the per-batch step with each planted fault."""
+    from v2e2v_tpu_torch.models.cista import CistaConfig
+    from v2e2v_tpu_torch.parallel import spatial
+    from v2e2v_tpu_torch.training import steps as steps_mod
+    from v2e2v_tpu_torch.utils.checkpoint import STEP_KEYS
+
+    keys = STEP_KEYS["cista-lstc"]
+    counters = kernel_counters()
+    cfg = CistaConfig(image_dim=(H, W), base_channels=C, depth=DEPTH, num_bins=NB,
+                      ista_impl="plain", core_impl="layers")
+    b = CAPACITY
+    seq, gt = (x.float().cuda() for x in train_batch(seed + 2, b))
+    data, gt_all = train_batch(seed + 1, DD_REAL)
+    data, gt_all = data.movedim(1, 0).contiguous().cuda(), gt_all.float().cuda()
+    idx = torch.tensor(list(range(DD_REAL)) + [DD_REAL - 1] * (b - DD_REAL), device="cuda")
+    w = torch.tensor([1.0] * DD_REAL + [0.0] * (b - DD_REAL), device="cuda")
+    rows = mesh.rows if mesh is not None else (lambda x, dim=0: x)
+    cols = mesh.cols if mesh is not None else (lambda x, dim: x)
+    recs = []
+    loss_fn = steps_mod.many_to_one_loss
+
+    def keep_rec(final_rec, *a, **k):
+        recs.append(final_rec.detach().cpu())
+        return loss_fn(final_rec, *a, **k)
+
+    def per_batch(step, sd, grad):
+        x = cols(rows(seq, 1), 3).clone(memory_format=torch.contiguous_format)
+        x.requires_grad_(grad)
+        loss = step(sd, x, cols(rows(gt, 0), 2).contiguous())
+        return loss, x.grad
+
+    def device_data(step, sd, grad):
+        x = data.detach().clone().requires_grad_(grad)
+        loss = step(sd, x, gt_all, idx, torch.Generator(device="cuda").manual_seed(seed), w)
+        return loss, x.grad
+
+    def make(name):
+        def build(sd):
+            opt = steps_mod.make_adam(sd, cfg, TRAIN_LR)
+            if name == "e2v":
+                return steps_mod.make_e2v_train_step(cfg, opt, mesh=mesh)
+            return steps_mod.make_e2v_train_step_device_data(cfg, opt, noise_std=0.1, mesh=mesh)
+        return build
+
+    def call(name, grad=True, fault=None):
+        sd = train_weights(cfg, seed, "cuda")
+        step = make(name)(sd)
+        recs.clear()
+        counts_zero(*counters)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with planted(fault), swapped((steps_mod, "many_to_one_loss", keep_rec)):
+            loss, x_grad = (per_batch if name == "e2v" else device_data)(step, sd, grad)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        return {"loss": float(loss), "rec": recs[0], "ms": ms,
+                "input_grad": None if x_grad is None else x_grad.cpu(),
+                "grads": {k: sd[k].grad.detach().cpu() for k in keys},
+                "weights": {k: sd[k].detach().cpu() for k in keys},
+                "launches": row_counts()}
+
+    out = {}
+    for name in ("e2v", "device_data"):
+        first, again = call(name), call(name, grad=False)
+        out[name] = {**first, "ms": again["ms"], "grads_again": again["grads"],
+                     "launches": add_counts(first["launches"], again["launches"])}
+        if mesh is None:  # the input gradient's spread: against itself, and with cuDNN off
+            out[name]["input_grad_again"] = call(name)["input_grad"]
+            with cudnn_off():
+                out[name]["input_grad_native"] = call(name)["input_grad"]
+            continue
+        # the third call: each collective of the spatial axis between synchronizes
+        timing = {"halo": [0, 0, 0.0], "gather": [0, 0, 0.0]}
+        reduce_ = spatial.Shard.all_reduce
+
+        def timed_reduce(self, buf):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            reduce_(self, buf)
+            torch.cuda.synchronize()
+            kind = timing["halo" if buf.dim() == 6 else "gather"]
+            kind[0] += 1
+            kind[1] += buf.numel() * buf.element_size()
+            kind[2] += 1e3 * (time.perf_counter() - t0)
+
+        with swapped((spatial.Shard, "all_reduce", timed_reduce)):
+            out[name]["collectives"] = {"ms_instrumented": call(name, grad=False)["ms"],
+                                        **timing}
+    if mesh is not None and (mesh.n_data, mesh.n_spatial) == SPATIAL_LAYOUTS[0]:
+        out["faults"] = {f: call("e2v", fault=f) for f in SPATIAL_FAULTS}
+    return out
+
+
+def spatial_rank(rank: int, port: int, workdir: Path, seed: int, layout) -> None:
+    """One rank of phase 19a: a process group over ``gloo`` of ``n_data x
+    n_spatial`` ranks on the one card, ``spatial_steps`` on its mesh, the
+    results to ``workdir/spatial_<n_data>x<n_spatial>_<rank>.pt``."""
+    from v2e2v_tpu_torch.parallel import distributed
+    from v2e2v_tpu_torch.parallel.mesh import make_mesh
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    nd, ns = layout
+    flags = argparse.Namespace(dist_coordinator=f"localhost:{port}",
+                               dist_num_processes=nd * ns, dist_process_id=rank)
+    distributed.initialize_from_flags(flags, backend="gloo")
+    try:
+        out = spatial_steps(seed, make_mesh(nd, ns))
+        torch.save(out, workdir / f"spatial_{nd}x{ns}_{rank}.pt")
+    finally:
+        distributed.shutdown()
+
+
+def spatial_cli_rank(rank: int, port: int, workdir: Path) -> None:
+    """One rank of phase 19b: ``cli.train_e2v.main`` with the argv of
+    ``workdir/argv.json`` and the ``--dist_*`` flags of rank ``rank`` of 2,
+    its process group made over gloo (two ranks share the card, which NCCL
+    refuses), the step's losses to ``workdir/cli_losses_<rank>.json``."""
+    from v2e2v_tpu_torch.cli import train_e2v
+    from v2e2v_tpu_torch.parallel import distributed
+
+    argv = json.loads((workdir / "argv.json").read_text())
+    init = distributed.initialize_from_flags
+    with swapped((distributed, "initialize_from_flags",
+                  lambda cfgs: init(cfgs, backend="gloo"))):
+        losses = cli_losses(train_e2v.main, argv + [
+            "--dist_coordinator", f"localhost:{port}", "--dist_num_processes", "2",
+            "--dist_process_id", str(rank), "--path_to_model", str(workdir / f"models{rank}")])
+    (workdir / f"cli_losses_{rank}.json").write_text(json.dumps(losses))
+
+
+def cli_losses(main, argv) -> list[float]:
+    """``main(argv)`` with every E2V train step's loss recorded."""
+    from v2e2v_tpu_torch.training import steps as steps_mod
+
+    losses = []
+    build = steps_mod.make_e2v_train_step
+
+    def recording_build(*a, **k):
+        step = build(*a, **k)
+
+        def recording_step(*sa):
+            loss = step(*sa)
+            losses.append(float(loss))
+            return loss
+
+        return recording_step
+
+    with swapped((steps_mod, "make_e2v_train_step", recording_build)):
+        main(argv)
+    return losses
+
+
+def joined(blocks: list, layout, dim_rows: int, dim_cols: int) -> torch.Tensor:
+    """The ranks' blocks (rank order) joined: columns within a data index,
+    then rows."""
+    nd, ns = layout
+    return torch.cat([torch.cat(blocks[d * ns:(d + 1) * ns], dim_cols) for d in range(nd)],
+                     dim_rows)
+
+
+def column_errors(got: torch.Tensor, want: torch.Tensor, col_dim: int) -> torch.Tensor:
+    """Per column: max |got - want| over the other dimensions, over max |want|."""
+    diff = (got - want).abs().movedim(col_dim, 0).reshape(got.shape[col_dim], -1)
+    return diff.amax(1) / float(want.abs().max())
+
+
+def spatial_verdict(single: dict, ranks: list, layout) -> tuple[bool, dict]:
+    """Phase 19a's checks of one layout's ranks against one process, printed;
+    whether all hold, and the numbers the faults are read by."""
+    nd, ns = layout
+    cuts = [i * (W // ns) for i in range(1, ns)]
+    all_ok, found = True, {}
+
+    def errors(name, got_ranks):
+        want = single[name]
+        rec = joined([g["rec"] for g in got_ranks], layout, 0, 2)
+        rec_err = float((rec - want["rec"]).abs().max())
+        if name == "e2v":  # a rank's loss is the mean over its rows: nd x one process's
+            x_grad = joined([g["input_grad"] for g in got_ranks], layout, 1, 3) / nd
+            col_dim = 3
+        else:  # each rank's gradient reaches its rows and columns of the dataset
+            x_grad = sum(g["input_grad"] for g in got_ranks)
+            col_dim = 3
+        cols = column_errors(x_grad, want["input_grad"], col_dim)
+        near = max(float(cols[c + d]) for c in cuts for d in (-2, -1, 0, 1))
+        w_err, worst = grad_error(got_ranks[0]["grads"], want["grads"])
+        loss_err = abs(got_ranks[0]["loss"] - want["loss"]) / abs(want["loss"])
+        return rec_err, loss_err, float(cols.max()), near, w_err, worst
+
+    for name in ("e2v", "device_data"):
+        want = single[name]
+        got = [r[name] for r in ranks]
+        rec_err, loss_err, in_err, near, w_err, worst = errors(name, got)
+        spread_in = float(column_errors(want["input_grad_again"], want["input_grad"], 3).max())
+        native_in = float(column_errors(want["input_grad_native"], want["input_grad"], 3).max())
+        spread_w = grad_error(want["grads_again"], want["grads"])[0]
+        same = all(torch.equal(g["weights"][k], got[0]["weights"][k]) for g in got
+                   for k in got[0]["weights"])
+        same_loss = all(g["loss"] == got[0]["loss"] for g in got)
+        launches = [sum(g["launches"].values()) for g in got]
+        ok = (rec_err <= SPATIAL_REC_TOL and loss_err <= SPATIAL_LOSS_TOL
+              and in_err <= SPATIAL_INPUT_TOL and w_err <= SPATIAL_WEIGHT_TOL and same
+              and same_loss and not any(launches) and not any(want["launches"].values()))
+        all_ok = all_ok and ok
+        say(f"[spatial] (a) {name} step on ({nd}, {ns}): {nd * ns} gloo ranks on one card "
+            f"against one process (global B={CAPACITY}, T={TRAIN_T}, {H}x{W}, C={C}, depth "
+            f"{DEPTH}, float32, TF32 off{'' if name == 'e2v' else f'; {DD_REAL} real samples, --add_noise'}"
+            f"): last reconstruction joined max|diff| {rec_err:.3e} (tol {SPATIAL_REC_TOL}); "
+            f"loss relative error {loss_err:.3e} (tol {SPATIAL_LOSS_TOL}); the loss's gradient "
+            f"w.r.t. the voxel input, worst column {in_err:.3e} of its largest entry, columns "
+            f"beside the cuts {cuts} {near:.3e} (tol {SPATIAL_INPUT_TOL}; one process against "
+            f"itself {spread_in:.3e}, with cuDNN off {native_in:.3e}); reduced weight gradients {w_err:.3e} of their largest "
+            f"entry ({worst}; tol {SPATIAL_WEIGHT_TOL}; one process against itself "
+            f"{spread_w:.3e}); updated weights equal on every rank {same}, loss equal "
+            f"{same_loss}; launches of K1-K4 and the scale kernel per rank {launches}, one "
+            f"process {sum(want['launches'].values())} (want 0) {'pass' if ok else 'FAIL'}")
+    for fault, got in ranks[0].get("faults", {}).items():
+        rec_err, _, in_err, near, w_err, worst = errors("e2v", [r["faults"][fault]
+                                                                for r in ranks])
+        found[fault] = (rec_err, in_err, w_err)
+        caught = (rec_err > SPATIAL_REC_TOL or in_err > SPATIAL_INPUT_TOL
+                  or w_err > SPATIAL_WEIGHT_TOL)
+        all_ok = all_ok and caught
+        say(f"[spatial] (a) planted fault on ({nd}, {ns}), {fault}: last reconstruction "
+            f"{rec_err:.3e}, input gradient {in_err:.3e} (beside the cuts {near:.3e}), weight "
+            f"gradients {w_err:.3e} ({worst}) -> {'caught' if caught else 'NOT CAUGHT'}")
+    return all_ok, found
+
+
+def spatial_phase(seed: int, smi: str, root: Path) -> dict:
+    """Phase 19: the spatial axis (ROADMAP item 9). (a) the E2V steps on
+    ``(1, 2)`` and ``(2, 2)`` as gloo ranks on the one card against one
+    process, with two planted faults; (b) ``cli.train_e2v --mesh_spatial 2``
+    over two ranks against one process; (c) times. Returns the launches of
+    (a)'s steps, every rank's summed, by row of the kernels line."""
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    single = spatial_steps(seed, None)
+    single_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    all_ok, times, launches = True, {}, {}
+    for layout in SPATIAL_LAYOUTS:
+        nd, ns = layout
+        workdir = root / f"spatial_{nd}x{ns}"
+        workdir.mkdir()
+        t0 = time.perf_counter()
+        start_self(workdir, nd * ns, "--seed", str(seed), "--spatial", str(nd), str(ns))
+        times[layout] = time.perf_counter() - t0
+        ranks = [torch.load(workdir / f"spatial_{nd}x{ns}_{r}.pt", weights_only=False)
+                 for r in range(nd * ns)]
+        ok, _ = spatial_verdict(single, ranks, layout)
+        all_ok = all_ok and ok
+        for r in ranks:
+            for name in ("e2v", "device_data"):
+                launches = add_counts(launches, r[name]["launches"])
+        for name in ("e2v", "device_data"):
+            col = ranks[0][name]["collectives"]
+            say(f"[time] (c) {name} step on ({nd}, {ns}), {nd * ns} gloo ranks time-sharing "
+                f"ONE card ({smi}; no scaling figure): ms per step, second call, host clock "
+                f"{[round(r[name]['ms'], 3) for r in ranks]} (one process at B={CAPACITY}: "
+                f"{single[name]['ms']:.3f}); rank 0's collectives of the spatial axis, a third "
+                f"call with a synchronize around each (its step {col['ms_instrumented']:.3f} "
+                f"ms): halo exchanges {col['halo'][0]} ({col['halo'][1] / 2**20:.3f} MiB of "
+                f"buffers, {col['halo'][2]:.3f} ms), the loss's gathers {col['gather'][0]} "
+                f"({col['gather'][1] / 2**20:.3f} MiB, {col['gather'][2]:.3f} ms)")
+        say(f"[time] (c) ({nd}, {ns}): the ranks' run {times[layout]:.1f} s with start-up")
+    if not all_ok:
+        fail("the spatial axis disagrees with one process, or a planted fault was not caught")
+
+    # (b) cli.train_e2v --mesh_spatial 2 over two gloo ranks against one process
+    from v2e2v_tpu_torch.cli import train_e2v
+
+    name = f"_cista-lstc_b{NB}_d{DEPTH}_c{C}"
+    workdir = root / "spatial_cli"
+    workdir.mkdir()
+    data = root / "train_e2v_data"
+    (workdir / "argv.json").write_text(json.dumps(train_argv(
+        data, workdir, "--epochs", "1", "--mesh_spatial", "2")))
+    with contextlib.redirect_stdout(io.StringIO()):
+        one = cli_losses(train_e2v.main, train_argv(data, workdir / "one", "--epochs", "1"))
+    outs = start_self(workdir, 2, "--spatial_cli")
+    got = [json.loads((workdir / f"cli_losses_{r}.json").read_text()) for r in range(2)]
+    ckpts = {k: torch.load(workdir / k / name / f"{name}_1.pth.tar", map_location="cpu",
+                           weights_only=False)["state_dict"] for k in ("one", "models0")}
+    rank1 = sorted((workdir / "models1").rglob("*.pth.tar"))
+    dist = max(float((ckpts["models0"][k] - v).abs().max()) for k, v in ckpts["one"].items())
+    first_err = abs(got[0][0] - one[0]) / abs(one[0])
+    joined_ok = "distributed: process 0/2, 1 local / 2 global devices (gloo)" in outs[0]
+    ok = (joined_ok and first_err <= SPATIAL_LOSS_TOL and got[0] == got[1]
+          and len(got[0]) == len(one) and not rank1)
+    say(f"[spatial] (b) cli.train_e2v --mesh_spatial 2, two gloo ranks on one card "
+        f"(the CLI's own main, its group over gloo), 1 epoch over phase 13c's dataset "
+        f"({len(one)} steps at batch 1) against one process: group made {joined_ok}; first "
+        f"step's loss {got[0][0]:.9f} vs {one[0]:.9f}, relative error {first_err:.3e} (tol "
+        f"{SPATIAL_LOSS_TOL}); the ranks' losses equal {got[0] == got[1]}; rank 1 wrote "
+        f"{len(rank1)} checkpoints (want 0) {'pass' if ok else 'FAIL'}; shown, not checked: "
+        f"the checkpoint's max|diff| to one process's {dist:.3e}")
+    if not ok:
+        fail("cli.train_e2v --mesh_spatial 2 disagrees with one process")
+    say(f"[phase] the spatial axis {time.perf_counter() - t_phase:.1f} s (one process's "
+        f"steps {single_s:.1f} s)")
+    return {"spatial_train_launches": launches}
+
+
 def main_path_k3_inputs(cfg, state, frames, ts, internal: bool):
     """The K3 inputs of the first frame pair of a pack on the main path: the
     emulator's own front end, stopped where it calls K3."""
@@ -3408,12 +3807,20 @@ def main() -> None:
     ap.add_argument("--gloo_rank", type=int, default=None, help=argparse.SUPPRESS)
     ap.add_argument("--port", type=int, default=None, help=argparse.SUPPRESS)
     ap.add_argument("--dir", type=Path, default=None, help=argparse.SUPPRESS)
+    # and phase 19 with these
+    ap.add_argument("--spatial", type=int, nargs=2, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--spatial_cli", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
         fail("no CUDA card (torch.cuda.is_available() is False)")
     if args.gloo_rank is not None:
-        gloo_rank(args.gloo_rank, args.port, args.dir, args.seed)
+        if args.spatial_cli:
+            spatial_cli_rank(args.gloo_rank, args.port, args.dir)
+        elif args.spatial:
+            spatial_rank(args.gloo_rank, args.port, args.dir, args.seed, tuple(args.spatial))
+        else:
+            gloo_rank(args.gloo_rank, args.port, args.dir, args.seed)
         return
 
     from v2e2v_tpu_torch.models.cista import CistaConfig, CistaState, half_res_core, init_cista_lstc
@@ -3884,6 +4291,10 @@ def main() -> None:
         # evaluation CLIs in a world of one
         dist_rows = distributed_phase(args.seed, smi, shared, serve, served, layers_recs,
                                       weights, cfg, cli_k1, hfr)
+
+        # 19. the spatial axis: the E2V steps on (1, 2) and (2, 2), the trainer
+        # with --mesh_spatial 2, against one process
+        spatial_rows = spatial_phase(args.seed, smi, shared)
     finally:
         shutil.rmtree(shared, ignore_errors=True)
 
@@ -3892,7 +4303,7 @@ def main() -> None:
     paths = {"v2e2v_cli_launches": hfr["rows"], "raw_launches": raw_rows,
              "tc_pool_launches": tc_rows, "e2v_train_launches": trained["e2v"],
              "v2e2v_train_launches_per_step": trained["v2e2v"], **fused_rows, **int8["rows"],
-             **slomo_rows, **dist_rows}
+             **slomo_rows, **dist_rows, **spatial_rows}
     for e in entries:
         if e["name"].startswith("ista_loop"):
             e.update(cli_k1[torch.float32 if "float32" in e["name"] else torch.bfloat16])

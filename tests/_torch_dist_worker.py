@@ -3,6 +3,7 @@ tests/test_torch_distributed.py (started as a script, one process per rank;
 it imports torch and the port only).
 
     python tests/_torch_dist_worker.py steps <rank> <world> <port> <dir>
+    python tests/_torch_dist_worker.py spatial <rank> <world> <port> <dir> <n_data> <n_spatial>
     python tests/_torch_dist_worker.py train_e2v <rank> <world> <port> <dir> [CLI flags]
     python tests/_torch_dist_worker.py train <rank> <world> <port> <dir> [CLI flags]
 
@@ -10,7 +11,13 @@ it imports torch and the port only).
 the weights and global batches the test wrote to ``<dir>/inputs.pt``, each
 rank handing the per-batch steps its rows (``Mesh.rows``), as the trainers
 do, and writes each step's loss, gradients and stats to
-``<dir>/out<rank>.pt``. ``train_e2v`` and ``train`` run ``cli.train_e2v`` or
+``<dir>/out<rank>.pt``. ``spatial`` runs, on a ``(n_data, n_spatial)``
+mesh, the E2V cases of ``<dir>/spatial_inputs.pt`` that name that layout
+(tests/test_torch_spatial.py), each rank handing the per-batch step its rows
+and columns (``Mesh.rows``, ``Mesh.cols``), and writes each case's loss,
+gradients and this rank's block of the forward's last reconstruction to
+``<dir>/spatial_<n_data>x<n_spatial>_<rank>.pt``; a case may name a fault to plant
+(``FAULTS``). ``train_e2v`` and ``train`` run ``cli.train_e2v`` or
 ``cli.train`` with the ``--dist_*`` flags.
 """
 
@@ -87,6 +94,61 @@ def run_steps(mesh, workdir, rank):
     torch.save(out, os.path.join(workdir, f"out{rank}.pt"))
 
 
+def _reflect_inner_cuts():
+    """A planted fault: the halo exchange's forward pads every cut by
+    reflection, as if each block were a whole image (its collective still
+    runs, so the ranks stay in step)."""
+    from v2e2v_tpu_torch.parallel import spatial
+
+    forward = spatial._HaloPad.forward
+
+    def reflect_forward(ctx, x, p, mode, dim, shard):
+        forward(ctx, x, p, mode, dim, shard)
+        return torch.cat([spatial._edge(x, p, mode, dim, True), x,
+                          spatial._edge(x, p, mode, dim, False)], dim)
+
+    spatial._HaloPad.forward = staticmethod(reflect_forward)
+    return lambda: setattr(spatial._HaloPad, "forward", staticmethod(forward))
+
+
+FAULTS = {"reflect_inner_cuts": _reflect_inner_cuts}
+
+
+def run_spatial(mesh, workdir, rank):
+    from v2e2v_tpu_torch.models.cista import cista_sequence, tie_weights
+    from v2e2v_tpu_torch.training import steps
+    from v2e2v_tpu_torch.utils.checkpoint import STEP_KEYS
+
+    inp = torch.load(os.path.join(workdir, "spatial_inputs.pt"), weights_only=False)
+    out = {}
+    for case in inp:
+        if tuple(case["layout"]) != (mesh.n_data, mesh.n_spatial):
+            continue
+        undo = FAULTS[case["fault"]]() if case.get("fault") else (lambda: None)
+        try:
+            cfg = case["cfg"]
+            sd = tie_weights({k: v.clone() for k, v in case["weights"].items()}, cfg)
+            opt = steps.make_adam(sd, cfg, 1e-4)
+            if case["step"] == "e2v":
+                seq = mesh.cols(mesh.rows(case["seq"], 1), 3)
+                loss = steps.make_e2v_train_step(cfg, opt, mesh=mesh)(
+                    sd, seq, mesh.cols(mesh.rows(case["gt"], 0), 2))
+                with torch.no_grad():
+                    recs, _ = cista_sequence(sd, cfg, seq, shard=mesh.shard)
+                rec = recs[-1]
+            else:
+                step = steps.make_e2v_train_step_device_data(
+                    cfg, opt, noise_std=case["noise_std"], mesh=mesh)
+                loss = step(sd, case["data"], case["gt_all"], case["idx"],
+                            torch.Generator().manual_seed(case["noise_seed"]), case["w"])
+                rec = None
+            out[case["name"]] = {"loss": loss, "rec": rec, "grads": {
+                k: sd[k].grad.clone() for k in STEP_KEYS[cfg.model_mode]}}
+        finally:
+            undo()
+    torch.save(out, os.path.join(workdir, f"spatial_{mesh.n_data}x{mesh.n_spatial}_{rank}.pt"))
+
+
 def main():
     torch.set_num_threads(1)
     job, rank, world, port, workdir = sys.argv[1:6]
@@ -106,7 +168,11 @@ def main():
     set_configs(parser)
     distributed.initialize_from_flags(parser.parse_args(flags), backend="gloo")
     try:
-        run_steps(make_mesh(int(world), devices=["cpu"]), workdir, int(rank))
+        if job == "spatial":
+            n_data, n_spatial = map(int, sys.argv[6:8])
+            run_spatial(make_mesh(n_data, n_spatial, devices=["cpu"]), workdir, int(rank))
+        else:
+            run_steps(make_mesh(int(world), devices=["cpu"]), workdir, int(rank))
     finally:
         distributed.shutdown()
 

@@ -8,7 +8,9 @@ equals a straight run of two epochs, the Adam moments included; the
 device-data and worker paths train; V2E2V training warm-starts from the E2V
 checkpoint and writes one that the port's V2E2V CLI rebuilds its emulator
 from. Each flag neither CLI covers yet raises, naming its ROADMAP.md item;
-the run flags of ROADMAP.md items 9 (the data axis) and 10 work: a world of
+``--mesh_spatial 2`` trains ``cli.train_e2v`` over two processes and is
+refused by ``cli.train`` (the JAX package's V2E2V trainer has no spatial
+axis either); the run flags of ROADMAP.md items 9 (the data axis) and 10 work: a world of
 one over ``gloo`` from the ``--dist_*`` flags or torchrun's variables is
 made and torn down around a run that writes its checkpoint,
 ``--profile_dir`` writes a trace, ``--debug_nans`` raises
@@ -211,7 +213,7 @@ def _refusals():
     cases = []
     for cli in ("train_e2v", "train"):
         for argv, env, item in [
-            (["--mesh_spatial", "2"], {}, "item 9.*spatial"),
+            (["--mesh_spatial", "2"], {}, "no spatial axis either" if cli == "train" else None),
             ([], {"V2E2V_LPIPS_WEIGHTS": "FILE"}, "item 12"),
         ]:
             name = (argv[0].lstrip("-") if argv else next(iter(env))).lower()
@@ -219,16 +221,41 @@ def _refusals():
     return cases
 
 
+def _train_e2v_over_two_processes(data, tmp_path, *argv):
+    """``cli.train_e2v`` with ``argv`` as two gloo ranks of one epoch, each
+    writing under its own ``--path_to_model``; rank 0's output."""
+    worker = os.path.join(REPO, "tests", "_torch_dist_worker.py")
+    env = {**os.environ, "V2E2V_PLATFORM": "cpu", "OMP_NUM_THREADS": "1"}
+    port = str(free_port())
+    procs = [subprocess.Popen(
+        [sys.executable, worker, "train_e2v", str(r), "2", port, str(tmp_path),
+         *_e2v_argv(data, tmp_path / f"rank{r}", "--epochs", "1", *argv)], env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    outs = [p.communicate(timeout=300)[0] for p in procs]
+    assert all(p.returncode == 0 for p in procs), outs
+    return outs[0]
+
+
 @pytest.mark.parametrize("cli,argv,env,item", _refusals())
 def test_unsupported_flags_raise_with_their_item(cli, argv, env, item, data, tmp_path,
                                                  monkeypatch):
+    """Each flag raises, naming its ROADMAP.md item or why; ``--mesh_spatial 2``
+    (``item`` None) trains ``cli.train_e2v`` over two processes, rank 0
+    alone writing the checkpoint."""
+    if item is None:
+        out = _train_e2v_over_two_processes(data, tmp_path, *argv)
+        assert "distributed: process 0/2" in out and "Train Epoch: 1" in out
+        assert _ckpt(tmp_path / "rank0" / E2V_NAME, E2V_NAME, 1).exists()
+        assert not list((tmp_path / "rank1").rglob("*.pth.tar"))
+        return
     module = ttrain_e2v if cli == "train_e2v" else ttrain
     monkeypatch.setenv("V2E2V_PLATFORM", "cpu")
     weights = tmp_path / "vgg.pth"
     weights.write_bytes(b"")
     for k, v in env.items():
         monkeypatch.setenv(k, str(weights) if v == "FILE" else v)
-    with pytest.raises(NotImplementedError, match=item):
+    error = ValueError if argv else NotImplementedError
+    with pytest.raises(error, match=item):
         module.main(_e2v_argv(data, tmp_path / "models", *argv))
     assert not (tmp_path / "models").exists()
 

@@ -347,8 +347,12 @@ def test_mesh_rules_and_rows():
     assert tmesh.make_mesh(devices=["cpu"] * 3).n_data == 3
     with pytest.raises(ValueError):
         tmesh.make_mesh(2, devices=["cpu"])
-    with pytest.raises(NotImplementedError, match="item 9, the spatial axis"):
-        tmesh.make_mesh(1, 2, devices=["cpu"])
+    spatial = tmesh.Mesh((torch.device("cpu"),) * 2, group=object(), n_spatial=2,
+                         spatial_rank=1)
+    assert (spatial.n_data, spatial.rank, spatial.spatial_rank) == (1, 0, 1)
+    assert spatial.rows(torch.arange(4)).tolist() == [0, 1, 2, 3]
+    assert spatial.cols(np.arange(8).reshape(1, 8), 1).tolist() == [[4, 5, 6, 7]]
+    assert spatial.shard == tmesh.Shard(None, 1, 2) and mesh.shard is None
     rank1 = tmesh.Mesh((torch.device("cpu"),) * 2, group=object(), rank=1)
     x = np.arange(12).reshape(2, 6)
     assert rank1.rows(x, 1).tolist() == [[3, 4, 5], [9, 10, 11]]

@@ -51,6 +51,7 @@ def test_importing_the_port_loads_no_jax():
         "import v2e2v_tpu_torch.data.prefetch, v2e2v_tpu_torch.utils.logging\n"
         "import v2e2v_tpu_torch.models.superslomo, v2e2v_tpu_torch.data.interpolating_reader\n"
         "import v2e2v_tpu_torch.parallel.distributed, v2e2v_tpu_torch.parallel.mesh\n"
+        "import v2e2v_tpu_torch.parallel.spatial\n"
         "import v2e2v_tpu_torch.serving\n"
         "bad = [m for m in sys.modules\n"
         "       if m.split('.')[0] in ('jax', 'jaxlib', 'v2e2v_tpu', 'cv2', 'PIL', 'pandas',\n"

@@ -19,8 +19,10 @@ on the CUDA card, and on the CPU only under ``V2E2V_PLATFORM=cpu``. Runs over
 several processes, ``--profile_dir`` and ``--debug_nans`` work as in
 ``cli/train_e2v.py``: each rank emulates its rows of every batch from the
 global batch's draws (K3 in every rank), and batches the data axis cannot
-divide are dropped and reported. Flags it does not cover yet raise at once,
-naming the ROADMAP.md item that brings them.
+divide are dropped and reported. ``--mesh_spatial`` above 1 raises: the
+V2E2V trainer shards the data axis only, as the JAX package's does. Flags
+it does not cover yet raise at once, naming the ROADMAP.md item that brings
+them.
 """
 
 from __future__ import annotations
@@ -51,6 +53,11 @@ def check_flags(cfgs) -> None:
     if cfgs.model_mode != "cista-lstc":
         raise ValueError(f"--model_mode {cfgs.model_mode}: the V2E2V composite reconstructs "
                          "with cista-lstc")
+    if cfgs.mesh_spatial > 1:
+        raise ValueError(f"--mesh_spatial {cfgs.mesh_spatial}: the V2E2V trainer shards the "
+                         "data axis only; the JAX package's V2E2V trainer has no spatial axis "
+                         "either (train.py builds make_mesh(n_data, 1)); cli.train_e2v "
+                         "shards the width")
     check_train_flags(cfgs)
     if cfgs.device_data != "off" and cfgs.display_train:
         raise SystemExit("--device_data does not support --display_train (no per-pack voxels "

@@ -20,12 +20,17 @@ loop (kernels K1 and K2 have no backward).
 Over several processes, one per device (the ``--dist_*`` flags, the
 ``V2E2V_*`` variables, or torchrun with ``V2E2V_DIST_AUTO=1``;
 ``parallel/distributed.py``), the data axis is ``--mesh_data``, or
-``gcd(batch_size, processes)`` when it is 0, and must equal the number of
-processes. Every rank reads the same batches, takes its rows of each on the
-host and all-reduces the gradients (``training/steps.py``); batches that the
+``gcd(batch_size, processes / --mesh_spatial)`` when it is 0, and must
+equal the number of processes over ``--mesh_spatial``. ``--mesh_spatial
+S`` shards the image width over ``S`` ranks (``parallel/spatial.py``): the
+processes are ``n_data x S``, rank ``r`` at data index ``r // S`` and
+spatial index ``r % S``, and the width must divide into ``2 S`` equal
+blocks. Every rank reads
+the same batches, takes its rows (and columns) of each on the host and
+all-reduces the gradients (``training/steps.py``); batches that the data
 axis cannot divide are dropped, counted and reported at the end of each
 epoch. With ``--device_data`` every rank holds the whole dataset and
-gathers its rows of each batch's indices. Rank 0 alone writes checkpoints;
+gathers its rows (and columns) of each batch. Rank 0 alone writes checkpoints;
 every rank resumes from the same file. ``--profile_dir`` traces the run
 with ``torch.profiler`` (one file per rank) and ``--debug_nans`` raises
 ``FloatingPointError`` at the first NaN in a step (``utils/profiling.py``).
@@ -50,11 +55,8 @@ CHECKPOINT_SUFFIX = ".pth.tar"
 
 def check_train_flags(cfgs) -> None:
     """Raise on the flags (and environment variables) that neither of the
-    port's training CLIs covers yet: the spatial mesh axis and LPIPS; and on
-    ``--device_data`` without ``--drop_seq_tails``, as the JAX CLIs do."""
-    if cfgs.mesh_spatial > 1:
-        missing(f"--mesh_spatial {cfgs.mesh_spatial}", 9,
-                "the spatial mesh axis; the data axis (--mesh_data) is ported")
+    port's training CLIs covers yet, LPIPS; and on ``--device_data`` without
+    ``--drop_seq_tails``, as the JAX CLIs do."""
     lpips = os.environ.get("V2E2V_LPIPS_WEIGHTS")
     if lpips and os.path.exists(lpips):
         missing(f"LPIPS (V2E2V_LPIPS_WEIGHTS={lpips})", 12,
@@ -76,14 +78,17 @@ def epoch_summary(epoch: int, seconds: float, losses: list[float]) -> str:
 
 
 def data_axis(cfgs, device: torch.device):
-    """The trainers' data axis: ``--mesh_data``, or when it is 0
-    ``gcd(batch_size, processes)`` (``train_e2v.py``'s rule); one process
-    takes ``--mesh_data 1`` only."""
+    """The trainers' mesh: ``--mesh_data``, or when it is 0
+    ``gcd(batch_size, processes // --mesh_spatial)`` (``train_e2v.py``'s
+    rule), by ``--mesh_spatial``; one process takes ``--mesh_data 1`` and
+    ``--mesh_spatial 1`` only."""
     from ..parallel.distributed import world_size
     from ..parallel.mesh import make_mesh
 
-    n_data = cfgs.mesh_data if cfgs.mesh_data > 0 else math.gcd(cfgs.batch_size, world_size())
-    return make_mesh(n_data, cfgs.mesh_spatial, devices=[device])
+    spatial = max(cfgs.mesh_spatial, 1)
+    n_data = (cfgs.mesh_data if cfgs.mesh_data > 0
+              else math.gcd(cfgs.batch_size, world_size() // spatial))
+    return make_mesh(n_data, spatial, devices=[device])
 
 
 def drop_unshardable(batches, n_data: int, dropped: dict):
@@ -273,12 +278,13 @@ class Train:
         # the persistent spawn-worker pool, reused across epochs
         loader = SampleLoader(self.train_data, cfgs.num_workers) if cfgs.num_workers > 0 else None
 
-        rows = self.mesh.rows
+        rows, cols = self.mesh.rows, self.mesh.cols
 
         def to_device_layout(batch):
             seq_events, _img, gt = batch  # [B, T, H, W, nb], ..., [B, H, W, 1]
-            # this rank's rows only move to the device: [T, B / n_data, H, W, nb]
-            return rows(np.moveaxis(seq_events, 1, 0), 1), rows(gt, 0)
+            # this rank's rows and columns only move to the device:
+            # [T, B / n_data, H, W / n_spatial, nb]
+            return cols(rows(np.moveaxis(seq_events, 1, 0), 1), 3), cols(rows(gt, 0), 2)
 
         n_data = self.mesh.n_data
         dropped = {"batches": 0, "samples": 0}

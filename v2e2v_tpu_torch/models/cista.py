@@ -26,6 +26,13 @@ CISTA-TC attention projections and the upsample and final convs stay float.
 
 Weights are a flat state dict under the reference module names (see
 ``utils/checkpoint.py``); activations are NHWC, as in the JAX package.
+
+The float steps, ``remat_step``, ``cista_zero_state`` and ``cista_sequence``
+take ``shard`` (``parallel/spatial.Shard``): the inputs and state are one
+rank's block of columns, and every conv and the bilinear upsample exchange
+halos with the neighbours (``ops/conv.py``, the plain ISTA loop). A sharded
+call runs ``fullres_impl='ref'``, the layers core with the plain ISTA loop,
+and no int8: the other paths raise.
 """
 
 from __future__ import annotations
@@ -66,6 +73,7 @@ from ..ops.qconv import (
     quantize_core,
     quantize_with,
 )
+from ..parallel.spatial import Shard, block_width
 
 StateDict = dict[str, torch.Tensor]
 
@@ -158,9 +166,12 @@ def cista_zero_state(
     batch: int,
     dtype: torch.dtype = torch.float32,
     device: torch.device | str | None = None,
+    shard: Shard | None = None,
 ) -> CistaState:
+    """Zeros at half resolution: the whole width, or ``shard``'s block of it."""
     device = resolve_device(device)
-    h2, w2 = cfg.image_dim[0] // 2, cfg.image_dim[1] // 2
+    w = cfg.image_dim[1] if shard is None else block_width(cfg.image_dim[1], shard.count)
+    h2, w2 = cfg.image_dim[0] // 2, w // 2
     c = cfg.base_channels
 
     def zeros(ch):
@@ -248,24 +259,35 @@ def _hwio(w_oihw: torch.Tensor) -> torch.Tensor:
     return w_oihw.permute(2, 3, 1, 0)
 
 
+def _refuse_fused_shard(cfg: CistaConfig, shard: Shard | None) -> None:
+    if shard is not None and cfg.fullres_impl == "fused":
+        raise ValueError("fullres_impl='fused' reads the true image border in its edge "
+                         "kernels: a sharded call runs fullres_impl='ref'")
+
+
 def _heads(params: StateDict, cfg: CistaConfig, events: torch.Tensor,
-           prev_image: torch.Tensor) -> torch.Tensor:
+           prev_image: torch.Tensor, shard: Shard | None = None) -> torch.Tensor:
     """Event/image heads + concat + stride-2 downsample; on the 'fused' path
     one composed 5x5 stride-2 conv and its border kernels."""
+    _refuse_fused_shard(cfg, shard)
     if cfg.fullres_impl == "fused":
         return heads_fused_edgek(params, events, prev_image, kernels=params.get("_fullres_fused"))
-    x_e = conv_layer(events, _conv(params, "We.conv2d"), padding=1)
-    x_i = conv_layer(prev_image, _conv(params, "Wi.conv2d"), padding=1)
+    x_e = conv_layer(events, _conv(params, "We.conv2d"), padding=1, shard=shard)
+    x_i = conv_layer(prev_image, _conv(params, "Wi.conv2d"), padding=1, shard=shard)
     return conv_layer(
-        torch.cat([x_e, x_i], dim=-1), _conv(params, "W0.conv2d"), stride=2, padding=1
+        torch.cat([x_e, x_i], dim=-1), _conv(params, "W0.conv2d"), stride=2, padding=1,
+        shard=shard,
     )
 
 
 def _upsample_final(
-    params: StateDict, cfg: CistaConfig, rec: torch.Tensor, upsamp_activation: str | None
+    params: StateDict, cfg: CistaConfig, rec: torch.Tensor, upsamp_activation: str | None,
+    shard: Shard | None = None,
 ) -> torch.Tensor:
     """Bilinear-upsample conv -> final conv; on the 'fused' path both in the
-    parity domain (the full-res 64-channel map is never built)."""
+    parity domain (the full-res 64-channel map is never built). A block
+    (``shard``, on the 'ref' path: ``_heads`` refuses 'fused') doubles in
+    both dimensions."""
     if cfg.fullres_impl == "fused":
         kernels = params.get("_fullres_fused")
         rec = upsample_conv_parity_edgek(_conv(params, "upsamp_conv.conv2d"), rec,
@@ -273,9 +295,9 @@ def _upsample_final(
         return final_conv_parity_edgek(_conv(params, "final_conv.conv2d"), rec, kernels=kernels)
     rec = upsample_conv_layer(
         rec, _conv(params, "upsamp_conv.conv2d"), activation=upsamp_activation,
-        out_hw=cfg.image_dim,
+        out_hw=cfg.image_dim if shard is None else None, shard=shard,
     )
-    return conv_layer(rec, _conv(params, "final_conv.conv2d"), padding=1)
+    return conv_layer(rec, _conv(params, "final_conv.conv2d"), padding=1, shard=shard)
 
 
 def _lstc_params(params: StateDict) -> dict:
@@ -283,11 +305,18 @@ def _lstc_params(params: StateDict) -> dict:
 
 
 def half_res_core(
-    params: StateDict, cfg: CistaConfig, x1: torch.Tensor, state: CistaState
+    params: StateDict, cfg: CistaConfig, x1: torch.Tensor, state: CistaState,
+    shard: Shard | None = None,
 ) -> tuple[torch.Tensor, CistaState]:
     """The half-resolution core on the heads' output ``x1 [B, H/2, W/2, C]``:
     ConvLSTC -> ISTA x depth -> conv + relu -> ConvLSTM, as ``cfg.core_impl``
-    says. Returns ``(rec_h, new_state)``, ``rec_h`` the ConvLSTM hidden."""
+    says. Returns ``(rec_h, new_state)``, ``rec_h`` the ConvLSTM hidden. A
+    sharded call (``shard``) runs the layers core with the plain ISTA loop:
+    the others compute whole images, and raise before any halo moves."""
+    if shard is not None and (cfg.core_impl != "layers" or cfg.ista_impl == "cuda"):
+        raise ValueError(f"core_impl={cfg.core_impl!r}, ista_impl={cfg.ista_impl!r} compute "
+                         "whole images: a sharded call runs the layers core with the plain "
+                         "ISTA loop (core_impl='layers', ista_impl='plain')")
     if cfg.core_impl != "layers":
         # "_core_taps" is injected once per sequence (cista_sequence) or pool
         taps = params.get("_core_taps")
@@ -303,19 +332,20 @@ def half_res_core(
         fused = params.get("_lstc_fused")
         if fused is None:
             fused = conv_lstc_fuse(_lstc_params(params))
-        z, cell = conv_lstc_step_fused(fused, x1, state.z, state.cell)
+        z, cell = conv_lstc_step_fused(fused, x1, state.z, state.cell, shard=shard)
     else:
-        z, cell = conv_lstc_step(_lstc_params(params), x1, state.z, state.cell)
+        z, cell = conv_lstc_step(_lstc_params(params), x1, state.z, state.cell, shard=shard)
     ista = ista_loop if cfg.ista_impl == "cuda" else ista_loop_plain
     z = ista(
         x1, z.contiguous(),
         _hwio(params["lista_blocks.0.D.conv2d.weight"]), params["lista_blocks.0.D.conv2d.bias"],
         _hwio(params["lista_blocks.0.P.conv2d.weight"]), params["lista_blocks.0.P.conv2d.bias"],
-        params["lista_blocks.0.Lambda"].reshape(-1), depth=cfg.depth,
+        params["lista_blocks.0.Lambda"].reshape(-1), depth=cfg.depth, shard=shard,
     )
-    x = conv_layer(z, _conv(params, "Dg.conv.conv2d"), padding=1, activation="relu")
+    x = conv_layer(z, _conv(params, "Dg.conv.conv2d"), padding=1, activation="relu",
+                   shard=shard)
     rec_h, dg_state = conv_lstm_step(
-        {"Gates": _conv(params, "Dg.recurrent_block.Gates")}, x, state.dg
+        {"Gates": _conv(params, "Dg.recurrent_block.Gates")}, x, state.dg, shard=shard
     )
     return rec_h, CistaState(cell=cell, z=z, dg=dg_state)
 
@@ -326,6 +356,7 @@ def cista_lstc_step(
     events: torch.Tensor,
     prev_image: torch.Tensor,
     state: CistaState,
+    shard: Shard | None = None,
 ) -> tuple[torch.Tensor, CistaState]:
     """One CISTA-LSTC reconstruction: heads, the half-resolution core,
     upsample conv (relu), final conv, sigmoid.
@@ -334,11 +365,13 @@ def cista_lstc_step(
       events: ``[B, H, W, num_bins]`` voxel grid (NHWC).
       prev_image: ``[B, H, W, 1]`` previous reconstruction.
       state: ``CistaState`` from the previous step (zeros at sequence start).
+      shard: with ``W`` one rank's block of columns, its place on the
+        spatial axis.
     Returns ``(rec_image [B, H, W, 1], new_state)``.
     """
-    x1 = _heads(params, cfg, events, prev_image).contiguous()
-    rec_h, state = half_res_core(params, cfg, x1, state)
-    rec = _upsample_final(params, cfg, rec_h, upsamp_activation="relu")
+    x1 = _heads(params, cfg, events, prev_image, shard).contiguous()
+    rec_h, state = half_res_core(params, cfg, x1, state, shard)
+    rec = _upsample_final(params, cfg, rec_h, upsamp_activation="relu", shard=shard)
     return torch.sigmoid(rec), state
 
 
@@ -371,6 +404,7 @@ def cista_tc_step(
     events: torch.Tensor,
     prev_image: torch.Tensor,
     state: CistaState,
+    shard: Shard | None = None,
 ) -> tuple[torch.Tensor, CistaState]:
     """One CISTA-TC reconstruction (reference ``e2v_model.py:146-197``).
 
@@ -379,29 +413,31 @@ def cista_tc_step(
     per step on the previous code, ``one_conv_for_cur`` once per ISTA
     iteration.
     """
-    x1 = _heads(params, cfg, events, prev_image)
-    z = conv_layer(x1, _conv(params, "P0.conv2d"), padding=1)
+    x1 = _heads(params, cfg, events, prev_image, shard)
+    z = conv_layer(x1, _conv(params, "P0.conv2d"), padding=1, shard=shard)
     tmp = z
     prev_z = state.z
-    one_ch_prev = conv_layer(prev_z, _conv(params, "one_conv_for_prev.conv2d"), padding=1)
+    one_ch_prev = conv_layer(prev_z, _conv(params, "one_conv_for_prev.conv2d"), padding=1,
+                             shard=shard)
     cur = _conv(params, "one_conv_for_cur.conv2d")
     d = _conv(params, "lista_blocks.0.D.conv2d")
     p = _conv(params, "lista_blocks.0.P.conv2d")
     lam = params["lista_blocks.0.Lambda"].reshape(-1).to(x1.dtype)
     alpha = params["alpha.0"].reshape(-1).to(x1.dtype)
     for _ in range(cfg.depth):
-        one_ch_cur = conv_layer(tmp, cur, padding=1)
+        one_ch_cur = conv_layer(tmp, cur, padding=1, shard=shard)
         attention = torch.sigmoid(one_ch_prev * one_ch_cur)
         temporal_z = attention * ((prev_z - tmp) * alpha)
-        tmp = conv_layer(tmp, d, padding=1)
-        x = conv_layer(x1 - tmp, p, padding=1)
+        tmp = conv_layer(tmp, d, padding=1, shard=shard)
+        x = conv_layer(x1 - tmp, p, padding=1, shard=shard)
         z = softshrink(x + z + temporal_z, lam)
         tmp = z
-    x = conv_layer(z, _conv(params, "Dg.conv.conv2d"), padding=1, activation="relu")
+    x = conv_layer(z, _conv(params, "Dg.conv.conv2d"), padding=1, activation="relu",
+                   shard=shard)
     rec_h, dg_state = conv_lstm_step(
-        {"Gates": _conv(params, "Dg.recurrent_block.Gates")}, x, state.dg
+        {"Gates": _conv(params, "Dg.recurrent_block.Gates")}, x, state.dg, shard=shard
     )
-    rec = _upsample_final(params, cfg, rec_h, upsamp_activation=None)
+    rec = _upsample_final(params, cfg, rec_h, upsamp_activation=None, shard=shard)
     return torch.sigmoid(rec), CistaState(cell=state.cell, z=z, dg=dg_state)
 
 
@@ -532,15 +568,18 @@ def int8_static_drift_check(
 
 
 def remat_step(step, params: StateDict, cfg: CistaConfig, events: torch.Tensor,
-               prev_image: torch.Tensor, state: CistaState) -> tuple[torch.Tensor, CistaState]:
+               prev_image: torch.Tensor, state: CistaState,
+               shard: Shard | None = None) -> tuple[torch.Tensor, CistaState]:
     """``step(params, cfg, events, prev_image, state)`` rematerialised on the
     backward pass (the JAX package's ``jax.checkpoint``): autograd keeps the
     step's inputs, not its activations, and runs the step again to
     differentiate it. The step draws no random numbers, so the RNG state is
-    not saved (``preserve_rng_state=False``); callers keep every draw outside."""
+    not saved (``preserve_rng_state=False``); callers keep every draw outside.
+    ``shard`` goes to the step: the recomputation exchanges its halos again,
+    at the same place in the backward on every rank."""
     return torch.utils.checkpoint.checkpoint(
         step, params, cfg, events, prev_image, state, use_reentrant=False,
-        preserve_rng_state=False,
+        preserve_rng_state=False, **({} if shard is None else {"shard": shard}),
     )
 
 
@@ -605,6 +644,7 @@ def cista_sequence(
     state: CistaState | None = None,
     remat: bool = False,
     input_packed: bool = False,
+    shard: Shard | None = None,
 ) -> tuple[torch.Tensor, CistaState]:
     """Reconstruct ``voxel_seq [T, B, H, W, num_bins]`` step by step, feeding
     each output back as the next ``prev_image``. The derived kernels
@@ -620,14 +660,27 @@ def cista_sequence(
     ``[T, B, H/2, W/2, 4 num_bins]`` (``ops/voxel.events_to_voxel_grid(...,
     layout='parity')``) and ``prev_image``, if given, as ``[B, H/2, W/2, 4]``.
     Returns ``(recs [T, B, H, W, 1], final_state)`` on ``voxel_seq``'s
-    device."""
+    device.
+
+    With ``shard`` ``W`` is one rank's block of columns of the image
+    (``parallel/spatial.block_width``), and so are the state, ``prev_image``
+    and the reconstructions; the sequence runs 'full' IO."""
     t, b = voxel_seq.shape[0], voxel_seq.shape[1]
     h, w = cfg.image_dim
     packed_io = parity_io(cfg)
     if input_packed and not packed_io:
         raise ValueError("input_packed requires io_layout='parity'")
+    if shard is not None:
+        _refuse_fused_shard(cfg, shard)
+        if cfg.quant != "none":
+            raise ValueError("the int8 steps compute whole images: a sharded call runs "
+                             "quant='none'")
+        w = block_width(w, shard.count)
+        if voxel_seq.shape[3] != w:
+            raise ValueError(f"a sharded sequence holds this rank's {w} of {cfg.image_dim[1]} "
+                             f"columns, got {voxel_seq.shape[3]}")
     if state is None:
-        state = cista_zero_state(cfg, b, voxel_seq.dtype, voxel_seq.device)
+        state = cista_zero_state(cfg, b, voxel_seq.dtype, voxel_seq.device, shard)
     if prev_image is None:
         prev_image = voxel_seq.new_zeros((b, h // 2, w // 2, 4) if input_packed else (b, h, w, 1))
     params = with_derived(params, cfg, voxel_seq.dtype)
@@ -641,11 +694,12 @@ def cista_sequence(
     else:
         step = get_step_fn(cfg)
     recs = []
+    kw = {} if shard is None else {"shard": shard}
     for events in voxel_seq:
         if remat:
-            prev_image, state = remat_step(step, params, cfg, events, prev_image, state)
+            prev_image, state = remat_step(step, params, cfg, events, prev_image, state, **kw)
         else:
-            prev_image, state = step(params, cfg, events, prev_image, state)
+            prev_image, state = step(params, cfg, events, prev_image, state, **kw)
         recs.append(prev_image)
     recs = torch.stack(recs)
     if packed_io:

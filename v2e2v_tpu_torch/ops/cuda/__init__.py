@@ -22,3 +22,14 @@ def refuse_grad(what: str, tensors) -> None:
             f"{what} is a CUDA kernel without a backward, and an argument requires grad: "
             f"train with {TRAINING_CONFIG}, or run under torch.no_grad()"
         )
+
+
+def refuse_shard(what: str, shard) -> None:
+    """Raise on a call that holds one rank's block of columns (``shard`` not
+    None): the kernels read the true image border and no halo, and they only
+    run where the spatial axis does not, in inference."""
+    if shard is not None:
+        raise ValueError(
+            f"{what} is a CUDA kernel over whole images, and this call is one rank's block of "
+            f"columns: the spatial axis trains with {TRAINING_CONFIG}"
+        )

@@ -22,7 +22,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from . import DTYPE_NAMES, refuse_grad
+from . import DTYPE_NAMES, refuse_grad, refuse_shard
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # v2e::Epilogue of csrc/conv3x3.cuh
@@ -180,6 +180,8 @@ def cista_core(
     dg_h: torch.Tensor,
     dg_c: torch.Tensor,
     depth: int = 5,
+    *,
+    shard=None,
 ):
     """The core: the CUDA kernels for CUDA tensors (7 + 2 x depth launches on
     the current stream, counted in ``cista_core.launches`` and, by dtype, in
@@ -191,9 +193,10 @@ def cista_core(
     tensor (``conv_tc.cached_simt_taps``), others on every call. New
     tensors hold every output: the inputs stay as they were. Under autograd
     it raises when an input or a value of ``taps`` requires grad, on every
-    device (``refuse_grad``)."""
+    device (``refuse_grad``), and on a sharded call (``refuse_shard``)."""
     _check(taps, x1, z, cell, dg_h, dg_c, depth)
     refuse_grad("cista_core", (x1, z, cell, dg_h, dg_c, *taps.values()))
+    refuse_shard("cista_core", shard)
     if x1.device.type == "cpu":
         return cista_core_plain(taps, x1, z, cell, dg_h, dg_c, depth)
     if x1.device.type != "cuda":

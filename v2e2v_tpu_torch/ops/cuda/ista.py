@@ -18,7 +18,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from . import DTYPE_NAMES, refuse_grad
+from ...parallel.spatial import halo_pad
+from . import DTYPE_NAMES, refuse_grad, refuse_shard
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _MODE_D, _MODE_P = 0, 1
@@ -54,9 +55,14 @@ def _check(x1, z, d_weight, d_bias, p_weight, p_bias, lam, depth) -> None:
         raise ValueError(f"depth must be >= 0, got {depth}")
 
 
-def _conv3x3_reflect(x: torch.Tensor, w_oihw: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
-    """float32 NCHW reflect-padded 3x3 conv."""
-    return F.conv2d(F.pad(x, (1, 1, 1, 1), mode="reflect"), w_oihw, bias)
+def _conv3x3_reflect(x: torch.Tensor, w_oihw: torch.Tensor, bias: torch.Tensor,
+                     shard=None) -> torch.Tensor:
+    """float32 NCHW reflect-padded 3x3 conv; with ``shard`` the width pads
+    through the halo exchange (``parallel/spatial.halo_pad``)."""
+    if shard is None:
+        return F.conv2d(F.pad(x, (1, 1, 1, 1), mode="reflect"), w_oihw, bias)
+    x = F.pad(halo_pad(x, 1, "reflect", shard, dim=3), (0, 0, 1, 1), mode="reflect")
+    return F.conv2d(x, w_oihw, bias)
 
 
 def ista_loop_plain(
@@ -68,6 +74,8 @@ def ista_loop_plain(
     p_bias: torch.Tensor,
     lam: torch.Tensor,
     depth: int = 5,
+    *,
+    shard=None,
 ) -> torch.Tensor:
     """Plain PyTorch version of the kernel, with the same signature.
 
@@ -75,6 +83,9 @@ def ista_loop_plain(
       x1: ``[B, H, W, C]``; z: ``[B, H, W, 2C]``, float32 or bfloat16.
       d_weight/p_weight: HWIO ``[3, 3, Cin, Cout]``; biases ``[Cout]``;
       lam: ``[2C]`` soft-threshold.
+      shard: ``parallel/spatial.Shard`` when x1 and z are one rank's block of
+        columns (the training path on the spatial axis); None for the whole
+        image.
     Returns the final sparse code ``[B, H, W, 2C]`` in ``x1.dtype``.
     """
     _check(x1, z, d_weight, d_bias, p_weight, p_bias, lam, depth)
@@ -91,8 +102,8 @@ def ista_loop_plain(
     zc = z.permute(0, 3, 1, 2)
     for _ in range(depth):
         zf = zc.float()
-        xm = (x1f - _conv3x3_reflect(zf, dw, db)).to(dtype)
-        y = _conv3x3_reflect(xm.float(), pw, pb) + zf
+        xm = (x1f - _conv3x3_reflect(zf, dw, db, shard)).to(dtype)
+        y = _conv3x3_reflect(xm.float(), pw, pb, shard) + zf
         zc = (torch.relu(y - lam32) - torch.relu(-y - lam32)).to(dtype)
     return zc.permute(0, 2, 3, 1).contiguous()
 
@@ -118,6 +129,8 @@ def ista_loop(
     p_bias: torch.Tensor,
     lam: torch.Tensor,
     depth: int = 5,
+    *,
+    shard=None,
 ) -> torch.Tensor:
     """The ISTA loop: the CUDA kernel for CUDA tensors (2 x depth launches
     on the current stream, counted in ``ista_loop.launches`` and, by dtype, in
@@ -125,9 +138,11 @@ def ista_loop(
     version for CPU tensors. Arguments as ``ista_loop_plain``; the kernel
     needs ``C % 8 == 0`` and x1 and z starting on 16-byte boundaries (both
     convs copy 16-byte rows). Under autograd it raises when an argument
-    requires grad, on every device (``refuse_grad``)."""
+    requires grad, on every device (``refuse_grad``), and on a sharded call
+    (``refuse_shard``): the kernel computes whole images."""
     _check(x1, z, d_weight, d_bias, p_weight, p_bias, lam, depth)
     refuse_grad("ista_loop", (x1, z, d_weight, d_bias, p_weight, p_bias, lam))
+    refuse_shard("ista_loop", shard)
     if x1.device.type == "cpu":
         return ista_loop_plain(x1, z, d_weight, d_bias, p_weight, p_bias, lam, depth)
     if x1.device.type != "cuda":

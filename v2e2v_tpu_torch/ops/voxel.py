@@ -145,6 +145,7 @@ def add_noise_to_voxel(
     noise_std: float = 1.0,
     noise_fraction: float = 0.1,
     rows: tuple[int, slice, int] | None = None,
+    cols: tuple[int, slice, int] | None = None,
 ) -> torch.Tensor:
     """Training augmentation (reference ``event_process.py:8-13``): Gaussian
     noise of ``noise_std`` on a random ``noise_fraction`` of the entries (all
@@ -153,17 +154,19 @@ def add_noise_to_voxel(
     draws from a key instead, so the numbers differ and the law is the same.
     ``rows = (dim, share, n)``: ``voxel`` is the rows ``share`` along ``dim``
     of a tensor of ``n`` rows there (a rank's share of a global batch), and
-    gets those rows of the whole tensor's draws. Returns a new tensor."""
+    gets those rows of the whole tensor's draws; ``cols``, of the same form,
+    cuts the columns of a rank's block on the spatial axis likewise. Returns
+    a new tensor."""
     g = generator
-    shape = tuple(voxel.shape)
-    if rows is not None:
-        dim, share, n = rows
-        shape = shape[:dim] + (n,) + shape[dim + 1:]
+    shape = list(voxel.shape)
+    cuts = [c for c in (rows, cols) if c is not None]
+    for dim, _, n in cuts:
+        shape[dim] = n
     noise = noise_std * torch.randn(shape, generator=g, device=g.device, dtype=voxel.dtype)
     if noise_fraction < 1.0:
         keep = torch.rand(shape, generator=g, device=g.device)
         noise = torch.where(keep < noise_fraction, noise, 0.0)
-    if rows is not None:
+    for dim, share, _ in cuts:
         noise = noise.narrow(dim, share.start, share.stop - share.start)
     return voxel + noise.to(voxel.device)
 

@@ -83,6 +83,9 @@ class StreamPool:
         must be divisible by its size."""
         if mesh is None:
             devices = [resolve_device(device)]
+        elif mesh.n_spatial > 1:
+            raise ValueError(f"a StreamPool has no spatial axis (n_spatial={mesh.n_spatial}), "
+                             "as the JAX pool has none: pass a data axis")
         elif mesh.group is not None:
             raise ValueError("a StreamPool runs in one process, as the JAX pool does: pass a "
                              "mesh of this process's devices, not a process group's")

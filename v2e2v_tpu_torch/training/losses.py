@@ -15,6 +15,7 @@ import torch
 import torch.nn.functional as F
 
 from .._device import float32_math
+from ..parallel.spatial import Shard, gather_cols
 
 
 def _gaussian_kernel1d(win_size: int = 11, sigma: float = 1.5) -> np.ndarray:
@@ -89,6 +90,7 @@ def many_to_one_loss(
     gt: torch.Tensor,
     sample_weights: torch.Tensor | None = None,
     batch_weights: torch.Tensor | None = None,
+    shard: Shard | None = None,
 ) -> torch.Tensor:
     """The reference's training loss without LPIPS, ``L1 + (1 - SSIM)``.
 
@@ -98,7 +100,15 @@ def many_to_one_loss(
     gradients of the unpadded batch; all ones give the plain mean.
     ``batch_weights``: the weights of the whole batch when ``final_rec``,
     ``gt`` and ``sample_weights`` are one rank's rows of it; the denominator
-    sums them, so the ranks' losses add up to the batch's."""
+    sums them, so the ranks' losses add up to the batch's.
+
+    ``shard``: ``final_rec`` and ``gt`` are one rank's block of columns. SSIM's
+    window reads across the cuts and the means are over the whole image, so
+    both are gathered over the spatial group (``parallel/spatial.gather_cols``)
+    and every rank of it computes the whole image's loss; the gradient each
+    rank gets is its own columns'."""
+    if shard is not None:
+        final_rec, gt = gather_cols(final_rec, shard), gather_cols(gt, shard)
     if sample_weights is None:
         return l1_loss(final_rec, gt) + (1.0 - ssim(final_rec, gt))
     w = sample_weights.to(torch.float32)

@@ -24,6 +24,17 @@ weighted sum by the whole batch's weight), and the V2E2V stats are summed
 world of one runs the collectives and gives the numbers of no group, bit
 for bit.
 
+The E2V steps also take a mesh with a spatial axis (``make_mesh(n_data,
+n_spatial)``): each rank holds its rows and its block of columns of every
+batch (the per-batch steps take them so, the device-data steps cut them),
+its convs exchange halos with its spatial neighbours, and its loss is the
+whole image's, gathered over the spatial group. The spatial ranks'
+gradients are partial sums over their columns, so the same all-reduce
+sums them over the spatial axis while it averages (or, weighted, sums)
+over the data axis; the loss, the same on every spatial rank, is counted
+once. The V2E2V steps shard the data axis only, as the JAX package's
+(``train.py`` builds ``make_mesh(n_data, 1)``).
+
 While ``utils/profiling.enable_nan_debugging`` is on, a step raises
 ``FloatingPointError`` at the first NaN in its loss (before the backward, so
 no rank is left waiting), its gradients or its updated weights.
@@ -50,6 +61,7 @@ from ..models.cista import CistaConfig, StateDict, cista_sequence
 from ..ops.cuda import TRAINING_CONFIG
 from ..ops.voxel import add_noise_to_voxel
 from ..parallel.mesh import Mesh, RowsNoise
+from ..parallel.spatial import Shard
 from ..utils.checkpoint import STEP_KEYS
 from ..utils.profiling import nan_debugging
 from .losses import many_to_one_loss
@@ -108,10 +120,10 @@ def process_axis(mesh: Mesh | None) -> Mesh | None:
     (a world of one too), None for no mesh or one device. A mesh of several
     devices in one process raises: a step trains one rank's rows per
     process."""
-    if mesh is None or (mesh.group is None and mesh.n_data == 1):
+    if mesh is None or (mesh.group is None and len(mesh.devices) == 1):
         return None
     if mesh.group is None:
-        raise ValueError(f"a data axis of {mesh.n_data} devices in one process: the train "
+        raise ValueError(f"a mesh of {len(mesh.devices)} devices in one process: the train "
                          "steps run one process per device (the --dist_* flags)")
     return mesh
 
@@ -127,9 +139,13 @@ def broadcast_weights(optimizer: torch.optim.Optimizer, axis: Mesh) -> None:
 
 
 def _reduce_loss_and_grads(optimizer, loss: torch.Tensor, axis: Mesh, summed: bool):
-    """One all-reduce of ``[loss, every gradient]``: summed, or averaged over
-    the ranks. Returns the reduced loss; the gradients are reduced in place."""
+    """One all-reduce of ``[loss, every gradient]`` over the whole group:
+    summed over the spatial axis, and summed or averaged over the data axis;
+    the loss from spatial index 0 only (every spatial rank holds the same).
+    Returns the reduced loss; the gradients are reduced in place."""
     params = [p for p in _weights(optimizer) if p.grad is not None]
+    if axis.spatial_rank:
+        loss = torch.zeros_like(loss)
     flat = torch.cat([loss.reshape(1).to(torch.float32)] + [p.grad.reshape(-1) for p in params])
     dist.all_reduce(flat, group=axis.group)
     if not summed:
@@ -196,9 +212,12 @@ def _update(optimizer: torch.optim.Optimizer, loss_fn: Callable, axis: Mesh | No
 
 
 def _setup(cfg: CistaConfig, optimizer: torch.optim.Optimizer, mesh: Mesh | None):
-    """Refuse an untrainable config, and over a process group broadcast rank
-    0's weights; returns the step's axis (``process_axis``)."""
+    """Refuse an untrainable config, or a width the spatial axis cannot
+    divide, and over a process group broadcast rank 0's weights; returns the
+    step's axis (``process_axis``)."""
     check_trainable(cfg)
+    if mesh is not None and mesh.n_spatial > 1:
+        mesh.col_slice(cfg.image_dim[1])
     axis = process_axis(mesh)
     if axis is not None:
         broadcast_weights(optimizer, axis)
@@ -207,11 +226,13 @@ def _setup(cfg: CistaConfig, optimizer: torch.optim.Optimizer, mesh: Mesh | None
 
 def e2v_loss(params: StateDict, cfg: CistaConfig, voxel_seq: torch.Tensor, gt: torch.Tensor,
              sample_weights: torch.Tensor | None = None, remat: bool = True,
-             batch_weights: torch.Tensor | None = None) -> torch.Tensor:
+             batch_weights: torch.Tensor | None = None,
+             shard: Shard | None = None) -> torch.Tensor:
     """The many-to-one loss of ``voxel_seq [T, B, H, W, nb]`` against
-    ``gt [B, H, W, 1]`` on the last reconstruction."""
-    recs, _ = cista_sequence(params, cfg, voxel_seq, remat=remat)
-    return many_to_one_loss(recs[-1], gt, sample_weights, batch_weights)
+    ``gt [B, H, W, 1]`` on the last reconstruction; with ``shard`` ``W`` is
+    this rank's block of columns and the loss the whole image's."""
+    recs, _ = cista_sequence(params, cfg, voxel_seq, remat=remat, shard=shard)
+    return many_to_one_loss(recs[-1], gt, sample_weights, batch_weights, shard)
 
 
 def make_e2v_train_step(cfg: CistaConfig, optimizer: torch.optim.Optimizer,
@@ -219,12 +240,14 @@ def make_e2v_train_step(cfg: CistaConfig, optimizer: torch.optim.Optimizer,
     """The E2V step: ``step(params, voxel_seq [T, B, H, W, nb], gt [B, H, W, 1])
     -> loss`` (a detached scalar on the device), the weights of ``params``
     (``optimizer``'s) updated in place. Over a process group ``B`` is this
-    rank's rows of the global batch (``Mesh.rows``) and the loss the global
-    batch's."""
+    rank's rows of the global batch (``Mesh.rows``), ``W`` on a spatial axis
+    its columns (``Mesh.cols``), and the loss the global batch's."""
     axis = _setup(cfg, optimizer, mesh)
+    shard = None if axis is None else axis.shard
 
     def step(params, voxel_seq, gt):
-        return _update(optimizer, lambda: e2v_loss(params, cfg, voxel_seq, gt), axis)[0]
+        return _update(optimizer, lambda: e2v_loss(params, cfg, voxel_seq, gt, shard=shard),
+                       axis)[0]
 
     return step
 
@@ -238,21 +261,27 @@ def make_e2v_train_step_device_data(cfg: CistaConfig, optimizer: torch.optim.Opt
     entry (``--add_noise``) from ``generator``; ``w`` is 1.0 for real samples
     and 0.0 for the padding of a tail batch, whose loss it masks. Over a
     process group every rank holds the whole dataset and gathers its rows
-    of ``idx``."""
+    of ``idx``, and on a spatial axis cuts its columns of them."""
     axis = _setup(cfg, optimizer, mesh)
+    shard = None if axis is None else axis.shard
 
     def step(params, data, gt_all, idx, generator, w):
         batch_w, rows_idx = w, idx
         if axis is not None:
             rows_idx, w = axis.rows(idx), axis.rows(w)
-        voxel_seq = data.index_select(0, rows_idx).movedim(1, 0).float()
-        gt = gt_all.index_select(0, rows_idx).float()
-        if noise_std > 0.0:  # the global batch's draw, this rank's rows of it
+        voxel_seq = data.index_select(0, rows_idx).movedim(1, 0)
+        gt = gt_all.index_select(0, rows_idx)
+        if shard is not None:
+            voxel_seq, gt = axis.cols(voxel_seq, 3), axis.cols(gt, 2)
+        voxel_seq, gt = voxel_seq.float(), gt.float()
+        if noise_std > 0.0:  # the global batch's draw, this rank's rows and columns of it
             voxel_seq = add_noise_to_voxel(
                 generator, voxel_seq, noise_std, noise_fraction=1.0,
-                rows=None if axis is None else (1, axis.row_slice(len(idx)), len(idx)))
+                rows=None if axis is None else (1, axis.row_slice(len(idx)), len(idx)),
+                cols=None if shard is None else (3, axis.col_slice(data.shape[3]),
+                                                 data.shape[3]))
         return _update(optimizer, lambda: e2v_loss(params, cfg, voxel_seq, gt, w,
-                                                   batch_weights=batch_w),
+                                                   batch_weights=batch_w, shard=shard),
                        axis, summed=True)[0]
 
     return step
@@ -292,6 +321,13 @@ def v2e2v_loss(params: StateDict, cfg, frames_seq: torch.Tensor, ts_seq: torch.T
     return loss, stats
 
 
+def _refuse_spatial(mesh: Mesh | None) -> None:
+    if mesh is not None and mesh.n_spatial > 1:
+        raise ValueError(f"the V2E2V steps shard the data axis only (n_spatial="
+                         f"{mesh.n_spatial}): the JAX package's V2E2V trainer has no spatial "
+                         "axis either (train.py builds make_mesh(n_data, 1))")
+
+
 def _v2e2v_update(optimizer, loss_fn, axis, summed=False):
     loss, stats = _update(optimizer, loss_fn, axis, summed)
     return loss, (stats if axis is None else reduce_stats(stats, axis))
@@ -305,7 +341,9 @@ def make_v2e2v_train_step(cfg, optimizer: torch.optim.Optimizer, monitor: bool =
     its iteration loop is kernel K3, once per frame pair. Over a process
     group ``B`` is this rank's rows of the global batch (``Mesh.rows``), the
     loss and stats are the global batch's, and ``noise`` draws for the global
-    batch; ``monitor``'s ``rec`` and ``voxel`` are this rank's rows."""
+    batch; ``monitor``'s ``rec`` and ``voxel`` are this rank's rows. A mesh
+    with a spatial axis raises ``ValueError``."""
+    _refuse_spatial(mesh)
     axis = _setup(cfg.cista, optimizer, mesh)
 
     def step(params, frames_seq, ts_seq, gt, noise):
@@ -325,7 +363,9 @@ def make_v2e2v_train_step_device_data(cfg, optimizer: torch.optim.Optimizer,
     (loss, stats)``. The batch is gathered by index on the device; ``gt`` is
     its last frame / 255 (``TrainSeqData._emit``); ``w`` masks the padding of
     a tail batch. Over a process group every rank holds the whole dataset and
-    gathers its rows of ``idx``."""
+    gathers its rows of ``idx``. A mesh with a spatial axis raises
+    ``ValueError``."""
+    _refuse_spatial(mesh)
     axis = _setup(cfg.cista, optimizer, mesh)
 
     def step(params, frames_u8, ts_all, idx, noise, w):
