@@ -272,8 +272,27 @@ Phases, one line each (any failure exits non-zero before the last line):
    only rank 0 writes, the checkpoint's distance shown; (c) ms per step of
    each layout's ranks (time-sharing the card: no scaling figure) and rank
    0's halo exchanges and gathers per step (count, bytes, ms);
+20. JPEG frames (``utils/jpeg.py`` behind ``utils/image_io.read_gray``,
+   ROADMAP item 4): (a) every fixture under ``tests/data/jpeg``
+   (``scripts/make_jpeg_fixtures.py``: the five sampling factors, gray,
+   restart intervals, optimised tables, quality 100 and 5, progressive,
+   181x243, Exif orientations 3, 6, 8, and a 12-frame 180x240 colour
+   sequence) decoded by the port, its shape and sha256 against
+   ``manifest.json``'s of ``cv2.imread(path, 0)``; the ms per full-width
+   frame of ``read_gray`` on the JPEG frames and on their PNG twin (written
+   by ``write_gray``) on the card's host; (b) the V2E2V CLI (image reader,
+   ``--num_pack_frames 4``, phase 10's checkpoint) over the JPEG sequence,
+   the main path with every count set to 0 just before it (K3 once per frame
+   pair, K1 2 x depth per pack), then over the PNG twin with K3 and K1 held
+   against their plain versions at every call: the output files byte for
+   byte and the printed averages equal; (c) the E2V CLI (phase 9's
+   checkpoint, float32) with the JPEG frames as ground truth and random
+   events between them as phase 9 writes them, against the same dataset
+   with the PNG twin: the ``result.csv`` rows and every output file equal,
+   K1 2 x depth per reconstruction in the JPEG run; the reader's time per
+   frame and the model step's per reconstruction of each;
 14. a ``{"kernels": [...]}`` JSON line (each row's launches on the paths of
-   phases 10-13 and 15-19, every count set to 0 just before each path: K1,
+   phases 10-13 and 15-20, every count set to 0 just before each path: K1,
    K2, K4 and the scale kernel counted by dtype, K3 by shot mode; the rows
    of K4 and the scale kernel hold their times per pool step, the 15 calls
    of one step summed), then the last line
@@ -3780,6 +3799,194 @@ def spatial_phase(seed: int, smi: str, root: Path) -> dict:
     return {"spatial_train_launches": launches}
 
 
+JPEG_FIXTURES = Path(__file__).resolve().parent / "tests" / "data" / "jpeg"
+JPEG_SEQUENCE = "sequence_0000000001"
+JPEG_PACK = 4  # the V2E2V CLI's --num_pack_frames over the 12 fixture frames: 3 packs
+JPEG_EVENTS_SEED = 20  # phase 20c's events: --seed + this
+
+
+def output_files(folder: Path) -> dict[str, bytes]:
+    """Every file under ``folder`` by its path relative to it."""
+    return {p.relative_to(folder).as_posix(): p.read_bytes()
+            for p in sorted(folder.rglob("*")) if p.is_file()}
+
+
+def jpeg_phase(seed: int, smi: str, root: Path, e2v_model: Path, v2e2v_model: Path) -> dict:
+    """Phase 20: JPEG frames (ROADMAP item 4). (a) every fixture under
+    ``tests/data/jpeg`` decoded by the port against ``manifest.json``'s sha256
+    of ``cv2.imread(path, 0)``, and the decode time per full-width frame of
+    JPEG and of PNG; (b) the V2E2V CLI over the fixture sequence and its PNG
+    twin; (c) the E2V CLI with the JPEG frames as ground truth against the
+    twin. Returns (b) and (c)'s launches by row of the kernels line."""
+    import hashlib
+
+    from v2e2v_tpu_torch.data.synthetic import write_random_events
+    from v2e2v_tpu_torch.models import cista as cista_mod
+    from v2e2v_tpu_torch.models import emulator as emulator_mod
+    from v2e2v_tpu_torch.ops.cuda import emulator_iters as k3_mod
+    from v2e2v_tpu_torch.ops.cuda.core import cista_core
+    from v2e2v_tpu_torch.ops.cuda.emulator_iters import emulator_iters, emulator_iters_plain
+    from v2e2v_tpu_torch.ops.cuda.ista import ista_loop, ista_loop_plain
+    from v2e2v_tpu_torch.utils.image_io import read_gray, write_gray
+
+    t_phase = time.perf_counter()
+    root.mkdir(parents=True)
+    # (a) the fixtures against cv2's hashes, and the decode times
+    manifest = json.loads((JPEG_FIXTURES / "manifest.json").read_text())["files"]
+    bad = []
+    for rel, want in sorted(manifest.items()):
+        img = read_gray(str(JPEG_FIXTURES / rel))
+        if (list(img.shape) != want["shape"]
+                or hashlib.sha256(img.tobytes()).hexdigest() != want["sha256"]):
+            bad.append(rel)
+    ok = not bad and len(manifest) >= 27
+    say(f"[jpeg] {len(manifest)} fixtures (tests/data/jpeg: sampling factors, gray, restart "
+        f"intervals, optimised tables, quality 100 and 5, progressive, 181x243, Exif "
+        f"orientations, the 12-frame {H}x{W} sequence) decoded by the port against the sha256 "
+        f"of cv2.imread(path, 0): mismatches {bad} {'pass' if ok else 'FAIL'}")
+    if not ok:
+        fail("the port's JPEG decoder disagrees with cv2's hashes")
+    src = JPEG_FIXTURES / "sequence" / JPEG_SEQUENCE / "frames"
+    jpgs = sorted(src.glob("frame_*.jpg"))
+    timestamps_txt = (src / "timestamps.txt").read_text()
+    twin = root / "png" / JPEG_SEQUENCE / "frames"
+    twin.mkdir(parents=True)
+    (twin / "timestamps.txt").write_text(timestamps_txt)
+    for jpg in jpgs:
+        write_gray(str(twin / f"{jpg.stem}.png"), read_gray(str(jpg)))
+    pngs = sorted(twin.glob("frame_*.png"))
+    decode = {}
+    for kind, files in (("jpeg", jpgs), ("png", pngs)):
+        times = []
+        for _ in range(3):
+            for f in files:
+                t0 = time.perf_counter()
+                read_gray(str(f))
+                times.append(1e3 * (time.perf_counter() - t0))
+        decode[kind] = (float(np.median(times)), min(times), max(times))
+    jpeg_bytes = sum(f.stat().st_size for f in jpgs) / len(jpgs)
+    say(f"[time] frame decode on the card's host ({smi}), read_gray per {H}x{W} frame, median "
+        f"(min-max) of {3 * len(jpgs)}, host clock: JPEG (colour, 4:2:0, quality 95, "
+        f"{jpeg_bytes:.0f} bytes) {decode['jpeg'][0]:.3f} ms ({decode['jpeg'][1]:.3f}-"
+        f"{decode['jpeg'][2]:.3f}); PNG twin (the port's writer) {decode['png'][0]:.3f} ms "
+        f"({decode['png'][1]:.3f}-{decode['png'][2]:.3f})")
+
+    # (b) the V2E2V CLI over the JPEG sequence (the main path, counts at 0)
+    # and over its PNG twin with K3 and K1 held against their plain versions
+    extra = ("--num_pack_frames", str(JPEG_PACK))
+    runs = {}
+    k3_errs, k1_errs = [], []
+
+    def k1_checked(*a, **k):
+        got = ista_loop(*a, **k)
+        k1_errs.append(within(got, ista_loop_plain(*a, **k), TOL[torch.float32]))
+        return got
+
+    def k3_checked(*a, **k):
+        got = emulator_iters(*a, **k)
+        want = emulator_iters_plain(*a, **k)
+        exact = torch.equal(got[2], want[2]) and torch.equal(got[1], want[1])
+        err = float((got[0] - want[0]).abs().max())
+        k3_errs.append((err, exact and err <= 1e-5))
+        return got
+
+    # models/emulator.py calls k3.emulator_iters: a copy of the module's
+    # names with the checked call in its place (the counters stay the module's)
+    k3_view = type(k3_mod)(k3_mod.__name__)
+    k3_view.__dict__.update(vars(k3_mod))
+    k3_view.emulator_iters = k3_checked
+    for kind, data in (("jpeg", JPEG_FIXTURES / "sequence"), ("png", root / "png")):
+        run = v2e2v_cli(data, v2e2v_model, root / f"v2e2v_{kind}", seed, extra=extra)
+        records, printed = [], io.StringIO()
+        checks = ((cista_mod, "ista_loop", k1_checked), (emulator_mod, "k3", k3_view))
+        if kind == "jpeg":
+            counts_zero(*kernel_counters())
+        with (recorded_forward(records), contextlib.redirect_stdout(printed),
+              swapped(*(checks if kind == "png" else ()))):
+            run.run()
+        torch.cuda.synchronize()
+        if kind == "jpeg":
+            v2e2v_rows = row_counts()
+            k3_n, k1_n, k2_n = emulator_iters.launches, ista_loop.launches, cista_core.launches
+        runs[kind] = {"records": records, "printed": [
+            line for line in printed.getvalue().splitlines() if line.startswith("Avg")],
+            "files": output_files(root / f"v2e2v_{kind}")}
+    rj, rp = runs["jpeg"], runs["png"]
+    pairs = [p for _, _, p in rj["records"]]
+    events = [int(o.num_events) for o, _, _ in rj["records"]]
+    same = (rj["files"] == rp["files"] and rj["printed"] == rp["printed"]
+            and events == [int(o.num_events) for o, _, _ in rp["records"]])
+    launches_ok = (k3_n == v2e2v_rows["emulator_iters (internal rng)"] == sum(pairs)
+                   and k1_n == 2 * DEPTH * len(pairs) and k2_n == 0
+                   and [n for _, n, _ in rj["records"]] == [[p, 2 * DEPTH] for p in pairs])
+    k3_ok = len(k3_errs) == sum(pairs) and all(o for _, o in k3_errs)
+    k1_ok = len(k1_errs) == len(pairs) and all(o for _, o in k1_errs)
+    ok = same and launches_ok and k3_ok and k1_ok and len(pairs) == 3 and min(events) > 0
+    say(f"[jpeg] V2E2V CLI over the JPEG sequence ({len(jpgs)} frames, --num_pack_frames "
+        f"{JPEG_PACK}) and its PNG twin: {len(pairs)} packs, num_events {events}; "
+        f"{len(rj['files'])} output files byte for byte equal, printed averages "
+        f"{rj['printed']} equal: {same}; main path (counts at 0 before the JPEG run): K3 "
+        f"{k3_n} (want one per frame pair, {sum(pairs)}), K1 {k1_n} (want "
+        f"{2 * DEPTH * len(pairs)}), K2 {k2_n}; in the twin run K3 against its plain version at "
+        f"each of {len(k3_errs)} calls: final and mem equal, voxel max_abs_err "
+        f"{max(e for e, _ in k3_errs):.3e} (tol 1e-5), K1 at each of {len(k1_errs)} calls: "
+        f"max_abs_err {max(e for e, _ in k1_errs):.3e} (tol {TOL[torch.float32]} + "
+        f"{TOL[torch.float32]} |ref|) {'pass' if ok else 'FAIL'}")
+    if not ok:
+        fail("the V2E2V CLI over JPEG frames did not run as over their PNG twin")
+
+    # (c) the E2V CLI with the JPEG frames as ground truth, events between
+    # them as phase 9 writes them, against the same dataset with the twin
+    stamps = [float(line.split()[1]) for line in timestamps_txt.splitlines() if line.strip()]
+    for kind, frames in (("jpeg", jpgs), ("png", pngs)):
+        seq = root / f"e2v_{kind}" / "data" / JPEG_SEQUENCE
+        (seq / "frames").mkdir(parents=True)
+        (seq / "events").mkdir()
+        (seq / "frames" / "timestamps.txt").write_text(timestamps_txt)
+        for f in frames:
+            shutil.copyfile(f, seq / "frames" / f.name)
+        write_random_events(seq / "events", np.random.default_rng(seed + JPEG_EVENTS_SEED),
+                            stamps, H, W, CLI_EVENTS)
+    e2v = {}
+    for kind in ("jpeg", "png"):
+        rec = cli_reconstructor(root / f"e2v_{kind}" / "data", e2v_model, torch.float32, "out",
+                                "cuda")
+        step_ev = []
+        steps = record_steps(rec, keep_state=False, events=step_ev)
+        parts = {"read": [0.0, 0]}
+        rec.video_renderer.update_event_frame_pack = timed(
+            rec.video_renderer.update_event_frame_pack, parts, "read")
+        if kind == "jpeg":
+            counts_zero(*kernel_counters())
+        rec.run()
+        torch.cuda.synchronize()
+        if kind == "jpeg":
+            e2v_rows = row_counts()
+            k1_e, others = ista_loop.launches, cista_core.launches + emulator_iters.launches
+        out = root / f"e2v_{kind}" / "out"
+        e2v[kind] = {"n": len(steps), "files": output_files(out),
+                     "csv": [p.read_text() for p in sorted(out.rglob("result.csv"))],
+                     "step_ms": sum(a.elapsed_time(b) for a, b in step_ev) / len(steps),
+                     "read_ms": 1e3 * parts["read"][0] / parts["read"][1]}
+    ej, ep = e2v["jpeg"], e2v["png"]
+    ok = (ej["csv"] == ep["csv"] and len(ej["csv"]) == 1 and ej["files"] == ep["files"]
+          and ej["n"] == ep["n"] > 0 and k1_e == 2 * DEPTH * ej["n"] and others == 0)
+    say(f"[jpeg] E2V CLI with the JPEG frames as ground truth and {CLI_EVENTS[0]}-"
+        f"{CLI_EVENTS[1]} events an interval, against the PNG twin: {ej['n']} reconstructions, "
+        f"result.csv rows equal: {ej['csv'] == ep['csv']} ({ej['csv'][0].splitlines()[-1]!r}), "
+        f"{len(ej['files'])} output files byte for byte equal: {ej['files'] == ep['files']}; K1 "
+        f"{k1_e} (want 2 x depth x {ej['n']}), K2 and K3 {others} {'pass' if ok else 'FAIL'}")
+    if not ok:
+        fail("the E2V CLI with JPEG frames disagrees with its PNG twin")
+    say(f"[time] E2V CLI at B = 1 ({smi}): the reader per frame (decode, events, voxelise) "
+        f"JPEG {ej['read_ms']:.3f} ms, PNG {ep['read_ms']:.3f} ms (host clock); the model step "
+        f"per reconstruction {ej['step_ms']:.3f} / {ep['step_ms']:.3f} ms (CUDA events); a JPEG "
+        f"frame's decode {decode['jpeg'][0]:.3f} ms is "
+        f"{decode['jpeg'][0] / ej['step_ms']:.2f}x the model step")
+    say(f"[phase] JPEG frames {time.perf_counter() - t_phase:.1f} s")
+    return {"v2e2v_cli_jpeg_launches": v2e2v_rows, "e2v_cli_jpeg_launches": e2v_rows}
+
+
 def main_path_k3_inputs(cfg, state, frames, ts, internal: bool):
     """The K3 inputs of the first frame pair of a pack on the main path: the
     emulator's own front end, stopped where it calls K3."""
@@ -4295,6 +4502,11 @@ def main() -> None:
         # 19. the spatial axis: the E2V steps on (1, 2) and (2, 2), the trainer
         # with --mesh_spatial 2, against one process
         spatial_rows = spatial_phase(args.seed, smi, shared)
+
+        # 20. JPEG frames: the fixtures against cv2's hashes, both evaluation
+        # CLIs over JPEG frames against their PNG twin
+        jpeg_rows = jpeg_phase(args.seed, smi, shared / "jpeg", shared / "cli" / "model.pth.tar",
+                               hfr["model"])
     finally:
         shutil.rmtree(shared, ignore_errors=True)
 
@@ -4303,7 +4515,7 @@ def main() -> None:
     paths = {"v2e2v_cli_launches": hfr["rows"], "raw_launches": raw_rows,
              "tc_pool_launches": tc_rows, "e2v_train_launches": trained["e2v"],
              "v2e2v_train_launches_per_step": trained["v2e2v"], **fused_rows, **int8["rows"],
-             **slomo_rows, **dist_rows, **spatial_rows}
+             **slomo_rows, **dist_rows, **spatial_rows, **jpeg_rows}
     for e in entries:
         if e["name"].startswith("ista_loop"):
             e.update(cli_k1[torch.float32 if "float32" in e["name"] else torch.bfloat16])

@@ -246,3 +246,43 @@ def test_without_card_or_platform_raises(setup, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tcli.main(_argv(data, model, root / "nocard"))
+
+
+def test_cli_over_jpeg_frames_matches_png_twin(setup, monkeypatch, capsys, tmp_path):
+    """The port's V2E2V CLI over colour JPEG frames (``cv2.imwrite``: 4:2:0,
+    progressive, 4:4:4 in turn) and over their PNG twin (each frame as
+    ``cv2.imread(path, 0)`` reads it, written by the port's PNG writer): the
+    same printed averages and the same output files, byte for byte."""
+    import cv2
+
+    from v2e2v_tpu_torch.utils.image_io import write_gray
+
+    root, data, model, _ = setup
+    params = [[], [cv2.IMWRITE_JPEG_PROGRESSIVE, 1],
+              [cv2.IMWRITE_JPEG_SAMPLING_FACTOR, cv2.IMWRITE_JPEG_SAMPLING_FACTOR_444]]
+    rng = np.random.default_rng(1)
+    for seq in sorted(data.iterdir()):
+        frames = seq / "frames"
+        for kind in ("jpeg", "png"):
+            (tmp_path / kind / seq.name / "frames").mkdir(parents=True)
+            (tmp_path / kind / seq.name / "frames" / "timestamps.txt").write_bytes(
+                (frames / "timestamps.txt").read_bytes())
+        for i, png in enumerate(sorted(frames.glob("frame_*.png"))):
+            gray = read_gray(str(png)).astype(np.float64)
+            bgr = np.clip(gray[..., None] * rng.uniform(8, 12, 3), 0, 255).astype(np.uint8)
+            jpg = tmp_path / "jpeg" / seq.name / "frames" / f"{png.stem}.jpg"
+            assert cv2.imwrite(str(jpg), bgr, params[i % 3])
+            write_gray(str(tmp_path / "png" / seq.name / "frames" / png.name),
+                       cv2.imread(str(jpg), cv2.IMREAD_GRAYSCALE))
+    monkeypatch.setenv("V2E2V_PLATFORM", "cpu")
+    printed, outputs = {}, {}
+    for kind in ("jpeg", "png"):
+        out = tmp_path / f"out_{kind}"
+        tcli.main(_argv(tmp_path / kind, model, out, "--is_write_event", "--display_test"))
+        printed[kind] = [line for line in capsys.readouterr().out.splitlines()
+                         if line.startswith("Avg number of events")]
+        outputs[kind] = {p.relative_to(out).as_posix(): p.read_bytes()
+                         for p in sorted(out.rglob("*")) if p.is_file()}
+    assert len(printed["jpeg"]) == 2 and printed["jpeg"] == printed["png"]
+    assert float(printed["jpeg"][0].split(": ")[1]) > 100
+    assert len(outputs["jpeg"]) >= 18 and outputs["jpeg"] == outputs["png"]

@@ -148,12 +148,89 @@ def test_what_it_does_not_read_raises(tmp_path):
     cases["g16.png"] = "16-bit"
     (tmp_path / "adam7.png").write_bytes(_png(img, 10, 8, 8, 0, [0] * 8, 1, interlace=1))
     cases["adam7.png"] = "interlaced"
-    cv2.imwrite(str(tmp_path / "f.jpg"), img)
-    cases["f.jpg"] = "JPEG.*item 4"
+    # JPEG frames are read now; what the decoder refuses names item 4
+    ok, jpg = cv2.imencode(".jpg", img)
+    jpg = jpg.tobytes()
+    sof = jpg.find(b"\xff\xc0")
+    (tmp_path / "arith.jpg").write_bytes(jpg[:sof + 1] + b"\xc9" + jpg[sof + 2:])
+    cases["arith.jpg"] = "arithmetic coding.*item 4"
+    (tmp_path / "b12.jpg").write_bytes(jpg[:sof + 4] + b"\x0c" + jpg[sof + 5:])
+    cases["b12.jpg"] = "12-bit samples.*item 4"
+    (tmp_path / "cut.jpg").write_bytes(jpg[:len(jpg) * 2 // 3])
+    cases["cut.jpg"] = "truncated.*item 4"
+    # formats OpenCV reads and the port does not
+    for ext, name in ((".bmp", "BMP"), (".pgm", "PNM"), (".ppm", "PNM"), (".webp", "WebP"),
+                      (".tiff", "TIFF")):
+        assert cv2.imwrite(str(tmp_path / f"f{ext}"), img if ext != ".ppm" else
+                           np.dstack([img] * 3))
+        cases[f"f{ext}"] = f"{name} frames.*item 4"
+    (tmp_path / "mm_header.tif").write_bytes(b"MM\x00*" + bytes(16))
+    cases["mm_header.tif"] = "TIFF frames.*item 4"
     (tmp_path / "junk.png").write_bytes(b"not an image")
     cases["junk.png"] = "not a PNG"
     for name, match in cases.items():
         with pytest.raises(ValueError, match=match):
             image_io.read_gray(str(tmp_path / name))
+        if name.endswith((".bmp", ".pgm", ".ppm", ".webp", ".tiff")):
+            assert cv2.imread(str(tmp_path / name), cv2.IMREAD_GRAYSCALE) is not None, name
     with pytest.raises(ValueError, match="2-D uint8"):
         image_io.write_gray(str(tmp_path / "x.png"), img.astype(np.float32))
+
+
+def _tiff(orientation, order="<", magic=42):
+    """A TIFF header whose IFD0 holds the orientation tag (SHORT, one value)."""
+    return ((b"II" if order == "<" else b"MM") + struct.pack(order + "HI", magic, 8)
+            + struct.pack(order + "H", 1)
+            + struct.pack(order + "HHIHH", 0x0112, 3, 1, orientation, 0)
+            + struct.pack(order + "I", 0))
+
+
+def _png_with_exif(img, chunks, after_idat=False):
+    """An 8-bit gray PNG of ``img`` with one ``eXIf`` chunk per body in
+    ``chunks``, before IDAT or after it."""
+    def chunk(kind, body):
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body)))
+
+    exif = b"".join(chunk(b"eXIf", body) for body in chunks)
+    data = image_io.encode_gray(img)
+    at = data.find(b"IEND" if after_idat else b"IDAT") - 4
+    return data[:at] + exif + data[at:]
+
+
+@pytest.mark.parametrize("order", ["<", ">"], ids=["II", "MM"])
+@pytest.mark.parametrize("orientation", range(10))
+def test_png_exif_orientation_matches_cv2(tmp_path, orientation, order):
+    """The repaired fault: cv2.imread applies a PNG's eXIf orientation (1-8;
+    0 and 9 leave the image alone), in either byte order."""
+    img = np.random.default_rng(orientation).integers(0, 256, (20, 30), dtype=np.uint8)
+    path = tmp_path / "f.png"
+    path.write_bytes(_png_with_exif(img, [_tiff(orientation, order)]))
+    want = cv2.imread(str(path), cv2.IMREAD_GRAYSCALE)
+    got = image_io.read_gray(str(path))
+    assert got.shape == want.shape == ((30, 20) if orientation in (5, 6, 7, 8) else (20, 30))
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("case", ["after_idat", "first_of_two", "bad_header_then_good",
+                                  "bad_magic_then_good", "no_tag_then_tag", "exif_prefix",
+                                  "entry_cut_to_10_bytes"])
+def test_png_exif_chunks_as_cv2_reads_them(tmp_path, case):
+    """Which eXIf chunk counts: libpng keeps the first whose TIFF header is
+    valid, wherever it lies before IEND."""
+    bodies = {
+        "after_idat": [_tiff(6)],
+        "first_of_two": [_tiff(6), _tiff(3)],
+        "bad_header_then_good": [b"IM" + _tiff(3)[2:], _tiff(6)],
+        "bad_magic_then_good": [_tiff(3, magic=43), _tiff(6)],
+        "no_tag_then_tag": [_tiff(6)[:8] + struct.pack("<HI", 0, 0), _tiff(8)],
+        "exif_prefix": [b"Exif\x00\x00" + _tiff(6)],
+        "entry_cut_to_10_bytes": [_tiff(6)[:20]],
+    }[case]
+    img = np.random.default_rng(5).integers(0, 256, (20, 30), dtype=np.uint8)
+    path = tmp_path / "f.png"
+    path.write_bytes(_png_with_exif(img, bodies, after_idat=case == "after_idat"))
+    want = cv2.imread(str(path), cv2.IMREAD_GRAYSCALE)
+    got = image_io.read_gray(str(path))
+    assert got.shape == want.shape
+    np.testing.assert_array_equal(got, want)

@@ -133,6 +133,60 @@ def test_synthetic_dataset_reads_the_same_in_both_packages(tmp_path, mode):
         assert packs > 1
 
 
+def _jpeg_dataset(root, h, w):
+    """``data/synthetic.write_dataset``'s layout with colour JPEG frames: each
+    PNG frame tinted per channel, given texture and written by ``cv2.imwrite``
+    (4:2:0, 4:4:4, progressive, restart intervals in turn), the PNG removed."""
+    import cv2
+
+    from v2e2v_tpu_torch.data.synthetic import write_dataset
+
+    write_dataset(root, 5, 2, 8, h, w, (200, 400))
+    params = [[], [cv2.IMWRITE_JPEG_SAMPLING_FACTOR, cv2.IMWRITE_JPEG_SAMPLING_FACTOR_444],
+              [cv2.IMWRITE_JPEG_PROGRESSIVE, 1], [cv2.IMWRITE_JPEG_RST_INTERVAL, 2]]
+    rng = np.random.default_rng(0)
+    for i, png in enumerate(sorted(root.glob("*/frames/frame_*.png"))):
+        gray = cv2.imread(str(png), cv2.IMREAD_GRAYSCALE).astype(np.float64)
+        bgr = gray[..., None] * rng.uniform(0.6, 1.1, 3) + rng.normal(0, 8, (h, w, 3))
+        assert cv2.imwrite(str(png.with_suffix(".jpg")),
+                           np.clip(bgr, 0, 255).astype(np.uint8), params[i % 4])
+        png.unlink()
+
+
+@pytest.mark.parametrize("mode", ["frames", "real", "upsampled"])
+def test_image_reader_over_jpeg_frames_matches_jax(tmp_path, mode):
+    """Both packages' ``ImageReader`` over folders of colour JPEG frames: the
+    same frame packs (odd frames, cropped to even) or the same voxel grids and
+    GT frames, pack for pack."""
+    with_events = mode != "frames"
+    _jpeg_dataset(tmp_path, *((36, 50) if with_events else (37, 51)))
+    for seq in sorted(tmp_path.iterdir()):
+        assert len(list((seq / "frames").glob("*.jpg"))) == 8
+        want_r = jvr.ImageReader([36, 50], num_bins=5, is_with_events=with_events)
+        got_r = tvr.ImageReader([36, 50], num_bins=5, is_with_events=with_events)
+        want_r.initialize(str(seq), -1)
+        got_r.initialize(str(seq), -1)
+        assert (got_r.height, got_r.width, got_r.num_frames) == (36, 50, 8)
+        packs = 0
+        while not want_r.ending and packs < (6 if with_events else 2):
+            if with_events:
+                want_v, want_gt = want_r.update_event_frame_pack(500, mode)
+                got_v, got_gt = got_r.update_event_frame_pack(500, mode)
+                assert got_r.ending == want_r.ending and len(got_v) == len(want_v) > 0
+                np.testing.assert_array_equal(got_gt, want_gt)
+                for g, w in zip(got_v, want_v):
+                    np.testing.assert_array_equal(g, w)
+            else:
+                want = want_r.update_frame_pack(4)
+                got = got_r.update_frame_pack(4)
+                assert len(got) == len(want)
+                for g, w in zip(got, want):
+                    np.testing.assert_array_equal(g, w)
+                assert got[0].shape[1:] == (36, 50) and got[0].std() > 0
+            packs += 1
+        assert packs > 1
+
+
 def test_frame_pack_continuation_matches_jax(datasets):
     path = os.path.join(datasets["npz"], "sequence_0000000001")
     want_r, got_r = jvr.ImageReader([32, 40]), tvr.ImageReader([32, 40])

@@ -14,9 +14,9 @@ Behavioral spec from reference ``data_readers/train_data_loaders.py``
   stepping 5 lines (tails >= 3 kept); frames stay in 0-255 (the emulator's
   input domain); ground truth is the last frame / 255.
 
-Arrays are NHWC / bins-last, the layout of the models. PNG frames are read by
-the port's decoder (``utils/image_io.read_gray``, ``cv2.imread``'s gray values
-for the PNGs it reads) and events voxelised by the port's
+Arrays are NHWC / bins-last, the layout of the models. PNG and JPEG frames are
+read by the port's decoders (``utils/image_io.read_gray``, ``cv2.imread``'s
+gray values for the files it reads) and events voxelised by the port's
 ``voxelize_and_preprocess_np``, so samples equal the JAX package's bit for bit.
 """
 
@@ -179,7 +179,7 @@ class TrainSeqData:
         self.len_sequence = len_sequence
         self.num_pack_frames = num_pack_frames
         self.drop_seq_tails = drop_seq_tails
-        # uint8 frame cache (source PNGs are 8-bit gray; cast on emit)
+        # uint8 frame cache (frames are read as 8-bit gray; cast on emit)
         self._cache = {} if cache_samples else None
 
         self.timestamps: list[float] = []

@@ -44,13 +44,21 @@ def write_dataset(root: Path, seed: int, sequences: int, frames: int, h: int, w:
             x0, y0 = (5 * i) % (w - 30), (3 * i) % (h - 30)
             img[y0:y0 + 30, x0:x0 + 30] = 230
             write_gray(str(fdir / f"frame_{i:010d}.png"), np.clip(img, 0, 255).astype(np.uint8))
-        for i in range(frames - 1):
-            n = int(rng.integers(events[0], events[1] + 1))
-            np.savez(edir / f"events_{i:010d}.npz",
-                     t=np.sort(rng.uniform(stamps[i], stamps[i + 1], n)),
-                     x=rng.integers(0, w, n).astype(np.int16),
-                     y=rng.integers(0, h, n).astype(np.int16),
-                     p=rng.integers(0, 2, n).astype(np.int16))
+        write_random_events(edir, rng, stamps, h, w, events)
+
+
+def write_random_events(edir: Path, rng: np.random.Generator, stamps, h: int, w: int,
+                        events: tuple[int, int]) -> None:
+    """One ``events_XXXXXXXXXX.npz`` per interval of ``stamps`` under ``edir``:
+    a number of events drawn in ``events``, uniform stamps within the interval,
+    uniform pixels of ``h x w``, random polarity, all from ``rng``."""
+    for i in range(len(stamps) - 1):
+        n = int(rng.integers(events[0], events[1] + 1))
+        np.savez(Path(edir) / f"events_{i:010d}.npz",
+                 t=np.sort(rng.uniform(stamps[i], stamps[i + 1], n)),
+                 x=rng.integers(0, w, n).astype(np.int16),
+                 y=rng.integers(0, h, n).astype(np.int16),
+                 p=rng.integers(0, 2, n).astype(np.int16))
 
 
 def hfr_frames(seed: int, frames: int, h: int, w: int, batch: int = 1,

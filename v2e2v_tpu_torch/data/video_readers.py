@@ -10,7 +10,8 @@
   hot-pixel-filtered and std-normalised on the host
   (``ops/voxel.voxelize_and_preprocess_np``).
 - ``ImageReader``: a lazy grayscale frame-folder reader on
-  ``utils/image_io.read_gray`` (PNG; JPEG frames raise).
+  ``utils/image_io.read_gray`` (PNG and JPEG frames, as ``cv2.imread`` reads
+  them).
 
 ``VideoReader`` (a video file through ``cv2.VideoCapture``) is not ported.
 """

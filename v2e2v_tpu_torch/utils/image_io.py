@@ -1,17 +1,21 @@
-"""PNG frames in and out with ``zlib``, ``struct`` and numpy.
+"""Frames in and out: PNG with ``zlib``, ``struct`` and numpy, JPEG through
+``utils/jpeg.py``.
 
 The JAX package reads frames with ``cv2.imread(path, cv2.IMREAD_GRAYSCALE)``
 and writes them with PIL; neither is installed beside the port on the card's
 machine. ``read_gray`` returns what that ``cv2.imread`` call returns for the
-PNGs it covers; ``write_gray`` writes 8-bit gray, what the CLI writes.
+PNGs and JPEGs it covers, the EXIF orientation applied as OpenCV applies it;
+``write_gray`` writes 8-bit gray, what the CLI writes.
 
-Read: 8-bit gray, gray + alpha, RGB, RGBA, and palette or gray at 1, 2, 4 or
-8 bits, not interlaced, with any of the five row filters. Alpha and ``tRNS``
-are dropped. Gray at 1, 2 or 4 bits is scaled to 8 bits (x255, x85, x17).
-Colour goes to gray as libpng's ``png_set_rgb_to_gray(0.299, 0.587)`` does it
-for OpenCV: ``(9797 R + 19234 G + 3737 B) >> 15``, truncated, and ``R`` itself
-where ``R == G == B``. 16-bit samples, interlaced PNGs and JPEG frames raise a
-ValueError that names what is missing. ``write_rgb`` writes the 8-bit RGB
+PNG read: 8-bit gray, gray + alpha, RGB, RGBA, and palette or gray at 1, 2, 4
+or 8 bits, not interlaced, with any of the five row filters. Alpha and
+``tRNS`` are dropped. Gray at 1, 2 or 4 bits is scaled to 8 bits (x255, x85,
+x17). Colour goes to gray as libpng's ``png_set_rgb_to_gray(0.299, 0.587)``
+does it for OpenCV: ``(9797 R + 19234 G + 3737 B) >> 15``, truncated, and
+``R`` itself where ``R == G == B``. The first ``eXIf`` chunk with a TIFF header
+(libpng keeps that one) gives the orientation. 16-bit samples and interlaced
+PNGs raise a ValueError that names what is missing; so do BMP, PNM, WebP and
+TIFF files, which OpenCV also reads. ``write_rgb`` writes the 8-bit RGB
 previews and panels of the V2E2V CLI, what PIL writes for an ``[H, W, 3]``
 uint8 array.
 """
@@ -23,8 +27,11 @@ import zlib
 
 import numpy as np
 
+from .jpeg import ROADMAP, decode_jpeg_gray
+
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 JPEG_SIGNATURE = b"\xff\xd8\xff"
+TIFF_HEADERS = (b"II*\x00", b"MM\x00*")
 # samples per pixel of each colour type
 _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
 _GRAY_SCALE = {1: 255, 2: 85, 4: 17, 8: 1}
@@ -109,14 +116,70 @@ def _to_gray(rgb: np.ndarray) -> np.ndarray:
     return np.where((r == g) & (r == b), r, gray).astype(np.uint8)
 
 
+def exif_orientation(exif: bytes) -> int | None:
+    """The value of the orientation tag (0x0112) in IFD0 of ``exif``, a TIFF
+    header in either byte order (``II`` or ``MM``) and its IFDs, read as
+    OpenCV's Exif reader reads it: the first 16 bits of the entry's value,
+    whatever its type. None where the header or IFD0 does not parse or has
+    no such tag."""
+    order = {b"II": "<", b"MM": ">"}.get(exif[:2])
+    if order is None or len(exif) < 8:
+        return None
+    magic, ifd = struct.unpack(order + "HI", exif[2:8])
+    if magic != 42 or ifd + 2 > len(exif):
+        return None
+    (count,) = struct.unpack(order + "H", exif[ifd:ifd + 2])
+    for i in range(count):
+        entry = exif[ifd + 2 + 12 * i:ifd + 12 + 12 * i]
+        if len(entry) < 10:
+            return None
+        tag, value = struct.unpack(order + "H6xH", entry)
+        if tag == 0x0112:
+            return value
+    return None
+
+
+def apply_orientation(img: np.ndarray, exif: bytes) -> np.ndarray:
+    """``img`` turned by the orientation tag of ``exif`` (see
+    ``exif_orientation``) as OpenCV's ``imread`` turns it: 2 flips
+    left-right, 3 rotates 180, 4 flips up-down, 5 transposes, 6 rotates 90
+    clockwise, 7 transverses, 8 rotates 90 counter-clockwise. No tag, or any
+    other value, leaves ``img`` as it is."""
+    orientation = exif_orientation(exif)
+    if orientation in (5, 6, 7, 8):
+        img = img.T
+    if orientation in (2, 3, 6, 7):
+        img = img[:, ::-1]
+    if orientation in (3, 4, 7, 8):
+        img = img[::-1]
+    return np.ascontiguousarray(img)
+
+
+def _other_format(data: bytes) -> str | None:
+    """The name of an image format OpenCV reads and the port does not."""
+    if data[:2] == b"BM":
+        return "BMP"
+    if len(data) >= 2 and data[0] == 0x50 and 0x31 <= data[1] <= 0x36:  # P1-P6
+        return "PNM"
+    if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
+        return "WebP"
+    if data[:4] in TIFF_HEADERS:
+        return "TIFF"
+    return None
+
+
 def decode_gray(data: bytes, path: str = "<bytes>") -> np.ndarray:
-    """A PNG file's bytes -> ``[H, W]`` uint8 gray (see the module's notes)."""
+    """A PNG or JPEG file's bytes -> ``[H, W]`` uint8 gray, as
+    ``cv2.imread(path, cv2.IMREAD_GRAYSCALE)`` (see the module's notes)."""
     if data[:3] == JPEG_SIGNATURE:
-        raise ValueError(f"{path}: JPEG frames are not supported by the port's reader yet "
-                         "(ROADMAP.md queue 1, item 4); convert the frames to PNG")
+        return decode_jpeg_gray(data, path)
+    other = _other_format(data)
+    if other is not None:
+        raise ValueError(f"{path}: {other} frames are not supported by the port's reader "
+                         f"({ROADMAP}); convert the frames to PNG or JPEG")
     if data[:8] != PNG_SIGNATURE:
         raise ValueError(f"{path}: not a PNG file")
-    header, palette, idat = None, None, []
+    header, palette, idat, exif = None, None, [], None
     for kind, body in _chunks(data, path):
         if kind == b"IHDR":
             header = struct.unpack(">IIBBBBB", body)
@@ -124,6 +187,8 @@ def decode_gray(data: bytes, path: str = "<bytes>") -> np.ndarray:
             palette = np.frombuffer(body, np.uint8).reshape(-1, 3)
         elif kind == b"IDAT":
             idat.append(body)
+        elif kind == b"eXIf" and exif is None and body[:4] in TIFF_HEADERS:
+            exif = body
     if header is None:
         raise ValueError(f"{path}: PNG without IHDR")
     width, height, depth, color, _comp, _filt, interlace = header
@@ -142,21 +207,24 @@ def decode_gray(data: bytes, path: str = "<bytes>") -> np.ndarray:
     rows = _unfilter(raw, height, stride, max(1, channels * depth // 8), path)
     samples = _unpack(rows, width * channels, depth).reshape(height, width, channels)
     if color == 0:
-        return samples[..., 0] * np.uint8(_GRAY_SCALE[depth])
-    if color == 4:
-        return np.ascontiguousarray(samples[..., 0])
-    if color == 3:
+        gray = samples[..., 0] * np.uint8(_GRAY_SCALE[depth])
+    elif color == 4:
+        gray = np.ascontiguousarray(samples[..., 0])
+    elif color == 3:
         if palette is None:
             raise ValueError(f"{path}: palette PNG without PLTE")
         index = samples[..., 0]
         if int(index.max(initial=0)) >= len(palette):
             raise ValueError(f"{path}: palette index out of range")
-        return _to_gray(palette[index])
-    return _to_gray(samples[..., :3])
+        gray = _to_gray(palette[index])
+    else:
+        gray = _to_gray(samples[..., :3])
+    return gray if exif is None else apply_orientation(gray, exif)
 
 
 def read_gray(path: str) -> np.ndarray:
-    """``cv2.imread(path, cv2.IMREAD_GRAYSCALE)`` for the PNGs this module reads."""
+    """``cv2.imread(path, cv2.IMREAD_GRAYSCALE)`` for the PNGs and JPEGs this
+    module reads."""
     with open(path, "rb") as f:
         return decode_gray(f.read(), path)
 
