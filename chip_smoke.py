@@ -291,8 +291,25 @@ Phases, one line each (any failure exits non-zero before the last line):
    with the PNG twin: the ``result.csv`` rows and every output file equal,
    K1 2 x depth per reconstruction in the JPEG run; the reader's time per
    frame and the model step's per reconstruction of each;
+21. video files (``utils/avi.py``, ``utils/jpeg.py::decode_mjpeg_frame``,
+   ``utils/yuv.py``, ``utils/video.py``, ROADMAP item 4): (a) every MJPEG
+   AVI under ``tests/data/video`` (``scripts/make_video_fixtures.py``: the
+   12-frame 960x720 flagship clip, portrait, 30000/1001 fps, no DHT, odd
+   width, restart markers and a dropped frame, OpenDML) read by the port's
+   ``VideoReader`` and ``VideoSequence``, their frames, stamps and sha256
+   against the JAX readers' records (``reader_frames.npz``,
+   ``manifest.json``): exact share and max difference per clip, the odd-height
+   clip refused naming item 4; the host ms per 960x720 frame of each stage
+   (demux, entropy decode, IDCT, conversion, resize); (b) the V2E2V CLI with
+   ``--reader_type video`` (``--num_pack_frames 4``, phase 10's checkpoint)
+   over the flagship clip read as 180x240, the main path with every count set
+   to 0 just before it (K3 once per frame pair, K1 2 x depth per pack), then
+   over a PNG folder of the port's decoded frames with ``timestamps.txt`` at
+   ``i / fps``, K3 and K1 held against their plain versions at every call:
+   the output files byte for byte and the printed averages equal; the
+   reader's time for the clip against the model steps';
 14. a ``{"kernels": [...]}`` JSON line (each row's launches on the paths of
-   phases 10-13 and 15-20, every count set to 0 just before each path: K1,
+   phases 10-13 and 15-21, every count set to 0 just before each path: K1,
    K2, K4 and the scale kernel counted by dtype, K3 by shot mode; the rows
    of K4 and the scale kernel hold their times per pool step, the 15 calls
    of one step summed), then the last line
@@ -3811,6 +3828,80 @@ def output_files(folder: Path) -> dict[str, bytes]:
             for p in sorted(folder.rglob("*")) if p.is_file()}
 
 
+def cli_against_twin(seed: int, model: Path, root: Path, runs) -> dict:
+    """The V2E2V CLI at full width (``model``) twice, ``runs`` naming each
+    run's (tag, data, flags): the first is the main path, every count set to
+    0 just before it, its reader's calls and its model steps timed; the
+    second, its PNG twin, holds K3 and K1 against their plain versions at
+    every call. Both write under ``root / f"v2e2v_{tag}"``. Returns the first
+    run's launches by row and counts, the packs' frame pairs and events, the
+    comparison, the per-call errors, and the times."""
+    from v2e2v_tpu_torch.models import cista as cista_mod
+    from v2e2v_tpu_torch.models import emulator as emulator_mod
+    from v2e2v_tpu_torch.ops.cuda import emulator_iters as k3_mod
+    from v2e2v_tpu_torch.ops.cuda.core import cista_core
+    from v2e2v_tpu_torch.ops.cuda.emulator_iters import emulator_iters, emulator_iters_plain
+    from v2e2v_tpu_torch.ops.cuda.ista import ista_loop, ista_loop_plain
+
+    k3_errs, k1_errs = [], []
+
+    def k1_checked(*a, **k):
+        got = ista_loop(*a, **k)
+        k1_errs.append(within(got, ista_loop_plain(*a, **k), TOL[torch.float32]))
+        return got
+
+    def k3_checked(*a, **k):
+        got = emulator_iters(*a, **k)
+        want = emulator_iters_plain(*a, **k)
+        exact = torch.equal(got[2], want[2]) and torch.equal(got[1], want[1])
+        err = float((got[0] - want[0]).abs().max())
+        k3_errs.append((err, exact and err <= 1e-5))
+        return got
+
+    # models/emulator.py calls k3.emulator_iters: a copy of the module's
+    # names with the checked call in its place (the counters stay the module's)
+    k3_view = type(k3_mod)(k3_mod.__name__)
+    k3_view.__dict__.update(vars(k3_mod))
+    k3_view.emulator_iters = k3_checked
+    out, step_ev = {}, []
+    parts = {"initialize": [0.0, 0], "update_frame_pack": [0.0, 0]}
+    for i, (tag, data, extra) in enumerate(runs):
+        run = v2e2v_cli(data, model, root / f"v2e2v_{tag}", seed, extra=extra)
+        records, printed = [], io.StringIO()
+        checks = ((cista_mod, "ista_loop", k1_checked), (emulator_mod, "k3", k3_view))
+        if i == 0:
+            for name in parts:
+                setattr(run.video_renderer, name,
+                        timed(getattr(run.video_renderer, name), parts, name))
+            counts_zero(*kernel_counters())
+        with (recorded_forward(records, step_ev if i == 0 else None),
+              contextlib.redirect_stdout(printed), swapped(*(checks if i else ()))):
+            run.run()
+        torch.cuda.synchronize()
+        if i == 0:
+            rows = row_counts()
+            k3_n, k1_n, k2_n = emulator_iters.launches, ista_loop.launches, cista_core.launches
+        out[i] = {"records": records, "printed": [
+            line for line in printed.getvalue().splitlines() if line.startswith("Avg")],
+            "files": output_files(root / f"v2e2v_{tag}")}
+    main, twin = out[0], out[1]
+    pairs = [p for _, _, p in main["records"]]
+    events = [int(o.num_events) for o, _, _ in main["records"]]
+    same = (main["files"] == twin["files"] and main["printed"] == twin["printed"]
+            and events == [int(o.num_events) for o, _, _ in twin["records"]])
+    launches_ok = (k3_n == rows["emulator_iters (internal rng)"] == sum(pairs)
+                   and k1_n == 2 * DEPTH * len(pairs) and k2_n == 0
+                   and [n for _, n, _ in main["records"]] == [[p, 2 * DEPTH] for p in pairs])
+    k3_ok = len(k3_errs) == sum(pairs) and all(o for _, o in k3_errs)
+    k1_ok = len(k1_errs) == len(pairs) and all(o for _, o in k1_errs)
+    return {"rows": rows, "k3": k3_n, "k1": k1_n, "k2": k2_n, "pairs": pairs, "events": events,
+            "same": same, "files": len(main["files"]), "printed": main["printed"],
+            "k3_errs": k3_errs, "k1_errs": k1_errs,
+            "ok": same and launches_ok and k3_ok and k1_ok and min(events) > 0,
+            "step_ms": [a.elapsed_time(b) for a, b in step_ev],
+            "reader_s": {k: v[0] for k, v in parts.items()}}
+
+
 def jpeg_phase(seed: int, smi: str, root: Path, e2v_model: Path, v2e2v_model: Path) -> dict:
     """Phase 20: JPEG frames (ROADMAP item 4). (a) every fixture under
     ``tests/data/jpeg`` decoded by the port against ``manifest.json``'s sha256
@@ -3821,12 +3912,9 @@ def jpeg_phase(seed: int, smi: str, root: Path, e2v_model: Path, v2e2v_model: Pa
     import hashlib
 
     from v2e2v_tpu_torch.data.synthetic import write_random_events
-    from v2e2v_tpu_torch.models import cista as cista_mod
-    from v2e2v_tpu_torch.models import emulator as emulator_mod
-    from v2e2v_tpu_torch.ops.cuda import emulator_iters as k3_mod
     from v2e2v_tpu_torch.ops.cuda.core import cista_core
-    from v2e2v_tpu_torch.ops.cuda.emulator_iters import emulator_iters, emulator_iters_plain
-    from v2e2v_tpu_torch.ops.cuda.ista import ista_loop, ista_loop_plain
+    from v2e2v_tpu_torch.ops.cuda.emulator_iters import emulator_iters
+    from v2e2v_tpu_torch.ops.cuda.ista import ista_loop
     from v2e2v_tpu_torch.utils.image_io import read_gray, write_gray
 
     t_phase = time.perf_counter()
@@ -3874,66 +3962,23 @@ def jpeg_phase(seed: int, smi: str, root: Path, e2v_model: Path, v2e2v_model: Pa
     # (b) the V2E2V CLI over the JPEG sequence (the main path, counts at 0)
     # and over its PNG twin with K3 and K1 held against their plain versions
     extra = ("--num_pack_frames", str(JPEG_PACK))
-    runs = {}
-    k3_errs, k1_errs = [], []
-
-    def k1_checked(*a, **k):
-        got = ista_loop(*a, **k)
-        k1_errs.append(within(got, ista_loop_plain(*a, **k), TOL[torch.float32]))
-        return got
-
-    def k3_checked(*a, **k):
-        got = emulator_iters(*a, **k)
-        want = emulator_iters_plain(*a, **k)
-        exact = torch.equal(got[2], want[2]) and torch.equal(got[1], want[1])
-        err = float((got[0] - want[0]).abs().max())
-        k3_errs.append((err, exact and err <= 1e-5))
-        return got
-
-    # models/emulator.py calls k3.emulator_iters: a copy of the module's
-    # names with the checked call in its place (the counters stay the module's)
-    k3_view = type(k3_mod)(k3_mod.__name__)
-    k3_view.__dict__.update(vars(k3_mod))
-    k3_view.emulator_iters = k3_checked
-    for kind, data in (("jpeg", JPEG_FIXTURES / "sequence"), ("png", root / "png")):
-        run = v2e2v_cli(data, v2e2v_model, root / f"v2e2v_{kind}", seed, extra=extra)
-        records, printed = [], io.StringIO()
-        checks = ((cista_mod, "ista_loop", k1_checked), (emulator_mod, "k3", k3_view))
-        if kind == "jpeg":
-            counts_zero(*kernel_counters())
-        with (recorded_forward(records), contextlib.redirect_stdout(printed),
-              swapped(*(checks if kind == "png" else ()))):
-            run.run()
-        torch.cuda.synchronize()
-        if kind == "jpeg":
-            v2e2v_rows = row_counts()
-            k3_n, k1_n, k2_n = emulator_iters.launches, ista_loop.launches, cista_core.launches
-        runs[kind] = {"records": records, "printed": [
-            line for line in printed.getvalue().splitlines() if line.startswith("Avg")],
-            "files": output_files(root / f"v2e2v_{kind}")}
-    rj, rp = runs["jpeg"], runs["png"]
-    pairs = [p for _, _, p in rj["records"]]
-    events = [int(o.num_events) for o, _, _ in rj["records"]]
-    same = (rj["files"] == rp["files"] and rj["printed"] == rp["printed"]
-            and events == [int(o.num_events) for o, _, _ in rp["records"]])
-    launches_ok = (k3_n == v2e2v_rows["emulator_iters (internal rng)"] == sum(pairs)
-                   and k1_n == 2 * DEPTH * len(pairs) and k2_n == 0
-                   and [n for _, n, _ in rj["records"]] == [[p, 2 * DEPTH] for p in pairs])
-    k3_ok = len(k3_errs) == sum(pairs) and all(o for _, o in k3_errs)
-    k1_ok = len(k1_errs) == len(pairs) and all(o for _, o in k1_errs)
-    ok = same and launches_ok and k3_ok and k1_ok and len(pairs) == 3 and min(events) > 0
+    b = cli_against_twin(seed, v2e2v_model, root, (
+        ("jpeg", JPEG_FIXTURES / "sequence", extra), ("png", root / "png", extra)))
+    pairs, k3_errs, k1_errs = b["pairs"], b["k3_errs"], b["k1_errs"]
+    ok = b["ok"] and len(pairs) == 3
     say(f"[jpeg] V2E2V CLI over the JPEG sequence ({len(jpgs)} frames, --num_pack_frames "
-        f"{JPEG_PACK}) and its PNG twin: {len(pairs)} packs, num_events {events}; "
-        f"{len(rj['files'])} output files byte for byte equal, printed averages "
-        f"{rj['printed']} equal: {same}; main path (counts at 0 before the JPEG run): K3 "
-        f"{k3_n} (want one per frame pair, {sum(pairs)}), K1 {k1_n} (want "
-        f"{2 * DEPTH * len(pairs)}), K2 {k2_n}; in the twin run K3 against its plain version at "
+        f"{JPEG_PACK}) and its PNG twin: {len(pairs)} packs, num_events {b['events']}; "
+        f"{b['files']} output files byte for byte equal, printed averages "
+        f"{b['printed']} equal: {b['same']}; main path (counts at 0 before the JPEG run): K3 "
+        f"{b['k3']} (want one per frame pair, {sum(pairs)}), K1 {b['k1']} (want "
+        f"{2 * DEPTH * len(pairs)}), K2 {b['k2']}; in the twin run K3 against its plain version at "
         f"each of {len(k3_errs)} calls: final and mem equal, voxel max_abs_err "
         f"{max(e for e, _ in k3_errs):.3e} (tol 1e-5), K1 at each of {len(k1_errs)} calls: "
         f"max_abs_err {max(e for e, _ in k1_errs):.3e} (tol {TOL[torch.float32]} + "
         f"{TOL[torch.float32]} |ref|) {'pass' if ok else 'FAIL'}")
     if not ok:
         fail("the V2E2V CLI over JPEG frames did not run as over their PNG twin")
+    v2e2v_rows = b["rows"]
 
     # (c) the E2V CLI with the JPEG frames as ground truth, events between
     # them as phase 9 writes them, against the same dataset with the twin
@@ -3985,6 +4030,154 @@ def jpeg_phase(seed: int, smi: str, root: Path, e2v_model: Path, v2e2v_model: Pa
         f"{decode['jpeg'][0] / ej['step_ms']:.2f}x the model step")
     say(f"[phase] JPEG frames {time.perf_counter() - t_phase:.1f} s")
     return {"v2e2v_cli_jpeg_launches": v2e2v_rows, "e2v_cli_jpeg_launches": e2v_rows}
+
+
+VIDEO_FIXTURES = Path(__file__).resolve().parent / "tests" / "data" / "video"
+VIDEO_PACK = 4  # the V2E2V CLI's --num_pack_frames over the flagship clip's 12 frames: 3 packs
+
+
+def video_stages(path: Path, reps: int = 2) -> dict[str, list[float]]:
+    """Host ms per frame of each stage of a video's read, over every frame
+    of ``path`` ``reps`` times: demux (the file's headers and chunks, per
+    frame), entropy decode, dequantize + IDCT, YUV -> gray, the reader's
+    resize to a quarter."""
+    from v2e2v_tpu_torch.utils import jpeg, yuv
+    from v2e2v_tpu_torch.utils.avi import AviFile
+    from v2e2v_tpu_torch.utils.image_io import resize_linear_u8
+
+    ms = {k: [] for k in ("demux", "entropy", "idct", "convert", "resize")}
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        datas = list(AviFile(str(path)).frames())
+        ms["demux"].append(1e3 * (time.perf_counter() - t0) / len(datas))
+        tables = None
+        for data in datas:
+            t = [time.perf_counter()]
+            dec = jpeg.read_mjpeg_frame(data, str(path), tables)
+            t.append(time.perf_counter())
+            frame = jpeg.mjpeg_planes(dec)
+            t.append(time.perf_counter())
+            gray = yuv.yuvj420_to_gray(*frame.planes)
+            t.append(time.perf_counter())
+            resize_linear_u8(gray, (gray.shape[1] // 4, gray.shape[0] // 4))
+            t.append(time.perf_counter())
+            tables = frame.tables
+            for k, a, b in zip(("entropy", "idct", "convert", "resize"), t, t[1:]):
+                ms[k].append(1e3 * (b - a))
+    return ms
+
+
+def video_phase(seed: int, smi: str, root: Path, v2e2v_model: Path) -> dict:
+    """Phase 21: video files (ROADMAP item 4, MJPEG AVI). (a) every fixture
+    clip under ``tests/data/video`` read by the port's ``VideoReader`` and
+    ``VideoSequence`` against the JAX readers' records (frames, stamps,
+    hashes), the refused clip refused, and the host ms of each stage per
+    960x720 frame; (b) the V2E2V CLI with ``--reader_type video`` over the
+    flagship clip (960x720 read as 180x240), the main path with every count
+    set to 0 just before it, against the same CLI over a PNG folder of the
+    port's decoded frames, K3 and K1 held against their plain versions at
+    every call of that run. Returns (b)'s launches by row."""
+    import hashlib
+
+    from v2e2v_tpu_torch.data.manifests import VideoSequence
+    from v2e2v_tpu_torch.data.video_readers import VideoReader
+    from v2e2v_tpu_torch.utils.image_io import write_gray
+
+    t_phase = time.perf_counter()
+    root.mkdir(parents=True)
+    manifest = json.loads((VIDEO_FIXTURES / "manifest.json").read_text())["clips"]
+    recorded = np.load(VIDEO_FIXTURES / "reader_frames.npz")
+
+    def sha(a):
+        return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+    # (a) the fixtures against the JAX readers' records
+    bad, flagship = [], None
+    for name, want in sorted(manifest.items()):
+        path = str(VIDEO_FIXTURES / name)
+        reader = VideoReader((H, W))
+        if not want["ported"]:
+            try:
+                reader.initialize(path)
+                bad.append(name)
+                verdict = "read: FAIL"
+            except ValueError as e:
+                verdict = f"refused ({'pass' if 'item 4' in str(e) else 'FAIL'}): {e}"
+                if "item 4" not in str(e):
+                    bad.append(name)
+            say(f"[video] {name}: {verdict}")
+            continue
+        t0 = time.perf_counter()
+        reader.initialize(path)
+        read_s = time.perf_counter() - t0
+        got, ref = np.stack(reader.frames), recorded[name[:-4]]
+        pairs = list(VideoSequence(path))
+        full = [pairs[0][0]] + [p[1] for p in pairs]
+        shape_ok = got.shape == ref.shape
+        exact = float((got == ref).mean()) if shape_ok else 0.0
+        worst = int(np.abs(got.astype(int) - ref).max()) if shape_ok else -1
+        ok = (shape_ok and exact == 1.0 and reader.timestamps == want["timestamps"]
+              and [sha(f) for f in reader.frames] == want["reader_sha256"]
+              and [sha(f) for f in full] == want["sequence_sha256"])
+        if not ok:
+            bad.append(name)
+        if name == "flagship.avi":
+            flagship = reader
+        say(f"[video] {name}: fps {want['fps']}, count {want['frame_count']:.0f}, "
+            f"{reader.num_frames} frames read at {list(full[0].shape)} -> {list(got.shape[1:])} "
+            f"in {read_s:.3f} s; VideoReader against the JAX reader's frames: exact share "
+            f"{exact}, max |diff| {worst}; stamps, reader and VideoSequence hashes equal: "
+            f"{ok} {'pass' if ok else 'FAIL'}")
+    if bad or flagship is None:
+        fail(f"the port's video readers disagree with the JAX readers' records: {bad}")
+    stages = video_stages(VIDEO_FIXTURES / "flagship.avi")
+    per = {k: (float(np.median(v)), min(v), max(v)) for k, v in stages.items()}
+    total = sum(m for m, _, _ in per.values())
+    say(f"[time] video read on the card's host ({smi}), host ms per 960x720 MJPEG frame of "
+        f"the flagship clip, median (min-max) of {len(stages['entropy'])}: "
+        + ", ".join(f"{k} {m:.3f} ({lo:.3f}-{hi:.3f})" for k, (m, lo, hi) in per.items())
+        + f"; sum of medians {total:.3f} ms")
+
+    # (b) the V2E2V CLI over the flagship clip and over its PNG twin
+    clip = root / "video"
+    clip.mkdir()
+    shutil.copyfile(VIDEO_FIXTURES / "flagship.avi", clip / "flagship.avi")
+    fps = manifest["flagship.avi"]["fps"]
+    twin = root / "png" / "flagship" / "frames"
+    twin.mkdir(parents=True)
+    (twin / "timestamps.txt").write_text(
+        "".join(f"{i} {t!r}\n" for i, t in enumerate(flagship.timestamps)))
+    if flagship.timestamps != [i / fps for i in range(flagship.num_frames)]:
+        fail("the flagship clip's stamps are not i / fps")
+    for i, frame in enumerate(flagship.frames):
+        write_gray(str(twin / f"frame_{i:010d}.png"), frame)
+    pack = ("--num_pack_frames", str(VIDEO_PACK))
+    b = cli_against_twin(seed, v2e2v_model, root, (
+        ("video", clip, ("--reader_type", "video", *pack)), ("png", root / "png", pack)))
+    pairs, k3_errs, k1_errs = b["pairs"], b["k3_errs"], b["k1_errs"]
+    ok = b["ok"] and len(pairs) == 3
+    say(f"[video] V2E2V CLI --reader_type video over the flagship clip (960x720 read as {H}x{W}, "
+        f"{flagship.num_frames} frames, --num_pack_frames {VIDEO_PACK}) and its PNG twin (the "
+        f"port's frames, timestamps.txt at i/fps): {len(pairs)} packs, num_events "
+        f"{b['events']}; {b['files']} output files byte for byte equal, printed averages "
+        f"{b['printed']} equal: {b['same']}; main path (counts at 0 before the video run): K3 "
+        f"{b['k3']} (want one per frame pair, {sum(pairs)}), K1 {b['k1']} (want "
+        f"{2 * DEPTH * len(pairs)}), K2 {b['k2']}; in the twin run K3 against its plain version "
+        f"at each of {len(k3_errs)} calls: final and mem equal, voxel max_abs_err "
+        f"{max(e for e, _ in k3_errs):.3e} (tol 1e-5), K1 at each of {len(k1_errs)} calls: "
+        f"max_abs_err {max(e for e, _ in k1_errs):.3e} (tol {TOL[torch.float32]} + "
+        f"{TOL[torch.float32]} |ref|) {'pass' if ok else 'FAIL'}")
+    if not ok:
+        fail("the V2E2V CLI over the video clip did not run as over its PNG twin")
+    read_ms = 1e3 * b["reader_s"]["initialize"]
+    step_ms = sum(b["step_ms"])
+    say(f"[time] V2E2V CLI over the video ({smi}): the reader {read_ms:.3f} ms for the clip "
+        f"(host clock; {read_ms / flagship.num_frames:.3f} ms a frame, decode and resize), "
+        f"the model step {step_ms:.3f} ms for its {len(pairs)} packs (CUDA events, "
+        f"{step_ms / len(pairs):.3f} ms a pack): the reader is "
+        f"{read_ms / (read_ms + step_ms):.1%} of the two, {read_ms / step_ms:.2f}x the steps")
+    say(f"[phase] video files {time.perf_counter() - t_phase:.1f} s")
+    return {"v2e2v_cli_video_launches": b["rows"]}
 
 
 def main_path_k3_inputs(cfg, state, frames, ts, internal: bool):
@@ -4507,6 +4700,10 @@ def main() -> None:
         # CLIs over JPEG frames against their PNG twin
         jpeg_rows = jpeg_phase(args.seed, smi, shared / "jpeg", shared / "cli" / "model.pth.tar",
                                hfr["model"])
+
+        # 21. video files: the fixture clips against the JAX readers' records,
+        # the V2E2V CLI with --reader_type video against its PNG twin
+        video_rows = video_phase(args.seed, smi, shared / "video", hfr["model"])
     finally:
         shutil.rmtree(shared, ignore_errors=True)
 
@@ -4515,7 +4712,7 @@ def main() -> None:
     paths = {"v2e2v_cli_launches": hfr["rows"], "raw_launches": raw_rows,
              "tc_pool_launches": tc_rows, "e2v_train_launches": trained["e2v"],
              "v2e2v_train_launches_per_step": trained["v2e2v"], **fused_rows, **int8["rows"],
-             **slomo_rows, **dist_rows, **spatial_rows, **jpeg_rows}
+             **slomo_rows, **dist_rows, **spatial_rows, **jpeg_rows, **video_rows}
     for e in entries:
         if e["name"].startswith("ista_loop"):
             e.update(cli_k1[torch.float32 if "float32" in e["name"] else torch.bfloat16])

@@ -14,6 +14,7 @@ stretches to 255 levels, so one-ulp float differences cross a truncation
 
 import importlib.util
 import os
+import struct
 from pathlib import Path
 
 import jax
@@ -80,11 +81,13 @@ def _pngs(folder):
             for p in sorted(folder.rglob("*.png"))}
 
 
-def _compare_clis(setup, monkeypatch, capsys, tag, n_packs, *extra):
-    """Run both CLIs with ``extra`` and hold them to each other: the printed
-    averages, the previews and panels' input frames equal, the
-    reconstructions within one level on at most 0.5% of the pixels."""
-    root, data, model, jcli = setup
+def _compare_clis(setup, monkeypatch, capsys, tag, n_packs, *extra, data=None):
+    """Run both CLIs with ``extra`` (over ``data``, default the frame
+    folders) and hold them to each other: the printed averages, the
+    previews and panels' input frames equal, the reconstructions within one
+    level on at most 0.5% of the pixels."""
+    root, frames, model, jcli = setup
+    data = frames if data is None else data
     monkeypatch.setenv("V2E2V_PLATFORM", "cpu")
     extra = ("--is_write_event", "--display_test", *extra)
     tcli.main(_argv(data, model, root / f"port{tag}", *extra), noise_for_sequence=_jax_noise)
@@ -174,8 +177,55 @@ def test_checkpoint_v2e_params_override_the_flags(setup, monkeypatch):
     assert (got.pos_thres, got.pl, got.refractory_period_s) == (0.5, 1.4, 0.0005)
 
 
+def test_video_cli_matches_jax_cli(setup, monkeypatch, capsys):
+    """``--reader_type video`` over two MJPEG AVIs (``cv2.VideoWriter``,
+    13 frames at 160x128 and 240 fps, a dark moving scene whose gray stays
+    below 20, where ``lin_log`` is exact in both), read as 32x40, beside a
+    ``.txt`` and a hidden file that both CLIs skip: each reader's frames are
+    the other's, exactly, and the CLIs agree as over frame folders."""
+    import cv2
+
+    from v2e2v_tpu.data import video_readers as jvr
+    from v2e2v_tpu_torch.data import video_readers as tvr
+
+    root = setup[0]
+    videos = root / "videos"
+    videos.mkdir()
+    yy, xx = np.mgrid[0:128, 0:160].astype(np.float64)
+    for k, name in enumerate(("a_clip.avi", "b_clip.avi")):
+        vw = cv2.VideoWriter(str(videos / name), cv2.CAP_FFMPEG,
+                             cv2.VideoWriter_fourcc(*"MJPG"), 240.0, (160, 128))
+        for t in range(13):
+            wave = np.sin(xx / (9 + k) + yy / 13 - 0.6 * t) * np.cos(yy / 17 + 0.2 * t * k)
+            bgr = 8 + 5 * wave[..., None] * np.array([1.0, 0.8, 1.2])
+            vw.write(np.clip(np.rint(bgr), 0, 255).astype(np.uint8))
+        vw.release()
+    (videos / "notes.txt").write_text("not a video\n")
+    (videos / ".hidden").write_bytes(b"")
+    served = []
+    port_init, jax_init = tvr.VideoReader.initialize, jvr.VideoReader.initialize
+
+    def port_initialize(self, path, num_load_frames):
+        port_init(self, path, num_load_frames)
+        assert np.stack(self.frames).shape == (13, H, W) and max(map(np.max, self.frames)) < 20
+        served.append((os.path.basename(path), self.frames, self.timestamps))
+
+    def jax_initialize(self, path, num_load_frames):
+        jax_init(self, path, num_load_frames)
+        name, frames, stamps = served.pop(0)
+        assert name == os.path.basename(path) and self.timestamps == stamps
+        np.testing.assert_array_equal(np.stack(self.frames), np.stack(frames))
+
+    monkeypatch.setattr(tvr.VideoReader, "initialize", port_initialize)
+    monkeypatch.setattr(jvr.VideoReader, "initialize", jax_initialize)
+    _compare_clis(setup, monkeypatch, capsys, "_video", 2, "--reader_type", "video",
+                  data=videos)
+    assert not served
+
+
 UNSUPPORTED = [
-    (["--reader_type", "video"], {}, NotImplementedError, "item 4.*video decoder"),
+    (["--reader_type", "video", "--path_to_test_data", "<mp4>"], {}, ValueError,
+     "MP4/MOV.*item 4"),
     (["--quant", "int8"], {}, ValueError, "JAX V2E2V CLI .* does not read the flag"),
     (["--precision", "bfloat16"], {}, ValueError, "runs float32"),
     (["--model_mode", "cista-tc"], {}, ValueError, "cista-lstc"),
@@ -224,7 +274,16 @@ def test_run_flags_are_honoured(setup, plain_run, monkeypatch, capsys, tmp_path,
 @pytest.mark.parametrize("argv,env,error,match", UNSUPPORTED,
                          ids=["video", "int8", "bfloat16", "cista-tc", "bins"])
 def test_refused_flags_raise(setup, monkeypatch, argv, env, error, match):
+    """Each flag the CLI does not cover raises before anything is written;
+    ``--reader_type video`` over a file that is not MJPEG AVI (an MP4's
+    ``ftyp`` box) names ROADMAP item 4."""
     root, data, model, _ = setup
+    if "<mp4>" in argv:
+        mp4 = root / "mp4"
+        mp4.mkdir(exist_ok=True)
+        (mp4 / "clip.mp4").write_bytes(struct.pack(">I4s4sI4s4s", 24, b"ftyp", b"isom", 512,
+                                                   b"isom", b"avc1") + bytes(64))
+        argv = [str(mp4) if a == "<mp4>" else a for a in argv]
     monkeypatch.setenv("V2E2V_PLATFORM", "cpu")
     for k, v in env.items():
         monkeypatch.setenv(k, v)

@@ -41,7 +41,8 @@ def test_importing_the_port_loads_no_jax():
         "import v2e2v_tpu_torch.ops.fused\n"
         "import v2e2v_tpu_torch.runtime, v2e2v_tpu_torch.data.event_readers\n"
         "import v2e2v_tpu_torch.data.video_readers, v2e2v_tpu_torch.utils.image_io\n"
-        "import v2e2v_tpu_torch.utils.jpeg\n"
+        "import v2e2v_tpu_torch.utils.jpeg, v2e2v_tpu_torch.utils.avi\n"
+        "import v2e2v_tpu_torch.utils.yuv, v2e2v_tpu_torch.utils.video\n"
         "import v2e2v_tpu_torch.utils.evaluate, v2e2v_tpu_torch.utils.data_io\n"
         "import v2e2v_tpu_torch.utils.configs, v2e2v_tpu_torch.utils.profiling\n"
         "import v2e2v_tpu_torch.cli.test_e2v, v2e2v_tpu_torch.data.synthetic\n"

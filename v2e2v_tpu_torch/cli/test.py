@@ -6,7 +6,10 @@
 For every sequence folder under ``--path_to_test_data`` (frames and
 ``timestamps.txt``): read the HFR frames (or, with ``--reader_type
 upsampling``, LFR frames upsampled by Super-SloMo on the run's device,
-``data/interpolating_reader.py``) pack by pack, emulate events (the
+``data/interpolating_reader.py``; with ``--reader_type video``, every file
+there that is not hidden and not a ``.txt``, each an MJPEG AVI whose gray
+frames are shrunk to a quarter, ``data/video_readers.VideoReader``) pack by
+pack, emulate events (the
 emulator's iteration loop is kernel K3, one launch per frame pair) and
 reconstruct one frame per pack with CISTA-LSTC (its ISTA loop is kernel
 K1, 2 x depth launches), write the min-max-normalised PNGs, the red-blue event
@@ -36,7 +39,7 @@ import numpy as np
 import torch
 
 from ..models.emulator import GeneratorNoise, Noise
-from .test_e2v import make_reader, missing
+from .test_e2v import make_reader
 
 V2E_PARAMS = ("C", "ps", "pl", "cutoff_hz", "qs", "ql", "refractory_period_s")
 CHECKPOINT_SUFFIXES = (".pth.tar", ".pth", ".pt")
@@ -45,10 +48,6 @@ CHECKPOINT_SUFFIXES = (".pth.tar", ".pth", ".pt")
 def check_flags(cfgs) -> None:
     """Raise on every flag (or environment variable) this CLI does not cover
     yet."""
-    if cfgs.reader_type == "video":
-        missing("--reader_type video", 4,
-                "it needs a video decoder (cv2.VideoCapture in the JAX package), which the "
-                "port does not have")
     if getattr(cfgs, "quant", "none") != "none":
         raise ValueError(f"--quant {cfgs.quant}: the JAX V2E2V CLI (test.py) does not read the "
                          "flag; int8 inference runs in the E2V CLI (cli.test_e2v)")
@@ -84,12 +83,17 @@ class V2E2V:
         self.num_pack_frames = cfgs.num_pack_frames
         self.num_load_frames = cfgs.test_img_num
         self.test_data_name = cfgs.test_data_name
-        self.path_to_sequences = sorted(
-            os.path.join(cfgs.path_to_test_data, d)
-            for d in os.listdir(cfgs.path_to_test_data)
-            if os.path.isdir(os.path.join(cfgs.path_to_test_data, d))
-        )
-        self.video_renderer = make_reader(cfgs, self.device)
+        root = cfgs.path_to_test_data
+        if cfgs.reader_type == "video":  # test.py:33-43
+            self.path_to_sequences = sorted(
+                os.path.join(root, f) for f in os.listdir(root)
+                if os.path.isfile(os.path.join(root, f)) and not f.startswith(".")
+                and f.rsplit(".", 1)[-1] != "txt")
+        else:
+            self.path_to_sequences = sorted(
+                os.path.join(root, d) for d in os.listdir(root)
+                if os.path.isdir(os.path.join(root, d)))
+        self.video_renderer = make_reader(cfgs, self.device, video_files=True)
 
         path = cfgs.path_to_test_model
         if not path.endswith(CHECKPOINT_SUFFIXES):

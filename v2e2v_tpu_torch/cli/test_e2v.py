@@ -48,12 +48,16 @@ def missing(what: str, item: int, why: str = "") -> None:
     )
 
 
-def make_reader(cfgs, device: torch.device, **kw):
+def make_reader(cfgs, device: torch.device, video_files: bool = False, **kw):
     """The frame reader of ``--reader_type``: Super-SloMo upsampling on
-    ``device``, or the frame folder as it is."""
+    ``device``, a video file's frames shrunk to a quarter (``video``, where
+    the CLI reads video files, as test.py does and test_e2v.py does not), or
+    the frame folder as it is."""
     from ..data.interpolating_reader import InterpolatingReader
-    from ..data.video_readers import ImageReader
+    from ..data.video_readers import ImageReader, VideoReader
 
+    if video_files and cfgs.reader_type == "video":
+        return VideoReader(cfgs.image_dim, ds=(0.25, 0.25))
     if cfgs.reader_type == "upsampling":
         return InterpolatingReader(cfgs.image_dim, time_unit=cfgs.time_unit, device=device, **kw)
     return ImageReader(cfgs.image_dim, time_unit=cfgs.time_unit, **kw)

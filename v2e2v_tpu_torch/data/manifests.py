@@ -161,16 +161,25 @@ class ImageSequence:
 
 
 class VideoSequence:
-    """Consecutive frame pairs of a video file: not ported. It needs a video
-    decoder (``cv2.VideoCapture`` in the JAX package), which the port does
-    not have."""
+    """Yield consecutive gray frame pairs of a video file at its native fps,
+    full size, stamped ``(idx - 1) / fps`` and ``idx / fps``
+    (``utils/video.VideoFile``: MJPEG AVI, as ``cv2.VideoCapture`` reads
+    it)."""
 
     def __init__(self, path_to_video: str):
-        raise NotImplementedError(
-            f"VideoSequence({path_to_video!r}) is not ported yet (ROADMAP.md queue 1, item 4): "
-            "it needs a video decoder (cv2.VideoCapture in the JAX package), which the port "
-            "does not have"
-        )
+        self.path = path_to_video
+
+    def __iter__(self):
+        from ..utils.video import VideoFile
+
+        video = VideoFile(self.path)
+        fps = video.fps
+        prev, idx = None, 0
+        for gray in video:
+            if prev is not None:
+                yield prev, gray, (idx - 1) / fps, idx / fps
+            prev = gray
+            idx += 1
 
 
 def make_train_e2v_txt(data_dir: str, txt_name: str = "train_e2v.txt") -> int:

@@ -12,8 +12,9 @@
 - ``ImageReader``: a lazy grayscale frame-folder reader on
   ``utils/image_io.read_gray`` (PNG and JPEG frames, as ``cv2.imread`` reads
   them).
-
-``VideoReader`` (a video file through ``cv2.VideoCapture``) is not ported.
+- ``VideoReader``: a video file's frames, gray, shrunk by ``ds`` and
+  transposed when portrait, on ``utils/video.VideoFile`` (MJPEG AVI, as
+  ``cv2.VideoCapture`` reads it).
 """
 
 from __future__ import annotations
@@ -23,7 +24,8 @@ import os
 import numpy as np
 
 from ..ops.voxel import voxelize_and_preprocess_np
-from ..utils.image_io import read_gray
+from ..utils.image_io import read_gray, resize_linear_u8
+from ..utils.video import VideoFile
 from .event_readers import NpzEventReader, RefTimeEventReader
 
 _TS_NAMES = ("timestamps.txt", "images.txt", "timestamp.txt")
@@ -209,6 +211,50 @@ class ImageReader(PackReader):
     def update_frame(self):
         frame = read_gray(self.path_to_frames[self.frame_id])
         frame = frame[: self.height, : self.width]
+        t = self.timestamps[self.frame_id]
+        self.frame_id += 1
+        return frame, t
+
+
+class VideoReader(PackReader):
+    """HFR video-file reader (grayscale, downscaled, portrait transposed),
+    the JAX ``VideoReader`` line for line: a positive ``num_load_frames`` N
+    loads N + 1 frames (the loop stops once its count passes N), each frame
+    stamped ``count / fps``."""
+
+    def __init__(self, image_dim, ds=(0.25, 0.25)):
+        super().__init__(image_dim)
+        self.ds = ds
+
+    def initialize(self, path_to_video: str, num_load_frames: int = -1):
+        video = VideoFile(path_to_video)
+        fps = video.fps
+        total = video.frame_count
+        num_load_frames = total if num_load_frames < 0 else num_load_frames
+
+        self.frames, self.timestamps = [], []
+        count = 0
+        frames = iter(video)
+        while count <= num_load_frames:  # checked before a frame is decoded
+            gray = next(frames, None)
+            if gray is None:
+                break
+            self.timestamps.append(count / fps)
+            count += 1
+            transpose = gray.shape[0] > gray.shape[1]
+            gray = resize_linear_u8(
+                gray, (int(gray.shape[1] * self.ds[1]), int(gray.shape[0] * self.ds[0])))
+            if transpose:
+                gray = gray.T
+            self.frames.append(gray)
+
+        self.num_frames = len(self.frames)
+        self.prev_ts_cache.fill(0)
+        self.frame_id = 0
+        self.ending = False
+
+    def update_frame(self):
+        frame = self.frames[self.frame_id]
         t = self.timestamps[self.frame_id]
         self.frame_id += 1
         return frame, t

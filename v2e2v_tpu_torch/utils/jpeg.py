@@ -1,4 +1,5 @@
-"""Gray JPEG frames with numpy and plain Python.
+"""JPEG frames with numpy and plain Python: gray still images as libjpeg
+decodes them, and colour MJPEG video frames as FFmpeg decodes them.
 
 ``decode_jpeg_gray`` returns what ``cv2.imread(path, cv2.IMREAD_GRAYSCALE)``
 returns for a JPEG file, bit for bit: libjpeg's ``JCS_GRAYSCALE`` output, which
@@ -30,6 +31,10 @@ entropy-coded data (which libjpeg pads with zeros, with a warning). It also
 refuses coefficients and IDCT values outside the range where libjpeg-turbo's
 C IDCT and its SIMD one (16-bit lanes, saturating packs) agree, which no
 encoder's output reaches.
+
+``decode_mjpeg_frame`` (below, for ``utils/video.py``) shares the markers and
+the entropy decoding, keeps every component's blocks, and takes FFmpeg's
+DC offset and IDCT instead of libjpeg's; it reads baseline frames only.
 """
 
 from __future__ import annotations
@@ -53,6 +58,8 @@ FIX_0_298631336, FIX_0_390180644, FIX_0_541196100 = 2446, 3196, 4433
 FIX_0_765366865, FIX_0_899976223, FIX_1_175875602 = 6270, 7373, 9633
 FIX_1_501321110, FIX_1_847759065, FIX_1_961570560 = 12299, 15137, 16069
 FIX_2_053119869, FIX_2_562915447, FIX_3_072711026 = 16819, 20995, 25172
+
+_ZIGZAG = np.argsort(NATURAL)  # natural index -> zigzag index
 
 RANGE_MASK = 1023  # MAXJSAMPLE * 4 + 3
 
@@ -154,11 +161,16 @@ def _lookahead_words(seg: bytes) -> array.array:
 
 
 class _Component:
-    __slots__ = ("cid", "index", "h", "v", "tq", "qtable")
+    """One SOF component. ``base`` is the zz offset of its first block and
+    ``gw`` its block grid's width (MCU-padded); ``base`` is None for a
+    component whose blocks are written to the scratch block and forgotten."""
+
+    __slots__ = ("cid", "index", "h", "v", "tq", "qtable", "base", "gw", "gh")
 
     def __init__(self, cid, index, h, v, tq):
         self.cid, self.index, self.h, self.v, self.tq = cid, index, h, v, tq
         self.qtable = None
+        self.base = self.gw = self.gh = None
 
 
 class _Scan:
@@ -178,17 +190,22 @@ STRIDE = 80  # per block: 64 coefficients in zigzag order, then room for a run p
 
 
 class _Decoder:
-    """One file's decode. The Y component's coefficients live in ``zz``, a
-    flat list of ``STRIDE`` slots per block in zigzag order, with one more
-    block at the end where the chroma blocks are written and forgotten; a
+    """One file's decode. The coefficients live in ``zz``, a flat array of
+    ``STRIDE`` slots per block in zigzag order: the Y component's blocks, then
+    (with ``colour``) each chroma component's, then one more block where the
+    blocks of components that are not kept are written and forgotten; a
     corrupt run past a block's end lands in its last 16 slots, which must
-    stay 0."""
+    stay 0. ``tables`` gives the DC, AC and quantization tables in force
+    before the first marker (a video decoder's, which persist from frame to
+    frame)."""
 
-    def __init__(self, data: bytes, path: str):
-        self.data, self.path = data, path
-        self.qtables: dict[int, np.ndarray] = {}
-        self.dc_tables: dict[int, array.array] = {}
-        self.ac_tables: dict[int, array.array] = {}
+    def __init__(self, data: bytes, path: str, colour: bool = False,
+                 tables: tuple[dict, dict, dict] | None = None):
+        self.data, self.path, self.colour = data, path, colour
+        dc, ac, q = tables if tables is not None else ({}, {}, {})
+        self.dc_tables: dict[int, array.array] = dict(dc)
+        self.ac_tables: dict[int, array.array] = dict(ac)
+        self.qtables: dict[int, np.ndarray] = dict(q)
         self.restart = 0
         self.comps: list[_Component] = []
         self.progressive = None
@@ -210,6 +227,12 @@ class _Decoder:
         return data[pos + 2:pos + length], pos + length
 
     def decode(self) -> np.ndarray:
+        self.read()
+        return self.output()
+
+    def read(self) -> None:
+        """Every marker to EOI: the tables, the frame header and the scans'
+        coefficients."""
         data, path = self.data, self.path
         if data[:2] != b"\xff\xd8":
             raise ValueError(f"{path}: not a JPEG file")
@@ -255,7 +278,6 @@ class _Decoder:
             raise _corrupt(path, "no frame header (SOF)")
         if self.y_scans == 0:
             raise _corrupt(path, "no scan of the Y component")
-        return self.output()
 
     def sof(self, body: bytes, progressive: bool) -> None:
         path = self.path
@@ -277,6 +299,9 @@ class _Decoder:
             raise _refuse(path, f"{n} components")
         if len(body) != 6 + 3 * n:
             raise _corrupt(path, "an SOF segment of the wrong length")
+        if self.colour and progressive:
+            raise _refuse(path, "a progressive frame in a video (FFmpeg's MJPEG decoder reads "
+                          "it, the port's does not)")
         for i in range(n):
             cid, hv, tq = body[6 + 3 * i:9 + 3 * i]
             h, v = hv >> 4, hv & 15
@@ -295,8 +320,12 @@ class _Decoder:
         self.mcus_x = -(-width // (8 * self.hmax))
         self.mcus_y = -(-height // (8 * self.vmax))
         self.bx, self.by = self.mcus_x * y.h, self.mcus_y * y.v  # Y blocks, MCU-padded
-        self.zz = [0] * ((self.bx * self.by + 1) * STRIDE)
-        self.scratch = self.bx * self.by * STRIDE
+        blocks = 0
+        for c in (self.comps if self.colour else self.comps[:1]):
+            c.base, c.gw, c.gh = blocks * STRIDE, self.mcus_x * c.h, self.mcus_y * c.v
+            blocks += c.gw * c.gh
+        self.zz = array.array("q", bytes(8 * (blocks + 1) * STRIDE))
+        self.scratch = blocks * STRIDE
         # progressive: the Y coefficients' missing bits (-1: never sent)
         self.coef_bits = [-1] * 64
 
@@ -396,47 +425,29 @@ class _Decoder:
     def scan(self, scan: _Scan, pos: int) -> int:
         path = self.path
         has_y = any(c.index == 0 for c, _, _ in scan.comps)
+        kept = has_y or any(c.base is not None for c, _, _ in scan.comps)
         segments, rsts, end = self.split(pos)
-        if not has_y:
-            return end  # chroma alone: nothing of the Y plane
-        self.y_scans += 1
-        if self.y_scans > 1 and not self.progressive:
-            raise _corrupt(path, "a second sequential scan of the Y component")
+        if not kept:
+            return end  # chroma alone, not kept: nothing of the planes wanted
+        if has_y:
+            self.y_scans += 1
+            if self.y_scans > 1 and not self.progressive:
+                raise _corrupt(path, "a second sequential scan of the Y component")
         for _c, td, ta in scan.comps:
             dc = scan.ss == 0 and scan.ah == 0
             if (dc and td not in self.dc_tables) or (
                     (scan.se > 0) and ta not in self.ac_tables):
                 raise _corrupt(path, f"no Huffman table {td if dc else ta} for a scan")
-        if len(scan.comps) == 1:
-            c = scan.comps[0][0]
-            # a scan of one component walks that component's own blocks
-            bw = -(-(-(-self.width * c.h // self.hmax)) // 8)
-            bh = -(-(-(-self.height * c.v // self.vmax)) // 8)
-            n_mcus = bw * bh
-            bx = self.bx
-
-            def mcu(m):  # one block: its Y block offset in zz
-                return ((m // bw) * bx + m % bw) * STRIDE
-            layout = [(0, 0)]
-        else:
-            n_mcus = self.mcus_x * self.mcus_y
-            mx, bx = self.mcus_x, self.bx
-            hy, vy = self.comps[0].h, self.comps[0].v
-
-            def mcu(m):  # the MCU's first Y block's offset in zz
-                return ((m // mx) * vy * bx + (m % mx) * hy) * STRIDE
-            # (component in scan, offset of the block from the MCU's first Y
-            # block, or None for a chroma block)
-            layout = [(k, ((v * bx + h) * STRIDE) if c.index == 0 else None)
-                      for k, (c, _, _) in enumerate(scan.comps)
-                      for v in range(c.v) for h in range(c.h)]
+        offs = self.block_offsets(scan)
+        n_mcus = len(offs)
         interval = self.restart
         n_seg = -(-n_mcus // interval) if interval else 1
         if len(segments) != n_seg or any(r != i % 8 for i, r in enumerate(rsts)):
             raise _corrupt(path, f"{len(rsts)} restart markers where the scan needs "
                            f"{n_seg - 1}, numbered 0-7 in turn")
         if self.progressive:
-            self.check_progression(scan)
+            if has_y:
+                self.check_progression(scan)
             run = self.progressive_segment
         else:
             run = self.baseline_segment
@@ -447,7 +458,7 @@ class _Decoder:
         for seg in segments:
             count = min(interval, n_mcus - first) if interval else n_mcus
             try:
-                used = run(scan, mcu, layout, look, 8 * start, first, count) - 8 * start
+                used = run(scan, offs, look, 8 * start, first, count) - 8 * start
             except IndexError:  # read far past the scan's end
                 used = 8 * len(seg) + 1
             if used > 8 * len(seg):
@@ -456,17 +467,40 @@ class _Decoder:
             start += len(seg)
         return end
 
-    def baseline_segment(self, scan, mcu, layout, look, p, first, count) -> int:
+    def block_offsets(self, scan: _Scan) -> list[list[tuple[int, int]]]:
+        """The scan's MCUs in the order they are coded, each as its blocks:
+        (the component's place in the scan, the block's zz offset or the
+        scratch block's). A scan of one component walks that component's own
+        blocks, one to an MCU; an interleaved scan walks the MCUs, each
+        holding every component's h x v blocks."""
+        if len(scan.comps) == 1:
+            c = scan.comps[0][0]
+            bw = -(-(-(-self.width * c.h // self.hmax)) // 8)
+            bh = -(-(-(-self.height * c.v // self.vmax)) // 8)
+            if c.base is None:
+                return [[(0, self.scratch)]] * (bw * bh)
+            m = np.arange(bw * bh)
+            offs = c.base + ((m // bw) * c.gw + m % bw) * STRIDE
+            return [[(0, o)] for o in offs.tolist()]
+        my, mx = np.divmod(np.arange(self.mcus_x * self.mcus_y), self.mcus_x)
+        ks, cols = [], []
+        for k, (c, _, _) in enumerate(scan.comps):
+            for v in range(c.v):
+                for h in range(c.h):
+                    ks.append(k)
+                    cols.append(np.full(len(mx), self.scratch) if c.base is None else
+                                c.base + ((my * c.v + v) * c.gw + mx * c.h + h) * STRIDE)
+        return [list(zip(ks, row)) for row in np.stack(cols, 1).tolist()]
+
+    def baseline_segment(self, scan, offs, look, p, first, count) -> int:
         """``jdhuff.c::decode_mcu``: one restart interval of a sequential
         scan from bit ``p``. Returns the bit it ends at."""
-        zz, scratch, path = self.zz, self.scratch, self.path
+        zz, path = self.zz, self.path
         dcs = [self.dc_tables[td] for _, td, _ in scan.comps]
         acs = [self.ac_tables[ta] for _, _, ta in scan.comps]
         pred = [0] * len(scan.comps)
-        for m in range(first, first + count):
-            y0 = mcu(m)
-            for k, dy in layout:
-                base = scratch if dy is None else y0 + dy
+        for blocks in offs[first:first + count]:
+            for k, base in blocks:
                 e = dcs[k][look[p]]
                 if e & FAST:
                     p += e & 31
@@ -523,7 +557,7 @@ class _Decoder:
                 raise _corrupt(self.path, f"a bogus progression at coefficient {k}")
             bits[k] = scan.al
 
-    def progressive_segment(self, scan, mcu, layout, look, p, first, count) -> int:
+    def progressive_segment(self, scan, offs, look, p, first, count) -> int:
         """``jdphuff.c``'s four scan kinds over one restart interval from bit
         ``p``. Returns the bit it ends at."""
         zz, scratch, path = self.zz, self.scratch, self.path
@@ -531,9 +565,8 @@ class _Decoder:
         if ss == 0 and ah == 0:  # DC first
             tabs = [self.dc_tables[td] for _, td, _ in scan.comps]
             pred = [0] * len(scan.comps)
-            for m in range(first, first + count):
-                y0 = mcu(m)
-                for k, dy in layout:
+            for blocks in offs[first:first + count]:
+                for k, base in blocks:
                     e = tabs[k][look[p]]
                     if e & FAST:
                         p += e & 31
@@ -552,26 +585,24 @@ class _Decoder:
                         d = ((d + 0x80000000) & 0xFFFFFFFF) - 0x80000000
                     pred[k] = d
                     d <<= al
-                    zz[scratch if dy is None else y0 + dy] = (
-                        d if -0x8000 <= d <= 0x7FFF else _wrap16(d))
+                    zz[base] = d if -0x8000 <= d <= 0x7FFF else _wrap16(d)
             return p
         if ss == 0:  # DC refine: a bit a block
             p1 = 1 << al
-            for m in range(first, first + count):
-                y0 = mcu(m)
-                for _k, dy in layout:
-                    if look[p] >> 15 and dy is not None:
-                        zz[y0 + dy] = _wrap16(zz[y0 + dy] | p1)
+            for blocks in offs[first:first + count]:
+                for _k, base in blocks:
+                    if look[p] >> 15 and base != scratch:
+                        zz[base] = _wrap16(zz[base] | p1)
                     p += 1
             return p
         ac = self.ac_tables[scan.comps[0][2]]
         eobrun = 0
         if ah == 0:  # AC first
-            for m in range(first, first + count):
+            for blocks in offs[first:first + count]:
                 if eobrun:
                     eobrun -= 1
                     continue
-                base = mcu(m)
+                base = blocks[0][1]
                 i = ss
                 while i <= se:
                     e = ac[look[p]]
@@ -606,8 +637,8 @@ class _Decoder:
             return p
         # AC refine
         p1, m1 = 1 << al, -(1 << al)
-        for m in range(first, first + count):
-            base = mcu(m)
+        for blocks in offs[first:first + count]:
+            base = blocks[0][1]
             i = ss
             if eobrun == 0:
                 while i <= se:
@@ -667,6 +698,15 @@ class _Decoder:
 
     # -------------------------------------------------------------- output
 
+    def coefficients(self) -> np.ndarray:
+        """Every kept block's coefficients, ``[blocks, 64]`` in natural
+        order, as 16-bit JCOEFs, component after component."""
+        zz = np.frombuffer(self.zz, np.int64).reshape(-1, STRIDE)
+        if zz[:, 64:].any():
+            raise _corrupt(self.path, "a run past the end of a block")
+        # the zigzag order undone; astype(int16) wraps as a JCOEF store does
+        return zz[:-1, _ZIGZAG].astype(np.int16).astype(np.int64)
+
     def output(self) -> np.ndarray:
         path, y = self.path, self.comps[0]
         if self.progressive and self.coef_bits[0] >= 0 and any(self.coef_bits[1:10]):
@@ -674,11 +714,7 @@ class _Decoder:
             # the first 10 coefficients still misses bits
             raise _refuse(path, "a progressive file whose first AC coefficients are not all "
                           "sent in full (libjpeg smooths its blocks)")
-        zz = np.frombuffer(array.array("q", self.zz), np.int64).reshape(-1, STRIDE)
-        if zz[:, 64:].any():
-            raise _corrupt(path, "a run past the end of a block")
-        coef = np.zeros((len(zz) - 1, 64), np.int64)
-        coef[:, list(NATURAL)] = ((zz[:-1, :64] + 0x8000) & 0xFFFF) - 0x8000  # JCOEF
+        coef = self.coefficients()
         q = y.qtable
         if int(q.max()) > 0x7FFF:
             raise _refuse(path, "a quantization value above 32767")
@@ -749,3 +785,145 @@ def decode_jpeg_gray(data: bytes, path: str = "<bytes>") -> np.ndarray:
     """A JPEG file's bytes -> ``[H, W]`` uint8 gray, as
     ``cv2.imread(path, cv2.IMREAD_GRAYSCALE)`` (see the module's notes)."""
     return _Decoder(bytes(data), path).decode()
+
+
+# ------------------------------------------------------------ video frames
+#
+# A video's MJPEG frames are decoded as FFmpeg's MJPEG decoder
+# (libavcodec/mjpegdec.c) decodes them, which is what cv2.VideoCapture reads
+# an AVI through: its Huffman tables start as the standard ones of ITU-T T.81
+# Annex K.3 and, with the quantization tables, persist from frame to frame;
+# the DC prediction starts at 1024 (4 << bits) in the dequantized domain, so
+# the +128 level shift goes through the IDCT; the IDCT is libavcodec's
+# simple_idct for 8-bit samples (simple_idct_template.c). Each component's
+# plane comes out at its own sampling.
+
+# ITU-T T.81 Annex K.3: (16 code counts, symbols) of the standard tables
+STD_DC_LUMA = (bytes((0, 1, 5, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0)), bytes(range(12)))
+STD_DC_CHROMA = (bytes((0, 3, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0)), bytes(range(12)))
+STD_AC_LUMA = (bytes((0, 2, 1, 3, 3, 2, 4, 3, 5, 5, 4, 4, 0, 0, 1, 0x7D)), bytes.fromhex(
+    "01020300041105122131410613516107227114328191a1082342b1c11552d1f02433627282090a161718191a"
+    "25262728292a3435363738393a434445464748494a535455565758595a636465666768696a737475767778"
+    "797a838485868788898a92939495969798999aa2a3a4a5a6a7a8a9aab2b3b4b5b6b7b8b9bac2c3c4c5c6c7"
+    "c8c9cad2d3d4d5d6d7d8d9dae1e2e3e4e5e6e7e8e9eaf1f2f3f4f5f6f7f8f9fa"))
+STD_AC_CHROMA = (bytes((0, 2, 1, 2, 4, 4, 3, 4, 7, 5, 4, 4, 0, 1, 2, 0x77)), bytes.fromhex(
+    "000102031104052131061241510761711322328108144291a1b1c109233352f0156272d10a162434e125f1"
+    "1718191a262728292a35363738393a434445464748494a535455565758595a636465666768696a73747576"
+    "7778797a82838485868788898a92939495969798999aa2a3a4a5a6a7a8a9aab2b3b4b5b6b7b8b9bac2c3c4"
+    "c5c6c7c8c9cad2d3d4d5d6d7d8d9dae2e3e4e5e6e7e8e9eaf2f3f4f5f6f7f8f9fa"))
+
+
+def standard_tables() -> tuple[dict, dict, dict]:
+    """FFmpeg's MJPEG decoder's tables before any DHT or DQT
+    (``mjpegdec.c::init_default_huffman_tables``): DC and AC tables 0 the
+    luminance ones of Annex K.3, 1 the chrominance ones; no quantization
+    table."""
+    return ({0: _lookahead(b"".join(STD_DC_LUMA), True),
+             1: _lookahead(b"".join(STD_DC_CHROMA), True)},
+            {0: _lookahead(b"".join(STD_AC_LUMA), False),
+             1: _lookahead(b"".join(STD_AC_CHROMA), False)}, {})
+
+
+# simple_idct_template.c at 8 bits: Wi = round(cos(i pi / 16) sqrt(2) 2^14),
+# W4 one below its rounded value
+W1, W2, W3, W4, W5, W6, W7 = 22725, 21407, 19266, 16383, 12873, 8867, 4520
+ROW_SHIFT, COL_SHIFT, DC_SHIFT = 11, 20, 3
+
+
+def _simple_idct_1d(d, bias: int):
+    """The even and odd parts of one simple_idct pass over ``d[0..7]``, the
+    rounding ``bias`` added to the even part; its 8 outputs before the
+    shift."""
+    a0 = W4 * d[0] + bias
+    a1, a2, a3 = a0 + W6 * d[2], a0 - W6 * d[2], a0 - W2 * d[2]
+    a0 = a0 + W2 * d[2]
+    a0, a1 = a0 + W4 * d[4] + W6 * d[6], a1 - W4 * d[4] - W2 * d[6]
+    a2, a3 = a2 - W4 * d[4] + W2 * d[6], a3 + W4 * d[4] - W6 * d[6]
+    b0 = W1 * d[1] + W3 * d[3] + W5 * d[5] + W7 * d[7]
+    b1 = W3 * d[1] - W7 * d[3] - W1 * d[5] - W5 * d[7]
+    b2 = W5 * d[1] - W1 * d[3] + W7 * d[5] + W3 * d[7]
+    b3 = W7 * d[1] - W5 * d[3] + W3 * d[5] - W1 * d[7]
+    return (a0 + b0, a1 + b1, a2 + b2, a3 + b3, a3 - b3, a2 - b2, a1 - b1, a0 - b0)
+
+
+# the pass as a matrix: output j = sum_k _SIMPLE[j, k] * d[k] (+ bias). Its
+# sums are integers below 2^53, so float64 products give them exactly.
+_SIMPLE = np.array(_simple_idct_1d(np.eye(8, dtype=np.int64), 0), np.float64)
+
+
+def _simple_pass(x: np.ndarray, bias: int, shift: int, path: str) -> np.ndarray:
+    """One pass over the last axis of ``x``: the 8 sums, ``>> shift``. A sum
+    that leaves 32 bits, where C's wrapping arithmetic would part from
+    these exact sums, is refused (no encoder's output comes near)."""
+    sums = x @ _SIMPLE.T + bias
+    if np.abs(sums).max(initial=0) >= 2.0 ** 31:
+        raise _refuse(path, "IDCT sums outside 32 bits")
+    return np.floor(sums / (1 << shift)).astype(np.int64)
+
+
+def idct_simple(deq: np.ndarray, path: str = "<bytes>") -> np.ndarray:
+    """libavcodec's ``ff_simple_idct_put_int16_8bit`` on ``[N, 64]``
+    dequantized coefficients (row-major, the level shift already in the DC)
+    -> ``[N, 64]`` uint8 samples: ``idctRowCondDC`` over each row (a row with
+    no AC term becomes its DC << 3), its outputs stored as 16 bits, then
+    ``idctSparseColPut`` over each column, clipped to 0..255."""
+    x = deq.reshape(-1, 8, 8).astype(np.int64)
+    if np.abs(x).max(initial=0) > 0x7FFF:
+        raise _refuse(path, "coefficients outside 16 bits")
+    rows = _simple_pass(x.astype(np.float64), 1 << (ROW_SHIFT - 1), ROW_SHIFT, path)
+    dc_only = ~x[:, :, 1:].any(axis=2)
+    rows = np.where(dc_only[:, :, None], x[:, :, :1] << DC_SHIFT, rows)  # [N, row, column]
+    if np.abs(rows).max(initial=0) > 0x7FFF:
+        raise _refuse(path, "IDCT intermediate values outside 16 bits")
+    # the column pass's rounding: W4 * (col[0] + (1 << (COL_SHIFT - 1)) / W4)
+    bias = W4 * ((1 << (COL_SHIFT - 1)) // W4)
+    cols = _simple_pass(rows.transpose(0, 2, 1).astype(np.float64), bias, COL_SHIFT, path)
+    return np.clip(cols.transpose(0, 2, 1), 0, 255).astype(np.uint8).reshape(-1, 64)
+
+
+class MjpegFrame:
+    """One decoded MJPEG frame: ``planes`` (Y, Cb, Cr, or Y alone) as uint8
+    arrays at their own sampling, ``factors`` each plane's (h, v) sampling
+    factors, and ``tables`` the decoder's tables after the frame, in force
+    for the next one."""
+
+    def __init__(self, planes, factors, tables):
+        self.planes, self.factors, self.tables = planes, factors, tables
+
+
+def read_mjpeg_frame(data: bytes, path: str = "<bytes>",
+                     tables: tuple[dict, dict, dict] | None = None) -> _Decoder:
+    """An MJPEG frame's markers and entropy-coded data: the decoder holding
+    its coefficients (``decode_mjpeg_frame``'s first half)."""
+    dec = _Decoder(bytes(data), path, colour=True,
+                   tables=standard_tables() if tables is None else tables)
+    dec.read()
+    return dec
+
+
+def mjpeg_planes(dec: _Decoder) -> MjpegFrame:
+    """The decoded coefficients dequantized and through FFmpeg's IDCT, each
+    component's plane cropped to its own sampling (``decode_mjpeg_frame``'s
+    second half)."""
+    coef = dec.coefficients()
+    planes, start = [], 0
+    for c in dec.comps:
+        n = c.gw * c.gh
+        deq = coef[start:start + n] * c.qtable
+        deq[:, 0] += 4 << 8  # mjpegdec.c: last_dc starts at 4 << bits
+        px = idct_simple(deq, dec.path)
+        plane = px.reshape(c.gh, c.gw, 8, 8).transpose(0, 2, 1, 3).reshape(c.gh * 8, c.gw * 8)
+        h = -(-dec.height * c.v // dec.vmax)
+        w = -(-dec.width * c.h // dec.hmax)
+        planes.append(np.ascontiguousarray(plane[:h, :w]))
+        start += n
+    return MjpegFrame(planes, [(c.h, c.v) for c in dec.comps],
+                      (dec.dc_tables, dec.ac_tables, dec.qtables))
+
+
+def decode_mjpeg_frame(data: bytes, path: str = "<bytes>",
+                       tables: tuple[dict, dict, dict] | None = None) -> MjpegFrame:
+    """An MJPEG frame's bytes -> its planes as FFmpeg's MJPEG decoder gives
+    them (see the notes above). ``tables``: the tables the previous frame
+    left (default ``standard_tables()``)."""
+    return mjpeg_planes(read_mjpeg_frame(data, path, tables))
