@@ -308,8 +308,17 @@ Phases, one line each (any failure exits non-zero before the last line):
    ``i / fps``, K3 and K1 held against their plain versions at every call:
    the output files byte for byte and the printed averages equal; the
    reader's time for the clip against the model steps';
+22. still frames of every format of the manifests (``utils/image_io.py``,
+   ``bmp.py``, ``pnm.py``, ``tiff.py``, ``webp.py``, ``vp8.py``): (a) the
+   fixtures under ``tests/data/images`` against cv2's sha256 and the host ms
+   per 180x240 frame of each format (``fixtures_against_manifest``, shared
+   with phase 20); (b) the V2E2V CLI and (c) the E2V CLI over the mixed
+   folder against the twin of the PNG frames they list
+   (``cli_against_twin``, ``e2v_against_twin``), K3 and K1 counted on the
+   main path and held per call; (d) ``cli.train`` over all twelve frames
+   against the twin: equal samples and first loss, K3 once per frame pair;
 14. a ``{"kernels": [...]}`` JSON line (each row's launches on the paths of
-   phases 10-13 and 15-21, every count set to 0 just before each path: K1,
+   phases 10-13 and 15-22, every count set to 0 just before each path: K1,
    K2, K4 and the scale kernel counted by dtype, K3 by shot mode; the rows
    of K4 and the scale kernel hold their times per pool step, the 15 calls
    of one step summed), then the last line
@@ -1830,7 +1839,8 @@ def v2e2v_train_cli(seed: int, smi: str, root: Path, e2v_ckpt: Path, counters) -
 
 def train_phase(seed: int, smi: str, root: Path) -> dict:
     """Phase 13: training at full width (13a-e). Returns the launches on the
-    E2V and V2E2V training steps by row of the kernels line."""
+    E2V and V2E2V training steps by row of the kernels line, and 13c's E2V
+    checkpoint (phase 22 warm-starts the V2E2V trainer from it)."""
     from v2e2v_tpu_torch.models.cista import CistaConfig
     from v2e2v_tpu_torch.ops.cuda.core import cista_core
     from v2e2v_tpu_torch.ops.cuda.emulator_iters import emulator_iters
@@ -1856,7 +1866,7 @@ def train_phase(seed: int, smi: str, root: Path) -> dict:
     v2e2v_train_cli(seed, smi, root, ckpt, (emulator_iters, ista_loop, cista_core))
     say(f"[phase] 13e V2E2V training CLI {time.perf_counter() - t0:.1f} s")
     say(f"[phase] training {time.perf_counter() - t_phase:.1f} s")
-    return {"e2v": e2v, "v2e2v": v2e2v}
+    return {"e2v": e2v, "v2e2v": v2e2v, "e2v_ckpt": ckpt}
 
 
 FUSED_PACKETS_SEED = 15  # phase 15b's packets: --seed + this
@@ -3902,6 +3912,82 @@ def cli_against_twin(seed: int, model: Path, root: Path, runs) -> dict:
             "reader_s": {k: v[0] for k, v in parts.items()}}
 
 
+def fixtures_against_manifest(folder: Path, min_files: int):
+    """Every fixture under ``folder`` decoded by the port against its
+    ``manifest.json``: the shape and the sha256 of ``cv2.imread(path, 0)``.
+    Returns the manifest, the files that disagree or raise, and whether none
+    does and there are at least ``min_files``."""
+    import hashlib
+
+    from v2e2v_tpu_torch.utils.image_io import read_gray
+
+    manifest = json.loads((folder / "manifest.json").read_text())["files"]
+    bad = []
+    for rel, want in sorted(manifest.items()):
+        try:
+            img = read_gray(str(folder / rel))
+        except ValueError as e:
+            bad.append(f"{rel}: {e}")
+            continue
+        if (list(img.shape) != want["shape"]
+                or hashlib.sha256(img.tobytes()).hexdigest() != want["sha256"]):
+            bad.append(rel)
+    return manifest, bad, not bad and len(manifest) >= min_files
+
+
+def e2v_against_twin(seed: int, model: Path, root: Path, runs, stamps_txt: str,
+                     events_seed: int) -> dict:
+    """The E2V CLI at full width (``model``) twice, ``runs`` naming each
+    run's (tag, frames): each reads a dataset under ``root / f"e2v_{tag}"``
+    of its frames as ground truth, the stamps of ``stamps_txt``, and the same
+    events between them, made from ``seed + events_seed`` as phase 9 makes
+    them. The first run is the main path, every count set to 0 just before
+    it. Returns the first run's launches by row, its K1 and its K2 + K3
+    launches, each run's reconstructions, output files, result.csv, model
+    step (CUDA events) and reader per frame (host clock), and whether the two
+    runs agree with each other and the first with its launch counts."""
+    from v2e2v_tpu_torch.data.synthetic import write_random_events
+    from v2e2v_tpu_torch.ops.cuda.core import cista_core
+    from v2e2v_tpu_torch.ops.cuda.emulator_iters import emulator_iters
+    from v2e2v_tpu_torch.ops.cuda.ista import ista_loop
+
+    stamps = [float(line.split()[1]) for line in stamps_txt.splitlines() if line.strip()]
+    for tag, frames in runs:
+        seq = root / f"e2v_{tag}" / "data" / JPEG_SEQUENCE
+        (seq / "frames").mkdir(parents=True)
+        (seq / "events").mkdir()
+        (seq / "frames" / "timestamps.txt").write_text(stamps_txt)
+        for f in frames:
+            shutil.copyfile(f, seq / "frames" / f.name)
+        write_random_events(seq / "events", np.random.default_rng(seed + events_seed),
+                            stamps, H, W, CLI_EVENTS)
+    out = []
+    for i, (tag, _) in enumerate(runs):
+        rec = cli_reconstructor(root / f"e2v_{tag}" / "data", model, torch.float32, "out",
+                                "cuda")
+        step_ev = []
+        steps = record_steps(rec, keep_state=False, events=step_ev)
+        parts = {"read": [0.0, 0]}
+        rec.video_renderer.update_event_frame_pack = timed(
+            rec.video_renderer.update_event_frame_pack, parts, "read")
+        if i == 0:
+            counts_zero(*kernel_counters())
+        rec.run()
+        torch.cuda.synchronize()
+        if i == 0:
+            rows = row_counts()
+            k1, others = ista_loop.launches, cista_core.launches + emulator_iters.launches
+        folder = root / f"e2v_{tag}" / "out"
+        out.append({"n": len(steps), "files": output_files(folder),
+                    "csv": [p.read_text() for p in sorted(folder.rglob("result.csv"))],
+                    "step_ms": sum(a.elapsed_time(b) for a, b in step_ev) / len(steps),
+                    "read_ms": 1e3 * parts["read"][0] / parts["read"][1]})
+    main, twin = out
+    ok = (main["csv"] == twin["csv"] and len(main["csv"]) == 1 and main["files"] == twin["files"]
+          and main["n"] == twin["n"] > 0 and k1 == 2 * DEPTH * main["n"] and others == 0)
+    return {"main": main, "twin": twin, "rows": rows, "k1": k1, "others": others, "ok": ok}
+
+
 def jpeg_phase(seed: int, smi: str, root: Path, e2v_model: Path, v2e2v_model: Path) -> dict:
     """Phase 20: JPEG frames (ROADMAP item 4). (a) every fixture under
     ``tests/data/jpeg`` decoded by the port against ``manifest.json``'s sha256
@@ -3909,25 +3995,12 @@ def jpeg_phase(seed: int, smi: str, root: Path, e2v_model: Path, v2e2v_model: Pa
     JPEG and of PNG; (b) the V2E2V CLI over the fixture sequence and its PNG
     twin; (c) the E2V CLI with the JPEG frames as ground truth against the
     twin. Returns (b) and (c)'s launches by row of the kernels line."""
-    import hashlib
-
-    from v2e2v_tpu_torch.data.synthetic import write_random_events
-    from v2e2v_tpu_torch.ops.cuda.core import cista_core
-    from v2e2v_tpu_torch.ops.cuda.emulator_iters import emulator_iters
-    from v2e2v_tpu_torch.ops.cuda.ista import ista_loop
     from v2e2v_tpu_torch.utils.image_io import read_gray, write_gray
 
     t_phase = time.perf_counter()
     root.mkdir(parents=True)
     # (a) the fixtures against cv2's hashes, and the decode times
-    manifest = json.loads((JPEG_FIXTURES / "manifest.json").read_text())["files"]
-    bad = []
-    for rel, want in sorted(manifest.items()):
-        img = read_gray(str(JPEG_FIXTURES / rel))
-        if (list(img.shape) != want["shape"]
-                or hashlib.sha256(img.tobytes()).hexdigest() != want["sha256"]):
-            bad.append(rel)
-    ok = not bad and len(manifest) >= 27
+    manifest, bad, ok = fixtures_against_manifest(JPEG_FIXTURES, 27)
     say(f"[jpeg] {len(manifest)} fixtures (tests/data/jpeg: sampling factors, gray, restart "
         f"intervals, optimised tables, quality 100 and 5, progressive, 181x243, Exif "
         f"orientations, the 12-frame {H}x{W} sequence) decoded by the port against the sha256 "
@@ -3982,40 +4055,9 @@ def jpeg_phase(seed: int, smi: str, root: Path, e2v_model: Path, v2e2v_model: Pa
 
     # (c) the E2V CLI with the JPEG frames as ground truth, events between
     # them as phase 9 writes them, against the same dataset with the twin
-    stamps = [float(line.split()[1]) for line in timestamps_txt.splitlines() if line.strip()]
-    for kind, frames in (("jpeg", jpgs), ("png", pngs)):
-        seq = root / f"e2v_{kind}" / "data" / JPEG_SEQUENCE
-        (seq / "frames").mkdir(parents=True)
-        (seq / "events").mkdir()
-        (seq / "frames" / "timestamps.txt").write_text(timestamps_txt)
-        for f in frames:
-            shutil.copyfile(f, seq / "frames" / f.name)
-        write_random_events(seq / "events", np.random.default_rng(seed + JPEG_EVENTS_SEED),
-                            stamps, H, W, CLI_EVENTS)
-    e2v = {}
-    for kind in ("jpeg", "png"):
-        rec = cli_reconstructor(root / f"e2v_{kind}" / "data", e2v_model, torch.float32, "out",
-                                "cuda")
-        step_ev = []
-        steps = record_steps(rec, keep_state=False, events=step_ev)
-        parts = {"read": [0.0, 0]}
-        rec.video_renderer.update_event_frame_pack = timed(
-            rec.video_renderer.update_event_frame_pack, parts, "read")
-        if kind == "jpeg":
-            counts_zero(*kernel_counters())
-        rec.run()
-        torch.cuda.synchronize()
-        if kind == "jpeg":
-            e2v_rows = row_counts()
-            k1_e, others = ista_loop.launches, cista_core.launches + emulator_iters.launches
-        out = root / f"e2v_{kind}" / "out"
-        e2v[kind] = {"n": len(steps), "files": output_files(out),
-                     "csv": [p.read_text() for p in sorted(out.rglob("result.csv"))],
-                     "step_ms": sum(a.elapsed_time(b) for a, b in step_ev) / len(steps),
-                     "read_ms": 1e3 * parts["read"][0] / parts["read"][1]}
-    ej, ep = e2v["jpeg"], e2v["png"]
-    ok = (ej["csv"] == ep["csv"] and len(ej["csv"]) == 1 and ej["files"] == ep["files"]
-          and ej["n"] == ep["n"] > 0 and k1_e == 2 * DEPTH * ej["n"] and others == 0)
+    c = e2v_against_twin(seed, e2v_model, root, (("jpeg", jpgs), ("png", pngs)),
+                         timestamps_txt, JPEG_EVENTS_SEED)
+    ej, ep, k1_e, others, ok = c["main"], c["twin"], c["k1"], c["others"], c["ok"]
     say(f"[jpeg] E2V CLI with the JPEG frames as ground truth and {CLI_EVENTS[0]}-"
         f"{CLI_EVENTS[1]} events an interval, against the PNG twin: {ej['n']} reconstructions, "
         f"result.csv rows equal: {ej['csv'] == ep['csv']} ({ej['csv'][0].splitlines()[-1]!r}), "
@@ -4029,7 +4071,7 @@ def jpeg_phase(seed: int, smi: str, root: Path, e2v_model: Path, v2e2v_model: Pa
         f"frame's decode {decode['jpeg'][0]:.3f} ms is "
         f"{decode['jpeg'][0] / ej['step_ms']:.2f}x the model step")
     say(f"[phase] JPEG frames {time.perf_counter() - t_phase:.1f} s")
-    return {"v2e2v_cli_jpeg_launches": v2e2v_rows, "e2v_cli_jpeg_launches": e2v_rows}
+    return {"v2e2v_cli_jpeg_launches": v2e2v_rows, "e2v_cli_jpeg_launches": c["rows"]}
 
 
 VIDEO_FIXTURES = Path(__file__).resolve().parent / "tests" / "data" / "video"
@@ -4178,6 +4220,153 @@ def video_phase(seed: int, smi: str, root: Path, v2e2v_model: Path) -> dict:
         f"{read_ms / (read_ms + step_ms):.1%} of the two, {read_ms / step_ms:.2f}x the steps")
     say(f"[phase] video files {time.perf_counter() - t_phase:.1f} s")
     return {"v2e2v_cli_video_launches": b["rows"]}
+
+
+IMAGE_FIXTURES = Path(__file__).resolve().parent / "tests" / "data" / "images"
+IMAGE_PACK = 3  # --num_pack_frames over the six PNG frames the CLIs list in the mixed folder
+IMAGE_EVENTS_SEED = 22  # phase 22c's events: --seed + this
+IMAGE_TRAIN_PACKS, IMAGE_TRAIN_FRAMES = 3, 4  # 22d: packs of 4 frames, 3 packs a sample
+IMAGE_TRAIN = ("--num_pack_frames", str(IMAGE_TRAIN_FRAMES), "--len_sequence",
+               str(IMAGE_TRAIN_PACKS))
+
+
+def image_phase(seed: int, smi: str, root: Path, e2v_model: Path, v2e2v_model: Path,
+                e2v_ckpt: Path) -> dict:
+    """Phase 22: every still-frame format of the JAX manifests (ROADMAP item
+    4). (a) every fixture under ``tests/data/images`` decoded by the port
+    against ``manifest.json``'s sha256 of ``cv2.imread(path, 0)``, and the
+    host ms per 180x240 frame of each format of the mixed folder; (b) the
+    V2E2V CLI over the mixed folder and (c) the E2V CLI with it as ground
+    truth, each against the PNG twin of the frames it lists (the CLIs, JAX's
+    and the port's, list ``.jpg`` and ``.png`` frames only: the six PNGs of
+    the kinds read now), K3 and K1 held per call as in phase 20; (d) the
+    V2E2V trainer over the whole mixed folder (BMP, PGM, TIFF, WebP and the
+    PNGs, read through the manifests) against the same over the twin: the
+    samples equal on the host, K3 counted, the first loss equal. Returns the
+    launches by row of (b), (c) and (d)."""
+    from v2e2v_tpu_torch.cli import train
+    from v2e2v_tpu_torch.data.datasets import TrainSeqData
+    from v2e2v_tpu_torch.data.manifests import make_train_txt_wo_events
+    from v2e2v_tpu_torch.ops.cuda.core import cista_core
+    from v2e2v_tpu_torch.ops.cuda.emulator_iters import emulator_iters
+    from v2e2v_tpu_torch.ops.cuda.ista import ista_loop
+    from v2e2v_tpu_torch.utils.image_io import read_gray
+
+    t_phase = time.perf_counter()
+    root.mkdir(parents=True)
+    # (a) the fixtures against cv2's hashes, and the decode times
+    manifest, bad, ok = fixtures_against_manifest(IMAGE_FIXTURES, 80)
+    kinds = sorted({rel.split("/")[1].split("_")[0] for rel in manifest if rel.startswith("cases")})
+    say(f"[image] {len(manifest)} fixtures (tests/data/images: {', '.join(kinds)} cases, the "
+        f"12-frame {H}x{W} mixed folder and its PNG twin) decoded by the port against the sha256 "
+        f"of cv2.imread(path, 0): mismatches {bad} {'pass' if ok else 'FAIL'}")
+    if not ok:
+        fail("the port's still-frame decoders disagree with cv2's hashes")
+    seq = IMAGE_FIXTURES / "sequence" / JPEG_SEQUENCE
+    twin = IMAGE_FIXTURES / "sequence_png" / JPEG_SEQUENCE
+    frames = sorted((seq / "frames").glob("frame_*"))
+    labels = ["BMP 8-bit", "PNG 16-bit gray", "PGM", "PNG Adam7 colour", "TIFF LZW colour",
+              "PNG 16-bit colour", "WebP lossy", "PNG colour + gAMA", "TIFF 16-bit Deflate",
+              "PNG Adam7 16-bit gray", "WebP lossless", "PNG palette + sRGB"]
+    timing = {}
+    for label, f in [*zip(labels, frames), *(("PNG 8-bit gray (twin)", t) for t in
+                                             sorted((twin / "frames").glob("frame_*.png")))]:
+        for _ in range(3):
+            t0 = time.perf_counter()
+            read_gray(str(f))
+            timing.setdefault(label, []).append(1e3 * (time.perf_counter() - t0))
+    say(f"[time] frame decode on the card's host ({smi}), read_gray per {H}x{W} frame, median "
+        f"(min-max) of 3 reads of the mixed folder's frame (host clock): "
+        + "; ".join(f"{k} ({next(f for lab, f in zip(labels, frames) if lab == k).stat().st_size}"
+                    f" bytes) {np.median(v):.3f} ms ({min(v):.3f}-{max(v):.3f})"
+                    if k in labels else f"{k} {np.median(v):.3f} ms ({min(v):.3f}-{max(v):.3f}, "
+                    f"{len(v)} reads)" for k, v in timing.items()))
+
+    # the twin of the frames the CLIs list, with the mixed folder's stamps
+    stamps_txt = (seq / "frames" / "timestamps.txt").read_text()
+    listed = [f for f in frames if f.suffix in (".jpg", ".png")]
+    sub = root / "png" / JPEG_SEQUENCE / "frames"
+    sub.mkdir(parents=True)
+    (sub / "timestamps.txt").write_text(stamps_txt)
+    for f in listed:
+        shutil.copyfile(twin / "frames" / f"{f.stem}.png", sub / f"{f.stem}.png")
+
+    # (b) the V2E2V CLI over the mixed folder (the main path, counts at 0)
+    # and over the twin of its PNG frames with K3 and K1 held per call
+    extra = ("--num_pack_frames", str(IMAGE_PACK))
+    b = cli_against_twin(seed, v2e2v_model, root, (
+        ("mixed", IMAGE_FIXTURES / "sequence", extra), ("png", root / "png", extra)))
+    pairs, k3_errs, k1_errs = b["pairs"], b["k3_errs"], b["k1_errs"]
+    ok = b["ok"] and len(listed) == 6 and len(pairs) >= 2
+    say(f"[image] V2E2V CLI over the mixed folder ({len(frames)} frames; it lists the "
+        f"{len(listed)} PNGs: {', '.join(lab for lab, f in zip(labels, frames) if f in listed)}; "
+        f"--num_pack_frames {IMAGE_PACK}) and their 8-bit twin: {len(pairs)} packs, num_events "
+        f"{b['events']}; {b['files']} output files byte for byte equal, printed averages "
+        f"{b['printed']} equal: {b['same']}; main path (counts at 0 before the mixed run): K3 "
+        f"{b['k3']} (want one per frame pair, {sum(pairs)}), K1 {b['k1']} (want "
+        f"{2 * DEPTH * len(pairs)}), K2 {b['k2']}; in the twin run K3 against its plain version at "
+        f"each of {len(k3_errs)} calls: final and mem equal, voxel max_abs_err "
+        f"{max(e for e, _ in k3_errs):.3e} (tol 1e-5), K1 at each of {len(k1_errs)} calls: "
+        f"max_abs_err {max(e for e, _ in k1_errs):.3e} (tol {TOL[torch.float32]} + "
+        f"{TOL[torch.float32]} |ref|) {'pass' if ok else 'FAIL'}")
+    if not ok:
+        fail("the V2E2V CLI over the mixed folder did not run as over its PNG twin")
+
+    # (c) the E2V CLI with the mixed folder's frames as ground truth, against
+    # the twin of its PNG frames, the same events in both
+    c = e2v_against_twin(seed, e2v_model, root, (("mixed", frames),
+                                                 ("png", sorted(sub.glob("frame_*.png")))),
+                         stamps_txt, IMAGE_EVENTS_SEED)
+    em, ep, k1_e, others, ok = c["main"], c["twin"], c["k1"], c["others"], c["ok"]
+    say(f"[image] E2V CLI with the mixed folder as ground truth and {CLI_EVENTS[0]}-"
+        f"{CLI_EVENTS[1]} events an interval, against the twin of its PNG frames: {em['n']} "
+        f"reconstructions, result.csv rows equal: {em['csv'] == ep['csv']}, "
+        f"{len(em['files'])} output files byte for byte equal: {em['files'] == ep['files']}; K1 "
+        f"{k1_e} (want 2 x depth x {em['n']}), K2 and K3 {others} {'pass' if ok else 'FAIL'}")
+    if not ok:
+        fail("the E2V CLI over the mixed folder disagrees with its PNG twin")
+
+    # (d) the V2E2V trainer over every frame of the mixed folder and of the twin
+    runs = {}
+    for kind, src in (("mixed", seq), ("png", twin)):
+        data = root / f"train_{kind}"
+        shutil.copytree(src, data / JPEG_SEQUENCE)
+        n_lines = make_train_txt_wo_events(str(data), "train_v2e2v.txt", IMAGE_TRAIN_FRAMES,
+                                           IMAGE_TRAIN_FRAMES - 1)
+        samples = TrainSeqData(str(data / "train_v2e2v.txt"), str(data), IMAGE_TRAIN_PACKS,
+                               IMAGE_TRAIN_FRAMES)
+        printed = io.StringIO()
+        if kind == "mixed":
+            counts_zero(*kernel_counters())
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(printed):
+            train.main(train_argv(data, root / f"train_{kind}_models", "--epochs", "1",
+                                  "--path_to_e2v", str(e2v_ckpt), *IMAGE_TRAIN))
+        torch.cuda.synchronize()
+        if kind == "mixed":
+            train_rows = row_counts()
+            k3_t, k1_t = emulator_iters.launches, ista_loop.launches + cista_core.launches
+        runs[kind] = {"lines": n_lines, "samples": [samples[i] for i in range(len(samples))],
+                      "loss": [ln for ln in printed.getvalue().splitlines() if "loss:" in ln],
+                      "s": time.perf_counter() - t0}
+    tm, tp = runs["mixed"], runs["png"]
+    same = len(tm["samples"]) == len(tp["samples"]) > 0 and all(
+        np.array_equal(a, b) for sm, sp in zip(tm["samples"], tp["samples"])
+        for a, b in zip(sm, sp))
+    k3_want = len(tm["samples"]) * IMAGE_TRAIN_PACKS * (IMAGE_TRAIN_FRAMES - 1)  # one a pair
+    ok = (same and tm["loss"] == tp["loss"] and len(tm["loss"]) == 1 and k3_t == k3_want
+          and k1_t == 0)
+    say(f"[image] cli.train (V2E2V) over the mixed folder's 12 frames ({tm['lines']} pack lines "
+        f"of 4, {len(tm['samples'])} sample of 3 packs, read through the manifests) and over "
+        f"its twin: samples equal on the host {same}, first loss {tm['loss']} / {tp['loss']}, "
+        f"K3 {k3_t} (main path, counts at 0 before the mixed run; want one per frame pair, "
+        f"{k3_want}), K1 and K2 {k1_t}; "
+        f"{tm['s']:.1f} s / {tp['s']:.1f} s {'pass' if ok else 'FAIL'}")
+    if not ok:
+        fail("the V2E2V trainer over the mixed folder disagrees with its PNG twin")
+    say(f"[phase] still-frame formats {time.perf_counter() - t_phase:.1f} s")
+    return {"v2e2v_cli_image_launches": b["rows"], "e2v_cli_image_launches": c["rows"],
+            "v2e2v_train_image_launches": train_rows}
 
 
 def main_path_k3_inputs(cfg, state, frames, ts, internal: bool):
@@ -4704,6 +4893,12 @@ def main() -> None:
         # 21. video files: the fixture clips against the JAX readers' records,
         # the V2E2V CLI with --reader_type video against its PNG twin
         video_rows = video_phase(args.seed, smi, shared / "video", hfr["model"])
+
+        # 22. every still-frame format: the fixtures against cv2's hashes, both
+        # evaluation CLIs and the V2E2V trainer over the mixed folder against
+        # its PNG twin
+        image_rows = image_phase(args.seed, smi, shared / "image", shared / "cli" /
+                                 "model.pth.tar", hfr["model"], trained["e2v_ckpt"])
     finally:
         shutil.rmtree(shared, ignore_errors=True)
 
@@ -4712,7 +4907,7 @@ def main() -> None:
     paths = {"v2e2v_cli_launches": hfr["rows"], "raw_launches": raw_rows,
              "tc_pool_launches": tc_rows, "e2v_train_launches": trained["e2v"],
              "v2e2v_train_launches_per_step": trained["v2e2v"], **fused_rows, **int8["rows"],
-             **slomo_rows, **dist_rows, **spatial_rows, **jpeg_rows, **video_rows}
+             **slomo_rows, **dist_rows, **spatial_rows, **jpeg_rows, **video_rows, **image_rows}
     for e in entries:
         if e["name"].startswith("ista_loop"):
             e.update(cli_k1[torch.float32 if "float32" in e["name"] else torch.bfloat16])

@@ -144,10 +144,18 @@ def test_writer_round_trips_through_cv2_and_pil(tmp_path, h, w):
 def test_what_it_does_not_read_raises(tmp_path):
     img = np.random.default_rng(0).integers(0, 256, (8, 10), dtype=np.uint8)
     cases = {}
-    cv2.imwrite(str(tmp_path / "g16.png"), img.astype(np.uint16) * 257)
-    cases["g16.png"] = "16-bit"
-    (tmp_path / "adam7.png").write_bytes(_png(img, 10, 8, 8, 0, [0] * 8, 1, interlace=1))
-    cases["adam7.png"] = "interlaced"
+    # 16-bit and interlaced PNGs are read now; 16-bit colour under a gamma is not
+    def chunk(kind, body):
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body)))
+
+    rgb16 = np.repeat(img.astype(">u2") * 257, 3, 1).view(np.uint8)
+    for name, interlace, extra in (("g16.png", 0, chunk(b"gAMA", struct.pack(">I", 45455))),
+                                   ("adam7.png", 1, chunk(b"sRGB", b"\0"))):
+        data = _png(rgb16, 10, 8, 16, 2, [0] * 8, 6, interlace=interlace)
+        at = data.find(b"IDAT") - 4
+        (tmp_path / name).write_bytes(data[:at] + extra + data[at:])
+        cases[name] = "16-bit colour PNG with a gamma.*item 4"
     # JPEG frames are read now; what the decoder refuses names item 4
     ok, jpg = cv2.imencode(".jpg", img)
     jpg = jpg.tobytes()
@@ -158,21 +166,41 @@ def test_what_it_does_not_read_raises(tmp_path):
     cases["b12.jpg"] = "12-bit samples.*item 4"
     (tmp_path / "cut.jpg").write_bytes(jpg[:len(jpg) * 2 // 3])
     cases["cut.jpg"] = "truncated.*item 4"
-    # formats OpenCV reads and the port does not
-    for ext, name in ((".bmp", "BMP"), (".pgm", "PNM"), (".ppm", "PNM"), (".webp", "WebP"),
-                      (".tiff", "TIFF")):
-        assert cv2.imwrite(str(tmp_path / f"f{ext}"), img if ext != ".ppm" else
-                           np.dstack([img] * 3))
-        cases[f"f{ext}"] = f"{name} frames.*item 4"
+    # BMP, PNM, WebP and TIFF are read now: what is still refused in each
+    (tmp_path / "f.bmp").write_bytes(b"BM" + bytes(12) + struct.pack("<I", 20) + bytes(40))
+    cases["f.bmp"] = "header size 20.*item 4"
+    (tmp_path / "f.pgm").write_bytes(b"P7\nWIDTH 2\nHEIGHT 1\nDEPTH 1\nMAXVAL 255\n"
+                                     b"TUPLTYPE GRAYSCALE\nENDHDR\n\x01\x02")
+    cases["f.pgm"] = "P7.*item 4"
+    ok, tif = cv2.imencode(".tiff", img, [cv2.IMWRITE_TIFF_COMPRESSION, 1])
+    tif = bytearray(tif.tobytes())
+    for tag, value in ((259, 7), (339, 3)):  # JPEG-in-TIFF, floating-point samples
+        case = bytearray(tif)
+        ifd = struct.unpack_from("<I", case, 4)[0]
+        for i in range(struct.unpack_from("<H", case, ifd)[0]):
+            at = ifd + 2 + 12 * i
+            if struct.unpack_from("<H", case, at)[0] == tag:
+                struct.pack_into("<HIHH", case, at + 2, 3, 1, value, 0)
+                break
+        else:
+            count = struct.unpack_from("<H", case, ifd)[0]
+            entries = [case[ifd + 2 + 12 * i:ifd + 14 + 12 * i] for i in range(count)]
+            entries.append(struct.pack("<HHIHH", tag, 3, 1, value, 0))
+            entries.sort(key=lambda e: struct.unpack_from("<H", e)[0])
+            case = case[:ifd] + struct.pack("<H", count + 1) + b"".join(entries) + bytes(4)
+        (tmp_path / f"t{tag}.tiff").write_bytes(bytes(case))
+    cases["t259.tiff"] = "compression 7.*item 4"
+    cases["t339.tiff"] = "sample format.*item 4"
+    (tmp_path / "f.webp").write_bytes(b"RIFF" + struct.pack("<I", 28) + b"WEBPVP8 "
+                                      + struct.pack("<I", 16) + b"\x01" + bytes(15))
+    cases["f.webp"] = "inter frame.*item 4"
     (tmp_path / "mm_header.tif").write_bytes(b"MM\x00*" + bytes(16))
-    cases["mm_header.tif"] = "TIFF frames.*item 4"
+    cases["mm_header.tif"] = "TIFF.*item 4"
     (tmp_path / "junk.png").write_bytes(b"not an image")
     cases["junk.png"] = "not a PNG"
     for name, match in cases.items():
         with pytest.raises(ValueError, match=match):
             image_io.read_gray(str(tmp_path / name))
-        if name.endswith((".bmp", ".pgm", ".ppm", ".webp", ".tiff")):
-            assert cv2.imread(str(tmp_path / name), cv2.IMREAD_GRAYSCALE) is not None, name
     with pytest.raises(ValueError, match="2-D uint8"):
         image_io.write_gray(str(tmp_path / "x.png"), img.astype(np.float32))
 

@@ -14,9 +14,9 @@ Behavioral spec from reference ``data_readers/train_data_loaders.py``
   stepping 5 lines (tails >= 3 kept); frames stay in 0-255 (the emulator's
   input domain); ground truth is the last frame / 255.
 
-Arrays are NHWC / bins-last, the layout of the models. PNG and JPEG frames are
-read by the port's decoders (``utils/image_io.read_gray``, ``cv2.imread``'s
-gray values for the files it reads) and events voxelised by the port's
+Arrays are NHWC / bins-last, the layout of the models. Frames (every format of
+``manifests.IMG_FORMATS``) are read by the port's decoders
+(``utils/image_io.read_gray``, ``cv2.imread``'s gray values) and events voxelised by the port's
 ``voxelize_and_preprocess_np``, so samples equal the JAX package's bit for bit.
 """
 

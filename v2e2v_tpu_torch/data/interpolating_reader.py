@@ -2,7 +2,8 @@
 ``v2e2v_tpu/data/interpolating_reader.py``).
 
 Reference ``VideoInterpolator`` (``data_readers/video_readers.py:185-265``):
-read every frame (the port's PNG or JPEG decoder, cropped to even H and W)
+read every frame (``.jpg`` and ``.png`` frames, as the JAX reader lists them,
+through ``utils/image_io.read_gray``; cropped to even H and W)
 and the timestamps of the folder, upsample them at ``initialize`` with one
 ``Upsampler`` per reader (built on the first sequence), then serve the
 upsampled frames as an in-memory reader does; optionally with the

@@ -5,8 +5,9 @@ Equivalent of reference ``upsampling/utils/utils.py`` (:11-92 manifest
 writers, :157-183 folder sniffer) and the pair-yielding generators of
 ``upsampling/utils/dataset.py``: the offline tooling that builds training
 datasets from simulated or upsampled sequences. The manifests are the JAX
-package's byte for byte; frames are read by the port's PNG and JPEG decoders
-(``utils/image_io.read_gray``).
+package's byte for byte; frames of every suffix in ``IMG_FORMATS`` are read by
+the port's decoders (``utils/image_io.read_gray``) as ``cv2.imread`` reads
+them.
 
 Manifest formats produced (consumed by ``v2e2v_tpu_torch.data.datasets``):
 

@@ -10,8 +10,8 @@
   hot-pixel-filtered and std-normalised on the host
   (``ops/voxel.voxelize_and_preprocess_np``).
 - ``ImageReader``: a lazy grayscale frame-folder reader on
-  ``utils/image_io.read_gray`` (PNG and JPEG frames, as ``cv2.imread`` reads
-  them).
+  ``utils/image_io.read_gray`` (``.jpg`` and ``.png`` frames: the JAX reader
+  lists no other suffix; every PNG and JPEG as ``cv2.imread`` reads it).
 - ``VideoReader``: a video file's frames, gray, shrunk by ``ds`` and
   transposed when portrait, on ``utils/video.VideoFile`` (MJPEG AVI, as
   ``cv2.VideoCapture`` reads it).

@@ -29,7 +29,8 @@ from __future__ import annotations
 import struct
 from dataclasses import dataclass
 
-ROADMAP = "ROADMAP.md queue 1, item 4"
+from .imgcodecs import ROADMAP
+
 # biCompression / fccHandler values that FFmpeg decodes with its MJPEG
 # decoder and the port reads (upper-cased)
 JPEG_FOURCCS = (b"MJPG", b"AVI1", b"JPEG")

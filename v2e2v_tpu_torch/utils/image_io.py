@@ -1,35 +1,56 @@
-"""Frames in and out: PNG with ``zlib``, ``struct`` and numpy, JPEG through
-``utils/jpeg.py``.
+"""Frames in and out: ``read_gray`` and ``decode_gray`` return what
+``cv2.imread(path, cv2.IMREAD_GRAYSCALE)`` returns for every still-frame format
+the JAX package's manifests accept (``data/manifests.IMG_FORMATS``), bit for
+bit; ``write_gray`` and ``write_rgb`` write PNGs as PIL writes them.
 
-The JAX package reads frames with ``cv2.imread(path, cv2.IMREAD_GRAYSCALE)``
-and writes them with PIL; neither is installed beside the port on the card's
-machine. ``read_gray`` returns what that ``cv2.imread`` call returns for the
-PNGs and JPEGs it covers, the EXIF orientation applied as OpenCV applies it;
-``write_gray`` writes 8-bit gray, what the CLI writes.
+The JAX package reads frames with that ``cv2.imread`` call and writes them with
+PIL; neither is installed beside the port on the card's machine. Each format
+has its decoder, chosen by the file's first bytes as OpenCV chooses it:
 
-PNG read: 8-bit gray, gray + alpha, RGB, RGBA, and palette or gray at 1, 2, 4
-or 8 bits, not interlaced, with any of the five row filters. Alpha and
-``tRNS`` are dropped. Gray at 1, 2 or 4 bits is scaled to 8 bits (x255, x85,
-x17). Colour goes to gray as libpng's ``png_set_rgb_to_gray(0.299, 0.587)``
-does it for OpenCV: ``(9797 R + 19234 G + 3737 B) >> 15``, truncated, and
-``R`` itself where ``R == G == B``. The first ``eXIf`` chunk with a TIFF header
-(libpng keeps that one) gives the orientation. 16-bit samples and interlaced
-PNGs raise a ValueError that names what is missing; so do BMP, PNM, WebP and
-TIFF files, which OpenCV also reads. ``write_rgb`` writes the 8-bit RGB
-previews and panels of the V2E2V CLI, what PIL writes for an ``[H, W, 3]``
-uint8 array. ``resize_linear_u8`` is ``cv2.resize`` at its default
-``INTER_LINEAR`` on 8-bit gray, what the JAX package's video reader shrinks
-frames with.
+- PNG here, as OpenCV drives libpng: every colour type at every bit depth,
+  interlaced (Adam7) or not, with any of the five row filters. Alpha and
+  ``tRNS`` are dropped. Gray at 1, 2 or 4 bits is scaled to 8 bits (x255,
+  x85, x17); 16-bit samples keep their high byte. Colour goes to gray through
+  ``png_set_rgb_to_gray(0.299, 0.587)``: at 8 bits ``(9797 R + 19234 G +
+  3737 B) >> 15``, truncated, and ``R`` itself where ``R == G == B``
+  (``_to_gray``); at 16 bits the same sum rounded, ``+ 16384 >> 15``, then
+  its high byte. A ``gAMA`` or ``sRGB`` chunk whose gamma is not within 5% of
+  1 sends 8-bit colour through libpng's linear-light tables
+  (``_gamma_gray``); 16-bit colour with such a chunk raises. An ``iCCP``
+  chunk changes nothing, whatever its profile: libpng 1.6.58, which cv2
+  5.0.0 carries, has no table of known sRGB profiles (older 1.6 releases
+  read one of those as an ``sRGB`` chunk). A ``cICP`` chunk changes nothing
+  either. The first ``eXIf`` chunk with a TIFF header (libpng keeps that
+  one) gives the orientation.
+- JPEG: ``utils/jpeg.py``; BMP: ``utils/bmp.py``; PBM, PGM and PPM:
+  ``utils/pnm.py``; TIFF: ``utils/tiff.py``; WebP: ``utils/webp.py`` and
+  ``utils/vp8.py``.
+
+Colour goes to gray as each decoder's cv2 counterpart takes it; the
+conversions that decoders share, EXIF orientation, and the ROADMAP item that
+refusals name are in ``utils/imgcodecs.py``.
+
+What a decoder does not read raises a ValueError that names ROADMAP.md
+queue 1, item 4. ``write_rgb`` writes the 8-bit RGB previews and panels of
+the V2E2V CLI, what PIL writes for an ``[H, W, 3]`` uint8 array.
+``resize_linear_u8`` is ``cv2.resize`` at its default ``INTER_LINEAR`` on
+8-bit gray, what the JAX package's video reader shrinks frames with.
 """
 
 from __future__ import annotations
 
+import math
 import struct
 import zlib
 
 import numpy as np
 
-from .jpeg import ROADMAP, decode_jpeg_gray
+from .bmp import decode_bmp_gray
+from .imgcodecs import ROADMAP, apply_orientation
+from .jpeg import decode_jpeg_gray
+from .pnm import decode_pnm_gray
+from .tiff import decode_tiff_gray
+from .webp import decode_webp_gray
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 JPEG_SIGNATURE = b"\xff\xd8\xff"
@@ -37,6 +58,10 @@ TIFF_HEADERS = (b"II*\x00", b"MM\x00*")
 # samples per pixel of each colour type
 _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
 _GRAY_SCALE = {1: 255, 2: 85, 4: 17, 8: 1}
+# Adam7's passes: first column, first row, column step, row step
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2),
+          (0, 1, 1, 2))
+SRGB_GAMMA = 45455  # png.h: PNG_GAMMA_sRGB_INVERSE, what an sRGB chunk sets
 
 
 def _chunks(data: bytes, path: str):
@@ -113,75 +138,78 @@ def _unpack(rows: np.ndarray, width: int, depth: int) -> np.ndarray:
 
 
 def _to_gray(rgb: np.ndarray) -> np.ndarray:
+    """libpng's ``rgb_to_gray`` on 8-bit samples as OpenCV sets it up (no
+    gamma): the 15-bit sum truncated, ``R`` where ``R == G == B``."""
     r, g, b = (rgb[..., i].astype(np.int64) for i in range(3))
     gray = (9797 * r + 19234 * g + 3737 * b) >> 15
     return np.where((r == g) & (r == b), r, gray).astype(np.uint8)
 
 
-def exif_orientation(exif: bytes) -> int | None:
-    """The value of the orientation tag (0x0112) in IFD0 of ``exif``, a TIFF
-    header in either byte order (``II`` or ``MM``) and its IFDs, read as
-    OpenCV's Exif reader reads it: the first 16 bits of the entry's value,
-    whatever its type. None where the header or IFD0 does not parse or has
-    no such tag."""
-    order = {b"II": "<", b"MM": ">"}.get(exif[:2])
-    if order is None or len(exif) < 8:
-        return None
-    magic, ifd = struct.unpack(order + "HI", exif[2:8])
-    if magic != 42 or ifd + 2 > len(exif):
-        return None
-    (count,) = struct.unpack(order + "H", exif[ifd:ifd + 2])
-    for i in range(count):
-        entry = exif[ifd + 2 + 12 * i:ifd + 12 + 12 * i]
-        if len(entry) < 10:
-            return None
-        tag, value = struct.unpack(order + "H6xH", entry)
-        if tag == 0x0112:
-            return value
-    return None
+def _to_gray16(rgb: np.ndarray) -> np.ndarray:
+    """libpng's ``rgb_to_gray`` on 16-bit samples (rounded), then
+    ``png_set_strip_16``'s high byte."""
+    r, g, b = (rgb[..., i].astype(np.int64) for i in range(3))
+    return (((9797 * r + 19234 * g + 3737 * b + 16384) >> 15) >> 8).astype(np.uint8)
 
 
-def apply_orientation(img: np.ndarray, exif: bytes) -> np.ndarray:
-    """``img`` turned by the orientation tag of ``exif`` (see
-    ``exif_orientation``) as OpenCV's ``imread`` turns it: 2 flips
-    left-right, 3 rotates 180, 4 flips up-down, 5 transposes, 6 rotates 90
-    clockwise, 7 transverses, 8 rotates 90 counter-clockwise. No tag, or any
-    other value, leaves ``img`` as it is."""
-    orientation = exif_orientation(exif)
-    if orientation in (5, 6, 7, 8):
-        img = img.T
-    if orientation in (2, 3, 6, 7):
-        img = img[:, ::-1]
-    if orientation in (3, 4, 7, 8):
-        img = img[::-1]
-    return np.ascontiguousarray(img)
+def _gamma_table(gamma: int) -> np.ndarray:
+    """``png.c::png_build_8bit_table``: ``floor(255 (i / 255)^(gamma / 1e5)
+    + 0.5)`` in doubles, 0 and 255 kept."""
+    e = gamma * 0.00001
+    return np.array([0] + [math.floor(255 * math.pow(i / 255.0, e) + 0.5) for i in range(1, 255)]
+                    + [255], np.int64)
 
 
-def _other_format(data: bytes) -> str | None:
-    """The name of an image format OpenCV reads and the port does not."""
-    if data[:2] == b"BM":
-        return "BMP"
-    if len(data) >= 2 and data[0] == 0x50 and 0x31 <= data[1] <= 0x36:  # P1-P6
-        return "PNM"
-    if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
-        return "WebP"
-    if data[:4] in TIFF_HEADERS:
-        return "TIFF"
-    return None
+def _reciprocal(gamma: int) -> int:
+    """``png.c::png_reciprocal`` of a fixed-point gamma (x 1e5)."""
+    return math.floor(1e10 / gamma + 0.5)
 
 
-def decode_gray(data: bytes, path: str = "<bytes>") -> np.ndarray:
-    """A PNG or JPEG file's bytes -> ``[H, W]`` uint8 gray, as
-    ``cv2.imread(path, cv2.IMREAD_GRAYSCALE)`` (see the module's notes)."""
-    if data[:3] == JPEG_SIGNATURE:
-        return decode_jpeg_gray(data, path)
-    other = _other_format(data)
-    if other is not None:
-        raise ValueError(f"{path}: {other} frames are not supported by the port's reader "
-                         f"({ROADMAP}); convert the frames to PNG or JPEG")
-    if data[:8] != PNG_SIGNATURE:
-        raise ValueError(f"{path}: not a PNG file")
-    header, palette, idat, exif = None, None, [], None
+def _gamma_significant(gamma: int) -> bool:
+    return not 95000 <= gamma <= 105000  # png.h: PNG_GAMMA_THRESHOLD_FIXED 5000
+
+
+def _gamma_gray(rgb: np.ndarray, gamma: int) -> np.ndarray:
+    """``rgb_to_gray`` on 8-bit samples when the file's gamma is
+    significant: libpng sets the screen gamma to its reciprocal, so the
+    overall correction is none, and converts each pixel whose samples differ
+    in linear light: 8-bit ``gamma_to_1`` tables in, the sum rounded, the
+    ``gamma_from_1`` table out."""
+    to_1 = _gamma_table(_reciprocal(gamma))
+    from_1 = _gamma_table(_reciprocal(_reciprocal(gamma)))
+    r, g, b = (rgb[..., i].astype(np.int64) for i in range(3))
+    lin = (9797 * to_1[r] + 19234 * to_1[g] + 3737 * to_1[b] + 16384) >> 15
+    return np.where((r == g) & (r == b), r, from_1[lin]).astype(np.uint8)
+
+
+def _png_samples(raw: bytes, width: int, height: int, depth: int, channels: int,
+                 interlace: int, path: str) -> np.ndarray:
+    """The IDAT stream, unfiltered and de-interlaced -> ``[H, W, channels]``
+    samples (uint8, or uint16 at 16 bits)."""
+    bpp = max(1, channels * depth // 8)
+    if depth == 16:
+        def samples(rows, w):
+            return rows.view(">u2").astype(np.uint16).reshape(rows.shape[0], w, channels)
+    else:
+        def samples(rows, w):
+            return _unpack(rows, w * channels, depth).reshape(rows.shape[0], w, channels)
+    if not interlace:
+        stride = -(-width * channels * depth // 8)
+        return samples(_unfilter(raw, height, stride, bpp, path), width)
+    out = np.zeros((height, width, channels), np.uint16 if depth == 16 else np.uint8)
+    pos = 0
+    for x0, y0, dx, dy in _ADAM7:
+        w, h = -(-(width - x0) // dx), -(-(height - y0) // dy)
+        if w <= 0 or h <= 0:  # an empty pass has no rows, and no filter bytes
+            continue
+        stride = -(-w * channels * depth // 8)
+        out[y0::dy, x0::dx] = samples(_unfilter(raw[pos:], h, stride, bpp, path), w)
+        pos += h * (stride + 1)
+    return out
+
+
+def _decode_png(data: bytes, path: str) -> np.ndarray:
+    header, palette, idat, exif, gamma, srgb = None, None, [], None, None, False
     for kind, body in _chunks(data, path):
         if kind == b"IHDR":
             header = struct.unpack(">IIBBBBB", body)
@@ -191,42 +219,71 @@ def decode_gray(data: bytes, path: str = "<bytes>") -> np.ndarray:
             idat.append(body)
         elif kind == b"eXIf" and exif is None and body[:4] in TIFF_HEADERS:
             exif = body
+        elif palette is None and not idat:  # libpng reads gAMA and sRGB before PLTE only
+            if kind == b"gAMA" and gamma is None and len(body) == 4:
+                gamma = struct.unpack(">I", body)[0] or None
+            elif kind == b"sRGB" and len(body) == 1:
+                srgb = True
     if header is None:
         raise ValueError(f"{path}: PNG without IHDR")
     width, height, depth, color, _comp, _filt, interlace = header
     if color not in _CHANNELS:
         raise ValueError(f"{path}: unknown PNG colour type {color}")
-    if depth == 16:
-        raise ValueError(f"{path}: 16-bit PNG samples are not supported by the port's reader")
-    if depth not in (1, 2, 4, 8) or (depth != 8 and color not in (0, 3)):
+    if depth not in (1, 2, 4, 8, 16) or (depth < 8 and color not in (0, 3)) or (
+            depth == 16 and color == 3):
         raise ValueError(f"{path}: bit depth {depth} is invalid for PNG colour type {color}")
-    if interlace:
-        raise ValueError(f"{path}: interlaced (Adam7) PNGs are not supported by the port's "
-                         "reader")
+    if interlace not in (0, 1):
+        raise ValueError(f"{path}: unknown PNG interlace method {interlace}")
+    gamma = SRGB_GAMMA if srgb else gamma
+    if gamma is not None and not _gamma_significant(gamma):
+        gamma = None
+    if gamma is not None and depth == 16 and color in (2, 6):
+        raise ValueError(f"{path}: 16-bit colour PNG with a gamma of {gamma / 1e5}: libpng's "
+                         f"16-bit gamma tables are not supported by the port's reader "
+                         f"({ROADMAP})")
     channels = _CHANNELS[color]
-    stride = -(-width * channels * depth // 8)
-    raw = zlib.decompress(b"".join(idat))
-    rows = _unfilter(raw, height, stride, max(1, channels * depth // 8), path)
-    samples = _unpack(rows, width * channels, depth).reshape(height, width, channels)
-    if color == 0:
-        gray = samples[..., 0] * np.uint8(_GRAY_SCALE[depth])
-    elif color == 4:
-        gray = np.ascontiguousarray(samples[..., 0])
+    samples = _png_samples(zlib.decompress(b"".join(idat)), width, height, depth, channels,
+                           interlace, path)
+    if color in (0, 4):
+        gray = samples[..., 0]
+        gray = (gray >> 8).astype(np.uint8) if depth == 16 else gray * np.uint8(_GRAY_SCALE[depth])
     elif color == 3:
         if palette is None:
             raise ValueError(f"{path}: palette PNG without PLTE")
         index = samples[..., 0]
         if int(index.max(initial=0)) >= len(palette):
             raise ValueError(f"{path}: palette index out of range")
-        gray = _to_gray(palette[index])
+        rgb = palette[index]
+        gray = _to_gray(rgb) if gamma is None else _gamma_gray(rgb, gamma)
+    elif depth == 16:
+        gray = _to_gray16(samples[..., :3])
     else:
-        gray = _to_gray(samples[..., :3])
+        gray = _to_gray(samples[..., :3]) if gamma is None else _gamma_gray(samples[..., :3], gamma)
+    gray = np.ascontiguousarray(gray)
     return gray if exif is None else apply_orientation(gray, exif)
 
 
+def decode_gray(data: bytes, path: str = "<bytes>") -> np.ndarray:
+    """An image file's bytes -> ``[H, W]`` uint8 gray, as
+    ``cv2.imread(path, cv2.IMREAD_GRAYSCALE)`` (see the module's notes). The
+    decoder is chosen by the first bytes, as OpenCV chooses it."""
+    if data[:3] == JPEG_SIGNATURE:
+        return decode_jpeg_gray(data, path)
+    if data[:8] == PNG_SIGNATURE:
+        return _decode_png(data, path)
+    if data[:2] == b"BM":
+        return decode_bmp_gray(data, path)
+    if data[:1] == b"P" and data[1:2].isdigit():
+        return decode_pnm_gray(data, path)
+    if data[:4] in TIFF_HEADERS:
+        return decode_tiff_gray(data, path)
+    if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
+        return decode_webp_gray(data, path)
+    raise ValueError(f"{path}: not a PNG, JPEG, BMP, PNM, TIFF or WebP file")
+
+
 def read_gray(path: str) -> np.ndarray:
-    """``cv2.imread(path, cv2.IMREAD_GRAYSCALE)`` for the PNGs and JPEGs this
-    module reads."""
+    """``cv2.imread(path, cv2.IMREAD_GRAYSCALE)`` (see ``decode_gray``)."""
     with open(path, "rb") as f:
         return decode_gray(f.read(), path)
 

@@ -45,7 +45,7 @@ import re
 
 import numpy as np
 
-ROADMAP = "ROADMAP.md queue 1, item 4"
+from .imgcodecs import ROADMAP, apply_orientation, exif_orientation
 
 # zigzag index -> natural (row-major) index, jutils.c::jpeg_natural_order
 NATURAL = (0, 1, 8, 16, 9, 2, 3, 10, 17, 24, 32, 25, 18, 11, 4, 5, 12, 19, 26, 33, 40, 48,
@@ -723,7 +723,6 @@ class _Decoder:
                .reshape(self.by * 8, self.bx * 8))
         img = np.ascontiguousarray(img[:self.height, :self.width])
         # OpenCV takes the first orientation tag of the Exif segments in turn
-        from .image_io import apply_orientation, exif_orientation  # image_io imports this
         for exif in self.exif:
             if exif_orientation(exif) is not None:
                 return apply_orientation(img, exif)

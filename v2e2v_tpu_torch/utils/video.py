@@ -21,7 +21,8 @@ even height raise a ValueError naming ROADMAP.md queue 1, item 4.
 
 from __future__ import annotations
 
-from .avi import ROADMAP, AviFile
+from .avi import AviFile
+from .imgcodecs import ROADMAP
 from .jpeg import decode_mjpeg_frame
 from .yuv import yuvj420_to_gray
 

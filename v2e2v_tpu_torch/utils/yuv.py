@@ -32,7 +32,7 @@ from __future__ import annotations
 
 import numpy as np
 
-ROADMAP = "ROADMAP.md queue 1, item 4"
+from .imgcodecs import ROADMAP
 
 # ff_yuv2rgb_coeffs[SWS_CS_ITU601]: crv, cbu, cgu, cgv at 16 bits, limited range
 _INV_TABLE_601 = (104597, 132201, 25675, 53279)
