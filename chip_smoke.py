@@ -295,12 +295,13 @@ Phases, one line each (any failure exits non-zero before the last line):
    ``utils/yuv.py``, ``utils/video.py``, ROADMAP item 4): (a) every MJPEG
    AVI under ``tests/data/video`` (``scripts/make_video_fixtures.py``: the
    12-frame 960x720 flagship clip, portrait, 30000/1001 fps, no DHT, odd
-   width, restart markers and a dropped frame, OpenDML) read by the port's
+   width, restart markers and a dropped frame, OpenDML, odd height, 4:1:1,
+   4:2:2, 4:4:0, 4:4:4, gray and progressive frames) read by the port's
    ``VideoReader`` and ``VideoSequence``, their frames, stamps and sha256
    against the JAX readers' records (``reader_frames.npz``,
-   ``manifest.json``): exact share and max difference per clip, the odd-height
-   clip refused naming item 4; the host ms per 960x720 frame of each stage
-   (demux, entropy decode, IDCT, conversion, resize); (b) the V2E2V CLI with
+   ``manifest.json``): exact share and max difference per clip; the host ms
+   per 960x720 frame of each stage (demux, entropy decode, IDCT, conversion,
+   resize) of the flagship clip and of each sampling's ``hd_*`` clip; (b) the V2E2V CLI with
    ``--reader_type video`` (``--num_pack_frames 4``, phase 10's checkpoint)
    over the flagship clip read as 180x240, the main path with every count set
    to 0 just before it (K3 once per frame pair, K1 2 x depth per pack), then
@@ -317,8 +318,21 @@ Phases, one line each (any failure exits non-zero before the last line):
    (``cli_against_twin``, ``e2v_against_twin``), K3 and K1 counted on the
    main path and held per call; (d) ``cli.train`` over all twelve frames
    against the twin: equal samples and first loss, K3 once per frame pair;
+23. LPIPS (``training/lpips.py``, a random VGG16 written by the phase in
+   the ``{'vgg', 'lin'}`` layout, ``V2E2V_LPIPS_WEIGHTS`` set for (b)-(d)):
+   (a) the distance at 180x240, B = 1 and 8, card against CPU (float32, TF32
+   off, 1e-4 relative), with its ms per call; (b) the E2V CLI over phase
+   9's first sequence with and without the variable: every frame's LPIPS
+   against the CPU port's on the same frames (1e-4 relative), the PNGs byte
+   for byte and the other metrics equal, K1 2 x depth per reconstruction;
+   (c) the E2V train step with LPIPS at B = 8, T = 10, card against CPU under
+   phase 13a's rule, a tensor past it held to 1.5x the card-CPU spread of
+   the same step without LPIPS on the same batch, and ms per step and peak
+   memory with and without LPIPS;
+   (d) ``cli.train`` for one step with LPIPS: K3 once per frame pair, the
+   loss finite;
 14. a ``{"kernels": [...]}`` JSON line (each row's launches on the paths of
-   phases 10-13 and 15-22, every count set to 0 just before each path: K1,
+   phases 10-13 and 15-23, every count set to 0 just before each path: K1,
    K2, K4 and the scale kernel counted by dtype, K3 by shot mode; the rows
    of K4 and the scale kernel hold their times per pool step, the 15 calls
    of one step summed), then the last line
@@ -335,6 +349,7 @@ import copy
 import dataclasses
 import io
 import json
+import os
 import re
 import shutil
 import subprocess
@@ -4099,7 +4114,7 @@ def video_stages(path: Path, reps: int = 2) -> dict[str, list[float]]:
             t.append(time.perf_counter())
             frame = jpeg.mjpeg_planes(dec)
             t.append(time.perf_counter())
-            gray = yuv.yuvj420_to_gray(*frame.planes)
+            gray = yuv.mjpeg_to_gray(frame.planes, frame.factors)
             t.append(time.perf_counter())
             resize_linear_u8(gray, (gray.shape[1] // 4, gray.shape[0] // 4))
             t.append(time.perf_counter())
@@ -4111,10 +4126,11 @@ def video_stages(path: Path, reps: int = 2) -> dict[str, list[float]]:
 
 def video_phase(seed: int, smi: str, root: Path, v2e2v_model: Path) -> dict:
     """Phase 21: video files (ROADMAP item 4, MJPEG AVI). (a) every fixture
-    clip under ``tests/data/video`` read by the port's ``VideoReader`` and
-    ``VideoSequence`` against the JAX readers' records (frames, stamps,
-    hashes), the refused clip refused, and the host ms of each stage per
-    960x720 frame; (b) the V2E2V CLI with ``--reader_type video`` over the
+    clip under ``tests/data/video`` (every sampling, gray, progressive, odd
+    sizes) read by the port's ``VideoReader`` and ``VideoSequence`` against
+    the JAX readers' records (frames, stamps, hashes), and the host ms of
+    each stage per 960x720 frame of the flagship clip and of each sampling's
+    ``hd_*`` clip; (b) the V2E2V CLI with ``--reader_type video`` over the
     flagship clip (960x720 read as 180x240), the main path with every count
     set to 0 just before it, against the same CLI over a PNG folder of the
     port's decoded frames, K3 and K1 held against their plain versions at
@@ -4179,6 +4195,12 @@ def video_phase(seed: int, smi: str, root: Path, v2e2v_model: Path) -> dict:
         f"the flagship clip, median (min-max) of {len(stages['entropy'])}: "
         + ", ".join(f"{k} {m:.3f} ({lo:.3f}-{hi:.3f})" for k, (m, lo, hi) in per.items())
         + f"; sum of medians {total:.3f} ms")
+    for clip in sorted(VIDEO_FIXTURES.glob("hd_*.avi")):
+        stages = video_stages(clip, reps=3)
+        per = {k: float(np.median(v)) for k, v in stages.items()}
+        say(f"[time] {clip.stem[3:]} ({smi}): host ms per 960x720 MJPEG frame, median of "
+            f"{len(stages['entropy'])}: " + ", ".join(f"{k} {m:.3f}" for k, m in per.items())
+            + f"; sum {sum(per.values()):.3f} ms")
 
     # (b) the V2E2V CLI over the flagship clip and over its PNG twin
     clip = root / "video"
@@ -4367,6 +4389,264 @@ def image_phase(seed: int, smi: str, root: Path, e2v_model: Path, v2e2v_model: P
     say(f"[phase] still-frame formats {time.perf_counter() - t_phase:.1f} s")
     return {"v2e2v_cli_image_launches": b["rows"], "e2v_cli_image_launches": c["rows"],
             "v2e2v_train_image_launches": train_rows}
+
+
+VGG_BLOCKS = [(64, 2), (128, 2), (256, 3), (512, 3), (512, 3)]  # VGG16's convs per block
+VGG_CONVS = [0, 2, 5, 7, 10, 12, 14, 17, 19, 21, 24, 26, 28]  # their features.N indices
+LPIPS_TOL = 1e-4  # relative, card against CPU
+LPIPS_FRAMES = 9  # 23b: --test_img_num, 10 frames of phase 9's first sequence
+
+
+def write_vgg(path: Path, seed: int) -> Path:
+    """Random He-scaled VGG16 weights and non-negative LPIPS heads in the
+    LPIPS file's layout (``{'vgg': features, 'lin': heads}``)."""
+    rng = np.random.default_rng(seed)
+    feats, cin, idx = {}, 3, iter(VGG_CONVS)
+    for cout, n in VGG_BLOCKS:
+        for _ in range(n):
+            i = next(idx)
+            feats[f"{i}.weight"] = torch.from_numpy(
+                rng.normal(0, 1 / np.sqrt(9 * cin), (cout, cin, 3, 3)).astype(np.float32))
+            feats[f"{i}.bias"] = torch.from_numpy(rng.normal(0, 0.05, cout).astype(np.float32))
+            cin = cout
+    lins = {f"lin{i}.model.1.weight": torch.from_numpy(
+        (0.1 * rng.random((1, c, 1, 1))).astype(np.float32)) for i, (c, _) in enumerate(VGG_BLOCKS)}
+    torch.save({"vgg": feats, "lin": lins}, path)
+    return path
+
+
+def lpips_flops(b: int) -> float:
+    """Multiply-adds x 2 of the VGG16 trunk over ``b`` pairs at H x W (both
+    images of each pair), the convs only."""
+    flops, cin, h, w = 0.0, 3, H, W
+    for block, (cout, n) in enumerate(VGG_BLOCKS):
+        for _ in range(n):
+            flops += 2 * 9 * cin * cout * h * w
+            cin = cout
+        h, w = h // 2, w // 2
+    return 2 * b * flops
+
+
+def lpips_phase(seed: int, smi: str, root: Path, cli_root: Path, e2v_ckpt: Path, cfg) -> dict:
+    """Phase 23: LPIPS (ROADMAP item 12). (a) the distance at 180x240, B = 1
+    and 8, card against CPU, and its ms; (b) the E2V CLI over phase 9's first
+    sequence with ``V2E2V_LPIPS_WEIGHTS`` set (the main path, every count at
+    0 just before it) and without: each frame's LPIPS against the CPU port's
+    on the same frames, PNGs and the other metrics equal, K1 2 x depth per
+    reconstruction; (c) the E2V train step with LPIPS at B = 8, T = 10, card
+    against CPU (phase 13a's rule, or 1.5x the same step's spread without
+    LPIPS), ms and peak memory with and without LPIPS; (d) ``cli.train`` for one step with LPIPS. Returns the launches of
+    (b), (c) and (d) by row."""
+    from v2e2v_tpu_torch.cli import train
+    from v2e2v_tpu_torch.data.manifests import make_train_txt_wo_events
+    from v2e2v_tpu_torch.data.synthetic import hfr_frames, write_hfr_dataset
+    from v2e2v_tpu_torch.ops.cuda.core import cista_core
+    from v2e2v_tpu_torch.ops.cuda.emulator_iters import emulator_iters
+    from v2e2v_tpu_torch.ops.cuda.ista import ista_loop
+    from v2e2v_tpu_torch.training import lpips
+    from v2e2v_tpu_torch.training.steps import make_adam, make_e2v_train_step
+    from v2e2v_tpu_torch.utils.checkpoint import STEP_KEYS
+
+    t_phase = time.perf_counter()
+    root.mkdir(parents=True)
+    weights = write_vgg(root / "vgg.pth", seed)
+    card, cpu = (lpips.make_lpips_fn(str(weights), device=d) for d in ("cuda", "cpu"))
+    saved_env = os.environ.get("V2E2V_LPIPS_WEIGHTS")
+    try:
+        # (a) the distance, card against CPU
+        for b in (1, 8):
+            frames, _ = hfr_frames(seed + 23, 2, H, W, batch=b)
+            pred = torch.from_numpy(frames[:, 0, :, :, None] / 255.0).float()
+            target = torch.from_numpy(frames[:, 1, :, :, None] / 255.0).float()
+            want = float(cpu(pred, target))
+            pc, tc = pred.cuda(), target.cuda()
+            with torch.no_grad():
+                got = float(card(pc, tc))
+                ms = time_ms(lambda: card(pc, tc), warmup=2, iters=10)
+            rel = abs(got - want) / abs(want)
+            flops = lpips_flops(b)
+            bound = max(flops / PEAK_FLOPS[torch.float32], 2 * pc.numel() * 4 / PEAK_BYTES) * 1e3
+            ok = np.isfinite(got) and rel <= LPIPS_TOL and got > 0
+            say(f"[lpips] distance B={b} at {H}x{W} (gray tiled to 3 channels; VGG16 trunk "
+                f"{flops / 1e9:.1f} GFLOP a call, cuDNN float32, TF32 off): card {got:.7f}, CPU "
+                f"{want:.7f}, relative error {rel:.3e} (tol {LPIPS_TOL}); {ms:.3f} ms per call "
+                f"({ms / b:.3f} ms a pair; CUDA events, {smi}), bound {bound:.3f} ms (float32 "
+                f"peak) {'pass' if ok else 'FAIL'}")
+            if not ok:
+                fail("LPIPS on the card disagrees with the CPU")
+
+        # (b) the E2V CLI over phase 9's first sequence, with and without LPIPS
+        data, model = cli_root / "data", cli_root / "model.pth.tar"
+        first = sorted(p.name for p in data.iterdir() if p.is_dir())[0].split(".")[0]
+        extra = ("--test_data_name", first, "--test_img_num", str(LPIPS_FRAMES))
+        runs = {}
+        for tag in ("lpips", "plain"):
+            if tag == "lpips":
+                os.environ["V2E2V_LPIPS_WEIGHTS"] = str(weights)
+            else:
+                os.environ.pop("V2E2V_LPIPS_WEIGHTS", None)
+            rec = cli_reconstructor(data, model, torch.float32, f"lpips_cli_{tag}", "cuda", extra)
+            steps = record_steps(rec, keep_state=False)
+            seen, evaluate = [], rec.evaluate
+
+            def recorded(pred_u8, gt, _evaluate=evaluate, _seen=seen):
+                row = _evaluate(pred_u8, gt)
+                _seen.append((pred_u8.copy(), np.array(gt, np.float32), row))
+                return row
+
+            rec.evaluate = recorded
+            if tag == "lpips":
+                counts_zero(*kernel_counters())
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                rec.run()
+            torch.cuda.synchronize()
+            if tag == "lpips":
+                cli_rows = row_counts()
+                k1, others = ista_loop.launches, cista_core.launches + emulator_iters.launches
+            folder = data.parent / f"lpips_cli_{tag}"
+            runs[tag] = {"n": len(steps), "seen": seen, "s": time.perf_counter() - t0,
+                         "files": {k: v for k, v in output_files(folder).items()
+                                   if not k.endswith("result.csv")},
+                         "csv": [p.read_text().splitlines() for p in folder.rglob("result.csv")]}
+        lp, plain = runs["lpips"], runs["plain"]
+        cpu_vals = [float(cpu(torch.from_numpy((p / 255.0).astype(np.float32))[None, ..., None],
+                              torch.from_numpy(g)[None, ..., None])) for p, g, _ in lp["seen"]]
+        card_vals = [row[3] for _, _, row in lp["seen"]]
+        rels = [abs(a - b) / abs(b) for a, b in zip(card_vals, cpu_vals)]
+        header, row = lp["csv"][0]
+        col = header.split("	").index("LPIPS")
+        csv_lpips = float(row.split("	")[col])
+        others_equal = [r.split("	")[:col] + r.split("	")[col + 1:] for r in lp["csv"][0]] == [
+            r.split("	")[:col] + r.split("	")[col + 1:] for r in plain["csv"][0]]
+        ok = (len(lp["csv"]) == len(plain["csv"]) == 1 and lp["files"] == plain["files"]
+              and others_equal and np.isfinite(card_vals).all() and max(rels) <= LPIPS_TOL
+              and csv_lpips == round(float(np.mean(card_vals)), 4)
+              and plain["csv"][0][1].split("	")[col] == "nan"
+              and k1 == 2 * DEPTH * lp["n"] and others == 0 and lp["n"] == plain["n"] > 0)
+        say(f"[lpips] E2V CLI over phase 9's first sequence ({first}, {len(card_vals)} frames, "
+            f"{lp['n']} reconstructions, float32) with V2E2V_LPIPS_WEIGHTS set: result.csv LPIPS "
+            f"{csv_lpips} (mean of the frames' {np.mean(card_vals):.6f}), each frame's against "
+            f"the CPU port's on the same frames: largest relative error {max(rels):.3e} (tol "
+            f"{LPIPS_TOL}); without the variable: LPIPS nan, {len(lp['files'])} PNG files byte for "
+            f"byte equal and the other metrics equal: {lp['files'] == plain['files']} "
+            f"{others_equal}; main path (counts at 0 before the LPIPS run): K1 {k1} (want "
+            f"{2 * DEPTH * lp['n']}), K2 and K3 {others}; {lp['s']:.1f} s with LPIPS, "
+            f"{plain['s']:.1f} s without ({smi}) {'pass' if ok else 'FAIL'}")
+        if not ok:
+            fail("the E2V CLI with LPIPS did not run as it should")
+
+        # (c) the E2V train step with LPIPS, card against CPU, then times
+        cfg = dataclasses.replace(cfg, ista_impl="plain", core_impl="layers")  # trainable
+        counters = kernel_counters()
+        # 13a's rule per tensor; a tensor past it must be within 1.5x of the
+        # card-CPU spread of the same step without LPIPS on the same batch,
+        # the float32 spread the step has anyway (We's reads 1.1-1.3e-3 on
+        # this batch without LPIPS on an H100 80GB HBM3, 700 W)
+        seq, gt = train_batch(seed + 23, CAPACITY)
+        res = {}
+        for run, device, fn in (("cpu", "cpu", cpu), ("card", "cuda", card),
+                                ("cpu, no LPIPS", "cpu", None),
+                                ("card, no LPIPS", "cuda", None)):
+            sd = train_weights(cfg, seed, device)
+            step = make_e2v_train_step(cfg, make_adam(sd, cfg, TRAIN_LR), lpips_fn=fn)
+            counts_zero(*counters)
+            t0 = time.perf_counter()
+            loss = float(step(sd, seq.to(device), gt.to(device)))
+            torch.cuda.synchronize()
+            res[run] = (loss, {k: sd[k].grad.cpu() for k in STEP_KEYS[cfg.model_mode]},
+                        time.perf_counter() - t0, [c.launches for c in counters])
+            if run == "card":
+                train_rows = row_counts()
+            del sd, step
+
+        def spread(a: str, b: str):
+            (la, ga, _, _), (lb, gb, _, _) = res[a], res[b]
+            return abs(la - lb) / abs(lb), {k: float((ga[k] - g).abs().max()) /
+                                            float(g.abs().max()) for k, g in gb.items()}
+
+        rel, errs = spread("card", "cpu")
+        rel0, errs0 = spread("card, no LPIPS", "cpu, no LPIPS")
+        worst = max(errs, key=errs.get)
+        past = {k: (float(f"{errs[k]:.2e}"), float(f"{errs0[k]:.2e}")) for k in errs
+                if errs[k] > GRAD_TOL}
+        launches = res["card"][3]
+        ok = (rel <= 1e-4 and rel0 <= 1e-4 and all(errs[k] <= 1.5 * errs0[k] for k in past)
+              and not any(launches))
+        say(f"[lpips] E2V train step with LPIPS card vs CPU (CISTA-LSTC {H}x{W}, C={C}, depth "
+            f"{DEPTH}, T={TRAIN_T}, B={CAPACITY}, remat; the same weights and batch): loss "
+            f"{res['card'][0]:.7f} vs {res['cpu'][0]:.7f}, relative error {rel:.3e} (tol 1e-4); "
+            f"gradients: largest max|diff| / max|g| {errs[worst]:.3e} ({worst}; tol {GRAD_TOL}); "
+            f"per tensor { {k: float(f'{v:.2e}') for k, v in errs.items()} }; the same step "
+            f"without LPIPS: loss {rel0:.3e}, largest {max(errs0.values()):.3e}; past {GRAD_TOL} "
+            f"(with, without LPIPS; want with <= 1.5 without): {past}; launches {launches}; "
+            f"step {res['card'][2]:.1f} s (CPU {res['cpu'][2]:.1f} s, {res['cpu, no LPIPS'][2]:.1f}"
+            f" s without LPIPS) {'pass' if ok else 'FAIL'}")
+        if not ok:
+            fail("the E2V train step with LPIPS on the card disagrees with the CPU")
+        seq, gt = seq.cuda(), gt.cuda()
+        timing = {}
+        for tag, fn in (("without", None), ("with", card)):
+            sd = train_weights(cfg, seed, "cuda")
+            step = make_e2v_train_step(cfg, make_adam(sd, cfg, TRAIN_LR), lpips_fn=fn)
+            losses = [float(step(sd, seq, gt))]  # warm-up
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            losses += [step(sd, seq, gt) for _ in range(3)]
+            ev[1].record()
+            ev[1].synchronize()
+            timing[tag] = (ev[0].elapsed_time(ev[1]) / 3,
+                           (torch.cuda.max_memory_allocated() - base) / 2**20,
+                           [float(x) for x in losses])
+            del sd, step
+        (ms0, mib0, l0), (ms1, mib1, l1) = timing["without"], timing["with"]
+        ok = all(np.isfinite(l0 + l1)) and l1[0] > l0[0]
+        say(f"[time] E2V train step B={CAPACITY}, T={TRAIN_T} ({smi}; float32, TF32 off, remat): "
+            f"{ms0:.3f} ms without LPIPS, {ms1:.3f} ms with ({ms1 - ms0:.3f} ms, "
+            f"{(ms1 - ms0) / ms0:.1%} more; CUDA events, 3 steps after 1 of warm-up); "
+            f"max_memory_allocated above the weights and batch {mib0:.1f} MiB without, "
+            f"{mib1:.1f} MiB with; losses {[round(x, 5) for x in l0]} / "
+            f"{[round(x, 5) for x in l1]} {'pass' if ok else 'FAIL'}")
+        if not ok:
+            fail("the E2V train steps with and without LPIPS did not run as they should")
+
+        # (d) cli.train for one step with LPIPS
+        os.environ["V2E2V_LPIPS_WEIGHTS"] = str(weights)
+        tdata = root / "train_data"
+        write_hfr_dataset(tdata, seed + 23, 1, TRAIN_SEQ_FRAMES, H, W)
+        make_train_txt_wo_events(str(tdata), "train_v2e2v.txt", N_FRAMES, N_FRAMES - 1)
+        counts_zero(*counters)
+        printed = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(printed):
+            train.main(train_argv(tdata, root / "train_models", "--epochs", "1",
+                                  "--path_to_e2v", str(e2v_ckpt), "--drop_seq_tails"))
+        torch.cuda.synchronize()
+        v2e2v_rows = row_counts()
+        k3_t, k1_t = emulator_iters.launches, ista_loop.launches + cista_core.launches
+        log = printed.getvalue()
+        loss_lines = [ln for ln in log.splitlines() if "loss:" in ln]
+        loss = float(loss_lines[0].split("loss:")[1]) if loss_lines else float("nan")
+        ok = (np.isfinite(loss) and "LPIPS weights unavailable" not in log
+              and k3_t == TRAIN_T * (N_FRAMES - 1) and k1_t == 0)
+        say(f"[lpips] cli.train (V2E2V) with V2E2V_LPIPS_WEIGHTS set, one step over one sample "
+            f"of {TRAIN_T} packs of {N_FRAMES} frames at {H}x{W} (--drop_seq_tails: no tail "
+            f"sample): loss {loss:.6f}; K3 {k3_t} "
+            f"(want {N_FRAMES - 1} a pack, {TRAIN_T * (N_FRAMES - 1)}), K1 and K2 {k1_t}; "
+            f"{time.perf_counter() - t0:.1f} s {'pass' if ok else 'FAIL'}")
+        if not ok:
+            fail("cli.train with LPIPS did not run as it should")
+    finally:
+        if saved_env is None:
+            os.environ.pop("V2E2V_LPIPS_WEIGHTS", None)
+        else:
+            os.environ["V2E2V_LPIPS_WEIGHTS"] = saved_env
+    say(f"[phase] LPIPS {time.perf_counter() - t_phase:.1f} s")
+    return {"e2v_cli_lpips_launches": cli_rows, "e2v_train_lpips_launches": train_rows,
+            "v2e2v_train_lpips_launches": v2e2v_rows}
 
 
 def main_path_k3_inputs(cfg, state, frames, ts, internal: bool):
@@ -4899,6 +5179,11 @@ def main() -> None:
         # its PNG twin
         image_rows = image_phase(args.seed, smi, shared / "image", shared / "cli" /
                                  "model.pth.tar", hfr["model"], trained["e2v_ckpt"])
+
+        # 23. LPIPS: the distance card against CPU, the E2V CLI and both
+        # trainers with V2E2V_LPIPS_WEIGHTS set
+        lpips_rows = lpips_phase(args.seed, smi, shared / "lpips", shared / "cli",
+                                 trained["e2v_ckpt"], cfg)
     finally:
         shutil.rmtree(shared, ignore_errors=True)
 
@@ -4907,7 +5192,8 @@ def main() -> None:
     paths = {"v2e2v_cli_launches": hfr["rows"], "raw_launches": raw_rows,
              "tc_pool_launches": tc_rows, "e2v_train_launches": trained["e2v"],
              "v2e2v_train_launches_per_step": trained["v2e2v"], **fused_rows, **int8["rows"],
-             **slomo_rows, **dist_rows, **spatial_rows, **jpeg_rows, **video_rows, **image_rows}
+             **slomo_rows, **dist_rows, **spatial_rows, **jpeg_rows, **video_rows, **image_rows,
+             **lpips_rows}
     for e in entries:
         if e["name"].startswith("ista_loop"):
             e.update(cli_k1[torch.float32 if "float32" in e["name"] else torch.bfloat16])

@@ -27,8 +27,18 @@ MJPEG AVIs:
 - ``opendml.avi``: 9 frames over a RIFF ``AVI `` and two RIFF ``AVIX``
   chunks, indexed by an ``indx`` super index and one ``ix00`` per ``movi``
   list, with ``odml``/``dmlh``, as OpenDML files past 1 GB are;
-- ``refused_odd_height.avi``: 3 frames at 64x49, which cv2 reads and the port
-  refuses (swscale converts an odd height through its general scaler);
+- ``odd_height.avi``: 3 frames at 64x49 (4:2:0 through swscale's general
+  scaler, not its unscaled converter);
+- ``yuv411.avi``, ``yuv422.avi``, ``yuv440.avi``, ``yuv444.avi``: 4 frames
+  each at 80x64, ``cv2.imencode`` at each ``IMWRITE_JPEG_SAMPLING_FACTOR``;
+- ``gray.avi``: 4 one-component frames at 80x64 (FFmpeg's ``gray``);
+- ``progressive.avi``: 4 progressive 4:2:0 frames at 80x64;
+- ``progressive_422.avi``: 3 progressive 4:2:2 frames at 77x49 (odd sizes:
+  the general scaler);
+- ``hd_yuv411.avi``, ``hd_yuv422.avi``, ``hd_yuv440.avi``, ``hd_yuv444.avi``,
+  ``hd_gray.avi``, ``hd_progressive.avi``: 2 frames each at 960x720 (a
+  webcam's MJPEG size; 4:2:2 is what webcams send most), quality 60, which
+  the card times per sampling;
 
 and ``manifest.json``: each clip's fps and frame count as cv2 reports them,
 the frames read, and the sha256 of each frame of the JAX ``VideoReader``
@@ -51,6 +61,10 @@ import cv2
 import numpy as np
 
 FLAGSHIP = (720, 960, 12, 240.0)  # height, width, frames, fps
+SAMPLINGS = {"yuv411": cv2.IMWRITE_JPEG_SAMPLING_FACTOR_411,
+             "yuv422": cv2.IMWRITE_JPEG_SAMPLING_FACTOR_422,
+             "yuv440": cv2.IMWRITE_JPEG_SAMPLING_FACTOR_440,
+             "yuv444": cv2.IMWRITE_JPEG_SAMPLING_FACTOR_444}
 
 
 def scene(rng: np.random.Generator, h: int, w: int, frames: int) -> np.ndarray:
@@ -219,8 +233,28 @@ def write_clips(out: Path, rng: np.random.Generator) -> dict[str, bool]:
     write_avi(out / "restart.avi", restart, 96, 64, 120)
     write_avi(out / "opendml.avi", [imencode(f) for f in scene(rng, 48, 64, 9)], 64, 48, 500,
               index="odml", riffs=3)
-    write_avi(out / "refused_odd_height.avi", [imencode(f) for f in scene(rng, 49, 64, 3)],
+    write_avi(out / "odd_height.avi", [imencode(f) for f in scene(rng, 49, 64, 3)],
               64, 49, 30)
+    for name, factor in SAMPLINGS.items():
+        write_avi(out / f"{name}.avi", [imencode(f, [cv2.IMWRITE_JPEG_SAMPLING_FACTOR, factor])
+                                        for f in scene(rng, 64, 80, 4)], 80, 64, 30)
+    write_avi(out / "gray.avi", [imencode(cv2.cvtColor(f, cv2.COLOR_BGR2GRAY))
+                                 for f in scene(rng, 64, 80, 4)], 80, 64, 30)
+    write_avi(out / "progressive.avi", [imencode(f, [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])
+                                        for f in scene(rng, 64, 80, 4)], 80, 64, 30)
+    write_avi(out / "progressive_422.avi", [
+        imencode(f, [cv2.IMWRITE_JPEG_PROGRESSIVE, 1, cv2.IMWRITE_JPEG_SAMPLING_FACTOR,
+                     cv2.IMWRITE_JPEG_SAMPLING_FACTOR_422]) for f in scene(rng, 49, 77, 3)],
+        77, 49, 30)
+    hd = {**{name: [cv2.IMWRITE_JPEG_SAMPLING_FACTOR, factor]
+               for name, factor in SAMPLINGS.items()},
+          "gray": [], "progressive": [cv2.IMWRITE_JPEG_PROGRESSIVE, 1]}
+    for name, params in hd.items():
+        imgs = scene(rng, 720, 960, 2)
+        if name == "gray":
+            imgs = [cv2.cvtColor(f, cv2.COLOR_BGR2GRAY) for f in imgs]
+        write_avi(out / f"hd_{name}.avi", [imencode(f, [cv2.IMWRITE_JPEG_QUALITY, 60, *params])
+                                           for f in imgs], 960, 720, 30)
     return {p.name: not p.name.startswith("refused") for p in sorted(out.glob("*.avi"))}
 
 

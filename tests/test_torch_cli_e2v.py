@@ -121,18 +121,31 @@ def _result(folder):
 
 
 def _compare_clis(setup, monkeypatch, argv, tag, model_dir, norm="minmax", amplified=False,
-                  readers=(tvr.ImageReader, jvr.ImageReader), min_steps=20):
+                  readers=(tvr.ImageReader, jvr.ImageReader), min_steps=20, lpips=None):
     """Run the port's CLI and the JAX CLI with ``argv`` and hold them to each
     other: every step's reconstruction, the written frames and the
     result.csv rows. With ``amplified``, two frames may differ by as many
     levels as the norm stretches the two reconstructions' difference, and the
     rows by what that moves (see ``test_int8_cli_matches_jax_cli``).
     ``readers`` are the port's and the JAX CLI's reader classes; the runs
-    take more than ``min_steps`` steps."""
+    take more than ``min_steps`` steps. ``lpips``: the LPIPS weights both
+    CLIs read from ``V2E2V_LPIPS_WEIGHTS``; their frames' LPIPS within 1e-5
+    of each other, and so each sequence's mean; without it both are NaN."""
     root, data, model, jcli = setup
-    monkeypatch.delenv("V2E2V_LPIPS_WEIGHTS", raising=False)
+    if lpips is None:
+        monkeypatch.delenv("V2E2V_LPIPS_WEIGHTS", raising=False)
+    else:
+        monkeypatch.setenv("V2E2V_LPIPS_WEIGHTS", lpips)
     monkeypatch.setenv("V2E2V_PLATFORM", "cpu")
-    out = {}
+    out, rows = {}, {"port": [], "jax": []}
+    for name, module in (("port", tcli), ("jax", jcli)):
+        evaluate = module.Reconstructor.evaluate
+
+        def recorded(self, *args, _evaluate=evaluate, _rows=rows[name]):
+            _rows.append(_evaluate(self, *args))
+            return _rows[-1]
+
+        monkeypatch.setattr(module.Reconstructor, "evaluate", recorded)
     for name in ("port", "jax"):
         steps = []
         folder = root / f"{name}_{tag}"
@@ -192,7 +205,22 @@ def _compare_clis(setup, monkeypatch, argv, tag, model_dir, norm="minmax", ampli
             + (0.01,)
         assert abs(got[0] - want[0]) <= mse_tol and abs(got[2] - want[2]) <= ssim_tol
         assert abs(got[1] - want[1]) <= psnr_tol
-        assert np.isnan(got[3]) and np.isnan(want[3])  # LPIPS without its weights
+        if lpips is None:
+            assert np.isnan(got[3]) and np.isnan(want[3])  # LPIPS without its weights
+    got_lp, want_lp = (np.array([r[3] for r in rows[k]]) for k in ("port", "jax"))
+    assert len(got_lp) == len(want_lp) == len(got_u8)
+    if lpips is not None:
+        assert np.isfinite(got_lp).all() and (want_lp > 0).all()
+        assert np.abs(got_lp - want_lp).max() <= 1e-5
+        # each sequence's mean, written to 4 decimals from its unrounded value
+        start = 0
+        for seq in sorted(want_res):
+            n = int(want_res[seq][4])
+            means = got_lp[start:start + n].mean(), want_lp[start:start + n].mean()
+            assert abs(means[0] - means[1]) <= 1e-5
+            assert (got_res[seq][3], want_res[seq][3]) == tuple(round(float(m), 4) for m in means)
+            start += n
+    return got_lp
 
 
 def _argv(data, model, *extra):
@@ -294,11 +322,6 @@ def test_cli_without_card_or_platform_raises(setup, monkeypatch):
         tcli.main(argv)
 
 
-UNSUPPORTED = [
-    ([], {"V2E2V_LPIPS_WEIGHTS": "MODEL"}, "item 12"),
-]
-
-
 @pytest.fixture(scope="module")
 def plain_run(setup):
     """The port's CLI once, without run flags."""
@@ -345,13 +368,21 @@ def test_run_flags_are_honoured(setup, plain_run, monkeypatch, capsys, tmp_path,
         np.testing.assert_array_equal(read_gray(str(got / f)), read_gray(str(want / f)))
 
 
-@pytest.mark.parametrize("argv,env,item", UNSUPPORTED, ids=["lpips"])
-def test_unsupported_flags_raise_with_their_item(setup, monkeypatch, argv, env, item):
-    root, data, model, _ = setup
-    monkeypatch.setenv("V2E2V_PLATFORM", "cpu")
-    for k, v in env.items():
-        monkeypatch.setenv(k, str(model) if v == "MODEL" else v)
-    with pytest.raises(NotImplementedError, match=item):
-        tcli.main(["--path_to_test_model", str(model), "--path_to_test_data", str(data),
-                   "-o", str(root / "refused"), *argv])
-    assert not (root / "refused").exists()
+@pytest.fixture(scope="module")
+def vgg_weights(tmp_path_factory):
+    from test_torch_lpips import write_vgg
+
+    return {"vgg_lin": write_vgg(tmp_path_factory.mktemp("vgg") / "vgg.pth", "vgg_lin")}
+
+
+def test_lpips_cli_matches_jax_cli(setup, vgg_weights, monkeypatch):
+    """With ``V2E2V_LPIPS_WEIGHTS`` naming random VGG16 weights (the LPIPS
+    layout; both layouts are held in tests/test_torch_lpips.py), both CLIs
+    report LPIPS: every frame's within 1e-5, so the result.csv column; the
+    frames and the other metrics agree as in the runs without it."""
+    layout = "vgg_lin"
+    root, data, model, jcli = setup
+    # 7 frames a sequence: JAX's LPIPS takes ~0.4 s a frame under the suite's XLA flags
+    got = _compare_clis(setup, monkeypatch, _argv(data, model, "--test_img_num", "6"),
+                        f"lpips_{layout}", "model.pth", min_steps=10, lpips=vgg_weights[layout])
+    assert len(np.unique(got)) > 1

@@ -19,6 +19,7 @@ and ``--mesh_data 2`` in one process raises ``ValueError``.
 The step's numbers against JAX's are in tests/test_torch_train_step.py.
 """
 
+import dataclasses
 import os
 import shutil
 import subprocess
@@ -214,7 +215,6 @@ def _refusals():
     for cli in ("train_e2v", "train"):
         for argv, env, item in [
             (["--mesh_spatial", "2"], {}, "no spatial axis either" if cli == "train" else None),
-            ([], {"V2E2V_LPIPS_WEIGHTS": "FILE"}, "item 12"),
         ]:
             name = (argv[0].lstrip("-") if argv else next(iter(env))).lower()
             cases.append(pytest.param(cli, argv, env, item, id=f"{cli}-{name}"))
@@ -319,3 +319,128 @@ def test_lifted_flags_are_honoured(cli, flag, data, tmp_path, monkeypatch, capsy
         assert len(traces) == 1 and traces[0].stat().st_size > 0
     else:
         assert "process 0/1, 1 local / 1 global devices (gloo)" in out
+
+
+# ------------------------------------------------------------------ LPIPS
+
+class _FirstStep(Exception):
+    """Raised by a wrapped train step after its first loss."""
+
+
+def _stop_after_first_step(monkeypatch, module, name, losses):
+    """``module.name`` (a step builder) with its step's first loss recorded
+    in ``losses``, then ``_FirstStep``."""
+    make = getattr(module, name)
+
+    def wrapped(*args, **kw):
+        step = make(*args, **kw)
+
+        def first(*a):
+            out = step(*a)
+            # the port: loss or (loss, stats); JAX: (params, opt_state, loss[, stats])
+            loss = out if isinstance(out, torch.Tensor) else out[0] if len(out) == 2 else out[2]
+            losses.append(float(loss))
+            raise _FirstStep
+
+        return first
+
+    monkeypatch.setattr(module, name, wrapped)
+
+
+@pytest.fixture(scope="module")
+def lpips_setup(tmp_path_factory):
+    """Random VGG16 weights in the ``{'vgg', 'lin'}`` layout, HFR frames of
+    intensity <= 19 (where the emulator's ``lin_log`` is exact in both
+    packages) with a V2E2V manifest, a .pth.tar of JAX's initial weights at
+    seed 0, and the JAX trainers loaded from the root."""
+    import importlib.util
+
+    import jax
+    from test_torch_lpips import write_vgg
+    from v2e2v_tpu.models import cista as jcista
+    from v2e2v_tpu_torch.data.manifests import make_train_txt_wo_events
+    from v2e2v_tpu_torch.data.synthetic import write_hfr_dataset
+
+    root = tmp_path_factory.mktemp("lpips_train")
+    weights = write_vgg(root / "vgg.pth", "vgg_lin")
+    hfr = root / "hfr"
+    write_hfr_dataset(hfr, 7, 2, 13, 32, 40, base=(2.0, 19.0))
+    make_train_txt_wo_events(str(hfr), "train_v2e2v.txt", num_frames=5, step=4)
+    cfg = jcista.CistaConfig(image_dim=(32, 40), base_channels=8, depth=2, num_bins=5)
+    params = jax.tree_util.tree_map(np.asarray, jcista.init_cista_lstc(jax.random.PRNGKey(0),
+                                                                         cfg))
+    sd = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in
+          jckpt.export_torch_state_dict(params, "cista-lstc", depth=2).items()}
+    e2v = root / "e2v.pth.tar"
+    torch.save({"epoch": 1, "state_dict": sd, "v2e_params": None}, e2v)
+    clis = {}
+    for name in ("train_e2v", "train"):
+        spec = importlib.util.spec_from_file_location(f"jax_{name}_cli",
+                                                      os.path.join(REPO, f"{name}.py"))
+        clis[name] = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(clis[name])
+    return weights, hfr, e2v, params, clis
+
+
+@pytest.mark.parametrize("cli", ["train_e2v", "train"])
+def test_lpips_trainers_match_the_jax_trainers(cli, lpips_setup, data, tmp_path, monkeypatch,
+                                               capsys):
+    """With ``V2E2V_LPIPS_WEIGHTS`` naming a file, each trainer trains on
+    ``LPIPS + L1 + (1 - SSIM)``: its first loss equals the JAX trainer's
+    within 1e-5 relative, from the same weights (the port's E2V init replaced
+    by JAX's seed-0 weights; the V2E2V trainers warm-started from them) and,
+    for V2E2V, the same emulator draws (JAX's key chain replayed)."""
+    import jax
+    from v2e2v_tpu.parallel import mesh as jmesh
+    from v2e2v_tpu.utils import configs as jconfigs
+    from v2e2v_tpu_torch.models import cista as tcista
+    from v2e2v_tpu_torch.training import steps as tsteps
+    from v2e2v_tpu_torch.utils.checkpoint import params_from_jax
+    from _torch_parity import JaxKeyNoise
+
+    weights, hfr, e2v, params, clis = lpips_setup
+    # the JAX trainers on the reference full-resolution layout, of which their
+    # default fused one is an exact rewrite: its compile takes a minute on the CPU
+    from v2e2v_tpu.models import cista as jcista
+    from v2e2v_tpu.models import v2e2v as jv2e2v
+
+    @dataclasses.dataclass(frozen=True)
+    class RefLayout(jcista.CistaConfig):
+        fullres_impl: str = "ref"
+
+    monkeypatch.setattr(jcista, "CistaConfig", RefLayout)
+    monkeypatch.setattr(jv2e2v, "CistaConfig", RefLayout)
+    monkeypatch.setenv("V2E2V_PLATFORM", "cpu")
+    monkeypatch.setenv("V2E2V_LPIPS_WEIGHTS", weights)
+    if cli == "train_e2v":
+        argv = _e2v_argv(data, tmp_path / "models", "--epochs", "1")
+        builder, module = "make_e2v_train_step", ttrain_e2v
+        monkeypatch.setattr(tcista, "init_cista_lstc",
+                            lambda *a, **k: {n: v.contiguous() for n, v in
+                                             params_from_jax(params, 2).items()})
+    else:
+        argv = ["--path_to_train_data", str(hfr), "--path_to_model", str(tmp_path / "models"),
+                "--path_to_e2v", str(e2v), "--num_pack_frames", "5", *NET, "--epochs", "1"]
+        builder, module = "make_v2e2v_train_step", ttrain
+        monkeypatch.setattr(ttrain.Train, "noise", lambda self, step: JaxKeyNoise(
+            jax.random.fold_in(jax.random.key(0, impl="rbg"), step)))
+    losses = {"port": [], "jax": []}
+    _stop_after_first_step(monkeypatch, tsteps, builder, losses["port"])
+    _stop_after_first_step(monkeypatch, jmesh, builder, losses["jax"])
+    with pytest.raises(_FirstStep):
+        module.main(argv)
+    assert "LPIPS weights unavailable" not in capsys.readouterr().out
+    parser = jconfigs.argparse.ArgumentParser()
+    jconfigs.set_configs(parser)
+    cfgs = parser.parse_args(argv)
+    cfgs.shuffle = True
+    with pytest.raises(_FirstStep):
+        clis[cli].Train(cfgs).run()
+    assert len(losses["port"]) == len(losses["jax"]) == 1
+    np.testing.assert_allclose(losses["port"][0], losses["jax"][0], rtol=1e-5)
+    # without the weights the same step's loss is lower by the distance
+    monkeypatch.delenv("V2E2V_LPIPS_WEIGHTS")
+    with pytest.raises(_FirstStep):
+        module.main(argv)
+    assert "LPIPS weights unavailable" in capsys.readouterr().out
+    assert losses["port"][1] < losses["port"][0]

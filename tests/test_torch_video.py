@@ -10,8 +10,10 @@ Every stage is held bit for bit: the demuxer's fps, frame count and packets
 (``cvtColor``, all 2^24 BGR triples), ``cv2.resize``, and so the readers: the
 port's ``VideoReader`` and ``VideoSequence`` frames equal the JAX ones at
 every pixel (exact share 1.0, max difference 0) on every fixture clip, with
-equal stamps, counts and shapes. What the port does not read raises and names
-ROADMAP item 4.
+equal stamps, counts and shapes: 4:2:0, 4:2:2, 4:4:4, 4:1:1, 4:4:0 and gray
+frames, baseline and progressive, of even and odd sizes (swscale's unscaled
+converter, its palette converter and its general scaler, ``utils/yuv.py``).
+What the port does not read raises and names ROADMAP item 4.
 
 The fixtures under ``tests/data/video`` (``scripts/make_video_fixtures.py``)
 are checked twice: the port against ``manifest.json`` and
@@ -39,7 +41,7 @@ REPO = Path(__file__).resolve().parents[1]
 FIXTURES = REPO / "tests" / "data" / "video"
 MANIFEST = json.loads((FIXTURES / "manifest.json").read_text())["clips"]
 PORTED = sorted(n for n, e in MANIFEST.items() if e["ported"])
-SMALL = [n for n in PORTED if n != "flagship.avi"]
+SMALL = [n for n in PORTED if n != "flagship.avi" and not n.startswith("hd_")]
 
 
 def _fixture_script():
@@ -211,8 +213,8 @@ def test_y_plane_matches_ffmpeg(name):
 
 @pytest.mark.parametrize("name", SMALL)
 def test_bgr_matches_swscale(name):
-    """The planes converted by ``yuv.yuvj420_to_bgr`` against
-    ``cap.read()``, and their gray against ``cvtColor`` of it."""
+    """The planes converted by ``yuv.mjpeg_to_bgr`` against ``cap.read()``,
+    and their gray against ``cvtColor`` of it."""
     cv2 = pytest.importorskip("cv2")
     path = FIXTURES / name
     want = _cv2_frames(cv2, path)
@@ -221,7 +223,7 @@ def test_bgr_matches_swscale(name):
     for i, data in enumerate(video.avi.frames()):
         frame = video.decode(data, i, tables)
         tables = frame.tables
-        bgr = yuv.yuvj420_to_bgr(*frame.planes)
+        bgr = yuv.mjpeg_to_bgr(frame.planes, frame.factors)
         np.testing.assert_array_equal(bgr, want[i], err_msg=f"{name} frame {i}")
         np.testing.assert_array_equal(yuv.bgr_to_gray(bgr),
                                       cv2.cvtColor(want[i], cv2.COLOR_BGR2GRAY))
@@ -303,7 +305,8 @@ def test_conversion_holds_on_chosen_triples(tmp_path):
         for py, px, by, bx in ((4, 4, 0, 0), (4, 11, 0, 1), (11, 4, 1, 0), (11, 11, 1, 1)):
             yy, uu, vv = y[by::2, bx::2].astype(np.uint8), cb.astype(np.uint8), cr.astype(np.uint8)
             want = bgr[py::16, px::16]
-            mine = yuv.yuvj420_to_bgr(yy.repeat(2, 0).repeat(2, 1), uu, vv)[::2, ::2]
+            mine = yuv.mjpeg_to_bgr([yy.repeat(2, 0).repeat(2, 1), uu, vv],
+                                    [(2, 2), (1, 1), (1, 1)])[::2, ::2]
             np.testing.assert_array_equal(mine, want)
 
 
@@ -502,25 +505,20 @@ def _refused(tmp_path, case):
         path.write_bytes(b"\x1a\x45\xdf\xa3" + bytes(60))
     elif case == "riff_wave":
         path.write_bytes(b"RIFF" + struct.pack("<I", 4) + b"WAVE")
-    elif case == "odd_height":
-        path = FIXTURES / "refused_odd_height.avi"
     elif case == "interlaced":  # each frame one field: half the stream's height
         fx.write_avi(path, [fx.imencode(f) for f in imgs], 48, 64, 30)
-    else:
-        params = {"progressive": [cv2.IMWRITE_JPEG_PROGRESSIVE, 1],
-                  "yuv444": [cv2.IMWRITE_JPEG_SAMPLING_FACTOR,
-                             cv2.IMWRITE_JPEG_SAMPLING_FACTOR_444],
-                  "gray": []}[case]
-        frames = [fx.imencode(cv2.cvtColor(f, cv2.COLOR_BGR2GRAY) if case == "gray" else f,
-                              params) for f in imgs]
-        fx.write_avi(path, frames, 48, 32, 30)
+    elif case == "interlaced_pair":  # both fields in one packet, which cv2 weaves
+        fx.write_avi(path, [fx.imencode(imgs[0]) + fx.imencode(imgs[1])], 48, 64, 30)
+    else:  # 4:1:1 at 24 wide: 6 chroma samples, under bicubic's 7
+        fx.write_avi(path, [fx.imencode(f[:, :24], [cv2.IMWRITE_JPEG_SAMPLING_FACTOR,
+                                                    cv2.IMWRITE_JPEG_SAMPLING_FACTOR_411])
+                            for f in imgs], 24, 32, 30)
     return path
 
 
 REFUSALS = {"mp4": "MP4/MOV", "matroska": "Matroska", "riff_wave": "'WAVE'",
-            "mpeg4_avi": "codec 'FMP4'", "odd_height": "odd height 49",
-            "interlaced": "interlaced", "progressive": "progressive",
-            "yuv444": "sampling factors", "gray": "sampling factors"}
+            "mpeg4_avi": "codec 'FMP4'", "interlaced": "interlaced",
+            "interlaced_pair": "interlaced", "tiny_411": "cuts its filter"}
 
 
 @pytest.mark.parametrize("case", sorted(REFUSALS))
@@ -533,3 +531,115 @@ def test_what_it_does_not_read_raises(tmp_path, case):
         VideoReader((180, 240)).initialize(path)
     with pytest.raises(ValueError, match="item 4"):
         list(VideoSequence(path))
+
+
+# ------------------------------------------------------ every sampling
+
+NEW = ["gray.avi", "odd_height.avi", "progressive.avi", "progressive_422.avi", "yuv411.avi",
+       "yuv422.avi", "yuv440.avi", "yuv444.avi", "hd_yuv422.avi", "hd_yuv411.avi"]
+
+
+@pytest.mark.parametrize("name", NEW)
+def test_every_sampling_matches_the_jax_readers(name):
+    """Each sampling, gray, progressive and odd-height clip through the port's
+    ``VideoReader`` and ``VideoSequence`` against the JAX ones on the same
+    file: equal frames at every pixel, stamps and counts."""
+    pytest.importorskip("cv2")
+    from v2e2v_tpu.data.manifests import VideoSequence as JaxSequence
+    from v2e2v_tpu.data.video_readers import VideoReader as JaxReader
+
+    path = str(FIXTURES / name)
+    port, ref = VideoReader((180, 240)), JaxReader((180, 240))
+    port.initialize(path)
+    ref.initialize(path)
+    assert port.num_frames == ref.num_frames == MANIFEST[name]["frames_read"] > 1
+    assert port.timestamps == ref.timestamps
+    for g, w in zip(port.frames, ref.frames, strict=True):
+        np.testing.assert_array_equal(g, w)
+    got, want = list(VideoSequence(path)), list(JaxSequence(path))
+    assert len(got) == len(want) == port.num_frames - 1
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g[0], w[0])
+        np.testing.assert_array_equal(g[1], w[1])
+        assert g[2:] == w[2:]
+
+
+SAMPLING_FACTORS = ["411", "420", "422", "440", "444"]
+
+
+@pytest.mark.parametrize("sampling", SAMPLING_FACTORS)
+def test_conversion_matches_swscale_on_random_sizes(tmp_path, sampling):
+    """Clips of random sizes (8 to 200 on a side, odd and even) and
+    qualities, a third of them progressive, at each sampling: every frame the
+    port converts equals ``cap.read()``; the ones it refuses are those whose
+    chroma swscale's bicubic filter would be cut to (``tiny`` below)."""
+    cv2 = pytest.importorskip("cv2")
+    fx = _fixture_script()
+    factor = getattr(cv2, f"IMWRITE_JPEG_SAMPLING_FACTOR_{sampling}")
+    rng = np.random.default_rng(int(sampling))
+    converted = 0
+    for k in range(12):
+        h, w = (int(v) for v in rng.integers(8, 200, 2))
+        params = [cv2.IMWRITE_JPEG_QUALITY, int(rng.integers(10, 101)),
+                  cv2.IMWRITE_JPEG_SAMPLING_FACTOR, factor]
+        if k % 3 == 0:
+            params += [cv2.IMWRITE_JPEG_PROGRESSIVE, 1]
+        data = fx.imencode(fx.scene(rng, h, w, 1)[0], params)
+        fx.write_avi(tmp_path / "r.avi", [data], w, h, 30)
+        want = _cv2_frames(cv2, tmp_path / "r.avi")[0]
+        frame = jpeg.decode_mjpeg_frame(data)
+        try:
+            got = yuv.mjpeg_to_bgr(frame.planes, frame.factors)
+        except ValueError as e:
+            assert "cuts its filter" in str(e) and tiny(frame), (h, w)
+            continue
+        assert not tiny(frame)
+        np.testing.assert_array_equal(got, want, err_msg=f"{sampling} {h}x{w}")
+        converted += 1
+    assert converted >= 8
+
+
+def tiny(frame) -> bool:
+    """Whether swscale would resample a chroma plane of under 7 samples up
+    (or under 11 down) in this frame."""
+    (h, w), (ch, cw) = frame.planes[0].shape, frame.planes[1].shape
+    full = (ch, cw) == (h, w) or w % 2
+    dst_w = w if full else -(-w // 2)
+    return any(n != d and n < (11 if n > d else 7) for n, d in ((cw, dst_w), (ch, h)))
+
+
+def test_gray_frames_pass_every_value_through(tmp_path):
+    """A gray frame of flat blocks at every value 0-255 (quality 100: each
+    block decodes to its value): cv2 gives B = G = R = Y, no range
+    expansion, and so does the port, at even and odd sizes."""
+    cv2 = pytest.importorskip("cv2")
+    fx = _fixture_script()
+    img = np.arange(256, dtype=np.uint8).reshape(16, 16).repeat(8, 0).repeat(8, 1)
+    for h, w in ((128, 128), (127, 125)):
+        data = fx.imencode(img[:h, :w], [cv2.IMWRITE_JPEG_QUALITY, 100])
+        fx.write_avi(tmp_path / "g.avi", [data], w, h, 30)
+        want = _cv2_frames(cv2, tmp_path / "g.avi")[0]
+        frame = jpeg.decode_mjpeg_frame(data)
+        np.testing.assert_array_equal(frame.planes[0], img[:h, :w])
+        np.testing.assert_array_equal(yuv.mjpeg_to_bgr(frame.planes, frame.factors), want)
+        np.testing.assert_array_equal(yuv.mjpeg_to_gray(frame.planes, frame.factors),
+                                      img[:h, :w])
+
+
+def test_other_sampling_factors_raise():
+    y = np.zeros((16, 24), np.uint8)
+    with pytest.raises(ValueError, match="(?s)sampling factors.*item 4"):
+        yuv.mjpeg_to_bgr([y, y[:, :8], y[:, :8]], [(3, 1), (1, 1), (1, 1)])
+    with pytest.raises(ValueError, match="(?s)chroma planes.*item 4"):
+        yuv.mjpeg_to_bgr([y, y[:, :8], y[:, :8]], [(2, 1), (1, 1), (1, 1)])
+
+
+def test_bicubic_filters_are_normalised():
+    """Each output's taps sum to the filter's one, start inside the plane
+    and stay inside it, for the upscales and downscale the samplings use."""
+    for src, dst, one, align in ((16, 32, 1 << 14, 4), (25, 49, 1 << 12, 2),
+                                 (80, 40, 1 << 14, 4), (7, 13, 1 << 14, 4)):
+        pos, taps = yuv.bicubic_filter(src, dst, one, align)
+        assert taps.shape == (dst, taps.shape[1]) and taps.shape[1] % align == 0
+        assert (taps.sum(1) == one).all()
+        assert (pos >= 0).all() and (pos + taps.shape[1] <= max(src, taps.shape[1])).all()

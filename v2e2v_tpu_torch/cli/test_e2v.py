@@ -14,16 +14,17 @@ events, pack the events to the ``--num_events`` budget ('real' or
 its convs are cuDNN's; with ``--quant int8`` or ``int8-static`` either
 network's core convs are int8, kernel K4), normalise each prediction to uint8
 (minmax or percentile), write the frames, and report the sequence's mean
-MSE/PSNR/SSIM/LPIPS on stdout and in ``result.csv``.
+MSE/PSNR/SSIM/LPIPS on stdout and in ``result.csv``. LPIPS is the VGG16 one
+of ``training/lpips.py`` with the weights ``$V2E2V_LPIPS_WEIGHTS`` names, run
+in float32 on the CLI's device whatever ``--precision`` and ``--quant`` are,
+and NaN without them, as in the JAX CLI.
 
 It runs on the CUDA card, and on the CPU only under ``V2E2V_PLATFORM=cpu``.
 With the ``--dist_*`` flags, the ``V2E2V_*`` variables or
 ``V2E2V_DIST_AUTO=1`` it joins a process group
 (``parallel/distributed.initialize_from_flags``) and, as the JAX CLI does,
 each process runs the whole evaluation. ``--profile_dir`` is accepted and
-ignored, as the JAX CLI ignores it. Flags it does not cover yet raise at
-once, naming the ROADMAP.md item that brings them. LPIPS is NaN, as in the
-JAX CLI without its weights.
+ignored, as the JAX CLI ignores it.
 """
 
 from __future__ import annotations
@@ -37,15 +38,7 @@ import torch
 
 from ..models.cista import CistaConfig, CistaState, cista_zero_state, get_step_fn, with_derived
 
-ROADMAP = "ROADMAP.md queue 1"
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-
-
-def missing(what: str, item: int, why: str = "") -> None:
-    """Raise for a flag whose ROADMAP.md queue 1 item is not ported yet."""
-    raise NotImplementedError(
-        f"{what} is not ported yet ({ROADMAP}, item {item}){': ' + why if why else ''}"
-    )
 
 
 def make_reader(cfgs, device: torch.device, video_files: bool = False, **kw):
@@ -64,14 +57,9 @@ def make_reader(cfgs, device: torch.device, video_files: bool = False, **kw):
 
 
 def check_flags(cfgs) -> None:
-    """Raise on every flag (or environment variable) this CLI does not cover
-    yet."""
+    """Raise on a model mode or precision the CLI does not know."""
     if cfgs.model_mode not in ("cista-lstc", "cista-tc"):
         raise ValueError(f"--model_mode must be cista-lstc or cista-tc, got {cfgs.model_mode!r}")
-    lpips = os.environ.get("V2E2V_LPIPS_WEIGHTS")
-    if lpips and os.path.exists(lpips):
-        missing(f"LPIPS (V2E2V_LPIPS_WEIGHTS={lpips})", 12,
-                "unset the variable to report LPIPS as NaN")
     if cfgs.precision not in DTYPES:
         raise ValueError(f"--precision must be float32 or bfloat16, got {cfgs.precision!r}")
 
@@ -127,6 +115,7 @@ class Reconstructor:
 
     def __init__(self, cfgs, device: torch.device | str | None = None):
         from .._device import resolve_device
+        from ..training.lpips import make_lpips_fn
 
         check_flags(cfgs)
         self.cfgs = cfgs
@@ -148,12 +137,22 @@ class Reconstructor:
         self.cfg, self.params, self.step, self.zero_state = build_model(cfgs, self.device)
         self.model_name = os.path.splitext(os.path.basename(cfgs.path_to_test_model))[0]
         self.calibrated = False
+        self.lpips_fn = make_lpips_fn(device=self.device)
 
     def evaluate(self, pred_u8: np.ndarray, gt: np.ndarray):
+        """MSE, PSNR, SSIM and LPIPS (NaN without its weights) of a frame
+        against its normalised ground truth, LPIPS on ``[1, H, W, 1]``
+        float32 tensors on the CLI's device."""
         from ..utils.evaluate import mse, psnr, ssim
 
         pred = pred_u8 / 255.0
-        return [mse(pred, gt), psnr(pred, gt), ssim(pred, gt), float("nan")]
+        row = [mse(pred, gt), psnr(pred, gt), ssim(pred, gt), float("nan")]
+        if self.lpips_fn is not None:
+            a, b = (torch.from_numpy(np.asarray(x, np.float32)[None, ..., None]).to(self.device)
+                    for x in (pred, gt))
+            with torch.no_grad():
+                row[3] = float(self.lpips_fn(a, b))
+        return row
 
     def _calibrate_static(self, ev, prev, state) -> dict:
         """``--quant int8-static``: static int8 activation scales from one run

@@ -6,10 +6,10 @@
 Events are emulated on the fly from HFR frame packs (``train_v2e2v.txt``
 under ``--path_to_train_data``); CISTA-LSTC trains many-to-one over
 ``--len_sequence`` packs, its last reconstruction clamped to
-``(1e-7, 1 - 1e-7)``, with ``L1 + (1 - SSIM)`` and Adam as in
-``cli/train_e2v.py``. A fresh run warm-starts from the ``--path_to_e2v``
-``.pth.tar``. Each epoch writes ``<name>_<epoch>.pth.tar`` with the weights
-under the composite's ``e2v_net.`` prefix, the Adam state and ``v2e_params``,
+``(1e-7, 1 - 1e-7)``, with ``LPIPS + L1 + (1 - SSIM)`` (LPIPS where its
+weights are there) and Adam as in ``cli/train_e2v.py``. A fresh run
+warm-starts from the ``--path_to_e2v`` ``.pth.tar``. Each epoch writes
+``<name>_<epoch>.pth.tar`` with the weights under the composite's ``e2v_net.`` prefix, the Adam state and ``v2e_params``,
 from which the port's ``cli/test.py`` rebuilds the emulator.
 
 The emulator runs outside autograd's graph; on the card its iteration loop is
@@ -20,9 +20,7 @@ several processes, ``--profile_dir`` and ``--debug_nans`` work as in
 ``cli/train_e2v.py``: each rank emulates its rows of every batch from the
 global batch's draws (K3 in every rank), and batches the data axis cannot
 divide are dropped and reported. ``--mesh_spatial`` above 1 raises: the
-V2E2V trainer shards the data axis only, as the JAX package's does. Flags
-it does not cover yet raise at once, naming the ROADMAP.md item that brings
-them.
+V2E2V trainer shards the data axis only, as the JAX package's does.
 """
 
 from __future__ import annotations
@@ -42,6 +40,7 @@ from .train_e2v import (
     drop_unshardable,
     dropped_warning,
     epoch_summary,
+    lpips_for_training,
     parse_flags,
     run_training,
     save_on_rank0,
@@ -131,14 +130,15 @@ class Train:
             opt_state = load_optimizer_state(resume)
             if opt_state is not None:
                 self.optimizer.load_state_dict(opt_state)
-        print("LPIPS weights unavailable; training with L1 + (1 - SSIM) only")
+        self.lpips_fn = lpips_for_training(self.device)
         if cfgs.device_data != "off":
-            self.train_step = make_v2e2v_train_step_device_data(self.cfg, self.optimizer,
-                                                                mesh=self.mesh)
+            self.train_step = make_v2e2v_train_step_device_data(
+                self.cfg, self.optimizer, mesh=self.mesh, lpips_fn=self.lpips_fn)
         else:
             # each batch's rows are taken on the host (run)
-            self.train_step = make_v2e2v_train_step(self.cfg, self.optimizer,
-                                                    monitor=cfgs.display_train, mesh=self.mesh)
+            self.train_step = make_v2e2v_train_step(
+                self.cfg, self.optimizer, monitor=cfgs.display_train, mesh=self.mesh,
+                lpips_fn=self.lpips_fn)
         # --display_train: the reference's matplotlib previews as PNG panels
         # every 50 batches, from rank 0 (its first row is the batch's first)
         self.display = None

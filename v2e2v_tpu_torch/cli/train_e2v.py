@@ -5,9 +5,10 @@
 
 Trains CISTA-LSTC or (``--model_mode cista-tc``) CISTA-TC on fixed-event-count
 sequences (``train_e2v.txt`` under ``--path_to_train_data``): the
-many-to-one loss ``L1 + (1 - SSIM)`` on the last reconstruction of each
-``--len_sequence`` window, Adam with the learning rate times 0.9 every 10
-epochs, a checkpoint per epoch. Checkpoints are the reference's ``.pth.tar``
+many-to-one loss ``LPIPS + L1 + (1 - SSIM)`` on the last reconstruction of
+each ``--len_sequence`` window (without LPIPS when ``$V2E2V_LPIPS_WEIGHTS``
+names no file, as the JAX trainer; ``training/lpips.py``), Adam with the
+learning rate times 0.9 every 10 epochs, a checkpoint per epoch. Checkpoints are the reference's ``.pth.tar``
 (``{epoch, state_dict, optimizer}``) at
 ``--path_to_model/<name>/<name>_<epoch>.pth.tar``, which the port's
 evaluation CLIs and the JAX package's ``load_torch_checkpoint`` load, and
@@ -34,8 +35,6 @@ gathers its rows (and columns) of each batch. Rank 0 alone writes checkpoints;
 every rank resumes from the same file. ``--profile_dir`` traces the run
 with ``torch.profiler`` (one file per rank) and ``--debug_nans`` raises
 ``FloatingPointError`` at the first NaN in a step (``utils/profiling.py``).
-Flags it does not cover yet raise at once, naming the ROADMAP.md item that
-brings them.
 """
 
 from __future__ import annotations
@@ -48,19 +47,12 @@ import time
 import numpy as np
 import torch
 
-from .test_e2v import missing
-
 CHECKPOINT_SUFFIX = ".pth.tar"
 
 
 def check_train_flags(cfgs) -> None:
-    """Raise on the flags (and environment variables) that neither of the
-    port's training CLIs covers yet, LPIPS; and on ``--device_data`` without
-    ``--drop_seq_tails``, as the JAX CLIs do."""
-    lpips = os.environ.get("V2E2V_LPIPS_WEIGHTS")
-    if lpips and os.path.exists(lpips):
-        missing(f"LPIPS (V2E2V_LPIPS_WEIGHTS={lpips})", 12,
-                "unset the variable to train with L1 + (1 - SSIM)")
+    """Raise on ``--device_data`` without ``--drop_seq_tails``, as the JAX
+    CLIs do."""
     if cfgs.device_data != "off" and not cfgs.drop_seq_tails:
         raise SystemExit("--device_data requires --drop_seq_tails (uniform [T, ...] sample "
                          "shapes)")
@@ -70,6 +62,17 @@ def check_flags(cfgs) -> None:
     if cfgs.model_mode not in ("cista-lstc", "cista-tc"):
         raise ValueError(f"--model_mode must be cista-lstc or cista-tc, got {cfgs.model_mode!r}")
     check_train_flags(cfgs)
+
+
+def lpips_for_training(device: torch.device):
+    """The trainers' LPIPS on ``device`` (``training/lpips.make_lpips_fn``), or
+    None, said as the JAX trainers say it."""
+    from ..training.lpips import make_lpips_fn
+
+    lpips_fn = make_lpips_fn(device=device)
+    if lpips_fn is None:
+        print("LPIPS weights unavailable; training with L1 + (1 - SSIM) only")
+    return lpips_fn
 
 
 def epoch_summary(epoch: int, seconds: float, losses: list[float]) -> str:
@@ -182,14 +185,15 @@ class Train:
             opt_state = load_optimizer_state(resume)
             if opt_state is not None:
                 self.optimizer.load_state_dict(opt_state)
-        print("LPIPS weights unavailable; training with L1 + (1 - SSIM) only")
+        self.lpips_fn = lpips_for_training(self.device)
         if cfgs.device_data != "off":
             self.train_step = make_e2v_train_step_device_data(
                 self.cfg, self.optimizer, noise_std=0.1 if cfgs.add_noise else 0.0,
-                mesh=self.mesh)
+                mesh=self.mesh, lpips_fn=self.lpips_fn)
         else:
             # each batch's rows are taken on the host (run's to_device_layout)
-            self.train_step = make_e2v_train_step(self.cfg, self.optimizer, mesh=self.mesh)
+            self.train_step = make_e2v_train_step(self.cfg, self.optimizer, mesh=self.mesh,
+                                                  lpips_fn=self.lpips_fn)
 
     def checkpoint_path(self, epoch: int) -> str:
         return os.path.join(self.path_to_model,

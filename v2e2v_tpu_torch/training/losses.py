@@ -3,9 +3,9 @@
 The reference trains with ``LPIPS(vgg) + L1 + (1 - SSIM)`` on the final
 reconstruction of each window ("many-to-one", ``train_e2v.py:117-120``), SSIM
 being ``pytorch_msssim.SSIM(data_range=1, channel=1)``: an 11-tap Gaussian
-window of sigma 1.5. The LPIPS network's weights are not in the repository,
-so the port, like the JAX trainers without them, trains with
-``L1 + (1 - SSIM)``. Images are NHWC.
+window of sigma 1.5, and LPIPS the VGG16 one of ``training/lpips.py``, which
+the trainers pass in when its weights are there; without them they train,
+as the JAX trainers do, with ``L1 + (1 - SSIM)``. Images are NHWC.
 """
 
 from __future__ import annotations
@@ -91,8 +91,11 @@ def many_to_one_loss(
     sample_weights: torch.Tensor | None = None,
     batch_weights: torch.Tensor | None = None,
     shard: Shard | None = None,
+    lpips_fn=None,
 ) -> torch.Tensor:
-    """The reference's training loss without LPIPS, ``L1 + (1 - SSIM)``.
+    """The reference's training loss ``LPIPS + L1 + (1 - SSIM)``, without the
+    LPIPS term when ``lpips_fn`` (``fn(pred, target) -> scalar``, the batch
+    mean) is None.
 
     ``sample_weights [B]`` (optional): the weighted mean of the per-sample
     losses over ``max(sum(w), 1)`` instead of the batch mean. With 1.0 for
@@ -105,15 +108,27 @@ def many_to_one_loss(
     ``shard``: ``final_rec`` and ``gt`` are one rank's block of columns. SSIM's
     window reads across the cuts and the means are over the whole image, so
     both are gathered over the spatial group (``parallel/spatial.gather_cols``)
-    and every rank of it computes the whole image's loss; the gradient each
-    rank gets is its own columns'."""
+    and every rank of it computes the whole image's loss (LPIPS too, on the
+    whole image); the gradient each rank gets is its own columns'.
+
+    With ``sample_weights`` each sample's own LPIPS distance joins its loss:
+    ``lpips_fn.per_sample`` gives them in one call where it has one
+    (``training/lpips.Lpips``), else ``lpips_fn`` runs on each sample alone,
+    as the JAX loss ``vmap``s it over batches of one."""
     if shard is not None:
         final_rec, gt = gather_cols(final_rec, shard), gather_cols(gt, shard)
     if sample_weights is None:
-        return l1_loss(final_rec, gt) + (1.0 - ssim(final_rec, gt))
+        loss = l1_loss(final_rec, gt) + (1.0 - ssim(final_rec, gt))
+        if lpips_fn is not None:
+            loss = loss + lpips_fn(final_rec, gt)
+        return loss
     w = sample_weights.to(torch.float32)
     total = w if batch_weights is None else batch_weights.to(torch.float32)
     denom = torch.clamp(torch.sum(total), min=1.0)
     per_l1 = torch.mean(torch.abs(final_rec - gt), dim=(1, 2, 3))
     per = per_l1 + (1.0 - _per_sample_ssim(final_rec, gt))
+    if lpips_fn is not None:
+        per_sample = getattr(lpips_fn, "per_sample", None)
+        per = per + (per_sample(final_rec, gt) if per_sample is not None else torch.stack(
+            [lpips_fn(p[None], t[None]) for p, t in zip(final_rec, gt)]))
     return torch.sum(w * per) / denom

@@ -46,6 +46,11 @@ have no backward, and refuse to run under autograd. Every random draw (the
 emulator's, the device-data noise) is made outside the rematerialised
 region, so the recomputation sees the forward's numbers. Forward and
 backward run with TF32 off (``_device.float32_math``).
+
+Every builder takes ``lpips_fn`` (``training/lpips.make_lpips_fn``'s, or None)
+and adds its distance to the loss, as the JAX builders' ``lpips_fn`` does.
+Its VGG16 weights are frozen: not the optimizer's, never broadcast, never
+reduced; only the gradient it sends back into the reconstruction counts.
 """
 
 from __future__ import annotations
@@ -227,16 +232,16 @@ def _setup(cfg: CistaConfig, optimizer: torch.optim.Optimizer, mesh: Mesh | None
 def e2v_loss(params: StateDict, cfg: CistaConfig, voxel_seq: torch.Tensor, gt: torch.Tensor,
              sample_weights: torch.Tensor | None = None, remat: bool = True,
              batch_weights: torch.Tensor | None = None,
-             shard: Shard | None = None) -> torch.Tensor:
+             shard: Shard | None = None, lpips_fn=None) -> torch.Tensor:
     """The many-to-one loss of ``voxel_seq [T, B, H, W, nb]`` against
     ``gt [B, H, W, 1]`` on the last reconstruction; with ``shard`` ``W`` is
     this rank's block of columns and the loss the whole image's."""
     recs, _ = cista_sequence(params, cfg, voxel_seq, remat=remat, shard=shard)
-    return many_to_one_loss(recs[-1], gt, sample_weights, batch_weights, shard)
+    return many_to_one_loss(recs[-1], gt, sample_weights, batch_weights, shard, lpips_fn)
 
 
 def make_e2v_train_step(cfg: CistaConfig, optimizer: torch.optim.Optimizer,
-                        mesh: Mesh | None = None):
+                        mesh: Mesh | None = None, lpips_fn=None):
     """The E2V step: ``step(params, voxel_seq [T, B, H, W, nb], gt [B, H, W, 1])
     -> loss`` (a detached scalar on the device), the weights of ``params``
     (``optimizer``'s) updated in place. Over a process group ``B`` is this
@@ -246,14 +251,15 @@ def make_e2v_train_step(cfg: CistaConfig, optimizer: torch.optim.Optimizer,
     shard = None if axis is None else axis.shard
 
     def step(params, voxel_seq, gt):
-        return _update(optimizer, lambda: e2v_loss(params, cfg, voxel_seq, gt, shard=shard),
-                       axis)[0]
+        return _update(optimizer, lambda: e2v_loss(params, cfg, voxel_seq, gt, shard=shard,
+                                                   lpips_fn=lpips_fn), axis)[0]
 
     return step
 
 
 def make_e2v_train_step_device_data(cfg: CistaConfig, optimizer: torch.optim.Optimizer,
-                                    noise_std: float = 0.0, mesh: Mesh | None = None):
+                                    noise_std: float = 0.0, mesh: Mesh | None = None,
+                                    lpips_fn=None):
     """The E2V step over a dataset on the device: ``step(params, data
     [N, T, H, W, nb], gt_all [N, H, W, 1], idx [B], generator, w [B]) -> loss``.
     The batch is gathered by index on the device and cast to float32 (the
@@ -281,7 +287,8 @@ def make_e2v_train_step_device_data(cfg: CistaConfig, optimizer: torch.optim.Opt
                 cols=None if shard is None else (3, axis.col_slice(data.shape[3]),
                                                  data.shape[3]))
         return _update(optimizer, lambda: e2v_loss(params, cfg, voxel_seq, gt, w,
-                                                   batch_weights=batch_w, shard=shard),
+                                                   batch_weights=batch_w, shard=shard,
+                                                   lpips_fn=lpips_fn),
                        axis, summed=True)[0]
 
     return step
@@ -290,7 +297,7 @@ def make_e2v_train_step_device_data(cfg: CistaConfig, optimizer: torch.optim.Opt
 def v2e2v_loss(params: StateDict, cfg, frames_seq: torch.Tensor, ts_seq: torch.Tensor,
                gt: torch.Tensor, noise, sample_weights: torch.Tensor | None = None,
                monitor: bool = False, remat: bool = True,
-               batch_weights: torch.Tensor | None = None):
+               batch_weights: torch.Tensor | None = None, lpips_fn=None):
     """The V2E2V many-to-one loss and the window's emulator stats.
 
     ``frames_seq [T, B, N, H, W]`` (0-255) and ``ts_seq [T, B, N]`` run through
@@ -310,7 +317,7 @@ def v2e2v_loss(params: StateDict, cfg, frames_seq: torch.Tensor, ts_seq: torch.T
         recs, _, st = v2e2v_sequence(params, cfg, frames_seq, ts_seq, noise, with_stats=True,
                                      remat=remat, device=device)
     rec = torch.clamp(recs[-1], *CLAMP)
-    loss = many_to_one_loss(rec, gt, sample_weights, batch_weights)
+    loss = many_to_one_loss(rec, gt, sample_weights, batch_weights, lpips_fn=lpips_fn)
     stats = {
         "num_events": st["num_events"].sum(),
         "max_event_count": st["max_event_count"].amax(),
@@ -334,7 +341,7 @@ def _v2e2v_update(optimizer, loss_fn, axis, summed=False):
 
 
 def make_v2e2v_train_step(cfg, optimizer: torch.optim.Optimizer, monitor: bool = False,
-                          mesh: Mesh | None = None):
+                          mesh: Mesh | None = None, lpips_fn=None):
     """The V2E2V step: ``step(params, frames_seq [T, B, N, H, W], ts_seq
     [T, B, N], gt [B, H, W, 1], noise) -> (loss, stats)`` (see
     ``v2e2v_loss``). The emulator runs outside autograd's graph: on the card
@@ -351,13 +358,14 @@ def make_v2e2v_train_step(cfg, optimizer: torch.optim.Optimizer, monitor: bool =
             batch = frames_seq.shape[1] * axis.n_data
             noise = RowsNoise(noise, axis.row_slice(batch), batch)
         return _v2e2v_update(optimizer, lambda: v2e2v_loss(
-            params, cfg, frames_seq, ts_seq, gt, noise, monitor=monitor), axis)
+            params, cfg, frames_seq, ts_seq, gt, noise, monitor=monitor, lpips_fn=lpips_fn),
+            axis)
 
     return step
 
 
 def make_v2e2v_train_step_device_data(cfg, optimizer: torch.optim.Optimizer,
-                                      mesh: Mesh | None = None):
+                                      mesh: Mesh | None = None, lpips_fn=None):
     """The V2E2V step over a dataset on the device: ``step(params, frames_u8
     [S, T, N, H, W] uint8, ts_all [S, T, N] float32, idx [B], noise, w [B]) ->
     (loss, stats)``. The batch is gathered by index on the device; ``gt`` is
@@ -378,6 +386,6 @@ def make_v2e2v_train_step_device_data(cfg, optimizer: torch.optim.Optimizer,
         gt = frames_seq[-1][:, -1, :, :, None] / 255.0
         return _v2e2v_update(optimizer, lambda: v2e2v_loss(
             params, cfg, frames_seq, ts_seq, gt, noise, sample_weights=w,
-            batch_weights=batch_w), axis, summed=True)
+            batch_weights=batch_w, lpips_fn=lpips_fn), axis, summed=True)
 
     return step

@@ -3,7 +3,8 @@
 MSE/PSNR on [0, 1] images with a 100 dB ceiling; SSIM as skimage's
 ``structural_similarity`` with ``data_range=1`` (uniform 7x7 window, sample
 covariance), computed in float64 with integral-image box filters. LPIPS is
-not ported (the CLI writes NaN for it, as the JAX CLI does without weights).
+``training/lpips.py``'s (the CLI reports NaN for it without its weights, as
+the JAX CLI does).
 """
 
 from __future__ import annotations

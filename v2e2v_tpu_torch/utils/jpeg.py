@@ -33,8 +33,9 @@ C IDCT and its SIMD one (16-bit lanes, saturating packs) agree, which no
 encoder's output reaches.
 
 ``decode_mjpeg_frame`` (below, for ``utils/video.py``) shares the markers and
-the entropy decoding, keeps every component's blocks, and takes FFmpeg's
-DC offset and IDCT instead of libjpeg's; it reads baseline frames only.
+the entropy decoding, baseline and progressive, keeps every component's
+blocks, and takes FFmpeg's DC offset and IDCT instead of libjpeg's; FFmpeg
+does not smooth a progressive frame's blocks, so neither does it.
 """
 
 from __future__ import annotations
@@ -299,9 +300,6 @@ class _Decoder:
             raise _refuse(path, f"{n} components")
         if len(body) != 6 + 3 * n:
             raise _corrupt(path, "an SOF segment of the wrong length")
-        if self.colour and progressive:
-            raise _refuse(path, "a progressive frame in a video (FFmpeg's MJPEG decoder reads "
-                          "it, the port's does not)")
         for i in range(n):
             cid, hv, tq = body[6 + 3 * i:9 + 3 * i]
             h, v = hv >> 4, hv & 15

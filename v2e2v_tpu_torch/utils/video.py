@@ -11,12 +11,14 @@ video readers see a video.
   planes as FFmpeg's MJPEG decoder does, its tables carried from frame to
   frame;
 - ``utils/yuv.py`` converts the planes to BGR as swscale gives them to
-  OpenCV, then to gray as ``cvtColor`` does.
+  OpenCV (gray, 4:4:4, 4:2:2, 4:2:0, 4:1:1 and 4:4:0, baseline or
+  progressive), then to gray as ``cvtColor`` does.
 
 No EXIF orientation is applied: FFmpeg does not apply one to MJPEG frames.
 Other containers and codecs, interlaced MJPEG (a frame of two fields, each
-coded at half the stream's height), and frames that are not 4:2:0 of an
-even height raise a ValueError naming ROADMAP.md queue 1, item 4.
+coded at half the stream's height), other sampling factors and frames too
+small for swscale's chroma filter raise a ValueError naming ROADMAP.md
+queue 1, item 4.
 """
 
 from __future__ import annotations
@@ -24,9 +26,7 @@ from __future__ import annotations
 from .avi import AviFile
 from .imgcodecs import ROADMAP
 from .jpeg import decode_mjpeg_frame
-from .yuv import yuvj420_to_gray
-
-YUV420 = [(2, 2), (1, 1), (1, 1)]
+from .yuv import mjpeg_to_gray
 
 
 class VideoFile:
@@ -46,9 +46,6 @@ class VideoFile:
         if h < self.avi.height * 3 // 4:  # mjpegdec.c's test for a field of an interlaced frame
             raise ValueError(f"{where}: a {h}-row frame in a {self.avi.height}-row stream, an "
                              f"interlaced MJPEG field, which the port does not read ({ROADMAP})")
-        if frame.factors != YUV420:
-            raise ValueError(f"{where}: sampling factors {frame.factors}: the port converts "
-                             f"4:2:0 MJPEG frames only ({ROADMAP})")
         return frame
 
     def __iter__(self):
@@ -56,4 +53,4 @@ class VideoFile:
         for i, data in enumerate(self.avi.frames()):
             frame = self.decode(data, i, tables)
             tables = frame.tables
-            yield yuvj420_to_gray(*frame.planes, path=f"{self.path} frame {i}")
+            yield mjpeg_to_gray(frame.planes, frame.factors, path=f"{self.path} frame {i}")
