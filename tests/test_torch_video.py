@@ -486,16 +486,19 @@ def test_video_sequence_matches_the_jax_sequence(name):
 
 # ---------------------------------------------------------------- refusals
 
-def _refused(tmp_path, case):
-    """A file the port does not read, and what cv2 makes of it."""
+def _case_file(tmp_path, case):
+    """A file of a format or tool the port refused before, or still refuses."""
     cv2 = pytest.importorskip("cv2")
     fx = _fixture_script()
     imgs = fx.scene(np.random.default_rng(3), 32, 48, 2)
     path = tmp_path / f"{case}.avi"
-    if case in ("mp4", "mpeg4_avi"):
-        path = tmp_path / ("clip.mp4" if case == "mp4" else "clip.avi")
-        vw = cv2.VideoWriter(str(path), cv2.CAP_FFMPEG,
-                             cv2.VideoWriter_fourcc(*("mp4v" if case == "mp4" else "FMP4")),
+    written = {"mp4": ("clip.mp4", "mp4v"), "mpeg4_avi": ("clip.avi", "FMP4"),
+               "wmv": ("clip.wmv", "WMV2"), "flv": ("clip.flv", "FLV1"),
+               "mpeg_ps": ("clip.mpg", "PIM1"), "vp8_webm": ("clip.webm", "VP80")}
+    if case in written:
+        name, fourcc = written[case]
+        path = tmp_path / name
+        vw = cv2.VideoWriter(str(path), cv2.CAP_FFMPEG, cv2.VideoWriter_fourcc(*fourcc),
                              30.0, (48, 32))
         assert vw.isOpened()
         for f in imgs:
@@ -505,6 +508,8 @@ def _refused(tmp_path, case):
         path.write_bytes(b"\x1a\x45\xdf\xa3" + bytes(60))
     elif case == "riff_wave":
         path.write_bytes(b"RIFF" + struct.pack("<I", 4) + b"WAVE")
+    elif case == "h263":  # an H.263 picture (short_video_header) in an MPEG-4 AVI
+        fx.write_avi(path, [b"\x00\x00\x80\x02\x08" + bytes(40)], 48, 32, 30, fourcc=b"XVID")
     elif case == "interlaced":  # each frame one field: half the stream's height
         fx.write_avi(path, [fx.imencode(f) for f in imgs], 48, 64, 30)
     elif case == "interlaced_pair":  # both fields in one packet, which cv2 weaves
@@ -516,21 +521,50 @@ def _refused(tmp_path, case):
     return path
 
 
-REFUSALS = {"mp4": "MP4/MOV", "matroska": "Matroska", "riff_wave": "'WAVE'",
-            "mpeg4_avi": "codec 'FMP4'", "interlaced": "interlaced",
-            "interlaced_pair": "interlaced", "tiny_411": "cuts its filter"}
+REFUSALS = {"matroska": "Matroska", "riff_wave": "'WAVE'", "wmv": "ASF/WMV",
+            "flv": "an FLV", "mpeg_ps": "MPEG program stream", "vp8_webm": "Matroska/WebM",
+            "h263": "short_video_header"}
 
 
 @pytest.mark.parametrize("case", sorted(REFUSALS))
 def test_what_it_does_not_read_raises(tmp_path, case):
-    """Other containers and codecs, and MJPEG frames the port does not
-    convert, raise a ValueError naming ROADMAP item 4 and what they are,
-    from the readers the CLIs use."""
-    path = str(_refused(tmp_path, case))
+    """Other containers and codecs (among them the WMV2, FLV1, MPEG-1 and
+    VP8 files this host's cv2 writes, and H.263 pictures) raise a ValueError
+    naming ROADMAP item 4 and what they are, from the readers the CLIs use."""
+    path = str(_case_file(tmp_path, case))
     with pytest.raises(ValueError, match=f"(?s){REFUSALS[case]}.*item 4"):
         VideoReader((180, 240)).initialize(path)
     with pytest.raises(ValueError, match="item 4"):
         list(VideoSequence(path))
+
+
+FORMERLY_REFUSED = ["mp4", "mpeg4_avi", "interlaced", "interlaced_pair", "tiny_411"]
+
+
+@pytest.mark.parametrize("case", FORMERLY_REFUSED)
+def test_formerly_refused_files_match_the_jax_readers(tmp_path, case):
+    """The files the port refused before: MPEG-4 in MP4 and in an FMP4 AVI,
+    interlaced MJPEG of one field a packet (cv2 reads no frame, and neither
+    does the port) and of two (woven), and 4:1:1 at 24 wide (swscale's cut
+    chroma filter): the port's readers equal the JAX ones."""
+    from v2e2v_tpu.data.manifests import VideoSequence as JaxSequence
+    from v2e2v_tpu.data.video_readers import VideoReader as JaxReader
+
+    path = str(_case_file(tmp_path, case))
+    port, ref = VideoReader((180, 240)), JaxReader((180, 240))
+    port.initialize(path)
+    ref.initialize(path)
+    assert port.num_frames == ref.num_frames == (0 if case == "interlaced" else
+                                                1 if case == "interlaced_pair" else 2)
+    assert port.timestamps == ref.timestamps
+    for g, w in zip(port.frames, ref.frames, strict=True):
+        np.testing.assert_array_equal(g, w)
+    got, want = list(VideoSequence(path)), list(JaxSequence(path))
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g[0], w[0])
+        np.testing.assert_array_equal(g[1], w[1])
+        assert g[2:] == w[2:]
 
 
 # ------------------------------------------------------ every sampling
@@ -570,14 +604,13 @@ SAMPLING_FACTORS = ["411", "420", "422", "440", "444"]
 @pytest.mark.parametrize("sampling", SAMPLING_FACTORS)
 def test_conversion_matches_swscale_on_random_sizes(tmp_path, sampling):
     """Clips of random sizes (8 to 200 on a side, odd and even) and
-    qualities, a third of them progressive, at each sampling: every frame the
-    port converts equals ``cap.read()``; the ones it refuses are those whose
-    chroma swscale's bicubic filter would be cut to (``tiny`` below)."""
+    qualities, a third of them progressive, at each sampling: every frame,
+    those whose chroma swscale's bicubic filter is cut to (``tiny`` below)
+    among them, equals ``cap.read()``."""
     cv2 = pytest.importorskip("cv2")
     fx = _fixture_script()
     factor = getattr(cv2, f"IMWRITE_JPEG_SAMPLING_FACTOR_{sampling}")
     rng = np.random.default_rng(int(sampling))
-    converted = 0
     for k in range(12):
         h, w = (int(v) for v in rng.integers(8, 200, 2))
         params = [cv2.IMWRITE_JPEG_QUALITY, int(rng.integers(10, 101)),
@@ -588,22 +621,40 @@ def test_conversion_matches_swscale_on_random_sizes(tmp_path, sampling):
         fx.write_avi(tmp_path / "r.avi", [data], w, h, 30)
         want = _cv2_frames(cv2, tmp_path / "r.avi")[0]
         frame = jpeg.decode_mjpeg_frame(data)
-        try:
-            got = yuv.mjpeg_to_bgr(frame.planes, frame.factors)
-        except ValueError as e:
-            assert "cuts its filter" in str(e) and tiny(frame), (h, w)
-            continue
-        assert not tiny(frame)
+        got = yuv.mjpeg_to_bgr(frame.planes, frame.factors)
         np.testing.assert_array_equal(got, want, err_msg=f"{sampling} {h}x{w}")
-        converted += 1
-    assert converted >= 8
+
+
+@pytest.mark.parametrize("sampling", SAMPLING_FACTORS)
+def test_tiny_frames_match_swscale(tmp_path, sampling):
+    """Every size from 1 to 12 on each side at each sampling: swscale cuts
+    its bicubic chroma filter to the plane (under 7 chroma samples where it
+    doubles them, under 11 where it halves them), takes ``yuv2packed1`` with
+    its uvalpha for rows of a two-tap vertical filter, and forces full-width
+    chroma by the format alone (a one-row 4:4:0 frame keeps half-width
+    chroma); the port's BGR equals ``cap.read()`` on all 144."""
+    cv2 = pytest.importorskip("cv2")
+    fx = _fixture_script()
+    factor = getattr(cv2, f"IMWRITE_JPEG_SAMPLING_FACTOR_{sampling}")
+    rng = np.random.default_rng(100 + int(sampling))
+    cut = 0
+    for h in range(1, 13):
+        for w in range(1, 13):
+            data = fx.imencode(fx.scene(rng, h, w, 1)[0], [cv2.IMWRITE_JPEG_SAMPLING_FACTOR, factor])
+            fx.write_avi(tmp_path / "t.avi", [data], w, h, 30)
+            want = _cv2_frames(cv2, tmp_path / "t.avi")[0]
+            frame = jpeg.decode_mjpeg_frame(data)
+            np.testing.assert_array_equal(yuv.mjpeg_to_bgr(frame.planes, frame.factors), want,
+                                          err_msg=f"{sampling} {h}x{w}")
+            cut += tiny(frame)
+    assert cut > 0 or sampling == "444"
 
 
 def tiny(frame) -> bool:
-    """Whether swscale would resample a chroma plane of under 7 samples up
-    (or under 11 down) in this frame."""
+    """Whether swscale resamples a chroma plane of under 7 samples up (or
+    under 11 down) in this frame: the filter cut to the plane."""
     (h, w), (ch, cw) = frame.planes[0].shape, frame.planes[1].shape
-    full = (ch, cw) == (h, w) or w % 2
+    full = frame.factors[0] == (1, 1) or w % 2
     dst_w = w if full else -(-w // 2)
     return any(n != d and n < (11 if n > d else 7) for n, d in ((cw, dst_w), (ch, h)))
 

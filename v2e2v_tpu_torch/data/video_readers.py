@@ -13,8 +13,9 @@
   ``utils/image_io.read_gray`` (``.jpg`` and ``.png`` frames: the JAX reader
   lists no other suffix; every PNG and JPEG as ``cv2.imread`` reads it).
 - ``VideoReader``: a video file's frames, gray, shrunk by ``ds`` and
-  transposed when portrait, on ``utils/video.VideoFile`` (MJPEG AVI, as
-  ``cv2.VideoCapture`` reads it).
+  transposed when portrait, on ``utils/video.VideoFile`` (MJPEG and MPEG-4
+  Part 2 in AVI, MPEG-4 Part 2 in MP4, MOV and M4V, as ``cv2.VideoCapture``
+  reads them).
 """
 
 from __future__ import annotations

@@ -1,4 +1,4 @@
-"""A RIFF/AVI demuxer for MJPEG video, in plain Python.
+"""A RIFF/AVI demuxer for MJPEG and MPEG-4 Part 2 video, in plain Python.
 
 ``AviFile(path)`` reads what ``cv2.VideoCapture`` (through FFmpeg's
 ``libavformat/avidec.c``) reads of an AVI's first video stream:
@@ -19,9 +19,15 @@
 chunks of size 0 (dropped frames) as FFmpeg does: no frame comes out for
 them and the next frame is the next one read.
 
-A file that is not RIFF AVI (MP4, MOV, Matroska, ...) and a video stream
-that is not JPEG (MJPG, AVI1, JPEG) raise a ValueError naming ROADMAP.md
-queue 1, item 4, and what the file or the stream is.
+``codec`` is ``"mjpeg"`` for the fourccs FFmpeg decodes with its MJPEG
+decoder (MJPG, AVI1, JPEG) and ``"mpeg4"`` for those it decodes with its
+``mpeg4`` decoder that cv2's writer writes (XVID, FMP4, DIVX, DX50, MP4V),
+upper-cased as FFmpeg matches them. An MPEG-4 stream's headers lead its
+first chunk.
+
+A file that is not RIFF AVI (Matroska, FLV, ...) and a video stream of
+another codec raise a ValueError naming ROADMAP.md queue 1, item 4, and
+what the file or the stream is.
 """
 
 from __future__ import annotations
@@ -31,9 +37,10 @@ from dataclasses import dataclass
 
 from .imgcodecs import ROADMAP
 
-# biCompression / fccHandler values that FFmpeg decodes with its MJPEG
-# decoder and the port reads (upper-cased)
+# biCompression values that FFmpeg decodes with its MJPEG decoder and with
+# its mpeg4 decoder, and the port reads (upper-cased)
 JPEG_FOURCCS = (b"MJPG", b"AVI1", b"JPEG")
+MPEG4_FOURCCS = (b"XVID", b"FMP4", b"DIVX", b"DX50", b"MP4V")
 
 _CONTAINERS = (  # (offset, signature, name) of files that are not RIFF AVI
     (4, b"ftyp", "an MP4/MOV (ISO base media)"),
@@ -51,7 +58,8 @@ _CONTAINERS = (  # (offset, signature, name) of files that are not RIFF AVI
 
 
 def _refuse(path: str, what: str) -> ValueError:
-    return ValueError(f"{path}: {what}: the port reads MJPEG video in AVI files only ({ROADMAP})")
+    return ValueError(f"{path}: {what}: the port reads MJPEG and MPEG-4 Part 2 video in AVI "
+                      f"files, and MPEG-4 Part 2 in MP4, MOV and M4V files ({ROADMAP})")
 
 
 def _corrupt(path: str, what: str) -> ValueError:
@@ -101,10 +109,15 @@ class AviFile:
         if self.video is None:
             raise _refuse(path, "an AVI file with no video stream")
         v = self.video
-        if v.compression.upper() not in JPEG_FOURCCS:
+        fourcc = v.compression.upper()
+        if fourcc in JPEG_FOURCCS:
+            self.codec = "mjpeg"
+        elif fourcc in MPEG4_FOURCCS:
+            self.codec = "mpeg4"
+        else:
             code = v.compression.decode("latin-1")
             raise _refuse(path, f"an AVI video stream of codec {code!r} (biCompression), "
-                          "not MJPEG")
+                          "not MJPEG or MPEG-4 Part 2")
         if v.rate <= 0 or v.scale <= 0:
             raise _corrupt(path, f"a video frame rate of {v.rate}/{v.scale}")
         if not self.movi:

@@ -238,6 +238,7 @@ class _Decoder:
         if data[:2] != b"\xff\xd8":
             raise ValueError(f"{path}: not a JPEG file")
         pos = 2
+        self.end = len(data)  # where EOI ends: a second field may follow it
         while True:
             # libjpeg skips bytes before a marker with a warning, and reads
             # the end of the file as EOI
@@ -246,6 +247,7 @@ class _Decoder:
                 break
             marker, pos = data[m.end() - 1], m.end()
             if marker == 0xD9:
+                self.end = pos
                 break
             if marker in _SOF_REFUSED:
                 raise _refuse(path, _SOF_REFUSED[marker])
@@ -858,12 +860,8 @@ def _simple_pass(x: np.ndarray, bias: int, shift: int, path: str) -> np.ndarray:
     return np.floor(sums / (1 << shift)).astype(np.int64)
 
 
-def idct_simple(deq: np.ndarray, path: str = "<bytes>") -> np.ndarray:
-    """libavcodec's ``ff_simple_idct_put_int16_8bit`` on ``[N, 64]``
-    dequantized coefficients (row-major, the level shift already in the DC)
-    -> ``[N, 64]`` uint8 samples: ``idctRowCondDC`` over each row (a row with
-    no AC term becomes its DC << 3), its outputs stored as 16 bits, then
-    ``idctSparseColPut`` over each column, clipped to 0..255."""
+def _idct_simple_values(deq: np.ndarray, path: str) -> np.ndarray:
+    """The simple IDCT's ``[N, 8, 8]`` outputs before any clipping."""
     x = deq.reshape(-1, 8, 8).astype(np.int64)
     if np.abs(x).max(initial=0) > 0x7FFF:
         raise _refuse(path, "coefficients outside 16 bits")
@@ -875,7 +873,24 @@ def idct_simple(deq: np.ndarray, path: str = "<bytes>") -> np.ndarray:
     # the column pass's rounding: W4 * (col[0] + (1 << (COL_SHIFT - 1)) / W4)
     bias = W4 * ((1 << (COL_SHIFT - 1)) // W4)
     cols = _simple_pass(rows.transpose(0, 2, 1).astype(np.float64), bias, COL_SHIFT, path)
-    return np.clip(cols.transpose(0, 2, 1), 0, 255).astype(np.uint8).reshape(-1, 64)
+    return cols.transpose(0, 2, 1)
+
+
+def idct_simple(deq: np.ndarray, path: str = "<bytes>") -> np.ndarray:
+    """libavcodec's ``ff_simple_idct_put_int16_8bit`` on ``[N, 64]``
+    dequantized coefficients (row-major, the level shift already in the DC)
+    -> ``[N, 64]`` uint8 samples: ``idctRowCondDC`` over each row (a row with
+    no AC term becomes its DC << 3), its outputs stored as 16 bits, then
+    ``idctSparseColPut`` over each column, clipped to 0..255."""
+    return np.clip(_idct_simple_values(deq, path), 0, 255).astype(np.uint8).reshape(-1, 64)
+
+
+def idct_simple_add(deq: np.ndarray, pred: np.ndarray, path: str = "<bytes>") -> np.ndarray:
+    """``ff_simple_idct_add_int16_8bit``: the same transform of ``[N, 64]``
+    coefficients (``idctSparseColAdd``'s column pass) added to ``[N, 64]``
+    uint8 samples, clipped to 0..255."""
+    out = _idct_simple_values(deq, path).reshape(-1, 64) + pred.reshape(-1, 64)
+    return np.clip(out, 0, 255).astype(np.uint8)
 
 
 class MjpegFrame:

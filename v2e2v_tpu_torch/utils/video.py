@@ -4,53 +4,136 @@ video readers see a video.
 
 ``VideoFile(path)`` has ``fps`` and ``frame_count`` as cv2 reports them
 (``CAP_PROP_FPS``, ``CAP_PROP_FRAME_COUNT``) and iterates over the frames as
-``[H, W]`` uint8 gray, bit for bit what that cv2 pair returns for MJPEG in AVI:
+``[H, W]`` uint8 gray, bit for bit what that cv2 pair returns. It picks the
+container by the file's first bytes and the codec by its fourcc:
 
-- ``utils/avi.py`` demuxes the file;
-- ``utils/jpeg.py::decode_mjpeg_frame`` decodes each frame to its Y, Cb and Cr
-  planes as FFmpeg's MJPEG decoder does, its tables carried from frame to
-  frame;
-- ``utils/yuv.py`` converts the planes to BGR as swscale gives them to
-  OpenCV (gray, 4:4:4, 4:2:2, 4:2:0, 4:1:1 and 4:4:0, baseline or
-  progressive), then to gray as ``cvtColor`` does.
+- RIFF AVI (``utils/avi.py``) of MJPEG: ``utils/jpeg.py::decode_mjpeg_frame``
+  decodes each frame to its Y, Cb and Cr planes as FFmpeg's MJPEG decoder
+  does, its tables carried from frame to frame, and ``utils/yuv.py``
+  converts them to BGR as swscale gives them to OpenCV (gray, 4:4:4,
+  4:2:2, 4:2:0, 4:1:1 and 4:4:0, baseline or progressive, full range);
+- RIFF AVI of MPEG-4 Part 2 (XVID, FMP4, DIVX, DX50, MP4V), and ISO base
+  media / QuickTime files (``utils/mp4.py``: MP4, MOV, M4V) of ``mp4v``:
+  ``utils/mpeg4.py`` decodes each VOP as FFmpeg's ``mpeg4`` decoder does,
+  and ``yuv.yuv420p_to_bgr`` converts its limited-range 4:2:0 planes; an
+  MP4's ``tkhd`` quarter turn is applied as cv2 applies it
+  (``CAP_PROP_ORIENTATION_AUTO``).
 
-No EXIF orientation is applied: FFmpeg does not apply one to MJPEG frames.
-Other containers and codecs, interlaced MJPEG (a frame of two fields, each
-coded at half the stream's height), other sampling factors and frames too
-small for swscale's chroma filter raise a ValueError naming ROADMAP.md
-queue 1, item 4.
+Then to gray as ``cvtColor`` does. No EXIF orientation is applied: FFmpeg
+does not apply one to MJPEG frames.
+
+Interlaced MJPEG: when the first frame is under 3/4 of the stream's height
+(mjpegdec.c's test), each frame is two fields, each coded at half the
+height. Probed on this host's cv2 5.0.0: a packet that holds both fields
+gives one frame woven from them, the packet's second field on the even
+rows and its first on the odd ones, whatever polarity the AVI1 APP0
+states; a packet of one field gives no frame. The woven planes are then
+converted at the full height.
+
+Other containers and codecs and other sampling factors raise a ValueError
+naming ROADMAP.md queue 1, item 4.
 """
 
 from __future__ import annotations
 
+import numpy as np
+
 from .avi import AviFile
 from .imgcodecs import ROADMAP
-from .jpeg import decode_mjpeg_frame
-from .yuv import mjpeg_to_gray
+from .jpeg import MjpegFrame, decode_mjpeg_frame, mjpeg_planes, read_mjpeg_frame
+from .mp4 import Mp4File, is_mp4
+from .mpeg4 import Mpeg4Decoder
+from .yuv import bgr_to_gray, mjpeg_to_gray, yuv420p_to_bgr
+
+# cv2's turn of a frame by the display matrix, clockwise in degrees, as
+# numpy's counter-clockwise quarter turns
+_TURNS = {0: 0, 90: 3, 180: 2, 270: 1}
 
 
 class VideoFile:
-    """An MJPEG AVI file's gray frames (see the module's notes)."""
+    """A video file's gray frames (see the module's notes)."""
 
     def __init__(self, path: str):
         self.path = path
-        self.avi = AviFile(path)
-        self.fps = self.avi.fps
-        self.frame_count = self.avi.frame_count
+        with open(path, "rb") as f:
+            head = f.read(12)
+        self.avi = self.mp4 = None
+        self.rotation = 0
+        if is_mp4(head):
+            self.mp4 = Mp4File(path)
+            self.codec, self.rotation = "mpeg4", self.mp4.rotation
+            self.fps, self.frame_count = self.mp4.fps, self.mp4.frame_count
+        else:
+            self.avi = AviFile(path)
+            self.codec = self.avi.codec
+            self.fps, self.frame_count = self.avi.fps, self.avi.frame_count
+
+    def packets(self):
+        """The container's packets: AVI chunks or MP4 samples."""
+        return self.avi.frames() if self.avi is not None else self.mp4.frames()
 
     def decode(self, data: bytes, index: int, tables=None):
-        """Frame ``index``'s bytes -> (its planes' frame, as decoded)."""
+        """An MJPEG frame ``index``'s bytes -> (its planes' frame, as decoded);
+        a field of an interlaced stream raises (``fields`` reads those)."""
         where = f"{self.path} frame {index}"
         frame = decode_mjpeg_frame(data, where, tables)
-        h = frame.planes[0].shape[0]
-        if h < self.avi.height * 3 // 4:  # mjpegdec.c's test for a field of an interlaced frame
-            raise ValueError(f"{where}: a {h}-row frame in a {self.avi.height}-row stream, an "
-                             f"interlaced MJPEG field, which the port does not read ({ROADMAP})")
+        if self.is_field(frame):
+            raise ValueError(f"{where}: a {frame.planes[0].shape[0]}-row field of an interlaced "
+                             f"{self.avi.height}-row stream, read by VideoFile.fields ({ROADMAP})")
         return frame
 
+    def is_field(self, frame: MjpegFrame) -> bool:
+        """mjpegdec.c's test for a field of an interlaced frame."""
+        return frame.planes[0].shape[0] < self.avi.height * 3 // 4
+
+    def fields(self, data: bytes, index: int, tables):
+        """An interlaced stream's packet -> (the frame woven from its two
+        fields, or None for a packet of one field; the tables after it)."""
+        where = f"{self.path} frame {index}"
+        first = read_mjpeg_frame(data, where, tables)
+        one = mjpeg_planes(first)
+        start = data.find(b"\xff\xd8", first.end)
+        if start < 0:
+            return None, one.tables  # one field a packet: FFmpeg gives no frame
+        second = read_mjpeg_frame(data[start:], where, one.tables)
+        two = mjpeg_planes(second)
+        if data.find(b"\xff\xd8", start + second.end) >= 0:
+            raise ValueError(f"{where}: more than two interlaced MJPEG fields in a packet "
+                             f"({ROADMAP})")
+        if two.factors != one.factors or two.planes[0].shape != one.planes[0].shape:
+            raise ValueError(f"{where}: interlaced MJPEG fields of different sizes or "
+                             f"samplings ({ROADMAP})")
+        h = 2 * one.planes[0].shape[0]
+        vmax = max(v for _, v in one.factors)
+        planes = []
+        for (_, v), a, b in zip(one.factors, one.planes, two.planes):
+            woven = np.empty((a.shape[0] + b.shape[0], a.shape[1]), np.uint8)
+            woven[0::2], woven[1::2] = b, a  # the packet's second field on the even rows
+            planes.append(woven[:-(-h * v // vmax)])
+        return MjpegFrame(planes, one.factors, two.tables), two.tables
+
+    def planes(self):
+        """Each MPEG-4 frame's (Y, Cb, Cr) planes, as FFmpeg decodes them."""
+        decoder = Mpeg4Decoder(self.mp4.config if self.mp4 is not None else b"", self.path)
+        for data in self.packets():
+            yield from decoder.decode(data)
+
     def __iter__(self):
-        tables = None
+        if self.codec == "mpeg4":
+            for i, (y, cb, cr) in enumerate(self.planes()):
+                gray = bgr_to_gray(yuv420p_to_bgr(y, cb, cr, f"{self.path} frame {i}"))
+                yield np.ascontiguousarray(np.rot90(gray, _TURNS[self.rotation]))
+            return
+        tables, interlaced = None, None
         for i, data in enumerate(self.avi.frames()):
-            frame = self.decode(data, i, tables)
-            tables = frame.tables
+            if interlaced is None:  # the first frame decides, as in mjpegdec.c
+                interlaced = self.is_field(decode_mjpeg_frame(data, f"{self.path} frame 0",
+                                                              tables))
+            if interlaced:
+                frame, tables = self.fields(data, i, tables)
+                if frame is None:
+                    continue
+            else:
+                frame = self.decode(data, i, tables)
+                tables = frame.tables
             yield mjpeg_to_gray(frame.planes, frame.factors, path=f"{self.path} frame {i}")

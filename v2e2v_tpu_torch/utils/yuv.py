@@ -37,14 +37,31 @@ of three routes, found by probing cv2 5.0.0 (swscale 9.5, on x86):
   lookup tables of ``fill_table``). Full-width chroma goes through the C
   ``yuv2rgb_write_full`` at 30 bits.
 
+Frames so small that swscale cuts its chroma filter to the plane (under 7
+chroma samples where it doubles them, under 11 where it halves them) take
+the same routes with the cut filter (``initFilter``'s ``srcW - 2``); a row
+whose vertical chroma filter has one tap or two, the second in 0..4096,
+takes ``yuv2packed1`` with that tap as its uvalpha (the MMX output reads
+the first row alone under 2048 and the two rows' mean from it on, the C one
+weights them), every other row ``yuv2packedX``. Full-width chroma is forced
+by the format (4:4:4) or an odd width, not by the planes' shapes: a one-row
+4:4:0 frame keeps half-width chroma.
+
+FFmpeg's ``mpeg4`` decoder gives ``yuv420p`` of unspecified range, which
+swscale converts at limited range (``yuv420p_to_bgr``): the same routes
+with ``ff_yuv2rgb_c_init_tables``' limited-range coefficients (the inverse
+table's chroma ones, Y's gain 255/219 and offset 16), Y through a signed
+``pmulhw`` of 8 Y - 128 in the x86 outputs (8 Y + 4 - 128 after the MMX
+vertical rounder), the C rows' luma table 1.5 levels low (``yoffs`` 326),
+and MPEG-4's left-sited chroma at horizontal position 64 in the general
+scaler's filter. All found by probing with crafted streams and raw I420.
+
 ``COLOR_BGR2GRAY`` on 8-bit samples is OpenCV's fixed point: in OpenCV 5 (the
 cv2 the JAX package was checked with) at 15 bits, 0.114, 0.587 and 0.299 as
 3735, 19235 and 9798, rounded; every one of the 2^24 BGR triples gives cv2's
 gray.
 
-Other samplings, and frames so small that swscale cuts its chroma filter to
-the plane (under 7 chroma samples where it doubles them, under 11 where it
-halves them), raise a ValueError naming ROADMAP.md queue 1, item 4.
+Other samplings raise a ValueError naming ROADMAP.md queue 1, item 4.
 """
 
 from __future__ import annotations
@@ -84,7 +101,6 @@ _R_V = ((_C - 128) * 8 * VR) >> 16
 
 R2Y, G2Y, B2Y, GRAY_SHIFT = 9798, 19235, 3735, 15
 
-
 def _check_planes(y, cb, cr, hsub: int, vsub: int, path: str) -> None:
     h, w = y.shape
     want = (-(-h >> vsub), -(-w >> hsub))
@@ -93,16 +109,20 @@ def _check_planes(y, cb, cr, hsub: int, vsub: int, path: str) -> None:
                          f"plane, not {want} ({ROADMAP})")
 
 
-def _unscaled(y, cb, cr, vsub: int) -> np.ndarray:
-    """swscale's unscaled x86 converter (4:2:0 with ``vsub`` 1, 4:2:2 with 0)."""
+def _unscaled(y, cb, cr, vsub: int, limited: bool = False) -> np.ndarray:
+    """swscale's unscaled x86 converter (4:2:0 with ``vsub`` 1, 4:2:2 with 0),
+    full range or, with ``limited``, limited range."""
     h, w = y.shape
-    yi = y.astype(np.int32)
+    if limited:
+        yi, bu, gu, gv, rv = _LIM_Y[y], _LIM_B_U, _LIM_G_U, _LIM_G_V, _LIM_R_V
+    else:
+        yi, bu, gu, gv, rv = y.astype(np.int32), _B_U, _G_U, _G_V, _R_V
     u = cb.repeat(1 << vsub, axis=0).repeat(2, axis=1)[:h, :w]
     v = cr.repeat(1 << vsub, axis=0).repeat(2, axis=1)[:h, :w]
     out = np.empty((h, w, 3), np.uint8)
-    out[..., 0] = np.clip(yi + _B_U[u], 0, 255)
-    out[..., 1] = np.clip(yi + _G_U[u] + _G_V[v], 0, 255)
-    out[..., 2] = np.clip(yi + _R_V[v], 0, 255)
+    out[..., 0] = np.clip(yi + bu[u], 0, 255)
+    out[..., 1] = np.clip(yi + gu[u] + gv[v], 0, 255)
+    out[..., 2] = np.clip(yi + rv[v], 0, 255)
     return out
 
 
@@ -128,24 +148,66 @@ def _cdiv(a: int, b: int) -> int:
     return q if (a >= 0) == (b >= 0) else -q
 
 
+# limited range (yuv420p of unspecified range): ff_yuv2rgb_c_init_tables
+# keeps the inverse table's chroma coefficients, takes Y's 255/219 gain
+# (cy) and its offset of 16 (oy), and the x86 converters apply them at 8x
+_CY = ((1 << 16) * 255) // 219
+LIM_Y_COEFF, LIM_Y_OFFSET = _round_to_int16(_CY << 13), _round_to_int16((16 << 16) << 3)
+LIM_VR, LIM_UB, LIM_UG, LIM_VG = (_round_to_int16(c << 13) for c in (
+    _INV_TABLE_601[0], _INV_TABLE_601[1], -_INV_TABLE_601[2], -_INV_TABLE_601[3]))
+# the horizontal siting of MPEG-4's chroma (AVCHROMA_LOC_LEFT) as swscale's
+# filter takes it: found by probing, where 128 (centred) is 11 levels off
+MPEG4_H_POS = 64
+# the C output's tables at limited range (fill_table): the chroma
+# coefficients over cy, each chroma value's offset into the luma table
+# y_table, whose entry for Y is clip(((326 + Y) cy - (400 << 16) + 2^15) >> 16)
+# (yoffs 326 and yb = -(384 << 16) - oy: 1.5 levels below (Y - 16) 255/219)
+def _over_cy(c: int) -> int:
+    return _cdiv((c << 16) + 0x8000, _CY)
+
+
+_LRV, _LBU = _over_cy(_INV_TABLE_601[0]), _over_cy(_INV_TABLE_601[1])
+_LGU, _LGV = _over_cy(-_INV_TABLE_601[2]), _over_cy(-_INV_TABLE_601[3])
+_LC_R = ((_C * _LRV) >> 16) - (_LRV >> 9)
+_LC_B = ((_C * _LBU) >> 16) - (_LBU >> 9)
+_LC_G = ((_C * _LGU) >> 16) - (_LGU >> 9), ((_C * _LGV) >> 16) - (_LGV >> 9)
+LIM_TABLE_Y0 = 326 * _CY - (400 << 16)
+
+
+def _lim_y_table(k: np.ndarray) -> np.ndarray:
+    return np.clip((k * _CY + LIM_TABLE_Y0 + 0x8000) >> 16, 0, 255)
+
+
+# yuv2rgb_write_full's Y offset (at 9 fractional bits) and coefficient
+LIM_FULL_Y_OFFSET = _round_to_int16((16 << 16) << 9)
+_Y8 = np.arange(256, dtype=np.int64)
+# the unscaled converter's Y term: pmulhw of 8 Y - 128, signed (Y under 16
+# pulls the chroma terms down before the final clip)
+_LIM_Y = ((_Y8 * 8 - LIM_Y_OFFSET) * LIM_Y_COEFF) >> 16
+_LIM_B_U = ((_C - 128) * 8 * LIM_UB) >> 16
+_LIM_G_U = ((_C - 128) * 8 * LIM_UG) >> 16
+_LIM_G_V = ((_C - 128) * 8 * LIM_VG) >> 16
+_LIM_R_V = ((_C - 128) * 8 * LIM_VR) >> 16
+
+
 @functools.lru_cache(maxsize=64)
-def bicubic_filter(src: int, dst: int, one: int, align: int) -> tuple[np.ndarray, np.ndarray]:
+def bicubic_filter(src: int, dst: int, one: int, align: int,
+                   src_pos: int = 128) -> tuple[np.ndarray, np.ndarray]:
     """``utils.c::initFilter`` for ``SWS_BICUBIC`` (default B = 0, C = 0.6)
-    from ``src`` samples to ``dst``, chroma sited at the centre (position
-    128 of 256 at both ends): each output's first input and its taps,
-    summing to ``one`` (``1 << 14`` horizontal, ``1 << 12`` vertical), the
-    filter's size a multiple of ``align``."""
+    from ``src`` samples to ``dst``, the output sited at the centre
+    (position 128 of 256) and the source at ``src_pos``: each output's first
+    input and its taps, summing to ``one`` (``1 << 14`` horizontal,
+    ``1 << 12`` vertical), the filter's size a multiple of ``align``, cut to
+    ``src - 2`` taps on a tiny plane."""
     inc = ((src << 16) + (dst >> 1)) // dst
-    if abs(inc - 0x10000) < 10:  # the same size: one tap
+    if abs(inc - 0x10000) < 10 and src_pos == 128:  # the same size and siting: one tap
         return np.arange(dst), np.full((dst, 1), one, np.int64)
     ratio = src // dst
     fone = 1 << (54 - min(ratio.bit_length() - 1 if ratio else 0, 8))
     size = 1 + SIZE_FACTOR if inc <= 1 << 16 else 1 + (SIZE_FACTOR * src + dst - 1) // dst
-    if size > src - 2:
-        raise ValueError(f"{src} chroma samples resampled to {dst}: swscale cuts its filter "
-                         f"to the plane there, which the port does not copy ({ROADMAP})")
+    size = max(min(size, src - 2), 1)  # cut to the plane: tiny planes
     c_q, b_q = int(0.6 * (1 << 24)), 0
-    x_in_src = ((128 * inc) >> 7) - ((128 * 0x10000) >> 7)  # 2^17 a source sample
+    x_in_src = ((128 * inc) >> 7) - ((src_pos * 0x10000) >> 7)  # 2^17 a source sample
     filt, pos = [], []
     for _ in range(dst):
         xx = _cdiv(x_in_src - (size - 2) * (1 << 16), 1 << 17)
@@ -189,6 +251,8 @@ def bicubic_filter(src: int, dst: int, one: int, align: int) -> tuple[np.ndarray
                 break
             n -= 1
         kept = max(kept, n)
+    if kept == 1 and align == 2:  # x86: a vertical filter of one tap stays one
+        align = 1
     size_in, size = size, (kept + align - 1) // align * align
     filt = [(f + [0] * size)[:size] if size > size_in else f[:size] for f in filt]
     # the borders: taps before the first sample folded onto it, taps past
@@ -220,9 +284,9 @@ def bicubic_filter(src: int, dst: int, one: int, align: int) -> tuple[np.ndarray
     return np.asarray(pos, np.int64), out
 
 
-def _hscale(plane: np.ndarray, dst: int) -> np.ndarray:
+def _hscale(plane: np.ndarray, dst: int, src_pos: int = 128) -> np.ndarray:
     """``hScale8To15`` of each row to ``dst`` samples: 15-bit int64."""
-    pos, taps = bicubic_filter(plane.shape[1], dst, 1 << 14, H_ALIGN)
+    pos, taps = bicubic_filter(plane.shape[1], dst, 1 << 14, H_ALIGN, src_pos)
     idx = np.minimum(pos[:, None] + np.arange(taps.shape[1]), plane.shape[1] - 1)
     return np.minimum((plane.astype(np.int64)[:, idx] * taps).sum(-1) >> 7, 32767)
 
@@ -239,74 +303,104 @@ def _half_to_full(a: np.ndarray, w: int) -> np.ndarray:
     return a.repeat(2, axis=-1)[..., :w]
 
 
-def _mmx_rgb(y: np.ndarray, u8: np.ndarray, v8: np.ndarray) -> np.ndarray:
+def _mmx_rgb(y: np.ndarray, u8: np.ndarray, v8: np.ndarray, limited: bool = False,
+             y_round: int = 4) -> np.ndarray:
     """``swscale_template.c``'s YSCALEYUV2RGB on rows: chroma at 8x (half
-    width; 16-bit words, so sums wrap), Y at 8 bits."""
+    width; 16-bit words, so sums wrap), Y at 8 bits. At limited range Y
+    goes through ``pmulhw`` too: 8 Y plus the vertical rounder (``y_round``,
+    4 for ``yuv2packedX``, 0 for ``yuv2packed1``) less 8 x 16."""
     u8, v8 = _wrap16(u8 - 1024), _wrap16(v8 - 1024)
     w = y.shape[-1]
-    yi = y.astype(np.int64)
-    b = _half_to_full(_pmulhw(u8, UB), w)
-    g = _half_to_full(_wrap16(_pmulhw(u8, UG) + _pmulhw(v8, VG)), w)
-    r = _half_to_full(_pmulhw(v8, VR), w)
+    if limited:
+        yi = _pmulhw(y.astype(np.int64) * 8 + y_round - LIM_Y_OFFSET, LIM_Y_COEFF)
+        ub, ug, vg, vr = LIM_UB, LIM_UG, LIM_VG, LIM_VR
+    else:
+        yi = y.astype(np.int64)
+        ub, ug, vg, vr = UB, UG, VG, VR
+    b = _half_to_full(_pmulhw(u8, ub), w)
+    g = _half_to_full(_wrap16(_pmulhw(u8, ug) + _pmulhw(v8, vg)), w)
+    r = _half_to_full(_pmulhw(v8, vr), w)
     return np.stack([yi + b, yi + g, yi + r], -1)
 
 
-def _c_rgb(y: np.ndarray, u: np.ndarray, v: np.ndarray) -> np.ndarray:
+def _c_rgb(y: np.ndarray, u: np.ndarray, v: np.ndarray, limited: bool = False) -> np.ndarray:
     """``yuv2rgb_X_c_template``'s table lookups: chroma at 8 bits (half
-    width)."""
+    width). At limited range each sum indexes ``fill_table``'s luma table
+    (``_lim_y_table``) rather than being Y itself."""
     u, v = np.clip(u, 0, 255), np.clip(v, 0, 255)
     w = y.shape[-1]
     yi = y.astype(np.int64)
+    if limited:
+        return np.stack([_lim_y_table(yi + _half_to_full(_LC_B[u], w)),
+                         _lim_y_table(yi + _half_to_full(_LC_G[0][u] + _LC_G[1][v], w)),
+                         _lim_y_table(yi + _half_to_full(_LC_R[v], w))], -1)
     return np.stack([yi + _half_to_full(_C_B[u], w),
                      yi + _half_to_full(_C_G[0][u] + _C_G[1][v], w),
                      yi + _half_to_full(_C_R[v], w)], -1)
 
 
-def _full_rgb(y: np.ndarray, u: np.ndarray, v: np.ndarray) -> np.ndarray:
+def _full_rgb(y: np.ndarray, u: np.ndarray, v: np.ndarray, limited: bool = False) -> np.ndarray:
     """``yuv2rgb_write_full``: Y, U - 128 and V - 128 at 9 fractional bits,
     in int32 arithmetic, 30-bit saturation, >> 22."""
-    yy = y * FULL_Y + (1 << 21)
-    rgb = [yy + v * FULL_V2R, yy + v * FULL_V2G + u * FULL_U2G, yy + u * FULL_U2B]
+    if limited:
+        yy = (y - LIM_FULL_Y_OFFSET) * LIM_Y_COEFF + (1 << 21)
+        rgb = [yy + v * LIM_VR, yy + v * LIM_VG + u * LIM_UG, yy + u * LIM_UB]
+    else:
+        yy = y * FULL_Y + (1 << 21)
+        rgb = [yy + v * FULL_V2R, yy + v * FULL_V2G + u * FULL_U2G, yy + u * FULL_U2B]
     rgb = [((c + 2 ** 31) % 2 ** 32) - 2 ** 31 for c in rgb]
     over = ((rgb[0] | rgb[1] | rgb[2]) & 0xC0000000) != 0
     rgb = [np.where(over, np.clip(c, 0, (1 << 30) - 1), c) >> 22 for c in rgb]
     return np.stack(rgb[::-1], -1)
 
 
-def general_bgr(y: np.ndarray, cb: np.ndarray, cr: np.ndarray,
-                path: str = "<frame>") -> np.ndarray:
-    """swscale's general scaler from planar full-range YCbCr at any
-    subsampling to BGR24 at the luma plane's size (see the module's notes)."""
+def general_bgr(y: np.ndarray, cb: np.ndarray, cr: np.ndarray, sub: tuple[int, int],
+                path: str = "<frame>", limited: bool = False, h_pos: int = 128) -> np.ndarray:
+    """swscale's general scaler from planar full-range (or, with
+    ``limited``, limited-range) YCbCr at any subsampling to BGR24 at the
+    luma plane's size (see the module's notes). ``h_pos``: the chroma
+    samples' horizontal siting in the source (128 centred; MPEG-4's
+    left-sited chroma reaches swscale as 64). ``sub``: the format's log2
+    chroma subsampling (horizontal, vertical); swscale forces full-width
+    chroma for 4:4:4 formats and odd widths."""
     h, w = y.shape
     ch, cw = cb.shape
-    full = (ch, cw) == (h, w) or w % 2 == 1
+    full = sub == (0, 0) or w % 2 == 1
     dst_w = w if full else -(-w // 2)
-    try:
-        u15, v15 = _hscale(cb, dst_w), _hscale(cr, dst_w)  # [ch, dst_w]
-        vpos, vtaps = bicubic_filter(ch, h, 1 << 12, V_ALIGN)
-    except ValueError as e:
-        raise ValueError(f"{path}: {e}") from None
-    rows = np.minimum(vpos[:, None] + np.arange(vtaps.shape[1]), ch - 1)  # [h, taps]
+    u15, v15 = _hscale(cb, dst_w, h_pos), _hscale(cr, dst_w, h_pos)  # [ch, dst_w]
+    vpos, vtaps = bicubic_filter(ch, h, 1 << 12, V_ALIGN)
+    ntaps = vtaps.shape[1]
+    rows = np.minimum(vpos[:, None] + np.arange(ntaps), ch - 1)  # [h, taps]
     y15 = y.astype(np.int64) << 7
-    if full:
-        if vtaps.shape[1] == 1:  # yuv2rgb_full_1_c
-            u, v, yy = (u15 - (128 << 7)) * 4, (v15 - (128 << 7)) * 4, y15 * 4
-        else:  # yuv2rgb_full_X_c
-            u = ((1 << 9) - (128 << 19) + (u15[rows] * vtaps[..., None]).sum(1)) >> 10
-            v = ((1 << 9) - (128 << 19) + (v15[rows] * vtaps[..., None]).sum(1)) >> 10
-            yy = ((1 << 9) + y15 * 4096) >> 10
-        return _full_rgb(yy, u, v).clip(0, 255).astype(np.uint8)
-    if vtaps.shape[1] == 1:  # yuv2packed1: MMX, then C for the last two rows
-        u8, v8 = u15 >> 4, v15 >> 4
-        uc, vc = (u15 + 64) >> 7, (v15 + 64) >> 7
-    else:  # yuv2packedX
-        u8 = MMX_V_ROUNDER + _pmulhw(u15[rows], vtaps[..., None]).sum(1)
-        v8 = MMX_V_ROUNDER + _pmulhw(v15[rows], vtaps[..., None]).sum(1)
-        uc = ((1 << 18) + (u15[rows] * vtaps[..., None]).sum(1)) >> 19
-        vc = ((1 << 18) + (v15[rows] * vtaps[..., None]).sum(1)) >> 19
-    out = _mmx_rgb(y, u8, v8)
+    # a row whose vertical chroma filter has one tap, or two whose second
+    # (its uvalpha) lies in 0..4096, takes yuv2packed1 (vscale.c's
+    # packed_vscale); every other row yuv2packedX
+    alpha = vtaps[:, 1:2] if ntaps == 2 else np.zeros((h, 1), np.int64)
+    packed1 = (ntaps <= 2) & (alpha >= 0) & (alpha <= 4096)  # [h, 1]
+    u0, v0 = u15[rows[:, 0]], v15[rows[:, 0]]
+    u1, v1 = u15[rows[:, -1]], v15[rows[:, -1]]
+    if full:  # yuv2rgb_full_1_c (its chroma weighted by uvalpha), else _X_c
+        u = np.where(packed1, (u0 * (4096 - alpha) + u1 * alpha - (128 << 19)) >> 10,
+                     ((1 << 9) - (128 << 19) + (u15[rows] * vtaps[..., None]).sum(1)) >> 10)
+        v = np.where(packed1, (v0 * (4096 - alpha) + v1 * alpha - (128 << 19)) >> 10,
+                     ((1 << 9) - (128 << 19) + (v15[rows] * vtaps[..., None]).sum(1)) >> 10)
+        yy = np.where(packed1, y15 * 4, ((1 << 9) + y15 * 4096) >> 10)
+        return _full_rgb(yy, u, v, limited).clip(0, 255).astype(np.uint8)
+    # the MMX yuv2packed1 reads the first row alone under an uvalpha of
+    # 2048 and the two rows' mean from it on; the C one (the last two rows)
+    # weights them by uvalpha
+    both = alpha >= 2048
+    u8 = np.where(packed1, np.where(both, (u0 + u1) >> 5, u0 >> 4),
+                  MMX_V_ROUNDER + _pmulhw(u15[rows], vtaps[..., None]).sum(1))
+    v8 = np.where(packed1, np.where(both, (v0 + v1) >> 5, v0 >> 4),
+                  MMX_V_ROUNDER + _pmulhw(v15[rows], vtaps[..., None]).sum(1))
+    uc = np.where(packed1, (u0 * (4096 - alpha) + u1 * alpha + (1 << 18)) >> 19,
+                  ((1 << 18) + (u15[rows] * vtaps[..., None]).sum(1)) >> 19)
+    vc = np.where(packed1, (v0 * (4096 - alpha) + v1 * alpha + (1 << 18)) >> 19,
+                  ((1 << 18) + (v15[rows] * vtaps[..., None]).sum(1)) >> 19)
+    out = _mmx_rgb(y, u8, v8, limited, np.where(packed1, 0, MMX_V_ROUNDER))
     last = slice(max(h - 2, 0), h)
-    out[last] = _c_rgb(y[last], uc[last], vc[last])
+    out[last] = _c_rgb(y[last], uc[last], vc[last], limited)
     return out.clip(0, 255).astype(np.uint8)
 
 
@@ -329,7 +423,7 @@ def mjpeg_to_bgr(planes, factors, path: str = "<frame>") -> np.ndarray:
     _check_planes(y, cb, cr, hsub, vsub, path)
     if hsub == 1 and y.shape[0] % 2 == 0:  # yuvj420p, yuvj422p of an even height
         return _unscaled(y, cb, cr, vsub)
-    return general_bgr(y, cb, cr, path)
+    return general_bgr(y, cb, cr, (hsub, vsub), path)
 
 
 def mjpeg_to_gray(planes, factors, path: str = "<frame>") -> np.ndarray:
@@ -338,6 +432,18 @@ def mjpeg_to_gray(planes, factors, path: str = "<frame>") -> np.ndarray:
     if len(planes) == 1:
         return planes[0]
     return bgr_to_gray(mjpeg_to_bgr(planes, factors, path))
+
+
+def yuv420p_to_bgr(y: np.ndarray, cb: np.ndarray, cr: np.ndarray,
+                   path: str = "<frame>") -> np.ndarray:
+    """Limited-range 4:2:0 planes (FFmpeg's ``yuv420p`` of unspecified
+    range, as its ``mpeg4`` decoder gives them) -> ``[H, W, 3]`` uint8 BGR as
+    ``cv2.VideoCapture`` returns it: the unscaled converter at an even
+    height, else the general scaler."""
+    _check_planes(y, cb, cr, 1, 1, path)
+    if y.shape[0] % 2 == 0:
+        return _unscaled(y, cb, cr, 1, limited=True)
+    return general_bgr(y, cb, cr, (1, 1), path, limited=True, h_pos=MPEG4_H_POS)
 
 
 def bgr_to_gray(bgr: np.ndarray) -> np.ndarray:
