@@ -494,7 +494,8 @@ def _case_file(tmp_path, case):
     path = tmp_path / f"{case}.avi"
     written = {"mp4": ("clip.mp4", "mp4v"), "mpeg4_avi": ("clip.avi", "FMP4"),
                "wmv": ("clip.wmv", "WMV2"), "flv": ("clip.flv", "FLV1"),
-               "mpeg_ps": ("clip.mpg", "PIM1"), "vp8_webm": ("clip.webm", "VP80")}
+               "mpeg_ps": ("clip.mpg", "PIM1"), "vp8_webm": ("clip.webm", "VP80"),
+               "vp9_webm": ("clip.webm", "VP90")}
     if case in written:
         name, fourcc = written[case]
         path = tmp_path / name
@@ -522,14 +523,14 @@ def _case_file(tmp_path, case):
 
 
 REFUSALS = {"matroska": "Matroska", "riff_wave": "'WAVE'", "wmv": "ASF/WMV",
-            "flv": "an FLV", "mpeg_ps": "MPEG program stream", "vp8_webm": "Matroska/WebM",
+            "flv": "an FLV", "mpeg_ps": "MPEG program stream", "vp9_webm": "WebM.*VP9",
             "h263": "short_video_header"}
 
 
 @pytest.mark.parametrize("case", sorted(REFUSALS))
 def test_what_it_does_not_read_raises(tmp_path, case):
     """Other containers and codecs (among them the WMV2, FLV1, MPEG-1 and
-    VP8 files this host's cv2 writes, and H.263 pictures) raise a ValueError
+    VP9 files cv2's writer makes, and H.263 pictures) raise a ValueError
     naming ROADMAP item 4 and what they are, from the readers the CLIs use."""
     path = str(_case_file(tmp_path, case))
     with pytest.raises(ValueError, match=f"(?s){REFUSALS[case]}.*item 4"):
@@ -538,15 +539,16 @@ def test_what_it_does_not_read_raises(tmp_path, case):
         list(VideoSequence(path))
 
 
-FORMERLY_REFUSED = ["mp4", "mpeg4_avi", "interlaced", "interlaced_pair", "tiny_411"]
+FORMERLY_REFUSED = ["mp4", "mpeg4_avi", "interlaced", "interlaced_pair", "tiny_411", "vp8_webm"]
 
 
 @pytest.mark.parametrize("case", FORMERLY_REFUSED)
 def test_formerly_refused_files_match_the_jax_readers(tmp_path, case):
     """The files the port refused before: MPEG-4 in MP4 and in an FMP4 AVI,
     interlaced MJPEG of one field a packet (cv2 reads no frame, and neither
-    does the port) and of two (woven), and 4:1:1 at 24 wide (swscale's cut
-    chroma filter): the port's readers equal the JAX ones."""
+    does the port) and of two (woven), 4:1:1 at 24 wide (swscale's cut
+    chroma filter), and VP8 in WebM: the port's readers equal the JAX
+    ones."""
     from v2e2v_tpu.data.manifests import VideoSequence as JaxSequence
     from v2e2v_tpu.data.video_readers import VideoReader as JaxReader
 

@@ -7,8 +7,10 @@ For every sequence folder under ``--path_to_test_data`` (frames and
 ``timestamps.txt``): read the HFR frames (or, with ``--reader_type
 upsampling``, LFR frames upsampled by Super-SloMo on the run's device,
 ``data/interpolating_reader.py``; with ``--reader_type video``, every file
-there that is not hidden and not a ``.txt``, each an MJPEG AVI whose gray
-frames are shrunk to a quarter, ``data/video_readers.VideoReader``) pack by
+there that is not hidden and not a ``.txt``, each a video
+``utils/video.VideoFile`` reads (MJPEG or MPEG-4 Part 2 in AVI, MP4, MOV,
+M4V; VP8, MJPEG or MPEG-4 Part 2 in Matroska or WebM) whose gray frames
+are shrunk to a quarter, ``data/video_readers.VideoReader``) pack by
 pack, emulate events (the
 emulator's iteration loop is kernel K3, one launch per frame pair) and
 reconstruct one frame per pack with CISTA-LSTC (its ISTA loop is kernel

@@ -59,7 +59,8 @@ _CONTAINERS = (  # (offset, signature, name) of files that are not RIFF AVI
 
 def _refuse(path: str, what: str) -> ValueError:
     return ValueError(f"{path}: {what}: the port reads MJPEG and MPEG-4 Part 2 video in AVI "
-                      f"files, and MPEG-4 Part 2 in MP4, MOV and M4V files ({ROADMAP})")
+                      f"files, MPEG-4 Part 2 in MP4, MOV and M4V files, and VP8, MJPEG and "
+                      f"MPEG-4 Part 2 in Matroska and WebM files ({ROADMAP})")
 
 
 def _corrupt(path: str, what: str) -> ValueError:

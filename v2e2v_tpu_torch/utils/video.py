@@ -17,7 +17,18 @@ container by the file's first bytes and the codec by its fourcc:
   ``utils/mpeg4.py`` decodes each VOP as FFmpeg's ``mpeg4`` decoder does,
   and ``yuv.yuv420p_to_bgr`` converts its limited-range 4:2:0 planes; an
   MP4's ``tkhd`` quarter turn is applied as cv2 applies it
-  (``CAP_PROP_ORIENTATION_AUTO``).
+  (``CAP_PROP_ORIENTATION_AUTO``);
+- Matroska and WebM files (``utils/mkv.py``) of ``V_VP8``: ``utils/vp8dec.py``
+  decodes each frame as FFmpeg's ``vp8`` decoder does (a frame that is not
+  shown gives none) and ``yuv.yuv420p_to_bgr`` converts its planes with
+  centred chroma, at limited range (full range after a key frame whose
+  ``clamping_type`` is 1, as FFmpeg decodes on one thread); of
+  ``V_MJPEG``, as MJPEG in AVI (interlaced included, tested against the
+  track's ``PixelHeight``); of
+  ``V_MPEG4/ISO/ASP``, as MPEG-4 Part 2 in MP4, the track's
+  ``CodecPrivate`` holding the VOL headers. A Matroska frame whose size is
+  not the track's ``PixelWidth`` x ``PixelHeight`` is refused: cv2 would
+  scale it to the track's size.
 
 Then to gray as ``cvtColor`` does. No EXIF orientation is applied: FFmpeg
 does not apply one to MJPEG frames.
@@ -25,13 +36,16 @@ does not apply one to MJPEG frames.
 Interlaced MJPEG: when the first frame is under 3/4 of the stream's height
 (mjpegdec.c's test), each frame is two fields, each coded at half the
 height. Probed on this host's cv2 5.0.0: a packet that holds both fields
-gives one frame woven from them, the packet's second field on the even
-rows and its first on the odd ones, whatever polarity the AVI1 APP0
-states; a packet of one field gives no frame. The woven planes are then
-converted at the full height.
+gives one frame woven from them, whatever polarity the AVI1 APP0 states:
+the packet's second field on the even rows and its first on the odd ones
+where FFmpeg takes the stream as bottom field first (an AVI whose
+``biCompression`` is exactly ``MJPG``, a Matroska track of ``FieldOrder``
+6), else the first on the even rows; a packet of one field gives no frame.
+The woven planes are then converted at the full height.
 
-Other containers and codecs and other sampling factors raise a ValueError
-naming ROADMAP.md queue 1, item 4.
+Other containers (MPEG program streams, ASF/WMV, FLV, ...) and codecs (VP9,
+H.264, HEVC, AV1, ...) and other sampling factors raise a ValueError naming
+ROADMAP.md queue 1, item 4.
 """
 
 from __future__ import annotations
@@ -41,9 +55,11 @@ import numpy as np
 from .avi import AviFile
 from .imgcodecs import ROADMAP
 from .jpeg import MjpegFrame, decode_mjpeg_frame, mjpeg_planes, read_mjpeg_frame
+from .mkv import MkvFile, is_mkv
 from .mp4 import Mp4File, is_mp4
 from .mpeg4 import Mpeg4Decoder
-from .yuv import bgr_to_gray, mjpeg_to_gray, yuv420p_to_bgr
+from .vp8dec import Vp8Decoder
+from .yuv import MPEG4_H_POS, VP8_H_POS, bgr_to_gray, mjpeg_to_gray, yuv420p_to_bgr
 
 # cv2's turn of a frame by the display matrix, clockwise in degrees, as
 # numpy's counter-clockwise quarter turns
@@ -57,20 +73,24 @@ class VideoFile:
         self.path = path
         with open(path, "rb") as f:
             head = f.read(12)
-        self.avi = self.mp4 = None
+        self.avi = self.mp4 = self.mkv = None
         self.rotation = 0
         if is_mp4(head):
             self.mp4 = Mp4File(path)
             self.codec, self.rotation = "mpeg4", self.mp4.rotation
-            self.fps, self.frame_count = self.mp4.fps, self.mp4.frame_count
+            self.container = self.mp4
+        elif is_mkv(head):
+            self.container = self.mkv = MkvFile(path)
+            self.codec = self.mkv.codec
         else:
-            self.avi = AviFile(path)
+            self.container = self.avi = AviFile(path)
             self.codec = self.avi.codec
-            self.fps, self.frame_count = self.avi.fps, self.avi.frame_count
+        self.fps, self.frame_count = self.container.fps, self.container.frame_count
 
     def packets(self):
-        """The container's packets: AVI chunks or MP4 samples."""
-        return self.avi.frames() if self.avi is not None else self.mp4.frames()
+        """The container's packets: AVI chunks, MP4 samples or Matroska
+        blocks."""
+        return self.container.frames()
 
     def decode(self, data: bytes, index: int, tables=None):
         """An MJPEG frame ``index``'s bytes -> (its planes' frame, as decoded);
@@ -79,12 +99,23 @@ class VideoFile:
         frame = decode_mjpeg_frame(data, where, tables)
         if self.is_field(frame):
             raise ValueError(f"{where}: a {frame.planes[0].shape[0]}-row field of an interlaced "
-                             f"{self.avi.height}-row stream, read by VideoFile.fields ({ROADMAP})")
+                             f"{self.container.height}-row stream, read by VideoFile.fields "
+                             f"({ROADMAP})")
         return frame
 
     def is_field(self, frame: MjpegFrame) -> bool:
         """mjpegdec.c's test for a field of an interlaced frame."""
-        return frame.planes[0].shape[0] < self.avi.height * 3 // 4
+        return frame.planes[0].shape[0] < self.container.height * 3 // 4
+
+    @property
+    def bottom_field_first(self) -> bool:
+        """``mjpegdec.c``'s ``interlace_polarity``: 1 for a stream FFmpeg
+        says is bottom field first (a Matroska ``FieldOrder``), or of an
+        unknown order whose codec tag is exactly ``MJPG`` (an AVI's
+        ``biCompression``; Matroska's ``V_MJPEG`` has none)."""
+        if self.mkv is not None:
+            return self.mkv.bottom_field_first
+        return self.avi.video.compression == b"MJPG"
 
     def fields(self, data: bytes, index: int, tables):
         """An interlaced stream's packet -> (the frame woven from its two
@@ -108,24 +139,47 @@ class VideoFile:
         planes = []
         for (_, v), a, b in zip(one.factors, one.planes, two.planes):
             woven = np.empty((a.shape[0] + b.shape[0], a.shape[1]), np.uint8)
-            woven[0::2], woven[1::2] = b, a  # the packet's second field on the even rows
+            if self.bottom_field_first:  # the packet's first field on the odd rows
+                woven[0::2], woven[1::2] = b, a
+            else:
+                woven[0::2], woven[1::2] = a, b
             planes.append(woven[:-(-h * v // vmax)])
         return MjpegFrame(planes, one.factors, two.tables), two.tables
 
     def planes(self):
-        """Each MPEG-4 frame's (Y, Cb, Cr) planes, as FFmpeg decodes them."""
-        decoder = Mpeg4Decoder(self.mp4.config if self.mp4 is not None else b"", self.path)
+        """Each MPEG-4 or VP8 frame's (Y, Cb, Cr) planes, as FFmpeg decodes
+        them."""
+        if self.codec == "vp8":
+            self.decoder = decoder = Vp8Decoder(self.path)
+            for data in self.packets():
+                yield from decoder.decode(data)
+            return
+        decoder = Mpeg4Decoder(getattr(self.container, "config", b""), self.path)
         for data in self.packets():
             yield from decoder.decode(data)
 
+    def check_size(self, shape, index: int) -> None:
+        """A Matroska frame must have its track's size (cv2 would scale it)."""
+        if self.mkv is not None and tuple(shape) != (self.mkv.height, self.mkv.width):
+            raise ValueError(f"{self.path} frame {index}: a {shape[0]}x{shape[1]} frame in a "
+                             f"{self.mkv.height}x{self.mkv.width} track, which cv2 scales "
+                             f"({ROADMAP})")
+
+    def bgr(self):
+        """Each MPEG-4 or VP8 frame as cv2 converts it to BGR, unturned."""
+        h_pos = VP8_H_POS if self.codec == "vp8" else MPEG4_H_POS
+        for i, (y, cb, cr) in enumerate(self.planes()):
+            self.check_size(y.shape, i)
+            full = self.codec == "vp8" and self.decoder.full_range
+            yield yuv420p_to_bgr(y, cb, cr, f"{self.path} frame {i}", h_pos, full)
+
     def __iter__(self):
-        if self.codec == "mpeg4":
-            for i, (y, cb, cr) in enumerate(self.planes()):
-                gray = bgr_to_gray(yuv420p_to_bgr(y, cb, cr, f"{self.path} frame {i}"))
-                yield np.ascontiguousarray(np.rot90(gray, _TURNS[self.rotation]))
+        if self.codec in ("mpeg4", "vp8"):
+            for bgr in self.bgr():
+                yield np.ascontiguousarray(np.rot90(bgr_to_gray(bgr), _TURNS[self.rotation]))
             return
         tables, interlaced = None, None
-        for i, data in enumerate(self.avi.frames()):
+        for i, data in enumerate(self.packets()):
             if interlaced is None:  # the first frame decides, as in mjpegdec.c
                 interlaced = self.is_field(decode_mjpeg_frame(data, f"{self.path} frame 0",
                                                               tables))
@@ -136,4 +190,5 @@ class VideoFile:
             else:
                 frame = self.decode(data, i, tables)
                 tables = frame.tables
+            self.check_size(frame.planes[0].shape, i)
             yield mjpeg_to_gray(frame.planes, frame.factors, path=f"{self.path} frame {i}")

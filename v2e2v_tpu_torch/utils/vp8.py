@@ -21,7 +21,9 @@ The decoder follows RFC 6386 as libwebp implements it (``src/dec/*_dec.c``,
   its last column, repeated, at the frame's right edge);
 - the simple or the normal loop filter on every macroblock edge and inner
   edge in raster order, with each segment's and mode's level, the interior
-  limit from the sharpness, and the high-edge-variance threshold;
+  limit from the sharpness, and the high-edge-variance threshold
+  (``loop_filter``, which ``utils/vp8dec.py`` shares, vectorised over a
+  wavefront of macroblocks that keeps raster order's result);
 - then ``io_dec.c::EmitFancyRGB``: the chroma planes upsampled by libwebp's
   "fancy" upsampler (``(9 a + 3 b + 3 c + d + 8) / 16`` as its packed
   arithmetic rounds it) and each pixel converted by ``yuv.h::VP8YuvToBgr``
@@ -355,7 +357,7 @@ class _Header:
 
 def _filter_strengths(hdr: _Header) -> list:
     """``frame_dec.c::PrecomputeFilterStrengths``: per segment and per
-    (16x16, 4x4) luma mode, (limit, interior limit, hev threshold)."""
+    (16x16, 4x4) luma mode, (level, interior limit, hev threshold)."""
     out = []
     for s in range(4):
         base = hdr.level
@@ -367,21 +369,52 @@ def _filter_strengths(hdr: _Header) -> list:
             if hdr.use_deltas:
                 level += hdr.ref_delta + (hdr.mode_delta if i4x4 else 0)
             level = min(max(level, 0), 63)
-            if level == 0:
-                row.append((0, 0, 0))
-                continue
             ilevel = level
             if hdr.sharpness:
                 ilevel >>= 2 if hdr.sharpness > 4 else 1
                 ilevel = min(ilevel, 9 - hdr.sharpness)
             ilevel = max(ilevel, 1)
-            row.append((2 * level + ilevel, ilevel, 2 if level >= 40 else 1 if level >= 15 else 0))
+            row.append((level, ilevel, 2 if level >= 40 else 1 if level >= 15 else 0))
         out.append(row)
     return out
 
 
 class _MB:
     __slots__ = ("segment", "skip", "i4x4", "ymodes", "uvmode", "coeffs", "nonzero")
+
+
+def sub_block_mode(br: _Bool, prob) -> int:
+    """One 4x4 sub-block mode by the tree ``YMODES_INTRA4`` under ``prob``."""
+    i = YMODES_INTRA4[br.bit(prob[0])]
+    while i > 0:
+        i = YMODES_INTRA4[2 * i + br.bit(prob[i])]
+    return -i
+
+
+def key_frame_modes(br: _Bool, mb, intra_top: list, intra_left: list, mb_x: int) -> None:
+    """``tree_dec.c::ParseIntraMode``: a key frame macroblock's luma modes
+    (``mb.i4x4``, ``mb.ymodes``) and chroma mode (``mb.uvmode``); the
+    sub-block modes' contexts are the modes above (``intra_top``) and to the
+    left (``intra_left``), which this updates."""
+    mb.i4x4 = not br.bit(145)
+    if not mb.i4x4:
+        mode = ((TM_PRED if br.bit(128) else H_PRED) if br.bit(156)
+                else (V_PRED if br.bit(163) else DC_PRED))
+        mb.ymodes = [mode]
+        intra_top[4 * mb_x:4 * mb_x + 4] = [mode] * 4
+        intra_left[:] = [mode] * 4
+    else:
+        modes = []
+        for y in range(4):
+            ymode = intra_left[y]
+            for x in range(4):
+                ymode = sub_block_mode(br, BMODES_PROBA[(intra_top[4 * mb_x + x] * 10 + ymode) * 9:])
+                intra_top[4 * mb_x + x] = ymode
+                modes.append(ymode)
+            intra_left[y] = ymode
+        mb.ymodes = modes
+    mb.uvmode = (DC_PRED if not br.bit(142) else V_PRED if not br.bit(114)
+                 else TM_PRED if br.bit(183) else H_PRED)
 
 
 def _parse(data: bytes, path: str):
@@ -421,29 +454,7 @@ def _parse(data: bytes, path: str):
             else:
                 mb.segment = 0
             mb.skip = br.bit(hdr.skip_prob) if hdr.skip_prob is not None else 0
-            mb.i4x4 = not br.bit(145)
-            if not mb.i4x4:
-                mode = ((TM_PRED if br.bit(128) else H_PRED) if br.bit(156)
-                        else (V_PRED if br.bit(163) else DC_PRED))
-                mb.ymodes = [mode]
-                intra_top[4 * mb_x:4 * mb_x + 4] = [mode] * 4
-                intra_left = [mode] * 4
-            else:
-                modes = []
-                for y in range(4):
-                    ymode = intra_left[y]
-                    for x in range(4):
-                        prob = BMODES_PROBA[(intra_top[4 * mb_x + x] * 10 + ymode) * 9:]
-                        i = YMODES_INTRA4[br.bit(prob[0])]
-                        while i > 0:
-                            i = YMODES_INTRA4[2 * i + br.bit(prob[i])]
-                        ymode = -i
-                        intra_top[4 * mb_x + x] = ymode
-                        modes.append(ymode)
-                    intra_left[y] = ymode
-                mb.ymodes = modes
-            mb.uvmode = (DC_PRED if not br.bit(142) else V_PRED if not br.bit(114)
-                         else TM_PRED if br.bit(183) else H_PRED)
+            key_frame_modes(br, mb, intra_top, intra_left, mb_x)
             row.append(mb)
         br.check()
         tokens = hdr.parts[mb_y & (len(hdr.parts) - 1)]
@@ -457,9 +468,9 @@ def _parse(data: bytes, path: str):
                     nz_dc_left = nz_dc_top[mb_x] = 0
                 mb.nonzero = False
             else:
-                y_nz, uv_nz, nz_left, nz_dc_left = _residuals(
-                    tokens, hdr.bands, mb, coeffs, nz_top, nz_dc_top, mb_x, nz_left, nz_dc_left,
-                    q_y1, q_y2, q_uv)
+                y_nz, uv_nz, nz_left, nz_dc_left = residuals(
+                    tokens, hdr.bands, not mb.i4x4, coeffs, nz_top, nz_dc_top, mb_x, nz_left,
+                    nz_dc_left, q_y1, q_y2, q_uv)
                 mb.nonzero = y_nz or uv_nz
             mb.coeffs = coeffs
             tokens.check()
@@ -467,13 +478,13 @@ def _parse(data: bytes, path: str):
     return hdr, width, height, mbs
 
 
-def _residuals(br, bands, mb, out, nz_top, nz_dc_top, mb_x, nz_left, nz_dc_left, q_y1, q_y2,
-               q_uv):
-    """``vp8_dec.c::ParseResiduals`` for one macroblock; returns (a luma
-    block has coefficients past its first, a chroma block has any, the left
-    contexts, the left DC context)."""
+def residuals(br, bands, has_y2, out, nz_top, nz_dc_top, mb_x, nz_left, nz_dc_left, q_y1, q_y2,
+              q_uv):
+    """``vp8_dec.c::ParseResiduals`` for one macroblock, with a second-order
+    block when ``has_y2``; returns (a luma block has coefficients past its
+    first, a chroma block has any, the left contexts, the left DC context)."""
     block = [0] * 16
-    if not mb.i4x4:  # the second-order DC block
+    if has_y2:  # the second-order DC block
         nz = _coeffs(br, bands[1], nz_dc_top[mb_x] + nz_dc_left, q_y2, 0, block)
         nz_dc_top[mb_x] = nz_dc_left = int(nz > 0)
         out[384:400] = block
@@ -638,117 +649,168 @@ def _reconstruct(mbs: list, mb_w: int, mb_h: int, residual: np.ndarray):
         plane[0], plane[1:, 0] = 127, 129
     for mb_y in range(mb_h):
         for mb_x in range(mb_w):
-            mb = mbs[mb_y][mb_x]
-            res = residual[mb_y * mb_w + mb_x]  # [24, 4, 4]
-            y0, x0 = 16 * mb_y + 1, 16 * mb_x + 1
-            if not mb.i4x4:
-                mode = _dc_mode(mb.ymodes[0], mb_x, mb_y)
-                pred = _pred_block(mode, y_pl[y0 - 1, x0:x0 + 16], y_pl[y0:y0 + 16, x0 - 1],
-                                   int(y_pl[y0 - 1, x0 - 1]), 16)
-                blocks = res[:16].reshape(4, 4, 4, 4).transpose(0, 2, 1, 3).reshape(16, 16)
-                y_pl[y0:y0 + 16, x0:x0 + 16] = np.clip(pred + blocks, 0, 255)
-            else:
-                # above-right of the macroblock: the next one's top row, the pixel
-                # above this one's last column repeated at the right edge, 127 atop
-                if mb_y == 0:
-                    top_right = [127] * 4
-                elif mb_x == mb_w - 1:
-                    top_right = [int(y_pl[y0 - 1, x0 + 15])] * 4
-                else:
-                    top_right = y_pl[y0 - 1, x0 + 16:x0 + 20].tolist()
-                for n in range(16):
-                    by, bx = y0 + 4 * (n >> 2), x0 + 4 * (n & 3)
-                    above = y_pl[by - 1, bx:bx + 4].tolist()
-                    if (n & 3) == 3:
-                        right = top_right
-                    else:
-                        right = y_pl[by - 1, bx + 4:bx + 8].tolist()
-                    if n < 4 and (n & 3) < 3 and mb_y == 0:
-                        right = [127] * 4
-                    pred = _pred4(mb.ymodes[n], above + right, y_pl[by:by + 4, bx - 1].tolist(),
-                                  int(y_pl[by - 1, bx - 1]))
-                    y_pl[by:by + 4, bx:bx + 4] = np.clip(pred + res[n], 0, 255)
-            mode = _dc_mode(mb.uvmode, mb_x, mb_y)
-            c0, r0 = 8 * mb_x + 1, 8 * mb_y + 1
-            for k, plane in enumerate(uv_pl):
-                pred = _pred_block(mode, plane[r0 - 1, c0:c0 + 8], plane[r0:r0 + 8, c0 - 1],
-                                   int(plane[r0 - 1, c0 - 1]), 8)
-                blocks = res[16 + 4 * k:20 + 4 * k].reshape(2, 2, 4, 4).transpose(
-                    0, 2, 1, 3).reshape(8, 8)
-                plane[r0:r0 + 8, c0:c0 + 8] = np.clip(pred + blocks, 0, 255)
+            intra_mb(y_pl, uv_pl, mbs[mb_y][mb_x], mb_x, mb_y, mb_w,
+                     residual[mb_y * mb_w + mb_x])
     return y_pl[1:, 1:16 * mb_w + 1], uv_pl[0][1:, 1:], uv_pl[1][1:, 1:]
 
 
-def _filter_line(px: list, thresh2: int, ithresh: int, hev_thresh: int, mode: int):
-    """One line across an edge, ``px`` = p3 p2 p1 p0 q0 q1 q2 q3: the new
-    values, or None where the edge is left as it is. ``mode`` 0 is the
-    simple filter (``DoFilter2`` where ``NeedsFilter``), 1 an inner edge of
-    the normal filter (``FilterLoop24``), 2 a macroblock edge
-    (``FilterLoop26``)."""
+def intra_mb(y_pl: np.ndarray, uv_pl: list, mb, mb_x: int, mb_y: int, mb_w: int,
+             res: np.ndarray) -> None:
+    """One macroblock's intra prediction plus its residuals (``[24, 4, 4]``)
+    into planes laid out as ``_reconstruct`` lays them out."""
+    y0, x0 = 16 * mb_y + 1, 16 * mb_x + 1
+    if not mb.i4x4:
+        mode = _dc_mode(mb.ymodes[0], mb_x, mb_y)
+        pred = _pred_block(mode, y_pl[y0 - 1, x0:x0 + 16], y_pl[y0:y0 + 16, x0 - 1],
+                           int(y_pl[y0 - 1, x0 - 1]), 16)
+        blocks = res[:16].reshape(4, 4, 4, 4).transpose(0, 2, 1, 3).reshape(16, 16)
+        y_pl[y0:y0 + 16, x0:x0 + 16] = np.clip(pred + blocks, 0, 255)
+    else:
+        # above-right of the macroblock: the next one's top row, the pixel
+        # above this one's last column repeated at the right edge, 127 atop
+        if mb_y == 0:
+            top_right = [127] * 4
+        elif mb_x == mb_w - 1:
+            top_right = [int(y_pl[y0 - 1, x0 + 15])] * 4
+        else:
+            top_right = y_pl[y0 - 1, x0 + 16:x0 + 20].tolist()
+        for n in range(16):
+            by, bx = y0 + 4 * (n >> 2), x0 + 4 * (n & 3)
+            above = y_pl[by - 1, bx:bx + 4].tolist()
+            if (n & 3) == 3:
+                right = top_right
+            else:
+                right = y_pl[by - 1, bx + 4:bx + 8].tolist()
+            if n < 4 and (n & 3) < 3 and mb_y == 0:
+                right = [127] * 4
+            pred = _pred4(mb.ymodes[n], above + right, y_pl[by:by + 4, bx - 1].tolist(),
+                          int(y_pl[by - 1, bx - 1]))
+            y_pl[by:by + 4, bx:bx + 4] = np.clip(pred + res[n], 0, 255)
+    mode = _dc_mode(mb.uvmode, mb_x, mb_y)
+    c0, r0 = 8 * mb_x + 1, 8 * mb_y + 1
+    for k, plane in enumerate(uv_pl):
+        pred = _pred_block(mode, plane[r0 - 1, c0:c0 + 8], plane[r0:r0 + 8, c0 - 1],
+                           int(plane[r0 - 1, c0 - 1]), 8)
+        blocks = res[16 + 4 * k:20 + 4 * k].reshape(2, 2, 4, 4).transpose(
+            0, 2, 1, 3).reshape(8, 8)
+        plane[r0:r0 + 8, c0:c0 + 8] = np.clip(pred + blocks, 0, 255)
+
+
+def _filter(px: np.ndarray, limit: np.ndarray, inner_limit: np.ndarray, hev_thresh: np.ndarray,
+            kind: str) -> None:
+    """The loop filter, in place, on ``[8, N]`` lines across an edge (rows
+    p3 p2 p1 p0 q0 q1 q2 q3) with each line's limits ``[N]``; ``kind`` is
+    ``"simple"`` (``DoFilter2`` where ``NeedsFilter``), ``"mb"`` (a
+    macroblock edge, ``FilterLoop26``) or ``"inner"`` (``FilterLoop24``),
+    with FFmpeg's ``vp8dsp.c`` clamps, which give libwebp's values."""
     p3, p2, p1, p0, q0, q1, q2, q3 = px
-    if 4 * abs(p0 - q0) + abs(p1 - q1) > thresh2:
-        return None
-    if mode and (abs(p3 - p2) > ithresh or abs(p2 - p1) > ithresh or abs(p1 - p0) > ithresh
-                 or abs(q3 - q2) > ithresh or abs(q2 - q1) > ithresh or abs(q1 - q0) > ithresh):
-        return None
-    if not mode or abs(p1 - p0) > hev_thresh or abs(q1 - q0) > hev_thresh:  # DoFilter2
-        a = 3 * (q0 - p0) + min(max(p1 - q1, -128), 127)
-        a1, a2 = min(max((a + 4) >> 3, -16), 15), min(max((a + 3) >> 3, -16), 15)
-        return [p3, p2, p1, min(max(p0 + a2, 0), 255), min(max(q0 - a1, 0), 255), q1, q2, q3]
-    if mode == 2:  # DoFilter6
-        a = min(max(3 * (q0 - p0) + min(max(p1 - q1, -128), 127), -128), 127)
-        a1, a2, a3 = (27 * a + 63) >> 7, (18 * a + 63) >> 7, (9 * a + 63) >> 7
-        return [p3, min(max(p2 + a3, 0), 255), min(max(p1 + a2, 0), 255),
-                min(max(p0 + a1, 0), 255), min(max(q0 - a1, 0), 255),
-                min(max(q1 - a2, 0), 255), min(max(q2 - a3, 0), 255), q3]
-    a = 3 * (q0 - p0)  # DoFilter4
-    a1, a2 = min(max((a + 4) >> 3, -16), 15), min(max((a + 3) >> 3, -16), 15)
-    a3 = (a1 + 1) >> 1
-    return [p3, p2, min(max(p1 + a3, 0), 255), min(max(p0 + a2, 0), 255),
-            min(max(q0 - a1, 0), 255), min(max(q1 - a3, 0), 255), q2, q3]
+    mask = 2 * np.abs(p0 - q0) + (np.abs(p1 - q1) >> 1) <= limit
+    if kind == "simple":
+        common, rest = np.flatnonzero(mask), None
+    else:
+        edge = np.maximum(np.abs(p1 - p0), np.abs(q1 - q0))
+        interior = np.maximum.reduce([np.abs(p3 - p2), np.abs(p2 - p1), np.abs(q3 - q2),
+                                      np.abs(q2 - q1), edge])
+        mask &= interior <= inner_limit
+        hev = edge > hev_thresh
+        common, rest = np.flatnonzero(mask & hev), np.flatnonzero(mask & ~hev)
+    if len(common):
+        c = px[:, common]
+        a = _s8(3 * (c[4] - c[3]) + _s8(c[2] - c[5]))
+        px[3, common] = _u8(c[3] + (np.minimum(a + 3, 127) >> 3))
+        px[4, common] = _u8(c[4] - (np.minimum(a + 4, 127) >> 3))
+    if rest is None or not len(rest):
+        return
+    r = px[:, rest]
+    if kind == "mb":
+        w = _s8(_s8(r[2] - r[5]) + 3 * (r[4] - r[3]))
+        a0, a1, a2 = (27 * w + 63) >> 7, (18 * w + 63) >> 7, (9 * w + 63) >> 7
+        px[1:7, rest] = _u8(r[1:7] + np.stack([a2, a1, a0, -a0, -a1, -a2]))
+    else:
+        a = _s8(3 * (r[4] - r[3]))
+        f1, f2 = np.minimum(a + 4, 127) >> 3, np.minimum(a + 3, 127) >> 3
+        a3 = (f1 + 1) >> 1
+        px[2:6, rest] = _u8(r[2:6] + np.stack([a3, f2, -f1, -a3]))
 
 
-def _loop_filter(hdr: _Header, mbs: list, planes: tuple, mb_w: int, mb_h: int,
-                 inner: np.ndarray) -> tuple:
-    """``frame_dec.c::DoFilter`` over every macroblock in raster order: the
-    left edge, the inner vertical edges, the top edge, the inner horizontal
-    edges; luma only for the simple filter. Runs on Python lists, one line
-    at a time (each edge's lines are independent, the edges are not)."""
-    if hdr.level == 0:
-        return planes
-    strengths = _filter_strengths(hdr)
-    rows = [plane.tolist() for plane in planes]
-    for mb_y in range(mb_h):
-        for mb_x in range(mb_w):
-            mb = mbs[mb_y][mb_x]
-            limit, ilevel, hev = strengths[mb.segment][int(mb.i4x4)]
-            if limit == 0:
+def _s8(x: np.ndarray) -> np.ndarray:
+    return np.minimum(np.maximum(x, -128), 127)
+
+
+def _u8(x: np.ndarray) -> np.ndarray:
+    return np.minimum(np.maximum(x, 0), 255)
+
+
+# the order of a macroblock's edges in each plane: (vertical or horizontal,
+# offset, a macroblock edge); chroma's four are at the luma steps' places
+LUMA_STEPS = [("v", 0, True), ("v", 4, False), ("v", 8, False), ("v", 12, False),
+              ("h", 0, True), ("h", 4, False), ("h", 8, False), ("h", 12, False)]
+CHROMA_STEPS = {0: ("v", 0, True), 1: ("v", 4, False), 4: ("h", 0, True), 5: ("h", 4, False)}
+
+
+def _template(size: int, stride: int, way: str, d: int) -> np.ndarray:
+    """The flat offsets, from a block's first pixel, of the 8 pixels across
+    its edge at offset ``d`` on each of its ``size`` lines: ``[8, size]``."""
+    across, span = np.arange(-4, 4)[:, None] + d, np.arange(size)[None, :]
+    return span * stride + across if way == "v" else across * stride + span
+
+
+def loop_filter(planes: list, level: np.ndarray, inner_limit: np.ndarray, hev: np.ndarray,
+                inner: np.ndarray, simple: bool) -> None:
+    """``frame_dec.c::DoFilter`` / ``vp8.c::filter_mb`` (luma only for the
+    simple filter) over every macroblock of the grid planes (int32,
+    filtered in place): per macroblock and plane the left edge, the inner
+    vertical edges, the top edge, the inner horizontal ones, with each
+    macroblock's ``level`` (none at 0), ``inner_limit`` and ``hev``
+    threshold, the inner edges where ``inner``. A macroblock ``(x, y)``
+    touches pixels that ``(x - 1, y)`` and ``(x + 1, y - 1)`` touch and none
+    that another macroblock of its wavefront ``x + 2 y`` touches, so the
+    wavefronts in order give raster order's result; each step of a
+    wavefront filters its luma edges and the chroma ones at the same place
+    of the order at once, from one buffer of the three planes (both chroma
+    planes side by side). ``level`` etc. are ``[mb_h, mb_w]``."""
+    mb_h, mb_w = level.shape
+    y_stride, cw = planes[0].shape[1], planes[1].shape[1]
+    parts = [planes[0].reshape(-1)]
+    if not simple:
+        parts.append(np.concatenate([planes[1], planes[2]], axis=1).reshape(-1))
+    buf = np.concatenate(parts)
+    c_at, c_stride = planes[0].size, 2 * cw
+    y_tpl = [_template(16, y_stride, way, d) for way, d, _ in LUMA_STEPS]
+    c_tpl = {k: _template(8, c_stride, way, d) for k, (way, d, _) in CHROMA_STEPS.items()}
+    kinds = {True: "simple" if simple else "mb", False: "simple" if simple else "inner"}
+    for t in range(mb_w + 2 * (mb_h - 1)):
+        ys = np.arange(max(0, (t - mb_w + 2) // 2), min(mb_h - 1, t // 2) + 1)
+        xs = t - 2 * ys
+        keep = level[ys, xs] > 0
+        ys, xs = ys[keep], xs[keep]
+        if not len(ys):
+            continue
+        lv, il, hv = level[ys, xs], inner_limit[ys, xs], hev[ys, xs]
+        params = {True: np.stack([2 * lv + il + 4, il, hv]), False: np.stack([2 * lv + il, il, hv])}
+        edge_on = {"v": xs > 0, "h": ys > 0}
+        inn = inner[ys, xs]
+        y_base = 16 * ys * y_stride + 16 * xs
+        c_base = c_at + 8 * ys * c_stride + 8 * xs
+        for k, (way, d, mb_edge) in enumerate(LUMA_STEPS):
+            on = edge_on[way] if mb_edge else inn
+            if not on.any():
                 continue
-            f_inner = inner[mb_y, mb_x]
-            for k, size in ((0, 16),) if hdr.simple else ((0, 16), (1, 8), (2, 8)):
-                plane, y0, x0 = rows[k], size * mb_y, size * mb_x
-                edges = [(x0, 2)] if mb_x > 0 else []  # (offset, mode), vertical edges
-                edges += [(x0 + d, 1) for d in range(4, size, 4)] if f_inner else []
-                for at, mode in edges:
-                    thresh2 = 2 * (limit + 4 if mode == 2 else limit) + 1
-                    mode = mode if not hdr.simple else 0
-                    for r in range(y0, y0 + size):
-                        line = plane[r]
-                        new = _filter_line(line[at - 4:at + 4], thresh2, ilevel, hev, mode)
-                        if new is not None:
-                            line[at - 4:at + 4] = new
-                edges = [(y0, 2)] if mb_y > 0 else []  # horizontal edges
-                edges += [(y0 + d, 1) for d in range(4, size, 4)] if f_inner else []
-                for at, mode in edges:
-                    thresh2 = 2 * (limit + 4 if mode == 2 else limit) + 1
-                    mode = mode if not hdr.simple else 0
-                    lines = plane[at - 4:at + 4]
-                    for c in range(x0, x0 + size):
-                        new = _filter_line([ln[c] for ln in lines], thresh2, ilevel, hev, mode)
-                        if new is not None:
-                            for ln, v in zip(lines, new):
-                                ln[c] = v
-    return tuple(np.array(r, np.int64) for r in rows)
+            idx = (y_tpl[k][:, None, :] + y_base[on, None]).reshape(8, -1)
+            par = np.repeat(params[mb_edge][:, on], 16, axis=1)
+            if not simple and k in CHROMA_STEPS:
+                base = np.concatenate([c_base[on], c_base[on] + cw])
+                idx = np.concatenate([idx, (c_tpl[k][:, None, :] + base[:, None]).reshape(8, -1)],
+                                     axis=1)
+                par = np.concatenate([par, np.repeat(np.tile(params[mb_edge][:, on], 2), 8,
+                                                     axis=1)], axis=1)
+            px = buf[idx]
+            _filter(px, par[0], par[1], par[2], kinds[mb_edge])
+            buf[idx] = px
+    planes[0][:] = buf[:c_at].reshape(planes[0].shape)
+    if not simple:
+        chroma = buf[c_at:].reshape(-1, c_stride)
+        planes[1][:], planes[2][:] = chroma[:, :cw], chroma[:, cw:]
 
 
 def _fancy(top: np.ndarray, cur: np.ndarray, width: int):
@@ -822,8 +884,14 @@ def decode_vp8_planes(data: bytes, path: str = "<bytes>"):
     # non-zero coefficients (the second-order block counts through its DCs)
     inner = np.array([mb.i4x4 or mb.nonzero or bool(dc[i].any())
                       for i, mb in enumerate(flat)]).reshape(mb_h, mb_w)
-    y_pl, u_pl, v_pl = _loop_filter(hdr, mbs, _reconstruct(mbs, mb_w, mb_h, residual), mb_w,
-                                    mb_h, inner)
+    planes = [np.ascontiguousarray(p, np.int32) for p in _reconstruct(mbs, mb_w, mb_h, residual)]
+    if hdr.level:
+        strengths = _filter_strengths(hdr)
+        per_mb = np.array([strengths[mb.segment][int(mb.i4x4)] for mb in flat]).reshape(
+            mb_h, mb_w, 3)
+        loop_filter(planes, per_mb[..., 0], per_mb[..., 1], per_mb[..., 2], inner,
+                    bool(hdr.simple))
+    y_pl, u_pl, v_pl = (p.astype(np.int64) for p in planes)
     cw, ch = (width + 1) // 2, (height + 1) // 2
     return y_pl[:height, :width], u_pl[:ch, :cw], v_pl[:ch, :cw]
 

@@ -55,6 +55,11 @@ table's chroma ones, Y's gain 255/219 and offset 16), Y through a signed
 vertical rounder), the C rows' luma table 1.5 levels low (``yoffs`` 326),
 and MPEG-4's left-sited chroma at horizontal position 64 in the general
 scaler's filter. All found by probing with crafted streams and raw I420.
+FFmpeg's ``vp8`` decoder gives limited-range ``yuv420p`` of unspecified
+chroma siting, which takes the same routes with the chroma centred (128,
+``VP8_H_POS``), found by probing clips of odd heights; frames after a key
+frame whose ``clamping_type`` bit is 1 (FFmpeg's ``fullrange``) are
+converted at full range, found with crafted streams read on one thread.
 
 ``COLOR_BGR2GRAY`` on 8-bit samples is OpenCV's fixed point: in OpenCV 5 (the
 cv2 the JAX package was checked with) at 15 bits, 0.114, 0.587 and 0.299 as
@@ -158,6 +163,7 @@ LIM_VR, LIM_UB, LIM_UG, LIM_VG = (_round_to_int16(c << 13) for c in (
 # the horizontal siting of MPEG-4's chroma (AVCHROMA_LOC_LEFT) as swscale's
 # filter takes it: found by probing, where 128 (centred) is 11 levels off
 MPEG4_H_POS = 64
+VP8_H_POS = 128  # VP8's chroma, of unspecified siting, centred
 # the C output's tables at limited range (fill_table): the chroma
 # coefficients over cy, each chroma value's offset into the luma table
 # y_table, whose entry for Y is clip(((326 + Y) cy - (400 << 16) + 2^15) >> 16)
@@ -435,15 +441,19 @@ def mjpeg_to_gray(planes, factors, path: str = "<frame>") -> np.ndarray:
 
 
 def yuv420p_to_bgr(y: np.ndarray, cb: np.ndarray, cr: np.ndarray,
-                   path: str = "<frame>") -> np.ndarray:
+                   path: str = "<frame>", h_pos: int = MPEG4_H_POS,
+                   full_range: bool = False) -> np.ndarray:
     """Limited-range 4:2:0 planes (FFmpeg's ``yuv420p`` of unspecified
-    range, as its ``mpeg4`` decoder gives them) -> ``[H, W, 3]`` uint8 BGR as
-    ``cv2.VideoCapture`` returns it: the unscaled converter at an even
-    height, else the general scaler."""
+    range, as its ``mpeg4`` decoder gives them, and of limited range, as its
+    ``vp8`` decoder does) -> ``[H, W, 3]`` uint8 BGR as ``cv2.VideoCapture``
+    returns it: the unscaled converter at an even height, else the general
+    scaler with the chroma at horizontal position ``h_pos`` (MPEG-4's
+    ``MPEG4_H_POS`` or VP8's ``VP8_H_POS``). ``full_range``: the same routes
+    at full range (VP8 after a key frame whose ``clamping_type`` is 1)."""
     _check_planes(y, cb, cr, 1, 1, path)
     if y.shape[0] % 2 == 0:
-        return _unscaled(y, cb, cr, 1, limited=True)
-    return general_bgr(y, cb, cr, (1, 1), path, limited=True, h_pos=MPEG4_H_POS)
+        return _unscaled(y, cb, cr, 1, limited=not full_range)
+    return general_bgr(y, cb, cr, (1, 1), path, limited=not full_range, h_pos=h_pos)
 
 
 def bgr_to_gray(bgr: np.ndarray) -> np.ndarray:
