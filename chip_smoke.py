@@ -365,8 +365,20 @@ Phases, one line each (any failure exits non-zero before the last line):
    video run (K3 once per frame pair, K1 2 x depth per pack), K3 and K1
    held against their plain versions at every call of the twin run, output
    files and printed averages equal;
+26. VP9 video in WebM and Matroska (``utils/vp9*.py``, ROADMAP item 4.2):
+   (a) every clip under ``tests/data/vp9`` (``scripts/make_vp9_fixtures.py``:
+   the 12-frame 960x720 VP9 flagship in WebM and Matroska, two tile
+   columns and a golden refresh, a second key frame, noise, flat content,
+   75x49, portrait, 30000/1001 fps, four tile columns) read by the port's
+   ``VideoReader`` and ``VideoSequence`` against the JAX readers' records,
+   the flagship's frames decoded once for its four reads, with the host ms
+   per 960x720 frame of each stage (demux, headers and boolean / token
+   decode, prediction + inverse transforms, loop filter, conversion,
+   resize), key and inter frames apart; (b) the V2E2V CLI with
+   ``--reader_type video`` over the flagship WebM against its PNG twin, as
+   phase 25 (b);
 14. a ``{"kernels": [...]}`` JSON line (each row's launches on the paths of
-   phases 10-13 and 15-25, every count set to 0 just before each path: K1,
+   phases 10-13 and 15-26, every count set to 0 just before each path: K1,
    K2, K4 and the scale kernel counted by dtype, K3 by shot mode; the rows
    of K4 and the scale kernel hold their times per pool step, the 15 calls
    of one step summed), then the last line
@@ -4395,34 +4407,37 @@ def mpeg4_phase(seed: int, smi: str, root: Path, v2e2v_model: Path) -> dict:
 
 
 MKV_FIXTURES = Path(__file__).resolve().parent / "tests" / "data" / "mkv"
-VP8_STAGES = ("demux", "tokens", "predict_idct", "loop_filter", "convert", "resize")
+VP9_FIXTURES = Path(__file__).resolve().parent / "tests" / "data" / "vp9"
+WEBM_STAGES = ("demux", "tokens", "predict_idct", "loop_filter", "convert", "resize")
 
 
-def vp8_stages(path: Path) -> tuple[dict[str, dict[str, list[float]]], list]:
-    """Host ms per frame of each stage of a VP8 clip's read, key and inter
-    frames apart, over one pass of ``path``: demux (the container's headers
-    and blocks, per frame), boolean and token decode (the header, modes and
-    coefficients), prediction + IDCT, the loop filter, YUV -> gray, the
-    reader's resize to a quarter. Returns them and the BGR frames."""
+def webm_stages(path: Path, decoder) -> tuple[dict[str, dict[str, list[float]]], list]:
+    """Host ms per frame of each stage of a VP8 or VP9 clip's read (by
+    ``decoder``, ``Vp8Decoder`` or ``Vp9Decoder``), key and inter frames
+    apart, over one pass of ``path``: demux (the container's headers and
+    blocks, per frame), boolean and token decode (the headers, modes, vectors
+    and coefficients), prediction + inverse transforms, the loop filter,
+    YUV -> gray, the reader's resize to a quarter. Returns them and the BGR
+    frames."""
     from v2e2v_tpu_torch.utils import yuv
     from v2e2v_tpu_torch.utils.image_io import resize_linear_u8
     from v2e2v_tpu_torch.utils.video import VideoFile
-    from v2e2v_tpu_torch.utils.vp8dec import Vp8Decoder
 
-    ms = {kind: {k: [] for k in VP8_STAGES} for kind in ("key", "inter")}
+    ms = {kind: {k: [] for k in WEBM_STAGES} for kind in ("key", "inter")}
     t0 = time.perf_counter()
     video = VideoFile(str(path))
     datas = list(video.packets())
     demux = 1e3 * (time.perf_counter() - t0) / len(datas)
-    dec, frames = Vp8Decoder(str(path)), []
+    dec, frames = decoder(str(path)), []
     for data in datas:
         stats = {}
         planes = list(dec.decode(data, stats))
-        kind = ms["inter" if data[0] & 1 else "key"]
+        name = "key" if stats.get("frames_key") else "inter"
+        kind = ms[name]
         kind["demux"].append(demux)
-        for k, key in (("tokens", "vp8_tokens"), ("predict_idct", "vp8_predict"),
-                       ("loop_filter", "vp8_filter")):
-            kind[k].append(1e3 * stats[key])
+        for k, key in (("tokens", "tokens"), ("predict_idct", "predict"),
+                       ("loop_filter", "filter")):
+            kind[k].append(1e3 * stats[f"{key}_{name}"])
         t = [time.perf_counter()]
         bgr = yuv.yuv420p_to_bgr(*planes[0], str(path), yuv.VP8_H_POS, dec.full_range)
         gray = yuv.bgr_to_gray(bgr)
@@ -4435,31 +4450,34 @@ def vp8_stages(path: Path) -> tuple[dict[str, dict[str, list[float]]], list]:
     return ms, frames
 
 
-def mkv_phase(seed: int, smi: str, root: Path, v2e2v_model: Path) -> dict:
-    """Phase 25: Matroska and WebM video (ROADMAP item 4.2). (a) every clip
-    under ``tests/data/mkv`` (``scripts/make_mkv_fixtures.py``) read by the
-    port's ``VideoReader`` and ``VideoSequence`` against the JAX readers'
-    records, the refused one refused; the VP8 flagship decoded once, with
-    the host ms of each stage per 960x720 key and inter frame, and those
-    frames handed to its four reads (WebM and Matroska, each reader), whose
-    containers, sizes, stamps and resizes are read anew; (b) the V2E2V CLI
-    with ``--reader_type video`` over the flagship WebM (read as 180x240,
-    decoded anew) against its PNG twin, as phase 21 (b). Returns (b)'s
-    launches by row."""
+def webm_phase(seed: int, smi: str, root: Path, v2e2v_model: Path, fixtures: Path, decoder,
+               label: str, tag: str, min_clips: int) -> dict:
+    """Phase 25 (Matroska and WebM, VP8's flagship: ``tests/data/mkv``,
+    ``scripts/make_mkv_fixtures.py``) and phase 26 (VP9 in WebM and
+    Matroska: ``tests/data/vp9``, ``scripts/make_vp9_fixtures.py``), ROADMAP
+    item 4.2. (a) every clip under ``fixtures`` (at least ``min_clips``)
+    read by the port's ``VideoReader`` and ``VideoSequence`` against the JAX
+    readers' records, a refused one refused; the flagship decoded once by
+    ``decoder``, with the host ms of each stage per 960x720 key and inter
+    frame, and those frames handed to its four reads (WebM and Matroska,
+    each reader), whose containers, sizes, stamps and resizes are read anew;
+    (b) the V2E2V CLI with ``--reader_type video`` over the flagship WebM
+    (read as 180x240, decoded anew) against its PNG twin, as phase 21 (b).
+    Returns (b)'s launches by row, under ``v2e2v_cli_{tag}_launches``."""
     import hashlib
 
     from v2e2v_tpu_torch.utils.video import VideoFile
 
     t_phase = time.perf_counter()
     root.mkdir(parents=True)
-    manifest = json.loads((MKV_FIXTURES / "manifest.json").read_text())["clips"]
-    flagship = MKV_FIXTURES / "flagship.webm"
-    stages, frames = vp8_stages(flagship)
+    manifest = json.loads((fixtures / "manifest.json").read_text())["clips"]
+    flagship = fixtures / "flagship.webm"
+    stages, frames = webm_stages(flagship, decoder)
     for kind, st in stages.items():
         per = {k: (float(np.median(v)), min(v), max(v)) for k, v in st.items()}
         total = sum(m for m, _, _ in per.values())
-        say(f"[time] VP8 read on the card's host ({smi}), host ms per 960x720 {kind} frame of "
-            f"the flagship WebM, median (min-max) of {len(st['tokens'])}: "
+        say(f"[time] {label} read on the card's host ({smi}), host ms per 960x720 {kind} frame "
+            f"of the flagship WebM, median (min-max) of {len(st['tokens'])}: "
             + ", ".join(f"{k} {m:.3f} ({lo:.3f}-{hi:.3f})" for k, (m, lo, hi) in per.items())
             + f"; sum of medians {total:.3f} ms")
     digest = hashlib.sha256(b"".join(VideoFile(str(flagship)).packets())).hexdigest()
@@ -4471,14 +4489,14 @@ def mkv_phase(seed: int, smi: str, root: Path, v2e2v_model: Path) -> dict:
         return decode(self)
 
     with swapped((VideoFile, "bgr", bgr)):
-        bad, readers = clips_against_records(MKV_FIXTURES, sorted(manifest), "mkv")
-    if bad or "flagship.webm" not in readers or len(manifest) < 14:
-        fail(f"the port's Matroska/WebM reads disagree with the JAX readers' records: {bad}")
+        bad, readers = clips_against_records(fixtures, sorted(manifest), tag)
+    if bad or "flagship.webm" not in readers or len(manifest) < min_clips:
+        fail(f"the port's {label} reads disagree with the JAX readers' records: {bad}")
     rows = video_cli_against_twin(seed, smi, root, v2e2v_model, flagship,
                                   readers["flagship.webm"], manifest["flagship.webm"]["fps"],
-                                  "mkv")
-    say(f"[phase] Matroska/WebM video {time.perf_counter() - t_phase:.1f} s")
-    return {"v2e2v_cli_mkv_launches": rows}
+                                  tag)
+    say(f"[phase] {label} video {time.perf_counter() - t_phase:.1f} s")
+    return {f"v2e2v_cli_{tag}_launches": rows}
 
 
 IMAGE_FIXTURES = Path(__file__).resolve().parent / "tests" / "data" / "images"
@@ -4935,6 +4953,8 @@ def main() -> None:
     from v2e2v_tpu_torch.ops.cuda.ista import ista_loop, ista_loop_plain
     from v2e2v_tpu_torch.ops.voxel import event_preprocess, events_to_voxel_grid
     from v2e2v_tpu_torch.serving import StreamPool
+    from v2e2v_tpu_torch.utils.vp8dec import Vp8Decoder
+    from v2e2v_tpu_torch.utils.vp9dec import Vp9Decoder
 
     # 1. device
     smi = subprocess.run(
@@ -5430,7 +5450,14 @@ def main() -> None:
         # 25. Matroska and WebM: the fixture clips against the JAX readers'
         # records, the V2E2V CLI with --reader_type video over the flagship
         # WebM against its PNG twin
-        mkv_rows = mkv_phase(args.seed, smi, shared / "mkv", hfr["model"])
+        mkv_rows = webm_phase(args.seed, smi, shared / "mkv", hfr["model"], MKV_FIXTURES,
+                              Vp8Decoder, "Matroska/WebM (VP8)", "mkv", 14)
+
+        # 26. VP9 in WebM and Matroska: the fixture clips against the JAX
+        # readers' records, the V2E2V CLI with --reader_type video over the
+        # flagship VP9 WebM against its PNG twin
+        vp9_rows = webm_phase(args.seed, smi, shared / "vp9", hfr["model"], VP9_FIXTURES,
+                              Vp9Decoder, "VP9", "vp9", 9)
     finally:
         shutil.rmtree(shared, ignore_errors=True)
 
@@ -5440,7 +5467,7 @@ def main() -> None:
              "tc_pool_launches": tc_rows, "e2v_train_launches": trained["e2v"],
              "v2e2v_train_launches_per_step": trained["v2e2v"], **fused_rows, **int8["rows"],
              **slomo_rows, **dist_rows, **spatial_rows, **jpeg_rows, **video_rows, **image_rows,
-             **lpips_rows, **mpeg4_rows, **mkv_rows}
+             **lpips_rows, **mpeg4_rows, **mkv_rows, **vp9_rows}
     for e in entries:
         if e["name"].startswith("ista_loop"):
             e.update(cli_k1[torch.float32 if "float32" in e["name"] else torch.bfloat16])

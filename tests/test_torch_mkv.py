@@ -235,11 +235,24 @@ def _frames():
     return [src[s:e] for s, e in FX.vp8_frames(src)][:4]
 
 
+def _vp9_profile_1():
+    """VP9 frames (``tests/data/vp9/gop.webm``, 96x64) whose headers say
+    profile 1 (4:2:2, 4:4:0 or 4:4:4), which the port does not decode."""
+    spec = importlib.util.spec_from_file_location("make_vp9_fixtures",
+                                                  REPO / "scripts" / "make_vp9_fixtures.py")
+    vp9fx = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(vp9fx)
+    packets = list(MkvFile(str(REPO / "tests" / "data" / "vp9" / "gop.webm")).frames())[:4]
+    return vp9fx.rewrite(packets, lambda i, h: h.update(profile=1), (96, 64))
+
+
 def _refused_file(path: Path, case: str) -> None:
     frames = _frames()
     video = lambda **kw: FX.write_webm(path, frames, 96, 64, **kw)  # noqa: E731
-    if case in ("vp9", "avc", "hevc", "av1", "theora", "unknown"):
-        video(codec_id={"vp9": "V_VP9", "avc": "V_MPEG4/ISO/AVC", "hevc": "V_MPEGH/ISO/HEVC",
+    if case == "vp9":  # VP9 is read, but not a profile-1 track
+        FX.write_webm(path, _vp9_profile_1(), 96, 64, codec_id="V_VP9")
+    elif case in ("avc", "hevc", "av1", "theora", "unknown"):
+        video(codec_id={"avc": "V_MPEG4/ISO/AVC", "hevc": "V_MPEGH/ISO/HEVC",
                         "av1": "V_AV1", "theora": "V_THEORA", "unknown": "V_MS/VFW/FOURCC"}[case])
     elif case == "lacing":
         video(lacing=True)
@@ -282,7 +295,7 @@ def _refused_file(path: Path, case: str) -> None:
         path.write_bytes(FX.set_uint(path.read_bytes(), 0xB0, 80))
 
 
-REFUSED = {"vp9": "WebM video track of VP9", "avc": "H.264", "hevc": "HEVC", "av1": "AV1",
+REFUSED = {"vp9": "VP9 video: profile 1", "avc": "H.264", "hevc": "HEVC", "av1": "AV1",
            "theora": "Theora", "unknown": "codec 'V_MS/VFW/FOURCC'", "lacing": "laced block",
            "content_encodings": "ContentEncodings", "two_video_tracks": "2 video tracks",
            "no_video_track": "no video track", "block_additions": "BlockAdditions",

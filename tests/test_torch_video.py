@@ -486,6 +486,23 @@ def test_video_sequence_matches_the_jax_sequence(name):
 
 # ---------------------------------------------------------------- refusals
 
+def _vp9_profile_1(path):
+    """The cv2-written VP9 WebM at ``path`` remuxed with its frames' headers
+    saying profile 1 (4:2:2, 4:4:0 or 4:4:4)."""
+    from v2e2v_tpu_torch.utils.mkv import MkvFile
+
+    mods = {}
+    for name in ("make_mkv_fixtures", "make_vp9_fixtures"):
+        spec = importlib.util.spec_from_file_location(name, REPO / "scripts" / f"{name}.py")
+        mods[name] = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mods[name])
+    mkv = MkvFile(str(path))
+    packets = mods["make_vp9_fixtures"].rewrite(list(mkv.frames()),
+                                                lambda i, h: h.update(profile=1),
+                                                (mkv.width, mkv.height))
+    mods["make_mkv_fixtures"].write_webm(path, packets, mkv.width, mkv.height, codec_id="V_VP9")
+
+
 def _case_file(tmp_path, case):
     """A file of a format or tool the port refused before, or still refuses."""
     cv2 = pytest.importorskip("cv2")
@@ -495,7 +512,7 @@ def _case_file(tmp_path, case):
     written = {"mp4": ("clip.mp4", "mp4v"), "mpeg4_avi": ("clip.avi", "FMP4"),
                "wmv": ("clip.wmv", "WMV2"), "flv": ("clip.flv", "FLV1"),
                "mpeg_ps": ("clip.mpg", "PIM1"), "vp8_webm": ("clip.webm", "VP80"),
-               "vp9_webm": ("clip.webm", "VP90")}
+               "vp9_webm": ("clip.webm", "VP90"), "vp9_webm_read": ("clip.webm", "VP90")}
     if case in written:
         name, fourcc = written[case]
         path = tmp_path / name
@@ -505,6 +522,8 @@ def _case_file(tmp_path, case):
         for f in imgs:
             vw.write(f)
         vw.release()
+        if case == "vp9_webm":  # VP9 is read, but not profile 1: the headers rewritten so
+            _vp9_profile_1(path)
     elif case == "matroska":
         path.write_bytes(b"\x1a\x45\xdf\xa3" + bytes(60))
     elif case == "riff_wave":
@@ -523,7 +542,7 @@ def _case_file(tmp_path, case):
 
 
 REFUSALS = {"matroska": "Matroska", "riff_wave": "'WAVE'", "wmv": "ASF/WMV",
-            "flv": "an FLV", "mpeg_ps": "MPEG program stream", "vp9_webm": "WebM.*VP9",
+            "flv": "an FLV", "mpeg_ps": "MPEG program stream", "vp9_webm": "VP9 video: profile 1",
             "h263": "short_video_header"}
 
 
@@ -539,7 +558,8 @@ def test_what_it_does_not_read_raises(tmp_path, case):
         list(VideoSequence(path))
 
 
-FORMERLY_REFUSED = ["mp4", "mpeg4_avi", "interlaced", "interlaced_pair", "tiny_411", "vp8_webm"]
+FORMERLY_REFUSED = ["mp4", "mpeg4_avi", "interlaced", "interlaced_pair", "tiny_411", "vp8_webm",
+                    "vp9_webm_read"]
 
 
 @pytest.mark.parametrize("case", FORMERLY_REFUSED)
@@ -547,8 +567,8 @@ def test_formerly_refused_files_match_the_jax_readers(tmp_path, case):
     """The files the port refused before: MPEG-4 in MP4 and in an FMP4 AVI,
     interlaced MJPEG of one field a packet (cv2 reads no frame, and neither
     does the port) and of two (woven), 4:1:1 at 24 wide (swscale's cut
-    chroma filter), and VP8 in WebM: the port's readers equal the JAX
-    ones."""
+    chroma filter), and VP8 and VP9 in WebM: the port's readers equal the
+    JAX ones."""
     from v2e2v_tpu.data.manifests import VideoSequence as JaxSequence
     from v2e2v_tpu.data.video_readers import VideoReader as JaxReader
 

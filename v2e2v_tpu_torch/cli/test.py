@@ -9,7 +9,7 @@ upsampling``, LFR frames upsampled by Super-SloMo on the run's device,
 ``data/interpolating_reader.py``; with ``--reader_type video``, every file
 there that is not hidden and not a ``.txt``, each a video
 ``utils/video.VideoFile`` reads (MJPEG or MPEG-4 Part 2 in AVI, MP4, MOV,
-M4V; VP8, MJPEG or MPEG-4 Part 2 in Matroska or WebM) whose gray frames
+M4V; VP8, VP9, MJPEG or MPEG-4 Part 2 in Matroska or WebM) whose gray frames
 are shrunk to a quarter, ``data/video_readers.VideoReader``) pack by
 pack, emulate events (the
 emulator's iteration loop is kernel K3, one launch per frame pair) and

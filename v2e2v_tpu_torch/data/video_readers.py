@@ -14,8 +14,9 @@
   lists no other suffix; every PNG and JPEG as ``cv2.imread`` reads it).
 - ``VideoReader``: a video file's frames, gray, shrunk by ``ds`` and
   transposed when portrait, on ``utils/video.VideoFile`` (MJPEG and MPEG-4
-  Part 2 in AVI, MPEG-4 Part 2 in MP4, MOV and M4V, VP8, MJPEG and MPEG-4
-  Part 2 in Matroska and WebM, as ``cv2.VideoCapture`` reads them).
+  Part 2 in AVI, MPEG-4 Part 2 in MP4, MOV and M4V, VP8, VP9 (profile 0),
+  MJPEG and MPEG-4 Part 2 in Matroska and WebM, as ``cv2.VideoCapture``
+  reads them; what else a video holds raises naming ROADMAP item 4).
 """
 
 from __future__ import annotations

@@ -1,5 +1,5 @@
-"""A Matroska / WebM demuxer for VP8, MJPEG and MPEG-4 Part 2 video, in
-plain Python.
+"""A Matroska / WebM demuxer for VP8, VP9, MJPEG and MPEG-4 Part 2 video,
+in plain Python.
 
 ``MkvFile(path)`` reads what ``cv2.VideoCapture`` (through FFmpeg's
 ``libavformat/matroskadec.c``) reads of a file's video track:
@@ -25,7 +25,10 @@ takes the stream's duration, which FFmpeg leaves unset: refused). ``frames()`` y
 track's blocks' bytes in file order. ``rotation`` is 0: cv2 turns no
 Matroska frame.
 
-``codec`` is ``"vp8"`` (``V_VP8``), ``"mjpeg"`` (``V_MJPEG``) or ``"mpeg4"``
+``codec`` is ``"vp8"`` (``V_VP8``), ``"vp9"`` (``V_VP9``; its WebM
+``CodecPrivate`` of codec features is read and ignored, as FFmpeg ignores
+it, and a ``Colour`` ``Range`` may only say limited or be unspecified: the
+range is the key frames'), ``"mjpeg"`` (``V_MJPEG``) or ``"mpeg4"``
 (``V_MPEG4/ISO/ASP``, ``/SP`` and ``/AP``, whose headers are the track's
 ``CodecPrivate``, ``config``). ``bottom_field_first``: the track says
 ``FlagInterlaced`` 1 and ``FieldOrder`` 6 (bottom field first), which FFmpeg
@@ -34,7 +37,7 @@ hands its MJPEG decoder as the fields' order.
 Refused, each with a ValueError naming what the file is and ROADMAP.md queue
 1, item 4: laced blocks, ``ContentEncodings`` (header stripping,
 compression, encryption), several video tracks or none, ``BlockAdditions``,
-other codecs (VP9, AVC, HEVC, AV1 and Theora by name), a ``StereoMode``
+other codecs (AVC, HEVC, AV1 and Theora by name), a ``StereoMode``
 other than mono, ``Colour`` values that would change the conversion,
 cropping, a track without ``DefaultDuration`` or a segment without
 ``Duration`` (cv2's rate and count then come from FFmpeg's guesses from the
@@ -64,9 +67,9 @@ BLOCK_GROUP, BLOCK, BLOCK_ADDITIONS, ENCRYPTED_BLOCK = 0xA0, 0xA1, 0x75A1, 0xAF
 SEGMENT_LEVEL = (0x114D9B74, INFO, TRACKS, CLUSTER, 0x1C53BB6B, 0x1941A469, 0x1043A770,
                  0x1254C367)
 VIDEO_TRACK = 1
-CODECS = {"V_VP8": "vp8", "V_MJPEG": "mjpeg", "V_MPEG4/ISO/ASP": "mpeg4",
+CODECS = {"V_VP8": "vp8", "V_VP9": "vp9", "V_MJPEG": "mjpeg", "V_MPEG4/ISO/ASP": "mpeg4",
           "V_MPEG4/ISO/SP": "mpeg4", "V_MPEG4/ISO/AP": "mpeg4"}
-NAMED = {"V_VP9": "VP9", "V_MPEG4/ISO/AVC": "H.264 (AVC)", "V_MPEGH/ISO/HEVC": "H.265 (HEVC)",
+NAMED = {"V_MPEG4/ISO/AVC": "H.264 (AVC)", "V_MPEGH/ISO/HEVC": "H.265 (HEVC)",
          "V_AV1": "AV1", "V_THEORA": "Theora"}
 # Colour's children and the values that leave FFmpeg's frames as they are:
 # MatrixCoefficients, ChromaSitingHorz / Vert, Range, TransferCharacteristics,
@@ -75,11 +78,11 @@ NAMED = {"V_VP9": "VP9", "V_MPEG4/ISO/AVC": "H.264 (AVC)", "V_MPEGH/ISO/HEVC": "
 # limited for the others)
 COLOUR_UNSPECIFIED = {0x55B1: 2, 0x55B7: 0, 0x55B8: 0, 0x55B9: 0, 0x55BA: 2, 0x55BB: 2}
 RANGE = 0x55B9
-CODEC_RANGE = {"vp8": 1, "mjpeg": 2, "mpeg4": 1}
+CODEC_RANGE = {"vp8": 1, "vp9": 1, "mjpeg": 2, "mpeg4": 1}
 
 
 def _refuse(path: str, what: str) -> ValueError:
-    return ValueError(f"{path}: {what}: the port reads VP8, MJPEG and MPEG-4 Part 2 video in "
+    return ValueError(f"{path}: {what}: the port reads VP8, VP9, MJPEG and MPEG-4 Part 2 video in "
                       f"Matroska and WebM files ({ROADMAP})")
 
 

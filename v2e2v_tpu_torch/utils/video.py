@@ -22,9 +22,13 @@ container by the file's first bytes and the codec by its fourcc:
   decodes each frame as FFmpeg's ``vp8`` decoder does (a frame that is not
   shown gives none) and ``yuv.yuv420p_to_bgr`` converts its planes with
   centred chroma, at limited range (full range after a key frame whose
-  ``clamping_type`` is 1, as FFmpeg decodes on one thread); of
-  ``V_MJPEG``, as MJPEG in AVI (interlaced included, tested against the
-  track's ``PixelHeight``); of
+  ``clamping_type`` is 1, as FFmpeg decodes on one thread); of ``V_VP9``
+  (profile 0): ``utils/vp9dec.py`` decodes each frame as FFmpeg's ``vp9``
+  decoder does (superframes split, hidden frames giving none,
+  ``show_existing_frame`` its slot's frame) and ``yuv.yuv420p_to_bgr``
+  converts its planes with centred chroma, at full range where the key
+  frame's ``color_range`` bit is 1; of ``V_MJPEG``, as MJPEG in AVI
+  (interlaced included, tested against the track's ``PixelHeight``); of
   ``V_MPEG4/ISO/ASP``, as MPEG-4 Part 2 in MP4, the track's
   ``CodecPrivate`` holding the VOL headers. A Matroska frame whose size is
   not the track's ``PixelWidth`` x ``PixelHeight`` is refused: cv2 would
@@ -43,9 +47,9 @@ where FFmpeg takes the stream as bottom field first (an AVI whose
 6), else the first on the even rows; a packet of one field gives no frame.
 The woven planes are then converted at the full height.
 
-Other containers (MPEG program streams, ASF/WMV, FLV, ...) and codecs (VP9,
-H.264, HEVC, AV1, ...) and other sampling factors raise a ValueError naming
-ROADMAP.md queue 1, item 4.
+Other containers (MPEG program streams, ASF/WMV, FLV, ...) and codecs
+(H.264, HEVC, AV1, VP9 of profiles 1-3, ...) and other sampling factors
+raise a ValueError naming ROADMAP.md queue 1, item 4.
 """
 
 from __future__ import annotations
@@ -59,6 +63,7 @@ from .mkv import MkvFile, is_mkv
 from .mp4 import Mp4File, is_mp4
 from .mpeg4 import Mpeg4Decoder
 from .vp8dec import Vp8Decoder
+from .vp9dec import Vp9Decoder
 from .yuv import MPEG4_H_POS, VP8_H_POS, bgr_to_gray, mjpeg_to_gray, yuv420p_to_bgr
 
 # cv2's turn of a frame by the display matrix, clockwise in degrees, as
@@ -147,10 +152,10 @@ class VideoFile:
         return MjpegFrame(planes, one.factors, two.tables), two.tables
 
     def planes(self):
-        """Each MPEG-4 or VP8 frame's (Y, Cb, Cr) planes, as FFmpeg decodes
-        them."""
-        if self.codec == "vp8":
-            self.decoder = decoder = Vp8Decoder(self.path)
+        """Each MPEG-4, VP8 or VP9 frame's (Y, Cb, Cr) planes, as FFmpeg
+        decodes them."""
+        if self.codec in ("vp8", "vp9"):
+            self.decoder = decoder = (Vp8Decoder if self.codec == "vp8" else Vp9Decoder)(self.path)
             for data in self.packets():
                 yield from decoder.decode(data)
             return
@@ -166,15 +171,15 @@ class VideoFile:
                              f"({ROADMAP})")
 
     def bgr(self):
-        """Each MPEG-4 or VP8 frame as cv2 converts it to BGR, unturned."""
-        h_pos = VP8_H_POS if self.codec == "vp8" else MPEG4_H_POS
+        """Each MPEG-4, VP8 or VP9 frame as cv2 converts it to BGR, unturned."""
+        h_pos = VP8_H_POS if self.codec in ("vp8", "vp9") else MPEG4_H_POS
         for i, (y, cb, cr) in enumerate(self.planes()):
             self.check_size(y.shape, i)
-            full = self.codec == "vp8" and self.decoder.full_range
+            full = self.codec in ("vp8", "vp9") and self.decoder.full_range
             yield yuv420p_to_bgr(y, cb, cr, f"{self.path} frame {i}", h_pos, full)
 
     def __iter__(self):
-        if self.codec in ("mpeg4", "vp8"):
+        if self.codec in ("mpeg4", "vp8", "vp9"):
             for bgr in self.bgr():
                 yield np.ascontiguousarray(np.rot90(bgr_to_gray(bgr), _TURNS[self.rotation]))
             return

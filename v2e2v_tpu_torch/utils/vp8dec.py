@@ -503,7 +503,8 @@ class Vp8Decoder:
 
     def decode(self, data: bytes, stats: dict | None = None):
         """One frame's bytes -> its ``(Y, Cb, Cr)`` planes if it is shown
-        (a generator of zero or one). ``stats`` adds seconds by stage."""
+        (a generator of zero or one). ``stats`` adds seconds by stage and a
+        frame, each under ``key`` or ``inter``."""
         t0 = time.perf_counter()
         key, version, shown, at, first = self.start_frame(data)
         br = _Bool(data[at:at + first], self.path)
@@ -520,9 +521,10 @@ class Vp8Decoder:
         t3 = time.perf_counter()
         self.end_frame(hdr, tuple(planes))
         if stats is not None:
-            for name, secs in (("vp8_tokens", t1 - t0), ("vp8_predict", t2 - t1),
-                               ("vp8_filter", t3 - t2)):
-                stats[name] = stats.get(name, 0.0) + secs
+            kind = "key" if key else "inter"
+            for name, secs in (("tokens", t1 - t0), ("predict", t2 - t1), ("filter", t3 - t2)):
+                stats[f"{name}_{kind}"] = stats.get(f"{name}_{kind}", 0.0) + secs
+            stats[f"frames_{kind}"] = stats.get(f"frames_{kind}", 0) + 1
         if key:
             self.clamping = hdr["clamping"]
         if shown:
