@@ -377,8 +377,21 @@ Phases, one line each (any failure exits non-zero before the last line):
    resize), key and inter frames apart; (b) the V2E2V CLI with
    ``--reader_type video`` over the flagship WebM against its PNG twin, as
    phase 25 (b);
+27. MPEG-1 and MPEG-2 video (``utils/mpeg12*.py``, ``mpegps.py``,
+   ``mpegts.py``, ROADMAP item 4.2): (a) every clip under
+   ``tests/data/mpeg12`` (``scripts/make_mpeg12_fixtures.py``: the 12-frame
+   960x720 MPEG-2 flagship in a program stream, one clip in VOB, TS, M2TS,
+   AVI, MKV, MP4, MOV and MPG, MPEG-1 in MPG, AVI and MP4, open GOPs, noise,
+   flat content, portrait, 30000/1001 fps, 74x48, and the clips whose
+   estimated count is under their frames) read by the port's
+   ``VideoReader`` and ``VideoSequence`` against the JAX readers' records,
+   the flagship decoded once, with the host ms per 960x720 frame of each
+   stage (demux and split, headers and macroblock symbols, dequantisation +
+   IDCT + motion compensation, conversion, resize), I-, P- and B-pictures
+   apart; (b) the V2E2V CLI with ``--reader_type video`` over the flagship
+   ``.mpg`` against its PNG twin, as phase 21 (b);
 14. a ``{"kernels": [...]}`` JSON line (each row's launches on the paths of
-   phases 10-13 and 15-26, every count set to 0 just before each path: K1,
+   phases 10-13 and 15-27, every count set to 0 just before each path: K1,
    K2, K4 and the scale kernel counted by dtype, K3 by shot mode; the rows
    of K4 and the scale kernel hold their times per pool step, the 15 calls
    of one step summed), then the last line
@@ -4499,6 +4512,103 @@ def webm_phase(seed: int, smi: str, root: Path, v2e2v_model: Path, fixtures: Pat
     return {f"v2e2v_cli_{tag}_launches": rows}
 
 
+MPEG12_FIXTURES = Path(__file__).resolve().parent / "tests" / "data" / "mpeg12"
+MPEG12_STAGES = ("demux_split", "syntax", "dequant_idct_mc", "convert", "resize")
+
+
+def mpeg12_stages(path: Path) -> tuple[dict[str, dict[str, list[float]]], list]:
+    """Host ms per frame of each stage of an MPEG-1/2 program stream's read,
+    I-, P- and B-pictures apart, over one pass of ``path``: the demux and the
+    split at the start codes (per frame), the headers and macroblock symbols,
+    dequantisation + IDCT + motion compensation (the decoder's ``stats``),
+    YUV -> BGR -> gray and the reader's resize to a quarter (by the type of
+    the picture each output frame is). Returns them and the BGR frames."""
+    from v2e2v_tpu_torch.utils import yuv
+    from v2e2v_tpu_torch.utils.image_io import resize_linear_u8
+    from v2e2v_tpu_torch.utils.mpeg12dec import Mpeg12Decoder
+    from v2e2v_tpu_torch.utils.mpegps import ProgramStream
+
+    from v2e2v_tpu_torch.utils.mpeg12mb import tables
+
+    ms = {kind: {k: [] for k in MPEG12_STAGES} for kind in ("I", "P", "B")}
+    t0 = time.perf_counter()
+    tables()  # the lookups are built once per process, before the first picture
+    say(f"[time] MPEG-1/2 lookup tables built in {1e3 * (time.perf_counter() - t0):.3f} ms "
+        "(once per process)")
+    t0 = time.perf_counter()
+    stream = ProgramStream(str(path))
+    demux = time.perf_counter() - t0
+    dec = Mpeg12Decoder(str(path))
+    dec.stats = {}
+    t0 = time.perf_counter()
+    planes = []
+    for data in stream.frames():
+        planes += dec.decode(data)
+    planes += dec.flush()
+    decode = time.perf_counter() - t0
+    spent = sum(st["syntax"] + st["reconstruct"] for st in dec.stats.values())
+    split = 1e3 * (demux + decode - spent) / len(planes)  # the demux and the split, a frame
+    for kind, st in dec.stats.items():
+        ms[kind]["syntax"] = [1e3 * st["syntax"] / st["frames"]] * st["frames"]
+        ms[kind]["dequant_idct_mc"] = [1e3 * st["reconstruct"] / st["frames"]] * st["frames"]
+        ms[kind]["demux_split"] = [split] * st["frames"]
+    frames = []
+    for kind, (y, cb, cr) in zip(dec.shown, planes):
+        t = [time.perf_counter()]
+        bgr = yuv.yuv420p_to_bgr(y, cb, cr, str(path))
+        gray = yuv.bgr_to_gray(bgr)
+        t.append(time.perf_counter())
+        resize_linear_u8(gray, (gray.shape[1] // 4, gray.shape[0] // 4))
+        t.append(time.perf_counter())
+        ms[kind]["convert"].append(1e3 * (t[1] - t[0]))
+        ms[kind]["resize"].append(1e3 * (t[2] - t[1]))
+        frames.append(bgr)
+    return ms, frames
+
+
+def mpeg12_phase(seed: int, smi: str, root: Path, v2e2v_model: Path) -> dict:
+    """Phase 27: MPEG-1 and MPEG-2 video (ROADMAP item 4.2). (a) every clip
+    under ``tests/data/mpeg12`` read by the port's ``VideoReader`` and
+    ``VideoSequence`` against the JAX readers' records; the flagship
+    program stream decoded once, with the host ms of each stage per 960x720
+    frame, I-, P- and B-pictures apart, and those frames handed to its
+    reads; (b) the V2E2V CLI with ``--reader_type video`` over the flagship
+    ``.mpg`` (read as 180x240, decoded anew) against its PNG twin, as phase
+    21 (b). Returns (b)'s launches by row."""
+    from v2e2v_tpu_torch.utils.video import VideoFile
+
+    t_phase = time.perf_counter()
+    root.mkdir(parents=True)
+    manifest = json.loads((MPEG12_FIXTURES / "manifest.json").read_text())["clips"]
+    flagship = MPEG12_FIXTURES / "flagship.mpg"
+    stages, frames = mpeg12_stages(flagship)
+    for kind, st in stages.items():
+        if not st["syntax"]:
+            fail(f"the flagship .mpg holds no {kind}-picture")
+        per = {k: (float(np.median(v)), min(v), max(v)) for k, v in st.items()}
+        total = sum(m for m, _, _ in per.values())
+        say(f"[time] MPEG-2 read on the card's host ({smi}), host ms per 960x720 {kind}-picture "
+            f"of the flagship .mpg, median (min-max) of {len(st['syntax'])}: "
+            + ", ".join(f"{k} {m:.3f} ({lo:.3f}-{hi:.3f})" for k, (m, lo, hi) in per.items())
+            + f"; sum of medians {total:.3f} ms")
+    decode = VideoFile.bgr
+
+    def bgr(self):
+        if Path(self.path) == flagship:
+            return iter(frames)
+        return decode(self)
+
+    with swapped((VideoFile, "bgr", bgr)):
+        bad, readers = clips_against_records(MPEG12_FIXTURES, sorted(manifest), "mpeg12")
+    if bad or "flagship.mpg" not in readers or len(manifest) < 20:
+        fail(f"the port's MPEG-1/2 reads disagree with the JAX readers' records: {bad}")
+    rows = video_cli_against_twin(seed, smi, root, v2e2v_model, flagship,
+                                  readers["flagship.mpg"], manifest["flagship.mpg"]["fps"],
+                                  "mpeg12")
+    say(f"[phase] MPEG-1/2 video {time.perf_counter() - t_phase:.1f} s")
+    return {"v2e2v_cli_mpeg12_launches": rows}
+
+
 IMAGE_FIXTURES = Path(__file__).resolve().parent / "tests" / "data" / "images"
 IMAGE_PACK = 3  # --num_pack_frames over the six PNG frames the CLIs list in the mixed folder
 IMAGE_EVENTS_SEED = 22  # phase 22c's events: --seed + this
@@ -5458,6 +5568,11 @@ def main() -> None:
         # flagship VP9 WebM against its PNG twin
         vp9_rows = webm_phase(args.seed, smi, shared / "vp9", hfr["model"], VP9_FIXTURES,
                               Vp9Decoder, "VP9", "vp9", 9)
+
+        # 27. MPEG-1 and MPEG-2: the fixture clips against the JAX readers'
+        # records, the V2E2V CLI with --reader_type video over the flagship
+        # .mpg against its PNG twin
+        mpeg12_rows = mpeg12_phase(args.seed, smi, shared / "mpeg12", hfr["model"])
     finally:
         shutil.rmtree(shared, ignore_errors=True)
 
@@ -5467,7 +5582,7 @@ def main() -> None:
              "tc_pool_launches": tc_rows, "e2v_train_launches": trained["e2v"],
              "v2e2v_train_launches_per_step": trained["v2e2v"], **fused_rows, **int8["rows"],
              **slomo_rows, **dist_rows, **spatial_rows, **jpeg_rows, **video_rows, **image_rows,
-             **lpips_rows, **mpeg4_rows, **mkv_rows, **vp9_rows}
+             **lpips_rows, **mpeg4_rows, **mkv_rows, **vp9_rows, **mpeg12_rows}
     for e in entries:
         if e["name"].startswith("ista_loop"):
             e.update(cli_k1[torch.float32 if "float32" in e["name"] else torch.bfloat16])

@@ -503,6 +503,21 @@ def _vp9_profile_1(path):
     mods["make_mkv_fixtures"].write_webm(path, packets, mkv.width, mkv.height, codec_id="V_VP9")
 
 
+def _field_pictures(path):
+    """The cv2-written MPEG-2 program stream at ``path`` with its pictures'
+    coding extensions saying top field pictures (``picture_structure`` 1)."""
+    spec = importlib.util.spec_from_file_location(
+        "make_mpeg12_fixtures", REPO / "scripts" / "make_mpeg12_fixtures.py")
+    mf = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mf)
+
+    def field(f, i):
+        if f["kind"] == "picture_extension":
+            f["picture_structure"] = 1
+
+    path.write_bytes(mf.patch_file(path.read_bytes(), field))
+
+
 def _case_file(tmp_path, case):
     """A file of a format or tool the port refused before, or still refuses."""
     cv2 = pytest.importorskip("cv2")
@@ -511,7 +526,7 @@ def _case_file(tmp_path, case):
     path = tmp_path / f"{case}.avi"
     written = {"mp4": ("clip.mp4", "mp4v"), "mpeg4_avi": ("clip.avi", "FMP4"),
                "wmv": ("clip.wmv", "WMV2"), "flv": ("clip.flv", "FLV1"),
-               "mpeg_ps": ("clip.mpg", "PIM1"), "vp8_webm": ("clip.webm", "VP80"),
+               "mpeg_ps": ("clip.mpg", "MPG2"), "vp8_webm": ("clip.webm", "VP80"),
                "vp9_webm": ("clip.webm", "VP90"), "vp9_webm_read": ("clip.webm", "VP90")}
     if case in written:
         name, fourcc = written[case]
@@ -519,11 +534,13 @@ def _case_file(tmp_path, case):
         vw = cv2.VideoWriter(str(path), cv2.CAP_FFMPEG, cv2.VideoWriter_fourcc(*fourcc),
                              30.0, (48, 32))
         assert vw.isOpened()
-        for f in imgs:
+        for f in (np.concatenate([imgs, imgs]) if case == "mpeg_ps" else imgs):
             vw.write(f)
         vw.release()
         if case == "vp9_webm":  # VP9 is read, but not profile 1: the headers rewritten so
             _vp9_profile_1(path)
+        if case == "mpeg_ps":  # MPEG-2 is read, but not field pictures: rewritten so
+            _field_pictures(path)
     elif case == "matroska":
         path.write_bytes(b"\x1a\x45\xdf\xa3" + bytes(60))
     elif case == "riff_wave":
@@ -542,14 +559,15 @@ def _case_file(tmp_path, case):
 
 
 REFUSALS = {"matroska": "Matroska", "riff_wave": "'WAVE'", "wmv": "ASF/WMV",
-            "flv": "an FLV", "mpeg_ps": "MPEG program stream", "vp9_webm": "VP9 video: profile 1",
+            "flv": "an FLV", "mpeg_ps": "field picture", "vp9_webm": "VP9 video: profile 1",
             "h263": "short_video_header"}
 
 
 @pytest.mark.parametrize("case", sorted(REFUSALS))
 def test_what_it_does_not_read_raises(tmp_path, case):
-    """Other containers and codecs (among them the WMV2, FLV1, MPEG-1 and
-    VP9 files cv2's writer makes, and H.263 pictures) raise a ValueError
+    """Other containers and codecs (among them the WMV2 and FLV1 files
+    cv2's writer makes, its VP9 and MPEG-2 files rewritten to profile 1 and
+    to field pictures, and H.263 pictures) raise a ValueError
     naming ROADMAP item 4 and what they are, from the readers the CLIs use."""
     path = str(_case_file(tmp_path, case))
     with pytest.raises(ValueError, match=f"(?s){REFUSALS[case]}.*item 4"):

@@ -164,9 +164,10 @@ class ImageSequence:
 class VideoSequence:
     """Yield consecutive gray frame pairs of a video file at its native fps,
     full size, stamped ``(idx - 1) / fps`` and ``idx / fps``
-    (``utils/video.VideoFile``: MJPEG and MPEG-4 Part 2 in AVI, MPEG-4
-    Part 2 in MP4, MOV and M4V, VP8, VP9, MJPEG and MPEG-4 Part 2 in
-    Matroska and WebM, as ``cv2.VideoCapture`` reads them)."""
+    (``utils/video.VideoFile``: MJPEG, MPEG-4 Part 2 and MPEG-1/2 in AVI,
+    MPEG-4 Part 2 and MPEG-1/2 in MP4, MOV and M4V, VP8, VP9, MJPEG, MPEG-4
+    Part 2 and MPEG-1/2 in Matroska and WebM, MPEG-1/2 in MPEG program and
+    transport streams, as ``cv2.VideoCapture`` reads them)."""
 
     def __init__(self, path_to_video: str):
         self.path = path_to_video

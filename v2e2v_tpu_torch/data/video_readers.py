@@ -13,10 +13,13 @@
   ``utils/image_io.read_gray`` (``.jpg`` and ``.png`` frames: the JAX reader
   lists no other suffix; every PNG and JPEG as ``cv2.imread`` reads it).
 - ``VideoReader``: a video file's frames, gray, shrunk by ``ds`` and
-  transposed when portrait, on ``utils/video.VideoFile`` (MJPEG and MPEG-4
-  Part 2 in AVI, MPEG-4 Part 2 in MP4, MOV and M4V, VP8, VP9 (profile 0),
-  MJPEG and MPEG-4 Part 2 in Matroska and WebM, as ``cv2.VideoCapture``
-  reads them; what else a video holds raises naming ROADMAP item 4).
+  transposed when portrait, on ``utils/video.VideoFile`` (MJPEG, MPEG-4
+  Part 2 and MPEG-1/2 in AVI, MPEG-4 Part 2 and MPEG-1/2 in MP4, MOV and
+  M4V, VP8, VP9 (profile 0), MJPEG, MPEG-4 Part 2 and MPEG-1/2 in Matroska
+  and WebM, MPEG-1/2 in MPEG program and transport streams, as
+  ``cv2.VideoCapture`` reads them, cv2's estimated frame counts of program
+  and transport streams included; what else a video holds raises naming
+  ROADMAP item 4).
 """
 
 from __future__ import annotations

@@ -1,4 +1,5 @@
-"""A RIFF/AVI demuxer for MJPEG and MPEG-4 Part 2 video, in plain Python.
+"""A RIFF/AVI demuxer for MJPEG, MPEG-4 Part 2 and MPEG-1/2 video, in plain
+Python.
 
 ``AviFile(path)`` reads what ``cv2.VideoCapture`` (through FFmpeg's
 ``libavformat/avidec.c``) reads of an AVI's first video stream:
@@ -22,8 +23,10 @@ them and the next frame is the next one read.
 ``codec`` is ``"mjpeg"`` for the fourccs FFmpeg decodes with its MJPEG
 decoder (MJPG, AVI1, JPEG) and ``"mpeg4"`` for those it decodes with its
 ``mpeg4`` decoder that cv2's writer writes (XVID, FMP4, DIVX, DX50, MP4V),
-upper-cased as FFmpeg matches them. An MPEG-4 stream's headers lead its
-first chunk.
+and ``"mpeg12"`` for MPEG-1/2 video (``mpg1`` and ``mpg2``, which cv2's
+``PIM1`` and ``MPG2`` become in an AVI, ``PIM1`` and ``MPEG``), upper-cased
+as FFmpeg matches them. An MPEG-4 stream's headers, and an MPEG-1/2
+stream's sequence header, lead its first chunk.
 
 A file that is not RIFF AVI (Matroska, FLV, ...) and a video stream of
 another codec raise a ValueError naming ROADMAP.md queue 1, item 4, and
@@ -35,12 +38,15 @@ from __future__ import annotations
 import struct
 from dataclasses import dataclass
 
-from .imgcodecs import ROADMAP
+from .imgcodecs import ROADMAP, refuse_video
 
 # biCompression values that FFmpeg decodes with its MJPEG decoder and with
 # its mpeg4 decoder, and the port reads (upper-cased)
 JPEG_FOURCCS = (b"MJPG", b"AVI1", b"JPEG")
 MPEG4_FOURCCS = (b"XVID", b"FMP4", b"DIVX", b"DX50", b"MP4V")
+# those FFmpeg decodes with its mpeg1video / mpeg2video decoders that cv2's
+# writer writes (PIM1 and MPG2 become mpg1 and mpg2 in an AVI), and MPEG
+MPEG12_FOURCCS = (b"MPG1", b"MPG2", b"PIM1", b"MPEG")
 
 _CONTAINERS = (  # (offset, signature, name) of files that are not RIFF AVI
     (4, b"ftyp", "an MP4/MOV (ISO base media)"),
@@ -57,10 +63,7 @@ _CONTAINERS = (  # (offset, signature, name) of files that are not RIFF AVI
 )
 
 
-def _refuse(path: str, what: str) -> ValueError:
-    return ValueError(f"{path}: {what}: the port reads MJPEG and MPEG-4 Part 2 video in AVI "
-                      f"files, MPEG-4 Part 2 in MP4, MOV and M4V files, and VP8, MJPEG and "
-                      f"MPEG-4 Part 2 in Matroska and WebM files ({ROADMAP})")
+_refuse = refuse_video
 
 
 def _corrupt(path: str, what: str) -> ValueError:
@@ -115,10 +118,12 @@ class AviFile:
             self.codec = "mjpeg"
         elif fourcc in MPEG4_FOURCCS:
             self.codec = "mpeg4"
+        elif fourcc in MPEG12_FOURCCS:
+            self.codec = "mpeg12"
         else:
             code = v.compression.decode("latin-1")
             raise _refuse(path, f"an AVI video stream of codec {code!r} (biCompression), "
-                          "not MJPEG or MPEG-4 Part 2")
+                          "not MJPEG, MPEG-4 Part 2 or MPEG-1/2")
         if v.rate <= 0 or v.scale <= 0:
             raise _corrupt(path, f"a video frame rate of {v.rate}/{v.scale}")
         if not self.movi:

@@ -23,6 +23,17 @@ import struct
 import numpy as np
 
 ROADMAP = "ROADMAP.md queue 1, item 4"
+# what the port's video path reads, named by every refusal of a video file
+VIDEO_READS = ("the port reads MJPEG, MPEG-4 Part 2 and MPEG-1/2 video in AVI files, MPEG-4 "
+               "Part 2 and MPEG-1/2 in MP4, MOV and M4V files, VP8, VP9, MJPEG, MPEG-4 Part 2 "
+               "and MPEG-1/2 in Matroska and WebM files, and MPEG-1/2 in MPEG program and "
+               "transport streams")
+
+
+def refuse_video(path: str, what: str) -> ValueError:
+    """The ValueError of a video file the port does not read: what it is,
+    what the port reads, and the ROADMAP item."""
+    return ValueError(f"{path}: {what}: {VIDEO_READS} ({ROADMAP})")
 
 # imgcodecs/utils.cpp: cB, cG, cR at SCALE = 14 bits
 CB14, CG14, CR14, SCALE14 = 1868, 9617, 4899, 14

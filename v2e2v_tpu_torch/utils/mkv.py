@@ -1,5 +1,5 @@
-"""A Matroska / WebM demuxer for VP8, VP9, MJPEG and MPEG-4 Part 2 video,
-in plain Python.
+"""A Matroska / WebM demuxer for VP8, VP9, MJPEG, MPEG-4 Part 2 and MPEG-1/2
+video, in plain Python.
 
 ``MkvFile(path)`` reads what ``cv2.VideoCapture`` (through FFmpeg's
 ``libavformat/matroskadec.c``) reads of a file's video track:
@@ -30,7 +30,9 @@ Matroska frame.
 it, and a ``Colour`` ``Range`` may only say limited or be unspecified: the
 range is the key frames'), ``"mjpeg"`` (``V_MJPEG``) or ``"mpeg4"``
 (``V_MPEG4/ISO/ASP``, ``/SP`` and ``/AP``, whose headers are the track's
-``CodecPrivate``, ``config``). ``bottom_field_first``: the track says
+``CodecPrivate``, ``config``) or ``"mpeg12"`` (``V_MPEG1``, ``V_MPEG2``,
+whose ``CodecPrivate``, where there is one, holds a sequence header that
+the decoder reads before the first block, as FFmpeg reads its extradata). ``bottom_field_first``: the track says
 ``FlagInterlaced`` 1 and ``FieldOrder`` 6 (bottom field first), which FFmpeg
 hands its MJPEG decoder as the fields' order.
 
@@ -49,7 +51,7 @@ from __future__ import annotations
 import math
 import struct
 
-from .imgcodecs import ROADMAP
+from .imgcodecs import ROADMAP, refuse_video
 
 EBML, SEGMENT = 0x1A45DFA3, 0x18538067
 DOCTYPE = 0x4282
@@ -68,7 +70,8 @@ SEGMENT_LEVEL = (0x114D9B74, INFO, TRACKS, CLUSTER, 0x1C53BB6B, 0x1941A469, 0x10
                  0x1254C367)
 VIDEO_TRACK = 1
 CODECS = {"V_VP8": "vp8", "V_VP9": "vp9", "V_MJPEG": "mjpeg", "V_MPEG4/ISO/ASP": "mpeg4",
-          "V_MPEG4/ISO/SP": "mpeg4", "V_MPEG4/ISO/AP": "mpeg4"}
+          "V_MPEG4/ISO/SP": "mpeg4", "V_MPEG4/ISO/AP": "mpeg4", "V_MPEG1": "mpeg12",
+          "V_MPEG2": "mpeg12"}
 NAMED = {"V_MPEG4/ISO/AVC": "H.264 (AVC)", "V_MPEGH/ISO/HEVC": "H.265 (HEVC)",
          "V_AV1": "AV1", "V_THEORA": "Theora"}
 # Colour's children and the values that leave FFmpeg's frames as they are:
@@ -78,12 +81,10 @@ NAMED = {"V_MPEG4/ISO/AVC": "H.264 (AVC)", "V_MPEGH/ISO/HEVC": "H.265 (HEVC)",
 # limited for the others)
 COLOUR_UNSPECIFIED = {0x55B1: 2, 0x55B7: 0, 0x55B8: 0, 0x55B9: 0, 0x55BA: 2, 0x55BB: 2}
 RANGE = 0x55B9
-CODEC_RANGE = {"vp8": 1, "vp9": 1, "mjpeg": 2, "mpeg4": 1}
+CODEC_RANGE = {"vp8": 1, "vp9": 1, "mjpeg": 2, "mpeg4": 1, "mpeg12": 1}
 
 
-def _refuse(path: str, what: str) -> ValueError:
-    return ValueError(f"{path}: {what}: the port reads VP8, VP9, MJPEG and MPEG-4 Part 2 video in "
-                      f"Matroska and WebM files ({ROADMAP})")
+_refuse = refuse_video
 
 
 def _corrupt(path: str, what: str) -> ValueError:

@@ -1,5 +1,5 @@
 """An ISO base media (MP4, M4V) and QuickTime (MOV) demuxer for MPEG-4
-Part 2 video, in plain Python.
+Part 2 and MPEG-1/2 video, in plain Python.
 
 ``Mp4File(path)`` reads what ``cv2.VideoCapture`` (through FFmpeg's
 ``libavformat/mov.c``) reads of a file's video track:
@@ -10,8 +10,11 @@ Part 2 video, in plain Python.
 - the one ``vide`` track: ``tkhd`` (its display matrix), ``mdhd`` (its
   timescale), ``hdlr``, ``edts``/``elst``, and ``stbl``'s ``stsd`` (an
   ``mp4v`` entry whose ``esds`` names MPEG-4 Visual, object type 0x20, and
-  holds the VOL headers as its DecoderSpecificInfo), ``stts``, ``stsc``,
-  ``stsz``, and ``stco`` or ``co64``.
+  holds the VOL headers as its DecoderSpecificInfo, or names MPEG-2 video,
+  0x60-0x65, or MPEG-1 video, 0x6A, as cv2 writes them into an MP4; or a
+  QuickTime ``m2v1``, ``mp2v``, ``m1v1`` or ``m1v `` entry, cv2 writing
+  ``m2v1`` into a MOV), ``stts``, ``stsc``, ``stsz``, and ``stco`` or
+  ``co64``. ``codec`` is ``"mpeg4"`` or ``"mpeg12"``.
 
 ``fps`` is the track's timescale times its sample count over the sum of the
 ``stts`` durations, and ``frame_count`` the sample count: what cv2 reports as
@@ -32,10 +35,16 @@ from __future__ import annotations
 
 import struct
 
-from .imgcodecs import ROADMAP
+from .imgcodecs import ROADMAP, refuse_video
 
 CONTAINERS = (b"moov", b"trak", b"mdia", b"minf", b"stbl", b"edts")
 MPEG4_VISUAL = 0x20  # esds objectTypeIndication of ISO/IEC 14496-2
+# the objectTypeIndications of ISO/IEC 13818-2 (its profiles) and 11172-2
+MPEG12_VISUAL = {0x60: "MPEG-2 Simple", 0x61: "MPEG-2 Main", 0x62: "MPEG-2 SNR",
+                 0x63: "MPEG-2 Spatial", 0x64: "MPEG-2 High", 0x65: "MPEG-2 4:2:2",
+                 0x6A: "MPEG-1"}
+# QuickTime sample entries of MPEG-1/2 video (cv2 writes m2v1 into a MOV)
+MPEG12_ENTRIES = (b"m2v1", b"mp2v", b"m1v1", b"m1v ")
 # tkhd matrices (a, b, c, d at 16.16) of the turns cv2 applies, and each
 # turn clockwise in degrees
 TURNS = {(1, 0, 0, 1): 0, (0, 1, -1, 0): 90, (-1, 0, 0, -1): 180, (0, -1, 1, 0): 270}
@@ -43,9 +52,7 @@ TURNS = {(1, 0, 0, 1): 0, (0, 1, -1, 0): 90, (-1, 0, 0, -1): 180, (0, -1, 1, 0):
 SIGNATURES = (b"ftyp", b"moov", b"mdat", b"free", b"skip", b"wide", b"pnot")
 
 
-def _refuse(path: str, what: str) -> ValueError:
-    return ValueError(f"{path}: {what}: the port reads MPEG-4 Part 2 video in MP4, MOV and "
-                      f"M4V files ({ROADMAP})")
+_refuse = refuse_video
 
 
 def _corrupt(path: str, what: str) -> ValueError:
@@ -167,7 +174,7 @@ class Mp4File:
                 if len(track.stsd_entries) != n:
                     raise _corrupt(self.path, f"'stsd' lists {n} entries and holds "
                                    f"{len(track.stsd_entries)}")
-            elif kind in (b"stts", b"stsc", b"stsz", b"stco", b"co64"):
+            elif kind in (b"stts", b"stsc", b"stsz", b"stco", b"co64", b"ctts"):
                 track.boxes[kind] = self._body(sub)
 
     # ------------------------------------------------------------- codec
@@ -178,6 +185,10 @@ class Mp4File:
                           "descriptions")
         kind, span = t.stsd_entries[0]
         self.fourcc = kind
+        self.codec, self.object_type = "mpeg4", MPEG4_VISUAL
+        if kind in MPEG12_ENTRIES:
+            self.codec, self.config = "mpeg12", b""
+            return
         if kind != b"mp4v":
             raise _refuse(self.path, f"a video track of codec {kind.decode('latin-1')!r}")
         entry = self._body(span)
@@ -217,9 +228,12 @@ class Mp4File:
             tag, pos, dend = descriptor(pos)
             if tag != 4:
                 raise _corrupt(self.path, f"an ES descriptor with no DecoderConfigDescriptor")
-            if d[pos] != MPEG4_VISUAL:
+            self.object_type = d[pos]
+            if d[pos] in MPEG12_VISUAL:
+                self.codec = "mpeg12"
+            elif d[pos] != MPEG4_VISUAL:
                 raise _refuse(self.path, f"an 'mp4v' track of object type 0x{d[pos]:02X}, not "
-                              "MPEG-4 Visual (0x20)")
+                              "MPEG-4 Visual (0x20) or MPEG-1/2 video (0x60-0x65, 0x6A)")
             pos += 13
             if pos >= dend:
                 return b""
@@ -296,19 +310,43 @@ class Mp4File:
         self.kept = len(self.samples)
         if not t.edits:
             return
-        if len(t.edits) > 1 or t.edits[0][1] != 0 or t.edits[0][2] != 0x10000:
+        shifted = self._composition_start(t)
+        if len(t.edits) > 1 or t.edits[0][1] not in (0, shifted) or t.edits[0][2] != 0x10000:
             raise _refuse(self.path, f"an edit list {t.edits} other than one edit at media "
-                          "time 0")
+                          "time 0 or at the first frame's composition time")
         if self.movie_timescale <= 0:
             raise _corrupt(self.path, f"a movie timescale of {self.movie_timescale}")
         end = (2 * t.edits[0][0] * t.timescale + self.movie_timescale) // (
             2 * self.movie_timescale)
+        if t.edits[0][1]:  # B-frames' delay: every frame must lie inside the edit
+            if max(self.pts) >= t.edits[0][1] + end:
+                raise _refuse(self.path, f"an edit list {t.edits} that ends before the last "
+                              "frame")
+            return
         start, self.kept = 0, 0
         for d in self.durations:
             if start >= end:
                 break
             self.kept += 1
             start += d
+
+    def _composition_start(self, t: Track) -> int | None:
+        """Each sample's composition time (``pts``: its decoding time plus its
+        ``ctts`` offset); returns the first frame's, or None without ``ctts``."""
+        dts, at = [], 0
+        for d in self.durations:
+            dts.append(at)
+            at += d
+        self.pts = dts
+        if b"ctts" not in t.boxes:
+            return None
+        version = t.boxes[b"ctts"][0]
+        offsets = [off for n, off in self._table(t, b"ctts", "Ii" if version else "II")
+                   for _ in range(n)]
+        if len(offsets) != len(dts):
+            raise _corrupt(self.path, f"'ctts' covers {len(offsets)} of {len(dts)} samples")
+        self.pts = [a + b for a, b in zip(dts, offsets)]
+        return min(self.pts)
 
     def _read_matrix(self, t: Track) -> int:
         m = t.matrix or (0x10000, 0, 0, 0, 0x10000, 0, 0, 0, 0x40000000)

@@ -32,7 +32,19 @@ container by the file's first bytes and the codec by its fourcc:
   ``V_MPEG4/ISO/ASP``, as MPEG-4 Part 2 in MP4, the track's
   ``CodecPrivate`` holding the VOL headers. A Matroska frame whose size is
   not the track's ``PixelWidth`` x ``PixelHeight`` is refused: cv2 would
-  scale it to the track's size.
+  scale it to the track's size;
+- MPEG-1 and MPEG-2 video (``codec`` ``"mpeg1"`` or ``"mpeg2"``, told by the
+  stream's sequence extension) in MPEG program streams (``utils/mpegps.py``:
+  ``.mpg``, ``.mpeg``, ``.vob``), transport streams (``utils/mpegts.py``:
+  ``.ts``, ``.m2ts``), AVI (``mpg1``, ``mpg2``), MP4/MOV (object types
+  0x60-0x65 and 0x6A, ``m2v1``) and Matroska (``V_MPEG1``, ``V_MPEG2``):
+  ``utils/mpeg12dec.py`` decodes progressive frame pictures of 4:2:0 (I, P
+  and B) as FFmpeg's ``mpeg1video`` / ``mpeg2video`` decoders do, and
+  ``yuv.yuv420p_to_bgr`` converts their limited-range planes with MPEG-1's
+  centred chroma or MPEG-2's left-sited chroma (probed on odd sizes). A
+  program or transport stream's ``frame_count`` is FFmpeg's estimate from
+  its time stamps, which may fall short of the frames (``mpegps.py``), as
+  cv2 reports it.
 
 Then to gray as ``cvtColor`` does. No EXIF orientation is applied: FFmpeg
 does not apply one to MJPEG frames.
@@ -47,9 +59,11 @@ where FFmpeg takes the stream as bottom field first (an AVI whose
 6), else the first on the even rows; a packet of one field gives no frame.
 The woven planes are then converted at the full height.
 
-Other containers (MPEG program streams, ASF/WMV, FLV, ...) and codecs
-(H.264, HEVC, AV1, VP9 of profiles 1-3, ...) and other sampling factors
-raise a ValueError naming ROADMAP.md queue 1, item 4.
+Other containers (ASF/WMV, FLV, raw MPEG video elementary streams, ...)
+and codecs (H.264, HEVC, AV1, VP9 of profiles 1-3, interlaced MPEG-2 field
+pictures, ...) and other sampling factors raise a ValueError naming
+ROADMAP.md queue 1, item 4; every such refusal of a file says what the port
+reads (``imgcodecs.VIDEO_READS``).
 """
 
 from __future__ import annotations
@@ -57,11 +71,15 @@ from __future__ import annotations
 import numpy as np
 
 from .avi import AviFile
-from .imgcodecs import ROADMAP
+from .imgcodecs import ROADMAP, refuse_video
 from .jpeg import MjpegFrame, decode_mjpeg_frame, mjpeg_planes, read_mjpeg_frame
 from .mkv import MkvFile, is_mkv
 from .mp4 import Mp4File, is_mp4
 from .mpeg4 import Mpeg4Decoder
+from .mpeg12 import SEQUENCE
+from .mpeg12dec import Mpeg12Decoder
+from .mpegps import ProgramStream, is_program_stream, video_headers
+from .mpegts import TransportStream, is_transport_stream
 from .vp8dec import Vp8Decoder
 from .vp9dec import Vp9Decoder
 from .yuv import MPEG4_H_POS, VP8_H_POS, bgr_to_gray, mjpeg_to_gray, yuv420p_to_bgr
@@ -77,20 +95,48 @@ class VideoFile:
     def __init__(self, path: str):
         self.path = path
         with open(path, "rb") as f:
-            head = f.read(12)
+            head = f.read(192 * 5)
         self.avi = self.mp4 = self.mkv = None
         self.rotation = 0
+        self.syntax_log: list | None = None  # a list: each MPEG-1/2 picture's syntax, kept
         if is_mp4(head):
             self.mp4 = Mp4File(path)
-            self.codec, self.rotation = "mpeg4", self.mp4.rotation
+            self.codec, self.rotation = self.mp4.codec, self.mp4.rotation
             self.container = self.mp4
         elif is_mkv(head):
             self.container = self.mkv = MkvFile(path)
             self.codec = self.mkv.codec
+        elif is_program_stream(head):
+            self.container = ProgramStream(path)
+            self.codec = "mpeg12"
+        elif head[:4] == b"\x00\x00\x01\xb3":
+            raise refuse_video(path, "an MPEG video elementary stream (no container: cv2's "
+                               "frame count for it is not a count)")
+        elif is_transport_stream(head):
+            self.container = TransportStream(path)
+            self.codec = "mpeg12"
         else:
             self.container = self.avi = AviFile(path)
             self.codec = self.avi.codec
+        if self.codec == "mpeg12":
+            self.codec = "mpeg2" if self._sequence().seq.mpeg2 else "mpeg1"
         self.fps, self.frame_count = self.container.fps, self.container.frame_count
+
+    def _sequence(self):
+        """An MPEG-1/2 stream's first sequence header: the container's
+        configuration (a Matroska ``CodecPrivate``) or its first packet."""
+        config = getattr(self.container, "config", b"")
+        first = next(iter(self.packets()), b"")
+        data = config if config.startswith(bytes([0, 0, 1, SEQUENCE])) else first
+        try:
+            return video_headers(data, self.path)
+        except ValueError as e:
+            what = "an MPEG-1/2 video track"
+            if self.mp4 is not None:
+                what = (f"an '{self.mp4.fourcc.decode('latin-1')}' track of object type "
+                        f"0x{self.mp4.object_type:02X}")
+            raise refuse_video(self.path, f"{what} whose first packet opens with no valid "
+                               f"MPEG-1/2 sequence header") from e
 
     def packets(self):
         """The container's packets: AVI chunks, MP4 samples or Matroska
@@ -152,8 +198,18 @@ class VideoFile:
         return MjpegFrame(planes, one.factors, two.tables), two.tables
 
     def planes(self):
-        """Each MPEG-4, VP8 or VP9 frame's (Y, Cb, Cr) planes, as FFmpeg
-        decodes them."""
+        """Each MPEG-4, MPEG-1/2, VP8 or VP9 frame's (Y, Cb, Cr) planes, as
+        FFmpeg decodes them."""
+        if self.codec in ("mpeg1", "mpeg2"):
+            self.decoder = decoder = Mpeg12Decoder(self.path)
+            decoder.syntax_log = self.syntax_log
+            config = getattr(self.container, "config", b"")
+            if config:
+                yield from decoder.decode(config)
+            for data in self.packets():
+                yield from decoder.decode(data)
+            yield from decoder.flush()
+            return
         if self.codec in ("vp8", "vp9"):
             self.decoder = decoder = (Vp8Decoder if self.codec == "vp8" else Vp9Decoder)(self.path)
             for data in self.packets():
@@ -171,15 +227,16 @@ class VideoFile:
                              f"({ROADMAP})")
 
     def bgr(self):
-        """Each MPEG-4, VP8 or VP9 frame as cv2 converts it to BGR, unturned."""
-        h_pos = VP8_H_POS if self.codec in ("vp8", "vp9") else MPEG4_H_POS
+        """Each MPEG-4, MPEG-1/2, VP8 or VP9 frame as cv2 converts it to BGR,
+        unturned."""
+        h_pos = VP8_H_POS if self.codec in ("vp8", "vp9", "mpeg1") else MPEG4_H_POS
         for i, (y, cb, cr) in enumerate(self.planes()):
             self.check_size(y.shape, i)
             full = self.codec in ("vp8", "vp9") and self.decoder.full_range
             yield yuv420p_to_bgr(y, cb, cr, f"{self.path} frame {i}", h_pos, full)
 
     def __iter__(self):
-        if self.codec in ("mpeg4", "vp8", "vp9"):
+        if self.codec in ("mpeg4", "mpeg1", "mpeg2", "vp8", "vp9"):
             for bgr in self.bgr():
                 yield np.ascontiguousarray(np.rot90(bgr_to_gray(bgr), _TURNS[self.rotation]))
             return
