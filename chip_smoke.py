@@ -390,8 +390,24 @@ Phases, one line each (any failure exits non-zero before the last line):
    IDCT + motion compensation, conversion, resize), I-, P- and B-pictures
    apart; (b) the V2E2V CLI with ``--reader_type video`` over the flagship
    ``.mpg`` against its PNG twin, as phase 21 (b);
+28. raw and PNG video, and the decoders under cv2's other tags and
+   containers (``utils/rawvideo.py``, the tag tables of ``avi.py``,
+   ``mp4.py`` and ``mkv.py``, ROADMAP item 4.2 a-c): (a) every clip under
+   ``tests/data/rawvideo`` and ``tests/data/pngvideo``
+   (``scripts/make_rawvideo_fixtures.py``: MJPEG, MPEG-4, VP8 and VP9 under
+   CJPG, LJPG, JPGL, mjpa, MP4S, M4S2, VP80, VP90, ``jpeg``, ``XVID``,
+   ``DIVX``, object type 0x6C and ``vp09``; raw I420, IYUV, YV12, Y800,
+   GREY and RGBA in AVI, MOV and Matroska, odd sizes, each Y800 width mod
+   4, short, long and empty packets; PNG video in AVI, MOV, MP4 and
+   Matroska, every colour type, the 12-frame 960x720 flagship) read by the
+   port's ``VideoReader`` and ``VideoSequence`` against the JAX readers'
+   records; (b) the host ms per 960x720 frame of each stage (demux, decode
+   with inflate apart, to BGR, to gray, resize) of the PNG flagship and of
+   12-frame raw I420 and Y800 clips written at run time; (c) the V2E2V CLI
+   with ``--reader_type video`` over the PNG flagship against its PNG twin,
+   as phase 21 (b);
 14. a ``{"kernels": [...]}`` JSON line (each row's launches on the paths of
-   phases 10-13 and 15-27, every count set to 0 just before each path: K1,
+   phases 10-13 and 15-28, every count set to 0 just before each path: K1,
    K2, K4 and the scale kernel counted by dtype, K3 by shot mode; the rows
    of K4 and the scale kernel hold their times per pool step, the 15 calls
    of one step summed), then the last line
@@ -4609,6 +4625,126 @@ def mpeg12_phase(seed: int, smi: str, root: Path, v2e2v_model: Path) -> dict:
     return {"v2e2v_cli_mpeg12_launches": rows}
 
 
+RAWVIDEO_FIXTURES = Path(__file__).resolve().parent / "tests" / "data" / "rawvideo"
+PNGVIDEO_FIXTURES = Path(__file__).resolve().parent / "tests" / "data" / "pngvideo"
+RAW_STAGES = ("demux", "decode", "to_bgr", "to_gray", "resize")
+
+
+def rawvideo_script():
+    """``scripts/make_rawvideo_fixtures.py`` (its ``write_avi`` needs no cv2)."""
+    import importlib.util
+
+    path = Path(__file__).resolve().parent / "scripts" / "make_rawvideo_fixtures.py"
+    spec = importlib.util.spec_from_file_location("make_rawvideo_fixtures", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def rawvideo_stages(path: Path) -> tuple[dict[str, list[float]], list]:
+    """Host ms per frame of each stage of a raw or PNG AVI's read, over one
+    pass of ``path``: demux (the file's headers and chunks, per frame),
+    decode (PNG: ``image_io.decode_png``, the chunk walk, inflate and the
+    row filters, its inflate also timed alone as ``inflate``; raw: none,
+    the planes are views of the packet), to BGR (raw: the unpack and
+    swscale's conversion; PNG: the byte swap), to gray, the reader's resize
+    to a quarter. Returns them and the BGR frames."""
+    import zlib
+
+    from v2e2v_tpu_torch.utils import image_io, rawvideo, yuv
+    from v2e2v_tpu_torch.utils.avi import AviFile
+
+    ms = {k: [] for k in (*RAW_STAGES, "inflate")}
+    t0 = time.perf_counter()
+    avi = AviFile(str(path))
+    packets = list(avi.frames())
+    ms["demux"] = [1e3 * (time.perf_counter() - t0) / len(packets)] * len(packets)
+    frames = []
+    for data in packets:
+        t = [time.perf_counter()]
+        if avi.codec == "png":
+            zlib.decompress(b"".join(b for k, b in image_io._chunks(data, str(path))
+                                     if k == b"IDAT"))
+            t.append(time.perf_counter())
+            img = image_io.decode_png(data, str(path))
+            t.append(time.perf_counter())
+            bgr = rawvideo.png_image_bgr(img, str(path))
+        else:
+            t += [t[0], t[0]]
+            bgr = rawvideo.raw_to_bgr(data, avi.raw_format, avi.width, avi.height, str(path))
+        t.append(time.perf_counter())
+        gray = yuv.bgr_to_gray(bgr)
+        t.append(time.perf_counter())
+        image_io.resize_linear_u8(gray, (gray.shape[1] // 4, gray.shape[0] // 4))
+        t.append(time.perf_counter())
+        ms["inflate"].append(1e3 * (t[1] - t[0]))
+        ms["decode"].append(1e3 * (t[2] - t[1]))
+        for k, a, b in zip(("to_bgr", "to_gray", "resize"), t[2:], t[3:]):
+            ms[k].append(1e3 * (b - a))
+        frames.append(bgr)
+    return ms, frames
+
+
+def rawvideo_phase(seed: int, smi: str, root: Path, v2e2v_model: Path) -> dict:
+    """Phase 28: raw and PNG video, and the port's decoders under cv2's other
+    tags and containers (ROADMAP item 4.2 a-c). (a) every clip under
+    ``tests/data/rawvideo`` and ``tests/data/pngvideo`` read by the port's
+    ``VideoReader`` and ``VideoSequence`` against the JAX readers' records,
+    the PNG flagship decoded once; (b) the host ms per 960x720 frame of each
+    stage of the PNG flagship and of raw I420 and Y800 clips written here
+    (12 frames of noise each; timed only); (c) the V2E2V CLI with
+    ``--reader_type video`` over the PNG flagship (read as 180x240, decoded
+    anew) against its PNG twin, as phase 21 (b). Returns (c)'s launches by
+    row."""
+    from v2e2v_tpu_torch.utils.video import VideoFile
+
+    t_phase = time.perf_counter()
+    root.mkdir(parents=True)
+    fx = rawvideo_script()
+    flagship = PNGVIDEO_FIXTURES / "flagship.avi"
+    h, w, n, fps = fx.FLAGSHIP
+    rng = np.random.default_rng(seed)
+    clips = {"PNG (MPNG)": flagship}
+    for fourcc, bits in ((b"I420", 12), (b"Y800", 8)):
+        clips[f"raw {fourcc.decode()}"] = root / f"{fourcc.decode().lower()}.avi"
+        fx.write_avi(clips[f"raw {fourcc.decode()}"], [fx.yuv420_packet(rng, w, h)
+                                                      for _ in range(n)], w, h, int(fps),
+                     fourcc, bits)
+    frames = None
+    for label, path in clips.items():
+        stages, bgr = rawvideo_stages(path)
+        frames = bgr if path == flagship else frames
+        per = {k: (float(np.median(v)), min(v), max(v)) for k, v in stages.items()}
+        total = sum(per[k][0] for k in RAW_STAGES)
+        say(f"[time] {label} read on the card's host ({smi}), host ms per {w}x{h} frame, median "
+            f"(min-max) of {len(stages['resize'])}: "
+            + ", ".join(f"{k} {m:.3f} ({lo:.3f}-{hi:.3f})" for k, (m, lo, hi) in per.items())
+            + f"; sum of medians {total:.3f} ms (inflate is part of decode)")
+    decode = VideoFile.bgr
+
+    def bgr(self):
+        if Path(self.path) == flagship:
+            return iter(frames)
+        return decode(self)
+
+    bad = []
+    with swapped((VideoFile, "bgr", bgr)):
+        for folder, tag in ((RAWVIDEO_FIXTURES, "rawvideo"), (PNGVIDEO_FIXTURES, "pngvideo")):
+            manifest = json.loads((folder / "manifest.json").read_text())["clips"]
+            more, readers = clips_against_records(folder, sorted(manifest), tag)
+            bad += more
+            say(f"[{tag}] {len(manifest) - len(more)} of {len(manifest)} clips equal the JAX "
+                f"readers' records")
+    pngs = json.loads((PNGVIDEO_FIXTURES / "manifest.json").read_text())["clips"]
+    if bad or "flagship.avi" not in readers or len(pngs) < 7:
+        fail(f"the port's raw and PNG video reads disagree with the JAX readers' records: {bad}")
+    rows = video_cli_against_twin(seed, smi, root, v2e2v_model, flagship,
+                                  readers["flagship.avi"], pngs["flagship.avi"]["fps"],
+                                  "pngvideo")
+    say(f"[phase] raw and PNG video {time.perf_counter() - t_phase:.1f} s")
+    return {"v2e2v_cli_pngvideo_launches": rows}
+
+
 IMAGE_FIXTURES = Path(__file__).resolve().parent / "tests" / "data" / "images"
 IMAGE_PACK = 3  # --num_pack_frames over the six PNG frames the CLIs list in the mixed folder
 IMAGE_EVENTS_SEED = 22  # phase 22c's events: --seed + this
@@ -5573,6 +5709,12 @@ def main() -> None:
         # records, the V2E2V CLI with --reader_type video over the flagship
         # .mpg against its PNG twin
         mpeg12_rows = mpeg12_phase(args.seed, smi, shared / "mpeg12", hfr["model"])
+
+        # 28. raw and PNG video, and the decoders under cv2's other tags and
+        # containers: the fixture clips against the JAX readers' records, the
+        # stages of a 960x720 PNG, I420 and Y800 frame, the V2E2V CLI with
+        # --reader_type video over the PNG flagship against its PNG twin
+        png_rows = rawvideo_phase(args.seed, smi, shared / "rawvideo", hfr["model"])
     finally:
         shutil.rmtree(shared, ignore_errors=True)
 
@@ -5582,7 +5724,7 @@ def main() -> None:
              "tc_pool_launches": tc_rows, "e2v_train_launches": trained["e2v"],
              "v2e2v_train_launches_per_step": trained["v2e2v"], **fused_rows, **int8["rows"],
              **slomo_rows, **dist_rows, **spatial_rows, **jpeg_rows, **video_rows, **image_rows,
-             **lpips_rows, **mpeg4_rows, **mkv_rows, **vp9_rows, **mpeg12_rows}
+             **lpips_rows, **mpeg4_rows, **mkv_rows, **vp9_rows, **mpeg12_rows, **png_rows}
     for e in entries:
         if e["name"].startswith("ista_loop"):
             e.update(cli_k1[torch.float32 if "float32" in e["name"] else torch.bfloat16])

@@ -1,5 +1,5 @@
-"""A RIFF/AVI demuxer for MJPEG, MPEG-4 Part 2 and MPEG-1/2 video, in plain
-Python.
+"""A RIFF/AVI demuxer for MJPEG, MPEG-4 Part 2, MPEG-1/2, VP8, VP9, raw and
+PNG video, in plain Python.
 
 ``AviFile(path)`` reads what ``cv2.VideoCapture`` (through FFmpeg's
 ``libavformat/avidec.c``) reads of an AVI's first video stream:
@@ -20,13 +20,20 @@ Python.
 chunks of size 0 (dropped frames) as FFmpeg does: no frame comes out for
 them and the next frame is the next one read.
 
-``codec`` is ``"mjpeg"`` for the fourccs FFmpeg decodes with its MJPEG
-decoder (MJPG, AVI1, JPEG) and ``"mpeg4"`` for those it decodes with its
-``mpeg4`` decoder that cv2's writer writes (XVID, FMP4, DIVX, DX50, MP4V),
-and ``"mpeg12"`` for MPEG-1/2 video (``mpg1`` and ``mpg2``, which cv2's
-``PIM1`` and ``MPG2`` become in an AVI, ``PIM1`` and ``MPEG``), upper-cased
-as FFmpeg matches them. An MPEG-4 stream's headers, and an MPEG-1/2
-stream's sequence header, lead its first chunk.
+``codec`` is picked by ``biCompression`` as ``libavformat/riff.c``'s table
+picks FFmpeg's decoder (``codec_of``), upper-cased as FFmpeg matches it:
+``"mjpeg"`` (MJPG, AVI1, JPEG, and CJPG, LJPG, JPGL and mjpa, which cv2's
+writer also writes: plain JPEG frames, one a chunk), ``"mpeg4"`` (XVID,
+FMP4, DIVX, DX50, MP4V, MP4S, M4S2), ``"mpeg12"`` for MPEG-1/2 video
+(``mpg1`` and ``mpg2``, which cv2's ``PIM1`` and ``MPG2`` become in an AVI,
+``PIM1`` and ``MPEG``), ``"vp8"`` (VP80), ``"vp9"`` (VP90), ``"png"``
+(MPNG, PNG1, ``png ``) and ``"raw"`` for the uncompressed layouts of
+``rawvideo.FORMATS`` (I420, IYUV, YV12, Y800, GREY, RGBA; ``raw_format``
+names the layout), matched as written, as ``rawdec.c`` matches them. An
+MPEG-4 stream's headers, and an MPEG-1/2 stream's sequence header, lead its
+first chunk. ``width`` and ``height`` are ``strf``'s. cv2's writer stores
+raw frames top-down under their fourcc; ``biCompression`` 0 (BI_RGB,
+bottom-up), which cv2 never writes (it writes I420 for it), is refused.
 
 A file that is not RIFF AVI (Matroska, FLV, ...) and a video stream of
 another codec raise a ValueError naming ROADMAP.md queue 1, item 4, and
@@ -39,14 +46,28 @@ import struct
 from dataclasses import dataclass
 
 from .imgcodecs import ROADMAP, refuse_video
+from .rawvideo import FORMATS
 
-# biCompression values that FFmpeg decodes with its MJPEG decoder and with
-# its mpeg4 decoder, and the port reads (upper-cased)
-JPEG_FOURCCS = (b"MJPG", b"AVI1", b"JPEG")
-MPEG4_FOURCCS = (b"XVID", b"FMP4", b"DIVX", b"DX50", b"MP4V")
-# those FFmpeg decodes with its mpeg1video / mpeg2video decoders that cv2's
-# writer writes (PIM1 and MPG2 become mpg1 and mpg2 in an AVI), and MPEG
-MPEG12_FOURCCS = (b"MPG1", b"MPG2", b"PIM1", b"MPEG")
+# biCompression values (upper-cased) that FFmpeg decodes with each decoder
+# and the port reads; mpg1 and mpg2 are what cv2's PIM1 and MPG2 become in
+# an AVI
+CODEC_FOURCCS = {"mjpeg": (b"MJPG", b"AVI1", b"JPEG", b"CJPG", b"LJPG", b"JPGL", b"MJPA"),
+                 "mpeg4": (b"XVID", b"FMP4", b"DIVX", b"DX50", b"MP4V", b"MP4S", b"M4S2"),
+                 "mpeg12": (b"MPG1", b"MPG2", b"PIM1", b"MPEG"),
+                 "vp8": (b"VP80",), "vp9": (b"VP90",), "png": (b"MPNG", b"PNG1", b"PNG ")}
+
+
+def codec_of(fourcc: bytes) -> str | None:
+    """The port's codec for a ``biCompression`` (an AVI's, or a Matroska
+    ``V_MS/VFW/FOURCC`` track's), or None: raw layouts as written, the
+    others upper-cased."""
+    if fourcc in FORMATS:
+        return "raw"
+    for codec, fourccs in CODEC_FOURCCS.items():
+        if fourcc.upper() in fourccs:
+            return codec
+    return None
+
 
 _CONTAINERS = (  # (offset, signature, name) of files that are not RIFF AVI
     (4, b"ftyp", "an MP4/MOV (ISO base media)"),
@@ -87,6 +108,7 @@ class VideoStream:
 
     number: int  # its place among the streams: its chunks are '##dc'/'##db'
     compression: bytes  # strf.biCompression
+    width: int
     height: int
     rate: int
     scale: int
@@ -113,17 +135,15 @@ class AviFile:
         if self.video is None:
             raise _refuse(path, "an AVI file with no video stream")
         v = self.video
-        fourcc = v.compression.upper()
-        if fourcc in JPEG_FOURCCS:
-            self.codec = "mjpeg"
-        elif fourcc in MPEG4_FOURCCS:
-            self.codec = "mpeg4"
-        elif fourcc in MPEG12_FOURCCS:
-            self.codec = "mpeg12"
-        else:
+        self.codec = codec_of(v.compression)
+        if self.codec is None:
             code = v.compression.decode("latin-1")
             raise _refuse(path, f"an AVI video stream of codec {code!r} (biCompression), "
-                          "not MJPEG, MPEG-4 Part 2 or MPEG-1/2")
+                          "not MJPEG, MPEG-4 Part 2, MPEG-1/2, VP8, VP9, raw or PNG")
+        self.raw_format = FORMATS.get(v.compression)
+        if self.codec in ("raw", "png") and (v.width <= 0 or v.height <= 0):
+            raise _refuse(path, f"a {self.codec} AVI stream of {v.width}x{v.height} "
+                          "(a negative height: rows stored top-down)")
         if v.rate <= 0 or v.scale <= 0:
             raise _corrupt(path, f"a video frame rate of {v.rate}/{v.scale}")
         if not self.movi:
@@ -138,6 +158,10 @@ class AviFile:
     @property
     def frame_count(self) -> int:
         return self.video.length
+
+    @property
+    def width(self) -> int:
+        return self.video.width
 
     @property
     def height(self) -> int:
@@ -197,8 +221,8 @@ class AviFile:
         if len(strh) < 36 or strf is None or len(strf) < 20:
             raise _corrupt(self.path, "a short strh or strf chunk")
         scale, rate, _start, length = struct.unpack("<4I", strh[20:36])
-        height = struct.unpack("<i", strf[8:12])[0]
-        self.video = VideoStream(number, strf[16:20], height, rate, scale, length, indx)
+        width, height = struct.unpack("<ii", strf[4:12])
+        self.video = VideoStream(number, strf[16:20], width, height, rate, scale, length, indx)
 
     # -------------------------------------------------------------- frames
 

@@ -42,6 +42,7 @@ from __future__ import annotations
 import math
 import struct
 import zlib
+from dataclasses import dataclass
 
 import numpy as np
 
@@ -57,7 +58,7 @@ JPEG_SIGNATURE = b"\xff\xd8\xff"
 TIFF_HEADERS = (b"II*\x00", b"MM\x00*")
 # samples per pixel of each colour type
 _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
-_GRAY_SCALE = {1: 255, 2: 85, 4: 17, 8: 1}
+GRAY_SCALE = {1: 255, 2: 85, 4: 17, 8: 1}  # gray samples to 8 bits
 # Adam7's passes: first column, first row, column step, row step
 _ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2),
           (0, 1, 1, 2))
@@ -81,30 +82,57 @@ def _chunks(data: bytes, path: str):
     raise ValueError(f"{path}: PNG without IEND")
 
 
-def _paeth_row(line: bytearray, prior: bytes, bpp: int) -> None:
-    for i in range(len(line)):
-        a = line[i - bpp] if i >= bpp else 0
-        b = prior[i]
-        c = prior[i - bpp] if i >= bpp else 0
-        p = a + b - c
-        pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
-        pred = a if (pa <= pb and pa <= pc) else (b if pb <= pc else c)
-        line[i] = (line[i] + pred) & 0xFF
+WAVEFRONT_CELLS = 1 << 24  # the skewed buffer's cells per block of rows
 
 
-def _average_row(line: bytearray, prior: bytes, bpp: int) -> None:
-    for i in range(len(line)):
-        a = line[i - bpp] if i >= bpp else 0
-        line[i] = (line[i] + ((a + prior[i]) >> 1)) & 0xFF
+def _wavefront(rows: np.ndarray, prior: np.ndarray, bpp: int) -> np.ndarray:
+    """Rows of any filters (``[n, 1 + stride]``, ``prior`` the row above)
+    unfiltered along anti-diagonals: a pixel needs only its left (``a``),
+    upper (``b``) and upper-left (``c``) ones, so the pixels of a diagonal
+    ``x + y = t`` follow from diagonals ``t - 1`` and ``t - 2``, one vector
+    step each. The buffer is skewed so that each diagonal is a row:
+    ``sk[t + 1, y + 1]`` holds pixel ``(y, t - y)``, zero left of the image;
+    column 0 holds ``prior`` (row -1)."""
+    n = rows.shape[0]
+    px = (rows.shape[1] - 1) // bpp
+    diagonals = n + px - 1
+    y = np.arange(n)
+    t_of = y[None, :] + np.arange(px)[:, None]  # [px, n]: the diagonal of (y, x)
+    filtered = np.zeros((diagonals, n, bpp), np.int16)
+    filtered[t_of, y] = rows[:, 1:].reshape(n, px, bpp).transpose(1, 0, 2)
+    sk = np.zeros((diagonals + 2, n + 1, bpp), np.int16)
+    sk[:px, 0] = prior.reshape(px, bpp)
+    kind = rows[:, 0]
+    others = [(k, kind[:, None] == k) for k in (0, 1, 2, 3) if (kind == k).any()]
+    for t in range(diagonals):
+        lo, hi = max(0, t - px + 1), min(n, t + 1)
+        a, b, c = sk[t, lo + 1:hi + 1], sk[t, lo:hi], sk[t - 1, lo:hi]
+        pa, pb, pc = np.abs(b - c), np.abs(a - c), np.abs(a + b - 2 * c)
+        pred = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))  # Paeth
+        for k, rows_k in others:
+            pred = np.where(rows_k[lo:hi], (0, a, b, (a + b) >> 1)[k], pred)
+        sk[t + 1, lo + 1:hi + 1] = (filtered[t, lo:hi] + pred) & 0xFF
+    return sk[t_of + 1, y + 1].transpose(1, 0, 2).reshape(n, px * bpp).astype(np.uint8)
 
 
 def _unfilter(raw: bytes, height: int, stride: int, bpp: int, path: str) -> np.ndarray:
-    """Undo the per-row filters; returns ``[height, stride]`` uint8."""
+    """Undo the per-row filters; returns ``[height, stride]`` uint8. Rows of
+    None, Sub and Up are undone row by row; an image with Average or Paeth
+    rows (FFmpeg's PNG encoder filters every row with Paeth) goes through
+    ``_wavefront`` in blocks of rows."""
     if len(raw) < height * (stride + 1):
         raise ValueError(f"{path}: PNG image data is short")
     rows = np.frombuffer(raw, np.uint8, height * (stride + 1)).reshape(height, stride + 1)
+    if height and int(rows[:, 0].max()) > 4:
+        raise ValueError(f"{path}: unknown PNG row filter {int(rows[:, 0].max())}")
     out = np.zeros((height, stride), np.uint8)
     prior = np.zeros(stride, np.uint8)
+    if height and int(rows[:, 0].max()) >= 3:
+        block = max(1, WAVEFRONT_CELLS // ((height + stride // bpp) * bpp))
+        for y in range(0, height, block):
+            out[y:y + block] = _wavefront(rows[y:y + block], prior, bpp)
+            prior = out[min(y + block, height) - 1]
+        return out
     for y in range(height):
         kind, line = rows[y, 0], rows[y, 1:]
         if kind == 0:  # None
@@ -114,14 +142,8 @@ def _unfilter(raw: bytes, height: int, stride: int, bpp: int, path: str) -> np.n
             lanes[:stride] = line
             cur = (np.cumsum(lanes.reshape(-1, bpp), axis=0) & 0xFF).reshape(-1)[:stride]
             cur = cur.astype(np.uint8)
-        elif kind == 2:  # Up
+        else:  # Up
             cur = line + prior  # uint8 arithmetic wraps mod 256
-        elif kind in (3, 4):  # Average, Paeth: sequential along the row
-            buf = bytearray(line.tobytes())
-            (_average_row if kind == 3 else _paeth_row)(buf, prior.tobytes(), bpp)
-            cur = np.frombuffer(bytes(buf), np.uint8)
-        else:
-            raise ValueError(f"{path}: unknown PNG row filter {kind}")
         out[y] = cur
         prior = out[y]
     return out
@@ -208,7 +230,27 @@ def _png_samples(raw: bytes, width: int, height: int, depth: int, channels: int,
     return out
 
 
-def _decode_png(data: bytes, path: str) -> np.ndarray:
+@dataclass
+class PngImage:
+    """A PNG's decoded samples before any step to gray: ``samples`` is
+    ``[H, W, channels]`` as IHDR says (uint8, sub-byte samples one to a byte
+    and not scaled; uint16 at 16 bits), ``palette`` the ``PLTE`` entries,
+    ``gamma`` the file's gamma (x 1e5) where libpng would find it
+    significant, else None, ``exif`` its first ``eXIf`` chunk with a TIFF
+    header, and ``interlace`` whether it is Adam7."""
+
+    samples: np.ndarray
+    color: int
+    depth: int
+    palette: np.ndarray | None
+    gamma: int | None
+    exif: bytes | None
+    interlace: bool
+
+
+def decode_png(data: bytes, path: str = "<bytes>") -> PngImage:
+    """A PNG file's bytes -> its samples (``PngImage``): the chunk walk, the
+    header's checks, inflate, the row filters and Adam7."""
     header, palette, idat, exif, gamma, srgb = None, None, [], None, None, False
     for kind, body in _chunks(data, path):
         if kind == b"IHDR":
@@ -234,6 +276,8 @@ def _decode_png(data: bytes, path: str) -> np.ndarray:
         raise ValueError(f"{path}: bit depth {depth} is invalid for PNG colour type {color}")
     if interlace not in (0, 1):
         raise ValueError(f"{path}: unknown PNG interlace method {interlace}")
+    if color == 3 and palette is None:
+        raise ValueError(f"{path}: palette PNG without PLTE")
     gamma = SRGB_GAMMA if srgb else gamma
     if gamma is not None and not _gamma_significant(gamma):
         gamma = None
@@ -241,26 +285,34 @@ def _decode_png(data: bytes, path: str) -> np.ndarray:
         raise ValueError(f"{path}: 16-bit colour PNG with a gamma of {gamma / 1e5}: libpng's "
                          f"16-bit gamma tables are not supported by the port's reader "
                          f"({ROADMAP})")
-    channels = _CHANNELS[color]
-    samples = _png_samples(zlib.decompress(b"".join(idat)), width, height, depth, channels,
-                           interlace, path)
+    samples = _png_samples(zlib.decompress(b"".join(idat)), width, height, depth,
+                           _CHANNELS[color], interlace, path)
+    return PngImage(samples, color, depth, palette, gamma, exif, bool(interlace))
+
+
+def palette_rgb(img: PngImage, path: str) -> np.ndarray:
+    """A palette PNG's ``[H, W, 3]`` RGB; an index past ``PLTE`` raises."""
+    index = img.samples[..., 0]
+    if int(index.max(initial=0)) >= len(img.palette):
+        raise ValueError(f"{path}: palette index out of range")
+    return img.palette[index]
+
+
+def _decode_png(data: bytes, path: str) -> np.ndarray:
+    img = decode_png(data, path)
+    samples, depth, color, gamma = img.samples, img.depth, img.color, img.gamma
     if color in (0, 4):
         gray = samples[..., 0]
-        gray = (gray >> 8).astype(np.uint8) if depth == 16 else gray * np.uint8(_GRAY_SCALE[depth])
+        gray = (gray >> 8).astype(np.uint8) if depth == 16 else gray * np.uint8(GRAY_SCALE[depth])
     elif color == 3:
-        if palette is None:
-            raise ValueError(f"{path}: palette PNG without PLTE")
-        index = samples[..., 0]
-        if int(index.max(initial=0)) >= len(palette):
-            raise ValueError(f"{path}: palette index out of range")
-        rgb = palette[index]
+        rgb = palette_rgb(img, path)
         gray = _to_gray(rgb) if gamma is None else _gamma_gray(rgb, gamma)
     elif depth == 16:
         gray = _to_gray16(samples[..., :3])
     else:
         gray = _to_gray(samples[..., :3]) if gamma is None else _gamma_gray(samples[..., :3], gamma)
     gray = np.ascontiguousarray(gray)
-    return gray if exif is None else apply_orientation(gray, exif)
+    return gray if img.exif is None else apply_orientation(gray, img.exif)
 
 
 def decode_gray(data: bytes, path: str = "<bytes>") -> np.ndarray:

@@ -11,7 +11,7 @@ the one its cv2 counterpart uses:
   ``_to_gray16``, ``_gamma_gray``);
 - BMP, PPM and TIFF (``bmp``, ``pnm``, ``tiff``): imgcodecs' own 14-bit
   ``icvCvt_BGR2Gray_8u`` (``imgcodecs_gray``, here);
-- WebP and MJPEG video (``webp``, ``video``): ``cvtColor(COLOR_BGR2GRAY)``,
+- WebP and every video frame (``webp``, ``video``): ``cvtColor(COLOR_BGR2GRAY)``,
   OpenCV 5's 15-bit one (``yuv.bgr_to_gray``);
 - JPEG (``jpeg``): none, libjpeg gives gray itself.
 """
@@ -24,10 +24,11 @@ import numpy as np
 
 ROADMAP = "ROADMAP.md queue 1, item 4"
 # what the port's video path reads, named by every refusal of a video file
-VIDEO_READS = ("the port reads MJPEG, MPEG-4 Part 2 and MPEG-1/2 video in AVI files, MPEG-4 "
-               "Part 2 and MPEG-1/2 in MP4, MOV and M4V files, VP8, VP9, MJPEG, MPEG-4 Part 2 "
-               "and MPEG-1/2 in Matroska and WebM files, and MPEG-1/2 in MPEG program and "
-               "transport streams")
+VIDEO_READS = ("the port reads MJPEG, MPEG-4 Part 2, MPEG-1/2, VP8, VP9, raw (I420, IYUV, YV12, "
+               "Y800, GREY, RGBA) and PNG video in AVI files; MJPEG, MPEG-4 Part 2, MPEG-1/2, "
+               "VP9, raw RGBA and PNG in MP4, MOV and M4V files; VP8, VP9, MJPEG, MPEG-4 Part 2, "
+               "MPEG-1/2, raw and PNG in Matroska and WebM files; and MPEG-1/2 in MPEG program "
+               "and transport streams")
 
 
 def refuse_video(path: str, what: str) -> ValueError:

@@ -1,5 +1,5 @@
-"""A Matroska / WebM demuxer for VP8, VP9, MJPEG, MPEG-4 Part 2 and MPEG-1/2
-video, in plain Python.
+"""A Matroska / WebM demuxer for VP8, VP9, MJPEG, MPEG-4 Part 2, MPEG-1/2,
+raw and PNG video, in plain Python.
 
 ``MkvFile(path)`` reads what ``cv2.VideoCapture`` (through FFmpeg's
 ``libavformat/matroskadec.c``) reads of a file's video track:
@@ -32,7 +32,14 @@ range is the key frames'), ``"mjpeg"`` (``V_MJPEG``) or ``"mpeg4"``
 (``V_MPEG4/ISO/ASP``, ``/SP`` and ``/AP``, whose headers are the track's
 ``CodecPrivate``, ``config``) or ``"mpeg12"`` (``V_MPEG1``, ``V_MPEG2``,
 whose ``CodecPrivate``, where there is one, holds a sequence header that
-the decoder reads before the first block, as FFmpeg reads its extradata). ``bottom_field_first``: the track says
+the decoder reads before the first block, as FFmpeg reads its extradata),
+``"raw"`` (``V_UNCOMPRESSED``: the ``Video`` element's ``ColourSpace``
+fourcc names the layout, ``raw_format``, one of ``rawvideo.FORMATS``; cv2
+writes it for I420, IYUV, YV12, Y800, GREY and RGBA) or ``"png"``
+(``V_MS/VFW/FOURCC``, whose ``CodecPrivate`` is a BITMAPINFOHEADER: its
+``biCompression`` picks the codec by the AVI table, ``avi.codec_of``; cv2
+writes PNG this way, MPNG, PNG1 or ``png ``, and the H.263 family, which
+the port refuses). ``bottom_field_first``: the track says
 ``FlagInterlaced`` 1 and ``FieldOrder`` 6 (bottom field first), which FFmpeg
 hands its MJPEG decoder as the fields' order.
 
@@ -51,7 +58,9 @@ from __future__ import annotations
 import math
 import struct
 
+from .avi import codec_of
 from .imgcodecs import ROADMAP, refuse_video
+from .rawvideo import FORMATS
 
 EBML, SEGMENT = 0x1A45DFA3, 0x18538067
 DOCTYPE = 0x4282
@@ -60,6 +69,7 @@ TRACKS, TRACK_ENTRY = 0x1654AE6B, 0xAE
 TRACK_NUMBER, TRACK_TYPE, CODEC_ID, CODEC_PRIVATE = 0xD7, 0x83, 0x86, 0x63A2
 DEFAULT_DURATION, VIDEO, CONTENT_ENCODINGS = 0x23E383, 0xE0, 0x6D80
 PIXEL_WIDTH, PIXEL_HEIGHT, STEREO_MODE, COLOUR = 0xB0, 0xBA, 0x53B8, 0x55B0
+COLOUR_SPACE = 0x2EB524
 FLAG_INTERLACED, FIELD_ORDER = 0x9A, 0x9D
 INTERLACED, BOTTOM_FIRST = 1, 6  # FlagInterlaced's "interlaced", FieldOrder's "bff"
 CROPS = (0x54AA, 0x54BB, 0x54CC, 0x54DD)  # PixelCropBottom, Top, Left, Right
@@ -71,7 +81,9 @@ SEGMENT_LEVEL = (0x114D9B74, INFO, TRACKS, CLUSTER, 0x1C53BB6B, 0x1941A469, 0x10
 VIDEO_TRACK = 1
 CODECS = {"V_VP8": "vp8", "V_VP9": "vp9", "V_MJPEG": "mjpeg", "V_MPEG4/ISO/ASP": "mpeg4",
           "V_MPEG4/ISO/SP": "mpeg4", "V_MPEG4/ISO/AP": "mpeg4", "V_MPEG1": "mpeg12",
-          "V_MPEG2": "mpeg12"}
+          "V_MPEG2": "mpeg12", "V_UNCOMPRESSED": "raw", "V_MS/VFW/FOURCC": "vfw"}
+# the codecs a V_MS/VFW/FOURCC track's biCompression may name
+VFW_CODECS = ("png",)
 NAMED = {"V_MPEG4/ISO/AVC": "H.264 (AVC)", "V_MPEGH/ISO/HEVC": "H.265 (HEVC)",
          "V_AV1": "AV1", "V_THEORA": "Theora"}
 # Colour's children and the values that leave FFmpeg's frames as they are:
@@ -81,7 +93,7 @@ NAMED = {"V_MPEG4/ISO/AVC": "H.264 (AVC)", "V_MPEGH/ISO/HEVC": "H.265 (HEVC)",
 # limited for the others)
 COLOUR_UNSPECIFIED = {0x55B1: 2, 0x55B7: 0, 0x55B8: 0, 0x55B9: 0, 0x55BA: 2, 0x55BB: 2}
 RANGE = 0x55B9
-CODEC_RANGE = {"vp8": 1, "vp9": 1, "mjpeg": 2, "mpeg4": 1, "mpeg12": 1}
+CODEC_RANGE = {"vp8": 1, "vp9": 1, "mjpeg": 2, "mpeg4": 1, "mpeg12": 1, "raw": 1, "vfw": 2}
 
 
 _refuse = refuse_video
@@ -135,6 +147,7 @@ class Track:
         self.colour: dict[int, int] = {}
         self.crop = False
         self.interlaced = self.field_order = 0
+        self.colour_space = b""
 
 
 class MkvFile:
@@ -173,6 +186,9 @@ class MkvFile:
         self._check_track(t)
         self.codec = CODECS[t.codec_id]
         self.config = t.private
+        self.raw_format = FORMATS.get(t.colour_space) if self.codec == "raw" else None
+        if self.codec == "vfw":
+            self.codec = codec_of(t.private[16:20])
         self.width, self.height = t.width, t.height
         self.bottom_field_first = t.interlaced == INTERLACED and t.field_order == BOTTOM_FIRST
         num, den = av_reduce(10 ** 9, t.default_duration, 30000)
@@ -305,6 +321,8 @@ class MkvFile:
                 t.interlaced = self._uint(s, e)
             elif eid == FIELD_ORDER:
                 t.field_order = self._uint(s, e)
+            elif eid == COLOUR_SPACE:
+                t.colour_space = self.data[s:e]
             elif eid in CROPS:
                 t.crop = t.crop or self._uint(s, e) != 0
             elif eid == COLOUR:
@@ -330,6 +348,14 @@ class MkvFile:
         if specified:
             raise _refuse(self.path, f"{name} with Colour values "
                           f"{ {f'0x{k:X}': v for k, v in specified.items()} }")
+        if t.codec_id == "V_UNCOMPRESSED" and t.colour_space not in FORMATS:
+            raise _refuse(self.path, f"{name} of raw video in the layout "
+                          f"{t.colour_space.decode('latin-1')!r} (ColourSpace)")
+        if t.codec_id == "V_MS/VFW/FOURCC":
+            tag = t.private[16:20]
+            if len(t.private) < 40 or codec_of(tag) not in VFW_CODECS:
+                raise _refuse(self.path, f"{name} of codec {t.codec_id!r} whose CodecPrivate "
+                              f"(BITMAPINFOHEADER) names {tag.decode('latin-1')!r}, not PNG")
         if t.number is None:
             raise _corrupt(self.path, "a video track without TrackNumber")
         if not t.default_duration:

@@ -1,5 +1,5 @@
 """An ISO base media (MP4, M4V) and QuickTime (MOV) demuxer for MPEG-4
-Part 2 and MPEG-1/2 video, in plain Python.
+Part 2, MPEG-1/2, MJPEG, VP9, raw RGBA and PNG video, in plain Python.
 
 ``Mp4File(path)`` reads what ``cv2.VideoCapture`` (through FFmpeg's
 ``libavformat/mov.c``) reads of a file's video track:
@@ -13,8 +13,17 @@ Part 2 and MPEG-1/2 video, in plain Python.
   holds the VOL headers as its DecoderSpecificInfo, or names MPEG-2 video,
   0x60-0x65, or MPEG-1 video, 0x6A, as cv2 writes them into an MP4; or a
   QuickTime ``m2v1``, ``mp2v``, ``m1v1`` or ``m1v `` entry, cv2 writing
-  ``m2v1`` into a MOV), ``stts``, ``stsc``, ``stsz``, and ``stco`` or
-  ``co64``. ``codec`` is ``"mpeg4"`` or ``"mpeg12"``.
+  ``m2v1`` into a MOV; an ``mp4v`` entry of object type 0x6C, MJPEG, or
+  0x6D, PNG, which cv2 writes into an MP4 when asked for MJPG or MPNG;
+  QuickTime's ``jpeg`` and ``mjpa`` (MJPEG), ``XVID`` and ``DIVX`` (MPEG-4
+  Part 2 with no ``esds``: the VOL headers are the ``glbl`` box, or lead
+  the first sample), ``png `` and ``RGBA`` (raw, top-down R, G, B, A);
+  ``vp09`` (VP9) whose ``vpcC`` says what cv2's muxer writes: 8 bits,
+  4:2:0, limited range, colour unspecified (the decoder takes range and
+  colour space from the key frames)), ``stts``, ``stsc``, ``stsz``, and
+  ``stco`` or ``co64``. ``codec`` is ``"mpeg4"``, ``"mpeg12"``,
+  ``"mjpeg"``, ``"vp9"``, ``"raw"`` (``raw_format`` ``"rgba"``) or
+  ``"png"``; ``width`` and ``height`` are the sample entry's.
 
 ``fps`` is the track's timescale times its sample count over the sum of the
 ``stts`` durations, and ``frame_count`` the sample count: what cv2 reports as
@@ -45,6 +54,15 @@ MPEG12_VISUAL = {0x60: "MPEG-2 Simple", 0x61: "MPEG-2 Main", 0x62: "MPEG-2 SNR",
                  0x6A: "MPEG-1"}
 # QuickTime sample entries of MPEG-1/2 video (cv2 writes m2v1 into a MOV)
 MPEG12_ENTRIES = (b"m2v1", b"mp2v", b"m1v1", b"m1v ")
+# the esds objectTypeIndications of MJPEG and PNG (mov.c: ff_mp4_obj_type)
+OBJECT_CODECS = {0x6C: "mjpeg", 0x6D: "png"}
+# sample entries without an esds, by codec (mov.c: ff_codec_movvideo_tags);
+# RGBA is raw: FFmpeg's rawvideo decoder reads its layout from the tag
+ENTRIES = {b"jpeg": "mjpeg", b"mjpa": "mjpeg", b"XVID": "mpeg4", b"DIVX": "mpeg4",
+           b"vp09": "vp9", b"png ": "png", b"RGBA": "raw"}
+# vpcC's fields after version and flags that cv2's muxer writes: bit depth
+# 8, 4:2:0 (0 or 1) and limited range, primaries, transfer and matrix 2
+VPCC_DEPTH, VPCC_UNSPECIFIED = 8, (2, 2, 2)
 # tkhd matrices (a, b, c, d at 16.16) of the turns cv2 applies, and each
 # turn clockwise in degrees
 TURNS = {(1, 0, 0, 1): 0, (0, 1, -1, 0): 90, (-1, 0, 0, -1): 180, (0, -1, 1, 0): 270}
@@ -185,19 +203,41 @@ class Mp4File:
                           "descriptions")
         kind, span = t.stsd_entries[0]
         self.fourcc = kind
-        self.codec, self.object_type = "mpeg4", MPEG4_VISUAL
-        if kind in MPEG12_ENTRIES:
-            self.codec, self.config = "mpeg12", b""
-            return
-        if kind != b"mp4v":
-            raise _refuse(self.path, f"a video track of codec {kind.decode('latin-1')!r}")
+        self.codec, self.object_type, self.config = "mpeg4", MPEG4_VISUAL, b""
+        self.raw_format = None
         entry = self._body(span)
         if len(entry) < 78:  # VisualSampleEntry's fields before its boxes
-            raise _corrupt(self.path, "a short 'mp4v' sample entry")
-        esds = [self._body(s) for k, s in self._boxes(span[0] + 78, span[1]) if k == b"esds"]
-        if not esds:
+            raise _corrupt(self.path, f"a short {kind!r} sample entry")
+        self.width, self.height = struct.unpack(">HH", entry[24:28])
+        boxes = {k: self._body(s) for k, s in reversed(list(self._boxes(span[0] + 78, span[1])))}
+        if kind in MPEG12_ENTRIES:
+            self.codec = "mpeg12"
+        elif kind in ENTRIES:
+            self.codec = ENTRIES[kind]
+            self.config = boxes.get(b"glbl", b"")  # mov.c: extradata, the VOL headers
+            if self.codec == "raw":
+                self.raw_format = "rgba"
+            elif self.codec == "vp9":
+                self._check_vpcc(boxes.get(b"vpcC"))
+            elif self.codec == "mjpeg" and boxes.get(b"fiel", b"\x01")[0] != 1:
+                raise _refuse(self.path, f"an interlaced {kind.decode('latin-1')!r} track "
+                              "('fiel' box of two fields)")
+        elif kind != b"mp4v":
+            raise _refuse(self.path, f"a video track of codec {kind.decode('latin-1')!r}")
+        elif b"esds" not in boxes:
             raise _refuse(self.path, "an 'mp4v' sample entry with no 'esds' box")
-        self.config = self._esds(esds[0][4:])
+        else:
+            self.config = self._esds(boxes[b"esds"][4:])
+
+    def _check_vpcc(self, vpcc: bytes | None) -> None:
+        """A ``vp09`` entry's ``vpcC`` (version 1) must say what cv2's muxer
+        writes (``VPCC_*``)."""
+        if vpcc is None or len(vpcc) < 12 or vpcc[0] != 1:
+            raise _refuse(self.path, "a 'vp09' sample entry without a version-1 'vpcC' box")
+        depth, sub, full = vpcc[6] >> 4, (vpcc[6] >> 1) & 7, vpcc[6] & 1
+        if depth != VPCC_DEPTH or sub > 1 or full or tuple(vpcc[7:10]) != VPCC_UNSPECIFIED:
+            raise _refuse(self.path, f"a 'vp09' track whose 'vpcC' says {depth} bits, chroma "
+                          f"subsampling {sub}, full range {full}, colour {tuple(vpcc[7:10])}")
 
     def _esds(self, d: bytes) -> bytes:
         """The ES_Descriptor's DecoderConfigDescriptor: its object type must
@@ -231,9 +271,12 @@ class Mp4File:
             self.object_type = d[pos]
             if d[pos] in MPEG12_VISUAL:
                 self.codec = "mpeg12"
+            elif d[pos] in OBJECT_CODECS:
+                self.codec = OBJECT_CODECS[d[pos]]
             elif d[pos] != MPEG4_VISUAL:
                 raise _refuse(self.path, f"an 'mp4v' track of object type 0x{d[pos]:02X}, not "
-                              "MPEG-4 Visual (0x20) or MPEG-1/2 video (0x60-0x65, 0x6A)")
+                              "MPEG-4 Visual (0x20), MPEG-1/2 video (0x60-0x65, 0x6A), MJPEG "
+                              "(0x6C) or PNG (0x6D)")
             pos += 13
             if pos >= dend:
                 return b""

@@ -44,10 +44,27 @@ container by the file's first bytes and the codec by its fourcc:
   centred chroma or MPEG-2's left-sited chroma (probed on odd sizes). A
   program or transport stream's ``frame_count`` is FFmpeg's estimate from
   its time stamps, which may fall short of the frames (``mpegps.py``), as
-  cv2 reports it.
+  cv2 reports it;
+- the same decoders under the other tags and containers cv2 writes them
+  into: MJPEG in AVI as CJPG, LJPG, JPGL or mjpa, in MOV as ``jpeg`` or
+  ``mjpa`` and in MP4 as ``mp4v`` of object type 0x6C; MPEG-4 Part 2 in AVI
+  as MP4S or M4S2 and in MOV as ``XVID`` or ``DIVX``; VP8 and VP9 in AVI
+  (VP80, VP90) and VP9 in MP4 (``vp09``);
+- raw video (``codec`` ``"raw"``): I420, IYUV, YV12, Y800, GREY and RGBA in
+  AVI, RGBA in MOV, and ``V_UNCOMPRESSED`` of those layouts in Matroska,
+  read as FFmpeg's ``rawvideo`` decoder reads them and converted as swscale
+  converts them (``utils/rawvideo.py::raw_to_bgr``); a packet shorter than
+  a frame ends the read there, as it ends cv2's;
+- PNG video (``codec`` ``"png"``): MPNG in AVI, ``png `` in MOV, ``mp4v``
+  of object type 0x6D in MP4, and ``V_MS/VFW/FOURCC`` carrying MPNG in
+  Matroska: each frame's samples as FFmpeg's ``png`` decoder gives them,
+  to BGR as swscale does (``rawvideo.png_to_bgr``), then to gray by
+  ``cvtColor``, not by ``cv2.imread``'s libpng gray. A PNG frame whose size
+  is not the stream's is refused.
 
-Then to gray as ``cvtColor`` does. No EXIF orientation is applied: FFmpeg
-does not apply one to MJPEG frames.
+Then to gray as ``cvtColor`` does, and an MP4/MOV track's quarter turn
+applied. No EXIF orientation is applied: FFmpeg applies none to MJPEG or
+PNG frames.
 
 Interlaced MJPEG: when the first frame is under 3/4 of the stream's height
 (mjpegdec.c's test), each frame is two fields, each coded at half the
@@ -60,8 +77,8 @@ where FFmpeg takes the stream as bottom field first (an AVI whose
 The woven planes are then converted at the full height.
 
 Other containers (ASF/WMV, FLV, raw MPEG video elementary streams, ...)
-and codecs (H.264, HEVC, AV1, VP9 of profiles 1-3, interlaced MPEG-2 field
-pictures, ...) and other sampling factors raise a ValueError naming
+and codecs (H.264, HEVC, AV1, the H.263 family, VP9 of profiles 1-3,
+interlaced MPEG-2 field pictures, 16-bit PNG, other raw layouts, ...) and other sampling factors raise a ValueError naming
 ROADMAP.md queue 1, item 4; every such refusal of a file says what the port
 reads (``imgcodecs.VIDEO_READS``).
 """
@@ -80,6 +97,7 @@ from .mpeg12 import SEQUENCE
 from .mpeg12dec import Mpeg12Decoder
 from .mpegps import ProgramStream, is_program_stream, video_headers
 from .mpegts import TransportStream, is_transport_stream
+from .rawvideo import png_to_bgr, raw_to_bgr
 from .vp8dec import Vp8Decoder
 from .vp9dec import Vp9Decoder
 from .yuv import MPEG4_H_POS, VP8_H_POS, bgr_to_gray, mjpeg_to_gray, yuv420p_to_bgr
@@ -163,10 +181,11 @@ class VideoFile:
         """``mjpegdec.c``'s ``interlace_polarity``: 1 for a stream FFmpeg
         says is bottom field first (a Matroska ``FieldOrder``), or of an
         unknown order whose codec tag is exactly ``MJPG`` (an AVI's
-        ``biCompression``; Matroska's ``V_MJPEG`` has none)."""
+        ``biCompression``; Matroska's ``V_MJPEG`` and MP4/MOV entries have
+        none: ``mp4.py`` refuses a ``fiel`` box of two fields)."""
         if self.mkv is not None:
             return self.mkv.bottom_field_first
-        return self.avi.video.compression == b"MJPG"
+        return self.avi is not None and self.avi.video.compression == b"MJPG"
 
     def fields(self, data: bytes, index: int, tables):
         """An interlaced stream's packet -> (the frame woven from its two
@@ -220,15 +239,29 @@ class VideoFile:
             yield from decoder.decode(data)
 
     def check_size(self, shape, index: int) -> None:
-        """A Matroska frame must have its track's size (cv2 would scale it)."""
-        if self.mkv is not None and tuple(shape) != (self.mkv.height, self.mkv.width):
+        """A Matroska frame must have its track's size (cv2 would scale it),
+        and a PNG frame its stream's."""
+        c = self.container
+        if (self.mkv is not None or self.codec == "png") and tuple(shape) != (c.height, c.width):
             raise ValueError(f"{self.path} frame {index}: a {shape[0]}x{shape[1]} frame in a "
-                             f"{self.mkv.height}x{self.mkv.width} track, which cv2 scales "
-                             f"({ROADMAP})")
+                             f"{c.height}x{c.width} track, which cv2 scales ({ROADMAP})")
 
     def bgr(self):
-        """Each MPEG-4, MPEG-1/2, VP8 or VP9 frame as cv2 converts it to BGR,
-        unturned."""
+        """Each MPEG-4, MPEG-1/2, VP8, VP9, raw or PNG frame as cv2 converts
+        it to BGR, unturned."""
+        if self.codec in ("raw", "png"):
+            c = self.container
+            for i, data in enumerate(self.packets()):
+                if self.codec == "png":
+                    bgr = png_to_bgr(data, f"{self.path} frame {i}")
+                    self.check_size(bgr.shape[:2], i)
+                else:
+                    bgr = raw_to_bgr(data, c.raw_format, c.width, c.height,
+                                     f"{self.path} frame {i}")
+                    if bgr is None:  # a short packet: FFmpeg's decoder fails, cv2's read ends
+                        return
+                yield bgr
+            return
         h_pos = VP8_H_POS if self.codec in ("vp8", "vp9", "mpeg1") else MPEG4_H_POS
         for i, (y, cb, cr) in enumerate(self.planes()):
             self.check_size(y.shape, i)
@@ -236,9 +269,10 @@ class VideoFile:
             yield yuv420p_to_bgr(y, cb, cr, f"{self.path} frame {i}", h_pos, full)
 
     def __iter__(self):
-        if self.codec in ("mpeg4", "mpeg1", "mpeg2", "vp8", "vp9"):
+        turns = _TURNS[self.rotation]
+        if self.codec != "mjpeg":
             for bgr in self.bgr():
-                yield np.ascontiguousarray(np.rot90(bgr_to_gray(bgr), _TURNS[self.rotation]))
+                yield np.ascontiguousarray(np.rot90(bgr_to_gray(bgr), turns))
             return
         tables, interlaced = None, None
         for i, data in enumerate(self.packets()):
@@ -253,4 +287,5 @@ class VideoFile:
                 frame = self.decode(data, i, tables)
                 tables = frame.tables
             self.check_size(frame.planes[0].shape, i)
-            yield mjpeg_to_gray(frame.planes, frame.factors, path=f"{self.path} frame {i}")
+            gray = mjpeg_to_gray(frame.planes, frame.factors, path=f"{self.path} frame {i}")
+            yield np.ascontiguousarray(np.rot90(gray, turns))
