@@ -406,8 +406,24 @@ Phases, one line each (any failure exits non-zero before the last line):
    12-frame raw I420 and Y800 clips written at run time; (c) the V2E2V CLI
    with ``--reader_type video`` over the PNG flagship against its PNG twin,
    as phase 21 (b);
+29. H.263 and Sorenson H.263 video (``utils/h263.py``, ``utils/flv.py``,
+   the H.263 tags of ``avi.py``, ``mp4.py`` and ``mkv.py``, ROADMAP item 4.2
+   d, first half): (a) every clip under ``tests/data/h263``
+   (``scripts/make_h263_fixtures.py``: the 12-frame 960x720 Sorenson
+   flagship FLV, Sorenson H.263 in AVI, MOV and Matroska, H.263 at its
+   three small sizes under every AVI tag cv2 writes, in MOV and Matroska,
+   second I pictures, noise, flat content, a portrait and an odd-sized FLV,
+   FLVs at 23, 24, 25 and 30000/1001 fps, disposable pictures, crafted GOB
+   headers at 1 and 2 rows a GOB and every escape form) read by the port's
+   ``VideoReader`` and ``VideoSequence`` against the JAX readers' records,
+   the flagship decoded once; (b) the host ms per frame of each stage
+   (demux, header and macroblock symbols, dequantisation + IDCT + motion
+   compensation, conversion, resize), I- and P-pictures apart, of the
+   flagship FLV and of a 704x576 H.263 AVI of random macroblocks written at
+   run time; (c) the V2E2V CLI with ``--reader_type video`` over the
+   flagship FLV against its PNG twin, as phase 21 (b);
 14. a ``{"kernels": [...]}`` JSON line (each row's launches on the paths of
-   phases 10-13 and 15-28, every count set to 0 just before each path: K1,
+   phases 10-13 and 15-29, every count set to 0 just before each path: K1,
    K2, K4 and the scale kernel counted by dtype, K3 by shot mode; the rows
    of K4 and the scale kernel hold their times per pool step, the 15 calls
    of one step summed), then the last line
@@ -4630,12 +4646,13 @@ PNGVIDEO_FIXTURES = Path(__file__).resolve().parent / "tests" / "data" / "pngvid
 RAW_STAGES = ("demux", "decode", "to_bgr", "to_gray", "resize")
 
 
-def rawvideo_script():
-    """``scripts/make_rawvideo_fixtures.py`` (its ``write_avi`` needs no cv2)."""
+def fixture_script(name: str = "make_rawvideo_fixtures"):
+    """``scripts/<name>.py``: ``make_rawvideo_fixtures`` (its ``write_avi``
+    needs no cv2) or ``make_h263_fixtures`` (its writers need none)."""
     import importlib.util
 
-    path = Path(__file__).resolve().parent / "scripts" / "make_rawvideo_fixtures.py"
-    spec = importlib.util.spec_from_file_location("make_rawvideo_fixtures", path)
+    path = Path(__file__).resolve().parent / "scripts" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(name, path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
@@ -4700,7 +4717,7 @@ def rawvideo_phase(seed: int, smi: str, root: Path, v2e2v_model: Path) -> dict:
 
     t_phase = time.perf_counter()
     root.mkdir(parents=True)
-    fx = rawvideo_script()
+    fx = fixture_script()
     flagship = PNGVIDEO_FIXTURES / "flagship.avi"
     h, w, n, fps = fx.FLAGSHIP
     rng = np.random.default_rng(seed)
@@ -4743,6 +4760,112 @@ def rawvideo_phase(seed: int, smi: str, root: Path, v2e2v_model: Path) -> dict:
                                   "pngvideo")
     say(f"[phase] raw and PNG video {time.perf_counter() - t_phase:.1f} s")
     return {"v2e2v_cli_pngvideo_launches": rows}
+
+
+H263_FIXTURES = Path(__file__).resolve().parent / "tests" / "data" / "h263"
+H263_STAGES = ("demux", "syntax", "dequant_idct_mc", "convert", "resize")
+H263_TIMING = (576, 704, 12)  # phase 29 (b)'s H.263 clip: height, width, pictures
+
+
+def h263_stages(path: Path) -> tuple[dict[str, dict[str, list[float]]], list]:
+    """Host ms per frame of each stage of an H.263 or Sorenson H.263 clip's
+    read, I- and P-pictures apart, over one pass of ``path``: demux (the
+    container's headers and packets, per frame), the picture header and
+    macroblock symbols (``H263Decoder.parse``), dequantisation + IDCT +
+    motion compensation (``reconstruct``), YUV -> BGR -> gray, the reader's
+    resize to a quarter. Returns them and the BGR frames."""
+    from v2e2v_tpu_torch.utils import yuv
+    from v2e2v_tpu_torch.utils.h263 import I_PICTURE, H263Decoder
+    from v2e2v_tpu_torch.utils.image_io import resize_linear_u8
+    from v2e2v_tpu_torch.utils.video import VideoFile
+
+    ms = {kind: {k: [] for k in H263_STAGES} for kind in ("I", "P")}
+    t0 = time.perf_counter()
+    video = VideoFile(str(path))
+    packets = list(video.packets())
+    demux = 1e3 * (time.perf_counter() - t0) / len(packets)
+    dec = H263Decoder(video.codec, str(path))
+    frames = []
+    for data in packets:
+        t = [time.perf_counter()]
+        pic = dec.parse(data)
+        t.append(time.perf_counter())
+        planes = dec.reconstruct(pic)
+        t.append(time.perf_counter())
+        bgr = yuv.yuv420p_to_bgr(*planes, str(path), yuv.VP8_H_POS)
+        gray = yuv.bgr_to_gray(bgr)
+        t.append(time.perf_counter())
+        resize_linear_u8(gray, (gray.shape[1] // 4, gray.shape[0] // 4))
+        t.append(time.perf_counter())
+        kind = ms["I" if pic.hdr.kind == I_PICTURE else "P"]
+        kind["demux"].append(demux)
+        for k, a, b in zip(H263_STAGES[1:], t, t[1:]):
+            kind[k].append(1e3 * (b - a))
+        frames.append(bgr)
+    return ms, frames
+
+
+def h263_phase(seed: int, smi: str, root: Path, v2e2v_model: Path) -> dict:
+    """Phase 29: H.263 and Sorenson H.263 video (ROADMAP item 4.2 d, first
+    half). (a) every clip under ``tests/data/h263`` read by the port's
+    ``VideoReader`` and ``VideoSequence`` against the JAX readers' records,
+    the flagship FLV decoded once; (b) the host ms per frame of each stage,
+    I- and P-pictures apart, of the 960x720 flagship FLV and of a 704x576
+    H.263 AVI of random macroblocks written here with the fixture script's
+    ``random_picture`` (12 pictures, GOB headers every other GOB; timed
+    only); (c) the V2E2V CLI with ``--reader_type video`` over the flagship
+    FLV (read as 180x240, decoded anew) against its PNG twin, as phase 21
+    (b). Returns (c)'s launches by row."""
+    from v2e2v_tpu_torch.utils.video import VideoFile
+
+    t_phase = time.perf_counter()
+    root.mkdir(parents=True)
+    flagship = H263_FIXTURES / "flagship.flv"
+    h, w, n = H263_TIMING
+    fx, raw = fixture_script("make_h263_fixtures"), fixture_script()
+    rng = np.random.default_rng(seed)
+    t0 = time.perf_counter()
+    pictures = [fx.random_picture(rng, "h263", int(i > 0), w, h, gobs=range(0, h // 16, 4),
+                                  coded=0.3 if i == 0 else 0.1, skip=0.3, intra=0.05, big=60)
+                for i in range(n)]
+    timing = root / "h263_704x576.avi"
+    raw.write_avi(timing, pictures, w, h, 10, b"H263")
+    say(f"[h263] {timing.name}: {n} pictures of random macroblocks, "
+        f"{sum(map(len, pictures))} bytes, written in {time.perf_counter() - t0:.3f} s")
+    frames = None
+    for label, path in (("Sorenson H.263 flagship FLV", flagship), ("H.263 AVI", timing)):
+        stages, bgr = h263_stages(path)
+        frames = bgr if path == flagship else frames
+        size = f"{bgr[0].shape[1]}x{bgr[0].shape[0]}"
+        for kind, st in stages.items():
+            if not st["syntax"]:
+                fail(f"the {label} holds no {kind}-picture")
+            per = {k: (float(np.median(v)), min(v), max(v)) for k, v in st.items()}
+            total = sum(m for m, _, _ in per.values())
+            say(f"[time] {label} read on the card's host ({smi}), host ms per {size} "
+                f"{kind}-picture, median (min-max) of {len(st['syntax'])}: "
+                + ", ".join(f"{k} {m:.3f} ({lo:.3f}-{hi:.3f})" for k, (m, lo, hi) in per.items())
+                + f"; sum of medians {total:.3f} ms")
+    decode = VideoFile.bgr
+
+    def bgr(self):
+        if Path(self.path) == flagship:
+            return iter(frames)
+        return decode(self)
+
+    manifest = json.loads((H263_FIXTURES / "manifest.json").read_text())["clips"]
+    with swapped((VideoFile, "bgr", bgr)):
+        bad, readers = clips_against_records(H263_FIXTURES, sorted(manifest), "h263")
+    say(f"[h263] {len(manifest) - len(bad)} of {len(manifest)} clips equal the JAX readers' "
+        "records")
+    if bad or "flagship.flv" not in readers or len(manifest) < 30:
+        fail(f"the port's H.263 and Sorenson H.263 reads disagree with the JAX readers' "
+             f"records: {bad}")
+    rows = video_cli_against_twin(seed, smi, root, v2e2v_model, flagship,
+                                  readers["flagship.flv"], manifest["flagship.flv"]["fps"],
+                                  "h263")
+    say(f"[phase] H.263 and Sorenson H.263 video {time.perf_counter() - t_phase:.1f} s")
+    return {"v2e2v_cli_h263_launches": rows}
 
 
 IMAGE_FIXTURES = Path(__file__).resolve().parent / "tests" / "data" / "images"
@@ -5715,6 +5838,12 @@ def main() -> None:
         # stages of a 960x720 PNG, I420 and Y800 frame, the V2E2V CLI with
         # --reader_type video over the PNG flagship against its PNG twin
         png_rows = rawvideo_phase(args.seed, smi, shared / "rawvideo", hfr["model"])
+
+        # 29. H.263 and Sorenson H.263: the fixture clips against the JAX
+        # readers' records, the stages of a 960x720 FLV and a 704x576 H.263
+        # picture, the V2E2V CLI with --reader_type video over the flagship
+        # FLV against its PNG twin
+        h263_rows = h263_phase(args.seed, smi, shared / "h263", hfr["model"])
     finally:
         shutil.rmtree(shared, ignore_errors=True)
 
@@ -5724,7 +5853,8 @@ def main() -> None:
              "tc_pool_launches": tc_rows, "e2v_train_launches": trained["e2v"],
              "v2e2v_train_launches_per_step": trained["v2e2v"], **fused_rows, **int8["rows"],
              **slomo_rows, **dist_rows, **spatial_rows, **jpeg_rows, **video_rows, **image_rows,
-             **lpips_rows, **mpeg4_rows, **mkv_rows, **vp9_rows, **mpeg12_rows, **png_rows}
+             **lpips_rows, **mpeg4_rows, **mkv_rows, **vp9_rows, **mpeg12_rows, **png_rows,
+             **h263_rows}
     for e in entries:
         if e["name"].startswith("ista_loop"):
             e.update(cli_k1[torch.float32 if "float32" in e["name"] else torch.bfloat16])

@@ -251,8 +251,10 @@ def cv2_frames(path: Path) -> tuple[list, float, float]:
     return out, fps, count
 
 
-def records(folder: Path, clips: dict[str, str], seed: int) -> None:
-    """``manifest.json`` and ``reader_frames.npz`` of ``folder``'s clips."""
+def records(folder: Path, clips: dict[str, str], seed: int,
+            writer: str = "scripts/make_rawvideo_fixtures.py") -> None:
+    """``manifest.json`` and ``reader_frames.npz`` of ``folder``'s clips,
+    written by the script ``writer``."""
     import cv2
 
     from v2e2v_tpu.data.manifests import VideoSequence
@@ -279,7 +281,7 @@ def records(folder: Path, clips: dict[str, str], seed: int) -> None:
         manifest[name] = entry
     np.savez_compressed(folder / "reader_frames.npz", **arrays)
     (folder / "manifest.json").write_text(json.dumps(
-        {"writer": "scripts/make_rawvideo_fixtures.py", "seed": seed, "cv2": cv2.__version__,
+        {"writer": writer, "seed": seed, "cv2": cv2.__version__,
          "clips": manifest}, indent=1) + "\n")
     total = sum(p.stat().st_size for p in folder.rglob("*") if p.is_file())
     print(f"{len(clips)} clips, reader_frames.npz and manifest.json under {folder}: "

@@ -816,7 +816,7 @@ def test_mpeg4_refusals_name_item_4(tmp_path, case):
 CONTAINER_REFUSALS = {"avc1": "codec 'avc1'", "object_type": "object type 0x6A",
                       "two_tracks": "2 video tracks", "flip": "display matrix",
                       "truncated": "corrupt or truncated", "edit_shift": "edit list",
-                      "wmv": "ASF/WMV", "flv": "an FLV"}
+                      "wmv": "ASF/WMV", "flv_avc": "AVC \\(H.264\\) \\(codec id 7\\)"}
 
 
 def _container_case(cv2, tmp_path, case):
@@ -847,10 +847,18 @@ def _container_case(cv2, tmp_path, case):
         pos, head, _ = mf.find(data, b"elst")
         data = data[:pos + head + 12] + struct.pack(">i", 512) + data[pos + head + 16:]
     else:  # the formats cv2 writes that the port leaves for later
-        path = tmp_path / f"clip.{case}"
-        fourcc = {"wmv": "WMV2", "flv": "FLV1"}[case]
+        path = tmp_path / f"clip.{case[:3]}"
+        fourcc = {"wmv": "WMV2", "flv_avc": "FLV1"}[case]
         mf.write(path, np.full((2, 32, 48, 3), 90, np.uint8), 30.0, fourcc)
         assert len(_cv2_frames(cv2, path)) == 2
+        if case == "flv_avc":  # Sorenson H.263 is read: its tags rewritten to AVC's codec id
+            data = bytearray(path.read_bytes())
+            pos = 13
+            while pos + 11 <= len(data):
+                if data[pos] == 9:
+                    data[pos + 11] = data[pos + 11] & 0xF0 | 7
+                pos += 15 + int.from_bytes(data[pos + 1:pos + 4], "big")
+            path.write_bytes(bytes(data))
         return path
     path.write_bytes(data)
     return path
@@ -860,7 +868,8 @@ def _container_case(cv2, tmp_path, case):
 def test_container_refusals_name_item_4(tmp_path, case):
     """MP4s the port does not read (another codec or object type, two video
     tracks, a flip in the display matrix, a truncated ``moov``, an edit list
-    that shifts the media) and the WMV2 and FLV1 files cv2 writes raise
+    that shifts the media), the WMV2 files cv2 writes and its FLV1 files
+    rewritten to AVC's codec id raise
     naming what they are and ROADMAP item 4."""
     cv2 = pytest.importorskip("cv2")
     path = _container_case(cv2, tmp_path, case)

@@ -12,8 +12,8 @@ against cv2 and the JAX package's readers, on the fixtures of
 - Y800/GREY rows at FFmpeg's stride on widths of each residue mod 4, raw
   4:2:0 and RGBA at random odd sizes from 1 x 1, and packets of every
   length, against cv2 on files written byte by byte;
-- what is still refused (the H.263 family among it) raises naming ROADMAP
-  item 4.
+- what is still refused (WMV, MS-MPEG-4 and ZyGo's H.263 among it) raises
+  naming ROADMAP item 4.
 """
 
 import hashlib
@@ -211,10 +211,10 @@ def test_packet_lengths_as_ffmpeg_reads_them(tmp_path, fourcc):
 def _refused(tmp_path, case):
     cv2 = pytest.importorskip("cv2")
     frames = np.random.default_rng(0).integers(0, 256, (2, 96, 128, 3), np.uint8)
-    h263 = {"h263": ("clip.avi", "H263"), "flv1": ("clip.flv", "FLV1"),
+    h263 = {"mp43": ("clip.avi", "MP43"), "zygo": ("clip.avi", "ZyGo"),
             "wmv1": ("clip.wmv", "WMV1"), "wmv2": ("clip.wmv", "WMV2"),
             "mp42": ("clip.avi", "MP42"), "div3": ("clip.avi", "DIV3"),
-            "raw_mov": ("clip.mov", "I420"), "flv1_mkv": ("clip.mkv", "FLV1")}
+            "raw_mov": ("clip.mov", "I420"), "wmv2_mkv": ("clip.mkv", "WMV2")}
     if case in h263:
         name, fourcc = h263[case]
         path = tmp_path / name
@@ -259,17 +259,19 @@ def _refused(tmp_path, case):
     return path
 
 
-REFUSALS = {"h263": "codec 'H263'", "flv1": "an FLV", "wmv1": "ASF/WMV", "wmv2": "ASF/WMV",
+REFUSALS = {"mp43": "codec 'MP43'", "zygo": "codec 'ZyGo'", "wmv1": "ASF/WMV", "wmv2": "ASF/WMV",
             "mp42": "codec 'MP42'", "div3": "codec 'DIV3'", "raw_mov": "codec 'raw '",
-            "flv1_mkv": "names 'FLV1'", "bi_rgb": r"x00' \(biCompression\)", "negative_height":
+            "wmv2_mkv": "names 'WMV2'", "bi_rgb": r"x00' \(biCompression\)", "negative_height":
             "negative height", "yuy2_mkv": "layout 'YUY2'", "vpcc_full_range": "full range 1",
             "jpeg_fields": "two fields"}
 
 
 @pytest.mark.parametrize("case", sorted(REFUSALS))
 def test_what_it_does_not_read_raises(tmp_path, case):
-    """The H.263 family (H.263, FLV1, WMV1, WMV2, MS-MPEG-4 v2 and v3), which
-    cv2 writes and reads, and the raw and container cases the port leaves
+    """The rest of the H.263 family (WMV1 and WMV2 in ASF and Matroska,
+    MS-MPEG-4 v2 and v3 as MP42, DIV3 and MP43, and H.263 under ZyGo, whose
+    I pictures FFmpeg reads a debug dump into), which cv2 writes and reads,
+    and the raw and container cases the port leaves
     (QuickTime 'raw ', which cv2 reads as no frame; BI_RGB; a negative
     height; a Matroska layout it does not know; a ``vpcC`` of full range; an
     MJPEG MOV of two fields) raise naming what they are and ROADMAP item 4,

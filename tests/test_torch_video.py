@@ -518,6 +518,17 @@ def _field_pictures(path):
     path.write_bytes(mf.patch_file(path.read_bytes(), field))
 
 
+def _flv_codec_id(path, codec):
+    """Every video tag of the FLV at ``path`` given the codec id ``codec``."""
+    data, pos = bytearray(path.read_bytes()), 13
+    while pos + 11 <= len(data):
+        size = int.from_bytes(data[pos + 1:pos + 4], "big")
+        if data[pos] == 9:
+            data[pos + 11] = data[pos + 11] & 0xF0 | codec
+        pos += 15 + size
+    path.write_bytes(bytes(data))
+
+
 def _case_file(tmp_path, case):
     """A file of a format or tool the port refused before, or still refuses."""
     cv2 = pytest.importorskip("cv2")
@@ -528,8 +539,8 @@ def _case_file(tmp_path, case):
                "wmv": ("clip.wmv", "WMV2"), "flv": ("clip.flv", "FLV1"),
                "mpeg_ps": ("clip.mpg", "MPG2"), "vp8_webm": ("clip.webm", "VP80"),
                "vp9_webm": ("clip.webm", "VP90"), "vp9_webm_read": ("clip.webm", "VP90")}
-    if case in written:
-        name, fourcc = written[case]
+    if case in written or case == "flv_vp6":  # VP6 in FLV: cv2's FLV1 tags say codec id 4
+        name, fourcc = written.get(case, written["flv"])
         path = tmp_path / name
         vw = cv2.VideoWriter(str(path), cv2.CAP_FFMPEG, cv2.VideoWriter_fourcc(*fourcc),
                              30.0, (48, 32))
@@ -541,6 +552,8 @@ def _case_file(tmp_path, case):
             _vp9_profile_1(path)
         if case == "mpeg_ps":  # MPEG-2 is read, but not field pictures: rewritten so
             _field_pictures(path)
+        if case == "flv_vp6":
+            _flv_codec_id(path, 4)
     elif case == "matroska":
         path.write_bytes(b"\x1a\x45\xdf\xa3" + bytes(60))
     elif case == "riff_wave":
@@ -559,15 +572,16 @@ def _case_file(tmp_path, case):
 
 
 REFUSALS = {"matroska": "Matroska", "riff_wave": "'WAVE'", "wmv": "ASF/WMV",
-            "flv": "an FLV", "mpeg_ps": "field picture", "vp9_webm": "VP9 video: profile 1",
+            "flv_vp6": "On2 VP6", "mpeg_ps": "field picture", "vp9_webm": "VP9 video: profile 1",
             "h263": "short_video_header"}
 
 
 @pytest.mark.parametrize("case", sorted(REFUSALS))
 def test_what_it_does_not_read_raises(tmp_path, case):
-    """Other containers and codecs (among them the WMV2 and FLV1 files
-    cv2's writer makes, its VP9 and MPEG-2 files rewritten to profile 1 and
-    to field pictures, and H.263 pictures) raise a ValueError
+    """Other containers and codecs (among them the WMV2 files cv2's writer
+    makes, its FLV1, VP9 and MPEG-2 files rewritten to VP6, profile 1 and
+    field pictures, and H.263 pictures in an MPEG-4 stream, of which cv2
+    reads no frame) raise a ValueError
     naming ROADMAP item 4 and what they are, from the readers the CLIs use."""
     path = str(_case_file(tmp_path, case))
     with pytest.raises(ValueError, match=f"(?s){REFUSALS[case]}.*item 4"):
@@ -577,7 +591,7 @@ def test_what_it_does_not_read_raises(tmp_path, case):
 
 
 FORMERLY_REFUSED = ["mp4", "mpeg4_avi", "interlaced", "interlaced_pair", "tiny_411", "vp8_webm",
-                    "vp9_webm_read"]
+                    "vp9_webm_read", "flv"]
 
 
 @pytest.mark.parametrize("case", FORMERLY_REFUSED)
@@ -585,8 +599,8 @@ def test_formerly_refused_files_match_the_jax_readers(tmp_path, case):
     """The files the port refused before: MPEG-4 in MP4 and in an FMP4 AVI,
     interlaced MJPEG of one field a packet (cv2 reads no frame, and neither
     does the port) and of two (woven), 4:1:1 at 24 wide (swscale's cut
-    chroma filter), and VP8 and VP9 in WebM: the port's readers equal the
-    JAX ones."""
+    chroma filter), VP8 and VP9 in WebM, and Sorenson H.263 in FLV: the
+    port's readers equal the JAX ones."""
     from v2e2v_tpu.data.manifests import VideoSequence as JaxSequence
     from v2e2v_tpu.data.video_readers import VideoReader as JaxReader
 

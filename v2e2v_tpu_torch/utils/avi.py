@@ -1,5 +1,5 @@
-"""A RIFF/AVI demuxer for MJPEG, MPEG-4 Part 2, MPEG-1/2, VP8, VP9, raw and
-PNG video, in plain Python.
+"""A RIFF/AVI demuxer for MJPEG, MPEG-4 Part 2, MPEG-1/2, VP8, VP9, H.263,
+Sorenson H.263, raw and PNG video, in plain Python.
 
 ``AviFile(path)`` reads what ``cv2.VideoCapture`` (through FFmpeg's
 ``libavformat/avidec.c``) reads of an AVI's first video stream:
@@ -27,7 +27,10 @@ writer also writes: plain JPEG frames, one a chunk), ``"mpeg4"`` (XVID,
 FMP4, DIVX, DX50, MP4V, MP4S, M4S2), ``"mpeg12"`` for MPEG-1/2 video
 (``mpg1`` and ``mpg2``, which cv2's ``PIM1`` and ``MPG2`` become in an AVI,
 ``PIM1`` and ``MPEG``), ``"vp8"`` (VP80), ``"vp9"`` (VP90), ``"png"``
-(MPNG, PNG1, ``png ``) and ``"raw"`` for the uncompressed layouts of
+(MPNG, PNG1, ``png ``), ``"h263"`` (H263, U263, X263, M263, T263, L263,
+VX1K, lsvm: FFmpeg's ``h263`` decoder; not ZyGo, whose I-pictures FFmpeg
+reads 759 bits into as a debug dump, and not I263, Intel's H.263), ``"flv"``
+(FLV1 and S263: Sorenson H.263) and ``"raw"`` for the uncompressed layouts of
 ``rawvideo.FORMATS`` (I420, IYUV, YV12, Y800, GREY, RGBA; ``raw_format``
 names the layout), matched as written, as ``rawdec.c`` matches them. An
 MPEG-4 stream's headers, and an MPEG-1/2 stream's sequence header, lead its
@@ -54,7 +57,10 @@ from .rawvideo import FORMATS
 CODEC_FOURCCS = {"mjpeg": (b"MJPG", b"AVI1", b"JPEG", b"CJPG", b"LJPG", b"JPGL", b"MJPA"),
                  "mpeg4": (b"XVID", b"FMP4", b"DIVX", b"DX50", b"MP4V", b"MP4S", b"M4S2"),
                  "mpeg12": (b"MPG1", b"MPG2", b"PIM1", b"MPEG"),
-                 "vp8": (b"VP80",), "vp9": (b"VP90",), "png": (b"MPNG", b"PNG1", b"PNG ")}
+                 "vp8": (b"VP80",), "vp9": (b"VP90",), "png": (b"MPNG", b"PNG1", b"PNG "),
+                 "h263": (b"H263", b"U263", b"X263", b"M263", b"T263", b"L263", b"VX1K",
+                          b"LSVM"),
+                 "flv": (b"FLV1", b"S263")}
 
 
 def codec_of(fourcc: bytes) -> str | None:
@@ -139,7 +145,8 @@ class AviFile:
         if self.codec is None:
             code = v.compression.decode("latin-1")
             raise _refuse(path, f"an AVI video stream of codec {code!r} (biCompression), "
-                          "not MJPEG, MPEG-4 Part 2, MPEG-1/2, VP8, VP9, raw or PNG")
+                          "not MJPEG, MPEG-4 Part 2, MPEG-1/2, VP8, VP9, H.263, Sorenson "
+                          "H.263, raw or PNG")
         self.raw_format = FORMATS.get(v.compression)
         if self.codec in ("raw", "png") and (v.width <= 0 or v.height <= 0):
             raise _refuse(path, f"a {self.codec} AVI stream of {v.width}x{v.height} "

@@ -1,5 +1,5 @@
 """A Matroska / WebM demuxer for VP8, VP9, MJPEG, MPEG-4 Part 2, MPEG-1/2,
-raw and PNG video, in plain Python.
+H.263, Sorenson H.263, raw and PNG video, in plain Python.
 
 ``MkvFile(path)`` reads what ``cv2.VideoCapture`` (through FFmpeg's
 ``libavformat/matroskadec.c``) reads of a file's video track:
@@ -35,11 +35,12 @@ whose ``CodecPrivate``, where there is one, holds a sequence header that
 the decoder reads before the first block, as FFmpeg reads its extradata),
 ``"raw"`` (``V_UNCOMPRESSED``: the ``Video`` element's ``ColourSpace``
 fourcc names the layout, ``raw_format``, one of ``rawvideo.FORMATS``; cv2
-writes it for I420, IYUV, YV12, Y800, GREY and RGBA) or ``"png"``
-(``V_MS/VFW/FOURCC``, whose ``CodecPrivate`` is a BITMAPINFOHEADER: its
-``biCompression`` picks the codec by the AVI table, ``avi.codec_of``; cv2
-writes PNG this way, MPNG, PNG1 or ``png ``, and the H.263 family, which
-the port refuses). ``bottom_field_first``: the track says
+writes it for I420, IYUV, YV12, Y800, GREY and RGBA), or ``"png"``,
+``"h263"`` or ``"flv"`` (``V_MS/VFW/FOURCC``, whose ``CodecPrivate`` is a
+BITMAPINFOHEADER: its ``biCompression`` picks the codec by the AVI table,
+``avi.codec_of``; cv2 writes PNG this way, MPNG, PNG1 or ``png ``, H.263 as
+H263 and Sorenson H.263 as FLV1; the rest of the H.263 family, WMV1, WMV2,
+MP42, DIV3 and MP43, is refused). ``bottom_field_first``: the track says
 ``FlagInterlaced`` 1 and ``FieldOrder`` 6 (bottom field first), which FFmpeg
 hands its MJPEG decoder as the fields' order.
 
@@ -83,7 +84,7 @@ CODECS = {"V_VP8": "vp8", "V_VP9": "vp9", "V_MJPEG": "mjpeg", "V_MPEG4/ISO/ASP":
           "V_MPEG4/ISO/SP": "mpeg4", "V_MPEG4/ISO/AP": "mpeg4", "V_MPEG1": "mpeg12",
           "V_MPEG2": "mpeg12", "V_UNCOMPRESSED": "raw", "V_MS/VFW/FOURCC": "vfw"}
 # the codecs a V_MS/VFW/FOURCC track's biCompression may name
-VFW_CODECS = ("png",)
+VFW_CODECS = ("png", "h263", "flv")
 NAMED = {"V_MPEG4/ISO/AVC": "H.264 (AVC)", "V_MPEGH/ISO/HEVC": "H.265 (HEVC)",
          "V_AV1": "AV1", "V_THEORA": "Theora"}
 # Colour's children and the values that leave FFmpeg's frames as they are:
@@ -93,7 +94,8 @@ NAMED = {"V_MPEG4/ISO/AVC": "H.264 (AVC)", "V_MPEGH/ISO/HEVC": "H.265 (HEVC)",
 # limited for the others)
 COLOUR_UNSPECIFIED = {0x55B1: 2, 0x55B7: 0, 0x55B8: 0, 0x55B9: 0, 0x55BA: 2, 0x55BB: 2}
 RANGE = 0x55B9
-CODEC_RANGE = {"vp8": 1, "vp9": 1, "mjpeg": 2, "mpeg4": 1, "mpeg12": 1, "raw": 1, "vfw": 2}
+CODEC_RANGE = {"vp8": 1, "vp9": 1, "mjpeg": 2, "mpeg4": 1, "mpeg12": 1, "raw": 1, "png": 2,
+               "h263": 1, "flv": 1}
 
 
 _refuse = refuse_video
@@ -343,19 +345,22 @@ class MkvFile:
             raise _refuse(self.path, f"{name} of StereoMode {t.stereo}")
         if t.crop:
             raise _refuse(self.path, f"{name} with PixelCrop values")
+        codec = CODECS[t.codec_id]
+        if t.codec_id == "V_MS/VFW/FOURCC":
+            tag = t.private[16:20]
+            codec = codec_of(tag) if len(t.private) >= 40 else None
+            if codec not in VFW_CODECS:
+                raise _refuse(self.path, f"{name} of codec {t.codec_id!r} whose CodecPrivate "
+                              f"(BITMAPINFOHEADER) names {tag.decode('latin-1')!r}, not PNG, "
+                              "H.263 or Sorenson H.263")
         specified = {k: v for k, v in t.colour.items() if v != COLOUR_UNSPECIFIED[k]
-                     and not (k == RANGE and v == CODEC_RANGE[CODECS[t.codec_id]])}
+                     and not (k == RANGE and v == CODEC_RANGE[codec])}
         if specified:
             raise _refuse(self.path, f"{name} with Colour values "
                           f"{ {f'0x{k:X}': v for k, v in specified.items()} }")
         if t.codec_id == "V_UNCOMPRESSED" and t.colour_space not in FORMATS:
             raise _refuse(self.path, f"{name} of raw video in the layout "
                           f"{t.colour_space.decode('latin-1')!r} (ColourSpace)")
-        if t.codec_id == "V_MS/VFW/FOURCC":
-            tag = t.private[16:20]
-            if len(t.private) < 40 or codec_of(tag) not in VFW_CODECS:
-                raise _refuse(self.path, f"{name} of codec {t.codec_id!r} whose CodecPrivate "
-                              f"(BITMAPINFOHEADER) names {tag.decode('latin-1')!r}, not PNG")
         if t.number is None:
             raise _corrupt(self.path, "a video track without TrackNumber")
         if not t.default_duration:

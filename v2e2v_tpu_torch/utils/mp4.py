@@ -1,5 +1,6 @@
 """An ISO base media (MP4, M4V) and QuickTime (MOV) demuxer for MPEG-4
-Part 2, MPEG-1/2, MJPEG, VP9, raw RGBA and PNG video, in plain Python.
+Part 2, MPEG-1/2, MJPEG, VP9, H.263, Sorenson H.263, raw RGBA and PNG video,
+in plain Python.
 
 ``Mp4File(path)`` reads what ``cv2.VideoCapture`` (through FFmpeg's
 ``libavformat/mov.c``) reads of a file's video track:
@@ -17,13 +18,15 @@ Part 2, MPEG-1/2, MJPEG, VP9, raw RGBA and PNG video, in plain Python.
   0x6D, PNG, which cv2 writes into an MP4 when asked for MJPG or MPNG;
   QuickTime's ``jpeg`` and ``mjpa`` (MJPEG), ``XVID`` and ``DIVX`` (MPEG-4
   Part 2 with no ``esds``: the VOL headers are the ``glbl`` box, or lead
-  the first sample), ``png `` and ``RGBA`` (raw, top-down R, G, B, A);
+  the first sample), ``png `` and ``RGBA`` (raw, top-down R, G, B, A); ``h263``, ``s263`` and
+  ``H263`` (H.263, which cv2 writes into a MOV as ``h263``) and ``FLV1``
+  (Sorenson H.263, which ``mov.c`` finds in the AVI table);
   ``vp09`` (VP9) whose ``vpcC`` says what cv2's muxer writes: 8 bits,
   4:2:0, limited range, colour unspecified (the decoder takes range and
   colour space from the key frames)), ``stts``, ``stsc``, ``stsz``, and
   ``stco`` or ``co64``. ``codec`` is ``"mpeg4"``, ``"mpeg12"``,
-  ``"mjpeg"``, ``"vp9"``, ``"raw"`` (``raw_format`` ``"rgba"``) or
-  ``"png"``; ``width`` and ``height`` are the sample entry's.
+  ``"mjpeg"``, ``"vp9"``, ``"raw"`` (``raw_format`` ``"rgba"``), ``"png"``,
+  ``"h263"`` or ``"flv"``; ``width`` and ``height`` are the sample entry's.
 
 ``fps`` is the track's timescale times its sample count over the sum of the
 ``stts`` durations, and ``frame_count`` the sample count: what cv2 reports as
@@ -59,7 +62,8 @@ OBJECT_CODECS = {0x6C: "mjpeg", 0x6D: "png"}
 # sample entries without an esds, by codec (mov.c: ff_codec_movvideo_tags);
 # RGBA is raw: FFmpeg's rawvideo decoder reads its layout from the tag
 ENTRIES = {b"jpeg": "mjpeg", b"mjpa": "mjpeg", b"XVID": "mpeg4", b"DIVX": "mpeg4",
-           b"vp09": "vp9", b"png ": "png", b"RGBA": "raw"}
+           b"vp09": "vp9", b"png ": "png", b"RGBA": "raw", b"h263": "h263", b"s263": "h263",
+           b"H263": "h263", b"FLV1": "flv"}
 # vpcC's fields after version and flags that cv2's muxer writes: bit depth
 # 8, 4:2:0 (0 or 1) and limited range, primaries, transfer and matrix 2
 VPCC_DEPTH, VPCC_UNSPECIFIED = 8, (2, 2, 2)

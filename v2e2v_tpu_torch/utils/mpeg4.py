@@ -249,6 +249,35 @@ class Bits:
         return 0x100 | data[k + 3]
 
 
+def read_vlc(bits: Bits, table, n: int, where: str, what: str) -> int:
+    """The symbol of the ``n``-bit lookup ``table`` (``_vlc``) at the reader."""
+    e = table[bits.peek(n)]
+    if e is None:
+        raise _corrupt(where, f"an invalid {what} code at bit {bits.pos}")
+    bits.pos += e[1]
+    return e[0]
+
+
+def read_motion(bits: Bits, pred: int, fcode: int, where: str) -> int:
+    """``ff_h263_decode_motion`` (MPEG-4's and H.263's): the MVD's VLC, its
+    residual bits, the predictor added and the sum wrapped to 5 + f_code
+    bits (H.263's f_code 1: [-16, 15.5] pixels)."""
+    code = read_vlc(bits, _MVD, 12, where, "MVD")
+    if code == 0:
+        return pred
+    sign = bits.read(1)
+    shift = fcode - 1
+    val = code
+    if shift:
+        val = ((val - 1) << shift | bits.read(shift)) + 1
+    if sign:
+        val = -val
+    val += pred
+    n = 5 + fcode
+    val &= (1 << n) - 1
+    return val - (1 << n) if val >> (n - 1) else val
+
+
 class Vol:
     """The VOL header's fields that the decoder uses."""
 
@@ -567,31 +596,10 @@ class _VopDecoder:
     # ---------------------------------------------------------- parsing
 
     def _vlc(self, table, n: int, what: str) -> int:
-        bits = self.bits
-        e = table[bits.peek(n)]
-        if e is None:
-            raise _corrupt(self.where, f"an invalid {what} code at bit {bits.pos}")
-        bits.pos += e[1]
-        return e[0]
+        return read_vlc(self.bits, table, n, self.where, what)
 
     def _motion(self, pred: int, fcode: int) -> int:
-        """``ff_h263_decode_motion``: the MVD's VLC, its residual bits, the
-        predictor added and the sum wrapped to 5 + f_code bits."""
-        code = self._vlc(_MVD, 12, "MVD")
-        if code == 0:
-            return pred
-        bits = self.bits
-        sign = bits.read(1)
-        shift = fcode - 1
-        val = code
-        if shift:
-            val = ((val - 1) << shift | bits.read(shift)) + 1
-        if sign:
-            val = -val
-        val += pred
-        n = 5 + fcode
-        val &= (1 << n) - 1
-        return val - (1 << n) if val >> (n - 1) else val
+        return read_motion(self.bits, pred, fcode, self.where)
 
     @staticmethod
     def _clean(dc, ac, mbx, mby, lw, cwid, zero_ac) -> None:
@@ -741,74 +749,88 @@ class _VopDecoder:
 
     def reconstruct(self) -> Picture:
         """The parsed VOP's picture at the macroblock grid's size."""
-        intra_blocks, inter_blocks = self.intra_blocks, self.inter_blocks
-        mbw, mbh = self.mbw, self.mbh
-        y = np.zeros((mbh * 16, mbw * 16), np.uint8)
-        cb = np.zeros((mbh * 8, mbw * 8), np.uint8)
-        cr = np.zeros((mbh * 8, mbw * 8), np.uint8)
-        planes = (y, cb, cr)
-        if self.hdr["kind"] == P_VOP:
-            self._predict(planes)
-        if inter_blocks:
-            coef = np.zeros((len(inter_blocks), 64), np.int64)
-            for j, (_mb, _n, cs) in enumerate(inter_blocks):
-                for pos, lv in cs:
-                    coef[j, pos] = lv
-            pred = np.stack([self._block_view(planes, mb, n) for mb, n, _ in inter_blocks])
-            px = idct_simple_add(coef, pred.reshape(-1, 64), self.where).reshape(-1, 8, 8)
-            for j, (mb, n, _) in enumerate(inter_blocks):
-                self._block_view(planes, mb, n)[...] = px[j]
-        if intra_blocks:
-            coef = np.array([lv for _, _, lv, _ in intra_blocks], np.int64)
-            q = np.array([qs for _, _, _, qs in intra_blocks], np.int64)[:, None]
-            is_luma = np.array([n < 4 for _, n, _, _ in intra_blocks])
-            scale = np.where(is_luma, np.take(Y_DC_SCALE, q[:, 0]), np.take(C_DC_SCALE, q[:, 0]))
-            deq = np.where(coef > 0, coef * 2 * q + ((q - 1) | 1),
-                           np.where(coef < 0, coef * 2 * q - ((q - 1) | 1), 0))
-            deq[:, 0] = coef[:, 0] * scale
-            if np.abs(deq).max(initial=0) > 0x7FFF:
-                raise _refuse(self.where, "dequantised coefficients outside 16 bits")
-            px = idct_simple(deq, self.where).reshape(-1, 8, 8)
-            for j, (mb, n, _, _) in enumerate(intra_blocks):
-                self._block_view(planes, mb, n)[...] = px[j]
-        return Picture(y, cb, cr)
+        ref = self.dec.ref if self.hdr["kind"] == P_VOP else None
+        return reconstruct(ref, self.mbw, self.mbh, self.kinds, self.mv_list, self.intra_blocks,
+                           self.inter_blocks, self.hdr["rounding"], self.where)
 
-    def _block_view(self, planes, mb: int, n: int) -> np.ndarray:
-        mby, mbx = divmod(mb, self.mbw)
-        if n < 4:
-            r, c = 16 * mby + 8 * (n >> 1), 16 * mbx + 8 * (n & 1)
-            return planes[0][r:r + 8, c:c + 8]
-        return planes[n - 3][8 * mby:8 * mby + 8, 8 * mbx:8 * mbx + 8]
 
-    def _predict(self, planes) -> None:
-        """Motion compensation of every inter and skipped MB from the
-        reference picture (``mpeg_motion_internal`` with ``put_pixels`` or,
-        under ``vop_rounding_type`` 1, ``put_no_rnd_pixels``)."""
-        ref = self.dec.ref
-        mbw = self.mbw
-        sel = [mb for mb, k in enumerate(self.kinds) if k < 2]
-        if not sel:
-            return
-        mb = np.array(sel)
-        mby, mbx = np.divmod(mb, mbw)
-        mv = np.array([self.mv_list[m] for m in sel], np.int64).reshape(-1, 2)
-        mx, my = mv[:, 0], mv[:, 1]
-        src_x = 16 * mbx + (mx >> 1)
-        src_y = 16 * mby + (my >> 1)
-        rnd = self.hdr["rounding"]
-        luma = _mc(ref.y, src_x, src_y, mx & 1, my & 1, 16, rnd)
-        # H.263's chroma vector: half-pel wherever the luma one is not a
-        # whole even number of pixels, the source at half the luma one's
-        hx, hy = ((mx & 3) != 0).astype(np.int64), ((my & 3) != 0).astype(np.int64)
-        ucb = _mc(ref.cb, src_x >> 1, src_y >> 1, hx, hy, 8, rnd)
-        ucr = _mc(ref.cr, src_x >> 1, src_y >> 1, hx, hy, 8, rnd)
-        y, cb, cr = planes
-        yv = y.reshape(self.mbh, 16, mbw, 16).transpose(0, 2, 1, 3)
-        yv[mby, mbx] = luma
-        cbv = cb.reshape(self.mbh, 8, mbw, 8).transpose(0, 2, 1, 3)
-        crv = cr.reshape(self.mbh, 8, mbw, 8).transpose(0, 2, 1, 3)
-        cbv[mby, mbx] = ucb
-        crv[mby, mbx] = ucr
+def reconstruct(ref: Picture | None, mbw: int, mbh: int, kinds, mv_list, intra_blocks,
+                inter_blocks, rounding: int, where: str,
+                dc_scales=(Y_DC_SCALE, C_DC_SCALE)) -> Picture:
+    """A parsed picture's macroblocks -> its picture at the grid's size, as
+    ``ff_mpv_reconstruct_mb`` builds it (shared with ``h263.py``): every
+    non-intra MB (``kinds`` 0 skipped, 1 inter) predicted from ``ref`` by
+    its vector in ``mv_list`` (none without ``ref``: an I picture), the
+    inter residuals (``[(raster position, dequantised level)]`` per coded
+    block) added through ``idct_simple_add``, and the intra blocks (raster
+    levels and QP) dequantised as ``dct_unquantize_h263_intra`` does, the
+    DC by ``dc_scales[luma or chroma][QP]``, then put by ``idct_simple``."""
+    y = np.zeros((mbh * 16, mbw * 16), np.uint8)
+    cb = np.zeros((mbh * 8, mbw * 8), np.uint8)
+    cr = np.zeros((mbh * 8, mbw * 8), np.uint8)
+    planes = (y, cb, cr)
+    if ref is not None:
+        _predict(ref, planes, mbw, mbh, kinds, mv_list, rounding)
+    if inter_blocks:
+        coef = np.zeros((len(inter_blocks), 64), np.int64)
+        for j, (_mb, _n, cs) in enumerate(inter_blocks):
+            for pos, lv in cs:
+                coef[j, pos] = lv
+        pred = np.stack([_block_view(planes, mbw, mb, n) for mb, n, _ in inter_blocks])
+        px = idct_simple_add(coef, pred.reshape(-1, 64), where).reshape(-1, 8, 8)
+        for j, (mb, n, _) in enumerate(inter_blocks):
+            _block_view(planes, mbw, mb, n)[...] = px[j]
+    if intra_blocks:
+        coef = np.array([lv for _, _, lv, _ in intra_blocks], np.int64)
+        q = np.array([qs for _, _, _, qs in intra_blocks], np.int64)[:, None]
+        is_luma = np.array([n < 4 for _, n, _, _ in intra_blocks])
+        scale = np.where(is_luma, np.take(dc_scales[0], q[:, 0]), np.take(dc_scales[1], q[:, 0]))
+        deq = np.where(coef > 0, coef * 2 * q + ((q - 1) | 1),
+                       np.where(coef < 0, coef * 2 * q - ((q - 1) | 1), 0))
+        deq[:, 0] = coef[:, 0] * scale
+        if np.abs(deq).max(initial=0) > 0x7FFF:
+            raise ValueError(f"{where}: dequantised coefficients outside 16 bits, which the "
+                             f"port's decoder does not read ({ROADMAP})")
+        px = idct_simple(deq, where).reshape(-1, 8, 8)
+        for j, (mb, n, _, _) in enumerate(intra_blocks):
+            _block_view(planes, mbw, mb, n)[...] = px[j]
+    return Picture(y, cb, cr)
+
+
+def _block_view(planes, mbw: int, mb: int, n: int) -> np.ndarray:
+    mby, mbx = divmod(mb, mbw)
+    if n < 4:
+        r, c = 16 * mby + 8 * (n >> 1), 16 * mbx + 8 * (n & 1)
+        return planes[0][r:r + 8, c:c + 8]
+    return planes[n - 3][8 * mby:8 * mby + 8, 8 * mbx:8 * mbx + 8]
+
+
+def _predict(ref: Picture, planes, mbw: int, mbh: int, kinds, mv_list, rounding: int) -> None:
+    """Motion compensation of every inter and skipped MB from the
+    reference picture (``mpeg_motion_internal`` with ``put_pixels`` or,
+    under ``vop_rounding_type`` 1, ``put_no_rnd_pixels``)."""
+    sel = [mb for mb, k in enumerate(kinds) if k < 2]
+    if not sel:
+        return
+    mb = np.array(sel)
+    mby, mbx = np.divmod(mb, mbw)
+    mv = np.array([mv_list[m] for m in sel], np.int64).reshape(-1, 2)
+    mx, my = mv[:, 0], mv[:, 1]
+    src_x = 16 * mbx + (mx >> 1)
+    src_y = 16 * mby + (my >> 1)
+    luma = _mc(ref.y, src_x, src_y, mx & 1, my & 1, 16, rounding)
+    # H.263's chroma vector: half-pel wherever the luma one is not a
+    # whole even number of pixels, the source at half the luma one's
+    hx, hy = ((mx & 3) != 0).astype(np.int64), ((my & 3) != 0).astype(np.int64)
+    ucb = _mc(ref.cb, src_x >> 1, src_y >> 1, hx, hy, 8, rounding)
+    ucr = _mc(ref.cr, src_x >> 1, src_y >> 1, hx, hy, 8, rounding)
+    y, cb, cr = planes
+    yv = y.reshape(mbh, 16, mbw, 16).transpose(0, 2, 1, 3)
+    yv[mby, mbx] = luma
+    cbv = cb.reshape(mbh, 8, mbw, 8).transpose(0, 2, 1, 3)
+    crv = cr.reshape(mbh, 8, mbw, 8).transpose(0, 2, 1, 3)
+    cbv[mby, mbx] = ucb
+    crv[mby, mbx] = ucr
 
 
 def _rounded_div(a: int, b: int) -> int:

@@ -45,6 +45,14 @@ container by the file's first bytes and the codec by its fourcc:
   program or transport stream's ``frame_count`` is FFmpeg's estimate from
   its time stamps, which may fall short of the frames (``mpegps.py``), as
   cv2 reports it;
+- H.263 (``codec`` ``"h263"``) in AVI (H263, U263, X263, M263, T263, L263,
+  VX1K, lsvm), MOV (``h263``, ``s263``, ``H263``) and Matroska
+  (``V_MS/VFW/FOURCC`` carrying H263), and Sorenson H.263 (``"flv"``) in FLV
+  files (``utils/flv.py``: codec id 2), AVI (FLV1, S263), MOV (``FLV1``)
+  and Matroska (FLV1): ``utils/h263.py`` decodes each picture as FFmpeg's
+  ``h263`` / ``flv`` decoders do, and ``yuv.yuv420p_to_bgr`` converts its
+  limited-range planes with centred chroma (probed on FLV pictures of odd
+  sizes; H.263's five sizes are even, which the unscaled converter takes);
 - the same decoders under the other tags and containers cv2 writes them
   into: MJPEG in AVI as CJPG, LJPG, JPGL or mjpa, in MOV as ``jpeg`` or
   ``mjpa`` and in MP4 as ``mp4v`` of object type 0x6C; MPEG-4 Part 2 in AVI
@@ -76,11 +84,12 @@ where FFmpeg takes the stream as bottom field first (an AVI whose
 6), else the first on the even rows; a packet of one field gives no frame.
 The woven planes are then converted at the full height.
 
-Other containers (ASF/WMV, FLV, raw MPEG video elementary streams, ...)
-and codecs (H.264, HEVC, AV1, the H.263 family, VP9 of profiles 1-3,
-interlaced MPEG-2 field pictures, 16-bit PNG, other raw layouts, ...) and other sampling factors raise a ValueError naming
-ROADMAP.md queue 1, item 4; every such refusal of a file says what the port
-reads (``imgcodecs.VIDEO_READS``).
+Other containers (ASF/WMV, raw MPEG video elementary streams, ...) and
+codecs (H.264, HEVC, AV1, H.263+, MS-MPEG-4 v1-v3, WMV1, WMV2, VP6 and the
+other FLV codecs, VP9 of profiles 1-3, interlaced MPEG-2 field pictures,
+16-bit PNG, other raw layouts, ...) and other sampling factors raise a
+ValueError naming ROADMAP.md queue 1, item 4; every such refusal of a file
+says what the port reads (``imgcodecs.VIDEO_READS``).
 """
 
 from __future__ import annotations
@@ -88,6 +97,8 @@ from __future__ import annotations
 import numpy as np
 
 from .avi import AviFile
+from .flv import FlvFile, is_flv
+from .h263 import H263Decoder
 from .imgcodecs import ROADMAP, refuse_video
 from .jpeg import MjpegFrame, decode_mjpeg_frame, mjpeg_planes, read_mjpeg_frame
 from .mkv import MkvFile, is_mkv
@@ -133,6 +144,9 @@ class VideoFile:
         elif is_transport_stream(head):
             self.container = TransportStream(path)
             self.codec = "mpeg12"
+        elif is_flv(head):
+            self.container = FlvFile(path)
+            self.codec = self.container.codec
         else:
             self.container = self.avi = AviFile(path)
             self.codec = self.avi.codec
@@ -157,8 +171,8 @@ class VideoFile:
                                f"MPEG-1/2 sequence header") from e
 
     def packets(self):
-        """The container's packets: AVI chunks, MP4 samples or Matroska
-        blocks."""
+        """The container's packets: AVI chunks, MP4 samples, Matroska blocks,
+        PES payloads or FLV video tags."""
         return self.container.frames()
 
     def decode(self, data: bytes, index: int, tables=None):
@@ -217,8 +231,8 @@ class VideoFile:
         return MjpegFrame(planes, one.factors, two.tables), two.tables
 
     def planes(self):
-        """Each MPEG-4, MPEG-1/2, VP8 or VP9 frame's (Y, Cb, Cr) planes, as
-        FFmpeg decodes them."""
+        """Each MPEG-4, MPEG-1/2, VP8, VP9, H.263 or Sorenson H.263 frame's
+        (Y, Cb, Cr) planes, as FFmpeg decodes them."""
         if self.codec in ("mpeg1", "mpeg2"):
             self.decoder = decoder = Mpeg12Decoder(self.path)
             decoder.syntax_log = self.syntax_log
@@ -229,8 +243,12 @@ class VideoFile:
                 yield from decoder.decode(data)
             yield from decoder.flush()
             return
-        if self.codec in ("vp8", "vp9"):
-            self.decoder = decoder = (Vp8Decoder if self.codec == "vp8" else Vp9Decoder)(self.path)
+        if self.codec in ("vp8", "vp9", "h263", "flv"):
+            if self.codec in ("h263", "flv"):
+                self.decoder = decoder = H263Decoder(self.codec, self.path)
+            else:
+                self.decoder = decoder = (Vp8Decoder if self.codec == "vp8" else
+                                          Vp9Decoder)(self.path)
             for data in self.packets():
                 yield from decoder.decode(data)
             return
@@ -247,8 +265,8 @@ class VideoFile:
                              f"{c.height}x{c.width} track, which cv2 scales ({ROADMAP})")
 
     def bgr(self):
-        """Each MPEG-4, MPEG-1/2, VP8, VP9, raw or PNG frame as cv2 converts
-        it to BGR, unturned."""
+        """Each MPEG-4, MPEG-1/2, VP8, VP9, H.263, Sorenson H.263, raw or PNG
+        frame as cv2 converts it to BGR, unturned."""
         if self.codec in ("raw", "png"):
             c = self.container
             for i, data in enumerate(self.packets()):
@@ -262,7 +280,8 @@ class VideoFile:
                         return
                 yield bgr
             return
-        h_pos = VP8_H_POS if self.codec in ("vp8", "vp9", "mpeg1") else MPEG4_H_POS
+        centred = ("vp8", "vp9", "mpeg1", "h263", "flv")
+        h_pos = VP8_H_POS if self.codec in centred else MPEG4_H_POS
         for i, (y, cb, cr) in enumerate(self.planes()):
             self.check_size(y.shape, i)
             full = self.codec in ("vp8", "vp9") and self.decoder.full_range
