@@ -420,10 +420,30 @@ Phases, one line each (any failure exits non-zero before the last line):
    (demux, header and macroblock symbols, dequantisation + IDCT + motion
    compensation, conversion, resize), I- and P-pictures apart, of the
    flagship FLV and of a 704x576 H.263 AVI of random macroblocks written at
-   run time; (c) the V2E2V CLI with ``--reader_type video`` over the
-   flagship FLV against its PNG twin, as phase 21 (b);
+   run time, over three passes of a fresh decoder (the median and range of
+   every picture's times, and the I-pictures' symbol ms pass by pass with
+   the full garbage collections and the ms of collections that ran in
+   each); (c) the V2E2V CLI with
+   ``--reader_type video`` over the flagship FLV against its PNG twin, as
+   phase 21 (b);
+30. ASF files and the MS-MPEG-4 family (``utils/asf.py``,
+   ``utils/msmpeg4.py``, ``utils/wmv2.py``, the family's tags in
+   ``avi.py``, ``mkv.py`` and ``mp4.py``, ROADMAP item 4.2 d, second half):
+   (a) every clip under ``tests/data/wmv`` (``scripts/make_wmv_fixtures.py``:
+   the 12-frame 960x720 WMV2 flagship ``.wmv``, WMV1, WMV2, MS-MPEG-4 v2
+   and v3 under every tag cv2 writes in ASF, AVI, Matroska and MOV, MPEG-4
+   Part 2, Sorenson H.263 and MJPEG in ASF, the ASF rate and count sweep,
+   second I-pictures, noise, flat content, 4CIF, odd sizes, and cv2's
+   streams re-coded under the tables, slices, skip maps, vector predictors
+   and mspel its writer never uses) read by the port's ``VideoReader`` and
+   ``VideoSequence`` against the JAX readers' records, the flagship decoded
+   once; (b) the host ms per 960x720 frame of each stage (as phase 29 (b),
+   three passes), I- and P-pictures apart, of the WMV2 flagship and of the
+   fixtures' 6-frame MS-MPEG-4 v3 AVI at that size; (c) the V2E2V CLI with
+   ``--reader_type video`` over the flagship ``.wmv`` against its PNG twin,
+   as phase 21 (b);
 14. a ``{"kernels": [...]}`` JSON line (each row's launches on the paths of
-   phases 10-13 and 15-29, every count set to 0 just before each path: K1,
+   phases 10-13 and 15-30, every count set to 0 just before each path: K1,
    K2, K4 and the scale kernel counted by dtype, K3 by shot mode; the rows
    of K4 and the scale kernel hold their times per pool step, the 15 calls
    of one step summed), then the last line
@@ -4765,44 +4785,89 @@ def rawvideo_phase(seed: int, smi: str, root: Path, v2e2v_model: Path) -> dict:
 H263_FIXTURES = Path(__file__).resolve().parent / "tests" / "data" / "h263"
 H263_STAGES = ("demux", "syntax", "dequant_idct_mc", "convert", "resize")
 H263_TIMING = (576, 704, 12)  # phase 29 (b)'s H.263 clip: height, width, pictures
+STAGE_PASSES = 3  # phases 29 (b) and 30 (b): passes of a fresh decoder over each clip
 
 
-def h263_stages(path: Path) -> tuple[dict[str, dict[str, list[float]]], list]:
-    """Host ms per frame of each stage of an H.263 or Sorenson H.263 clip's
-    read, I- and P-pictures apart, over one pass of ``path``: demux (the
+def decode_stages(path: Path, make_decoder, passes: int = STAGE_PASSES):
+    """Host ms per frame of each stage of a clip's read (``H263_STAGES``),
+    I- and P-pictures apart, over ``passes`` passes, each with the container
+    opened anew and a fresh decoder from ``make_decoder(video)``: demux (the
     container's headers and packets, per frame), the picture header and
-    macroblock symbols (``H263Decoder.parse``), dequantisation + IDCT +
+    macroblock symbols (the decoder's ``parse``), dequantisation + IDCT +
     motion compensation (``reconstruct``), YUV -> BGR -> gray, the reader's
-    resize to a quarter. Returns them and the BGR frames."""
+    resize to a quarter. Returns the stages (every pass's samples), each
+    I-picture's symbol ms as (pass, ms, full garbage collections during it,
+    ms spent in collections of any generation during it), and the first
+    pass's BGR frames."""
+    import gc
+
     from v2e2v_tpu_torch.utils import yuv
-    from v2e2v_tpu_torch.utils.h263 import I_PICTURE, H263Decoder
     from v2e2v_tpu_torch.utils.image_io import resize_linear_u8
     from v2e2v_tpu_torch.utils.video import VideoFile
 
     ms = {kind: {k: [] for k in H263_STAGES} for kind in ("I", "P")}
-    t0 = time.perf_counter()
-    video = VideoFile(str(path))
-    packets = list(video.packets())
-    demux = 1e3 * (time.perf_counter() - t0) / len(packets)
-    dec = H263Decoder(video.codec, str(path))
-    frames = []
-    for data in packets:
-        t = [time.perf_counter()]
-        pic = dec.parse(data)
-        t.append(time.perf_counter())
-        planes = dec.reconstruct(pic)
-        t.append(time.perf_counter())
-        bgr = yuv.yuv420p_to_bgr(*planes, str(path), yuv.VP8_H_POS)
-        gray = yuv.bgr_to_gray(bgr)
-        t.append(time.perf_counter())
-        resize_linear_u8(gray, (gray.shape[1] // 4, gray.shape[0] // 4))
-        t.append(time.perf_counter())
-        kind = ms["I" if pic.hdr.kind == I_PICTURE else "P"]
-        kind["demux"].append(demux)
-        for k, a, b in zip(H263_STAGES[1:], t, t[1:]):
-            kind[k].append(1e3 * (b - a))
-        frames.append(bgr)
-    return ms, frames
+    gc_state, by_pass, frames = {"full": 0, "ms": 0.0, "t": 0.0}, [], []
+
+    def count(phase, info):
+        if phase == "start":
+            gc_state["full"] += info["generation"] == 2
+            gc_state["t"] = time.perf_counter()
+        else:
+            gc_state["ms"] += 1e3 * (time.perf_counter() - gc_state["t"])
+
+    gc.callbacks.append(count)
+    try:
+        for n in range(passes):
+            t0 = time.perf_counter()
+            video = VideoFile(str(path))
+            packets = list(video.packets())
+            demux = 1e3 * (time.perf_counter() - t0) / len(packets)
+            dec = make_decoder(video)
+            for data in packets:
+                before = dict(gc_state)
+                t = [time.perf_counter()]
+                pic = dec.parse(data)
+                t.append(time.perf_counter())
+                if pic is None:  # a picture that gives no frame
+                    continue
+                planes = dec.reconstruct(pic)
+                t.append(time.perf_counter())
+                bgr = yuv.yuv420p_to_bgr(*planes, str(path), yuv.VP8_H_POS)
+                gray = yuv.bgr_to_gray(bgr)
+                t.append(time.perf_counter())
+                resize_linear_u8(gray, (gray.shape[1] // 4, gray.shape[0] // 4))
+                t.append(time.perf_counter())
+                kind = "I" if pic.hdr.kind == 0 else "P"
+                ms[kind]["demux"].append(demux)
+                for k, a, b in zip(H263_STAGES[1:], t, t[1:]):
+                    ms[kind][k].append(1e3 * (b - a))
+                if kind == "I":
+                    by_pass.append((n, 1e3 * (t[1] - t[0]), gc_state["full"] - before["full"],
+                                    gc_state["ms"] - before["ms"]))
+                if n == 0:
+                    frames.append(bgr)
+    finally:
+        gc.callbacks.remove(count)
+    return ms, by_pass, frames
+
+
+def report_stages(label: str, smi: str, stages, by_pass, size: str) -> None:
+    """The lines of ``decode_stages``' times: per picture kind the median
+    (min-max) of every pass's samples, then the I-pictures' symbol ms pass
+    by pass."""
+    for kind, st in stages.items():
+        if not st["syntax"]:
+            fail(f"the {label} holds no {kind}-picture")
+        per = {k: (float(np.median(v)), min(v), max(v)) for k, v in st.items()}
+        total = sum(m for m, _, _ in per.values())
+        say(f"[time] {label} read on the card's host ({smi}), host ms per {size} "
+            f"{kind}-picture, median (min-max) of {len(st['syntax'])} over {STAGE_PASSES} "
+            "passes: "
+            + ", ".join(f"{k} {m:.3f} ({lo:.3f}-{hi:.3f})" for k, (m, lo, hi) in per.items())
+            + f"; sum of medians {total:.3f} ms")
+    say(f"[time] {label}: I-picture symbols (parse) by pass, ms (full garbage collections "
+        "during it; ms in collections of any generation): "
+        + ", ".join(f"pass {n + 1} {v:.3f} ({c}; {g:.3f})" for n, v, c, g in by_pass))
 
 
 def h263_phase(seed: int, smi: str, root: Path, v2e2v_model: Path) -> dict:
@@ -4810,12 +4875,14 @@ def h263_phase(seed: int, smi: str, root: Path, v2e2v_model: Path) -> dict:
     half). (a) every clip under ``tests/data/h263`` read by the port's
     ``VideoReader`` and ``VideoSequence`` against the JAX readers' records,
     the flagship FLV decoded once; (b) the host ms per frame of each stage,
-    I- and P-pictures apart, of the 960x720 flagship FLV and of a 704x576
+    I- and P-pictures apart, over three passes of a fresh decoder, of the
+    960x720 flagship FLV and of a 704x576
     H.263 AVI of random macroblocks written here with the fixture script's
     ``random_picture`` (12 pictures, GOB headers every other GOB; timed
     only); (c) the V2E2V CLI with ``--reader_type video`` over the flagship
     FLV (read as 180x240, decoded anew) against its PNG twin, as phase 21
     (b). Returns (c)'s launches by row."""
+    from v2e2v_tpu_torch.utils.h263 import H263Decoder
     from v2e2v_tpu_torch.utils.video import VideoFile
 
     t_phase = time.perf_counter()
@@ -4834,18 +4901,9 @@ def h263_phase(seed: int, smi: str, root: Path, v2e2v_model: Path) -> dict:
         f"{sum(map(len, pictures))} bytes, written in {time.perf_counter() - t0:.3f} s")
     frames = None
     for label, path in (("Sorenson H.263 flagship FLV", flagship), ("H.263 AVI", timing)):
-        stages, bgr = h263_stages(path)
+        stages, by_pass, bgr = decode_stages(path, lambda v: H263Decoder(v.codec, v.path))
         frames = bgr if path == flagship else frames
-        size = f"{bgr[0].shape[1]}x{bgr[0].shape[0]}"
-        for kind, st in stages.items():
-            if not st["syntax"]:
-                fail(f"the {label} holds no {kind}-picture")
-            per = {k: (float(np.median(v)), min(v), max(v)) for k, v in st.items()}
-            total = sum(m for m, _, _ in per.values())
-            say(f"[time] {label} read on the card's host ({smi}), host ms per {size} "
-                f"{kind}-picture, median (min-max) of {len(st['syntax'])}: "
-                + ", ".join(f"{k} {m:.3f} ({lo:.3f}-{hi:.3f})" for k, (m, lo, hi) in per.items())
-                + f"; sum of medians {total:.3f} ms")
+        report_stages(label, smi, stages, by_pass, f"{bgr[0].shape[1]}x{bgr[0].shape[0]}")
     decode = VideoFile.bgr
 
     def bgr(self):
@@ -4866,6 +4924,58 @@ def h263_phase(seed: int, smi: str, root: Path, v2e2v_model: Path) -> dict:
                                   "h263")
     say(f"[phase] H.263 and Sorenson H.263 video {time.perf_counter() - t_phase:.1f} s")
     return {"v2e2v_cli_h263_launches": rows}
+
+
+WMV_FIXTURES = Path(__file__).resolve().parent / "tests" / "data" / "wmv"
+WMV_TIMING = WMV_FIXTURES / "timing" / "mp43_960x720.avi"  # phase 30 (b)'s v3 clip
+
+
+def wmv_phase(seed: int, smi: str, root: Path, v2e2v_model: Path) -> dict:
+    """Phase 30: ASF files and the MS-MPEG-4 family (ROADMAP item 4.2 d,
+    second half). (a) every clip under ``tests/data/wmv`` read by the port's
+    ``VideoReader`` and ``VideoSequence`` against the JAX readers' records,
+    the flagship ``.wmv`` decoded once; (b) the host ms per frame of each
+    stage, I- and P-pictures apart, over three passes of a fresh decoder, of
+    the 960x720 WMV2 flagship and the fixtures' 960x720 MS-MPEG-4 v3 AVI;
+    (c) the V2E2V CLI with ``--reader_type video`` over the flagship (read
+    as 180x240, decoded anew) against its PNG twin, as phase 21 (b). Returns
+    (c)'s launches by row."""
+    from v2e2v_tpu_torch.utils.msmpeg4 import MsMpeg4Decoder
+    from v2e2v_tpu_torch.utils.video import VideoFile
+    from v2e2v_tpu_torch.utils.wmv2 import Wmv2Decoder
+
+    def decoder(video):
+        c = video.container
+        if video.codec == "wmv2":
+            return Wmv2Decoder(c.width, c.height, c.extradata, video.path)
+        return MsMpeg4Decoder(video.codec, c.width, c.height, c.extradata, video.path)
+
+    t_phase = time.perf_counter()
+    root.mkdir(parents=True)
+    flagship = WMV_FIXTURES / "flagship.wmv"
+    frames = None
+    for label, path in (("WMV2 flagship ASF", flagship), ("MS-MPEG-4 v3 AVI", WMV_TIMING)):
+        stages, by_pass, bgr = decode_stages(path, decoder)
+        frames = bgr if path == flagship else frames
+        report_stages(label, smi, stages, by_pass, f"{bgr[0].shape[1]}x{bgr[0].shape[0]}")
+    decode = VideoFile.bgr
+
+    def bgr(self):
+        if Path(self.path) == flagship:
+            return iter(frames)
+        return decode(self)
+
+    manifest = json.loads((WMV_FIXTURES / "manifest.json").read_text())["clips"]
+    with swapped((VideoFile, "bgr", bgr)):
+        bad, readers = clips_against_records(WMV_FIXTURES, sorted(manifest), "wmv")
+    say(f"[wmv] {len(manifest) - len(bad)} of {len(manifest)} clips equal the JAX readers' "
+        "records")
+    if bad or "flagship.wmv" not in readers or len(manifest) < 70:
+        fail(f"the port's ASF and MS-MPEG-4 reads disagree with the JAX readers' records: {bad}")
+    rows = video_cli_against_twin(seed, smi, root, v2e2v_model, flagship,
+                                  readers["flagship.wmv"], manifest["flagship.wmv"]["fps"], "wmv")
+    say(f"[phase] ASF and MS-MPEG-4 video {time.perf_counter() - t_phase:.1f} s")
+    return {"v2e2v_cli_wmv_launches": rows}
 
 
 IMAGE_FIXTURES = Path(__file__).resolve().parent / "tests" / "data" / "images"
@@ -5844,6 +5954,12 @@ def main() -> None:
         # picture, the V2E2V CLI with --reader_type video over the flagship
         # FLV against its PNG twin
         h263_rows = h263_phase(args.seed, smi, shared / "h263", hfr["model"])
+
+        # 30. ASF and the MS-MPEG-4 family: the fixture clips against the JAX
+        # readers' records, the stages of a 960x720 WMV2 and MS-MPEG-4 v3
+        # picture, the V2E2V CLI with --reader_type video over the flagship
+        # .wmv against its PNG twin
+        wmv_rows = wmv_phase(args.seed, smi, shared / "wmv", hfr["model"])
     finally:
         shutil.rmtree(shared, ignore_errors=True)
 
@@ -5854,7 +5970,7 @@ def main() -> None:
              "v2e2v_train_launches_per_step": trained["v2e2v"], **fused_rows, **int8["rows"],
              **slomo_rows, **dist_rows, **spatial_rows, **jpeg_rows, **video_rows, **image_rows,
              **lpips_rows, **mpeg4_rows, **mkv_rows, **vp9_rows, **mpeg12_rows, **png_rows,
-             **h263_rows}
+             **h263_rows, **wmv_rows}
     for e in entries:
         if e["name"].startswith("ista_loop"):
             e.update(cli_k1[torch.float32 if "float32" in e["name"] else torch.bfloat16])

@@ -79,16 +79,17 @@ def _chunk(fcc: bytes, body: bytes) -> bytes:
 
 
 def write_avi(path: Path, chunks: list[bytes], width: int, height: int, fps: int,
-              fourcc: bytes, bits: int = 12) -> None:
+              fourcc: bytes, bits: int = 12, extradata: bytes = b"") -> None:
     """An AVI of one video stream: ``chunks`` as '00dc' chunks (b'' an empty
     one), ``biCompression`` ``fourcc``, ``biBitCount`` ``bits``, ``fps``
-    frames a second, and an ``idx1`` index."""
+    frames a second, ``extradata`` after the BITMAPINFOHEADER, and an
+    ``idx1`` index."""
     n = len(chunks)
     avih = struct.pack("<14I", 1000000 // fps, 0, 0, 0x10, n, 0, 1, 0, width, height, 0, 0, 0, 0)
     strh = b"vids" + fourcc + struct.pack("<IHHIIIIIIIIhhhh", 0, 0, 0, 0, 1, fps, 0, n, 0,
                                           0xFFFFFFFF, 0, 0, 0, width, height)
-    strf = struct.pack("<IiiHH4sIiiII", 40, width, height, 1, bits, fourcc,
-                       width * height * bits // 8, 0, 0, 0, 0)
+    strf = struct.pack("<IiiHH4sIiiII", 40 + len(extradata), width, height, 1, bits, fourcc,
+                       width * height * bits // 8, 0, 0, 0, 0) + extradata
     hdrl = _chunk(b"avih", avih) + _chunk(b"LIST", b"strl" + _chunk(b"strh", strh)
                                           + _chunk(b"strf", strf))
     movi, idx1 = bytearray(b"movi"), bytearray()

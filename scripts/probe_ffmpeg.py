@@ -91,9 +91,14 @@ def demux(path: str) -> list[bytes]:
     return out
 
 
-def decode(packets: list[bytes], name: str = "vp8", threads: int = 1) -> list[tuple]:
+def decode(packets: list[bytes], name: str = "vp8", threads: int = 1,
+           size: tuple[int, int] | None = None, extradata: bytes = b"") -> list[tuple]:
     """Each frame the decoder ``name`` returns for ``packets``, as (Y, Cb,
-    Cr) uint8 planes of a 4:2:0 frame."""
+    Cr) uint8 planes of a 4:2:0 frame. ``size`` (width, height) and
+    ``extradata`` are the container's, for decoders whose streams carry
+    neither (``msmpeg4``, ``wmv2``): the size as the ``video_size`` option,
+    the extradata at AVCodecContext's ``extradata`` (offset 72, which
+    FFmpeg 5-8 keep)."""
     util, codec, _ = _libs()
     dec = codec.avcodec_find_decoder_by_name(name.encode())
     if not dec:
@@ -101,6 +106,15 @@ def decode(packets: list[bytes], name: str = "vp8", threads: int = 1) -> list[tu
     ctx = codec.avcodec_alloc_context3(dec)
     opts = P()
     util.av_dict_set(ctypes.byref(opts), b"threads", str(threads).encode(), 0)
+    if size:
+        util.av_dict_set(ctypes.byref(opts), b"video_size", f"{size[0]}x{size[1]}".encode(), 0)
+    if extradata:
+        util.av_mallocz.restype = P
+        util.av_mallocz.argtypes = [ctypes.c_size_t]
+        buf = util.av_mallocz(len(extradata) + 64)
+        ctypes.memmove(buf, extradata, len(extradata))
+        ctypes.c_void_p.from_address(ctx + 72).value = buf
+        ctypes.c_int.from_address(ctx + 80).value = len(extradata)
     if codec.avcodec_open2(ctx, dec, ctypes.byref(opts)) < 0:
         raise OSError(f"cannot open the decoder {name!r}")
     pkt, frm, out, keep = codec.av_packet_alloc(), util.av_frame_alloc(), [], []

@@ -816,7 +816,8 @@ def test_mpeg4_refusals_name_item_4(tmp_path, case):
 CONTAINER_REFUSALS = {"avc1": "codec 'avc1'", "object_type": "object type 0x6A",
                       "two_tracks": "2 video tracks", "flip": "display matrix",
                       "truncated": "corrupt or truncated", "edit_shift": "edit list",
-                      "wmv": "ASF/WMV", "flv_avc": "AVC \\(H.264\\) \\(codec id 7\\)"}
+                      "wmv": "ASF video stream of codec 'WMV3'",
+                      "flv_avc": "AVC \\(H.264\\) \\(codec id 7\\)"}
 
 
 def _container_case(cv2, tmp_path, case):
@@ -851,6 +852,8 @@ def _container_case(cv2, tmp_path, case):
         fourcc = {"wmv": "WMV2", "flv_avc": "FLV1"}[case]
         mf.write(path, np.full((2, 32, 48, 3), 90, np.uint8), 30.0, fourcc)
         assert len(_cv2_frames(cv2, path)) == 2
+        if case == "wmv":  # WMV2 in ASF is read: its tag rewritten to WMV3's (VC-1)
+            path.write_bytes(path.read_bytes().replace(b"WMV2", b"WMV3"))
         if case == "flv_avc":  # Sorenson H.263 is read: its tags rewritten to AVC's codec id
             data = bytearray(path.read_bytes())
             pos = 13
@@ -868,8 +871,8 @@ def _container_case(cv2, tmp_path, case):
 def test_container_refusals_name_item_4(tmp_path, case):
     """MP4s the port does not read (another codec or object type, two video
     tracks, a flip in the display matrix, a truncated ``moov``, an edit list
-    that shifts the media), the WMV2 files cv2 writes and its FLV1 files
-    rewritten to AVC's codec id raise
+    that shifts the media), the WMV2 files cv2 writes retagged WMV3 (VC-1)
+    and its FLV1 files rewritten to AVC's codec id raise
     naming what they are and ROADMAP item 4."""
     cv2 = pytest.importorskip("cv2")
     path = _container_case(cv2, tmp_path, case)

@@ -49,6 +49,7 @@ def _script(name="make_rawvideo_fixtures"):
 
 
 FX = _script()
+WF = _script("make_wmv_fixtures")
 
 
 def clip_against_records(folder: Path, manifest: dict, name: str) -> None:
@@ -211,16 +212,22 @@ def test_packet_lengths_as_ffmpeg_reads_them(tmp_path, fourcc):
 def _refused(tmp_path, case):
     cv2 = pytest.importorskip("cv2")
     frames = np.random.default_rng(0).integers(0, 256, (2, 96, 128, 3), np.uint8)
-    h263 = {"mp43": ("clip.avi", "MP43"), "zygo": ("clip.avi", "ZyGo"),
-            "wmv1": ("clip.wmv", "WMV1"), "wmv2": ("clip.wmv", "WMV2"),
-            "mp42": ("clip.avi", "MP42"), "div3": ("clip.avi", "DIV3"),
-            "raw_mov": ("clip.mov", "I420"), "wmv2_mkv": ("clip.mkv", "WMV2")}
+    # (the file cv2 writes, its tag, the tag written over it): the MS-MPEG-4
+    # family is read since it came in; what stays refused is retagged so
+    h263 = {"mp43": ("clip.avi", "MP43", b"MPG4"), "zygo": ("clip.avi", "ZyGo", None),
+            "wmv1": ("clip.wmv", "WMV1", None), "wmv2": ("clip.wmv", "WMV2", b"WMV3"),
+            "mp42": ("clip.avi", "MP42", b"MP41"), "div3": ("clip.avi", "DIV3", b"DIV1"),
+            "raw_mov": ("clip.mov", "I420", None), "wmv2_mkv": ("clip.mkv", "WMV2", b"WMV3")}
     if case in h263:
-        name, fourcc = h263[case]
+        name, fourcc, retag = h263[case]
         path = tmp_path / name
         FX.writer(path, frames, 10.0, fourcc)
         if case != "raw_mov":
             assert len(_cv2_bgr(path)) == 2  # cv2 reads them all
+        if retag:
+            path.write_bytes(path.read_bytes().replace(fourcc.encode(), retag))
+        if case == "wmv1":  # a second video stream: its Stream Properties object twice
+            path.write_bytes(WF.second_video_stream(path.read_bytes()))
         return path
     path = tmp_path / f"{case}.avi"
     packet = bytes(rawvideo.frame_size("yuv420p", 16, 8))
@@ -259,18 +266,20 @@ def _refused(tmp_path, case):
     return path
 
 
-REFUSALS = {"mp43": "codec 'MP43'", "zygo": "codec 'ZyGo'", "wmv1": "ASF/WMV", "wmv2": "ASF/WMV",
-            "mp42": "codec 'MP42'", "div3": "codec 'DIV3'", "raw_mov": "codec 'raw '",
-            "wmv2_mkv": "names 'WMV2'", "bi_rgb": r"x00' \(biCompression\)", "negative_height":
+REFUSALS = {"mp43": "codec 'MPG4'", "zygo": "codec 'ZyGo'", "wmv1": "more than one video",
+            "wmv2": "codec 'WMV3'", "mp42": "codec 'MP41'", "div3": "codec 'DIV1'",
+            "raw_mov": "codec 'raw '", "wmv2_mkv": "names 'WMV3'", "bi_rgb": r"x00' \(biCompression\)", "negative_height":
             "negative height", "yuy2_mkv": "layout 'YUY2'", "vpcc_full_range": "full range 1",
             "jpeg_fields": "two fields"}
 
 
 @pytest.mark.parametrize("case", sorted(REFUSALS))
 def test_what_it_does_not_read_raises(tmp_path, case):
-    """The rest of the H.263 family (WMV1 and WMV2 in ASF and Matroska,
-    MS-MPEG-4 v2 and v3 as MP42, DIV3 and MP43, and H.263 under ZyGo, whose
-    I pictures FFmpeg reads a debug dump into), which cv2 writes and reads,
+    """What the port still refuses of the H.263 family: cv2's MS-MPEG-4 v2
+    and v3 AVIs (MP42, DIV3, MP43) retagged as MS-MPEG-4 v1 (MP41, DIV1,
+    MPG4), its WMV2 in ASF and Matroska retagged WMV3 (VC-1), its WMV1 ASF
+    given a second video stream, and H.263 under ZyGo, whose I pictures
+    FFmpeg reads a debug dump into,
     and the raw and container cases the port leaves
     (QuickTime 'raw ', which cv2 reads as no frame; BI_RGB; a negative
     height; a Matroska layout it does not know; a ``vpcC`` of full range; an

@@ -554,6 +554,8 @@ def _case_file(tmp_path, case):
             _field_pictures(path)
         if case == "flv_vp6":
             _flv_codec_id(path, 4)
+        if case == "wmv":  # WMV2 in ASF is read: its tag rewritten to WMV3's (VC-1)
+            path.write_bytes(path.read_bytes().replace(b"WMV2", b"WMV3"))
     elif case == "matroska":
         path.write_bytes(b"\x1a\x45\xdf\xa3" + bytes(60))
     elif case == "riff_wave":
@@ -571,7 +573,7 @@ def _case_file(tmp_path, case):
     return path
 
 
-REFUSALS = {"matroska": "Matroska", "riff_wave": "'WAVE'", "wmv": "ASF/WMV",
+REFUSALS = {"matroska": "Matroska", "riff_wave": "'WAVE'", "wmv": "ASF video stream of codec 'WMV3'",
             "flv_vp6": "On2 VP6", "mpeg_ps": "field picture", "vp9_webm": "VP9 video: profile 1",
             "h263": "short_video_header"}
 
@@ -579,8 +581,8 @@ REFUSALS = {"matroska": "Matroska", "riff_wave": "'WAVE'", "wmv": "ASF/WMV",
 @pytest.mark.parametrize("case", sorted(REFUSALS))
 def test_what_it_does_not_read_raises(tmp_path, case):
     """Other containers and codecs (among them the WMV2 files cv2's writer
-    makes, its FLV1, VP9 and MPEG-2 files rewritten to VP6, profile 1 and
-    field pictures, and H.263 pictures in an MPEG-4 stream, of which cv2
+    makes, FLV1, VP9 and MPEG-2 files rewritten to WMV3 (VC-1), VP6, profile
+    1 and field pictures, and H.263 pictures in an MPEG-4 stream, of which cv2
     reads no frame) raise a ValueError
     naming ROADMAP item 4 and what they are, from the readers the CLIs use."""
     path = str(_case_file(tmp_path, case))

@@ -1,5 +1,6 @@
 """A RIFF/AVI demuxer for MJPEG, MPEG-4 Part 2, MPEG-1/2, VP8, VP9, H.263,
-Sorenson H.263, raw and PNG video, in plain Python.
+Sorenson H.263, MS-MPEG-4 v2 and v3, WMV1, WMV2, raw and PNG video, in plain
+Python.
 
 ``AviFile(path)`` reads what ``cv2.VideoCapture`` (through FFmpeg's
 ``libavformat/avidec.c``) reads of an AVI's first video stream:
@@ -30,7 +31,12 @@ FMP4, DIVX, DX50, MP4V, MP4S, M4S2), ``"mpeg12"`` for MPEG-1/2 video
 (MPNG, PNG1, ``png ``), ``"h263"`` (H263, U263, X263, M263, T263, L263,
 VX1K, lsvm: FFmpeg's ``h263`` decoder; not ZyGo, whose I-pictures FFmpeg
 reads 759 bits into as a debug dump, and not I263, Intel's H.263), ``"flv"``
-(FLV1 and S263: Sorenson H.263) and ``"raw"`` for the uncompressed layouts of
+(FLV1 and S263: Sorenson H.263), ``"msmpeg4v2"`` (MP42, DIV2),
+``"msmpeg4v3"`` (MP43, DIV3, MPG3, DIV4, DIV5, DIV6, DVX3, AP41, COL1,
+COL0), ``"wmv1"`` (WMV1) and ``"wmv2"`` (WMV2, whose extension header is
+``strf``'s bytes past the BITMAPINFOHEADER, ``extradata``), as
+``riff.c`` names them (MS-MPEG-4 v1's MP41, MPG4 and DIV1 and WMV3 are named
+in refusals), and ``"raw"`` for the uncompressed layouts of
 ``rawvideo.FORMATS`` (I420, IYUV, YV12, Y800, GREY, RGBA; ``raw_format``
 names the layout), matched as written, as ``rawdec.c`` matches them. An
 MPEG-4 stream's headers, and an MPEG-1/2 stream's sequence header, lead its
@@ -60,7 +66,24 @@ CODEC_FOURCCS = {"mjpeg": (b"MJPG", b"AVI1", b"JPEG", b"CJPG", b"LJPG", b"JPGL",
                  "vp8": (b"VP80",), "vp9": (b"VP90",), "png": (b"MPNG", b"PNG1", b"PNG "),
                  "h263": (b"H263", b"U263", b"X263", b"M263", b"T263", b"L263", b"VX1K",
                           b"LSVM"),
-                 "flv": (b"FLV1", b"S263")}
+                 "flv": (b"FLV1", b"S263"),
+                 "msmpeg4v2": (b"MP42", b"DIV2"),
+                 "msmpeg4v3": (b"MP43", b"DIV3", b"MPG3", b"DIV4", b"DIV5", b"DIV6", b"DVX3",
+                               b"AP41", b"COL1", b"COL0"),
+                 "wmv1": (b"WMV1",), "wmv2": (b"WMV2",)}
+# FFmpeg's names of tags whose codec the port does not read, for refusals
+NAMED = {b"MP41": "MS-MPEG-4 v1", b"MPG4": "MS-MPEG-4 v1", b"DIV1": "MS-MPEG-4 v1",
+         b"WMV3": "WMV3 (VC-1)", b"WVC1": "VC-1", b"WMVA": "VC-1", b"WMVP": "WMV3 image",
+         b"WVP2": "VC-1 image", b"MSS1": "Windows Media Screen", b"MSS2": "Windows Media "
+         "Screen 2"}
+
+
+def named(fourcc: bytes) -> str:
+    """A ``biCompression`` as refusals name it: the tag, and the codec
+    FFmpeg reads under it where ``NAMED`` knows it."""
+    code = f"codec {fourcc.decode('latin-1')!r} (biCompression"
+    what = NAMED.get(fourcc.upper())
+    return f"{code}: {what})" if what else f"{code})"
 
 
 def codec_of(fourcc: bytes) -> str | None:
@@ -120,6 +143,7 @@ class VideoStream:
     scale: int
     length: int
     super_index: bytes | None = None  # the strl's 'indx' chunk
+    extradata: bytes = b""  # strf past its BITMAPINFOHEADER's 40 bytes (biSize)
 
 
 class AviFile:
@@ -143,10 +167,9 @@ class AviFile:
         v = self.video
         self.codec = codec_of(v.compression)
         if self.codec is None:
-            code = v.compression.decode("latin-1")
-            raise _refuse(path, f"an AVI video stream of codec {code!r} (biCompression), "
-                          "not MJPEG, MPEG-4 Part 2, MPEG-1/2, VP8, VP9, H.263, Sorenson "
-                          "H.263, raw or PNG")
+            raise _refuse(path, f"an AVI video stream of {named(v.compression)}, not MJPEG, "
+                          "MPEG-4 Part 2, MPEG-1/2, VP8, VP9, H.263, Sorenson H.263, MS-MPEG-4 v2 "
+                          "or v3, WMV1, WMV2, raw or PNG")
         self.raw_format = FORMATS.get(v.compression)
         if self.codec in ("raw", "png") and (v.width <= 0 or v.height <= 0):
             raise _refuse(path, f"a {self.codec} AVI stream of {v.width}x{v.height} "
@@ -165,6 +188,11 @@ class AviFile:
     @property
     def frame_count(self) -> int:
         return self.video.length
+
+    @property
+    def extradata(self) -> bytes:
+        """The video stream's extradata (WMV2's extension header)."""
+        return self.video.extradata
 
     @property
     def width(self) -> int:
@@ -229,7 +257,9 @@ class AviFile:
             raise _corrupt(self.path, "a short strh or strf chunk")
         scale, rate, _start, length = struct.unpack("<4I", strh[20:36])
         width, height = struct.unpack("<ii", strf[4:12])
-        self.video = VideoStream(number, strf[16:20], width, height, rate, scale, length, indx)
+        (bi_size,) = struct.unpack("<I", strf[:4])
+        self.video = VideoStream(number, strf[16:20], width, height, rate, scale, length, indx,
+                                 strf[40:min(bi_size, len(strf))])
 
     # -------------------------------------------------------------- frames
 

@@ -25,11 +25,13 @@ import numpy as np
 ROADMAP = "ROADMAP.md queue 1, item 4"
 # what the port's video path reads, named by every refusal of a video file
 VIDEO_READS = ("the port reads MJPEG, MPEG-4 Part 2, MPEG-1/2, VP8, VP9, H.263, Sorenson H.263, "
-               "raw (I420, IYUV, YV12, Y800, GREY, RGBA) and PNG video in AVI files; MJPEG, "
-               "MPEG-4 Part 2, MPEG-1/2, VP9, raw RGBA and PNG in MP4, MOV and M4V files, and "
-               "H.263 and Sorenson H.263 in MOV files; VP8, VP9, MJPEG, MPEG-4 Part 2, MPEG-1/2, "
-               "H.263, Sorenson H.263, raw and PNG in Matroska and WebM files; MPEG-1/2 in MPEG "
-               "program and transport streams; and Sorenson H.263 in FLV files")
+               "MS-MPEG-4 v2 and v3, WMV1, WMV2, raw (I420, IYUV, YV12, Y800, GREY, RGBA) and PNG "
+               "video in AVI files; MJPEG, MPEG-4 Part 2, MPEG-1/2, VP9, raw RGBA and PNG in MP4, "
+               "MOV and M4V files, and H.263, Sorenson H.263, MS-MPEG-4 v2 and v3, WMV1 and WMV2 "
+               "in MOV files; VP8, VP9, MJPEG, MPEG-4 Part 2, MPEG-1/2, H.263, Sorenson H.263, "
+               "MS-MPEG-4 v2 and v3, WMV1, WMV2, raw and PNG in Matroska and WebM files; MPEG-1/2 "
+               "in MPEG program and transport streams; Sorenson H.263 in FLV files; and MS-MPEG-4 "
+               "v2 and v3, WMV1, WMV2, MPEG-4 Part 2, Sorenson H.263 and MJPEG in ASF (WMV) files")
 
 
 def refuse_video(path: str, what: str) -> ValueError:

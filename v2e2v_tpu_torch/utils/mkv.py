@@ -1,5 +1,6 @@
 """A Matroska / WebM demuxer for VP8, VP9, MJPEG, MPEG-4 Part 2, MPEG-1/2,
-H.263, Sorenson H.263, raw and PNG video, in plain Python.
+H.263, Sorenson H.263, MS-MPEG-4 v2 and v3, WMV1, WMV2, raw and PNG video, in
+plain Python.
 
 ``MkvFile(path)`` reads what ``cv2.VideoCapture`` (through FFmpeg's
 ``libavformat/matroskadec.c``) reads of a file's video track:
@@ -39,8 +40,10 @@ writes it for I420, IYUV, YV12, Y800, GREY and RGBA), or ``"png"``,
 ``"h263"`` or ``"flv"`` (``V_MS/VFW/FOURCC``, whose ``CodecPrivate`` is a
 BITMAPINFOHEADER: its ``biCompression`` picks the codec by the AVI table,
 ``avi.codec_of``; cv2 writes PNG this way, MPNG, PNG1 or ``png ``, H.263 as
-H263 and Sorenson H.263 as FLV1; the rest of the H.263 family, WMV1, WMV2,
-MP42, DIV3 and MP43, is refused). ``bottom_field_first``: the track says
+H263, Sorenson H.263 as FLV1, and MS-MPEG-4 v2 (MP42, DIV2), WMV1 and
+WMV2, whose extradata, ``extradata``, follows the BITMAPINFOHEADER), or
+``"msmpeg4v3"`` (``V_MPEG4/MS/V3``, which cv2 writes for MP43, DIV3 and
+the other v3 tags). ``bottom_field_first``: the track says
 ``FlagInterlaced`` 1 and ``FieldOrder`` 6 (bottom field first), which FFmpeg
 hands its MJPEG decoder as the fields' order.
 
@@ -82,9 +85,10 @@ SEGMENT_LEVEL = (0x114D9B74, INFO, TRACKS, CLUSTER, 0x1C53BB6B, 0x1941A469, 0x10
 VIDEO_TRACK = 1
 CODECS = {"V_VP8": "vp8", "V_VP9": "vp9", "V_MJPEG": "mjpeg", "V_MPEG4/ISO/ASP": "mpeg4",
           "V_MPEG4/ISO/SP": "mpeg4", "V_MPEG4/ISO/AP": "mpeg4", "V_MPEG1": "mpeg12",
-          "V_MPEG2": "mpeg12", "V_UNCOMPRESSED": "raw", "V_MS/VFW/FOURCC": "vfw"}
+          "V_MPEG2": "mpeg12", "V_UNCOMPRESSED": "raw", "V_MS/VFW/FOURCC": "vfw",
+          "V_MPEG4/MS/V3": "msmpeg4v3"}
 # the codecs a V_MS/VFW/FOURCC track's biCompression may name
-VFW_CODECS = ("png", "h263", "flv")
+VFW_CODECS = ("png", "h263", "flv", "msmpeg4v2", "msmpeg4v3", "wmv1", "wmv2")
 NAMED = {"V_MPEG4/ISO/AVC": "H.264 (AVC)", "V_MPEGH/ISO/HEVC": "H.265 (HEVC)",
          "V_AV1": "AV1", "V_THEORA": "Theora"}
 # Colour's children and the values that leave FFmpeg's frames as they are:
@@ -95,7 +99,7 @@ NAMED = {"V_MPEG4/ISO/AVC": "H.264 (AVC)", "V_MPEGH/ISO/HEVC": "H.265 (HEVC)",
 COLOUR_UNSPECIFIED = {0x55B1: 2, 0x55B7: 0, 0x55B8: 0, 0x55B9: 0, 0x55BA: 2, 0x55BB: 2}
 RANGE = 0x55B9
 CODEC_RANGE = {"vp8": 1, "vp9": 1, "mjpeg": 2, "mpeg4": 1, "mpeg12": 1, "raw": 1, "png": 2,
-               "h263": 1, "flv": 1}
+               "h263": 1, "flv": 1, "msmpeg4v2": 1, "msmpeg4v3": 1, "wmv1": 1, "wmv2": 1}
 
 
 _refuse = refuse_video
@@ -189,8 +193,10 @@ class MkvFile:
         self.codec = CODECS[t.codec_id]
         self.config = t.private
         self.raw_format = FORMATS.get(t.colour_space) if self.codec == "raw" else None
+        self.extradata = b""
         if self.codec == "vfw":
             self.codec = codec_of(t.private[16:20])
+            self.extradata = t.private[40:]  # matroskadec.c: past the BITMAPINFOHEADER
         self.width, self.height = t.width, t.height
         self.bottom_field_first = t.interlaced == INTERLACED and t.field_order == BOTTOM_FIRST
         num, den = av_reduce(10 ** 9, t.default_duration, 30000)
@@ -352,7 +358,7 @@ class MkvFile:
             if codec not in VFW_CODECS:
                 raise _refuse(self.path, f"{name} of codec {t.codec_id!r} whose CodecPrivate "
                               f"(BITMAPINFOHEADER) names {tag.decode('latin-1')!r}, not PNG, "
-                              "H.263 or Sorenson H.263")
+                              "H.263, Sorenson H.263, MS-MPEG-4 v2 or v3, WMV1 or WMV2")
         specified = {k: v for k, v in t.colour.items() if v != COLOUR_UNSPECIFIED[k]
                      and not (k == RANGE and v == CODEC_RANGE[codec])}
         if specified:

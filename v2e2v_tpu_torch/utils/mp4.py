@@ -1,6 +1,6 @@
 """An ISO base media (MP4, M4V) and QuickTime (MOV) demuxer for MPEG-4
-Part 2, MPEG-1/2, MJPEG, VP9, H.263, Sorenson H.263, raw RGBA and PNG video,
-in plain Python.
+Part 2, MPEG-1/2, MJPEG, VP9, H.263, Sorenson H.263, MS-MPEG-4 v2 and v3,
+WMV1, WMV2, raw RGBA and PNG video, in plain Python.
 
 ``Mp4File(path)`` reads what ``cv2.VideoCapture`` (through FFmpeg's
 ``libavformat/mov.c``) reads of a file's video track:
@@ -20,13 +20,17 @@ in plain Python.
   Part 2 with no ``esds``: the VOL headers are the ``glbl`` box, or lead
   the first sample), ``png `` and ``RGBA`` (raw, top-down R, G, B, A); ``h263``, ``s263`` and
   ``H263`` (H.263, which cv2 writes into a MOV as ``h263``) and ``FLV1``
-  (Sorenson H.263, which ``mov.c`` finds in the AVI table);
+  (Sorenson H.263, which ``mov.c`` finds in the AVI table); ``3IVD``
+  (MS-MPEG-4 v3, cv2's entry for MP43, DIV3 and the other v3 tags),
+  ``MP42`` and ``DIV2`` (v2), ``WMV1`` and ``WMV2`` (from the AVI table
+  too; WMV2's extradata is its ``glbl`` box);
   ``vp09`` (VP9) whose ``vpcC`` says what cv2's muxer writes: 8 bits,
   4:2:0, limited range, colour unspecified (the decoder takes range and
   colour space from the key frames)), ``stts``, ``stsc``, ``stsz``, and
   ``stco`` or ``co64``. ``codec`` is ``"mpeg4"``, ``"mpeg12"``,
   ``"mjpeg"``, ``"vp9"``, ``"raw"`` (``raw_format`` ``"rgba"``), ``"png"``,
-  ``"h263"`` or ``"flv"``; ``width`` and ``height`` are the sample entry's.
+  ``"h263"``, ``"flv"``, ``"msmpeg4v2"``, ``"msmpeg4v3"``, ``"wmv1"`` or
+  ``"wmv2"``; ``width`` and ``height`` are the sample entry's.
 
 ``fps`` is the track's timescale times its sample count over the sum of the
 ``stts`` durations, and ``frame_count`` the sample count: what cv2 reports as
@@ -63,7 +67,8 @@ OBJECT_CODECS = {0x6C: "mjpeg", 0x6D: "png"}
 # RGBA is raw: FFmpeg's rawvideo decoder reads its layout from the tag
 ENTRIES = {b"jpeg": "mjpeg", b"mjpa": "mjpeg", b"XVID": "mpeg4", b"DIVX": "mpeg4",
            b"vp09": "vp9", b"png ": "png", b"RGBA": "raw", b"h263": "h263", b"s263": "h263",
-           b"H263": "h263", b"FLV1": "flv"}
+           b"H263": "h263", b"FLV1": "flv", b"3IVD": "msmpeg4v3", b"MP42": "msmpeg4v2",
+           b"DIV2": "msmpeg4v2", b"WMV1": "wmv1", b"WMV2": "wmv2"}
 # vpcC's fields after version and flags that cv2's muxer writes: bit depth
 # 8, 4:2:0 (0 or 1) and limited range, primaries, transfer and matrix 2
 VPCC_DEPTH, VPCC_UNSPECIFIED = 8, (2, 2, 2)
@@ -219,6 +224,7 @@ class Mp4File:
         elif kind in ENTRIES:
             self.codec = ENTRIES[kind]
             self.config = boxes.get(b"glbl", b"")  # mov.c: extradata, the VOL headers
+            self.extradata = self.config
             if self.codec == "raw":
                 self.raw_format = "rgba"
             elif self.codec == "vp9":

@@ -285,6 +285,7 @@ class Vol:
     object_type = 0
     time_bits = 1
     time_resolution = 0
+    fixed_increment = 1  # fixed_vop_time_increment, 1 without fixed_vop_rate
     low_delay = 1
     quant_precision = 5
 
@@ -379,7 +380,7 @@ class Mpeg4Decoder:
         v.time_bits = max((v.time_resolution - 1).bit_length(), 1)
         bits.read(1)
         if bits.read(1):  # fixed_vop_rate
-            bits.read(v.time_bits)
+            v.fixed_increment = bits.read(v.time_bits)
         bits.read(1)
         v.width = bits.read(13)
         bits.read(1)
@@ -756,28 +757,34 @@ class _VopDecoder:
 
 def reconstruct(ref: Picture | None, mbw: int, mbh: int, kinds, mv_list, intra_blocks,
                 inter_blocks, rounding: int, where: str,
-                dc_scales=(Y_DC_SCALE, C_DC_SCALE)) -> Picture:
+                dc_scales=(Y_DC_SCALE, C_DC_SCALE), out: Picture | None = None,
+                idct=(idct_simple, idct_simple_add), predict=None) -> Picture:
     """A parsed picture's macroblocks -> its picture at the grid's size, as
-    ``ff_mpv_reconstruct_mb`` builds it (shared with ``h263.py``): every
-    non-intra MB (``kinds`` 0 skipped, 1 inter) predicted from ``ref`` by
-    its vector in ``mv_list`` (none without ``ref``: an I picture), the
-    inter residuals (``[(raster position, dequantised level)]`` per coded
-    block) added through ``idct_simple_add``, and the intra blocks (raster
-    levels and QP) dequantised as ``dct_unquantize_h263_intra`` does, the
-    DC by ``dc_scales[luma or chroma][QP]``, then put by ``idct_simple``."""
-    y = np.zeros((mbh * 16, mbw * 16), np.uint8)
-    cb = np.zeros((mbh * 8, mbw * 8), np.uint8)
-    cr = np.zeros((mbh * 8, mbw * 8), np.uint8)
-    planes = (y, cb, cr)
+    ``ff_mpv_reconstruct_mb`` builds it (shared with ``h263.py`` and
+    ``msmpeg4.py``): every non-intra MB (``kinds`` 0 skipped, 1 inter; any
+    other kind is left alone) predicted from ``ref`` by its vector in
+    ``mv_list`` (none without ``ref``: an I picture), the inter residuals
+    (``[(raster position, dequantised level)]`` per coded block) added
+    through ``idct_simple_add``, and the intra blocks (raster levels and QP)
+    dequantised as ``dct_unquantize_h263_intra`` does, the DC by
+    ``dc_scales[luma or chroma][QP]``, then put by ``idct_simple``. ``out``
+    takes the planes to write into (a picture built in parts), ``idct``
+    another (put, add) pair and ``predict`` another motion compensation in
+    ``_predict``'s place."""
+    if out is None:
+        out = Picture(np.zeros((mbh * 16, mbw * 16), np.uint8),
+                      np.zeros((mbh * 8, mbw * 8), np.uint8), np.zeros((mbh * 8, mbw * 8), np.uint8))
+    planes = (out.y, out.cb, out.cr)
+    idct_put, idct_add = idct
     if ref is not None:
-        _predict(ref, planes, mbw, mbh, kinds, mv_list, rounding)
+        (predict or _predict)(ref, planes, mbw, mbh, kinds, mv_list, rounding)
     if inter_blocks:
         coef = np.zeros((len(inter_blocks), 64), np.int64)
         for j, (_mb, _n, cs) in enumerate(inter_blocks):
             for pos, lv in cs:
                 coef[j, pos] = lv
         pred = np.stack([_block_view(planes, mbw, mb, n) for mb, n, _ in inter_blocks])
-        px = idct_simple_add(coef, pred.reshape(-1, 64), where).reshape(-1, 8, 8)
+        px = idct_add(coef, pred.reshape(-1, 64), where).reshape(-1, 8, 8)
         for j, (mb, n, _) in enumerate(inter_blocks):
             _block_view(planes, mbw, mb, n)[...] = px[j]
     if intra_blocks:
@@ -791,10 +798,10 @@ def reconstruct(ref: Picture | None, mbw: int, mbh: int, kinds, mv_list, intra_b
         if np.abs(deq).max(initial=0) > 0x7FFF:
             raise ValueError(f"{where}: dequantised coefficients outside 16 bits, which the "
                              f"port's decoder does not read ({ROADMAP})")
-        px = idct_simple(deq, where).reshape(-1, 8, 8)
+        px = idct_put(deq, where).reshape(-1, 8, 8)
         for j, (mb, n, _, _) in enumerate(intra_blocks):
             _block_view(planes, mbw, mb, n)[...] = px[j]
-    return Picture(y, cb, cr)
+    return out
 
 
 def _block_view(planes, mbw: int, mb: int, n: int) -> np.ndarray:
@@ -809,7 +816,7 @@ def _predict(ref: Picture, planes, mbw: int, mbh: int, kinds, mv_list, rounding:
     """Motion compensation of every inter and skipped MB from the
     reference picture (``mpeg_motion_internal`` with ``put_pixels`` or,
     under ``vop_rounding_type`` 1, ``put_no_rnd_pixels``)."""
-    sel = [mb for mb, k in enumerate(kinds) if k < 2]
+    sel = [mb for mb, k in enumerate(kinds) if 0 <= k < 2]
     if not sel:
         return
     mb = np.array(sel)

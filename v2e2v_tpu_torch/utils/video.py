@@ -53,6 +53,19 @@ container by the file's first bytes and the codec by its fourcc:
   ``h263`` / ``flv`` decoders do, and ``yuv.yuv420p_to_bgr`` converts its
   limited-range planes with centred chroma (probed on FLV pictures of odd
   sizes; H.263's five sizes are even, which the unscaled converter takes);
+- MS-MPEG-4 v2 (``codec`` ``"msmpeg4v2"``: MP42, DIV2), v3
+  (``"msmpeg4v3"``: MP43, DIV3, MPG3, DIV4, DIV5, DIV6, DVX3, AP41, COL1,
+  COL0), WMV1 and WMV2 in ASF files (``utils/asf.py``: ``.wmv``), AVI,
+  Matroska (``V_MPEG4/MS/V3``, ``V_MS/VFW/FOURCC``) and MOV (``3IVD``, MP42,
+  DIV2, WMV1, WMV2): ``utils/msmpeg4.py`` and ``utils/wmv2.py`` decode each
+  picture as FFmpeg's ``msmpeg4v2``, ``msmpeg4``, ``wmv1`` and ``wmv2``
+  decoders do, at the container's size (the streams carry none; WMV2's
+  extension header is the extradata), and ``yuv.yuv420p_to_bgr`` converts
+  their limited-range planes with centred chroma (probed on 129x95
+  rewrites of cv2's 130x96 clips); and MPEG-4 Part 2 (FMP4), Sorenson H.263
+  (FLV1) and MJPEG in ASF, by the decoders above. An ASF's ``fps`` and
+  ``frame_count`` are cv2's guesses from its millisecond stamps
+  (``asf.py``);
 - the same decoders under the other tags and containers cv2 writes them
   into: MJPEG in AVI as CJPG, LJPG, JPGL or mjpa, in MOV as ``jpeg`` or
   ``mjpa`` and in MP4 as ``mp4v`` of object type 0x6C; MPEG-4 Part 2 in AVI
@@ -84,10 +97,10 @@ where FFmpeg takes the stream as bottom field first (an AVI whose
 6), else the first on the even rows; a packet of one field gives no frame.
 The woven planes are then converted at the full height.
 
-Other containers (ASF/WMV, raw MPEG video elementary streams, ...) and
-codecs (H.264, HEVC, AV1, H.263+, MS-MPEG-4 v1-v3, WMV1, WMV2, VP6 and the
-other FLV codecs, VP9 of profiles 1-3, interlaced MPEG-2 field pictures,
-16-bit PNG, other raw layouts, ...) and other sampling factors raise a
+Other containers (raw MPEG video elementary streams, ...) and codecs
+(H.264, HEVC, AV1, H.263+, MS-MPEG-4 v1, WMV3 / VC-1, VP6 and the other FLV
+codecs, VP9 of profiles 1-3, interlaced MPEG-2 field pictures, 16-bit PNG,
+other raw layouts, ...) and other sampling factors raise a
 ValueError naming ROADMAP.md queue 1, item 4; every such refusal of a file
 says what the port reads (``imgcodecs.VIDEO_READS``).
 """
@@ -96,6 +109,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from .asf import AsfFile, is_asf
 from .avi import AviFile
 from .flv import FlvFile, is_flv
 from .h263 import H263Decoder
@@ -103,19 +117,24 @@ from .imgcodecs import ROADMAP, refuse_video
 from .jpeg import MjpegFrame, decode_mjpeg_frame, mjpeg_planes, read_mjpeg_frame
 from .mkv import MkvFile, is_mkv
 from .mp4 import Mp4File, is_mp4
-from .mpeg4 import Mpeg4Decoder
+from .mpeg4 import Bits, Mpeg4Decoder
 from .mpeg12 import SEQUENCE
 from .mpeg12dec import Mpeg12Decoder
 from .mpegps import ProgramStream, is_program_stream, video_headers
 from .mpegts import TransportStream, is_transport_stream
+from .msmpeg4 import MsMpeg4Decoder
 from .rawvideo import png_to_bgr, raw_to_bgr
 from .vp8dec import Vp8Decoder
 from .vp9dec import Vp9Decoder
+from .wmv2 import Wmv2Decoder
 from .yuv import MPEG4_H_POS, VP8_H_POS, bgr_to_gray, mjpeg_to_gray, yuv420p_to_bgr
 
 # cv2's turn of a frame by the display matrix, clockwise in degrees, as
 # numpy's counter-clockwise quarter turns
 _TURNS = {0: 0, 90: 3, 180: 2, 270: 1}
+MSMPEG4 = ("msmpeg4v2", "msmpeg4v3", "wmv1", "wmv2")
+# codecs whose 4:2:0 chroma swscale takes as centred (probed on odd sizes)
+CENTRED = ("vp8", "vp9", "mpeg1", "h263", "flv") + MSMPEG4
 
 
 class VideoFile:
@@ -147,12 +166,27 @@ class VideoFile:
         elif is_flv(head):
             self.container = FlvFile(path)
             self.codec = self.container.codec
+        elif is_asf(head):
+            self.container = AsfFile(path)
+            self.codec = self.container.codec
+            if self.codec == "mpeg4":
+                self.container.codec_rate = self._vol_rate()
         else:
             self.container = self.avi = AviFile(path)
             self.codec = self.avi.codec
         if self.codec == "mpeg12":
             self.codec = "mpeg2" if self._sequence().seq.mpeg2 else "mpeg1"
         self.fps, self.frame_count = self.container.fps, self.container.frame_count
+
+    def _vol_rate(self) -> tuple[int, int] | None:
+        """An MPEG-4 Part 2 stream's frame rate as FFmpeg's decoder states it
+        (``vop_time_increment_resolution`` over the fixed increment), from
+        the extradata's VOL or the first packet's."""
+        dec = Mpeg4Decoder(self.container.extradata, self.path)
+        if dec.vol is None:
+            dec._headers(Bits(next(iter(self.packets()), b"")))
+        v = dec.vol
+        return None if v is None else (v.time_resolution, v.fixed_increment or 1)
 
     def _sequence(self):
         """An MPEG-1/2 stream's first sequence header: the container's
@@ -231,8 +265,8 @@ class VideoFile:
         return MjpegFrame(planes, one.factors, two.tables), two.tables
 
     def planes(self):
-        """Each MPEG-4, MPEG-1/2, VP8, VP9, H.263 or Sorenson H.263 frame's
-        (Y, Cb, Cr) planes, as FFmpeg decodes them."""
+        """Each MPEG-4, MPEG-1/2, VP8, VP9, H.263, Sorenson H.263, MS-MPEG-4
+        or WMV frame's (Y, Cb, Cr) planes, as FFmpeg decodes them."""
         if self.codec in ("mpeg1", "mpeg2"):
             self.decoder = decoder = Mpeg12Decoder(self.path)
             decoder.syntax_log = self.syntax_log
@@ -243,8 +277,14 @@ class VideoFile:
                 yield from decoder.decode(data)
             yield from decoder.flush()
             return
-        if self.codec in ("vp8", "vp9", "h263", "flv"):
-            if self.codec in ("h263", "flv"):
+        if self.codec in ("vp8", "vp9", "h263", "flv") + MSMPEG4:
+            c = self.container
+            if self.codec == "wmv2":
+                self.decoder = decoder = Wmv2Decoder(c.width, c.height, c.extradata, self.path)
+            elif self.codec in MSMPEG4:
+                self.decoder = decoder = MsMpeg4Decoder(self.codec, c.width, c.height,
+                                                        getattr(c, "extradata", b""), self.path)
+            elif self.codec in ("h263", "flv"):
                 self.decoder = decoder = H263Decoder(self.codec, self.path)
             else:
                 self.decoder = decoder = (Vp8Decoder if self.codec == "vp8" else
@@ -265,8 +305,8 @@ class VideoFile:
                              f"{c.height}x{c.width} track, which cv2 scales ({ROADMAP})")
 
     def bgr(self):
-        """Each MPEG-4, MPEG-1/2, VP8, VP9, H.263, Sorenson H.263, raw or PNG
-        frame as cv2 converts it to BGR, unturned."""
+        """Each MPEG-4, MPEG-1/2, VP8, VP9, H.263, Sorenson H.263, MS-MPEG-4,
+        WMV, raw or PNG frame as cv2 converts it to BGR, unturned."""
         if self.codec in ("raw", "png"):
             c = self.container
             for i, data in enumerate(self.packets()):
@@ -280,8 +320,7 @@ class VideoFile:
                         return
                 yield bgr
             return
-        centred = ("vp8", "vp9", "mpeg1", "h263", "flv")
-        h_pos = VP8_H_POS if self.codec in centred else MPEG4_H_POS
+        h_pos = VP8_H_POS if self.codec in CENTRED else MPEG4_H_POS
         for i, (y, cb, cr) in enumerate(self.planes()):
             self.check_size(y.shape, i)
             full = self.codec in ("vp8", "vp9") and self.decoder.full_range
