@@ -442,8 +442,28 @@ Phases, one line each (any failure exits non-zero before the last line):
    fixtures' 6-frame MS-MPEG-4 v3 AVI at that size; (c) the V2E2V CLI with
    ``--reader_type video`` over the flagship ``.wmv`` against its PNG twin,
    as phase 21 (b);
+31. interlaced MPEG-2 (``utils/mpeg12*.py``: field pictures, field, 16x8
+   and dual-prime motion, field DCT; ``utils/mpegrate.py``: cv2's rates and
+   counts of soft-telecined and interlaced program and transport streams,
+   ROADMAP item 4.2 e): (a) every clip under ``tests/data/mpeg2i``
+   (``scripts/make_mpeg2i_fixtures.py``: the 12-frame 720x576 PAL flagship
+   ``.vob`` of field pictures, field pictures of both orders and every motion
+   type, interlaced frame pictures, a mix with concealment vectors, a
+   DVD-like 3:2 soft-telecined stream, and cv2's clips with 3:2 patched in,
+   in program streams, VOBs, transport streams, M2TS, AVI and Matroska) read
+   by the port's ``VideoReader`` and ``VideoSequence`` against the JAX
+   readers' records, the flagship decoded once; (b) the host ms per 720x576
+   frame of each stage (demux and split, headers and macroblock symbols,
+   dequantisation + IDCT + motion compensation, conversion, resize), I-, P-
+   and B-frames apart, over three passes of a fresh decoder with the
+   garbage collections in each, of the flagship (field pictures) and of a
+   720x576 stream of interlaced frame pictures (frame, field and dual-prime
+   motion, field DCT) the fixture script's writer codes here from the
+   flagship's sequence header; (c) the V2E2V CLI with ``--reader_type
+   video`` over the flagship's bytes as an ``.mpg`` (the CLIs list ``.mpg``,
+   not ``.vob``) against its PNG twin, as phase 21 (b);
 14. a ``{"kernels": [...]}`` JSON line (each row's launches on the paths of
-   phases 10-13 and 15-30, every count set to 0 just before each path: K1,
+   phases 10-13 and 15-31, every count set to 0 just before each path: K1,
    K2, K4 and the scale kernel counted by dtype, K3 by shot mode; the rows
    of K4 and the scale kernel hold their times per pool step, the 15 calls
    of one step summed), then the last line
@@ -4305,14 +4325,14 @@ def clips_against_records(folder: Path, names, tag: str):
 
 
 def video_cli_against_twin(seed: int, smi: str, root: Path, v2e2v_model: Path, source: Path,
-                           reader, fps: float, tag: str) -> dict:
+                           reader, fps: float, tag: str, extra: tuple = ()) -> dict:
     """The V2E2V CLI with ``--reader_type video`` over the clip ``source``
-    (``--num_pack_frames 4``), the main path with every count set to 0 just
-    before it, against the same CLI over a PNG folder of the port's frames
-    (``reader``'s) with ``timestamps.txt`` at ``i / fps``, K3 and K1 held
-    against their plain versions at every call of that run
-    (``cli_against_twin``); fails unless the output files and printed
-    averages are equal. Returns the video run's launches by row."""
+    (``--num_pack_frames 4``, and the flags ``extra``), the main path with
+    every count set to 0 just before it, against the same CLI over a PNG
+    folder of the port's frames (``reader``'s) with ``timestamps.txt`` at
+    ``i / fps``, K3 and K1 held against their plain versions at every call of
+    that run (``cli_against_twin``); fails unless the output files and
+    printed averages are equal. Returns the video run's launches by row."""
     from v2e2v_tpu_torch.utils.image_io import write_gray
 
     clip = root / "video"
@@ -4328,10 +4348,12 @@ def video_cli_against_twin(seed: int, smi: str, root: Path, v2e2v_model: Path, s
         write_gray(str(twin / f"frame_{i:010d}.png"), frame)
     pack = ("--num_pack_frames", str(VIDEO_PACK))
     b = cli_against_twin(seed, v2e2v_model, root, (
-        ("video", clip, ("--reader_type", "video", *pack)), ("png", root / "png", pack)))
+        ("video", clip, ("--reader_type", "video", *pack, *extra)),
+        ("png", root / "png", (*pack, *extra))))
     pairs, k3_errs, k1_errs = b["pairs"], b["k3_errs"], b["k1_errs"]
     ok = b["ok"] and len(pairs) == 3
-    say(f"[{tag}] V2E2V CLI --reader_type video over {source.name} (read as {H}x{W}, "
+    h, w = reader.frames[0].shape
+    say(f"[{tag}] V2E2V CLI --reader_type video over {source.name} (read as {h}x{w}, "
         f"{reader.num_frames} frames, --num_pack_frames {VIDEO_PACK}) and its PNG twin (the "
         f"port's frames, timestamps.txt at i/fps): {len(pairs)} packs, num_events "
         f"{b['events']}; {b['files']} output files byte for byte equal, printed averages "
@@ -4568,54 +4590,63 @@ MPEG12_FIXTURES = Path(__file__).resolve().parent / "tests" / "data" / "mpeg12"
 MPEG12_STAGES = ("demux_split", "syntax", "dequant_idct_mc", "convert", "resize")
 
 
-def mpeg12_stages(path: Path) -> tuple[dict[str, dict[str, list[float]]], list]:
-    """Host ms per frame of each stage of an MPEG-1/2 program stream's read,
-    I-, P- and B-pictures apart, over one pass of ``path``: the demux and the
-    split at the start codes (per frame), the headers and macroblock symbols,
-    dequantisation + IDCT + motion compensation (the decoder's ``stats``),
-    YUV -> BGR -> gray and the reader's resize to a quarter (by the type of
-    the picture each output frame is). Returns them and the BGR frames."""
+def mpeg12_stages(path: Path, passes: int = 1):
+    """Host ms per frame of each stage of an MPEG-1/2 program stream's read
+    (``MPEG12_STAGES``), I-, P- and B-frames apart (a field pair by its
+    first field's type), over ``passes`` passes of a fresh demuxer and
+    decoder: the demux and the split at the start codes, the headers and
+    macroblock symbols, dequantisation + IDCT + motion compensation (the
+    decoder's ``stats``, per frame), YUV -> BGR -> gray, the reader's resize
+    to a quarter. Returns the stages (every pass's samples), each pass's
+    (ms of symbols of its I-frames, full garbage collections, ms in
+    collections of any generation) and the first pass's BGR frames."""
     from v2e2v_tpu_torch.utils import yuv
     from v2e2v_tpu_torch.utils.image_io import resize_linear_u8
     from v2e2v_tpu_torch.utils.mpeg12dec import Mpeg12Decoder
+    from v2e2v_tpu_torch.utils.mpeg12mb import tables
     from v2e2v_tpu_torch.utils.mpegps import ProgramStream
 
-    from v2e2v_tpu_torch.utils.mpeg12mb import tables
-
     ms = {kind: {k: [] for k in MPEG12_STAGES} for kind in ("I", "P", "B")}
+    by_pass, frames = [], []
     t0 = time.perf_counter()
     tables()  # the lookups are built once per process, before the first picture
     say(f"[time] MPEG-1/2 lookup tables built in {1e3 * (time.perf_counter() - t0):.3f} ms "
         "(once per process)")
-    t0 = time.perf_counter()
-    stream = ProgramStream(str(path))
-    demux = time.perf_counter() - t0
-    dec = Mpeg12Decoder(str(path))
-    dec.stats = {}
-    t0 = time.perf_counter()
-    planes = []
-    for data in stream.frames():
-        planes += dec.decode(data)
-    planes += dec.flush()
-    decode = time.perf_counter() - t0
-    spent = sum(st["syntax"] + st["reconstruct"] for st in dec.stats.values())
-    split = 1e3 * (demux + decode - spent) / len(planes)  # the demux and the split, a frame
-    for kind, st in dec.stats.items():
-        ms[kind]["syntax"] = [1e3 * st["syntax"] / st["frames"]] * st["frames"]
-        ms[kind]["dequant_idct_mc"] = [1e3 * st["reconstruct"] / st["frames"]] * st["frames"]
-        ms[kind]["demux_split"] = [split] * st["frames"]
-    frames = []
-    for kind, (y, cb, cr) in zip(dec.shown, planes):
-        t = [time.perf_counter()]
-        bgr = yuv.yuv420p_to_bgr(y, cb, cr, str(path))
-        gray = yuv.bgr_to_gray(bgr)
-        t.append(time.perf_counter())
-        resize_linear_u8(gray, (gray.shape[1] // 4, gray.shape[0] // 4))
-        t.append(time.perf_counter())
-        ms[kind]["convert"].append(1e3 * (t[1] - t[0]))
-        ms[kind]["resize"].append(1e3 * (t[2] - t[1]))
-        frames.append(bgr)
-    return ms, frames
+    with gc_watch() as gcs:
+        for n in range(passes):
+            before = dict(gcs)
+            t0 = time.perf_counter()
+            stream = ProgramStream(str(path))
+            demux = time.perf_counter() - t0
+            dec = Mpeg12Decoder(str(path))
+            dec.stats = {}
+            t0 = time.perf_counter()
+            planes = []
+            for data in stream.frames():
+                planes += dec.decode(data)
+            planes += dec.flush()
+            decode = time.perf_counter() - t0
+            spent = sum(st["syntax"] + st["reconstruct"] for st in dec.stats.values())
+            split = 1e3 * (demux + decode - spent) / len(planes)  # the demux and the split
+            for kind, st in dec.stats.items():
+                ms[kind]["syntax"] += [1e3 * st["syntax"] / st["frames"]] * st["frames"]
+                ms[kind]["dequant_idct_mc"] += [1e3 * st["reconstruct"] / st["frames"]] * \
+                    st["frames"]
+                ms[kind]["demux_split"] += [split] * st["frames"]
+            for kind, (y, cb, cr) in zip(dec.shown, planes):
+                t = [time.perf_counter()]
+                bgr = yuv.yuv420p_to_bgr(y, cb, cr, str(path))
+                gray = yuv.bgr_to_gray(bgr)
+                t.append(time.perf_counter())
+                resize_linear_u8(gray, (gray.shape[1] // 4, gray.shape[0] // 4))
+                t.append(time.perf_counter())
+                ms[kind]["convert"].append(1e3 * (t[1] - t[0]))
+                ms[kind]["resize"].append(1e3 * (t[2] - t[1]))
+                if n == 0:
+                    frames.append(bgr)
+            by_pass.append((n, 1e3 * dec.stats["I"]["syntax"], gcs["full"] - before["full"],
+                            gcs["ms"] - before["ms"]))
+    return ms, by_pass, frames
 
 
 def mpeg12_phase(seed: int, smi: str, root: Path, v2e2v_model: Path) -> dict:
@@ -4633,16 +4664,8 @@ def mpeg12_phase(seed: int, smi: str, root: Path, v2e2v_model: Path) -> dict:
     root.mkdir(parents=True)
     manifest = json.loads((MPEG12_FIXTURES / "manifest.json").read_text())["clips"]
     flagship = MPEG12_FIXTURES / "flagship.mpg"
-    stages, frames = mpeg12_stages(flagship)
-    for kind, st in stages.items():
-        if not st["syntax"]:
-            fail(f"the flagship .mpg holds no {kind}-picture")
-        per = {k: (float(np.median(v)), min(v), max(v)) for k, v in st.items()}
-        total = sum(m for m, _, _ in per.values())
-        say(f"[time] MPEG-2 read on the card's host ({smi}), host ms per 960x720 {kind}-picture "
-            f"of the flagship .mpg, median (min-max) of {len(st['syntax'])}: "
-            + ", ".join(f"{k} {m:.3f} ({lo:.3f}-{hi:.3f})" for k, (m, lo, hi) in per.items())
-            + f"; sum of medians {total:.3f} ms")
+    stages, by_pass, frames = mpeg12_stages(flagship)
+    report_stages("MPEG-2 flagship .mpg", smi, stages, by_pass, "960x720", passes=1)
     decode = VideoFile.bgr
 
     def bgr(self):
@@ -4668,7 +4691,8 @@ RAW_STAGES = ("demux", "decode", "to_bgr", "to_gray", "resize")
 
 def fixture_script(name: str = "make_rawvideo_fixtures"):
     """``scripts/<name>.py``: ``make_rawvideo_fixtures`` (its ``write_avi``
-    needs no cv2) or ``make_h263_fixtures`` (its writers need none)."""
+    needs no cv2), ``make_h263_fixtures`` or ``make_mpeg2i_fixtures`` (their
+    writers need none)."""
     import importlib.util
 
     path = Path(__file__).resolve().parent / "scripts" / f"{name}.py"
@@ -4799,24 +4823,13 @@ def decode_stages(path: Path, make_decoder, passes: int = STAGE_PASSES):
     I-picture's symbol ms as (pass, ms, full garbage collections during it,
     ms spent in collections of any generation during it), and the first
     pass's BGR frames."""
-    import gc
-
     from v2e2v_tpu_torch.utils import yuv
     from v2e2v_tpu_torch.utils.image_io import resize_linear_u8
     from v2e2v_tpu_torch.utils.video import VideoFile
 
     ms = {kind: {k: [] for k in H263_STAGES} for kind in ("I", "P")}
-    gc_state, by_pass, frames = {"full": 0, "ms": 0.0, "t": 0.0}, [], []
-
-    def count(phase, info):
-        if phase == "start":
-            gc_state["full"] += info["generation"] == 2
-            gc_state["t"] = time.perf_counter()
-        else:
-            gc_state["ms"] += 1e3 * (time.perf_counter() - gc_state["t"])
-
-    gc.callbacks.append(count)
-    try:
+    by_pass, frames = [], []
+    with gc_watch() as gc_state:
         for n in range(passes):
             t0 = time.perf_counter()
             video = VideoFile(str(path))
@@ -4846,27 +4859,49 @@ def decode_stages(path: Path, make_decoder, passes: int = STAGE_PASSES):
                                     gc_state["ms"] - before["ms"]))
                 if n == 0:
                     frames.append(bgr)
-    finally:
-        gc.callbacks.remove(count)
     return ms, by_pass, frames
 
 
-def report_stages(label: str, smi: str, stages, by_pass, size: str) -> None:
-    """The lines of ``decode_stages``' times: per picture kind the median
-    (min-max) of every pass's samples, then the I-pictures' symbol ms pass
-    by pass."""
+@contextlib.contextmanager
+def gc_watch():
+    """While open, counts the process's full garbage collections and the ms
+    it spends in collections of any generation: yields the running
+    ``{"full": n, "ms": ms}``."""
+    import gc
+
+    state = {"full": 0, "ms": 0.0, "t": 0.0}
+
+    def count(phase, info):
+        if phase == "start":
+            state["full"] += info["generation"] == 2
+            state["t"] = time.perf_counter()
+        else:
+            state["ms"] += 1e3 * (time.perf_counter() - state["t"])
+
+    gc.callbacks.append(count)
+    try:
+        yield state
+    finally:
+        gc.callbacks.remove(count)
+
+
+def report_stages(label: str, smi: str, stages, by_pass, size: str, noun: str = "picture",
+                  passes: int = STAGE_PASSES) -> None:
+    """The lines of ``decode_stages``' or ``mpeg12_stages``' times: per
+    picture kind the median (min-max) of every pass's samples, then the
+    I-pictures' symbol ms, as each pass (or I-picture) gave them."""
     for kind, st in stages.items():
         if not st["syntax"]:
-            fail(f"the {label} holds no {kind}-picture")
+            fail(f"the {label} holds no {kind}-{noun}")
         per = {k: (float(np.median(v)), min(v), max(v)) for k, v in st.items()}
         total = sum(m for m, _, _ in per.values())
         say(f"[time] {label} read on the card's host ({smi}), host ms per {size} "
-            f"{kind}-picture, median (min-max) of {len(st['syntax'])} over {STAGE_PASSES} "
+            f"{kind}-{noun}, median (min-max) of {len(st['syntax'])} over {passes} "
             "passes: "
             + ", ".join(f"{k} {m:.3f} ({lo:.3f}-{hi:.3f})" for k, (m, lo, hi) in per.items())
             + f"; sum of medians {total:.3f} ms")
-    say(f"[time] {label}: I-picture symbols (parse) by pass, ms (full garbage collections "
-        "during it; ms in collections of any generation): "
+    say(f"[time] {label}: I-{noun} symbols by pass, ms (full garbage collections during "
+        "them; ms in collections of any generation): "
         + ", ".join(f"pass {n + 1} {v:.3f} ({c}; {g:.3f})" for n, v, c, g in by_pass))
 
 
@@ -4976,6 +5011,137 @@ def wmv_phase(seed: int, smi: str, root: Path, v2e2v_model: Path) -> dict:
                                   readers["flagship.wmv"], manifest["flagship.wmv"]["fps"], "wmv")
     say(f"[phase] ASF and MS-MPEG-4 video {time.perf_counter() - t_phase:.1f} s")
     return {"v2e2v_cli_wmv_launches": rows}
+
+
+MPEG2I_FIXTURES = Path(__file__).resolve().parent / "tests" / "data" / "mpeg2i"
+MPEG2I_TIMING = 12  # phase 31 (b)'s frame-picture stream: frames
+
+
+def mpeg2i_frame_stream(seed: int, root: Path) -> Path:
+    """A 720x576 program stream of interlaced frame pictures (GOP I-P-P-B-B-P-
+    B-B-P-B-B-P: frame, field and dual-prime motion, field DCT, skips),
+    coded by ``scripts/make_mpeg2i_fixtures.py``'s writer from the flagship's
+    sequence header and a seeded smooth scene (the card's machine has no
+    cv2 to write either)."""
+    from v2e2v_tpu_torch.utils.mpegps import ProgramStream
+
+    mi = fixture_script("make_mpeg2i_fixtures")
+    es = ProgramStream(str(MPEG2I_FIXTURES / "flagship.vob")).es
+    units = mi.mf.units(es)
+    rng = np.random.default_rng(seed)
+    h, w = 576, 720
+    coder = mi.Coder(w, h, rng, (units[0], units[1]), residual=0.15)
+    plan = [mi.gop_plan("IPPBBPBBPBBP", lambda i: mi.FRAME, rng)]
+    yy, xx = np.mgrid[0:h, 0:w]
+    scene = np.stack([np.stack([(96 + 60 * np.sin((xx + 7 * t) / 37.0)
+                                 + 50 * np.cos((yy - 3 * t) / 23.0) + 20 * c) % 256
+                                for c in range(3)], -1).astype(np.uint8)
+                      for t in range(MPEG2I_TIMING)])
+    t0 = time.perf_counter()
+    stream = coder.stream(plan, scene)
+    path = root / "frames_720x576.vob"
+    mi.program_stream(path, stream, mi.timestamps(mi.frames_of(stream), mi.fields_of(plan),
+                                                  (25, 1)))
+    say(f"[mpeg2i] {path.name}: {MPEG2I_TIMING} interlaced frame pictures, "
+        f"{path.stat().st_size} bytes, coded in {time.perf_counter() - t0:.3f} s; modes "
+        f"{sorted(coder.used)}")
+    return path
+
+
+LONG_MINUTES = (1, 10)  # phase 31 (b): the program streams whose open is timed
+
+
+def long_stream_opens(smi: str, root: Path, clip: Path) -> None:
+    """Phase 31 (b): the host seconds ``VideoFile`` takes to open program
+    streams of ``LONG_MINUTES`` minutes, ``clip``'s frames written over and
+    over with running stamps (``make_mpeg2i_fixtures.long_program_stream``),
+    the median (min-max) of three opens: the demux of every pack, cv2's
+    rate from FFmpeg's analysis of the first seconds, the count from the
+    tail's stamps. Fails where the count is not the clip's plus its frames
+    for each further copy, or the open grows faster than the file."""
+    from v2e2v_tpu_torch.utils.mpegps import ProgramStream
+    from v2e2v_tpu_torch.utils.video import VideoFile
+
+    mi = fixture_script("make_mpeg2i_fixtures")
+    es = ProgramStream(str(clip)).es
+    frames = len(mi.frames_of(es))
+    once = root / "long_once.vob"  # the clip once: each copy adds its frames to the count
+    mi.long_program_stream(once, es, 1)
+    short = VideoFile(str(once)).frame_count
+    per_mb = []
+    for minutes in LONG_MINUTES:
+        copies = round(minutes * 60 * 25 / frames)
+        path = root / f"long_{minutes}min.vob"
+        mi.long_program_stream(path, es, copies)
+        took = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            video = VideoFile(str(path))
+            took.append(time.perf_counter() - t0)
+        size = path.stat().st_size
+        want = short + (copies - 1) * frames
+        if (video.fps, video.frame_count) != (25.0, want):
+            fail(f"a {minutes}-minute program stream opens at {video.fps} fps, "
+                 f"{video.frame_count} frames, not 25 and {want}")
+        say(f"[time] interlaced MPEG-2 on the card's host ({smi}): a {minutes}-minute 720x576 "
+            f"program stream ({copies * frames} frames, {size} bytes) opens in "
+            f"{float(np.median(took)):.3f} s ({min(took):.3f}-{max(took):.3f}) over 3 opens")
+        per_mb.append(min(took) / size)
+        path.unlink()
+    if per_mb[-1] > 3 * per_mb[0]:
+        fail(f"a program stream's open grows faster than its length: {per_mb} s a byte")
+
+
+def mpeg2i_phase(seed: int, smi: str, root: Path, v2e2v_model: Path) -> dict:
+    """Phase 31: interlaced MPEG-2 (ROADMAP item 4.2 e). (a) every clip
+    under ``tests/data/mpeg2i`` read by the port's ``VideoReader`` and
+    ``VideoSequence`` against the JAX readers' records, the flagship decoded
+    once; (b) the host ms per 720x576 frame of each stage, I-, P- and
+    B-frames apart, over three passes of a fresh decoder, of the flagship
+    (field pictures) and of a stream of interlaced frame pictures coded here,
+    and the open of 1- and 10-minute program streams of the flagship's frames;
+    (c) the V2E2V CLI with ``--reader_type video`` over the flagship's bytes
+    as an ``.mpg`` (read as 144x180, decoded anew) against its PNG twin, as
+    phase 21 (b). Returns (c)'s launches by row."""
+    from v2e2v_tpu_torch.utils.video import VideoFile
+
+    t_phase = time.perf_counter()
+    root.mkdir(parents=True)
+    flagship = MPEG2I_FIXTURES / "flagship.vob"
+    frames = None
+    for label, path in (("interlaced MPEG-2 flagship .vob (field pictures)", flagship),
+                        ("interlaced MPEG-2 .vob of frame pictures",
+                         mpeg2i_frame_stream(seed, root))):
+        stages, by_pass, bgr = mpeg12_stages(path, STAGE_PASSES)
+        frames = bgr if path == flagship else frames
+        report_stages(label, smi, stages, by_pass, "720x576", noun="frame")
+    long_stream_opens(smi, root, flagship)
+    decode = VideoFile.bgr
+
+    def bgr(self):
+        if Path(self.path) == flagship:
+            return iter(frames)
+        return decode(self)
+
+    manifest = json.loads((MPEG2I_FIXTURES / "manifest.json").read_text())["clips"]
+    with swapped((VideoFile, "bgr", bgr)):
+        bad, readers = clips_against_records(MPEG2I_FIXTURES, sorted(manifest), "mpeg2i")
+    say(f"[mpeg2i] {len(manifest) - len(bad)} of {len(manifest)} clips equal the JAX readers' "
+        "records (FFmpeg's decode, converted as cv2 converts a progressive frame, where cv2 "
+        "returns interlaced frames unconverted)")
+    if bad or "flagship.vob" not in readers or len(manifest) < 20:
+        fail(f"the port's interlaced MPEG-2 reads disagree with the records: {bad}")
+    # the CLIs list .mpg, not .vob, in both packages (manifests.VIDEO_FORMATS): the
+    # program stream's bytes as an .mpg
+    as_mpg = root / "flagship.mpg"
+    shutil.copyfile(flagship, as_mpg)
+    # read as 144x180 (576 / 4 x 720 / 4): the CLIs' --image_dim so
+    h, w = readers["flagship.vob"].frames[0].shape
+    rows = video_cli_against_twin(seed, smi, root, v2e2v_model, as_mpg, readers["flagship.vob"],
+                                  manifest["flagship.vob"]["fps"], "mpeg2i",
+                                  ("--image_dim", str(h), str(w)))
+    say(f"[phase] interlaced MPEG-2 {time.perf_counter() - t_phase:.1f} s")
+    return {"v2e2v_cli_mpeg2i_launches": rows}
 
 
 IMAGE_FIXTURES = Path(__file__).resolve().parent / "tests" / "data" / "images"
@@ -5960,6 +6126,11 @@ def main() -> None:
         # picture, the V2E2V CLI with --reader_type video over the flagship
         # .wmv against its PNG twin
         wmv_rows = wmv_phase(args.seed, smi, shared / "wmv", hfr["model"])
+
+        # 31. interlaced MPEG-2: the fixture clips against the records, the
+        # stages of a 720x576 field-picture and frame-picture frame, the V2E2V
+        # CLI with --reader_type video over the flagship .vob against its PNG twin
+        mpeg2i_rows = mpeg2i_phase(args.seed, smi, shared / "mpeg2i", hfr["model"])
     finally:
         shutil.rmtree(shared, ignore_errors=True)
 
@@ -5970,7 +6141,7 @@ def main() -> None:
              "v2e2v_train_launches_per_step": trained["v2e2v"], **fused_rows, **int8["rows"],
              **slomo_rows, **dist_rows, **spatial_rows, **jpeg_rows, **video_rows, **image_rows,
              **lpips_rows, **mpeg4_rows, **mkv_rows, **vp9_rows, **mpeg12_rows, **png_rows,
-             **h263_rows, **wmv_rows}
+             **h263_rows, **wmv_rows, **mpeg2i_rows}
     for e in entries:
         if e["name"].startswith("ista_loop"):
             e.update(cli_k1[torch.float32 if "float32" in e["name"] else torch.bfloat16])

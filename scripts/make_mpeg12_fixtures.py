@@ -475,8 +475,8 @@ def frame_modes(es: bytes, motion=(1, 0), dct: int = 0) -> bytes:
     coded macroblock given the modes that then follow its type: frame
     motion (``frame_motion_type`` '10') where it has vectors and frame DCT
     (``dct_type`` '0') where it has blocks; ``motion`` and ``dct`` other
-    bits there (field motion '01', dual prime '11', field DCT 1), which the
-    port refuses. The places come from the port's
+    bits there (field motion '01', dual prime '11', motion type '00',
+    field DCT 1). The places come from the port's
     own parser (``PictureSyntax.marks``), so a fault there shows as a
     mismatch with cv2; the decoded pictures stay the same."""
     from v2e2v_tpu_torch.utils.mpeg12dec import Mpeg12Decoder

@@ -372,12 +372,45 @@ def _size_change(es):
     return es + MF.rewrite(es, _sequence(width=112))
 
 
+def _field_vector_past_the_edge(es):
+    """Interlaced frame pictures (the stream's sequence header, made
+    interlaced) coded by ``scripts/make_mpeg2i_fixtures.py``'s writer: an
+    I-picture, then a P-picture of field motion with field DCT whose bottom
+    macroblock row takes field vectors 2 field lines down, past its
+    reference field's last line (FFmpeg leaves such a macroblock
+    unpredicted)."""
+    mi = _script("make_mpeg2i_fixtures")
+    us = MF.units(es)
+    seq = MF.parse_header(us[0])
+    coder = mi.Coder(seq["width"], seq["height"], np.random.default_rng(0), (us[0], us[1]),
+                     residual=1.0)
+    inside = coder._vector
+
+    def vector(row, col, sel, h, top=None):
+        if coder.kind == mi.P and row == coder.mbh - 1:
+            return 0, 4
+        return inside(row, col, sel, h, top)
+
+    coder._vector = vector
+    plan = [[mi.Picture(mi.I), mi.Picture(mi.P, temporal=1, modes={"field"})]]
+    scene = np.full((2, seq["height"], seq["width"], 3), 128, np.uint8)
+    out = coder.stream(plan, scene)
+    assert {"frame_field", "field_dct"} <= coder.used
+    return out
+
+
+# field pictures, field and dual-prime motion and field DCT are read since
+# interlaced MPEG-2 is (tests/test_torch_mpeg2i.py); their cases here hold
+# what stays refused of them: field pictures and dual prime in a progressive
+# sequence, motion type 0 (reserved), a field vector past the edge of its
+# reference field in a picture of field DCT
 REFUSALS = {
     "field_picture": ("twin.mpg", lambda es: MF.rewrite(es, _picture_ext("picture_structure", 1)),
-                      "field picture"),
-    "field_motion": ("twin.mpg", lambda es: MF.frame_modes(es, motion=(0, 1)), "field motion"),
-    "dual_prime": ("twin.mpg", lambda es: MF.frame_modes(es, motion=(1, 1)), "dual-prime"),
-    "field_dct": ("twin.mpg", lambda es: MF.frame_modes(es, dct=1), "field DCT"),
+                      "field picture in a progressive sequence"),
+    "field_motion": ("twin.mpg", lambda es: MF.frame_modes(es, motion=(0, 0)), "motion_type 0"),
+    "dual_prime": ("twin.mpg", lambda es: MF.frame_modes(es, motion=(1, 1)),
+                   "dual-prime motion in a progressive sequence"),
+    "field_dct": ("twin.mpg", _field_vector_past_the_edge, "past the reference's edge"),
     "chroma_422": ("twin.mpg", lambda es: MF.rewrite(es, _ext("chroma_format", 2)), "4:2:2"),
     "chroma_444": ("twin.mpg", lambda es: MF.rewrite(es, _ext("chroma_format", 3)), "4:4:4"),
     "scalable": ("twin.mpg", lambda es: MF.rewrite(es, _scalable), "scalable"),

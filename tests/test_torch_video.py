@@ -503,19 +503,19 @@ def _vp9_profile_1(path):
     mods["make_mkv_fixtures"].write_webm(path, packets, mkv.width, mkv.height, codec_id="V_VP9")
 
 
-def _field_pictures(path):
-    """The cv2-written MPEG-2 program stream at ``path`` with its pictures'
-    coding extensions saying top field pictures (``picture_structure`` 1)."""
+def _chroma_422(path):
+    """The cv2-written MPEG-2 program stream at ``path`` with its sequence
+    extensions saying 4:2:2 (``chroma_format`` 2)."""
     spec = importlib.util.spec_from_file_location(
         "make_mpeg12_fixtures", REPO / "scripts" / "make_mpeg12_fixtures.py")
     mf = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mf)
 
-    def field(f, i):
-        if f["kind"] == "picture_extension":
-            f["picture_structure"] = 1
+    def chroma(f, i):
+        if f["kind"] == "sequence_extension":
+            f["chroma_format"] = 2
 
-    path.write_bytes(mf.patch_file(path.read_bytes(), field))
+    path.write_bytes(mf.patch_file(path.read_bytes(), chroma))
 
 
 def _flv_codec_id(path, codec):
@@ -550,8 +550,8 @@ def _case_file(tmp_path, case):
         vw.release()
         if case == "vp9_webm":  # VP9 is read, but not profile 1: the headers rewritten so
             _vp9_profile_1(path)
-        if case == "mpeg_ps":  # MPEG-2 is read, but not field pictures: rewritten so
-            _field_pictures(path)
+        if case == "mpeg_ps":  # MPEG-2 is read, interlaced too, but not 4:2:2: rewritten so
+            _chroma_422(path)
         if case == "flv_vp6":
             _flv_codec_id(path, 4)
         if case == "wmv":  # WMV2 in ASF is read: its tag rewritten to WMV3's (VC-1)
@@ -574,7 +574,7 @@ def _case_file(tmp_path, case):
 
 
 REFUSALS = {"matroska": "Matroska", "riff_wave": "'WAVE'", "wmv": "ASF video stream of codec 'WMV3'",
-            "flv_vp6": "On2 VP6", "mpeg_ps": "field picture", "vp9_webm": "VP9 video: profile 1",
+            "flv_vp6": "On2 VP6", "mpeg_ps": "4:2:2", "vp9_webm": "VP9 video: profile 1",
             "h263": "short_video_header"}
 
 
@@ -582,7 +582,7 @@ REFUSALS = {"matroska": "Matroska", "riff_wave": "'WAVE'", "wmv": "ASF video str
 def test_what_it_does_not_read_raises(tmp_path, case):
     """Other containers and codecs (among them the WMV2 files cv2's writer
     makes, FLV1, VP9 and MPEG-2 files rewritten to WMV3 (VC-1), VP6, profile
-    1 and field pictures, and H.263 pictures in an MPEG-4 stream, of which cv2
+    1 and 4:2:2, and H.263 pictures in an MPEG-4 stream, of which cv2
     reads no frame) raise a ValueError
     naming ROADMAP item 4 and what they are, from the readers the CLIs use."""
     path = str(_case_file(tmp_path, case))

@@ -21,7 +21,8 @@ field kept as it was coded:
 - the picture header (``0x00``): ``temporal_reference``,
   ``picture_coding_type``, ``vbv_delay`` and MPEG-1's ``full_pel`` and
   ``f_code`` (an ``f_code`` of 0 taken as 1, as FFmpeg takes it);
-- the picture coding extension (id 8): every field;
+- the picture coding extension (id 8): every field; ``picture_structure``
+  1 and 2 are top and bottom field pictures (``mpeg12dec.py`` pairs them);
 - the slice header: the row from the start code (and
   ``slice_vertical_position_extension`` above 2800 lines),
   ``quantiser_scale_code``, and the extra information FFmpeg passes over.
@@ -47,7 +48,7 @@ SCALABLE_EXTS = {5: "sequence scalable", 9: "picture spatial scalable",
                  10: "picture temporal scalable"}
 I_TYPE, P_TYPE, B_TYPE, D_TYPE = 1, 2, 3, 4
 PICTURE_NAMES = {I_TYPE: "I", P_TYPE: "P", B_TYPE: "B", D_TYPE: "D"}
-FRAME_PICTURE = 3
+TOP_FIELD, BOTTOM_FIELD, FRAME_PICTURE = 1, 2, 3
 # matrix_coefficients that swscale converts as cv2 converts an unspecified
 # one (BT.601 coefficients): unspecified, BT.470BG and SMPTE 170M
 PLAIN_MATRICES = (2, 5, 6)
@@ -260,13 +261,16 @@ class StreamHeaders:
         p.chroma_420_type = bits.read(1)
         p.progressive_frame = bits.read(1)
         p.extension = True
-        if p.picture_structure != FRAME_PICTURE:
-            raise refuse(self.where, f"a field picture (picture_structure {p.picture_structure})")
+        if p.picture_structure == 0:
+            raise corrupt(self.where, "picture_structure 0")
+        if p.picture_structure != FRAME_PICTURE and self.seq.progressive_sequence:
+            raise corrupt(self.where, "a field picture in a progressive sequence")
 
 
 def slice_header(bits: Bits, code: int, mb_height: int, mpeg2: bool) -> tuple[int, int]:
     """A slice's (macroblock row, quantiser_scale_code), the reader left at
-    its first macroblock address increment."""
+    its first macroblock address increment; ``mb_height`` is the frame's (a
+    field picture's rows are half of it)."""
     row = code - SLICE_MIN
     if mpeg2 and mb_height > 2800 // 16:
         row += bits.read(3) << 7

@@ -4,29 +4,45 @@ the block readers of ``mpeg12dec.c`` / ``mpeg12.c`` read, and the
 coefficients dequantised as they dequantise them.
 
 ``PictureSyntax(headers, picture, mbw, mbh, mpeg2, where).slice(bits, code)``
-reads one slice; the picture's macroblocks are then in ``kind`` (0 not
-coded by any slice, 1 predicted, 2 intra), ``direction`` (1 forward, 2
-backward, 3 both), ``vectors`` (forward x, y, backward x, y in half
-pixels), and its blocks' coefficients, dequantised, in ``intra`` and
-``inter`` (``Blocks``: each block's macroblock and number 0-5, and its
-nonzero levels' flat positions, block x 64 + raster position, and values):
+reads one slice of a frame picture, or of a field picture (whose grid is
+``mbh`` rows of the field); the picture's macroblocks are then in ``kind``
+(0 not coded by any slice, 1 predicted, 2 intra), ``direction`` (1
+forward, 2 backward, 3 both), ``vectors`` (FFmpeg's first vector of each
+direction: forward x, y, backward x, y in half pixels), ``parts`` (None for
+one 16x16 frame prediction by ``vectors``, else (``"field"``, ``"16x8"``
+or ``"dmv"``, the forward parts, the backward parts), a part being a
+(field select, x, y) or, for dual prime, the derived (x, y) vectors), ``dct``
+(1 where the luma blocks are field-coded), and its blocks' coefficients,
+dequantised, in ``intra`` and ``inter`` (``Blocks``: each block's
+macroblock and number 0-5, and its nonzero levels' flat positions, block x
+64 + raster position, and values):
 
 - macroblock address increments with their escapes (and MPEG-1's
   stuffing). A skipped macroblock of a P-picture is predicted forward at
   vector 0 and resets the vector predictors; of a B-picture it takes the
   previous macroblock's directions and the predictors as its vectors (after
-  an intra macroblock FFmpeg fails). A slice's first increment only places
-  its first macroblock;
+  an intra macroblock FFmpeg fails). In a field picture it is predicted from
+  the field of its own parity, whatever the previous macroblock selected. A
+  slice's first increment only places its first macroblock;
 - ``macroblock_type`` (tables B-2 to B-4), ``quantiser_scale_code`` (times
-  2, or MPEG-2's non-linear scale under ``q_scale_type`` 1),
-  ``frame_motion_type`` and ``dct_type`` where ``frame_pred_frame_dct`` is
-  0: frame motion and frame DCT are read, field motion, dual prime and
-  field DCT refused at the macroblock that uses them;
+  2, or MPEG-2's non-linear scale under ``q_scale_type`` 1), and where
+  ``frame_pred_frame_dct`` is 0 in a frame picture ``frame_motion_type``
+  (frame, field or dual prime) and ``dct_type`` (field DCT); in a field
+  picture ``field_motion_type`` (field, 16x8 or dual prime), never
+  ``dct_type``; a P-field's zero-vector macroblock predicts from its own
+  parity;
 - motion vectors: ``motion_code``, the residual of ``f_code - 1`` bits and
-  the wrap to ``5 + f_code - 1`` bits; predictors reset at slice starts,
-  intra macroblocks (unless they carry concealment vectors, which set the
-  forward predictors) and P-pictures' zero-vector macroblocks; MPEG-1's
-  ``full_pel`` doubles the vector used, not the predictor;
+  the wrap to ``5 + f_code - 1`` bits, against FFmpeg's predictors
+  ``last_mv[direction][field][axis]``: reset at slice starts, intra
+  macroblocks (unless they carry concealment vectors, which set the forward
+  predictors; a field picture's field select ahead of them is passed over)
+  and P-pictures' zero-vector macroblocks. A frame picture's field vectors
+  take the vertical predictor halved and store it doubled (dual prime:
+  the same with ``dmvector``'s +-1, the opposite parity's vectors scaled
+  by 1 or 3 over 2 by ``top_field_first`` and moved a line up or down); a
+  field picture's field and dual-prime vectors set both predictors, 16x8's
+  each its own; MPEG-1's ``full_pel`` doubles the vector used, not the
+  predictor;
 - ``coded_block_pattern`` (FFmpeg fails on a pattern of 0);
 - blocks: the intra DC as a difference (``dct_dc_size`` and its bits) from
   the predictor, which is reset to ``128 << intra_dc_precision`` at slice
@@ -41,13 +57,16 @@ nonzero levels' flat positions, block x 64 + raster position, and values):
   keeps each level in 16 bits).
 
 Corrupt data (an invalid code, a block past 64 coefficients, a slice past
-its row's end or the picture's, bits left over) raises a ValueError naming
-ROADMAP.md queue 1, item 4: FFmpeg would conceal it.
+its row's end or the picture's, bits left over, motion type 0, dual prime
+in a B-picture or a progressive sequence, a B-field's skipped macroblock
+at a row start) raises a ValueError naming ROADMAP.md queue 1, item 4:
+FFmpeg would conceal it.
 """
 
 from __future__ import annotations
 
-from .mpeg12 import B_TYPE, I_TYPE, P_TYPE, corrupt, refuse, slice_header
+from .mpeg12 import (B_TYPE, FRAME_PICTURE, I_TYPE, P_TYPE, TOP_FIELD, corrupt,
+                     slice_header)
 from .mpeg12tables import (ADDR_END, ADDR_ESCAPE, ADDR_STUFFING, ALTERNATE, BTYPE_FLAGS, CBP,
                            DC_CHROMA_BITS, DC_CHROMA_CODE, DC_LUMA_BITS, DC_LUMA_CODE, DCT_B14,
                            DCT_B15, DCT_EOB, DCT_ESCAPE, DCT_LEVEL, DCT_RUN, ITYPE_FLAGS,
@@ -55,8 +74,9 @@ from .mpeg12tables import (ADDR_END, ADDR_ESCAPE, ADDR_STUFFING, ALTERNATE, BTYP
                            MB_PATTERN, MB_PTYPE, MB_BTYPE, MB_QUANT, MB_ZERO_MV, MOTION,
                            NON_LINEAR_QSCALE, PTYPE_FLAGS, ZIGZAG)
 
-FRAME_MOTION = 2  # frame_motion_type: 1 field, 2 frame, 3 dual prime
-MOTION_NAMES = {0: "reserved", 1: "field", 3: "dual-prime"}
+FIELD_MOTION, FRAME_MOTION, DUAL_PRIME = 1, 2, 3  # frame_motion_type; field_motion_type
+# 2 is 16x8
+MOTION_NAMES = ({1: "field", 2: "frame", 3: "dmv"}, {1: "field", 2: "16x8", 3: "dmv"})
 ESCAPE, EOB = -1, -2
 
 
@@ -141,6 +161,8 @@ class PictureSyntax:
         self.flags = [0] * n
         self.direction = [0] * n
         self.vectors = [(0, 0, 0, 0)] * n
+        self.parts: list = [None] * n  # per macroblock: None (16x16 frame prediction) or parts
+        self.dct = [0] * n  # field DCT (dct_type 1)
         self.intra = Blocks()
         self.inter = Blocks()
         self.used: set = set()  # what the picture used, for the tests: "alternate_scan", ...
@@ -215,11 +237,91 @@ class PictureSyntax:
 
     # ------------------------------------------------------------ slices
 
+    def _dmv(self, bits) -> int:
+        """A ``dmvector``: '0' 0, '10' 1, '11' -1."""
+        return 1 - 2 * bits.read(1) if bits.read(1) else 0
+
+    def _vectors(self, bits, fl: int, motion_type: int, last_mv: list) -> tuple:
+        """The vectors of a predicted macroblock with motion vectors, as
+        ``mpeg_decode_mb`` reads them: (FFmpeg's ``mv[dir][0]`` of each
+        direction as x, y, x, y; the macroblock's parts or None for one
+        16x16 frame prediction). ``last_mv[dir][field][axis]`` are the
+        predictors, updated in place."""
+        pic, f_code, full_pel = self.pic, self.pic.f_code, self.pic.full_pel
+        field_pic = pic.picture_structure != FRAME_PICTURE
+        out = [0, 0, 0, 0]
+        parts = [None, None]  # per direction: ((field select, x, y), ...) or DMV's (x, y)s
+        for i in (0, 1):
+            if not fl & (MB_FORWARD if i == 0 else MB_BACKWARD):
+                continue
+            lm = last_mv[i]
+            if motion_type == FRAME_MOTION and not field_pic:  # 16x16 frame prediction
+                x = lm[0][0] = lm[1][0] = self._motion(bits, f_code[i][0], lm[0][0])
+                y = lm[0][1] = lm[1][1] = self._motion(bits, f_code[i][1], lm[0][1])
+                if full_pel[i]:
+                    self.used.add("full_pel")
+                    x, y = 2 * x, 2 * y
+                out[2 * i], out[2 * i + 1] = x, y
+            elif motion_type == FRAME_MOTION:  # 16x8 in a field picture
+                vs = []
+                for j in (0, 1):
+                    sel = bits.read(1)
+                    x = lm[j][0] = self._motion(bits, f_code[i][0], lm[j][0])
+                    y = lm[j][1] = self._motion(bits, f_code[i][1], lm[j][1])
+                    vs.append((sel, x, y))
+                parts[i] = tuple(vs)
+                out[2 * i], out[2 * i + 1] = vs[0][1], vs[0][2]
+            elif motion_type == FIELD_MOTION and not field_pic:  # two field predictions
+                vs = []
+                for j in (0, 1):
+                    sel = bits.read(1)
+                    x = lm[j][0] = self._motion(bits, f_code[i][0], lm[j][0])
+                    y = self._motion(bits, f_code[i][1], lm[j][1] >> 1)
+                    lm[j][1] = 2 * y
+                    vs.append((sel, x, y))
+                parts[i] = tuple(vs)
+                out[2 * i], out[2 * i + 1] = vs[0][1], vs[0][2]
+            elif motion_type == FIELD_MOTION:  # one 16x16 field prediction
+                sel = bits.read(1)
+                x = lm[0][0] = lm[1][0] = self._motion(bits, f_code[i][0], lm[0][0])
+                y = lm[0][1] = lm[1][1] = self._motion(bits, f_code[i][1], lm[0][1])
+                parts[i] = ((sel, x, y),)
+                out[2 * i], out[2 * i + 1] = x, y
+            else:  # dual prime
+                if self.h.seq.progressive_sequence:
+                    raise corrupt(self.where, "dual-prime motion in a progressive sequence")
+                if pic.kind != P_TYPE:
+                    raise corrupt(self.where, "dual-prime motion in a B-picture")
+                shift = 0 if field_pic else 1
+                x = lm[0][0] = lm[1][0] = self._motion(bits, f_code[i][0], lm[0][0])
+                dx = self._dmv(bits)
+                y = self._motion(bits, f_code[i][1], lm[0][1] >> shift)
+                dy = self._dmv(bits)
+                lm[0][1] = lm[1][1] = y << shift
+                if field_pic:  # the opposite parity's vector, a field apart
+                    parts[i] = ((x, y), (((x + (x > 0)) >> 1) + dx,
+                                         ((y + (y > 0)) >> 1) + dy
+                                         + (-1 if pic.picture_structure == TOP_FIELD else 1)))
+                else:  # top from bottom and bottom from top, scaled by their distance
+                    m = 1 if pic.top_field_first else 3
+                    parts[i] = ((x, y), (x, y),
+                                (((x * m + (x > 0)) >> 1) + dx, ((y * m + (y > 0)) >> 1) + dy - 1),
+                                (((x * (4 - m) + (x > 0)) >> 1) + dx,
+                                 ((y * (4 - m) + (y > 0)) >> 1) + dy + 1))
+                out[2 * i], out[2 * i + 1] = x, y
+        if motion_type == FRAME_MOTION and not field_pic:
+            return tuple(out), None
+        name = ("16x8" if motion_type == FRAME_MOTION else
+                "field" if motion_type == FIELD_MOTION else "dmv")
+        return tuple(out), (name, parts[0], parts[1])
+
     def slice(self, bits, code: int) -> None:
         """Read the slice whose start code ``code`` the reader is after."""
         pic, mbw, mbh = self.pic, self.mbw, self.mbh
+        field_pic = pic.picture_structure != FRAME_PICTURE
+        parity = pic.picture_structure - 1  # a field picture's own field: 0 top, 1 bottom
         self.slices += 1
-        mb_y, qcode = slice_header(bits, code, mbh, self.mpeg2)
+        mb_y, qcode = slice_header(bits, code, mbh << field_pic, self.mpeg2)
         if mb_y >= mbh:
             raise corrupt(self.where, f"a slice below the picture (row {mb_y} of {mbh})")
         qscale = self._qscale(qcode)
@@ -228,12 +330,12 @@ class PictureSyntax:
             raise corrupt(self.where, "a slice's first macroblock outside its row")
         mb_x = first
         last_dc = [self.dc_reset] * 3
-        last_mv = [0, 0, 0, 0]  # forward x, y, backward x, y
-        mv_dir, mv = 0, (0, 0, 0, 0)
+        last_mv = [[[0, 0], [0, 0]], [[0, 0], [0, 0]]]  # [direction][field][axis]
+        mv_dir, mv, parts = 0, (0, 0, 0, 0), None
         skip_run = 0
         kind, flags_of, direction, vectors = self.kind, self.flags, self.direction, self.vectors
-        full_pel, f_code = pic.full_pel, pic.f_code
         b_pic = pic.kind == B_TYPE
+        frame_dct = pic.frame_pred_frame_dct or field_pic  # no dct_type bit
         while True:
             if bits.pos > bits.size:
                 raise corrupt(self.where, "a slice runs past the end of its data")
@@ -248,10 +350,13 @@ class PictureSyntax:
                     if prev & MB_INTRA:
                         raise corrupt(self.where, "a B-picture's skipped macroblock after an "
                                       "intra one")
+                    if field_pic and mb_x == 0:  # FFmpeg looks at the other field's row
+                        raise corrupt(self.where, "a skipped macroblock at a field's row start")
                     flags_of[mb] = prev
                 else:
                     flags_of[mb] = MB_FORWARD
                 kind[mb], direction[mb], vectors[mb] = 1, mv_dir, mv
+                self.parts[mb] = parts
             else:
                 fl = self.type_flags[self._vlc(bits, self.types, self.type_bits,
                                                "macroblock_type")]
@@ -259,55 +364,51 @@ class PictureSyntax:
                 if self.marks is not None:
                     self.marks.append((self.slices, bits.pos, fl))
                 if fl & MB_INTRA:
-                    if not pic.frame_pred_frame_dct and bits.read(1):
-                        raise refuse(self.where, "field DCT (dct_type 1)")
+                    if not frame_dct:
+                        self._dct_type(bits, mb)
                     if fl & MB_QUANT:
                         qscale = self._qscale(bits.read(5))
                     if pic.concealment_motion_vectors:
                         self.used.add("concealment_motion_vectors")
-                        last_mv[0] = self._motion(bits, f_code[0][0], last_mv[0])
-                        last_mv[1] = self._motion(bits, f_code[0][1], last_mv[1])
+                        if field_pic:
+                            bits.read(1)  # the field select, which FFmpeg passes over
+                        lm = last_mv[0]
+                        lm[0][0] = lm[1][0] = self._motion(bits, pic.f_code[0][0], lm[0][0])
+                        lm[0][1] = lm[1][1] = self._motion(bits, pic.f_code[0][1], lm[0][1])
                         if not bits.read(1):
                             raise corrupt(self.where, "a marker bit missing after concealment "
                                           "motion vectors")
                     else:
-                        last_mv = [0, 0, 0, 0]
+                        last_mv = [[[0, 0], [0, 0]], [[0, 0], [0, 0]]]
                     kind[mb] = 2
                     self._intra(bits, mb, qscale, last_dc)
                 else:
                     if fl & MB_ZERO_MV:
-                        if not pic.frame_pred_frame_dct and bits.read(1):
-                            raise refuse(self.where, "field DCT (dct_type 1)")
+                        if not frame_dct:
+                            self._dct_type(bits, mb)
                         if fl & MB_QUANT:
                             qscale = self._qscale(bits.read(5))
-                        last_mv = [0, 0, 0, 0]
+                        last_mv[0] = [[0, 0], [0, 0]]
                         mv_dir, mv = 1, (0, 0, 0, 0)
+                        parts = ("field", ((parity, 0, 0),), None) if field_pic else None
                     else:
-                        if not pic.frame_pred_frame_dct:
+                        if pic.frame_pred_frame_dct and not field_pic:
+                            motion_type = FRAME_MOTION
+                        else:
                             motion_type = bits.read(2)
-                            if motion_type != FRAME_MOTION:
-                                raise refuse(self.where, f"{MOTION_NAMES[motion_type]} motion "
-                                             f"(frame_motion_type {motion_type})")
-                            self.used.add("frame_motion_type")
-                            if fl & MB_PATTERN and bits.read(1):
-                                raise refuse(self.where, "field DCT (dct_type 1)")
+                            if motion_type == 0:
+                                raise corrupt(self.where, "frame_motion_type 0 (reserved)")
+                            self.used.add(f"{'field' if field_pic else 'frame'}_motion_type")
+                            self.used.add(f"motion_{MOTION_NAMES[field_pic][motion_type]}")
+                            if not field_pic and fl & MB_PATTERN:
+                                self._dct_type(bits, mb)
                         if fl & MB_QUANT:
                             qscale = self._qscale(bits.read(5))
                         mv_dir = (1 if fl & MB_FORWARD else 0) | (2 if fl & MB_BACKWARD else 0)
-                        out = list(mv)
-                        for i in (0, 1):
-                            if mv_dir >> i & 1:
-                                x = last_mv[2 * i] = self._motion(bits, f_code[i][0],
-                                                                  last_mv[2 * i])
-                                y = last_mv[2 * i + 1] = self._motion(bits, f_code[i][1],
-                                                                      last_mv[2 * i + 1])
-                                if full_pel[i]:
-                                    self.used.add("full_pel")
-                                    x, y = 2 * x, 2 * y
-                                out[2 * i], out[2 * i + 1] = x, y
-                        mv = tuple(out)
+                        mv, parts = self._vectors(bits, fl, motion_type, last_mv)
                     last_dc[0] = last_dc[1] = last_dc[2] = self.dc_reset
                     kind[mb], direction[mb], vectors[mb] = 1, mv_dir, mv
+                    self.parts[mb] = parts
                     if fl & MB_PATTERN:
                         cbp = self._vlc(bits, self.t["cbp"], 9, "coded_block_pattern")
                         if cbp == 0:
@@ -337,12 +438,22 @@ class PictureSyntax:
                         raise corrupt(self.where, "a skipped macroblock in an I-picture")
                     skip_run = inc
                     last_dc = [self.dc_reset] * 3
-                    if b_pic:
-                        mv = tuple(last_mv)
+                    if b_pic:  # the previous directions, the predictors as vectors
+                        mv = (last_mv[0][0][0], last_mv[0][0][1], last_mv[1][0][0],
+                              last_mv[1][0][1])
                     else:
                         mv_dir, mv = 1, (0, 0, 0, 0)
-                        last_mv = [0, 0, 0, 0]
+                        last_mv[0] = [[0, 0], [0, 0]]
+                    # a field picture's skipped macroblock: its own field, whatever
+                    # the previous macroblock selected
+                    parts = (("field", ((parity, mv[0], mv[1]),), ((parity, mv[2], mv[3]),))
+                             if field_pic else None)
                     self.used.add("skipped")
+
+    def _dct_type(self, bits, mb: int) -> None:
+        if bits.read(1):
+            self.dct[mb] = 1
+            self.used.add("field_dct")
 
     # ------------------------------------------------------------ blocks
 

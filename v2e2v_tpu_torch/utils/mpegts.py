@@ -14,11 +14,12 @@ Blu-ray's M2TS writes them):
   ``payload_unit_start_indicator`` and its header read as in a program
   stream (``mpegps.pes_payload``).
 
-``payloads`` holds each PES packet's (PTS or None, payload), the
-elementary stream ``mpeg12dec.Mpeg12Decoder`` decodes; ``fps`` and
-``frame_count`` are cv2's, by the rules of ``mpegps.py`` (FFmpeg's
-``estimate_timings_from_pts`` serves both demuxers), each PES placed at
-its first packet.
+``payloads`` holds each PES packet's (PTS or None, payload) and ``dts``
+its DTS, the elementary stream ``mpeg12dec.Mpeg12Decoder`` decodes;
+``fps`` and ``frame_count`` are cv2's, by the rules of ``mpegps.py`` and
+``mpegrate.py`` (FFmpeg's ``avformat_find_stream_info`` and
+``estimate_timings_from_pts`` serve both demuxers), each PES placed at its
+first packet.
 
 Refused, each with a ValueError naming ROADMAP.md queue 1, item 4: several
 programs, several video streams, other video codecs (H.264, HEVC, ...), a
@@ -28,7 +29,7 @@ skips), scrambled packets, and corrupt or truncated packets and tables.
 
 from __future__ import annotations
 
-from .mpegps import corrupt, packet_rate, pes_payload, pts_frame_count, refuse, video_headers
+from .mpegps import corrupt, pes_payload, pts_frame_count, rates, refuse, video_headers
 
 SYNC = 0x47
 MPEG_VIDEO = {0x01: "MPEG-1", 0x02: "MPEG-2"}
@@ -65,6 +66,7 @@ class TransportStream:
         sections: dict[int, bytes] = {}
         pmt_pid = video_pid = None
         self.payloads: list[tuple[int | None, bytes]] = []
+        self.dts: list[int | None] = []
         self.starts: list[int] = []
         pes, pes_pos, counter = None, 0, None
         for pos in range(0, len(d) - size + 1, size):
@@ -124,24 +126,25 @@ class TransportStream:
         if not self.seq.mpeg2:
             raise refuse(path, "MPEG-1 video in a transport stream, whose rate and count cv2 "
                          "reports at twice the coded rate")
-        num, den = self.seq.fps
-        self.fps = num / den
         pictures = self.es.count(b"\x00\x00\x01\x00")
         if pictures < 3:
             raise refuse(path, f"a stream of {pictures} pictures, whose rate and count cv2 "
                          "takes from too few time stamps")
+        avg, rate, start = rates(self.payloads, self.dts, self.seq, True, path)
+        self.fps = avg[0] / avg[1]
         self.frame_count = pts_frame_count(
             [(pos, len(data), pts) for pos, (pts, data) in zip(self.starts, self.payloads)],
-            self.size, self.seq.fps, packet_rate(self.seq.fps, self.seq.mpeg2, pictures), path)
+            self.size, avg, rate, start, path)
 
     def _pes(self, pes: bytearray, pos: int) -> None:
         if len(pes) < 6 or pes[:3] != b"\x00\x00\x01":
             raise corrupt(self.path, f"a video PES at {pos} without its start code")
-        pts, data = pes_payload(bytes(pes[6:]), self.path)
+        pts, dts, data = pes_payload(bytes(pes[6:]), self.path)
         length = pes[4] << 8 | pes[5]
         if length:  # a bounded packet: its stated length, the rest is stuffing
             data = data[:max(0, length - (len(pes) - 6 - len(data)))]
         self.payloads.append((pts, data))
+        self.dts.append(dts)
         self.starts.append(pos)
 
     def _pat(self, sec: bytes) -> int:

@@ -38,13 +38,17 @@ container by the file's first bytes and the codec by its fourcc:
   ``.mpg``, ``.mpeg``, ``.vob``), transport streams (``utils/mpegts.py``:
   ``.ts``, ``.m2ts``), AVI (``mpg1``, ``mpg2``), MP4/MOV (object types
   0x60-0x65 and 0x6A, ``m2v1``) and Matroska (``V_MPEG1``, ``V_MPEG2``):
-  ``utils/mpeg12dec.py`` decodes progressive frame pictures of 4:2:0 (I, P
-  and B) as FFmpeg's ``mpeg1video`` / ``mpeg2video`` decoders do, and
-  ``yuv.yuv420p_to_bgr`` converts their limited-range planes with MPEG-1's
-  centred chroma or MPEG-2's left-sited chroma (probed on odd sizes). A
-  program or transport stream's ``frame_count`` is FFmpeg's estimate from
-  its time stamps, which may fall short of the frames (``mpegps.py``), as
-  cv2 reports it;
+  ``utils/mpeg12dec.py`` decodes 4:2:0 frame pictures, progressive and
+  interlaced, and pairs of field pictures (I, P and B) as FFmpeg's
+  ``mpeg1video`` / ``mpeg2video`` decoders do, and ``yuv.yuv420p_to_bgr``
+  converts their limited-range planes with MPEG-1's centred chroma or
+  MPEG-2's left-sited chroma (probed on odd sizes). cv2 5.0.0 returns an
+  unconverted buffer for a frame FFmpeg flags interlaced (field pictures,
+  ``progressive_frame`` 0 in an interlaced sequence; ``mpeg12dec.py``); the
+  port converts those as cv2 converts the others. A program or transport
+  stream's ``fps`` and ``frame_count`` are FFmpeg's estimates from its time
+  stamps and repeated fields (``mpegrate.py``, ``mpegps.py``), as cv2
+  reports them; the count may fall short of the frames;
 - H.263 (``codec`` ``"h263"``) in AVI (H263, U263, X263, M263, T263, L263,
   VX1K, lsvm), MOV (``h263``, ``s263``, ``H263``) and Matroska
   (``V_MS/VFW/FOURCC`` carrying H263), and Sorenson H.263 (``"flv"``) in FLV
@@ -99,7 +103,7 @@ The woven planes are then converted at the full height.
 
 Other containers (raw MPEG video elementary streams, ...) and codecs
 (H.264, HEVC, AV1, H.263+, MS-MPEG-4 v1, WMV3 / VC-1, VP6 and the other FLV
-codecs, VP9 of profiles 1-3, interlaced MPEG-2 field pictures, 16-bit PNG,
+codecs, VP9 of profiles 1-3, MPEG-2 4:2:2 and 4:4:4, 16-bit PNG,
 other raw layouts, ...) and other sampling factors raise a
 ValueError naming ROADMAP.md queue 1, item 4; every such refusal of a file
 says what the port reads (``imgcodecs.VIDEO_READS``).
